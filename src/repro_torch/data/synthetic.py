@@ -1,0 +1,87 @@
+"""Criteo-like long-tail traces and DLRM request batches (port of
+``repro.data.synthetic``, DLRM part).
+
+``zipf_probs`` / ``zipf_trace`` are numpy and copied verbatim, so both
+packages plan from the same traces bit for bit.  ``dlrm_batch`` draws on an
+explicit ``torch.Generator`` seeded from ``(seed, step)``: its numbers differ
+from ``jax.random``'s, but the sampling law (inverse CDF of a continuous
+Zipf density, then a multiplicative shuffle) is the same, and
+``zipf_from_uniform`` applied to ``repro``'s uniforms reproduces its indices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DLRMConfig
+
+# the multiplicative shuffle constant of ``repro``'s zipf_batch_jax
+_SHUFFLE = 2654435761
+
+
+def zipf_probs(vocab: int, alpha: float = 1.05) -> np.ndarray:
+    """Zipf(alpha) over a fixed random permutation of row ids (hot rows are
+    scattered across the table, as the paper observes)."""
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** -alpha
+    p /= p.sum()
+    rng = np.random.default_rng(1234)
+    perm = rng.permutation(vocab)
+    out = np.empty_like(p)
+    out[perm] = p
+    return out
+
+
+def zipf_trace(
+    vocab: int, n: int, *, alpha: float = 1.05, seed: int = 0, step: int = 0
+) -> np.ndarray:
+    """n long-tail logical indices (host-side numpy, for profiling)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    return rng.choice(vocab, size=n, p=zipf_probs(vocab, alpha)).astype(np.int32)
+
+
+def generator(seed: int, step: int, tag: int, device) -> torch.Generator:
+    """A torch generator that is a pure function of ``(seed, step, tag)``: a
+    restarted worker regenerates the same batch."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([seed, step, tag]).generate_state(1)[0]))
+    return g
+
+
+def zipf_from_uniform(u: torch.Tensor, vocab: int, alpha: float = 1.05) -> torch.Tensor:
+    """Zipf-like indices from float32 uniforms in [1e-6, 1): the inverse CDF
+    of the density x^-alpha on [1, vocab], then ``repro``'s multiplicative
+    shuffle.  The shuffle wraps in uint32 there; here it runs in int64 and
+    masks to 32 bits, which gives the same numbers."""
+    a = 1.0 - alpha
+    x = ((vocab ** a - 1.0) * u + 1.0) ** (1.0 / a)
+    idx = (x.to(torch.int32) - 1).clamp_(0, vocab - 1).to(torch.int64)
+    return (((idx * _SHUFFLE) & 0xFFFFFFFF) % vocab).to(torch.int32)
+
+
+def zipf_batch(
+    vocab: int, shape: tuple, *, alpha: float = 1.05, seed: int = 0, step: int = 0,
+    device="cpu",
+) -> torch.Tensor:
+    """Device-side approximate Zipf sampling (``zipf_batch_jax``'s law)."""
+    g = generator(seed, step, 2, device)
+    u = torch.rand(shape, generator=g, device=device, dtype=torch.float32)
+    u = u * (1.0 - 1e-6) + 1e-6
+    return zipf_from_uniform(u, vocab, alpha)
+
+
+def dlrm_batch(
+    cfg: DLRMConfig, batch: int, *, seed: int = 0, step: int = 0,
+    alpha: float = 1.05, device="cpu",
+) -> dict:
+    """Dense features + per-table multi-hot Zipf indices + random labels."""
+    dense = torch.randn((batch, cfg.num_dense), generator=generator(seed, step, 3, device),
+                        device=device, dtype=torch.float32)
+    idx = zipf_batch(
+        cfg.vocab_per_table, (batch, cfg.num_tables, cfg.pooling),
+        alpha=alpha, seed=seed, step=step, device=device,
+    )
+    labels = (torch.rand((batch,), generator=generator(seed, step, 4, device),
+                         device=device) < 0.25).to(torch.float32)
+    return {"dense": dense, "idx": idx, "labels": labels}

@@ -1,0 +1,34 @@
+"""Device resolution for the port's entry points.
+
+Every entry point runs on the card unless the caller asks for the CPU.  With
+no card and no explicit ``device="cpu"`` it raises: the port never carries on
+quietly on the CPU, because a CPU run says nothing about the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device: str | torch.device | None = None) -> torch.device:
+    """``None`` or ``"cuda"`` -> the current card (raises without one);
+    ``"cpu"`` -> the CPU, where kernels take their plain versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA card by default and none is "
+                "available; pass device='cpu' (or --device cpu) to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

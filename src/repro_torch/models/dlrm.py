@@ -1,0 +1,98 @@
+"""DLRM — the paper's own model family (port of ``repro.models.dlrm``, the
+serving head).
+
+Dense features -> bottom MLP; sparse features -> the packed embedding bags
+(``repro_torch.engine``); pairwise-dot interaction; top MLP -> CTR logit.
+The head runs in the config's compute dtype (bf16), as ``repro``'s does;
+its products are ``torch.matmul``, as ``repro`` left them to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import DLRMConfig
+from repro_torch.core import embedding_bag
+from repro_torch.core.embedding_bag import BagConfig
+from repro_torch.core.qr_embedding import EmbeddingConfig
+
+
+def make_bags(cfg: DLRMConfig) -> list[BagConfig]:
+    emb = EmbeddingConfig(
+        vocab=cfg.vocab_per_table,
+        dim=cfg.dim,
+        kind=cfg.embedding_kind,  # type: ignore[arg-type]
+        collision=cfg.qr_collision,
+        param_dtype=cfg.pdtype,
+        compute_dtype=cfg.cdtype,
+        tt_rank=cfg.tt_rank,
+        tt_vocab_factors=cfg.tt_vocab_factors,
+        tt_dim_factors=cfg.tt_dim_factors,
+        tt_exec=cfg.tt_exec,
+    )
+    return [BagConfig(emb=emb, pooling=cfg.pooling) for _ in range(cfg.num_tables)]
+
+
+def _init_mlp(dims: tuple[int, ...], in_dim: int, dtype, generator, device) -> list[dict]:
+    params = []
+    d = in_dim
+    for out in dims:
+        w = torch.randn((d, out), generator=generator, device=device)
+        params.append({
+            "w": w.mul_(1.0 / math.sqrt(d)).to(dtype),
+            "b": torch.zeros((out,), dtype=dtype, device=device),
+        })
+        d = out
+    return params
+
+
+def _mlp_fwd(params: list[dict], x: torch.Tensor, compute_dtype, *,
+             final_linear: bool = True) -> torch.Tensor:
+    for i, p in enumerate(params):
+        x = x.to(compute_dtype) @ p["w"].to(compute_dtype) + p["b"].to(compute_dtype)
+        last = i == len(params) - 1
+        if not (last and final_linear):
+            x = torch.relu(x)
+    return x
+
+
+def num_interactions(cfg: DLRMConfig) -> int:
+    f = cfg.num_tables + 1
+    return f * (f - 1) // 2
+
+
+def init_dlrm(cfg: DLRMConfig, *, seed: int = 0, device=None) -> dict:
+    """Random params ``{"bottom", "top", "tables"}`` drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the target device (the card
+    unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    top_in = cfg.bottom_mlp[-1] + num_interactions(cfg)
+    return {
+        "bottom": _init_mlp(cfg.bottom_mlp, cfg.num_dense, cfg.pdtype, g, dev),
+        "top": _init_mlp(cfg.top_mlp, top_in, cfg.pdtype, g, dev),
+        "tables": embedding_bag.init_tables(make_bags(cfg), generator=g, device=dev),
+    }
+
+
+def interact(bottom: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+    """Pairwise-dot interaction. bottom: (B, dim); pooled: (B, T, dim) ->
+    (B, F*(F-1)/2), pairs in row-major upper-triangle order."""
+    feats = torch.cat([bottom[:, None, :], pooled], dim=1)      # (B, F, dim)
+    gram = torch.bmm(feats, feats.transpose(1, 2))
+    f = feats.shape[1]
+    iu, ju = torch.triu_indices(f, f, 1, device=feats.device)
+    return gram[:, iu, ju]
+
+
+def forward_from_pooled(params: dict, dense: torch.Tensor, pooled: torch.Tensor,
+                        cfg: DLRMConfig) -> torch.Tensor:
+    """CTR logits from precomputed pooled embeddings (B, T, dim) -> (B,) fp32."""
+    bottom = _mlp_fwd(params["bottom"], dense, cfg.cdtype, final_linear=False)
+    z = interact(bottom.to(cfg.cdtype), pooled.to(cfg.cdtype))
+    top_in = torch.cat([bottom, z], dim=-1)
+    return _mlp_fwd(params["top"], top_in, cfg.cdtype)[:, 0].to(torch.float32)

@@ -30,6 +30,11 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 560) -> str:
     return out.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips without one")
+
+
 @pytest.fixture
 def mesh_runner():
     return run_with_devices
