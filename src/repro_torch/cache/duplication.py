@@ -1,12 +1,12 @@
-"""Subtable duplication planner (port of ``repro.cache.duplication``, dense
-and QR kinds).
+"""Subtable duplication planner (port of ``repro.cache.duplication``, dense,
+QR and TT kinds).
 
 ProactivePIM duplicates the weight-sharing subtables into every bank group
 so a whole reconstruction completes where the big-table row lives.  The
 planner decides, per subtable, replicate-on-every-shard vs row-shard, under
 a per-device byte budget, by a greedy knapsack, highest traffic per byte
-first: the whole small shared subtables (QR's R) first, then big-table rows,
-hottest first across all tables.  Serving specs turn it on even on one
+first: the whole small shared subtables (QR's R, TT's outer cores) first,
+then big-table rows, hottest first across all tables.  Serving specs turn it on even on one
 device (``EngineSpec.from_dlrm(serving=True)``), where it only reports.
 """
 
@@ -17,7 +17,7 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch import TT_NEXT
+from repro_torch import HASHED_NEXT
 from repro_torch.core import placement
 
 DEFAULT_BUDGET = 64 * 2**20
@@ -35,7 +35,7 @@ def _fold_quotient(counts: np.ndarray, collision: int, q_rows: int) -> np.ndarra
 class SubtableDecision:
     """Replicate-vs-shard verdict for one subtable (or its hot slice)."""
 
-    name: str                   # "r", "q", "table"
+    name: str                   # "r", "q", "g1", "g2", "g3", "table"
     rows: int                   # rows this decision covers
     bytes_per_replica: int
     replicated: bool
@@ -47,7 +47,7 @@ class SubtableDecision:
 class TableDupPlan:
     """Placement decision for one table's subtables."""
 
-    kind: str                               # qr | dense
+    kind: str                               # qr | tt | dense
     big: str                                # name of the row-sharded subtable
     decisions: tuple[SubtableDecision, ...]
     hot_plan: placement.TierPlan            # hot tier over big-table rows
@@ -98,8 +98,16 @@ def _table_candidates(bag, counts: np.ndarray, bytes_per_elem: int):
         smalls = [("r", spec.r_rows, spec.r_rows * rb)]
         folded = _fold_quotient(counts, emb.collision, spec.q_rows)
         return smalls, "q", folded, rb, spec.q_rows, 2
-    if emb.kind in ("tt", "hashed"):
-        raise NotImplementedError(TT_NEXT)
+    if emb.kind == "tt":
+        spec = emb.tt_spec
+        smalls = [
+            ("g1", spec.v1, spec.v1 * spec.g1_width * bytes_per_elem),
+            ("g3", spec.v3, spec.v3 * spec.g3_width * bytes_per_elem),
+        ]
+        folded = placement.fold_counts_tt(counts, spec)
+        return smalls, "g2", folded, spec.g2_width * bytes_per_elem, spec.v2, 3
+    if emb.kind == "hashed":
+        raise NotImplementedError(HASHED_NEXT)
     rb = emb.dim * bytes_per_elem
     rows = emb.vocab
     c = np.asarray(counts, dtype=np.int64)

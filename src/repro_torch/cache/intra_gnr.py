@@ -18,8 +18,8 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch import TT_NEXT
-from repro_torch.core import hashing
+from repro_torch import HASHED_NEXT
+from repro_torch.core import hashing, tt_embedding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +86,16 @@ def subtable_traces(idx: np.ndarray, cfg, *, bytes_per_elem: int = 4) -> dict:
         spec = cfg.qr_spec
         rb = cfg.dim * bytes_per_elem
         return {"q": (q, spec.q_rows, rb), "r": (r, spec.r_rows, rb)}
-    if cfg.kind in ("tt", "hashed"):
-        raise NotImplementedError(TT_NEXT)
+    if cfg.kind == "tt":
+        spec = cfg.tt_spec
+        i1, i2, i3 = tt_embedding.tt_decompose(idx, spec)
+        return {
+            "g1": (i1, spec.v1, spec.g1_width * bytes_per_elem),
+            "g2": (i2, spec.v2, spec.g2_width * bytes_per_elem),
+            "g3": (i3, spec.v3, spec.g3_width * bytes_per_elem),
+        }
+    if cfg.kind == "hashed":
+        raise NotImplementedError(HASHED_NEXT)
     return {"table": (idx, cfg.vocab, cfg.dim * bytes_per_elem)}
 
 

@@ -37,7 +37,7 @@ class DLRMConfig:
     embedding_kind: str = "qr"         # dense | hashed | qr | tt
     qr_collision: int = 64
     hot_request_share: float = 0.8     # paper's hot-vector definition
-    # TT-Rec knobs (embedding_kind="tt"; the next slice of the port)
+    # TT-Rec knobs (embedding_kind="tt")
     tt_rank: int = 16
     tt_vocab_factors: tuple[int, int, int] | None = None
     tt_dim_factors: tuple[int, int, int] | None = None

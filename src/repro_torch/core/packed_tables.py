@@ -1,12 +1,14 @@
 """Packed-table layout: one buffer, one index stream, one kernel launch
-(port of ``repro.core.packed_tables``, dense and QR kinds).
+(port of ``repro.core.packed_tables``, dense, QR and TT kinds).
 
 * ``PackedLayout`` — static description of all same-width subtables
   concatenated row-major: per-table row offsets of the big subtables (dense
-  table / QR Q), of the QR R LUTs, and of the per-table cache-slot ranges;
+  table / QR Q / TT middle core G2), of the QR R LUTs, and of the per-table
+  cache-slot ranges; TT outer cores are packed at ``t * v1`` / ``t * v3``;
 * ``pack_params`` — the device-side concatenation, plus one trailing all-zero
   row per streamed buffer: accesses that must contribute nothing (ragged bag
-  tails) are routed to the zero row instead of masked;
+  tails) are routed to the zero row instead of masked (a zero G2 row nulls a
+  TT product, so the outer cores get no zero row);
 * ``pack_indices`` — logical (B, T, K) bag indices -> globally offset int32
   streams, vectorized over all tables;
 * slot-map helpers translating each table's scheduler state into the packed
@@ -21,8 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import TT_NEXT
-from repro_torch.core import hashing, qr_embedding
+from repro_torch.core import hashing, qr_embedding, tt_embedding
 from repro_torch.core.embedding_bag import BagConfig
 
 
@@ -64,8 +65,10 @@ class PackedLayout:
 
     @property
     def big_width(self) -> int:
+        """Row width of the streamed buffer (G2 is wider than dim for TT)."""
         if self.kind == "tt":
-            raise NotImplementedError(TT_NEXT)
+            d1, d2, d3, rank = self.tt_dims
+            return rank * d2 * rank
         return self.dim
 
     # -- small shared buffer (QR R LUTs) -------------------------------------
@@ -97,13 +100,12 @@ class PackedLayout:
 
 def packable(bags: Sequence[BagConfig]) -> bool:
     """True when every bag can ride one packed launch: uniform kind (dense /
-    additive QR), row width, vocab and collision across tables."""
+    additive QR / TT), row width, vocab and decomposition constants across
+    tables."""
     if not bags:
         return False
     e0 = bags[0].emb
-    if e0.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
-    if e0.kind not in ("dense", "qr"):
+    if e0.kind not in ("dense", "qr", "tt"):
         return False
     if e0.kind == "qr" and e0.reconstruction != "add":
         return False
@@ -112,6 +114,12 @@ def packable(bags: Sequence[BagConfig]) -> bool:
         if e.kind != e0.kind or e.dim != e0.dim or e.vocab != e0.vocab:
             return False
         if e.kind == "qr" and e.collision != e0.collision:
+            return False
+        if e.kind == "tt" and (
+            e.tt_spec.vocab_factors != e0.tt_spec.vocab_factors
+            or e.tt_spec.dim_factors != e0.tt_spec.dim_factors
+            or e.tt_spec.rank != e0.tt_spec.rank
+        ):
             return False
     return True
 
@@ -136,6 +144,17 @@ def build_layout(
             small_rows_per_table=tuple(b.emb.qr_spec.r_rows for b in bags),
             slot_budgets=budgets,
             collision=e0.collision,
+        )
+    if e0.kind == "tt":
+        spec = e0.tt_spec
+        return PackedLayout(
+            kind="tt",
+            num_tables=len(bags),
+            dim=e0.dim,
+            rows_per_table=tuple(b.emb.tt_spec.g2_rows_padded for b in bags),
+            slot_budgets=budgets,
+            tt_dims=spec.dims,
+            tt_vocab=spec.vocab_factors,
         )
     return PackedLayout(
         kind="dense",
@@ -172,8 +191,9 @@ def concat_with_zero(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def pack_params(tables: Sequence[dict], layout: PackedLayout) -> dict:
-    """Concatenate per-table params into the packed buffers (+ zero rows),
-    in the param dtype (serving packs fp32)."""
+    """Concatenate per-table params into the packed buffers, in the param
+    dtype (serving packs fp32).  Streamed buffers (big table, QR R, TT G2)
+    get a trailing zero row; the TT outer cores are packed without one."""
     if layout.kind == "qr":
         q = concat_with_zero([t["q"] for t in tables])
         r = concat_with_zero([t["r"] for t in tables])
@@ -182,7 +202,13 @@ def pack_params(tables: Sequence[dict], layout: PackedLayout) -> dict:
                              f"do not match the layout {layout}")
         return {"q": q, "r": r}
     if layout.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
+        g2 = concat_with_zero([t["g2"] for t in tables])
+        g1 = torch.cat([t["g1"] for t in tables], dim=0)
+        g3 = torch.cat([t["g3"] for t in tables], dim=0)
+        if g2.shape[0] != layout.total_rows + 1:
+            raise ValueError(f"packed G2 shape {tuple(g2.shape)} does not match "
+                             f"the layout {layout}")
+        return {"g1": g1, "g2": g2, "g3": g3}
     table = concat_with_zero([t["table"] for t in tables])
     if table.shape[0] != layout.total_rows + 1:
         raise ValueError(f"packed shape {tuple(table.shape)} does not match "
@@ -230,7 +256,18 @@ def pack_indices(
             r_g = torch.where(mask, r_g, layout.small_zero_row)
         return {"q_idx": q_g.to(torch.int32), "r_idx": r_g.to(torch.int32)}
     if layout.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
+        v1, v2, v3 = layout.tt_vocab
+        i1, i2, i3 = tt_embedding.tt_decompose_factors(idx, v2, v3)
+        t_ids = torch.arange(layout.num_tables, dtype=torch.int32,
+                             device=idx.device)[None, :, None]
+        i1_g = i1 + t_ids * v1
+        i3_g = i3 + t_ids * v3
+        i2_g = i2 + off
+        if mask is not None:
+            # the zero G2 row nulls the product; i1/i3 stay valid rows
+            i2_g = torch.where(mask, i2_g, layout.zero_row)
+        return {"i1": i1_g.to(torch.int32), "i2": i2_g.to(torch.int32),
+                "i3": i3_g.to(torch.int32)}
     g = idx + off
     if mask is not None:
         g = torch.where(mask, g, layout.zero_row)

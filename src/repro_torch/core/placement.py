@@ -1,5 +1,6 @@
 """Hot-tier planning over access profiles (port of the numpy part of
-``repro.core.placement`` that the duplication planner needs)."""
+``repro.core.placement`` that the duplication planner needs; ``plan_tt_tiers``
+waits for the sharded slice)."""
 
 from __future__ import annotations
 
@@ -74,3 +75,13 @@ def plan_tiers(
         hot_fraction=num_hot / max(1, q_rows),
         expected_hot_hit=hit,
     )
+
+
+def fold_counts_tt(counts_logical: np.ndarray, spec) -> np.ndarray:
+    """Fold a logical-row access profile onto middle-core (i2) rows:
+    ``i2 = (idx // v3) % v2``, so each middle row serves ``v1 * v3`` logical
+    rows."""
+    counts_logical = np.asarray(counts_logical, dtype=np.int64)
+    idx = np.arange(counts_logical.size, dtype=np.int64)
+    i2 = (idx // spec.v3) % spec.v2
+    return np.bincount(i2, weights=counts_logical, minlength=spec.v2).astype(np.int64)

@@ -1,5 +1,7 @@
 """Weight-sharing embedding configs and init (port of
-``repro.core.qr_embedding``, dense and QR kinds).
+``repro.core.qr_embedding``: dense and QR kinds here, TT routed to
+``repro_torch.core.tt_embedding``; the hashed kind waits for the per-table
+slice).
 
 ``init(cfg, generator=..., device=...)`` draws from an explicit
 ``torch.Generator``, so its numbers differ from ``jax.random``'s; the parity
@@ -13,8 +15,8 @@ from typing import Literal
 
 import torch
 
-from repro_torch import TT_NEXT
-from repro_torch.core import hashing
+from repro_torch import HASHED_NEXT
+from repro_torch.core import hashing, tt_embedding
 
 EmbeddingKind = Literal["dense", "hashed", "qr", "tt"]
 Reconstruction = Literal["add", "mul", "concat"]
@@ -51,8 +53,8 @@ class EmbeddingConfig:
         return hashing.QRSpec(vocab=self.vocab, collision=self.collision, dim=self.dim)
 
     @property
-    def tt_spec(self):
-        raise NotImplementedError(TT_NEXT)
+    def tt_spec(self) -> tt_embedding.TTSpec:
+        return tt_embedding.spec_for(self)
 
     @property
     def physical_hashed_rows(self) -> int:
@@ -64,7 +66,7 @@ class EmbeddingConfig:
         if self.kind == "hashed":
             return self.physical_hashed_rows * self.dim
         if self.kind == "tt":
-            raise NotImplementedError(TT_NEXT)
+            return self.tt_spec.param_count()
         spec = self.qr_spec
         if self.reconstruction == "concat":
             return (spec.q_rows + spec.r_rows) * (self.dim // 2)
@@ -78,9 +80,12 @@ def _normal(shape, dtype, generator, device, scale: float) -> torch.Tensor:
 
 def init(cfg: EmbeddingConfig, *, generator: torch.Generator,
          device: torch.device) -> dict:
-    """Random params of one table: dense ``{"table"}`` or QR ``{"q", "r"}``."""
-    if cfg.kind in ("tt", "hashed"):
-        raise NotImplementedError(TT_NEXT)
+    """Random params of one table: dense ``{"table"}``, QR ``{"q", "r"}`` or
+    TT ``{"g1", "g2", "g3"}``."""
+    if cfg.kind == "tt":
+        return tt_embedding.init(cfg, generator=generator, device=device)
+    if cfg.kind == "hashed":
+        raise NotImplementedError(HASHED_NEXT)
     scale = cfg.dim ** -0.5
     if cfg.kind == "dense":
         shape = (_pad_rows(cfg.vocab), cfg.dim)

@@ -32,3 +32,15 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def of(*tensors: torch.Tensor) -> torch.device:
+    """The one device all ``tensors`` lie on (``cuda`` or ``cpu``); raises if
+    they differ.  The kernel wrappers dispatch on it."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

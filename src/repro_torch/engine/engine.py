@@ -51,7 +51,8 @@ class EmbeddingEngine:
         # the cache-block gather is the staging copy of the prefetched rows
         cache = packed[packed_tables.big_key(layout.kind)][cache_rows.long()]
         pooled = ops.packed_multi_pooled(
-            {**packed, "cache": cache}, streams, kind=layout.kind,
+            {**packed, "cache": cache}, streams,
+            kind=layout.kind, dims=layout.tt_dims,
         )
         scale = packed_tables.combiner_scale(self.bags, torch.float32, pooled.device)
         return pooled * scale[None, :, None].to(pooled.dtype)

@@ -13,7 +13,6 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch import TT_NEXT
 from repro_torch.cache import duplication, intra_gnr
 from repro_torch.cache.sram_cache import PrefetchScheduler
 from repro_torch.core import packed_tables, placement
@@ -26,7 +25,7 @@ def big_subtable(emb) -> tuple[str, int]:
     if emb.kind == "qr":
         return "q", emb.qr_spec.q_rows
     if emb.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
+        return "g2", emb.tt_spec.v2
     rows = emb.physical_hashed_rows if emb.kind == "hashed" else emb.vocab
     return "table", rows
 

@@ -80,3 +80,11 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LOADED[name] = ctypes.CDLL(str(_target(name)))
     return _LOADED[name]
+
+
+def launched(counts: dict, name: str, err: int) -> None:
+    """After a call of a C entry point: raise if it refused the launch (its
+    return value is ``cudaGetLastError()``), else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    counts[name] += 1

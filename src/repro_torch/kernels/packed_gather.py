@@ -1,21 +1,25 @@
 """Packed multi-table pooled bags: the wrappers of the hand-written CUDA
-kernels in ``csrc/packed_gather.cu`` (port of ``repro.kernels.packed_gather``
-and ``repro.kernels.cached_gather``, dense and QR).
+kernels in ``csrc/packed_gather.cu`` and ``csrc/tt_bag.cu`` (port of
+``repro.kernels.packed_gather`` and ``repro.kernels.cached_gather``).
 
 * ``packed_qr_bag`` (K1) replaces ``repro/kernels/packed_gather.py:130``
   -> ``cached_gather.py:123 cached_qr_bag`` (body ``_cached_qr_kernel``);
 * ``packed_bag`` (K3) replaces ``repro/kernels/packed_gather.py:103``
-  -> ``cached_gather.py:82 cached_bag`` (body ``_cached_kernel``).
+  -> ``cached_gather.py:82 cached_bag`` (body ``_cached_kernel``);
+* ``packed_tt_bag`` (K2) replaces ``repro/kernels/packed_gather.py:158``
+  (body ``_packed_tt_kernel``); its source is shared with K5
+  (``kernels/tt_gather.py``).
 
-Both are bound by bytes (one row read per bag element, one add per float).
-Dispatch is by the tensors' device alone: CUDA tensors launch the kernel,
-or raise if the kernel does not take them; CPU tensors take the plain
-versions ``ref.packed_qr_bag_ref`` / ``ref.packed_bag_ref``.  There is no
-fallback from the card to the plain version.
+K1 and K3 are bound by bytes (one row read per bag element, one add per
+float), K2 by operations (two small products per element).  Dispatch is by
+the tensors' device alone: CUDA tensors launch the kernel, or raise if the
+kernel does not take them; CPU tensors take the plain versions in ``ref``.
+There is no fallback from the card to the plain version.
 
-The kernels take fp32 tables (serving packs in the param dtype), int32
-(G, K) streams, and ``dim % 4 == 0``; the bf16 variant comes with training.
-``LAUNCHES`` counts kernel launches per kernel (plain versions do not count).
+The kernels take fp32 tables (serving packs in the param dtype) and int32
+(G, K) streams; K1 and K3 take ``dim % 4 == 0``; the bf16 variants come with
+training.  ``LAUNCHES`` counts kernel launches per kernel (plain versions do
+not count).
 """
 
 from __future__ import annotations
@@ -25,11 +29,12 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.ref import packed_bag_ref, packed_qr_bag_ref
+from repro_torch import device as device_mod
+from repro_torch.kernels import build, tt_gather
+from repro_torch.kernels.ref import packed_bag_ref, packed_qr_bag_ref, packed_tt_bag_ref
 
 SOURCE = "packed_gather"
-LAUNCHES = {"packed_qr_bag": 0, "packed_bag": 0}
+LAUNCHES = {"packed_qr_bag": 0, "packed_bag": 0, "packed_tt_bag": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -50,16 +55,6 @@ def _lib() -> ctypes.CDLL:
                                              _I64, _I64, _P]
     lib.packed_bag_f32.restype = ctypes.c_int
     return lib
-
-
-def _device_of(*tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _check_cuda(buffers: dict, streams: dict) -> tuple[int, int, int]:
@@ -87,12 +82,6 @@ def _check_cuda(buffers: dict, streams: dict) -> tuple[int, int, int]:
     return shape[0], shape[1], dim
 
 
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
-
-
 def packed_qr_bag(
     q_table: torch.Tensor, cache: torch.Tensor, r_lut: torch.Tensor,
     q_idx: torch.Tensor, slot: torch.Tensor, r_idx: torch.Tensor,
@@ -104,7 +93,7 @@ def packed_qr_bag(
     LUT packed (+ zero row); q_idx/slot/r_idx: (G, K) globally offset.
     Returns (G, dim) in the table dtype, summed in fp32.
     """
-    dev = _device_of(q_table, cache, r_lut, q_idx, slot, r_idx)
+    dev = device_mod.of(q_table, cache, r_lut, q_idx, slot, r_idx)
     if dev.type == "cpu":
         return packed_qr_bag_ref(q_table, cache, r_lut, q_idx, slot, r_idx)
     g, k, dim = _check_cuda({"q_table": q_table, "cache": cache, "r_lut": r_lut},
@@ -117,7 +106,7 @@ def packed_qr_bag(
             g, k, dim, q_table.shape[0], cache.shape[0], r_lut.shape[0],
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _launched("packed_qr_bag", err)
+    build.launched(LAUNCHES, "packed_qr_bag", err)
     return out
 
 
@@ -129,7 +118,7 @@ def packed_bag(
     table: (total_rows, dim), every table packed (+ zero row); cache:
     (slots, dim); idx/slot: (G, K) globally offset.  Returns (G, dim).
     """
-    dev = _device_of(table, cache, idx, slot)
+    dev = device_mod.of(table, cache, idx, slot)
     if dev.type == "cpu":
         return packed_bag_ref(table, cache, idx, slot)
     g, k, dim = _check_cuda({"table": table, "cache": cache},
@@ -141,5 +130,37 @@ def packed_bag(
             out.data_ptr(), g, k, dim, table.shape[0], cache.shape[0],
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _launched("packed_bag", err)
+    build.launched(LAUNCHES, "packed_bag", err)
+    return out
+
+
+def packed_tt_bag(
+    g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor, cache: torch.Tensor,
+    i1: torch.Tensor, i2: torch.Tensor, i3: torch.Tensor, slot: torch.Tensor,
+    *, dims: tuple[int, int, int, int],
+) -> torch.Tensor:
+    """K2: out[g] = Σ_k G1[i1] · (slot >= 0 ? C[slot] : G2[i2]) · G3[i3].
+
+    g1: (T*v1, d1*r) / g3: (T*v3, r*d3), every table's outer cores packed;
+    g2: (total_v2_rows, r*d2*r), the middle cores packed (+ zero row);
+    cache: (slots, r*d2*r) staged G2 rows; i1/i2/i3/slot: (G, K) globally
+    offset.  ``dims`` = (d1, d2, d3, rank).  Returns (G, d1*d2*d3) in the G2
+    dtype, contracted and summed in fp32.
+    """
+    dev = device_mod.of(g1, g2, g3, cache, i1, i2, i3, slot)
+    if dev.type == "cpu":
+        return packed_tt_bag_ref(g1, g2, g3, cache, i1, i2, i3, slot, dims=dims)
+    g, k = tt_gather.check_cuda({"g1": g1, "g2": g2, "g3": g3, "cache": cache},
+                                {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
+    d1, d2, d3, rank = dims
+    out = torch.empty((g, d1 * d2 * d3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = tt_gather.lib().packed_tt_bag_f32(
+            g1.data_ptr(), g2.data_ptr(), g3.data_ptr(), cache.data_ptr(),
+            i1.data_ptr(), i2.data_ptr(), i3.data_ptr(), slot.data_ptr(),
+            out.data_ptr(), g, k, d1, d2, d3, rank,
+            g1.shape[0], g2.shape[0], g3.shape[0], cache.shape[0],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.launched(LAUNCHES, "packed_tt_bag", err)
     return out

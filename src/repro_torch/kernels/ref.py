@@ -1,9 +1,12 @@
-"""Plain PyTorch versions of the packed-bag kernels (port of
-``repro.kernels.ref``, the cached and packed bags).
+"""Plain PyTorch versions of the bag kernels (port of ``repro.kernels.ref``:
+the cached and packed bags, and the TT bags).
 
 They are the kernels' oracles: the CPU path runs them, and ``chip_smoke.py``
 and the ``gpu`` tests hold each CUDA kernel against them on the card.  Kept
 deliberately naive: gather every row, route by slot, sum over K in fp32.
+The TT versions contract in the kernels' order (``(d1,r) @ (r,d2*r)``,
+reshaped, ``@ (r,d3)``) and add the K rows one after another, as the Pallas
+body revisits its output block.
 """
 
 from __future__ import annotations
@@ -52,3 +55,48 @@ def packed_qr_bag_ref(
 ) -> torch.Tensor:
     """Packed QR megabag — ``cached_qr_bag_ref`` over packed buffers."""
     return cached_qr_bag_ref(q_table, cache, r_lut, q_idx, slot, r_idx)
+
+
+def _tt_rows(g1: torch.Tensor, g2_rows: torch.Tensor, g3: torch.Tensor,
+             i1: torch.Tensor, i3: torch.Tensor, dims) -> torch.Tensor:
+    """(..., K, dim) fp32 rows G1[i1] · M · G3[i3], with the gathered (or
+    slot-routed) middle-core rows ``g2_rows`` (..., K, r*d2*r)."""
+    d1, d2, d3, rank = dims
+    lead = i1.shape
+    a = g1[i1.long()].float().reshape(*lead, d1, rank)
+    m = g2_rows.float().reshape(*lead, rank, d2 * rank)
+    c = g3[i3.long()].float().reshape(*lead, rank, d3)
+    t = torch.matmul(a, m).reshape(*lead, d1 * d2, rank)
+    return torch.matmul(t, c).reshape(*lead, d1 * d2 * d3)
+
+
+def _sum_k(rows: torch.Tensor) -> torch.Tensor:
+    """Sum (..., K, dim) over K in order k = 0, 1, ..., K-1."""
+    out = torch.zeros_like(rows[..., 0, :])
+    for k in range(rows.shape[-2]):
+        out = out + rows[..., k, :]
+    return out
+
+
+def tt_bag_ref(
+    g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
+    i1: torch.Tensor, i2: torch.Tensor, i3: torch.Tensor,
+    *, dims: tuple[int, int, int, int],
+) -> torch.Tensor:
+    """Pooled TT bag: out[b] = Σ_k G1[i1[b,k]]·G2[i2[b,k]]·G3[i3[b,k]],
+    contraction and sum in fp32, cast to the G2 dtype."""
+    rows = _tt_rows(g1, g2[i2.long()], g3, i1, i3, dims)
+    return _sum_k(rows).to(g2.dtype)
+
+
+def packed_tt_bag_ref(
+    g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor, cache: torch.Tensor,
+    i1: torch.Tensor, i2: torch.Tensor, i3: torch.Tensor, slot: torch.Tensor,
+    *, dims: tuple[int, int, int, int],
+) -> torch.Tensor:
+    """Packed TT megabag with the middle core routed by slot:
+    out[g] = Σ_k G1[i1] · (slot >= 0 ? C[slot] : G2[i2]) · G3[i3].
+
+    Outer-core indices are packed rows (t*v1 + i1, t*v3 + i3)."""
+    rows = _tt_rows(g1, _rows(g2, cache, i2, slot), g3, i1, i3, dims)
+    return _sum_k(rows).to(g2.dtype)

@@ -6,8 +6,9 @@
    the packed layout;
 2. **per batch**: the prefetch schedulers stage the batch's most valuable
    big-table rows and translate its accesses into slots; the whole embedding
-   layer is ONE launch of the packed-bag CUDA kernel
-   (``EmbeddingEngine.serve_gather``); the MLP head gives the CTR logits.
+   layer is ONE launch of the packed-bag CUDA kernel (K1 for dlrm-qr, K3 for
+   dlrm-dense, K2 for dlrm-tt; ``EmbeddingEngine.serve_gather``); the MLP
+   head gives the CTR logits.
 
 ``mode="overlap"`` enqueues batch t's head, then stages and launches batch
 t+1's gather while the card runs it: CUDA launches are asynchronous, so the
@@ -22,7 +23,7 @@ Not ported yet: the ``obs`` spans and traffic report, drift, the tuner,
 ``--frontend`` and ``--adapt``.
 
 Usage (CPU rehearsal of the smoke config; the card is the default):
-    PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-qr --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-tt --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -265,7 +266,7 @@ _RECORD_DROP = ("logits", "latencies_s")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="dlrm config id (dlrm-qr | dlrm-dense)")
+    ap.add_argument("--arch", required=True, help="dlrm config id (dlrm-qr | dlrm-tt | dlrm-dense)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--tiny", action="store_true",
                     help="CI smoke: --smoke config with batch=8")

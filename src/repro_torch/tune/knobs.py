@@ -12,7 +12,6 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch import TT_NEXT
 from repro_torch.cache import intra_gnr
 
 
@@ -78,9 +77,8 @@ def slot_budgets(spec, knobs: Knobs, values: "list[np.ndarray] | None"
     if knobs.cache_slots <= 0:
         return tuple(0 for _ in range(num_t))
     emb = spec.bags[0].emb
-    if emb.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
-    row_bytes = emb.dim * emb.param_dtype.itemsize
+    width = emb.tt_spec.g2_width if emb.kind == "tt" else emb.dim
+    row_bytes = width * emb.param_dtype.itemsize
     block_slots = (spec.cache_vmem_mb * 2**20) // max(1, row_bytes)
     total = min(knobs.cache_slots * num_t, block_slots)
     if total <= 0:
@@ -103,5 +101,5 @@ def _big_rows_count(emb) -> int:
     if emb.kind == "qr":
         return emb.qr_spec.q_rows
     if emb.kind == "tt":
-        raise NotImplementedError(TT_NEXT)
+        return emb.tt_spec.v2
     return emb.physical_hashed_rows if emb.kind == "hashed" else emb.vocab

@@ -1,16 +1,20 @@
 """The port's CUDA kernels on the card, and the CPU-side pieces of their build.
 
-Tests marked ``gpu`` hold K1 ``packed_qr_bag`` and K3 ``packed_bag`` against
-their plain PyTorch versions on the card and serve the smoke configs there;
+Tests marked ``gpu`` hold K1 ``packed_qr_bag``, K3 ``packed_bag``, K2
+``packed_tt_bag`` and K5 ``tt_bag`` against their plain PyTorch versions on
+the card and serve the smoke configs there;
 each decides inside the ``cuda`` fixture whether a card exists, and skips
 without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
 the machine with the card has none.
 
 Tolerance on the card: rtol = atol = 1e-4 (K fp32 adds of unit-scale rows
-in two different orders; the dlrm-width error measured by chip_smoke.py is
-about 1e-5).
+in two different orders, and for TT two fp32 products of rank terms each,
+fused multiply-adds in the kernel; the dlrm-width error measured by
+chip_smoke.py is about 1e-5).
 """
+
+import dataclasses
 
 import pytest
 
@@ -19,12 +23,17 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.core import tt_embedding  # noqa: E402
+from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import packed_gather as pg  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import tt_gather as tg  # noqa: E402
 from repro_torch.launch import serve_rec  # noqa: E402
 from repro_torch.models import dlrm  # noqa: E402
 from torch_bag_inputs import CASES, bag_inputs, dense_args, qr_args  # noqa: E402
+from torch_tt_inputs import (  # noqa: E402
+    CASES as TT_CASES, DLRM_DIMS, SMOKE_DIMS, packed_tt_args, packed_tt_inputs,
+    tt_args, tt_inputs,
+)
 
 
 @pytest.fixture
@@ -76,7 +85,7 @@ def test_gpu_kernels_match_plain(cuda, case, shape):
     qr = pg.packed_qr_bag(*qr_args(a, to))
     dense = pg.packed_bag(*dense_args(a, to))
     torch.cuda.synchronize()
-    assert pg.LAUNCHES == {"packed_qr_bag": 1, "packed_bag": 1}
+    assert pg.LAUNCHES == {"packed_qr_bag": 1, "packed_bag": 1, "packed_tt_bag": 0}
     torch.testing.assert_close(qr, ref.packed_qr_bag_ref(*qr_args(a, to)),
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dense, ref.packed_bag_ref(*dense_args(a, to)),
@@ -105,11 +114,90 @@ def test_gpu_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     assert pg.LAUNCHES["packed_bag"] == 0
 
 
+TT_SHAPES = [
+    dict(dims=DLRM_DIMS, tables=26, v1=38, v2=1408, v3=38, slots=1024, g=1024, k=32),
+    dict(dims=DLRM_DIMS, tables=2, v1=5, v2=40, v3=5, slots=16, g=7, k=40),  # K > 32
+    dict(dims=SMOKE_DIMS, tables=4, v1=8, v2=64, v3=8, slots=64, g=33, k=8),
+    dict(dims=(2, 3, 2, 3), tables=2, v1=4, v2=9, v3=4, slots=5, g=6, k=3),  # width 18
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke"])
+@pytest.mark.parametrize("case", TT_CASES)
+@pytest.mark.parametrize("shape", range(len(TT_SHAPES)))
+def test_gpu_tt_kernels_match_plain(cuda, case, shape):
+    kw = dict(TT_SHAPES[shape])
+    dims = kw["dims"]
+    a = packed_tt_inputs(case, seed=shape, **kw)
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    pg.reset_launches()
+    tg.reset_launches()
+    got = pg.packed_tt_bag(*packed_tt_args(a, to), dims=dims)
+    one = tt_inputs(dims=dims, v1=kw["v1"], v2=kw["v2"], v3=kw["v3"], b=kw["g"],
+                    k=kw["k"], seed=shape)
+    got5 = tg.tt_bag(*tt_args(one, to), dims=dims)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES["packed_tt_bag"] == 1 and tg.LAUNCHES["tt_bag"] == 1
+    torch.testing.assert_close(got, ref.packed_tt_bag_ref(*packed_tt_args(a, to), dims=dims),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got5, ref.tt_bag_ref(*tt_args(one, to), dims=dims),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_tt_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    a = packed_tt_inputs("mixed", dims=SMOKE_DIMS)
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    args = packed_tt_args(a, to)
+    bad = [
+        (1, args[1].to(torch.bfloat16), "float32"),
+        (5, args[5].to(torch.int64), "int32"),
+        (7, args[7][:, :4].contiguous(), "stream shapes"),
+        (3, args[3][:, :32].contiguous(), "width"),
+        (0, args[0][:, :8].contiguous(), "width"),
+        (2, args[2].cpu(), "different devices"),
+    ]
+    pg.reset_launches()
+    tg.reset_launches()
+    for i, val, match in bad:
+        call = list(args)
+        call[i] = val
+        with pytest.raises(ValueError, match=match):
+            pg.packed_tt_bag(*call, dims=SMOKE_DIMS)
+    with pytest.raises(ValueError, match="exceeds"):
+        pg.packed_tt_bag(*args, dims=(8, 8, 32, 1))
+    one = tt_args(tt_inputs(dims=SMOKE_DIMS), to)
+    for i, val, match in [(0, one[0].to(torch.bfloat16), "float32"),
+                          (3, one[3].to(torch.int64), "int32"),
+                          (2, one[2][:, :4].contiguous(), "width")]:
+        call = list(one)
+        call[i] = val
+        with pytest.raises(ValueError, match=match):
+            tg.tt_bag(*call, dims=SMOKE_DIMS)
+    assert pg.LAUNCHES["packed_tt_bag"] == 0 and tg.LAUNCHES["tt_bag"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_tt_lookup_runs_the_kernel(cuda):
+    cfg = dlrm.make_bags(registry.get_dlrm("dlrm-tt-smoke"))[0].emb
+    params = tt_embedding.init(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                               device=cuda)
+    idx = torch.randint(0, cfg.vocab, (16, 8), device=cuda, dtype=torch.int32)
+    tg.reset_launches()
+    got = tt_embedding.lookup(params, idx, cfg)
+    assert tg.LAUNCHES["tt_bag"] == 1 and got.dtype == cfg.compute_dtype
+    plain = tt_embedding.lookup(params, idx, dataclasses.replace(
+        cfg, compute_dtype=torch.float32, tt_exec="jnp"))
+    torch.testing.assert_close(got.float(), plain.to(cfg.compute_dtype).float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"])
 def test_gpu_serving_overlap_matches_sequential(cuda, arch):
     cfg = registry.get_dlrm(arch)
-    name = "packed_qr_bag" if cfg.embedding_kind == "qr" else "packed_bag"
+    name = {"qr": "packed_qr_bag", "dense": "packed_bag",
+            "tt": "packed_tt_bag"}[cfg.embedding_kind]
     state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=cuda)
     params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
     res = {}

@@ -1,5 +1,6 @@
 """Port parity of the packed-bag kernel module (K1 ``packed_qr_bag``, K3
-``packed_bag``) and of ``EmbeddingEngine.serve_gather``.
+``packed_bag``; K2 ``packed_tt_bag`` is in ``test_torch_tt.py``) and of
+``EmbeddingEngine.serve_gather`` on every kind.
 
 On the CPU the port's wrappers take their plain versions, held against
 ``repro``'s Pallas kernels in interpret mode at fp32 rtol = atol = 1e-5 (the
@@ -48,7 +49,7 @@ def test_packed_bag_matches_repro(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
 
 
-@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke"])
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"])
 def test_serve_gather_matches_repro(arch):
     jc, tc = j_registry.get_dlrm(arch), t_registry.get_dlrm(arch)
     traces = [j_syn.zipf_trace(jc.vocab_per_table, 5_000, seed=7 + t)

@@ -30,7 +30,7 @@ from repro_torch.engine import plan as t_plan  # noqa: E402
 from repro_torch.launch import serve_rec as t_serve  # noqa: E402
 from repro_torch.models import dlrm as t_dlrm  # noqa: E402
 
-ARCHS = ["dlrm-qr-smoke", "dlrm-dense-smoke"]
+ARCHS = ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"]
 
 
 def _cfgs(arch):
@@ -46,14 +46,30 @@ def _traces(cfg, seed=0, n=5_000):
 # configs, traces, QR index math
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["dlrm-qr", "dlrm-dense", *ARCHS])
+@pytest.mark.parametrize("arch", ["dlrm-qr", "dlrm-dense", "dlrm-tt", *ARCHS])
 def test_configs_match(arch):
     jc, tc = _cfgs(arch)
     for f in dataclasses.fields(jc):
         assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     assert tc.pdtype == torch.float32 and tc.cdtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="TT: next slice"):
-        t_registry.get_dlrm("dlrm-tt")
+
+
+def test_hashed_kind_still_raises():
+    """Hashed tables wait for the per-table slice: every branch says so."""
+    from repro_torch.cache import duplication, intra_gnr
+    from repro_torch.core import embedding_bag, qr_embedding
+
+    emb = qr_embedding.EmbeddingConfig(vocab=1000, dim=8, kind="hashed")
+    calls = [
+        lambda: qr_embedding.init(emb, generator=torch.Generator(), device="cpu"),
+        lambda: intra_gnr.subtable_traces(np.zeros((2, 4), np.int32), emb),
+        lambda: duplication.plan_duplication([embedding_bag.BagConfig(emb=emb)],
+                                             [np.ones(1000, np.int64)]),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="per-table slice"):
+            call()
+    assert not t_pt.packable([embedding_bag.BagConfig(emb=emb)])
 
 
 def test_zipf_probs_and_trace_bitwise():

@@ -32,7 +32,7 @@ from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.launch import serve_rec as t_serve  # noqa: E402
 from repro_torch.models import dlrm as t_dlrm  # noqa: E402
 
-ARCHS = ["dlrm-qr-smoke", "dlrm-dense-smoke"]
+ARCHS = ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"]
 BF16_TOL = dict(rtol=8e-3, atol=8e-3)
 
 
