@@ -8,7 +8,9 @@ Phases, each one failing the script if it fails:
    started together) and print the ``-Xptxas -v`` summary;
 2. reference: serve dlrm-qr-smoke, dlrm-dense-smoke and dlrm-tt-smoke on the
    card and on the CPU (the kernels' plain versions) with the same weights
-   and batches; the logits agree;
+   and batches; the logits agree; ``EmbeddingEngine.cached_lookup`` on one
+   dlrm-qr-smoke and one dlrm-dense-smoke table agrees between card and CPU
+   with the same scheduler slots;
 3. kernels: call K1 ``packed_qr_bag``, K3 ``packed_bag`` and K2
    ``packed_tt_bag`` at the shapes the full-width main path gives them
    (B = 2048, T = 26, K = 32, dim 128; the cache block holds this batch's
@@ -18,13 +20,28 @@ Phases, each one failing the script if it fails:
    K = 1) and pooled (2,048 x 32); hold each against its plain PyTorch
    version on the same inputs (max abs error <= 1e-4, TF32 off), and time
    kernel, plain version and, where one exists, the one PyTorch call that
-   computes the same function (``embedding_bag``) with CUDA events;
+   computes the same function (``embedding_bag``) with CUDA events; then
+   the per-table kernels at one full-width table's shapes: K4b
+   ``cached_qr_bag``, K6 ``gnr_bag`` and K8 ``qr_gather`` on dlrm-qr table 0
+   (Q 31,360 x 128, R 64 x 128; (2,048, 32) bags, K4b's cache the batch's
+   1,024 most used Q rows; 65,536 unpooled lookups), K4a ``cached_bag`` and
+   K7 ``gnr_bag_dense`` on dlrm-dense table 0 (2,000,000 x 128), the same
+   checks and times, K6 and K8 also in bf16;
 4. serve dlrm-qr at full width (26 x 2M rows, dim 128, pooling 32), batch
    2048, 6 batches, dlrm-dense at full width, 3 batches, and dlrm-tt at full
    width (26 x 2M logical rows as TT cores, rank 16), 6 batches, each in
    both modes: overlap logits equal sequential logits to 1e-6, all finite,
    and the kernel's launch count equals the batches served in each run;
-   then one ``tt_embedding.lookup`` on a dlrm-tt table launches K5 once.
+   then one ``tt_embedding.lookup`` on a dlrm-tt table launches K5 once;
+5. the per-table paths at full width: ``engine_for(...).cached_lookup`` for
+   4 batches of (2,048, 32) on dlrm-qr table 0 (K4b), dlrm-dense table 0
+   (K4a) and dlrm-tt table 0 (K5), the scheduler prefetching the next batch
+   between calls, one launch per batch, outputs equal to ``bag_lookup`` in
+   fp32 to 1e-4; ``ops.qr_lookup`` (K8) and ``ops.gnr_pooled_dense`` (K7)
+   once each; ``engine.lookup`` on 26 hashed tables of the dlrm-qr shape at
+   (2,048, 26, 32) (the per-table branch: plain gathers) agrees with the
+   CPU; the two examples run on the card (quickstart: K6 and K1 once each;
+   cache_plan: K4b once per batch).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -91,6 +108,34 @@ def reference_phase(dev, serve_rec, registry, dlrm, synthetic) -> None:
             f"hit rate {res['gpu']['hit_rate']:.4f} on both")
 
 
+def cached_reference_phase(dev, registry, dlrm, synthetic, qr_embedding, engine) -> None:
+    """``cached_lookup`` on one smoke table, card against CPU, fed the same
+    scheduler slots: the CPU runs the plain version, the card K4b / K4a."""
+    for arch in ("dlrm-qr-smoke", "dlrm-dense-smoke"):
+        cfg = registry.get_dlrm(arch)
+        bag = dlrm.make_bags(cfg)[0]
+        params = qr_embedding.init(bag.emb, generator=torch.Generator().manual_seed(2),
+                                   device="cpu")
+        eng = engine.engine_for(engine.EngineSpec.from_bags([bag], cache_slots=cfg.cache_slots))
+        sched = eng.fresh_schedulers()[0]
+        idx = synthetic.zipf_batch(cfg.vocab_per_table, (16, cfg.pooling), seed=3)
+        rows = engine.big_rows(idx.numpy(), bag.emb)
+        sched.prefetch(rows)
+        slot = torch.from_numpy(sched.slots_for(rows))
+        cache_rows = torch.from_numpy(sched.cache_rows())
+        out = {}
+        for where in ("cpu", dev):
+            to = lambda t: t.to(where)
+            out[str(where)] = eng.cached_lookup(
+                {k: to(v) for k, v in params.items()}, to(idx), 0,
+                cache_rows=to(cache_rows), slot=to(slot)).cpu()
+        err = float((out["cpu"] - out[str(dev)]).abs().max())
+        if not err <= ERR_TOL:
+            raise AssertionError(f"{arch}: cached_lookup card vs CPU differ by {err}")
+        log(f"[reference] {arch} cached_lookup: card vs CPU max abs diff {err:.3e}, "
+            f"hit share {float((slot >= 0).float().mean()):.3f}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the kernels at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -110,13 +155,18 @@ def main_path_streams(cfg, layout, pt, synthetic, dev, *, batch):
                                seed=11, step=0, device=dev)
     streams = {k: v.reshape(-1, cfg.pooling) for k, v in pt.pack_indices(idx, layout).items()}
     big = streams[{"qr": "q_idx", "tt": "i2"}.get(layout.kind, "idx")]
-    slots = plan_slots(cfg, layout)
-    counts = torch.bincount(big.reshape(-1).long(), minlength=layout.total_rows + 1)
+    streams["slot"], top = top_slots(big, layout.total_rows + 1, plan_slots(cfg, layout))
+    return streams, top
+
+
+def top_slots(big: torch.Tensor, rows: int, slots: int):
+    """The batch's ``slots`` most used rows of a (B, K) stream, staged as the
+    cache block: (slot stream, staged row ids)."""
+    counts = torch.bincount(big.reshape(-1).long(), minlength=rows)
     top = torch.topk(counts, slots).indices
     slot_of = torch.full_like(counts, -1)
-    slot_of[top] = torch.arange(slots, device=dev)
-    streams["slot"] = slot_of[big.long()].to(torch.int32)
-    return streams, top
+    slot_of[top] = torch.arange(slots, device=big.device)
+    return slot_of[big.long()].to(torch.int32), top
 
 
 def bound(streams, read_bytes: int, out_bytes: int, flops: int):
@@ -323,6 +373,132 @@ def tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref,
     return [k2, k5]
 
 
+BF16_TOL = 1e-2      # kernel and plain version each round an fp32 sum to bf16 once
+
+
+def pertable_kernel_phase(dev, batch, registry, dlrm, synthetic, hashing, qr_embedding, ref,
+                          cg, gb, qg) -> list[dict]:
+    """K4b, K6, K8 on dlrm-qr table 0's shapes and K4a, K7 on dlrm-dense
+    table 0's, each held against its plain version and timed beside its
+    bound and the one PyTorch call that computes the same function."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    rows_out = []
+
+    def row(name, kern, plain, args, *, replaces, streams, rows_read, out_numel, adds,
+            library, library_call, check_library, bf16=None, **extra):
+        got = kern(*args)
+        torch.cuda.synchronize()
+        err = float((got - plain(*args)).abs().max())
+        lib_err = float((check_library() - library()).abs().max())
+        if not err <= ERR_TOL or not lib_err <= ERR_TOL:
+            raise AssertionError(f"{name}: kernel vs plain max abs error {err}, "
+                                 f"kernel vs library {lib_err}")
+        b_ms, b_by, nbytes = bound(streams, rows_read * extra["shape"]["dim"] * 4,
+                                   out_numel * 4, adds)
+        r = {"name": name, "route": "cuda", "source": (
+                 "src/repro_torch/csrc/qr_gather.cu" if name == "qr_gather"
+                 else "src/repro_torch/csrc/packed_gather.cu"),
+             "replaces": replaces, "launches": 0, "max_abs_err": err,
+             "ms": timed(lambda: kern(*args), 50),
+             "plain_ms": timed(lambda: plain(*args), 3, warm=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": timed(library, 20), "library_call": library_call,
+             "bytes": nbytes, **extra}
+        if bf16 is not None:
+            hargs = [a.to(torch.bfloat16) if a.is_floating_point() else a for a in args]
+            hgot = kern(*hargs)
+            torch.cuda.synchronize()
+            herr = float((hgot.float() - plain(*hargs).float()).abs().max())
+            if hgot.dtype != torch.bfloat16 or not herr <= BF16_TOL:
+                raise AssertionError(f"{name} bf16: {hgot.dtype}, max abs error {herr}")
+            r["bf16_max_abs_err"] = herr
+            r["bf16_tolerance"] = BF16_TOL
+            r["bf16_ms"] = timed(lambda: kern(*hargs), 50)
+        r["kernel_ms"] = r["ms"]
+        log(f"[kernels] {name}: err {err:.3e}, kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {nbytes} B)"
+            + (f", bf16 {r['bf16_ms']:.4f} ms err {r['bf16_max_abs_err']:.3e}"
+               if bf16 is not None else ""))
+        rows_out.append(r)
+
+    # dlrm-qr table 0: K4b, K6, K8
+    cfg = registry.get_dlrm("dlrm-qr")
+    emb = dlrm.make_bags(cfg)[0].emb
+    scale = emb.dim ** -0.5
+    q_rows = qr_embedding._pad_rows(emb.qr_spec.q_rows)         # 31,360
+    q = torch.randn((q_rows, emb.dim), generator=g, device=dev).mul_(scale)
+    r_lut = torch.randn((emb.collision, emb.dim), generator=g, device=dev).mul_(scale)
+    idx = synthetic.zipf_batch(cfg.vocab_per_table, (batch, cfg.pooling), seed=11,
+                               device=dev)
+    q_idx, r_idx = hashing.qr_decompose(idx, emb.collision)
+    slots = min(cfg.cache_slots, cfg.cache_vmem_mb * 2**20 // (emb.dim * 4))
+    slot, top = top_slots(q_idx, q.shape[0], slots)
+    cache = q[top]
+    hit = slot >= 0
+    miss = torch.full_like(slot, -1)
+    two_bags = lambda: (F.embedding_bag(q_idx, q, mode="sum")
+                        + F.embedding_bag(r_idx, r_lut, mode="sum"))
+    shape = {"B": batch, "K": cfg.pooling, "dim": emb.dim, "q_rows": q.shape[0],
+             "r_rows": r_lut.shape[0]}
+    row("cached_qr_bag", cg.cached_qr_bag, ref.cached_qr_bag_ref,
+        (q, cache, r_lut, q_idx, slot, r_idx),
+        replaces="src/repro/kernels/cached_gather.py:123",
+        streams=(q_idx, slot, r_idx),
+        rows_read=unique(q_idx[~hit]) + unique(slot[hit]) + unique(r_idx),
+        out_numel=batch * emb.dim, adds=2 * q_idx.numel() * emb.dim,
+        library=two_bags, library_call="embedding_bag(Q) + embedding_bag(R), all-miss stream",
+        check_library=lambda: cg.cached_qr_bag(q, cache, r_lut, q_idx, miss, r_idx),
+        hit_share=float(hit.float().mean()), shape={**shape, "slots": slots})
+    row("gnr_bag", gb.gnr_bag, ref.gnr_bag_ref, (q, r_lut, q_idx, r_idx),
+        replaces="src/repro/kernels/gnr_bag.py:63", streams=(q_idx, r_idx),
+        rows_read=unique(q_idx) + unique(r_idx), out_numel=batch * emb.dim,
+        adds=2 * q_idx.numel() * emb.dim, library=two_bags,
+        library_call="embedding_bag(Q) + embedding_bag(R)",
+        check_library=lambda: gb.gnr_bag(q, r_lut, q_idx, r_idx), bf16=True, shape=shape)
+    qf, rf = q_idx.reshape(-1), r_idx.reshape(-1)
+    row("qr_gather", qg.qr_gather, ref.qr_lookup_ref, (q, r_lut, qf, rf),
+        replaces="src/repro/kernels/qr_gather.py:42", streams=(qf, rf),
+        rows_read=unique(qf) + unique(rf), out_numel=qf.numel() * emb.dim,
+        adds=qf.numel() * emb.dim,
+        library=lambda: F.embedding(qf, q) + F.embedding(rf, r_lut),
+        library_call="embedding(Q) + embedding(R)",
+        check_library=lambda: qg.qr_gather(q, r_lut, qf, rf), bf16=True,
+        shape={**shape, "N": qf.numel()})
+    del q, r_lut, cache
+
+    # dlrm-dense table 0: K4a, K7
+    cfg = registry.get_dlrm("dlrm-dense")
+    table = torch.randn((cfg.vocab_per_table, cfg.dim), generator=g, device=dev)
+    table.mul_(cfg.dim ** -0.5)
+    idx = synthetic.zipf_batch(cfg.vocab_per_table, (batch, cfg.pooling), seed=12,
+                               device=dev)
+    slot, top = top_slots(idx, table.shape[0], slots)
+    cache = table[top]
+    hit = slot >= 0
+    miss = torch.full_like(slot, -1)
+    one_bag = lambda: F.embedding_bag(idx, table, mode="sum")
+    shape = {"B": batch, "K": cfg.pooling, "dim": cfg.dim, "rows": table.shape[0]}
+    row("cached_bag", cg.cached_bag, ref.cached_bag_ref, (table, cache, idx, slot),
+        replaces="src/repro/kernels/cached_gather.py:82", streams=(idx, slot),
+        rows_read=unique(idx[~hit]) + unique(slot[hit]), out_numel=batch * cfg.dim,
+        adds=idx.numel() * cfg.dim, library=one_bag,
+        library_call="embedding_bag(T), all-miss stream",
+        check_library=lambda: cg.cached_bag(table, cache, idx, miss),
+        hit_share=float(hit.float().mean()), shape={**shape, "slots": slots})
+    row("gnr_bag_dense", gb.gnr_bag_dense, ref.dense_bag_ref, (table, idx),
+        replaces="src/repro/kernels/gnr_bag.py:100", streams=(idx,),
+        rows_read=unique(idx), out_numel=batch * cfg.dim, adds=idx.numel() * cfg.dim,
+        library=one_bag, library_call="embedding_bag(T)",
+        check_library=lambda: gb.gnr_bag_dense(table, idx), shape=shape)
+    del table, cache
+    torch.cuda.empty_cache()
+    return rows_out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -434,21 +610,172 @@ def tt_lookup_check(dev, cfg, batch, state, params, synthetic, tt_embedding, tg,
     return n
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the per-table paths at full width
+# ---------------------------------------------------------------------------
+
+PERTABLE_KERNEL = {"qr": "cached_qr_bag", "dense": "cached_bag", "tt": "tt_bag"}
+
+
+def launches_now(mods) -> dict:
+    return {name: n for m in mods for name, n in m.LAUNCHES.items()}
+
+
+def reset_all(mods) -> None:
+    for m in mods:
+        m.reset_launches()
+
+
+def cached_lookup_run(dev, arch, batch, batches, registry, dlrm, synthetic, qr_embedding,
+                      embedding_bag, engine, mods) -> int:
+    """``cached_lookup`` on table 0 of ``arch`` at full width for ``batches``
+    batches, the scheduler prefetching the next batch between calls;
+    returns the launches of the table's kernel."""
+    cfg = registry.get_dlrm(arch)
+    bag = dlrm.make_bags(cfg)[0]
+    bag = dataclasses.replace(bag, emb=dataclasses.replace(bag.emb,
+                                                           compute_dtype=torch.float32))
+    emb = bag.emb
+    params = qr_embedding.init(emb, generator=torch.Generator(dev).manual_seed(3), device=dev)
+    eng = engine.engine_for(engine.EngineSpec.from_bags([bag], cache_slots=cfg.cache_slots))
+    sched = eng.fresh_schedulers()[0]
+    idx = [synthetic.zipf_batch(cfg.vocab_per_table, (batch, cfg.pooling), seed=20, step=t,
+                                device=dev) for t in range(batches)]
+    rows = [engine.big_rows(i.cpu().numpy(), emb) for i in idx]
+    up = lambda a: torch.from_numpy(a).to(dev)
+    sched.prefetch(rows[0])                                 # cold-start staging
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_all(mods)
+    outs = []
+    for t in range(batches):
+        slot = up(sched.slots_for(rows[t]))
+        outs.append(eng.cached_lookup(params, idx[t], 0, cache_rows=up(sched.cache_rows()),
+                                      slot=slot if slot.shape == idx[t].shape else None))
+        if t + 1 < batches:
+            sched.prefetch(rows[t + 1])                    # the prefetch hook
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_now(mods)
+    kernel = PERTABLE_KERNEL[emb.kind]
+    if counts[kernel] != batches or sum(counts.values()) != batches:
+        raise AssertionError(f"{arch} cached_lookup: launches {counts} for {batches} batches")
+    plain = dataclasses.replace(bag, emb=dataclasses.replace(emb, tt_exec="jnp"))
+    err = max(float((o - embedding_bag.bag_lookup(params, i, plain)).abs().max())
+              for o, i in zip(outs, idx))
+    if not err <= ERR_TOL or not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError(f"{arch} cached_lookup vs bag_lookup: max abs error {err}")
+    log(f"[per-table] {arch} table 0 cached_lookup: {batches} batches of "
+        f"{tuple(idx[0].shape)}, {kernel} launched {counts[kernel]} times, "
+        f"hit rate {sched.stats.hit_rate:.4f}, max |cached - bag_lookup| {err:.3e}, "
+        f"{wall / batches * 1e3:.2f} ms per batch (host scheduler included)")
+    return counts[kernel]
+
+
+def ops_entry_runs(dev, batch, registry, dlrm, synthetic, hashing, qr_embedding, ops,
+                   mods) -> dict:
+    """``ops.qr_lookup`` (K8) on dlrm-qr table 0 and ``ops.gnr_pooled_dense``
+    (K7) on dlrm-dense table 0, once each, against the plain lookups."""
+    out = {}
+    for arch, kernel in (("dlrm-qr", "qr_gather"), ("dlrm-dense", "gnr_bag_dense")):
+        cfg = registry.get_dlrm(arch)
+        emb = dataclasses.replace(dlrm.make_bags(cfg)[0].emb, compute_dtype=torch.float32)
+        params = qr_embedding.init(emb, generator=torch.Generator(dev).manual_seed(4),
+                                   device=dev)
+        idx = synthetic.zipf_batch(cfg.vocab_per_table, (batch, cfg.pooling), seed=21,
+                                   device=dev)
+        reset_all(mods)
+        if kernel == "qr_gather":
+            q_idx, r_idx = hashing.qr_decompose(idx, emb.collision)
+            got = ops.qr_lookup(params["q"], params["r"], q_idx, r_idx)
+            counts = launches_now(mods)
+            expect = qr_embedding.lookup(params, idx, emb)
+        else:
+            got = ops.gnr_pooled_dense(params["table"], idx)
+            counts = launches_now(mods)
+            expect = qr_embedding.lookup(params, idx, emb).sum(dim=-2)
+        err = float((got - expect).abs().max())
+        if counts[kernel] != 1 or sum(counts.values()) != 1 or not err <= ERR_TOL:
+            raise AssertionError(f"ops entry for {kernel}: launches {counts}, error {err}")
+        log(f"[per-table] {arch} ops entry {tuple(idx.shape)} -> {tuple(got.shape)}: "
+            f"{kernel} launched once, max |kernel - plain lookup| {err:.3e}")
+        out[kernel] = counts[kernel]
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def hashed_lookup_run(dev, batch, registry, dlrm, synthetic, embedding_bag, engine,
+                      mods) -> None:
+    """``engine.lookup`` on 26 hashed tables of the dlrm-qr shape: the
+    per-table branch (plain gathers, no kernel), card against CPU."""
+    cfg = registry.get_dlrm("dlrm-qr").replace(embedding_kind="hashed")
+    bags = dlrm.make_bags(cfg)
+    tables = embedding_bag.init_tables(bags, generator=torch.Generator(dev).manual_seed(5),
+                                       device=dev)
+    idx = synthetic.zipf_batch(cfg.vocab_per_table, (batch, cfg.num_tables, cfg.pooling),
+                               seed=22, device=dev)
+    eng = engine.engine_for(engine.EngineSpec.from_bags(bags))
+    reset_all(mods)
+    t0 = time.perf_counter()
+    got = eng.lookup(tables, idx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sum(launches_now(mods).values()) or eng.plan.packed:
+        raise AssertionError("hashed lookup: expected the per-table branch, no kernel")
+    cpu = eng.lookup([{k: v.cpu() for k, v in t.items()} for t in tables], idx.cpu())
+    err = float((got.cpu().float() - cpu.float()).abs().max())
+    if got.shape != (batch, cfg.num_tables, cfg.dim) or not torch.isfinite(got).all() \
+            or err > 2 * BF16_TOL:
+        raise AssertionError(f"hashed lookup: {tuple(got.shape)}, card vs CPU {err}")
+    log(f"[per-table] hashed engine.lookup, {cfg.num_tables} tables of "
+        f"{tables[0]['table'].shape[0]} x {cfg.dim}, {tuple(idx.shape)} -> "
+        f"{tuple(got.shape)} {got.dtype}: card vs CPU max abs diff {err:.3e}, "
+        f"{wall * 1e3:.1f} ms on the card")
+    del tables
+    torch.cuda.empty_cache()
+
+
+def examples_run(mods, quickstart, cache_plan) -> dict:
+    """Both per-table examples on the card: the quickstart launches K6 and
+    K1 once each, the cache walkthrough K4b once per batch."""
+    reset_all(mods)
+    quickstart.main(["--device", "cuda"])
+    counts = launches_now(mods)
+    if counts["gnr_bag"] != 1 or counts["packed_qr_bag"] != 1 or sum(counts.values()) != 2:
+        raise AssertionError(f"quickstart launches {counts}")
+    reset_all(mods)
+    res = cache_plan.main(["--device", "cuda"])
+    n = launches_now(mods)
+    if n["cached_qr_bag"] != res["batches"] or sum(n.values()) != res["batches"]:
+        raise AssertionError(f"cache_plan launches {n} for {res['batches']} batches")
+    log(f"[per-table] examples: quickstart launched {counts}; cache_plan launched "
+        f"cached_qr_bag {n['cached_qr_bag']} times, hit rate {res['hit_rate']:.3f}")
+    return {"gnr_bag": counts["gnr_bag"], "packed_qr_bag": counts["packed_qr_bag"],
+            "cached_qr_bag": n["cached_qr_bag"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import engine
     from repro_torch.configs import registry
     from repro_torch.configs.base import DLRM_SHAPES
+    from repro_torch.core import embedding_bag, hashing, qr_embedding, tt_embedding
     from repro_torch.core import packed_tables as pt
-    from repro_torch.core import tt_embedding
     from repro_torch.data import synthetic
-    from repro_torch.kernels import build, ref
+    from repro_torch.examples import cache_plan, quickstart
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import cached_gather as cg
+    from repro_torch.kernels import gnr_bag as gb
     from repro_torch.kernels import packed_gather as pg
+    from repro_torch.kernels import qr_gather as qg
     from repro_torch.kernels import tt_gather as tg
     from repro_torch.launch import serve_rec
     from repro_torch.models import dlrm
+    mods = (pg, tg, cg, gb, qg)
 
     # the plain versions' products in full fp32, as the kernels compute them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -473,16 +800,32 @@ def main() -> int:
                 log(f"[ptxas] {line.strip()}")
 
     reference_phase(dev, serve_rec, registry, dlrm, synthetic)
+    cached_reference_phase(dev, registry, dlrm, synthetic, qr_embedding, engine)
     batch = DLRM_SHAPES[0].global_batch          # serve_2k: 2048 requests
     kernels = kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, ref)
     kernels += tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref,
                                tt_embedding)
+    kernels += pertable_kernel_phase(dev, batch, registry, dlrm, synthetic, hashing,
+                                     qr_embedding, ref, cg, gb, qg)
     by_name = {k["name"]: k for k in kernels}
     for arch, batches in (("dlrm-qr", 6), ("dlrm-dense", 3), ("dlrm-tt", 6)):
         launches = serve_phase(dev, arch, batch, batches, serve_rec, registry, dlrm,
                                synthetic, pg, tg, tt_embedding)
         for name, n in launches.items():
             by_name[name]["launches"] = n
+    # phase 5: each run's launches add to its kernel's count
+    t0 = time.perf_counter()
+    for arch in ("dlrm-qr", "dlrm-dense", "dlrm-tt"):
+        n = cached_lookup_run(dev, arch, batch, 4, registry, dlrm, synthetic, qr_embedding,
+                              embedding_bag, engine, mods)
+        by_name[PERTABLE_KERNEL[registry.get_dlrm(arch).embedding_kind]]["launches"] += n
+    for name, n in ops_entry_runs(dev, batch, registry, dlrm, synthetic, hashing,
+                                  qr_embedding, ops, mods).items():
+        by_name[name]["launches"] += n
+    hashed_lookup_run(dev, batch, registry, dlrm, synthetic, embedding_bag, engine, mods)
+    for name, n in examples_run(mods, quickstart, cache_plan).items():
+        by_name[name]["launches"] += n
+    log(f"[per-table] phase {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")

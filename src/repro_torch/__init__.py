@@ -8,12 +8,13 @@ The port serves dlrm-qr, dlrm-dense and dlrm-tt end to end
 (``repro_torch.launch.serve_rec.run_pipeline``).  The embedding layer of one
 batch is one launch of a hand-written CUDA kernel (``csrc/packed_gather.cu``
 for QR and dense, ``csrc/tt_bag.cu`` for TT, wrapped by
-``kernels/packed_gather.py``); on CPU tensors the same wrappers take their
-plain PyTorch versions.  Hashed tables wait for the per-table slice and
-raise ``NotImplementedError``.
+``kernels/packed_gather.py``).  The per-table paths run the same way:
+``EmbeddingEngine.cached_lookup`` and ``lookup``, the ``kernels.ops`` bag
+entry points (``kernels/cached_gather.py``, ``gnr_bag.py``,
+``qr_gather.py`` over ``csrc/packed_gather.cu`` and ``csrc/qr_gather.cu``)
+and every embedding kind, hashed included.  On CPU tensors the same
+wrappers take their plain PyTorch versions.  ``repro_torch.examples`` holds
+the quickstart and the cache walkthrough.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
-
-# what every hashed-kind branch raises until the per-table slice
-HASHED_NEXT = "hashed tables: per-table slice"

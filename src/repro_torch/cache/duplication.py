@@ -1,5 +1,4 @@
-"""Subtable duplication planner (port of ``repro.cache.duplication``, dense,
-QR and TT kinds).
+"""Subtable duplication planner (port of ``repro.cache.duplication``).
 
 ProactivePIM duplicates the weight-sharing subtables into every bank group
 so a whole reconstruction completes where the big-table row lives.  The
@@ -17,8 +16,7 @@ from typing import Sequence
 
 import numpy as np
 
-from repro_torch import HASHED_NEXT
-from repro_torch.core import placement
+from repro_torch.core import hashing, placement
 
 DEFAULT_BUDGET = 64 * 2**20
 
@@ -106,9 +104,15 @@ def _table_candidates(bag, counts: np.ndarray, bytes_per_elem: int):
         ]
         folded = placement.fold_counts_tt(counts, spec)
         return smalls, "g2", folded, spec.g2_width * bytes_per_elem, spec.v2, 3
-    if emb.kind == "hashed":
-        raise NotImplementedError(HASHED_NEXT)
     rb = emb.dim * bytes_per_elem
+    if emb.kind == "hashed":
+        # fold logical counts onto physical rows through the k-ary hash
+        rows = emb.physical_hashed_rows
+        hs = hashing.k_ary_hash(np.arange(counts.size), rows, emb.hashed_k)  # (vocab, k)
+        folded = np.bincount(
+            hs.reshape(-1), weights=np.repeat(counts, emb.hashed_k), minlength=rows,
+        ).astype(np.int64)
+        return [], "table", folded, rb, rows, emb.hashed_k
     rows = emb.vocab
     c = np.asarray(counts, dtype=np.int64)
     if c.size < rows:

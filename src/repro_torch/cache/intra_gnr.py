@@ -18,7 +18,6 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch import HASHED_NEXT
 from repro_torch.core import hashing, tt_embedding
 
 
@@ -95,7 +94,9 @@ def subtable_traces(idx: np.ndarray, cfg, *, bytes_per_elem: int = 4) -> dict:
             "g3": (i3, spec.v3, spec.g3_width * bytes_per_elem),
         }
     if cfg.kind == "hashed":
-        raise NotImplementedError(HASHED_NEXT)
+        rows = cfg.physical_hashed_rows
+        hs = hashing.k_ary_hash(idx, rows, cfg.hashed_k)
+        return {"table": (hs.reshape(idx.shape[0], -1), rows, cfg.dim * bytes_per_elem)}
     return {"table": (idx, cfg.vocab, cfg.dim * bytes_per_elem)}
 
 

@@ -3,8 +3,10 @@
 ``params_from_numpy(tree, device)`` turns the params pytree of
 ``repro.models.dlrm.init_dlrm`` — its leaves as numpy arrays, or anything
 ``numpy.asarray`` takes — into the port's params:
-``{"bottom": [...], "top": [...], "tables": [{"q","r"} | {"table"}]}``.
-Both packages then compute on the same weights.
+``{"bottom": [...], "top": [...], "tables": [{"q","r"} | {"table"} |
+{"g1","g2","g3"}]}``; ``tables_from_numpy(tables, device)`` does the same
+for a list of single tables (``embedding_bag.init_tables``'s output).  Both
+packages then compute on the same weights.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def params_from_numpy(tree: dict, device=None) -> dict:
+def tables_from_numpy(tables, device=None) -> list[dict]:
     dev = device_mod.resolve(device)
-    mlp = lambda layers: [{k: _tensor(v, dev) for k, v in p.items()} for p in layers]
-    return {
-        "bottom": mlp(tree["bottom"]),
-        "top": mlp(tree["top"]),
-        "tables": [{k: _tensor(v, dev) for k, v in t.items()} for t in tree["tables"]],
-    }
+    return [{k: _tensor(v, dev) for k, v in t.items()} for t in tables]
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    return {key: tables_from_numpy(tree[key], device)
+            for key in ("bottom", "top", "tables")}

@@ -1,7 +1,12 @@
-"""Quotient-remainder index math (port of ``repro.core.hashing``, QR part).
+"""Weight-sharing index math (port of ``repro.core.hashing``: the
+quotient-remainder split and the hashing trick's universal hash).
 
-``qr_decompose`` takes a numpy array (the host-side planners) or a torch
-tensor (the packed streams) and returns the same kind, int32.
+``qr_decompose``, ``universal_hash`` and ``k_ary_hash`` take a numpy array
+(the host-side planners) or a torch tensor (the lookups) and return the
+same kind, int32.  ``repro`` hashes in uint32 with wrap-around; the port
+computes in int64 and masks to the low 32 bits after every add and
+multiply, which gives the same bits (a product of two 32-bit values may
+wrap int64, but its low 32 bits stay right).
 """
 
 from __future__ import annotations
@@ -10,6 +15,12 @@ import dataclasses
 
 import numpy as np
 import torch
+
+# repro's multiply-shift constants (hashing.py:27-30), as int64
+_MULTIPLIERS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F, 0x165667B1, 0x9E3779B9)
+_SEED_STEP = 0x517CC1B7
+_MIX = 0x2C1B3C6D
+_MASK = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +61,26 @@ def qr_decompose(idx, collision: int):
     else:
         idx = np.asarray(idx).astype(np.int32)
     return idx // collision, idx % collision
+
+
+def universal_hash(idx, buckets: int, seed: int = 0):
+    """Multiply-shift universal hash of int indices into ``[0, buckets)``,
+    bit for bit ``repro``'s uint32 arithmetic; int32 out."""
+    if isinstance(idx, torch.Tensor):
+        h = idx.to(torch.int64)
+    else:
+        h = np.asarray(idx).astype(np.int64)
+    mult = _MULTIPLIERS[seed % len(_MULTIPLIERS)]
+    h = ((h & _MASK) + ((seed * _SEED_STEP) & _MASK)) & _MASK
+    h = (h * mult) & _MASK
+    h = h ^ (h >> 15)
+    h = (h * _MIX) & _MASK
+    h = h ^ (h >> 12)
+    h = h % buckets
+    return h.to(torch.int32) if isinstance(h, torch.Tensor) else h.astype(np.int32)
+
+
+def k_ary_hash(idx, buckets: int, k: int):
+    """k independent hashes per index; shape ``idx.shape + (k,)``."""
+    hs = [universal_hash(idx, buckets, seed=s) for s in range(k)]
+    return torch.stack(hs, dim=-1) if isinstance(hs[0], torch.Tensor) else np.stack(hs, axis=-1)

@@ -12,12 +12,15 @@
 * ``pack_indices`` — logical (B, T, K) bag indices -> globally offset int32
   streams, vectorized over all tables;
 * slot-map helpers translating each table's scheduler state into the packed
-  cache block's coordinates.
+  cache block's coordinates;
+* ``packed_multi_bag_lookup`` — every table's pooled bag in one launch
+  (forward only: the kernels have no backward yet).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -25,6 +28,10 @@ import torch
 
 from repro_torch.core import hashing, qr_embedding, tt_embedding
 from repro_torch.core.embedding_bag import BagConfig
+from repro_torch.kernels import ops
+
+TRAINING_NEXT = ("the port's kernels have no backward yet: gradients through "
+                 "the embedding tables come with the training slice")
 
 
 def _cumsum(sizes: Sequence[int]) -> tuple[int, ...]:
@@ -165,6 +172,16 @@ def build_layout(
     )
 
 
+@functools.lru_cache(maxsize=64)
+def _layout_for(bags: tuple) -> PackedLayout:
+    return build_layout(list(bags))
+
+
+def layout_for(bags: Sequence[BagConfig]) -> PackedLayout:
+    """Cached layout lookup (BagConfig is frozen and hashable)."""
+    return _layout_for(tuple(bags))
+
+
 # ---------------------------------------------------------------------------
 # device-side packing
 # ---------------------------------------------------------------------------
@@ -190,26 +207,28 @@ def concat_with_zero(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([*parts, zero], dim=0)
 
 
-def pack_params(tables: Sequence[dict], layout: PackedLayout) -> dict:
-    """Concatenate per-table params into the packed buffers, in the param
-    dtype (serving packs fp32).  Streamed buffers (big table, QR R, TT G2)
-    get a trailing zero row; the TT outer cores are packed without one."""
+def pack_params(tables: Sequence[dict], layout: PackedLayout, *, dtype=None) -> dict:
+    """Concatenate per-table params into the packed buffers, in ``dtype``
+    (default: the param dtype; serving packs fp32, ``lookup`` the compute
+    dtype).  Streamed buffers (big table, QR R, TT G2) get a trailing zero
+    row; the TT outer cores are packed without one."""
+    cast = lambda key: [t[key] if dtype is None else t[key].to(dtype) for t in tables]
     if layout.kind == "qr":
-        q = concat_with_zero([t["q"] for t in tables])
-        r = concat_with_zero([t["r"] for t in tables])
+        q = concat_with_zero(cast("q"))
+        r = concat_with_zero(cast("r"))
         if q.shape[0] != layout.total_rows + 1 or r.shape[0] != layout.total_small + 1:
             raise ValueError(f"packed shapes {tuple(q.shape)}, {tuple(r.shape)} "
                              f"do not match the layout {layout}")
         return {"q": q, "r": r}
     if layout.kind == "tt":
-        g2 = concat_with_zero([t["g2"] for t in tables])
-        g1 = torch.cat([t["g1"] for t in tables], dim=0)
-        g3 = torch.cat([t["g3"] for t in tables], dim=0)
+        g2 = concat_with_zero(cast("g2"))
+        g1 = torch.cat(cast("g1"), dim=0)
+        g3 = torch.cat(cast("g3"), dim=0)
         if g2.shape[0] != layout.total_rows + 1:
             raise ValueError(f"packed G2 shape {tuple(g2.shape)} does not match "
                              f"the layout {layout}")
         return {"g1": g1, "g2": g2, "g3": g3}
-    table = concat_with_zero([t["table"] for t in tables])
+    table = concat_with_zero(cast("table"))
     if table.shape[0] != layout.total_rows + 1:
         raise ValueError(f"packed shape {tuple(table.shape)} does not match "
                          f"the layout {layout}")
@@ -307,3 +326,51 @@ def packed_cache_rows(
 def dummy_cache(layout: PackedLayout, dtype, device) -> torch.Tensor:
     """1-row zero cache block for cache-less calls (slot map all -1)."""
     return torch.zeros((1, layout.big_width), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# single-card multi-table GnR (the model-forward entry point)
+# ---------------------------------------------------------------------------
+
+def check_no_grad(tables: Sequence[dict]) -> None:
+    """On the card, refuse tables that require grad: the kernels have no
+    backward, so their output would carry no path back to the tables and
+    training would go on with zero embedding gradients and no error.  On the
+    CPU the plain versions are torch ops, and autograd runs through them."""
+    for t in tables:
+        for v in t.values():
+            if v.requires_grad and v.device.type == "cuda":
+                raise NotImplementedError(TRAINING_NEXT)
+
+
+def packed_multi_bag_lookup(tables: Sequence[dict], indices: torch.Tensor,
+                            bags: Sequence[BagConfig], *,
+                            lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """All-tables GnR in one packed launch: ``indices`` (B, T, K) -> (B, T,
+    dim) in the compute dtype.
+
+    Drop-in for ``embedding_bag.multi_bag_lookup`` on packable bag sets:
+    the tables are packed in the compute dtype (bf16: the bf16 entry points
+    of K1 / K3; TT on the card takes fp32 only), with a 1-row zero cache and
+    all-miss slots.  ``lengths`` (B, T) marks ragged bags: positions past a
+    bag's length contribute nothing, and a mean combiner divides by the
+    valid length.
+    """
+    check_no_grad(tables)
+    layout = layout_for(bags)
+    emb = bags[0].emb
+    packed = pack_params(tables, layout, dtype=emb.compute_dtype)
+    streams = pack_indices(indices, layout, lengths=lengths)
+    streams["slot"] = miss_slots(indices)
+    device = indices.device
+    packed["cache"] = dummy_cache(layout, emb.compute_dtype, device)
+    pooled = ops.packed_multi_pooled(packed, streams, kind=layout.kind, dims=layout.tt_dims)
+    if lengths is None:
+        pooled = pooled * combiner_scale(bags, pooled.dtype, device)[None, :, None]
+    else:
+        # mean combiners divide by the valid bag length, not the padded K
+        mean_t = torch.tensor([b.combiner == "mean" for b in bags], device=device)
+        valid = lengths.to(device).clamp(min=1).to(pooled.dtype)
+        denom = torch.where(mean_t[None, :], valid, torch.ones_like(valid))
+        pooled = pooled / denom[..., None]
+    return pooled.to(emb.compute_dtype)

@@ -1,7 +1,12 @@
-"""Weight-sharing embedding configs and init (port of
-``repro.core.qr_embedding``: dense and QR kinds here, TT routed to
-``repro_torch.core.tt_embedding``; the hashed kind waits for the per-table
-slice).
+"""Weight-sharing embedding tables (port of ``repro.core.qr_embedding``):
+dense, hashed (the hashing trick, k-ary) and quotient-remainder kinds here,
+TT routed to ``repro_torch.core.tt_embedding`` through the same ``init`` /
+``lookup`` / ``param_axes`` entry points.
+
+``lookup``, ``materialize`` and ``logits_head`` are plain torch (gathers,
+adds, ``torch.matmul``), as ``repro``'s are jnp: on the card they run
+PyTorch's own gathers; the pooled kernels sit under ``embedding_bag`` and
+``kernels.ops``.
 
 ``init(cfg, generator=..., device=...)`` draws from an explicit
 ``torch.Generator``, so its numbers differ from ``jax.random``'s; the parity
@@ -15,7 +20,6 @@ from typing import Literal
 
 import torch
 
-from repro_torch import HASHED_NEXT
 from repro_torch.core import hashing, tt_embedding
 
 EmbeddingKind = Literal["dense", "hashed", "qr", "tt"]
@@ -80,15 +84,14 @@ def _normal(shape, dtype, generator, device, scale: float) -> torch.Tensor:
 
 def init(cfg: EmbeddingConfig, *, generator: torch.Generator,
          device: torch.device) -> dict:
-    """Random params of one table: dense ``{"table"}``, QR ``{"q", "r"}`` or
-    TT ``{"g1", "g2", "g3"}``."""
+    """Random params of one table: dense and hashed ``{"table"}``, QR
+    ``{"q", "r"}`` or TT ``{"g1", "g2", "g3"}``."""
     if cfg.kind == "tt":
         return tt_embedding.init(cfg, generator=generator, device=device)
-    if cfg.kind == "hashed":
-        raise NotImplementedError(HASHED_NEXT)
     scale = cfg.dim ** -0.5
-    if cfg.kind == "dense":
-        shape = (_pad_rows(cfg.vocab), cfg.dim)
+    if cfg.kind in ("dense", "hashed"):
+        rows = cfg.vocab if cfg.kind == "dense" else cfg.physical_hashed_rows
+        shape = (_pad_rows(rows), cfg.dim)
         return {"table": _normal(shape, cfg.param_dtype, generator, device, scale)}
     spec = cfg.qr_spec
     dim = cfg.dim // 2 if cfg.reconstruction == "concat" else cfg.dim
@@ -99,3 +102,74 @@ def init(cfg: EmbeddingConfig, *, generator: torch.Generator,
     else:
         r = _normal((spec.r_rows, dim), cfg.param_dtype, generator, device, scale)
     return {"q": q, "r": r}
+
+
+def param_axes(cfg: EmbeddingConfig) -> dict:
+    """Logical sharding axes per parameter: ``qrow``/``vocab`` rows are the
+    bank-group partition axis, ``rrow`` the replicated LUT tier."""
+    if cfg.kind in ("dense", "hashed"):
+        return {"table": ("vocab", "embed")}
+    if cfg.kind == "tt":
+        return tt_embedding.param_axes(cfg)
+    return {"q": ("qrow", "embed"), "r": ("rrow", "embed")}
+
+
+# ---------------------------------------------------------------------------
+# lookup
+# ---------------------------------------------------------------------------
+
+def lookup(params: dict, idx: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
+    """Logical-row lookup ``idx -> (..., dim)`` in the compute dtype."""
+    if cfg.kind == "tt":
+        return tt_embedding.lookup(params, idx, cfg)
+    if cfg.kind == "dense":
+        return params["table"].to(cfg.compute_dtype)[idx.long()]
+    if cfg.kind == "hashed":
+        table = params["table"].to(cfg.compute_dtype)
+        hs = hashing.k_ary_hash(idx, cfg.physical_hashed_rows, cfg.hashed_k)
+        return table[hs.long()].sum(dim=-2)
+    q_idx, r_idx = hashing.qr_decompose(idx, cfg.collision)
+    q = params["q"].to(cfg.compute_dtype)[q_idx.long()]
+    r = params["r"].to(cfg.compute_dtype)[r_idx.long()]
+    return reconstruct(q, r, cfg.reconstruction)
+
+
+def reconstruct(q: torch.Tensor, r: torch.Tensor, op: Reconstruction) -> torch.Tensor:
+    if op == "add":
+        return q + r
+    if op == "mul":
+        return q * r
+    if op == "concat":
+        return torch.cat([q, r], dim=-1)
+    raise ValueError(f"unknown reconstruction {op!r}")
+
+
+def _all_rows(cfg: EmbeddingConfig, device) -> torch.Tensor:
+    return torch.arange(cfg.vocab, dtype=torch.int32, device=device)
+
+
+def materialize(params: dict, cfg: EmbeddingConfig) -> torch.Tensor:
+    """The full logical table ``(vocab, dim)`` (tied LM head, test oracle)."""
+    device = next(iter(params.values())).device
+    return lookup(params, _all_rows(cfg, device), cfg)
+
+
+def logits_head(params: dict, x: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
+    """Tied-embedding LM head ``x @ E^T``.  For ``add`` reconstruction,
+    ``logits[v] = x·Q[v//c] + x·R[v%c]``: the products run against the
+    physical tables and expand by gather."""
+    compute = cfg.compute_dtype
+    if cfg.kind == "dense":
+        return (x @ params["table"].to(compute).T)[..., : cfg.vocab]
+    if cfg.kind == "hashed":
+        table = params["table"].to(compute)
+        hs = hashing.k_ary_hash(_all_rows(cfg, x.device), cfg.physical_hashed_rows,
+                                cfg.hashed_k)                       # (vocab, k)
+        small = x @ table.T                                         # (..., rows)
+        return small[..., hs.long()].sum(dim=-1)
+    if cfg.kind == "tt" or cfg.reconstruction != "add" or cfg.head == "materialize":
+        return x @ materialize(params, cfg).T
+    q_idx, r_idx = hashing.qr_decompose(_all_rows(cfg, x.device), cfg.collision)
+    xq = x @ params["q"].to(compute).T                              # (..., q_rows)
+    xr = x @ params["r"].to(compute).T                              # (..., c)
+    return xq[..., q_idx.long()] + xr[..., r_idx.long()]

@@ -1,5 +1,5 @@
 """TT-Rec embedding tables: tensor-train weight sharing (port of
-``repro.core.tt_embedding``, without ``param_axes``).
+``repro.core.tt_embedding``).
 
 A logical table ``(vocab, dim)`` is a 3-core tensor train.  Logical row
 ``i`` splits as ``i -> (i1, i2, i3)`` over vocab factors ``(v1, v2, v3)``
@@ -204,6 +204,12 @@ def init(cfg, *, generator: torch.Generator, device: torch.device) -> dict:
         "g2": normal((spec.g2_rows_padded, spec.g2_width)),
         "g3": normal((spec.v3, spec.g3_width)),
     }
+
+
+def param_axes(cfg) -> dict:
+    """Middle-core rows ride the bank-group partition axis (the Q table's
+    name); the outer cores are the replicated tier (the R LUT's name)."""
+    return {"g1": ("rrow", "embed"), "g2": ("qrow", "embed"), "g3": ("rrow", "embed")}
 
 
 # ---------------------------------------------------------------------------

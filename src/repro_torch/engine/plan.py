@@ -77,6 +77,12 @@ class EmbeddingPlan:
         return self.backend == "packed"
 
     @property
+    def dim_block(self) -> int | None:
+        """``repro``'s TPU lane tile frozen into this plan (checked by the
+        ``ops`` entry points, read by no kernel of the port)."""
+        return self.knobs.dim_block if self.knobs is not None else None
+
+    @property
     def has_cache(self) -> bool:
         return sum(self.slot_budgets) > 0
 

@@ -57,6 +57,10 @@ class EngineSpec:
         return self.bags[0].emb.kind
 
     @classmethod
+    def from_bags(cls, bags, **kw) -> "EngineSpec":
+        return cls(bags=tuple(bags), **kw)
+
+    @classmethod
     def from_dlrm(cls, cfg, *, serving: bool = False, **kw) -> "EngineSpec":
         """Spec for a ``DLRMConfig``.  ``serving=True`` turns on the config's
         cache and duplication policies (the offline pass)."""

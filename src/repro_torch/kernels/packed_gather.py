@@ -10,16 +10,20 @@ kernels in ``csrc/packed_gather.cu`` and ``csrc/tt_bag.cu`` (port of
   (body ``_packed_tt_kernel``); its source is shared with K5
   (``kernels/tt_gather.py``).
 
-K1 and K3 are bound by bytes (one row read per bag element, one add per
-float), K2 by operations (two small products per element).  Dispatch is by
-the tensors' device alone: CUDA tensors launch the kernel, or raise if the
-kernel does not take them; CPU tensors take the plain versions in ``ref``.
-There is no fallback from the card to the plain version.
+``csrc/packed_gather.cu`` holds one body for the whole bag family: this
+module also loads it and checks what it takes for ``cached_gather`` (K4)
+and ``gnr_bag`` (K6, K7).  K1 and K3 are bound by bytes (one row read per
+bag element, one add per value), K2 by operations (two small products per
+element).  Dispatch is by the tensors' device alone: CUDA tensors launch the
+kernel, or raise if the kernel does not take them; CPU tensors take the
+plain versions in ``ref``.  There is no fallback from the card to the plain
+version.
 
-The kernels take fp32 tables (serving packs in the param dtype) and int32
-(G, K) streams; K1 and K3 take ``dim % 4 == 0``; the bf16 variants come with
-training.  ``LAUNCHES`` counts kernel launches per kernel (plain versions do
-not count).
+The bag kernels take float32 or bfloat16 tables (one type per call; the
+output is in that type, summed in fp32), int32 (G, K) streams, any dim, and
+buffers that start on 16 bytes; K2 takes fp32 only (its bf16 variant comes
+with training).  ``LAUNCHES`` counts kernel launches per kernel (plain
+versions do not count).
 """
 
 from __future__ import annotations
@@ -35,9 +39,18 @@ from repro_torch.kernels.ref import packed_bag_ref, packed_qr_bag_ref, packed_tt
 
 SOURCE = "packed_gather"
 LAUNCHES = {"packed_qr_bag": 0, "packed_bag": 0, "packed_tt_bag": 0}
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_INT = ctypes.c_int
+# entry point -> ctypes argument types: pointers, sizes, the stream last
+_ARGS = {
+    "packed_qr_bag": [_P] * 7 + [_I64, _INT, _INT, _I64, _I64, _I64, _P],
+    "packed_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64, _P],
+    "gnr_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64, _P],
+    "gnr_bag_dense": [_P] * 3 + [_I64, _INT, _INT, _I64, _P],
+}
 
 
 def reset_launches() -> None:
@@ -48,38 +61,80 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
-    lib.packed_qr_bag_f32.argtypes = [_P] * 7 + [_I64, ctypes.c_int, ctypes.c_int,
-                                                 _I64, _I64, _I64, _P]
-    lib.packed_qr_bag_f32.restype = ctypes.c_int
-    lib.packed_bag_f32.argtypes = [_P] * 5 + [_I64, ctypes.c_int, ctypes.c_int,
-                                             _I64, _I64, _P]
-    lib.packed_bag_f32.restype = ctypes.c_int
+    for name, args in _ARGS.items():
+        for sfx in SUFFIX.values():
+            fn = getattr(lib, f"{name}_{sfx}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda(buffers: dict, streams: dict) -> tuple[int, int, int]:
-    """Validate what the kernel takes; returns (G, K, dim)."""
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point of ``csrc/packed_gather.cu`` for a table dtype."""
+    return getattr(_lib(), f"{name}_{SUFFIX[dtype]}")
+
+
+def check_cuda(buffers: dict, streams: dict, *, ndim: int = 2
+               ) -> tuple[tuple[int, ...], int, torch.dtype]:
+    """Validate what the bag kernels take; returns (stream shape, dim,
+    table dtype)."""
     shape = None
     for name, s in streams.items():
-        if s.dtype != torch.int32 or s.dim() != 2 or not s.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous int32 (G, K) "
+        if s.dtype != torch.int32 or s.dim() != ndim or not s.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous int32 {ndim}-d "
                              f"streams, got {s.dtype} {tuple(s.shape)}")
         if shape is not None and s.shape != shape:
             raise ValueError(f"stream shapes differ: {tuple(s.shape)} vs {tuple(shape)}")
         shape = s.shape
-    dim = None
+    dim = dtype = None
     for name, b in buffers.items():
-        if b.dtype != torch.float32 or b.dim() != 2 or not b.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous float32 "
+        if b.dtype not in SUFFIX or b.dim() != 2 or not b.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous float32 or bfloat16 "
                              f"(rows, dim) buffers, got {b.dtype} {tuple(b.shape)}")
         if b.data_ptr() % 16:
             raise ValueError(f"{name}: buffer is not 16-byte aligned")
+        if dtype is not None and b.dtype != dtype:
+            raise ValueError(f"buffer dtypes differ: {name} is {b.dtype}, not {dtype}")
         if dim is not None and b.shape[1] != dim:
             raise ValueError(f"buffer widths differ: {name} has {b.shape[1]}, not {dim}")
-        dim = b.shape[1]
-    if dim % 4:
-        raise ValueError(f"dim {dim} is not a multiple of 4 (float4 loads)")
-    return shape[0], shape[1], dim
+        dim, dtype = b.shape[1], b.dtype
+    return tuple(shape), dim, dtype
+
+
+def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_idx
+               ) -> torch.Tensor:
+    """Launch the cached QR bag (K1 on packed buffers, K4b on one table's)
+    on CUDA tensors and count it under ``counts[name]``."""
+    (g, k), dim, dtype = check_cuda({"q_table": q_table, "cache": cache, "r_lut": r_lut},
+                                    {"q_idx": q_idx, "slot": slot, "r_idx": r_idx})
+    dev = q_table.device
+    out = torch.empty((g, dim), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = entry("packed_qr_bag", dtype)(
+            q_table.data_ptr(), cache.data_ptr(), r_lut.data_ptr(),
+            q_idx.data_ptr(), slot.data_ptr(), r_idx.data_ptr(), out.data_ptr(),
+            g, k, dim, q_table.shape[0], cache.shape[0], r_lut.shape[0],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.launched(counts, name, err)
+    return out
+
+
+def run_bag(counts: dict, name: str, table, cache, idx, slot) -> torch.Tensor:
+    """Launch the cached dense bag (K3 on packed buffers, K4a on one
+    table's) on CUDA tensors and count it under ``counts[name]``."""
+    (g, k), dim, dtype = check_cuda({"table": table, "cache": cache},
+                                    {"idx": idx, "slot": slot})
+    dev = table.device
+    out = torch.empty((g, dim), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = entry("packed_bag", dtype)(
+            table.data_ptr(), cache.data_ptr(), idx.data_ptr(), slot.data_ptr(),
+            out.data_ptr(), g, k, dim, table.shape[0], cache.shape[0],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    build.launched(counts, name, err)
+    return out
 
 
 def packed_qr_bag(
@@ -96,18 +151,7 @@ def packed_qr_bag(
     dev = device_mod.of(q_table, cache, r_lut, q_idx, slot, r_idx)
     if dev.type == "cpu":
         return packed_qr_bag_ref(q_table, cache, r_lut, q_idx, slot, r_idx)
-    g, k, dim = _check_cuda({"q_table": q_table, "cache": cache, "r_lut": r_lut},
-                            {"q_idx": q_idx, "slot": slot, "r_idx": r_idx})
-    out = torch.empty((g, dim), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().packed_qr_bag_f32(
-            q_table.data_ptr(), cache.data_ptr(), r_lut.data_ptr(),
-            q_idx.data_ptr(), slot.data_ptr(), r_idx.data_ptr(), out.data_ptr(),
-            g, k, dim, q_table.shape[0], cache.shape[0], r_lut.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.launched(LAUNCHES, "packed_qr_bag", err)
-    return out
+    return run_qr_bag(LAUNCHES, "packed_qr_bag", q_table, cache, r_lut, q_idx, slot, r_idx)
 
 
 def packed_bag(
@@ -116,22 +160,13 @@ def packed_bag(
     """K3: out[g] = Σ_k (slot[g,k] >= 0 ? C[slot] : T[idx]).
 
     table: (total_rows, dim), every table packed (+ zero row); cache:
-    (slots, dim); idx/slot: (G, K) globally offset.  Returns (G, dim).
+    (slots, dim); idx/slot: (G, K) globally offset.  Returns (G, dim) in
+    the table dtype, summed in fp32.
     """
     dev = device_mod.of(table, cache, idx, slot)
     if dev.type == "cpu":
         return packed_bag_ref(table, cache, idx, slot)
-    g, k, dim = _check_cuda({"table": table, "cache": cache},
-                            {"idx": idx, "slot": slot})
-    out = torch.empty((g, dim), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().packed_bag_f32(
-            table.data_ptr(), cache.data_ptr(), idx.data_ptr(), slot.data_ptr(),
-            out.data_ptr(), g, k, dim, table.shape[0], cache.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.launched(LAUNCHES, "packed_bag", err)
-    return out
+    return run_bag(LAUNCHES, "packed_bag", table, cache, idx, slot)
 
 
 def packed_tt_bag(

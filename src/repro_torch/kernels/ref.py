@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the bag kernels (port of ``repro.kernels.ref``:
-the cached and packed bags, and the TT bags).
+the QR gather, the plain, cached and packed bags, and the TT bags).
 
 They are the kernels' oracles: the CPU path runs them, and ``chip_smoke.py``
 and the ``gpu`` tests hold each CUDA kernel against them on the card.  Kept
@@ -12,6 +12,27 @@ body revisits its output block.
 from __future__ import annotations
 
 import torch
+
+
+def qr_lookup_ref(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
+                  r_idx: torch.Tensor) -> torch.Tensor:
+    """Unpooled QR rows: out[n] = Q[q_idx[n]] + R[r_idx[n]], added in the
+    table dtype (no fp32 upcast)."""
+    return q_table[q_idx.long()] + r_lut[r_idx.long()]
+
+
+def gnr_bag_ref(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
+                r_idx: torch.Tensor) -> torch.Tensor:
+    """Pooled QR bag: out[b] = Σ_k ( Q[q_idx[b,k]] + R[r_idx[b,k]] ), fp32
+    accumulation, cast to the table dtype."""
+    rows = q_table[q_idx.long()].float() + r_lut[r_idx.long()].float()
+    return rows.sum(dim=-2).to(q_table.dtype)
+
+
+def dense_bag_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Pooled dense bag: out[b] = Σ_k T[idx[b,k]], fp32 accumulation, cast
+    to the table dtype."""
+    return table[idx.long()].float().sum(dim=-2).to(table.dtype)
 
 
 def _rows(table: torch.Tensor, cache: torch.Tensor, idx: torch.Tensor,

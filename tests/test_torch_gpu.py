@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card, and the CPU-side pieces of their build.
 
 Tests marked ``gpu`` hold K1 ``packed_qr_bag``, K3 ``packed_bag``, K2
-``packed_tt_bag`` and K5 ``tt_bag`` against their plain PyTorch versions on
-the card and serve the smoke configs there;
+``packed_tt_bag``, K5 ``tt_bag`` and the per-table kernels K4a
+``cached_bag``, K4b ``cached_qr_bag``, K6 ``gnr_bag``, K7 ``gnr_bag_dense``
+and K8 ``qr_gather`` against their plain PyTorch versions on the card,
+serve the smoke configs there and run the two per-table examples;
 each decides inside the ``cuda`` fixture whether a card exists, and skips
 without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
@@ -11,7 +13,10 @@ the machine with the card has none.
 Tolerance on the card: rtol = atol = 1e-4 (K fp32 adds of unit-scale rows
 in two different orders, and for TT two fp32 products of rank terms each,
 fused multiply-adds in the kernel; the dlrm-width error measured by
-chip_smoke.py is about 1e-5).
+chip_smoke.py is about 1e-5).  In bf16, kernel and plain version both sum
+in fp32 and round once to bf16; the two fp32 sums may straddle a rounding
+boundary, so they may differ by one bf16 step: rtol = atol = 1e-2 (a step
+is at most 2**-7 of the value).
 """
 
 import dataclasses
@@ -24,12 +29,19 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core import tt_embedding  # noqa: E402
+from repro_torch.core import embedding_bag  # noqa: E402
+from repro_torch.engine import EngineSpec, engine_for  # noqa: E402
+from repro_torch.examples import cache_plan, quickstart  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import cached_gather as cg  # noqa: E402
+from repro_torch.kernels import gnr_bag as gb  # noqa: E402
 from repro_torch.kernels import packed_gather as pg  # noqa: E402
+from repro_torch.kernels import qr_gather as qg  # noqa: E402
 from repro_torch.kernels import tt_gather as tg  # noqa: E402
 from repro_torch.launch import serve_rec  # noqa: E402
 from repro_torch.models import dlrm  # noqa: E402
 from torch_bag_inputs import CASES, bag_inputs, dense_args, qr_args  # noqa: E402
+import torch_pertable_inputs as pti  # noqa: E402
 from torch_tt_inputs import (  # noqa: E402
     CASES as TT_CASES, DLRM_DIMS, SMOKE_DIMS, packed_tt_args, packed_tt_inputs,
     tt_args, tt_inputs,
@@ -209,3 +221,117 @@ def test_gpu_serving_overlap_matches_sequential(cuda, arch):
     for a, b in zip(res["sequential"]["logits"], res["overlap"]["logits"]):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
         assert np.isfinite(a).all()
+
+
+# ---------------------------------------------------------------------------
+# the per-table kernels K4a, K4b, K6, K7, K8
+# ---------------------------------------------------------------------------
+
+PT_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+PT_SHAPES = [
+    dict(lead=(2048,), k=32, dim=128, rows=31_360, r_rows=64, slots=1024),  # dlrm-qr
+    dict(lead=(37,), k=40, dim=640, rows=500, r_rows=17, slots=50),    # K > 32, dim > 128
+    dict(lead=(5, 3), k=3, dim=130, rows=300, r_rows=9, slots=20),     # even, not 4-aligned
+    dict(lead=(9,), k=5, dim=13, rows=64, r_rows=5, slots=8),          # odd dim
+]
+
+
+def _pertable_all(a, to, tt):
+    """Each per-table wrapper and its plain version on the same inputs."""
+    flat = {k: v.reshape(-1) for k, v in a.items() if v.dtype == np.int32}
+    flat_args = lambda: [tt(to(a["table"])), tt(to(a["r_lut"])),
+                         to(flat["idx"]), to(flat["r_idx"])]
+    lead = a["idx"].shape[:-1]
+    two = lambda x: {k: (v.reshape(-1, v.shape[-1]) if v.dtype == np.int32 else v)
+                     for k, v in x.items()}
+    b = two(a)
+    return [
+        ("cached_bag", cg.cached_bag, ref.cached_bag_ref, pti.cached_args(b, to, tt)),
+        ("cached_qr_bag", cg.cached_qr_bag, ref.cached_qr_bag_ref,
+         pti.cached_qr_args(b, to, tt)),
+        ("gnr_bag", gb.gnr_bag, ref.gnr_bag_ref, pti.qr_args(b, to, tt)),
+        ("gnr_bag_dense", gb.gnr_bag_dense, ref.dense_bag_ref, pti.dense_args(b, to, tt)),
+        ("qr_gather", qg.qr_gather, ref.qr_lookup_ref, flat_args()),
+    ], lead
+
+
+def _reset_pertable():
+    cg.reset_launches()
+    gb.reset_launches()
+    qg.reset_launches()
+
+
+def _pertable_launches():
+    return {**cg.LAUNCHES, **gb.LAUNCHES, **qg.LAUNCHES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", range(len(PT_SHAPES)))
+def test_gpu_pertable_kernels_match_plain(cuda, dtype, shape):
+    a = pti.pertable_inputs(seed=shape, **PT_SHAPES[shape])
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    cases, _lead = _pertable_all(a, to, lambda x: x.to(dtype))
+    _reset_pertable()
+    for name, kern, plain, args in cases:
+        got = kern(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), plain(*args).float(), **PT_TOL[dtype],
+                                   msg=lambda m, n=name: f"{n}: {m}")
+    assert _pertable_launches() == {name: 1 for name, *_ in cases}
+
+
+@pytest.mark.gpu
+def test_gpu_pertable_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    a = pti.pertable_inputs(dim=12)
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    cases, _lead = _pertable_all(a, to, lambda x: x)
+    _reset_pertable()
+    for name, kern, _plain, args in cases:
+        s = len(args) - 1                             # an index stream
+        misaligned = torch.empty(args[0].numel() + 3, device=cuda)[3:]
+        misaligned = misaligned.view(args[0].shape).copy_(args[0])   # 12 B past 16
+        bad = [
+            (0, args[0].to(torch.float16), "float32 or bfloat16"),
+            (s, args[s].to(torch.int64), "int32"),
+            (s, args[s].t() if args[s].dim() == 2 else args[s][::2], "int32|shapes"),
+            (1, args[1].cpu(), "different devices"),
+            (0, misaligned, "16-byte aligned"),
+        ]
+        if args[1].is_floating_point():               # a second buffer
+            bad.append((1, args[1].to(torch.bfloat16), "dtypes differ"))
+        for i, val, match in bad:
+            call = list(args)
+            call[i] = val
+            with pytest.raises(ValueError, match=match):
+                kern(*call)
+    assert set(_pertable_launches().values()) == {0}
+
+
+@pytest.mark.gpu
+def test_gpu_lookup_raises_when_tables_require_grad(cuda):
+    bags = dlrm.make_bags(registry.get_dlrm("dlrm-qr-smoke"))
+    gen = torch.Generator(cuda).manual_seed(0)
+    tables = embedding_bag.init_tables(bags, generator=gen, device=cuda)
+    idx = torch.randint(0, bags[0].emb.vocab, (4, len(bags), bags[0].pooling),
+                        device=cuda, dtype=torch.int32)
+    eng = engine_for(EngineSpec.from_bags(bags))
+    eng.lookup(tables, idx)                            # no grad: the kernel runs
+    tables[1]["q"].requires_grad_(True)
+    pg.reset_launches()
+    with pytest.raises(NotImplementedError, match="training"):
+        eng.lookup(tables, idx)
+    assert pg.LAUNCHES["packed_qr_bag"] == 0
+
+
+@pytest.mark.gpu
+def test_gpu_examples_launch_their_kernels(cuda):
+    pg.reset_launches()
+    _reset_pertable()
+    quickstart.main(["--device", "cuda"])
+    assert gb.LAUNCHES["gnr_bag"] == 1 and pg.LAUNCHES["packed_qr_bag"] == 1
+    _reset_pertable()
+    res = cache_plan.main(["--device", "cuda"])
+    assert cg.LAUNCHES["cached_qr_bag"] == res["batches"] == 4

@@ -55,21 +55,24 @@ def test_configs_match(arch):
 
 
 def test_hashed_kind_still_raises():
-    """Hashed tables wait for the per-table slice: every branch says so."""
+    """Hashed tables have only a per-table path: packing them still raises,
+    as ``repro``'s ``packable`` refuses them, while init, the locality trace
+    and the duplication planner now serve them (their numbers against
+    ``repro``'s are in ``test_torch_pertable.py``)."""
     from repro_torch.cache import duplication, intra_gnr
     from repro_torch.core import embedding_bag, qr_embedding
 
     emb = qr_embedding.EmbeddingConfig(vocab=1000, dim=8, kind="hashed")
-    calls = [
-        lambda: qr_embedding.init(emb, generator=torch.Generator(), device="cpu"),
-        lambda: intra_gnr.subtable_traces(np.zeros((2, 4), np.int32), emb),
-        lambda: duplication.plan_duplication([embedding_bag.BagConfig(emb=emb)],
-                                             [np.ones(1000, np.int64)]),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="per-table slice"):
-            call()
-    assert not t_pt.packable([embedding_bag.BagConfig(emb=emb)])
+    bags = [embedding_bag.BagConfig(emb=emb)]
+    assert not t_pt.packable(bags)
+    with pytest.raises(ValueError, match="not uniform enough to pack"):
+        t_pt.build_layout(bags)
+    params = qr_embedding.init(emb, generator=torch.Generator(), device="cpu")
+    assert params["table"].shape == (128, 8)                 # 15 rows, padded
+    trace, rows, _rb = intra_gnr.subtable_traces(np.zeros((2, 4), np.int32), emb)["table"]
+    assert trace.shape == (2, 8) and rows == 15              # k = 2 rows per index
+    plan = duplication.plan_duplication(bags, [np.ones(1000, np.int64)])
+    assert plan.tables[0].hot_plan.num_hot == 15             # every row fits the budget
 
 
 def test_zipf_probs_and_trace_bitwise():
