@@ -12,9 +12,14 @@ for QR and dense, ``csrc/tt_bag.cu`` for TT, wrapped by
 ``EmbeddingEngine.cached_lookup`` and ``lookup``, the ``kernels.ops`` bag
 entry points (``kernels/cached_gather.py``, ``gnr_bag.py``,
 ``qr_gather.py`` over ``csrc/packed_gather.cu`` and ``csrc/qr_gather.cu``)
-and every embedding kind, hashed included.  On CPU tensors the same
-wrappers take their plain PyTorch versions.  ``repro_torch.examples`` holds
-the quickstart and the cache walkthrough.
+and every embedding kind, hashed included.  DLRM trains through
+``EmbeddingEngine.lookup`` (``repro_torch.launch.train``, ``train/``,
+``checkpoint/``): every kernel entry point is differentiable, its backward
+recomputing the plain version.  Attention runs through
+``kernels.ops.flash_attention_fused`` (``csrc/flash_attention.cu``).  On
+CPU tensors the same wrappers take their plain PyTorch versions.
+``repro_torch.examples`` holds the quickstart, the cache walkthrough and
+the DLRM training example.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

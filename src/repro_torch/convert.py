@@ -5,8 +5,10 @@
 ``numpy.asarray`` takes — into the port's params:
 ``{"bottom": [...], "top": [...], "tables": [{"q","r"} | {"table"} |
 {"g1","g2","g3"}]}``; ``tables_from_numpy(tables, device)`` does the same
-for a list of single tables (``embedding_bag.init_tables``'s output).  Both
-packages then compute on the same weights.
+for a list of single tables (``embedding_bag.init_tables``'s output), and
+``opt_state_from_numpy(state, device)`` for ``repro.train.optimizer``'s
+state (``mu`` and ``nu`` shaped like the params, ``step``).  Both packages
+then compute on the same weights and resume from the same optimizer state.
 """
 
 from __future__ import annotations
@@ -32,3 +34,10 @@ def tables_from_numpy(tables, device=None) -> list[dict]:
 def params_from_numpy(tree: dict, device=None) -> dict:
     return {key: tables_from_numpy(tree[key], device)
             for key in ("bottom", "top", "tables")}
+
+
+def opt_state_from_numpy(state: dict, device=None) -> dict:
+    dev = device_mod.resolve(device)
+    return {"mu": params_from_numpy(state["mu"], device),
+            "nu": params_from_numpy(state["nu"], device),
+            "step": _tensor(state["step"], dev)}

@@ -13,8 +13,9 @@
   streams, vectorized over all tables;
 * slot-map helpers translating each table's scheduler state into the packed
   cache block's coordinates;
-* ``packed_multi_bag_lookup`` — every table's pooled bag in one launch
-  (forward only: the kernels have no backward yet).
+* ``packed_multi_bag_lookup`` — every table's pooled bag in one launch,
+  differentiable in the tables (the kernels' chunked plain-version
+  recompute, ``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -29,9 +30,6 @@ import torch
 from repro_torch.core import hashing, qr_embedding, tt_embedding
 from repro_torch.core.embedding_bag import BagConfig
 from repro_torch.kernels import ops
-
-TRAINING_NEXT = ("the port's kernels have no backward yet: gradients through "
-                 "the embedding tables come with the training slice")
 
 
 def _cumsum(sizes: Sequence[int]) -> tuple[int, ...]:
@@ -332,17 +330,6 @@ def dummy_cache(layout: PackedLayout, dtype, device) -> torch.Tensor:
 # single-card multi-table GnR (the model-forward entry point)
 # ---------------------------------------------------------------------------
 
-def check_no_grad(tables: Sequence[dict]) -> None:
-    """On the card, refuse tables that require grad: the kernels have no
-    backward, so their output would carry no path back to the tables and
-    training would go on with zero embedding gradients and no error.  On the
-    CPU the plain versions are torch ops, and autograd runs through them."""
-    for t in tables:
-        for v in t.values():
-            if v.requires_grad and v.device.type == "cuda":
-                raise NotImplementedError(TRAINING_NEXT)
-
-
 def packed_multi_bag_lookup(tables: Sequence[dict], indices: torch.Tensor,
                             bags: Sequence[BagConfig], *,
                             lengths: torch.Tensor | None = None) -> torch.Tensor:
@@ -351,12 +338,12 @@ def packed_multi_bag_lookup(tables: Sequence[dict], indices: torch.Tensor,
 
     Drop-in for ``embedding_bag.multi_bag_lookup`` on packable bag sets:
     the tables are packed in the compute dtype (bf16: the bf16 entry points
-    of K1 / K3; TT on the card takes fp32 only), with a 1-row zero cache and
-    all-miss slots.  ``lengths`` (B, T) marks ragged bags: positions past a
-    bag's length contribute nothing, and a mean combiner divides by the
-    valid length.
+    of K1 / K3 / K2), with a 1-row zero cache and all-miss slots.
+    ``lengths`` (B, T) marks ragged bags: positions past a bag's length
+    contribute nothing, and a mean combiner divides by the valid length.
+    Gradients reach the per-table params through the packing (the training
+    entry, as in ``repro``).
     """
-    check_no_grad(tables)
     layout = layout_for(bags)
     emb = bags[0].emb
     packed = pack_params(tables, layout, dtype=emb.compute_dtype)

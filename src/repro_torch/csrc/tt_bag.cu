@@ -53,11 +53,19 @@
 // Offsets are 64-bit (size_t).  An index outside its buffer traps (a launch
 // fault at the next sync) instead of reading another table's memory.
 //
+// Element types: float32 or bfloat16 cores (one type per call; the training
+// lookup packs in the compute dtype, bf16).  bf16 rows load 4 values in 8
+// bytes and widen exactly to fp32 (the 16 bits become a float's high half);
+// the contraction and the K sum stay fp32, and the output is rounded once to
+// bf16 (round to nearest even), as the Pallas bodies cast their fp32 result
+// to the core dtype.
+//
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for dims it
 // does not take.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,6 +73,33 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kOutPerThread = 8;                  // dim <= 1024
 constexpr size_t kMaxSmem = 232448;               // 227 KB a block
+
+using bf16 = __nv_bfloat16;
+
+// -- core values widened to fp32, outputs rounded once ----------------------
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load1(const bf16* p) {
+  const unsigned short s = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(s) << 16);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = __float2bfloat16(v);  // round to nearest even
+}
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -75,13 +110,13 @@ inline size_t smem_bytes(int d1, int d2, int d3, int rank) {
   return floats * sizeof(float);
 }
 
-template <bool kCached>
+template <typename T, bool kCached>
 __global__ void __launch_bounds__(kThreads)
-tt_bag_kernel(const float* __restrict__ g1, const float* __restrict__ g2,
-              const float* __restrict__ g3, const float* __restrict__ cache,
+tt_bag_kernel(const T* __restrict__ g1, const T* __restrict__ g2,
+              const T* __restrict__ g3, const T* __restrict__ cache,
               const int* __restrict__ i1, const int* __restrict__ i2,
               const int* __restrict__ i3, const int* __restrict__ slot,
-              float* __restrict__ out, int K, int d1, int d2, int d3, int rank,
+              T* __restrict__ out, int K, int d1, int d2, int d3, int rank,
               long long g1_rows, long long g2_rows, long long g3_rows,
               long long cache_rows) {
   extern __shared__ float4 smem4[];
@@ -96,7 +131,7 @@ tt_bag_kernel(const float* __restrict__ g1, const float* __restrict__ g2,
   float* t = c + w3;
   const int tid = threadIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.x) * K;
-  const bool vec = (w2 & 3) == 0;   // rows start 16-byte aligned
+  const bool vec = (w2 & 3) == 0;   // rows start 16 (fp32) or 8 (bf16) bytes aligned
 
   float acc[kOutPerThread];
 #pragma unroll
@@ -111,18 +146,17 @@ tt_bag_kernel(const float* __restrict__ g1, const float* __restrict__ g2,
     if (kCached && s >= cache_rows) __trap();
     if (s < 0 && (r2 < 0 || r2 >= g2_rows)) __trap();
 
-    const float* mrow = s >= 0 ? cache + static_cast<size_t>(s) * w2
-                               : g2 + static_cast<size_t>(r2) * w2;
+    const T* mrow = s >= 0 ? cache + static_cast<size_t>(s) * w2
+                           : g2 + static_cast<size_t>(r2) * w2;
     if (vec) {
-      const float4* src = reinterpret_cast<const float4*>(mrow);
-      for (int i = tid; i < w2 / 4; i += kThreads) smem4[i] = __ldg(src + i);
+      for (int i = tid; i < w2 / 4; i += kThreads) smem4[i] = load4(mrow + 4 * i);
     } else {
-      for (int i = tid; i < w2; i += kThreads) m[i] = __ldg(mrow + i);
+      for (int i = tid; i < w2; i += kThreads) m[i] = load1(mrow + i);
     }
-    const float* arow = g1 + static_cast<size_t>(r1) * w1;
-    const float* crow = g3 + static_cast<size_t>(r3) * w3;
-    for (int i = tid; i < w1; i += kThreads) a[i] = __ldg(arow + i);
-    for (int i = tid; i < w3; i += kThreads) c[i] = __ldg(crow + i);
+    const T* arow = g1 + static_cast<size_t>(r1) * w1;
+    const T* crow = g3 + static_cast<size_t>(r3) * w3;
+    for (int i = tid; i < w1; i += kThreads) a[i] = load1(arow + i);
+    for (int i = tid; i < w3; i += kThreads) c[i] = load1(crow + i);
     __syncthreads();
 
     // t = A (d1 x r) @ M (r x d2*r); element (row, col) lands at row
@@ -149,18 +183,18 @@ tt_bag_kernel(const float* __restrict__ g1, const float* __restrict__ g2,
     __syncthreads();  // the next element overwrites M, A, Cm and t
   }
 
-  float* o = out + static_cast<size_t>(blockIdx.x) * dim;
+  T* o = out + static_cast<size_t>(blockIdx.x) * dim;
 #pragma unroll
   for (int i = 0; i < kOutPerThread; ++i) {
     const int e = tid + i * kThreads;
-    if (e < dim) o[e] = acc[i];
+    if (e < dim) store1(o + e, acc[i]);
   }
 }
 
-template <bool kCached>
-int launch(const float* g1, const float* g2, const float* g3, const float* cache,
+template <typename T, bool kCached>
+int launch(const void* g1, const void* g2, const void* g3, const void* cache,
            const int* i1, const int* i2, const int* i3, const int* slot,
-           float* out, long long num_bags, int K, int d1, int d2, int d3,
+           void* out, long long num_bags, int K, int d1, int d2, int d3,
            int rank, long long g1_rows, long long g2_rows, long long g3_rows,
            long long cache_rows, void* stream) {
   if (d1 <= 0 || d2 <= 0 || d3 <= 0 || rank <= 0 || K < 0 ||
@@ -171,35 +205,44 @@ int launch(const float* g1, const float* g2, const float* g3, const float* cache
   if (num_bags <= 0) return static_cast<int>(cudaGetLastError());
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tt_bag_kernel<kCached>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tt_bag_kernel<T, kCached>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tt_bag_kernel<kCached><<<static_cast<unsigned>(num_bags), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      g1, g2, g3, cache, i1, i2, i3, slot, out, K, d1, d2, d3, rank, g1_rows,
-      g2_rows, g3_rows, cache_rows);
+  tt_bag_kernel<T, kCached><<<static_cast<unsigned>(num_bags), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g1), static_cast<const T*>(g2), static_cast<const T*>(g3),
+      static_cast<const T*>(cache), i1, i2, i3, slot, static_cast<T*>(out), K, d1, d2,
+      d3, rank, g1_rows, g2_rows, g3_rows, cache_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int packed_tt_bag_f32(const float* g1, const float* g2, const float* g3,
-                                 const float* cache, const int* i1, const int* i2,
-                                 const int* i3, const int* slot, float* out,
-                                 long long num_bags, int K, int d1, int d2, int d3,
-                                 int rank, long long g1_rows, long long g2_rows,
-                                 long long g3_rows, long long cache_rows,
-                                 void* stream) {
-  return launch<true>(g1, g2, g3, cache, i1, i2, i3, slot, out, num_bags, K, d1,
-                      d2, d3, rank, g1_rows, g2_rows, g3_rows, cache_rows, stream);
-}
+// K2: packed TT bag, the middle core routed by slot.
+#define PACKED_TT_BAG(SUFFIX, T)                                                       \
+  extern "C" int packed_tt_bag_##SUFFIX(                                               \
+      const void* g1, const void* g2, const void* g3, const void* cache,               \
+      const int* i1, const int* i2, const int* i3, const int* slot, void* out,         \
+      long long num_bags, int K, int d1, int d2, int d3, int rank, long long g1_rows,  \
+      long long g2_rows, long long g3_rows, long long cache_rows, void* stream) {      \
+    return launch<T, true>(g1, g2, g3, cache, i1, i2, i3, slot, out, num_bags, K, d1,  \
+                           d2, d3, rank, g1_rows, g2_rows, g3_rows, cache_rows,        \
+                           stream);                                                    \
+  }
 
-extern "C" int tt_bag_f32(const float* g1, const float* g2, const float* g3,
-                          const int* i1, const int* i2, const int* i3, float* out,
-                          long long num_bags, int K, int d1, int d2, int d3,
-                          int rank, long long g1_rows, long long g2_rows,
-                          long long g3_rows, void* stream) {
-  return launch<false>(g1, g2, g3, nullptr, i1, i2, i3, nullptr, out, num_bags, K,
-                       d1, d2, d3, rank, g1_rows, g2_rows, g3_rows, 0, stream);
-}
+// K5: one table's TT bag, every access reads G2.
+#define TT_BAG(SUFFIX, T)                                                              \
+  extern "C" int tt_bag_##SUFFIX(                                                      \
+      const void* g1, const void* g2, const void* g3, const int* i1, const int* i2,    \
+      const int* i3, void* out, long long num_bags, int K, int d1, int d2, int d3,     \
+      int rank, long long g1_rows, long long g2_rows, long long g3_rows,               \
+      void* stream) {                                                                  \
+    return launch<T, false>(g1, g2, g3, nullptr, i1, i2, i3, nullptr, out, num_bags,   \
+                            K, d1, d2, d3, rank, g1_rows, g2_rows, g3_rows, 0, stream); \
+  }
+
+PACKED_TT_BAG(f32, float)
+PACKED_TT_BAG(bf16, bf16)
+TT_BAG(f32, float)
+TT_BAG(bf16, bf16)

@@ -1,5 +1,5 @@
-"""Criteo-like long-tail traces and DLRM request batches (port of
-``repro.data.synthetic``, DLRM part).
+"""Criteo-like long-tail traces, DLRM request and training batches, and the
+restart-safe batch pipeline (port of ``repro.data.synthetic``, DLRM part).
 
 ``zipf_probs`` / ``zipf_trace`` are numpy and copied verbatim, so both
 packages plan from the same traces bit for bit.  ``dlrm_batch`` draws on an
@@ -10,6 +10,9 @@ Zipf density, then a multiplicative shuffle) is the same, and
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -85,3 +88,61 @@ def dlrm_batch(
     labels = (torch.rand((batch,), generator=generator(seed, step, 4, device),
                          device=device) < 0.25).to(torch.float32)
     return {"dense": dense, "idx": idx, "labels": labels}
+
+
+def dlrm_truth(cfg: DLRMConfig, *, dim: int = 8, seed: int = 99, device="cpu") -> torch.Tensor:
+    """Ground-truth item embeddings (vocab, dim) for planted-structure CTR
+    labels: standard normal draws times 0.5, from a generator seeded with
+    ``seed``."""
+    g = generator(seed, 0, 5, device)
+    return torch.randn((cfg.vocab_per_table, dim), generator=g, device=device) * 0.5
+
+
+def dlrm_planted_batch(
+    cfg: DLRMConfig, truth: torch.Tensor, batch: int, *, seed: int = 0, step: int = 0,
+    alpha: float = 1.05, device="cpu",
+) -> dict:
+    """A CTR batch whose labels come from a planted embedding model, so the
+    loss is learnable and AUC against it measures model quality: score =
+    mean over ``truth``'s dim of the sum of the batch's truth rows, plus 0.1
+    x the dense features' sum; label ~ Bernoulli(sigmoid(score - mean))."""
+    dense = torch.randn((batch, cfg.num_dense), generator=generator(seed, step, 3, device),
+                        device=device, dtype=torch.float32)
+    idx = zipf_batch(
+        cfg.vocab_per_table, (batch, cfg.num_tables, cfg.pooling),
+        alpha=alpha, seed=seed, step=step, device=device,
+    )
+    score = truth.to(device)[idx.long()].sum(dim=(1, 2)).mean(dim=-1) + 0.1 * dense.sum(dim=-1)
+    prob = torch.sigmoid(score - score.mean())
+    u = torch.rand((batch,), generator=generator(seed, step, 4, device), device=device)
+    return {"dense": dense, "idx": idx, "labels": (u < prob).to(torch.float32)}
+
+
+@dataclasses.dataclass
+class Pipeline:
+    """Deterministic, restart-safe batch iterator.
+
+    ``state()`` is the cursor a checkpoint keeps; ``seek`` resumes from it.
+    A worker of a multi-worker launch takes its own ``shard`` of
+    ``num_shards`` and makes only its slice, the same on every retry."""
+
+    make_batch: Callable
+    seed: int = 0
+    step: int = 0
+    shard: int = 0
+    num_shards: int = 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        b = self.make_batch(seed=self.seed * self.num_shards + self.shard, step=self.step)
+        self.step += 1
+        return b
+
+    def state(self) -> dict:
+        return {"seed": self.seed, "step": self.step}
+
+    def seek(self, state: dict) -> None:
+        self.seed = int(state["seed"])
+        self.step = int(state["step"])

@@ -11,8 +11,8 @@
   embedding layer is ONE kernel launch (``ops.packed_multi_pooled``).
 
 PyTorch runs eagerly, so the port has no counterpart of ``repro``'s
-plan-keyed jit.  The kernels have no backward yet: on the card, ``lookup``
-refuses tables that require grad.
+plan-keyed jit.  ``lookup`` is the training entry: gradients reach the
+tables through the kernels' plain-version recompute (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ class EmbeddingEngine:
                lengths: torch.Tensor | None = None) -> torch.Tensor:
         """All-tables GnR, (B, T, K) indices -> (B, T, dim) in the compute
         dtype.  Packed plans make one launch (``packed_multi_bag_lookup``);
-        per-table plans run the semantic loop.  Forward only on the card."""
-        packed_tables.check_no_grad(tables)
+        per-table plans run the semantic loop.  Differentiable in the
+        tables: DLRM training runs through it."""
         if self.plan.packed:
             return packed_tables.packed_multi_bag_lookup(tables, indices, self.bags,
                                                          lengths=lengths)

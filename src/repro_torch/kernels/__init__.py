@@ -12,8 +12,11 @@
   (``csrc/qr_gather.cu``);
 * ``tt_gather``     — K5 ``tt_bag``, one table's pooled TT bag
   (``csrc/tt_bag.cu``);
+* ``flash_attention`` — K9 ``flash_fwd``, online-softmax GQA attention
+  (``csrc/flash_attention.cu``), and ``flash_mha``, its differentiable form;
 * ``ref``           — the plain versions (CPU path and on-card oracles);
 * ``ops``           — the entry points: ``packed_multi_pooled``, the
-  per-table bags, ``qr_lookup``, ``tt_pooled_auto`` / ``tt_lookup``;
+  per-table bags, ``qr_lookup``, ``tt_pooled_auto`` / ``tt_lookup``,
+  ``flash_attention_fused``; each differentiable (plain-version recompute);
 * ``build``         — ``nvcc`` build at first use, ctypes load.
 """

@@ -2,8 +2,9 @@
 launch for every table's pooled bag (``packed_multi_pooled``, kinds ``qr``,
 ``dense`` and ``tt``), the per-table bags (``gnr_pooled`` K6,
 ``gnr_pooled_dense`` K7, ``cached_pooled`` K4a, ``cached_qr_pooled`` K4b),
-the unpooled QR gather ``qr_lookup`` (K8), and the TT bag entry points
-``tt_pooled_auto`` and ``tt_lookup`` (K5).
+the unpooled QR gather ``qr_lookup`` (K8), the TT bag entry points
+``tt_pooled_auto`` and ``tt_lookup`` (K5), and attention,
+``flash_attention_fused`` (K9).
 
 The streams may carry any leading shape (..., K) (``qr_lookup``: any shape
 (...,)); they are flattened to the kernels' (G, K) / (N,) layout and the
@@ -12,15 +13,82 @@ output restored to (..., dim).  The device of the tensors picks the kernel
 tile: an explicit one is checked against ``repro``'s ladder and raises
 ``ValueError`` where ``repro`` does; the CUDA kernels take every dim and do
 not read it.
+
+Every entry is differentiable in its tables, as ``repro``'s kernel paths are
+through their reference-recompute vjps (``repro/kernels/ops.py:135-159,
+359-442``): the forward is the kernel, the backward recomputes the plain
+version in ``ref`` and differentiates it (no kernel has a backward kernel,
+in ``repro`` either).  The index streams get no gradient.  The recompute
+runs over chunks of bags whose gathered rows stay near ``RECOMPUTE_BYTES``,
+and the chunks' table gradients are summed in fp32: the result is linear in
+the bags, so only the order of summation changes.  Without the chunks the
+TT recompute at dlrm-tt's training batch (8,192 x 26 bags of 32) would
+gather one 8 KiB G2 row per element: ~56 GB.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import cached_gather, gnr_bag, packed_gather, qr_gather, ref
-from repro_torch.kernels import tt_gather
+from repro_torch.kernels import flash_attention, tt_gather
 from repro_torch.tune import knobs
+
+RECOMPUTE_BYTES = 1 << 30      # fp32 rows a recompute chunk may gather
+
+
+class _KernelRecompute(torch.autograd.Function):
+    """Kernel forward; the backward recomputes the plain version over
+    chunks of the streams' leading dim and sums the buffers' gradients."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, streams, row_width, *buffers):
+        ctx.plain, ctx.streams, ctx.row_width = plain, streams, row_width
+        ctx.save_for_backward(*buffers)
+        out = kernel(*buffers, *streams)
+        ctx.out_dtype = out.dtype                  # the table dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        buffers = ctx.saved_tensors
+        need = [i for i, b in enumerate(buffers) if ctx.needs_input_grad[4 + i]]
+        grads = [None] * len(buffers)
+        if not need:
+            return (None, None, None, None, *grads)
+        ct = ct.to(ctx.out_dtype)        # repro casts the cotangent to the table dtype
+        lead = ctx.streams[0].shape[0]
+        per_bag = ctx.streams[0][:1].numel() * ctx.row_width * 4
+        chunk = max(1, RECOMPUTE_BYTES // max(per_bag, 1))
+        sums = None
+        for lo in range(0, lead, chunk):
+            leaves = [b.detach().requires_grad_(i in need) for i, b in enumerate(buffers)]
+            with torch.enable_grad():
+                out = ctx.plain(*leaves, *(s[lo:lo + chunk] for s in ctx.streams))
+                part = torch.autograd.grad(out, [leaves[i] for i in need], ct[lo:lo + chunk])
+            if lead <= chunk:
+                sums = part                          # one chunk: nothing to add
+            elif sums is None:
+                sums = [g.float() for g in part]
+            else:
+                for acc, g in zip(sums, part):
+                    acc += g
+        for i, acc in zip(need, sums or [torch.zeros_like(buffers[i]) for i in need]):
+            grads[i] = acc.to(buffers[i].dtype)
+        return (None, None, None, None, *grads)
+
+
+def _diff(kernel, plain, buffers: tuple, streams: tuple, row_width: int,
+          **kw) -> torch.Tensor:
+    """``kernel(*buffers, *streams, **kw)`` with the plain version's
+    chunked-recompute gradient in the buffers; ``row_width`` is the widest
+    row one stream element gathers (it sizes the chunks)."""
+    if kw:
+        kernel = functools.partial(kernel, **kw)
+        plain = functools.partial(plain, **kw)
+    return _KernelRecompute.apply(kernel, plain, streams, row_width, *buffers)
 
 
 def _flat(s: torch.Tensor) -> torch.Tensor:
@@ -44,7 +112,8 @@ def qr_lookup(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
               r_idx: torch.Tensor, *, dim_block: int | None = None) -> torch.Tensor:
     """Unpooled QR rows for any index shape (...,) -> (..., dim): K8."""
     _check_dim_block(q_table.shape[1], dim_block)
-    out = qr_gather.qr_gather(q_table, r_lut, q_idx.reshape(-1), r_idx.reshape(-1))
+    out = _diff(qr_gather.qr_gather, ref.qr_lookup_ref, (q_table, r_lut),
+                (q_idx.reshape(-1), r_idx.reshape(-1)), q_table.shape[1])
     return out.reshape(*q_idx.shape, out.shape[-1])
 
 
@@ -52,7 +121,8 @@ def gnr_pooled(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
                r_idx: torch.Tensor, *, dim_block: int | None = None) -> torch.Tensor:
     """Pooled QR bag for index shape (..., K) -> (..., dim): K6."""
     _check_dim_block(q_table.shape[1], dim_block)
-    out = gnr_bag.gnr_bag(q_table, r_lut, _flat(q_idx), _flat(r_idx))
+    out = _diff(gnr_bag.gnr_bag, ref.gnr_bag_ref, (q_table, r_lut),
+                (_flat(q_idx), _flat(r_idx)), q_table.shape[1])
     return out.reshape(*q_idx.shape[:-1], out.shape[-1])
 
 
@@ -60,7 +130,8 @@ def gnr_pooled_dense(table: torch.Tensor, idx: torch.Tensor, *,
                      dim_block: int | None = None) -> torch.Tensor:
     """Pooled dense bag for index shape (..., K) -> (..., dim): K7."""
     _check_dim_block(table.shape[1], dim_block)
-    out = gnr_bag.gnr_bag_dense(table, _flat(idx))
+    out = _diff(gnr_bag.gnr_bag_dense, ref.dense_bag_ref, (table,), (_flat(idx),),
+                table.shape[1])
     return out.reshape(*idx.shape[:-1], out.shape[-1])
 
 
@@ -71,7 +142,8 @@ def cached_pooled(table: torch.Tensor, cache: torch.Tensor, idx: torch.Tensor,
     ``cache`` is the prefetch scheduler's staged block; ``slot`` its
     per-access routing (-1 = miss -> the table row)."""
     _check_dim_block(table.shape[1], dim_block)
-    out = cached_gather.cached_bag(table, cache, _flat(idx), _flat(slot))
+    out = _diff(cached_gather.cached_bag, ref.cached_bag_ref, (table, cache),
+                (_flat(idx), _flat(slot)), table.shape[1])
     return out.reshape(*idx.shape[:-1], out.shape[-1])
 
 
@@ -80,8 +152,8 @@ def cached_qr_pooled(q_table: torch.Tensor, cache: torch.Tensor, r_lut: torch.Te
                      dim_block: int | None = None) -> torch.Tensor:
     """Cached pooled QR bag for index shape (..., K) -> (..., dim): K4b."""
     _check_dim_block(q_table.shape[1], dim_block)
-    out = cached_gather.cached_qr_bag(q_table, cache, r_lut, _flat(q_idx), _flat(slot),
-                                      _flat(r_idx))
+    out = _diff(cached_gather.cached_qr_bag, ref.cached_qr_bag_ref, (q_table, cache, r_lut),
+                (_flat(q_idx), _flat(slot), _flat(r_idx)), q_table.shape[1])
     return out.reshape(*q_idx.shape[:-1], out.shape[-1])
 
 
@@ -91,26 +163,25 @@ def packed_multi_pooled(params: dict, streams: dict, *, kind: str,
     "r"}, tt {"g1", "g2", "g3", "cache"}; ``streams``: globally offset int32
     (..., K) streams — dense {"idx", "slot"}, qr {"q_idx", "slot", "r_idx"},
     tt {"i1", "i2", "i3", "slot"}; ``dims`` = (d1, d2, d3, rank) for tt.
-    Returns (..., dim)."""
+    Returns (..., dim); differentiable in the packed buffers (the training
+    lookup), ``repro``'s ``_packed_{qr,dense,tt}_diff``."""
     if kind == "qr":
         lead = streams["q_idx"].shape[:-1]
-        out = packed_gather.packed_qr_bag(
-            params["q"], params["cache"], params["r"],
-            _flat(streams["q_idx"]), _flat(streams["slot"]), _flat(streams["r_idx"]),
-        )
+        out = _diff(packed_gather.packed_qr_bag, ref.packed_qr_bag_ref,
+                    (params["q"], params["cache"], params["r"]),
+                    (_flat(streams["q_idx"]), _flat(streams["slot"]),
+                     _flat(streams["r_idx"])), params["q"].shape[1])
     elif kind == "dense":
         lead = streams["idx"].shape[:-1]
-        out = packed_gather.packed_bag(
-            params["table"], params["cache"],
-            _flat(streams["idx"]), _flat(streams["slot"]),
-        )
+        out = _diff(packed_gather.packed_bag, ref.packed_bag_ref,
+                    (params["table"], params["cache"]),
+                    (_flat(streams["idx"]), _flat(streams["slot"])), params["table"].shape[1])
     elif kind == "tt":
         lead = streams["i1"].shape[:-1]
-        out = packed_gather.packed_tt_bag(
-            params["g1"], params["g2"], params["g3"], params["cache"],
-            _flat(streams["i1"]), _flat(streams["i2"]), _flat(streams["i3"]),
-            _flat(streams["slot"]), dims=dims,
-        )
+        out = _diff(packed_gather.packed_tt_bag, ref.packed_tt_bag_ref,
+                    (params["g1"], params["g2"], params["g3"], params["cache"]),
+                    (_flat(streams["i1"]), _flat(streams["i2"]), _flat(streams["i3"]),
+                     _flat(streams["slot"])), params["g2"].shape[1], dims=dims)
     else:
         raise ValueError(f"packed_multi_pooled: unsupported kind {kind!r}")
     return out.reshape(*lead, out.shape[-1])
@@ -122,14 +193,16 @@ def tt_pooled_auto(g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
                    ) -> torch.Tensor:
     """Pooled TT bag for index shape (..., K) -> (..., dim), dispatched by
     the config's ``tt_exec``: ``"pallas"`` is the TT-bag kernel K5 (its plain
-    version on CPU tensors), ``"jnp"`` always the plain version (the names
-    are ``repro``'s)."""
+    version on CPU tensors), differentiable in the cores as ``repro``'s
+    ``_tt_pooled_diff``; ``"jnp"`` always the plain version (the names are
+    ``repro``'s)."""
     if exec_mode == "jnp":
         return ref.tt_bag_ref(g1, g2, g3, i1, i2, i3, dims=dims)
     if exec_mode != "pallas":
         raise ValueError(f"tt_pooled_auto: unknown exec_mode {exec_mode!r}")
     lead = i1.shape[:-1]
-    out = tt_gather.tt_bag(g1, g2, g3, _flat(i1), _flat(i2), _flat(i3), dims=dims)
+    out = _diff(tt_gather.tt_bag, ref.tt_bag_ref, (g1, g2, g3),
+                (_flat(i1), _flat(i2), _flat(i3)), g2.shape[1], dims=dims)
     return out.reshape(*lead, out.shape[-1])
 
 
@@ -139,6 +212,16 @@ def tt_lookup(g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
     """Unpooled TT rows for any index shape (...,) -> (..., dim): K5 with
     K = 1 per lookup."""
     shape = i1.shape
-    out = tt_gather.tt_bag(g1, g2, g3, i1.reshape(-1, 1), i2.reshape(-1, 1),
-                           i3.reshape(-1, 1), dims=dims)
+    out = _diff(tt_gather.tt_bag, ref.tt_bag_ref, (g1, g2, g3),
+                (i1.reshape(-1, 1), i2.reshape(-1, 1), i3.reshape(-1, 1)), g2.shape[1],
+                dims=dims)
     return out.reshape(*shape, out.shape[-1])
+
+
+def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True) -> torch.Tensor:
+    """Attention through the kernel K9 with a blockwise-recompute backward.
+
+    q: (B, H, Sq, D); k/v: (B, KH, Skv, D); GQA via KH | H; the causal mask
+    is top-left aligned (query i sees key j iff i >= j)."""
+    return flash_attention.flash_mha(q, k, v, causal)

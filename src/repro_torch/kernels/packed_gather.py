@@ -19,11 +19,10 @@ kernel, or raise if the kernel does not take them; CPU tensors take the
 plain versions in ``ref``.  There is no fallback from the card to the plain
 version.
 
-The bag kernels take float32 or bfloat16 tables (one type per call; the
-output is in that type, summed in fp32), int32 (G, K) streams, any dim, and
-buffers that start on 16 bytes; K2 takes fp32 only (its bf16 variant comes
-with training).  ``LAUNCHES`` counts kernel launches per kernel (plain
-versions do not count).
+The bag kernels and K2 take float32 or bfloat16 tables (one type per call;
+the output is in that type, summed in fp32), int32 (G, K) streams, any dim
+(K2: dims up to 1,024), and buffers that start on 16 bytes.  ``LAUNCHES``
+counts kernel launches per kernel (plain versions do not count).
 """
 
 from __future__ import annotations
@@ -179,18 +178,18 @@ def packed_tt_bag(
     g1: (T*v1, d1*r) / g3: (T*v3, r*d3), every table's outer cores packed;
     g2: (total_v2_rows, r*d2*r), the middle cores packed (+ zero row);
     cache: (slots, r*d2*r) staged G2 rows; i1/i2/i3/slot: (G, K) globally
-    offset.  ``dims`` = (d1, d2, d3, rank).  Returns (G, d1*d2*d3) in the G2
-    dtype, contracted and summed in fp32.
+    offset.  ``dims`` = (d1, d2, d3, rank).  Returns (G, d1*d2*d3) in the
+    core dtype, contracted and summed in fp32.
     """
     dev = device_mod.of(g1, g2, g3, cache, i1, i2, i3, slot)
     if dev.type == "cpu":
         return packed_tt_bag_ref(g1, g2, g3, cache, i1, i2, i3, slot, dims=dims)
-    g, k = tt_gather.check_cuda({"g1": g1, "g2": g2, "g3": g3, "cache": cache},
-                                {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
+    g, k, dtype = tt_gather.check_cuda({"g1": g1, "g2": g2, "g3": g3, "cache": cache},
+                                       {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
     d1, d2, d3, rank = dims
-    out = torch.empty((g, d1 * d2 * d3), dtype=torch.float32, device=dev)
+    out = torch.empty((g, d1 * d2 * d3), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
-        err = tt_gather.lib().packed_tt_bag_f32(
+        err = tt_gather.entry("packed_tt_bag", dtype)(
             g1.data_ptr(), g2.data_ptr(), g3.data_ptr(), cache.data_ptr(),
             i1.data_ptr(), i2.data_ptr(), i3.data_ptr(), slot.data_ptr(),
             out.data_ptr(), g, k, d1, d2, d3, rank,

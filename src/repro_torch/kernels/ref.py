@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the bag kernels (port of ``repro.kernels.ref``:
-the QR gather, the plain, cached and packed bags, and the TT bags).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``:
+the QR gather, the plain, cached and packed bags, the TT bags, and
+attention).
 
 They are the kernels' oracles: the CPU path runs them, and ``chip_smoke.py``
 and the ``gpu`` tests hold each CUDA kernel against them on the card.  Kept
@@ -121,3 +122,46 @@ def packed_tt_bag_ref(
     Outer-core indices are packed rows (t*v1 + i1, t*v3 + i3)."""
     rows = _tt_rows(g1, _rows(g2, cache, i2, slot), g3, i1, i3, dims)
     return _sum_k(rows).to(g2.dtype)
+
+
+NEG_INF = -1e30
+
+
+def flash_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """The attention kernel K9's plain version: full-matrix fp32 softmax with
+    GQA.  q (B, H, Sq, D) widened to fp32 and scaled by D^-1/2, k and v
+    (B, KH, Skv, D) widened to fp32; the causal mask is the kernel's, top-left
+    aligned (query i sees key j iff i >= j), masked scores NEG_INF.  Returns
+    (B, H, Sq, D) in q's dtype."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float() * d ** -0.5, kk.transpose(-1, -2))
+    if causal:
+        pos_q = torch.arange(sq, device=q.device)[:, None]
+        pos_k = torch.arange(skv, device=q.device)[None, :]
+        s = s.masked_fill(pos_q < pos_k, NEG_INF)
+    return torch.matmul(torch.softmax(s, dim=-1), vv).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """``repro``'s attention oracle, verbatim: scale in q's dtype, fp32
+    softmax with GQA, and a causal mask aligned bottom-right
+    (``tril(k=skv-sq)``), unlike the kernel's top-left mask; the two agree
+    only when Sq == Skv."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    g = h // kh
+    kk = k.repeat_interleave(g, dim=1)
+    vv = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q * d ** -0.5, kk.transpose(-1, -2)).float()
+    if causal:
+        mask = torch.tril(torch.ones((sq, skv), dtype=torch.bool, device=q.device),
+                          diagonal=skv - sq)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype), vv)

@@ -1,10 +1,14 @@
-"""DLRM — the paper's own model family (port of ``repro.models.dlrm``, the
-serving head).
+"""DLRM — the paper's own model family (port of ``repro.models.dlrm``,
+single card).
 
 Dense features -> bottom MLP; sparse features -> the packed embedding bags
 (``repro_torch.engine``); pairwise-dot interaction; top MLP -> CTR logit.
 The head runs in the config's compute dtype (bf16), as ``repro``'s does;
 its products are ``torch.matmul``, as ``repro`` left them to XLA.
+``forward_dlrm`` is the training forward (the embedding layer through
+``EmbeddingEngine.lookup``, differentiable); ``forward_from_pooled`` the
+serving head; ``bce_loss`` and ``auc`` the training loss and the quality
+metric.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from repro_torch.configs.base import DLRMConfig
 from repro_torch.core import embedding_bag
 from repro_torch.core.embedding_bag import BagConfig
 from repro_torch.core.qr_embedding import EmbeddingConfig
+from repro_torch.engine import EngineSpec, engine_for
 
 
 def make_bags(cfg: DLRMConfig) -> list[BagConfig]:
@@ -96,3 +101,35 @@ def forward_from_pooled(params: dict, dense: torch.Tensor, pooled: torch.Tensor,
     z = interact(bottom.to(cfg.cdtype), pooled.to(cfg.cdtype))
     top_in = torch.cat([bottom, z], dim=-1)
     return _mlp_fwd(params["top"], top_in, cfg.cdtype)[:, 0].to(torch.float32)
+
+
+def forward_dlrm(params: dict, dense: torch.Tensor, idx: torch.Tensor,
+                 cfg: DLRMConfig) -> torch.Tensor:
+    """dense: (B, num_dense) fp; idx: (B, T, pooling) int -> CTR logits (B,)
+    fp32.  The embedding layer is the memoised engine's ``lookup`` on the
+    per-table params (one packed kernel launch on packable sets), the
+    single-card branch of ``repro``'s ``inline_gnr``."""
+    pooled = engine_for(EngineSpec.from_bags(make_bags(cfg))).lookup(params["tables"], idx)
+    return forward_from_pooled(params, dense, pooled, cfg)
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy with logits (labels in {0, 1}), fp32, in
+    ``repro``'s form: mean(max(x, 0) - x*y + log1p(exp(-|x|)))."""
+    logits = logits.float()
+    labels = labels.float()
+    return torch.mean(torch.clamp(logits, min=0.0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def auc(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Rank-based AUC (Mann-Whitney); ties ranked in a stable order, as
+    ``repro``'s argsort does."""
+    order = torch.argsort(logits, stable=True)
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(1, logits.numel() + 1, device=logits.device)
+    pos = labels > 0.5
+    n_pos = pos.sum()
+    n_neg = labels.numel() - n_pos
+    sum_pos = torch.where(pos, ranks, torch.zeros_like(ranks)).sum()
+    return (sum_pos - n_pos * (n_pos + 1) / 2) / torch.clamp(n_pos * n_neg, min=1)

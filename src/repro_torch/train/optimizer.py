@@ -1,0 +1,105 @@
+"""AdamW with fp32 state, schedules and global-norm clipping (port of
+``repro.train.optimizer``).
+
+Plain tensor operations on the params' nesting (``repro_torch.tree``), not
+``torch.optim``: the defaults and the arithmetic are ``repro``'s — beta2
+0.95, weight decay on every leaf, fp32 moments and step count, and low
+precision params updated through an fp32 round trip.  ``update`` is
+functional, as ``repro``'s: it returns new params and state and leaves its
+arguments as they were.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch import tree
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    schedule: str = "cosine"          # cosine | linear | constant
+
+
+def init(params) -> dict:
+    """Zero fp32 moments shaped like the params, and step 0 (int32)."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    leaf = tree.leaves(params)[0]
+    return {
+        "mu": tree.tree_map(zeros, params),
+        "nu": tree.tree_map(zeros, params),
+        "step": torch.zeros((), dtype=torch.int32, device=leaf.device),
+    }
+
+
+def learning_rate(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up, then cosine, linear or constant decay, in fp32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    if cfg.schedule == "constant":
+        decay = torch.ones_like(step)
+    else:
+        t = torch.clamp((step - cfg.warmup_steps)
+                        / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+        if cfg.schedule == "linear":
+            decay = 1.0 - (1.0 - cfg.min_lr_ratio) * t
+        else:  # cosine
+            decay = cfg.min_lr_ratio + (1.0 - cfg.min_lr_ratio) * 0.5 * (
+                1.0 + torch.cos(math.pi * t))
+    return cfg.lr * warm * decay
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared fp32 entries, leaves summed
+    in ``repro``'s order."""
+    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads))
+    return torch.sqrt(sq)
+
+
+def clip_by_global_norm(grads, clip: float):
+    """Scale every leaf by min(1, clip / max(norm, 1e-12)); returns (grads,
+    norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return tree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def update(params, grads, state: dict, cfg: OptConfig):
+    """One AdamW step.  Returns (new_params, new_state, {"lr", "grad_norm"})."""
+    grads = tree.tree_map(lambda g: g.to(torch.float32), grads)
+    if cfg.clip_norm > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+
+    step = state["step"] + 1
+    lr = learning_rate(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    stepf = step.to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.full_like(stepf, b1), stepf)
+    c2 = 1.0 - torch.pow(torch.full_like(stepf, b2), stepf)
+    new_mu = tree.tree_map(lambda g, m: b1 * m + (1 - b1) * g, grads, state["mu"])
+    new_nu = tree.tree_map(lambda g, v: b2 * v + (1 - b2) * torch.square(g), grads,
+                           state["nu"])
+
+    def leaf(p, m2, v2):
+        upd = (m2 / c1) / (torch.sqrt(v2 / c2) + cfg.eps)
+        pf = p.to(torch.float32)
+        pf = pf - lr * (upd + cfg.weight_decay * pf)
+        return pf.to(p.dtype)
+
+    new_params = tree.tree_map(leaf, params, new_mu, new_nu)
+    return new_params, {"mu": new_mu, "nu": new_nu, "step": step}, {"lr": lr,
+                                                                     "grad_norm": gnorm}

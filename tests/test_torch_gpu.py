@@ -1,9 +1,12 @@
 """The port's CUDA kernels on the card, and the CPU-side pieces of their build.
 
 Tests marked ``gpu`` hold K1 ``packed_qr_bag``, K3 ``packed_bag``, K2
-``packed_tt_bag``, K5 ``tt_bag`` and the per-table kernels K4a
-``cached_bag``, K4b ``cached_qr_bag``, K6 ``gnr_bag``, K7 ``gnr_bag_dense``
-and K8 ``qr_gather`` against their plain PyTorch versions on the card,
+``packed_tt_bag``, K5 ``tt_bag`` (fp32 and bf16), the per-table kernels
+K4a ``cached_bag``, K4b ``cached_qr_bag``, K6 ``gnr_bag``, K7
+``gnr_bag_dense`` and K8 ``qr_gather``, and the attention kernel K9
+``flash_fwd`` against their plain PyTorch versions on the card; hold the
+gradients of the training entries (the kernels' forward, the plain
+versions' recompute backward) and of ``flash_mha`` against plain autograd;
 serve the smoke configs there and run the two per-table examples;
 each decides inside the ``cuda`` fixture whether a card exists, and skips
 without one.  Run them on the card with
@@ -33,6 +36,8 @@ from repro_torch.core import embedding_bag  # noqa: E402
 from repro_torch.engine import EngineSpec, engine_for  # noqa: E402
 from repro_torch.examples import cache_plan, quickstart  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import cached_gather as cg  # noqa: E402
 from repro_torch.kernels import gnr_bag as gb  # noqa: E402
 from repro_torch.kernels import packed_gather as pg  # noqa: E402
@@ -54,6 +59,11 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+# one bf16 step (2**-7 of the value) between two fp32 sums rounded once each
+PT_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +172,8 @@ def test_gpu_tt_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     to = lambda x: torch.from_numpy(x).to(cuda)
     args = packed_tt_args(a, to)
     bad = [
-        (1, args[1].to(torch.bfloat16), "float32"),
+        (1, args[1].to(torch.float16), "float32 or bfloat16"),
+        (1, args[1].to(torch.bfloat16), "dtypes differ"),
         (5, args[5].to(torch.int64), "int32"),
         (7, args[7][:, :4].contiguous(), "stream shapes"),
         (3, args[3][:, :32].contiguous(), "width"),
@@ -179,7 +190,7 @@ def test_gpu_tt_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="exceeds"):
         pg.packed_tt_bag(*args, dims=(8, 8, 32, 1))
     one = tt_args(tt_inputs(dims=SMOKE_DIMS), to)
-    for i, val, match in [(0, one[0].to(torch.bfloat16), "float32"),
+    for i, val, match in [(0, one[0].to(torch.float16), "float32 or bfloat16"),
                           (3, one[3].to(torch.int64), "int32"),
                           (2, one[2][:, :4].contiguous(), "width")]:
         call = list(one)
@@ -187,6 +198,30 @@ def test_gpu_tt_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         with pytest.raises(ValueError, match=match):
             tg.tt_bag(*call, dims=SMOKE_DIMS)
     assert pg.LAUNCHES["packed_tt_bag"] == 0 and tg.LAUNCHES["tt_bag"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TT_CASES)
+@pytest.mark.parametrize("shape", range(len(TT_SHAPES)))
+def test_gpu_tt_kernels_bf16_match_plain(cuda, case, shape):
+    kw = dict(TT_SHAPES[shape])
+    dims = kw["dims"]
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    half = lambda args: [a.to(torch.bfloat16) if a.is_floating_point() else a for a in args]
+    args = half(packed_tt_args(packed_tt_inputs(case, seed=shape, **kw), to))
+    one = half(tt_args(tt_inputs(dims=dims, v1=kw["v1"], v2=kw["v2"], v3=kw["v3"],
+                                 b=kw["g"], k=kw["k"], seed=shape), to))
+    pg.reset_launches()
+    tg.reset_launches()
+    got = pg.packed_tt_bag(*args, dims=dims)
+    got5 = tg.tt_bag(*one, dims=dims)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES["packed_tt_bag"] == 1 and tg.LAUNCHES["tt_bag"] == 1
+    assert got.dtype == got5.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.packed_tt_bag_ref(*args, dims=dims).float(),
+                               **PT_TOL[torch.bfloat16])
+    torch.testing.assert_close(got5.float(), ref.tt_bag_ref(*one, dims=dims).float(),
+                               **PT_TOL[torch.bfloat16])
 
 
 @pytest.mark.gpu
@@ -227,8 +262,6 @@ def test_gpu_serving_overlap_matches_sequential(cuda, arch):
 # the per-table kernels K4a, K4b, K6, K7, K8
 # ---------------------------------------------------------------------------
 
-PT_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-          torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 PT_SHAPES = [
     dict(lead=(2048,), k=32, dim=128, rows=31_360, r_rows=64, slots=1024),  # dlrm-qr
     dict(lead=(37,), k=40, dim=640, rows=500, r_rows=17, slots=50),    # K > 32, dim > 128
@@ -311,22 +344,6 @@ def test_gpu_pertable_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-def test_gpu_lookup_raises_when_tables_require_grad(cuda):
-    bags = dlrm.make_bags(registry.get_dlrm("dlrm-qr-smoke"))
-    gen = torch.Generator(cuda).manual_seed(0)
-    tables = embedding_bag.init_tables(bags, generator=gen, device=cuda)
-    idx = torch.randint(0, bags[0].emb.vocab, (4, len(bags), bags[0].pooling),
-                        device=cuda, dtype=torch.int32)
-    eng = engine_for(EngineSpec.from_bags(bags))
-    eng.lookup(tables, idx)                            # no grad: the kernel runs
-    tables[1]["q"].requires_grad_(True)
-    pg.reset_launches()
-    with pytest.raises(NotImplementedError, match="training"):
-        eng.lookup(tables, idx)
-    assert pg.LAUNCHES["packed_qr_bag"] == 0
-
-
-@pytest.mark.gpu
 def test_gpu_examples_launch_their_kernels(cuda):
     pg.reset_launches()
     _reset_pertable()
@@ -335,3 +352,224 @@ def test_gpu_examples_launch_their_kernels(cuda):
     _reset_pertable()
     res = cache_plan.main(["--device", "cuda"])
     assert cg.LAUNCHES["cached_qr_bag"] == res["batches"] == 4
+
+
+# ---------------------------------------------------------------------------
+# K9: attention
+# ---------------------------------------------------------------------------
+
+# fp32: the kernel and the plain version sum the scores, the softmax and p.v
+# in different orders (measured ~1e-6); repro's own flash tolerance
+FLASH_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5), torch.bfloat16: PT_TOL[torch.bfloat16]}
+FLASH_SEQS = [(1, 1), (1, 127), (127, 1), (127, 127), (1, 4096), (127, 4096),
+              (4096, 127), (4096, 4096)]
+
+
+def _qkv(cuda, b, h, kh, sq, skv, d, dtype, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda).to(dtype)
+    return mk(b, h, sq, d), mk(b, kh, skv, d), mk(b, kh, skv, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 80])
+@pytest.mark.parametrize("group,kv_heads", [(1, 2), (6, 2), (48, 1)])
+def test_gpu_flash_matches_plain(cuda, dtype, d, group, kv_heads):
+    fa.reset_launches()
+    n = 0
+    for sq, skv in FLASH_SEQS:
+        for causal in (True, False):
+            q, k, v = _qkv(cuda, 1, group * kv_heads, kv_heads, sq, skv, d, dtype, seed=sq)
+            got = fa.flash_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            n += 1
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(
+                got.float(), ref.flash_fwd_ref(q, k, v, causal=causal).float(),
+                **FLASH_TOL[dtype], msg=lambda m: f"Sq {sq} Skv {skv} causal {causal}: {m}")
+    assert fa.LAUNCHES["flash_fwd"] == n
+
+
+@pytest.mark.gpu
+def test_gpu_flash_odd_head_dim_and_wide_head(cuda):
+    """D % 4 != 0 takes the scalar loads; D 256 the widest bucket."""
+    for d, dtype in ((13, torch.float32), (13, torch.bfloat16), (256, torch.float32)):
+        q, k, v = _qkv(cuda, 2, 4, 2, 100, 300, d, dtype)
+        for causal in (True, False):
+            got = fa.flash_fwd(q, k, v, causal=causal)
+            torch.testing.assert_close(got.float(),
+                                       ref.flash_fwd_ref(q, k, v, causal=causal).float(),
+                                       **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_gpu_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 16, 16, 64, torch.float32)
+    fa.reset_launches()
+    bad = [
+        ((q.half(), k.half(), v.half()), "float32 or bfloat16"),
+        ((q, k.to(torch.bfloat16), v), "dtypes differ"),
+        ((q, k[:, :1].repeat(1, 3, 1, 1), v[:, :1].repeat(1, 3, 1, 1)), "multiple"),
+        ((q, k.cpu(), v.cpu()), "different devices"),
+        ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v), "contiguous"),
+        (_qkv(cuda, 1, 2, 1, 4, 4, 260, torch.float32), "exceeds"),
+    ]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            fa.flash_fwd(*args)
+    assert fa.LAUNCHES["flash_fwd"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_mha_grads_match_plain_autograd(cuda, causal):
+    q, k, v = _qkv(cuda, 2, 6, 2, 256, 384, 64, torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    w = torch.randn_like(q)
+    fa.reset_launches()
+    (fa.flash_mha(*leaves, causal) * w).sum().backward()
+    assert fa.LAUNCHES["flash_fwd"] == 1
+    (ref.flash_fwd_ref(*plain, causal=causal) * w).sum().backward()
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernels' forward, the plain versions' recompute backward
+# ---------------------------------------------------------------------------
+
+def _bf16_exact(t: torch.Tensor) -> torch.Tensor:
+    """A cotangent whose values bf16 holds exactly, so a bf16 output's
+    gradient carries no rounding of its own."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bag_cases(a, t2, one, dims):
+    """(kernel, entry, plain, buffers, streams, kw) for K1, K3, K2, K5."""
+    packed = lambda kind, bufs, streams: (
+        lambda *x, **kw: ops.packed_multi_pooled(
+            dict(zip(bufs, x[:len(bufs)])), dict(zip(streams, x[len(bufs):])), kind=kind,
+            **kw))
+    return [
+        ("packed_qr_bag", packed("qr", ("q", "cache", "r"), ("q_idx", "slot", "r_idx")),
+         ref.packed_qr_bag_ref, a[:3], a[3:], {}),
+        ("packed_bag", packed("dense", ("table", "cache"), ("idx", "slot")),
+         ref.packed_bag_ref, [a[0], a[1]], [a[3], a[4]], {}),
+        ("packed_tt_bag", packed("tt", ("g1", "g2", "g3", "cache"), ("i1", "i2", "i3", "slot")),
+         ref.packed_tt_bag_ref, t2[:4], t2[4:], {"dims": dims}),
+        ("tt_bag", lambda *x, **kw: ops.tt_pooled_auto(*x, exec_mode="pallas", **kw),
+         ref.tt_bag_ref, one[:3], one[3:], {"dims": dims}),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(4))
+def test_gpu_bag_kernel_grads_match_plain(cuda, dtype, case):
+    """Gradients through K1, K3, K2 and K5 (the ops entries: kernel forward,
+    chunked plain-version recompute backward) equal autograd through the
+    plain versions on the same card tensors; the forward launches the
+    kernel once and the backward launches none."""
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    cast = lambda xs: [x.to(dtype) if x.is_floating_point() else x for x in xs]
+    a = cast(qr_args(bag_inputs("mixed", **GPU_SHAPES[0]), to))
+    t2 = cast(packed_tt_args(packed_tt_inputs("mixed", **TT_SHAPES[0]), to))
+    one = cast(tt_args(tt_inputs(dims=DLRM_DIMS, v1=38, v2=1408, v3=38, b=512, k=32), to))
+    name, fn, plain, bufs, streams, kw = _bag_cases(a, t2, one, DLRM_DIMS)[case]
+    lhs = [b.clone().requires_grad_(True) for b in bufs]
+    rhs = [b.clone().requires_grad_(True) for b in bufs]
+    pg.reset_launches()
+    tg.reset_launches()
+    out = fn(*lhs, *streams, **kw)
+    w = _bf16_exact(torch.randn(out.shape, device=cuda))
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    assert {**pg.LAUNCHES, **tg.LAUNCHES}[name] == 1
+    assert sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values()) == 1
+    (plain(*rhs, *streams, **kw).float() * w).sum().backward()
+    for x, y in zip(lhs, rhs):
+        assert x.grad.dtype == dtype
+        torch.testing.assert_close(x.grad.float(), y.grad.float(), **PT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_gpu_tt_lookup_gradients_reach_the_cores(cuda):
+    """tt_embedding.lookup with tt_exec="pallas" runs K5 on the card; with
+    cores that require grad its gradients equal the plain contraction's
+    (before the autograd backward, the kernel's output had no path back to
+    the cores and the gradients were silently missing)."""
+    emb = dataclasses.replace(dlrm.make_bags(registry.get_dlrm("dlrm-tt-smoke"))[0].emb,
+                              tt_exec="pallas")
+    params = tt_embedding.init(emb, generator=torch.Generator(cuda).manual_seed(0),
+                               device=cuda)
+    idx = torch.randint(0, emb.vocab, (16, 8), device=cuda, dtype=torch.int32)
+    got = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    want = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    tg.reset_launches()
+    out = tt_embedding.lookup(got, idx, emb)
+    assert tg.LAUNCHES["tt_bag"] == 1 and out.requires_grad
+    w = _bf16_exact(torch.randn(out.shape, device=cuda))
+    (out.float() * w).sum().backward()
+    plain = tt_embedding.lookup(want, idx, dataclasses.replace(
+        emb, compute_dtype=torch.float32, tt_exec="jnp"))
+    (plain * w).sum().backward()
+    for k in params:
+        assert got[k].grad is not None and float(got[k].grad.abs().max()) > 0
+        torch.testing.assert_close(got[k].grad, want[k].grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_training_entries_grads_match_the_cpu(cuda, arch, dtype):
+    """engine.lookup (packed_multi_bag_lookup: one launch of K1/K3/K2) and
+    multi_bag_lookup (bag_lookup per table; K5 for TT) on the card, in the
+    compute dtype ``dtype``, against the same calls on the CPU in fp32,
+    where every kernel is its plain version: equal outputs and table
+    gradients.  The reference is fp32: the CPU's bf16 scatter-add rounds at
+    every add.  Tolerance: fp32 1e-4; bf16 outputs 2e-2 (rounded to bf16
+    once), bf16 gradients 2e-2 of each leaf's largest entry (each
+    contribution is rounded to bf16 before the sum, and a TT core's
+    gradient, bilinear in the other cores, sums terms of both signs)."""
+    cfg = registry.get_dlrm(arch)
+
+    def bags_in(dt):
+        return [dataclasses.replace(b, emb=dataclasses.replace(b.emb, compute_dtype=dt,
+                                                               tt_exec="pallas"))
+                for b in dlrm.make_bags(cfg)]
+
+    tables = embedding_bag.init_tables(bags_in(dtype), generator=torch.Generator().manual_seed(0),
+                                       device="cpu")
+    idx = torch.randint(0, cfg.vocab_per_table, (16, cfg.num_tables, cfg.pooling),
+                        generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    w = _bf16_exact(torch.randn((16, cfg.num_tables, cfg.dim),
+                                generator=torch.Generator().manual_seed(2)))
+    tol = PT_TOL[torch.float32] if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    expect_launches = {"lookup": 1,
+                       "multi_bag_lookup": cfg.num_tables if cfg.embedding_kind == "tt" else 0}
+    for name, kernel_launches in expect_launches.items():
+        res = {}
+        for where, dt in (("cpu", torch.float32), (cuda, dtype)):
+            bags = bags_in(dt)
+            run = (engine_for(EngineSpec.from_bags(bags)).lookup if name == "lookup" else
+                   lambda t, i, b=bags: embedding_bag.multi_bag_lookup(t, i, b))
+            tabs = [{k: v.detach().to(where).requires_grad_(True) for k, v in t.items()}
+                    for t in tables]
+            pg.reset_launches()
+            tg.reset_launches()
+            out = run(tabs, idx.to(where))
+            (out.float() * w.to(where)).sum().backward()
+            launches = sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values())
+            res[str(where)] = (out.float().cpu(), [v.grad.cpu() for t in tabs
+                                                   for _k, v in sorted(t.items())], launches)
+        (o_cpu, g_cpu, n_cpu), (o_gpu, g_gpu, n_gpu) = res["cpu"], res[str(cuda)]
+        assert n_cpu == 0 and n_gpu == kernel_launches, name
+        torch.testing.assert_close(o_gpu, o_cpu, **tol, msg=lambda m: f"{name}: {m}")
+        for a, b in zip(g_gpu, g_cpu):
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{name} grad: {m}")
+            else:
+                err, scale = float((a - b).abs().max()), float(b.abs().max())
+                assert err <= 2e-2 * scale, f"{name} grad: {err} of {scale}"
