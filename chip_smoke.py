@@ -5,7 +5,10 @@
 Phases, each one failing the script if it fails:
 
 1. build every CUDA source of ``src/repro_torch/csrc`` with ``nvcc`` (all
-   started together) and print the ``-Xptxas -v`` summary;
+   started together), print the ``-Xptxas -v`` summary and the count of
+   tensor-core instructions (``HGMMA``, ``HMMA``) of each K9 and K2/K5 body
+   in the built libraries' SASS (``cuobjdump -sass``), failing if K9's bf16
+   body has none;
 2. reference: serve dlrm-qr-smoke, dlrm-dense-smoke and dlrm-tt-smoke on the
    card and on the CPU (the kernels' plain versions) with the same weights
    and batches; the logits agree; ``EmbeddingEngine.cached_lookup`` on one
@@ -20,7 +23,10 @@ Phases, each one failing the script if it fails:
    K = 1) and pooled (2,048 x 32); hold each against its plain PyTorch
    version on the same inputs (max abs error <= 1e-4, TF32 off), and time
    kernel, plain version and, where one exists, the one PyTorch call that
-   computes the same function (``embedding_bag``) with CUDA events; then
+   computes the same function (``embedding_bag``) with CUDA events (K2 and
+   K5: the whole wrapper call, sort, contraction and K sum, beside the
+   body that ran, the batch's distinct middle-core rows and elements per
+   row, the scratch round trip's floor and the earlier body's time); then
    the per-table kernels at one full-width table's shapes: K4b
    ``cached_qr_bag``, K6 ``gnr_bag`` and K8 ``qr_gather`` on dlrm-qr table 0
    (Q 31,360 x 128, R 64 x 128; (2,048, 32) bags, K4b's cache the batch's
@@ -53,7 +59,8 @@ Phases, each one failing the script if it fails:
    a 4,096 cache, each in fp32 and bf16, then one backward (blockwise
    recompute) against plain autograd; every output held against K9's plain
    version (bf16 by the one-rounding rule of phase 3) and timed beside its
-   bound and ``scaled_dot_product_attention``;
+   bound, ``scaled_dot_product_attention`` and the earlier body's time, each
+   case naming its body (fp32 on the CUDA cores, bf16 on the tensor cores);
 7. training: 4 steps each of dlrm-qr and dlrm-tt at full width and of
    dlrm-dense at 200,000 rows per table, batch 8,192 (train_8k), through
    ``train_step.make_train_step``: finite losses and gradient norms, one
@@ -88,10 +95,47 @@ FP32_FLOP_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_S = 989e12          # H100 SXM dense bf16 tensor cores
 ERR_TOL = 1e-4
 BF16_TOL = 1e-2      # card and CPU each round an fp32 sum to bf16 once
+# the previous bodies' times on an NVIDIA H100 80GB HBM3 at 700 W, ranges
+# over calls (PERF.md, kernel table): K9 and K2/K5 before their redesign.
+# Printed in the log lines beside this run's times, never in the kernels line
+EARLIER_MS = {
+    "flash_fwd": {"float32": [8.2697, 8.3049], "bfloat16": [8.2338, 8.2617]},
+    "packed_tt_bag": [8.3476, 8.5560], "packed_tt_bag_bf16": [32.9784, 33.2118],
+    "tt_bag": [0.3442, 0.3700], "tt_bag_bf16": [0.3348, 0.3379],
+}
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# the kernel function of each body in the built libraries' SASS
+SASS_KERNEL = {("flash", torch.float32): "flash_kernel", ("flash", torch.bfloat16): "flash_tc_kernel",
+               ("tt", torch.float32): "tt_rows_kernel<float>",
+               ("tt", torch.bfloat16): "tt_rows_kernel<bf16>"}
+_MANGLED = {"flash_kernel": "12flash_kernelI", "flash_tc_kernel": "15flash_tc_kernelI",
+            "tt_rows_kernel<float>": "14tt_rows_kernelIf",
+            "tt_rows_kernel<bf16>": "14tt_rows_kernelI13__nv_bfloat16"}
+
+
+def tensor_core_sass(build) -> dict:
+    """HGMMA and HMMA instructions in the built libraries (``cuobjdump
+    -sass``), summed over each body's instances: the proof that K9's bf16
+    body runs on the tensor cores (the script fails if it has none; the
+    K2/K5 bodies compute in fp32 on the CUDA cores in both types)."""
+    out = {}
+    for src, kind in (("flash_attention", "flash"), ("tt_bag", "tt")):
+        counts = build.sass_counts(src)
+        out[src] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = SASS_KERNEL[kind, dtype]
+            out[src][name] = {op: sum(c[op] for fn, c in counts.items() if _MANGLED[name] in fn)
+                              for op in ("HGMMA", "HMMA")}
+            log(f"[sass] {src}.cu {name}: {out[src][name]}")
+    tc = out["flash_attention"][SASS_KERNEL["flash", torch.bfloat16]]
+    if tc["HGMMA"] + tc["HMMA"] <= 0:
+        raise AssertionError("flash_attention: the bf16 body has no tensor-core instruction")
+    return out
 
 
 def timed(fn, reps: int, warm: int = 2) -> float:
@@ -373,8 +417,42 @@ def chunked(fn, cores, streams, dims, chunk: int = 4096):
                       for i in range(0, g, chunk)])
 
 
+def tt_rows(i2: torch.Tensor, slot, cache_rows: int) -> tuple[int, int]:
+    """(distinct middle-core rows, elements) of a TT bag's streams: the
+    sources the sorted-run body stages, a cache slot or a G2 row each."""
+    key = i2.reshape(-1).long()
+    if slot is not None:
+        key = torch.where(slot.reshape(-1) >= 0, slot.reshape(-1).long(), key + cache_rows)
+    return unique(key), key.numel()
+
+
+def tt_design(tg, dtype, sass: dict, rows: tuple[int, int]) -> dict:
+    """The TT row's design keys: the body that ran, its tensor-core
+    instructions in the built library, and the batch's distinct middle-core
+    rows and elements per row."""
+    distinct, elements = rows
+    return {"body": tg.BODY[dtype], "sass": sass["tt_bag"][SASS_KERNEL["tt", dtype]],
+            "distinct_middle_rows": distinct, "elements": elements,
+            "elements_per_row": elements / max(distinct, 1)}
+
+
+def scratch_floor_ms(values: int) -> float:
+    """The sorted-run body's own floor: its fp32 scratch written once and
+    read once at the HBM rate (for the log, beside the bound)."""
+    return 2 * values * 4 / BW_BYTES_S * 1e3
+
+
+def fmt_range(r) -> str:
+    return f"{r[0]:.4f}-{r[1]:.4f}"
+
+
+def fmt_design(k: dict) -> str:
+    return (f"body {k['body']}, SASS {k['sass']}, {k['distinct_middle_rows']} distinct middle "
+            f"rows, {k['elements_per_row']:.1f} elements a row")
+
+
 def tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref, tt_embedding,
-                    *, dtype=torch.float32) -> list[dict]:
+                    sass: dict, *, dtype=torch.float32) -> list[dict]:
     """K2 on the packed streams and cache block its path gives it
     (``staged``) and K5 on one table's cores as ``tt_embedding.lookup``
     calls it (65,536 lookups of K = 1) and pooled (2,048 x 32); each held
@@ -421,9 +499,12 @@ def tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref, tt_e
                   "dims": list(dims), "dtype": str(dtype).replace("torch.", "")},
     }
     k2["kernel_ms"] = k2["ms"]
-    log(f"[kernels] {k2['name']}: {fmt_err(checked)}, kernel {k2['ms']:.4f} ms, "
-        f"plain {k2['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{nbytes} B), hit share {k2['hit_share']:.3f}")
+    k2.update(tt_design(tg, dtype, sass, tt_rows(s["i2"], s["slot"], cache.shape[0])))
+    floor = scratch_floor_ms(got.shape[0] * s["slot"].shape[1] * spec.dim)
+    log(f"[kernels] {k2['name']}: {fmt_err(checked)}, kernel {k2['ms']:.4f} ms "
+        f"(earlier {fmt_range(EARLIER_MS[k2['name']])} ms), plain {k2['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes} B), scratch floor {floor:.4f} "
+        f"ms, hit share {k2['hit_share']:.3f}; {fmt_design(k2)}")
     del got, packed, cache, args, s
 
     # K5 on table 0's cores: the lookup path (K = 1) and one pooled batch
@@ -444,7 +525,8 @@ def tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref, tt_e
                                   elem=elem, flop_s=flop_s)
         rows[shape] = dict(checked=c, bound_ms=b_ms, bound_by=b_by, bytes=nb,
                            ms=timed(lambda: kern5(*one, *st), 20),
-                           plain_ms=timed(lambda: plain5(*one, *st), 3, warm=1))
+                           plain_ms=timed(lambda: plain5(*one, *st), 3, warm=1),
+                           rows=tt_rows(st[1], None, 0))
     lk, pl = rows["lookup"], rows["pooled"]
     worst = max((lk["checked"], pl["checked"]),
                 key=lambda c: c.get("rounding_ratio", c["max_abs_err"]))
@@ -465,11 +547,15 @@ def tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref, tt_e
                   "dtype": str(dtype).replace("torch.", "")},
     }
     k5["kernel_ms"] = k5["ms"]
+    k5.update(tt_design(tg, dtype, sass, lk["rows"]))
+    k5["pooled_distinct_middle_rows"] = pl["rows"][0]
+    k5["pooled_elements_per_row"] = pl["rows"][1] / max(pl["rows"][0], 1)
     log(f"[kernels] {k5['name']}: {fmt_err(k5)}; lookup ({lookups[0].shape[0]} x 1) "
-        f"kernel {lk['ms']:.4f} ms, plain {lk['plain_ms']:.4f} ms, bound "
-        f"{lk['bound_ms']:.4f} ms ({lk['bound_by']}); pooled ({lookup_batch} x "
-        f"{cfg.pooling}) kernel {pl['ms']:.4f} ms, plain {pl['plain_ms']:.4f} ms, bound "
-        f"{pl['bound_ms']:.4f} ms ({pl['bound_by']})")
+        f"kernel {lk['ms']:.4f} ms (earlier {fmt_range(EARLIER_MS[k5['name']])} ms), plain "
+        f"{lk['plain_ms']:.4f} ms, bound {lk['bound_ms']:.4f} ms ({lk['bound_by']}); pooled "
+        f"({lookup_batch} x {cfg.pooling}) kernel {pl['ms']:.4f} ms, plain "
+        f"{pl['plain_ms']:.4f} ms, bound {pl['bound_ms']:.4f} ms ({pl['bound_by']}), "
+        f"{pl['rows'][0]} distinct middle rows; lookup {fmt_design(k5)}")
     del params, one
     torch.cuda.empty_cache()
     return [k2, k5]
@@ -877,7 +963,7 @@ def flash_flops(b, h, sq, skv, d, causal=True) -> int:
     return 4 * b * h * d * pairs
 
 
-def flash_phase(dev, ops, fa, ref) -> dict:
+def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
     """The attention path ``ops.flash_attention_fused`` at the three widths
     above in fp32 and bf16, causal, then one backward; the counts cover that
     run only.  Then each output is held against K9's plain version
@@ -934,7 +1020,7 @@ def flash_phase(dev, ops, fa, ref) -> dict:
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         peak = FP32_FLOP_S if dtype == torch.float32 else BF16_FLOP_S
         t_ops, t_bytes = flops / peak, nbytes / BW_BYTES_S
-        c = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+        c = {"case": name, "dtype": str(dtype).replace("torch.", ""), "body": fa.BODY[dtype][1],
              "shape": {"B": b, "H": h, "KH": k.shape[1], "Sq": sq, "Skv": skv, "D": d},
              **checked, "ms": timed(lambda: fa.flash_fwd(q, k, v, causal=True), 5),
              "plain_ms": timed(lambda: ref.flash_fwd_ref(q, k, v, causal=True), 2, warm=1),
@@ -942,7 +1028,9 @@ def flash_phase(dev, ops, fa, ref) -> dict:
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": timed(library, 5), "library_max_abs_diff": lib_err,
              "flops": flops, "bytes": nbytes}
-        log(f"[flash] {name} {c['dtype']}: {fmt_err(checked)}, kernel {c['ms']:.4f} ms, plain "
+        log(f"[flash] {name} {c['dtype']} ({c['body']}): {fmt_err(checked)}, kernel "
+            f"{c['ms']:.4f} ms (earlier {fmt_range(EARLIER_MS['flash_fwd'][c['dtype']])} ms at "
+            f"qwen2-1.5b width), plain "
             f"{c['plain_ms']:.4f} ms, SDPA {c['library_ms']:.4f} ms (|SDPA - kernel| "
             f"{lib_err:.2e}), bound {c['bound_ms']:.4f} ms ({c['bound_by']}, "
             f"{flops:.3e} flop, {nbytes} B)")
@@ -950,6 +1038,7 @@ def flash_phase(dev, ops, fa, ref) -> dict:
     del runs
     torch.cuda.empty_cache()
     main_case = cases[0]                      # qwen2-1.5b, fp32 (the Pallas body's type)
+    bf16_case = cases[1]                      # qwen2-1.5b, bf16: the tensor-core body
     row = {"name": "flash_fwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:88",
@@ -963,7 +1052,11 @@ def flash_phase(dev, ops, fa, ref) -> dict:
            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "shape")},
            "library_call": SDPA_CALL, "dtype": main_case["dtype"], "cases": cases,
-           "backward_max_abs_err": grad_err}
+           "backward_max_abs_err": grad_err,
+           "bodies": {str(t).replace("torch.", ""): b[1] for t, b in fa.BODY.items()},
+           "sass": sass["flash_attention"],
+           **{f"bf16_{k}": bf16_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}}
     row["kernel_ms"] = row["ms"]
     return row
 
@@ -1275,13 +1368,14 @@ def main() -> int:
         for line in logs[src].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[ptxas] {line.strip()}")
+    sass = tensor_core_sass(build)
 
     reference_phase(dev, serve_rec, registry, dlrm, synthetic)
     cached_reference_phase(dev, registry, dlrm, synthetic, qr_embedding, engine)
     batch = DLRM_SHAPES[0].global_batch          # serve_2k: 2048 requests
     kernels = kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, ref)
     kernels += tt_kernel_phase(dev, batch, registry, dlrm, synthetic, pt, pg, tg, ref,
-                               tt_embedding)
+                               tt_embedding, sass)
     kernels += pertable_kernel_phase(dev, batch, registry, dlrm, synthetic, hashing,
                                      qr_embedding, ref, cg, gb, qg)
     # the packed kernels' bf16 entries at the training path's shapes (train_8k)
@@ -1289,7 +1383,7 @@ def main() -> int:
     kernels += kernel_phase(dev, train_batch, registry, dlrm, synthetic, pt, pg, ref,
                             dtype=torch.bfloat16)
     kernels += tt_kernel_phase(dev, train_batch, registry, dlrm, synthetic, pt, pg, tg, ref,
-                               tt_embedding, dtype=torch.bfloat16)
+                               tt_embedding, sass, dtype=torch.bfloat16)
     by_name = {k["name"]: k for k in kernels}
     for arch, batches in (("dlrm-qr", 6), ("dlrm-dense", 3), ("dlrm-tt", 6)):
         launches = serve_phase(dev, arch, batch, batches, serve_rec, registry, dlrm,
@@ -1312,7 +1406,7 @@ def main() -> int:
 
     # phase 6: attention
     t0 = time.perf_counter()
-    kernels.append(flash_phase(dev, ops, fa, ref))
+    kernels.append(flash_phase(dev, ops, fa, ref, sass))
     log(f"[flash] phase {time.perf_counter() - t0:.1f} s")
 
     # phase 7: training at train_8k (every launch of the packed kernels there

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -80,6 +81,27 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LOADED[name] = ctypes.CDLL(str(_target(name)))
     return _LOADED[name]
+
+
+def sass_counts(name: str, ops: Sequence[str] = ("HGMMA", "HMMA")) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in the built library of ``csrc/<name>.cu``,
+    per kernel function, from ``cuobjdump -sass``: {mangled name: {op:
+    count}}.  Proof that a body runs on the tensor cores."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_target(name))], capture_output=True,
+                          text=True, check=True).stdout
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            out[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    out[fn][op] += 1
+    return out
 
 
 def launched(counts: dict, name: str, err: int) -> None:

@@ -4,7 +4,8 @@ K9 in ``csrc/flash_attention.cu`` (port of ``repro.kernels.flash_attention``).
 * ``flash_fwd`` (K9) replaces ``repro/kernels/flash_attention.py:88
   flash_fwd`` (body ``_kernel``): ``softmax(q·kᵀ·D^-½ [+ causal mask])·v``
   per (batch, query head), kv head ``h // (H/KH)``, in fp32, written in q's
-  dtype.
+  dtype.  float32 runs on the CUDA cores, bfloat16 on the tensor cores
+  (``BODY``: wgmma, K and V tiles read in place by TMA).
 * ``flash_mha`` is its differentiable form, as ``repro``'s ``custom_vjp``:
   the forward is K9, the backward recomputes through the blockwise
   ``models.layers.flash_attention`` and differentiates that (no backward
@@ -41,6 +42,10 @@ from repro_torch.models import layers
 SOURCE = "flash_attention"
 LAUNCHES = {"flash_fwd": 0}
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the body each type runs: its kernel function in csrc/flash_attention.cu
+BODY = {torch.float32: ("flash_kernel", "fp32 CUDA cores"),
+        torch.bfloat16: ("flash_tc_kernel",
+                         "tensor cores wgmma m64nNk16 bf16, P split hi + lo")}
 MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p

@@ -14,9 +14,9 @@ kernels in ``csrc/packed_gather.cu`` and ``csrc/tt_bag.cu`` (port of
 module also loads it and checks what it takes for ``cached_gather`` (K4)
 and ``gnr_bag`` (K6, K7).  K1 and K3 are bound by bytes (one row read per
 bag element, one add per value), K2 by operations (two small products per
-element).  Dispatch is by the tensors' device alone: CUDA tensors launch the
-kernel, or raise if the kernel does not take them; CPU tensors take the
-plain versions in ``ref``.  There is no fallback from the card to the plain
+element; its launch math is ``tt_gather.run``).  Dispatch is by the
+tensors' device alone: CUDA tensors launch the kernel, or raise if the
+kernel does not take them; CPU tensors take the plain versions in ``ref``.  There is no fallback from the card to the plain
 version.
 
 The bag kernels and K2 take float32 or bfloat16 tables (one type per call;
@@ -186,15 +186,5 @@ def packed_tt_bag(
         return packed_tt_bag_ref(g1, g2, g3, cache, i1, i2, i3, slot, dims=dims)
     g, k, dtype = tt_gather.check_cuda({"g1": g1, "g2": g2, "g3": g3, "cache": cache},
                                        {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
-    d1, d2, d3, rank = dims
-    out = torch.empty((g, d1 * d2 * d3), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = tt_gather.entry("packed_tt_bag", dtype)(
-            g1.data_ptr(), g2.data_ptr(), g3.data_ptr(), cache.data_ptr(),
-            i1.data_ptr(), i2.data_ptr(), i3.data_ptr(), slot.data_ptr(),
-            out.data_ptr(), g, k, d1, d2, d3, rank,
-            g1.shape[0], g2.shape[0], g3.shape[0], cache.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.launched(LAUNCHES, "packed_tt_bag", err)
-    return out
+    return tt_gather.run("packed_tt_bag", LAUNCHES, (g1, g2, g3), cache, (i1, i2, i3), slot,
+                         dims, g, k, dtype)

@@ -6,18 +6,24 @@
   cores.
 
 The same source holds K2 ``packed_tt_bag`` (wrapped in ``packed_gather``),
-so this module also loads the library and checks what both TT kernels take.
-Both are bound by operations (two small fp32 products per element).
+so this module also loads the library, checks what both TT kernels take and
+does their launch math (``run``): the elements are ordered by their
+middle-core source (``element_order``, ``torch.sort`` on the card), an fp32
+scratch of one row per element is allocated, and one C call launches the
+contraction pass (each middle row staged once per run of elements that
+share it; fp32 FMAs in depth order on the CUDA cores for both core types,
+so the output is bitwise the plain version's) and the in-order K sum.
+Both are bound by operations (two small products per element).
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel, or
 raise if the kernel does not take them; CPU tensors take the plain version
 ``ref.tt_bag_ref``.  There is no fallback from the card to the plain version.
 
 The kernel takes float32 or bfloat16 cores (one type per call; the output
 is in that type, contracted and summed in fp32), contiguous int32 (B, K)
-streams, ``d1*d2*d3 <= 1024`` and dims whose block fits 227 KB of shared
-memory (the launch is refused otherwise); ``repro``'s ``dim % 8`` fallback
-to the oracle is a TPU tiling rule and does not apply.  ``LAUNCHES`` counts kernel launches
-(the plain version does not count).
+streams, ``d1*d2*d3 <= 1024``, ``d1 <= 32`` and dims whose block fits 227 KB
+of shared memory; ``repro``'s ``dim % 8`` fallback to the oracle is a TPU
+tiling rule and does not apply.  ``LAUNCHES`` counts kernel launches (the
+plain version does not count).
 """
 
 from __future__ import annotations
@@ -34,7 +40,12 @@ from repro_torch.kernels.ref import tt_bag_ref
 SOURCE = "tt_bag"
 LAUNCHES = {"tt_bag": 0}
 
-MAX_DIM = 1024                 # 128 threads x 8 outputs each
+MAX_DIM = 1024
+MAX_D1 = 32                    # G1 rows of one element within a 32-row slice of t
+MAX_SMEM = 232448              # 227 KB a block
+# the body each core type runs (one source, csrc/tt_bag.cu)
+BODY = {torch.float32: "sorted runs, fp32 FMA on the CUDA cores",
+        torch.bfloat16: "sorted runs, bf16 widened, fp32 FMA on the CUDA cores"}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -42,8 +53,8 @@ _INT = ctypes.c_int
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # entry point -> ctypes argument types: pointers, sizes, the stream last
 _ARGS = {
-    "packed_tt_bag": [_P] * 9 + [_I64] + [_INT] * 5 + [_I64] * 4 + [_P],
-    "tt_bag": [_P] * 7 + [_I64] + [_INT] * 5 + [_I64] * 3 + [_P],
+    "packed_tt_bag": [_P] * 11 + [_I64] + [_INT] * 5 + [_I64] * 4 + [_P],
+    "tt_bag": [_P] * 9 + [_I64] + [_INT] * 5 + [_I64] * 3 + [_P],
 }
 
 
@@ -61,6 +72,8 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(out, f"{name}_{sfx}")
             fn.argtypes = args
             fn.restype = ctypes.c_int
+    out.tt_bag_smem_bytes.argtypes = [_INT] * 5
+    out.tt_bag_smem_bytes.restype = ctypes.c_longlong
     return out
 
 
@@ -80,6 +93,8 @@ def check_cuda(cores: dict, streams: dict, dims: tuple[int, int, int, int]
         raise ValueError(f"dims {dims} must be positive")
     if d1 * d2 * d3 > MAX_DIM:
         raise ValueError(f"dim {d1 * d2 * d3} exceeds the kernel's {MAX_DIM}")
+    if d1 > MAX_D1:
+        raise ValueError(f"d1 {d1} exceeds the kernel's {MAX_D1}")
     widths = {"g1": d1 * rank, "g2": rank * d2 * rank, "g3": rank * d3,
               "cache": rank * d2 * rank}
     dtype = None
@@ -103,9 +118,56 @@ def check_cuda(cores: dict, streams: dict, dims: tuple[int, int, int, int]
         if shape is not None and s.shape != shape:
             raise ValueError(f"stream shapes differ: {tuple(s.shape)} vs {tuple(shape)}")
         shape = s.shape
-    if shape[0] >= 2**31:
-        raise ValueError(f"{shape[0]} bags exceed one launch's grid")
+    if shape[0] * shape[1] >= 2**36:
+        raise ValueError(f"{shape[0]} x {shape[1]} elements exceed one launch's grid")
+    smem = _lib().tt_bag_smem_bytes(d1, d2, d3, rank, int(dtype == torch.bfloat16))
+    if smem > MAX_SMEM:
+        raise ValueError(f"dims {dims} need {smem} B of shared memory a block, "
+                         f"more than the {MAX_SMEM} B the kernel may take")
     return shape[0], shape[1], dtype
+
+
+def element_order(i2: torch.Tensor, slot: torch.Tensor | None = None,
+                  cache_rows: int = 0, g2_rows: int = 0) -> torch.Tensor:
+    """The TT kernels' launch math: the flat element positions of (G, K)
+    streams ordered by middle-core source — the cache slot of a hit, else
+    ``cache_rows`` + the G2 row — so that the elements sharing a middle row
+    sit next to each other (stable: equal sources keep their stream order).
+    Keys are int32 while ``cache_rows + g2_rows`` fits.  Returns int64
+    positions."""
+    key = i2.reshape(-1)
+    if slot is not None:
+        s = slot.reshape(-1)
+        if cache_rows + g2_rows >= 2**31:
+            s, key = s.long(), key.long()
+        key = torch.where(s >= 0, s, key + cache_rows)
+    return torch.sort(key, stable=True).indices
+
+
+def run(name: str, counts: dict, cores: tuple, cache, streams: tuple, slot,
+        dims: tuple[int, int, int, int], g: int, k: int, dtype) -> torch.Tensor:
+    """Launch K2 (``name`` "packed_tt_bag", with ``cache`` and ``slot``) or
+    K5 ("tt_bag") on checked CUDA tensors: order the elements, allocate the
+    scratch, one C call for both passes; count it under ``counts[name]``."""
+    d1, d2, d3, rank = dims
+    dev = cores[0].device
+    cache_rows = 0 if cache is None else cache.shape[0]
+    order = element_order(streams[1], slot, cache_rows, cores[1].shape[0])
+    scratch = torch.empty((g * k, d1 * d2 * d3), dtype=torch.float32, device=dev)
+    out = torch.empty((g, d1 * d2 * d3), dtype=dtype, device=dev)
+    ptrs = [c.data_ptr() for c in cores]
+    if cache is not None:
+        ptrs.append(cache.data_ptr())
+    ptrs += [s.data_ptr() for s in streams]
+    if slot is not None:
+        ptrs.append(slot.data_ptr())
+    rows = [c.shape[0] for c in cores] + ([] if cache is None else [cache_rows])
+    with torch.cuda.device(dev):
+        err = entry(name, dtype)(
+            *ptrs, order.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            g, k, d1, d2, d3, rank, *rows, torch.cuda.current_stream(dev).cuda_stream)
+    build.launched(counts, name, err)
+    return out
 
 
 def tt_bag(
@@ -124,14 +186,4 @@ def tt_bag(
         return tt_bag_ref(g1, g2, g3, i1, i2, i3, dims=dims)
     b, k, dtype = check_cuda({"g1": g1, "g2": g2, "g3": g3},
                              {"i1": i1, "i2": i2, "i3": i3}, dims)
-    d1, d2, d3, rank = dims
-    out = torch.empty((b, d1 * d2 * d3), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = entry("tt_bag", dtype)(
-            g1.data_ptr(), g2.data_ptr(), g3.data_ptr(),
-            i1.data_ptr(), i2.data_ptr(), i3.data_ptr(), out.data_ptr(),
-            b, k, d1, d2, d3, rank, g1.shape[0], g2.shape[0], g3.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.launched(LAUNCHES, "tt_bag", err)
-    return out
+    return run("tt_bag", LAUNCHES, (g1, g2, g3), None, (i1, i2, i3), None, dims, b, k, dtype)

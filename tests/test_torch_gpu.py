@@ -4,7 +4,9 @@ Tests marked ``gpu`` hold K1 ``packed_qr_bag``, K3 ``packed_bag``, K2
 ``packed_tt_bag``, K5 ``tt_bag`` (fp32 and bf16), the per-table kernels
 K4a ``cached_bag``, K4b ``cached_qr_bag``, K6 ``gnr_bag``, K7
 ``gnr_bag_dense`` and K8 ``qr_gather``, and the attention kernel K9
-``flash_fwd`` against their plain PyTorch versions on the card; hold the
+``flash_fwd`` against their plain PyTorch versions on the card (the
+redesigned bodies — K9 bf16 on the tensor cores, K2/K5 in sorted runs — also
+by the one-rounding rule of ``chip_smoke.py``); hold the
 gradients of the training entries (the kernels' forward, the plain
 versions' recompute backward) and of ``flash_mha`` against plain autograd;
 serve the smoke configs there and run the two per-table examples;
@@ -434,6 +436,94 @@ def test_gpu_flash_mha_grads_match_plain_autograd(cuda, causal):
     (ref.flash_fwd_ref(*plain, causal=causal) * w).sum().backward()
     for a, b in zip(leaves, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned bodies: K9 bf16 on the tensor cores, K2/K5 in sorted runs,
+# held as chip_smoke.py holds them (fp32 to 1e-4; bf16 per element within
+# one rounding of the plain version computed in fp32 on the same inputs)
+# ---------------------------------------------------------------------------
+
+def _rounding_ratio(out: torch.Tensor, plain32: torch.Tensor) -> float:
+    """chip_smoke.one_rounding: worst |out - plain32| over 2^-8 |plain32| +
+    1e-5 max|plain32|."""
+    p = plain32.float()
+    d = (out.float() - p).abs()
+    atol = max(1e-5 * float(p.abs().max()), 1e-30)
+    return float((d / (p.abs() * 2.0 ** -8 + atol)).max())
+
+
+def _hold(got, plain, args, what):
+    if got.dtype == torch.float32:
+        err = float((got - plain(*args)).abs().max())
+        assert err <= 1e-4, f"{what}: max abs error {err}"
+        return
+    wide = [a.float() if a.is_floating_point() else a for a in args]
+    ratio = _rounding_ratio(got, plain(*wide))
+    assert got.dtype == torch.bfloat16 and ratio <= 1.0, f"{what}: {ratio} of one rounding"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128, 256, 13])
+@pytest.mark.parametrize("group,kv_heads", [(1, 2), (6, 2), (48, 1)])
+def test_gpu_flash_bf16_tensor_cores_hold_one_rounding(cuda, d, group, kv_heads):
+    """The bf16 body: every head dim bucket and an odd D (ordinary loads),
+    G 1/6/48, ragged Skv, Sq != Skv, causal and not."""
+    fa.reset_launches()
+    n = 0
+    for sq, skv in ((1, 1), (127, 300), (300, 127), (256, 256), (64, 1000)):
+        for causal in (True, False):
+            q, k, v = _qkv(cuda, 2, group * kv_heads, kv_heads, sq, skv, d, torch.bfloat16,
+                           seed=sq + d)
+            got = fa.flash_fwd(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            n += 1
+            assert got.shape == q.shape
+            _hold(got, lambda *a: ref.flash_fwd_ref(*a, causal=causal), (q, k, v),
+                  f"D {d} G {group} Sq {sq} Skv {skv} causal {causal}")
+    assert fa.LAUNCHES["flash_fwd"] == n
+
+
+def _stream(case, dims, g, k, seed=0):
+    """Packed K2 inputs whose middle-core stream is all hits, all misses,
+    one G2 row for every element, or a different G2 row for every element."""
+    d1, d2, d3, rank = dims
+    a = packed_tt_inputs("all_hit" if case == "all_hit" else "all_miss", dims=dims, tables=1,
+                         v1=7, v2=max(g * k, 8), v3=7, slots=16, g=g, k=k, seed=seed)
+    if case == "one_row":
+        a["i2"][:] = 3
+    elif case == "distinct":
+        a["i2"] = np.random.default_rng(seed).permutation(g * k).reshape(g, k).astype(np.int32)
+    return a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["all_hit", "all_miss", "one_row", "distinct"])
+@pytest.mark.parametrize("dims,g,k", [(DLRM_DIMS, 300, 32), (DLRM_DIMS, 1, 50),
+                                      (DLRM_DIMS, 777, 1), (SMOKE_DIMS, 100, 8)])
+def test_gpu_tt_sorted_runs_hold_the_plain_version(cuda, dtype, case, dims, g, k):
+    """K2 and K5 on streams that give the run walk its extremes: every
+    element on one middle row (one long run), every element on its own row
+    (runs of one), all hits and all misses; G = 1 and K = 1."""
+    to = lambda x: torch.from_numpy(x).to(cuda)
+    cast = lambda xs: [x.to(dtype) if x.is_floating_point() else x for x in xs]
+    a = cast(packed_tt_args(_stream(case, dims, g, k), to))
+    one = [a[0], a[1], a[2], a[4], a[5], a[6]]
+    if case == "all_hit":
+        one[4] = a[7].clone()                       # K5 on the slots as its G2 rows
+    pg.reset_launches()
+    tg.reset_launches()
+    got = pg.packed_tt_bag(*a, dims=dims)
+    got5 = tg.tt_bag(*one, dims=dims)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES["packed_tt_bag"] == 1 and tg.LAUNCHES["tt_bag"] == 1
+    assert got.shape == got5.shape == (g, dims[0] * dims[1] * dims[2])
+    _hold(got, lambda *x: ref.packed_tt_bag_ref(*x, dims=dims), a, f"K2 {case}")
+    _hold(got5, lambda *x: ref.tt_bag_ref(*x, dims=dims), one, f"K5 {case}")
+    # fp32 FMAs in depth order: bitwise the plain version's on the card
+    assert torch.equal(got, ref.packed_tt_bag_ref(*a, dims=dims))
+    assert torch.equal(got5, ref.tt_bag_ref(*one, dims=dims))
 
 
 # ---------------------------------------------------------------------------
