@@ -2,11 +2,14 @@
 batch sizes, on the card.
 
 The check holds the dlrm-qr / dlrm-tt / dlrm-dense step-1 table gradients
-of the kernel path (``train_step.make_dlrm_loss``) against the plain path
-(``chip_smoke.plain_dlrm_loss``) at batch 64, per leaf as max |kernel −
-plain| over max |plain|, against ``chip_smoke.GRAD_TOL``.  This script prints
-the same reading at more batch sizes, so that a limit can be set from what
-sound runs read rather than from one batch.  It changes nothing.
+of the kernel path (``train_step.make_dlrm_loss``: the kernels' forward, the
+fp32 chunked recompute backward) against the plain path
+(``chip_smoke.plain_dlrm_loss``: the packed buffers widened to fp32, so its
+embedding-bag backward runs in fp32 and rounds once) at batch 64, per leaf
+as max |kernel − plain| over max |plain|, against ``chip_smoke.GRAD_TOL``.
+This script prints the same reading at more batch sizes (more recompute
+chunks for dlrm-tt: 1 / 2 / 7 at 64 / 256 / 1024), so that the limit rests
+on what sound runs read rather than on one batch.  It changes nothing.
 
 Usage (from the repo root, on a machine with a CUDA card):
     python3 scripts/torch_step1_grad_readings.py [--arch dlrm-tt] [--batches 64 256 1024]

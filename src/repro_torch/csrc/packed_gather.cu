@@ -29,34 +29,50 @@
 // bf16 at dlrm dim 128) and one or two adds per value: about 0.25 flop per
 // byte in fp32, far below the card's ~20 flop/B fp32 balance point.  The
 // least time is the bytes a batch must move (index streams, the unique rows
-// touched, the output) over the memory rate; the design keeps every row read
-// in one coalesced warp load and reads nothing twice from device memory that
-// L2 does not serve.
+// touched, the output) over the memory rate.
 //
-// Design (first version: simple and right; speed is later work):
-// * One warp per bag.  Lanes span dim in 4-value chunks: a 16-byte float4
-//   load in fp32, an 8-byte load of 4 bf16 values (converted by shifting the
-//   bits into a float: exact) in bf16.  dim 128 is 32 lanes x 4 values, one
-//   row is one 512 B (fp32) or 256 B (bf16) warp load; wider rows loop over
-//   128-value column chunks.  A dim that is not a multiple of 4 takes the
-//   same body with one value a lane (scalar loads).
-// * The bag's K indices, slots and R indices are loaded once per warp (one
-//   per lane) and broadcast with __shfl_sync.
-// * K is walked in order 0..K-1 inside the warp, with no atomics, so the
-//   summation order is fixed; the TPU kernel got the same order from its
-//   sequential grid revisiting the output block.  Adds are plain fp32 adds
-//   (no multiply, so no FMA contraction changes the rounding), the R row
-//   added to the table row first, as the Pallas body does.
-// * A hit or a miss is a plain branch on the slot.  It replaces the TPU's
-//   "pin hits to block 0 so the DMA is elided" index map
-//   (cached_gather.py:73-78).
+// What the first body (one warp a bag, eight consecutive bags of
+// eight different tables a block, 8-byte loads in bf16) lost its time to, by
+// the readings of scripts/torch_bag_profile.py on the card (PERF.md): not
+// device memory (with every request served from cache K1 kept 84-94% of its
+// time) but the rate at which rows came in through the cache hierarchy, one
+// row load in flight per warp and several instructions per element.
+//
+// Design, each choice measured against the alternatives on the card
+// (PERF.md):
+// * The grid is (table, run of bags), table-major: the packed streams put
+//   bag b of table t at g = b*T + t, and a block takes one pass of its warps
+//   over nb consecutive bags of one table, so the blocks resident at a time
+//   read few tables' rows.  T = 1 is the per-table kernels' case (K4, K6,
+//   K7) and that of any caller that does not pass T.  Short one-pass blocks
+//   keep the grid fine-grained; longer runs lost 30-50% to the tail.
+// * Loads are 16 bytes a lane: a float4 in fp32, 8 bf16 values (widened
+//   exactly by shifting the bits) in bf16.  A bag takes `lanes` lanes, its
+//   dim in such chunks rounded up to a power of two (dim 128: 32 lanes in
+//   fp32, 16 in bf16), so a warp sums 32 / lanes bags side by side and every
+//   warp instruction moves a whole 512-byte row or two 256-byte rows.  The
+//   wrapper gives bf16 grids too small to fill the card (one table's bags)
+//   8-byte loads of 4 values and a warp a bag instead: there the latency of
+//   each warp's chain of elements binds, and twice the warps hide more of
+//   it.  A dim that is not a multiple of 4 takes one value a lane.
+// * Each lane computes one element's row pointer (the cache row of a hit, the
+//   table row of a miss: a plain branch) and R row pointer; the group takes
+//   them by shuffle, element by element.
+// * Tried and dropped: eight or four rows in flight a lane (more registers,
+//   fewer resident warps: slower at every shape), and the table's R rows
+//   staged once a block in shared memory (its prologue cost more than the R
+//   reads, which the SM's L1 already serves: a table's R is 16-32 KB).
+// Each bag's sum runs over k = 0..K-1 in order, in fp32, with no atomics:
+// v = row (+ R row), acc += v, the R row added to the table row first, the
+// sum rounded once to the table type.  So the outputs are bitwise those of
+// the first body and of an fp32 in-order loop over k.
 //
 // Residency does not carry over.  The TPU kept the cache block and the R LUT
 // in VMEM (VMEM_RESIDENT_BUDGET 12 MiB, packed_gather.py:52).  At dlrm-qr
 // full width the packed cache block is 16,384 slots x 512 B = 8 MiB
 // (tune/knobs.py:156-157) and the packed R is 26*64+1 = 1,665 rows = 852 KB;
-// a block has 227 KB of shared memory.  Both are read from global memory
-// here; together they fit the 50 MB L2, which serves their reuse.
+// a block has 227 KB of shared memory.  The cache block stays in global
+// memory and L2, R's hot rows in each SM's L1.
 //
 // Offsets are 64-bit: packed dlrm-dense is 52,000,001 rows x 128 floats =
 // 6.66e9 elements, more than 2^31, so every row offset is a size_t.
@@ -67,8 +83,9 @@
 // Plain C interface for ctypes: each entry point launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).  Buffers start on 16 bytes (the
-// wrappers check it), so a row of a dim that is a multiple of 4 starts on
-// 16 bytes (fp32) or 8 bytes (bf16).
+// wrappers check it), so a row starts on 16 bytes in fp32 when dim is a
+// multiple of 4 and in bf16 when it is a multiple of 8 (a bf16 dim that is a
+// multiple of 4 only takes 8-byte loads of 4 values).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +93,7 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
@@ -130,8 +147,43 @@ __device__ __forceinline__ void store(bf16* p, const float (&v)[1]) {
   *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(bf16_bits(v[0]));
 }
 
+// 8 bf16 values (16 bytes), widened exactly
+__device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+  uint4 u;
+  u.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+  u.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+  u.z = bf16_bits(v[4]) | (bf16_bits(v[5]) << 16);
+  u.w = bf16_bits(v[6]) | (bf16_bits(v[7]) << 16);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ const void* shfl_ptr(const void* p, int src, int width) {
+  const unsigned long long u = reinterpret_cast<unsigned long long>(p);
+  const unsigned lo = __shfl_sync(kFull, static_cast<unsigned>(u), src, width);
+  const unsigned hi = __shfl_sync(kFull, static_cast<unsigned>(u >> 32), src, width);
+  return reinterpret_cast<const void*>((static_cast<unsigned long long>(hi) << 32) | lo);
+}
+
+// The grid: `tables` x ceil(per_table / nb) blocks, table-major.  Block x
+// takes table x / runs and bags b0 = (x % runs) * nb .. of it, one pass of
+// its warps (nb = warps x bags a warp).  A bag takes `lanes` lanes (a power
+// of two: its dim / V value chunks rounded up, at most 32; a wider dim loops
+// over chunks of 32 lanes), so a warp sums 32 / lanes bags side by side.
+// 16-byte bf16 rows: at most 32 registers, so 16 blocks (the SM's 64 warps)
+// are resident; the fp32 bodies keep the compiler's choice (capping the QR
+// one at 32 registers made it slower)
 template <typename T, int V, bool kQR, bool kCached>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, V == 8 ? 16 : 1)
 bag_kernel(const T* __restrict__ table,
            const T* __restrict__ cache,
            const T* __restrict__ r_lut,
@@ -140,49 +192,67 @@ bag_kernel(const T* __restrict__ table,
            const int* __restrict__ r_idx,
            T* __restrict__ out,
            long long num_bags, int K, int dim,
-           long long table_rows, long long cache_rows, long long r_rows) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long long g =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (g >= num_bags) return;  // g is uniform across the warp
-  const size_t base = static_cast<size_t>(g) * K;
+           long long table_rows, long long cache_rows, long long r_rows,
+           int tables, int nb, int lanes) {
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const long long per_table = num_bags / tables;
+  const long long runs = (per_table + nb - 1) / nb;
+  const int t = static_cast<int>(blockIdx.x / runs);
+  const long long b0 = (blockIdx.x - static_cast<long long>(t) * runs) * nb;
+  const int nbags = static_cast<int>(min(static_cast<long long>(nb), per_table - b0));
   const int chunks = dim / V;
+  const int per_warp = kWarp / lanes;            // bags a warp sums side by side
+  const int li = lane & (lanes - 1);
 
-  for (int c0 = 0; c0 < chunks; c0 += kWarp) {
-    const int c = c0 + lane;
-    const bool active = c < chunks;
-    const size_t col = static_cast<size_t>(c) * V;
-    float acc[V];
+  for (int bb0 = warp * per_warp; bb0 < nbags; bb0 += kWarpsPerBlock * per_warp) {
+    const int bb = bb0 + lane / lanes;
+    const bool bag_ok = bb < nbags;
+    const long long g = bag_ok ? (b0 + bb) * tables + t : 0;
+    const size_t base = static_cast<size_t>(g) * K;
+    for (int c0 = 0; c0 < chunks; c0 += lanes) {
+      const int c = c0 + li;
+      const bool active = bag_ok && c < chunks;
+      const size_t col = static_cast<size_t>(c) * V;
+      float acc[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kWarp) {
-      const int kk = k0 + lane;
-      int my_idx = 0, my_slot = -1, my_r = 0;
-      if (kk < K) {
-        my_idx = __ldg(idx + base + kk);
-        if constexpr (kCached) {
-          my_slot = __ldg(slot + base + kk);
-          if (my_slot >= cache_rows) __trap();
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      for (int k0 = 0; k0 < K; k0 += lanes) {
+        // this lane's element k0 + li of its bag: its row (the cache row of a
+        // hit, else the table row) and for K1 its R row
+        const int kk = k0 + li;
+        const T* my_row = table;
+        const T* my_r = r_lut;
+        int my_i = 0;
+        if (bag_ok && kk < K) {
+          const int i = my_i = __ldg(idx + base + kk);
+          int s = -1;
+          if constexpr (kCached) {
+            s = __ldg(slot + base + kk);
+            if (s >= cache_rows) __trap();
+          }
+          if (s < 0 && (i < 0 || i >= table_rows)) __trap();
+          my_row = s >= 0 ? cache + static_cast<size_t>(s) * dim
+                          : table + static_cast<size_t>(i) * dim;
+          if constexpr (kQR) {
+            const int r = __ldg(r_idx + base + kk);
+            if (r < 0 || r >= r_rows) __trap();
+            my_r = r_lut + static_cast<size_t>(r) * dim;
+          }
         }
-        if (my_slot < 0 && (my_idx < 0 || my_idx >= table_rows)) __trap();
-        if constexpr (kQR) {
-          my_r = __ldg(r_idx + base + kk);
-          if (my_r < 0 || my_r >= r_rows) __trap();
-        }
-      }
-      const int n = min(kWarp, K - k0);
-      for (int j = 0; j < n; ++j) {
-        const int s = kCached ? __shfl_sync(kFull, my_slot, j) : -1;
-        const int i = __shfl_sync(kFull, my_idx, j);
-        const int r = kQR ? __shfl_sync(kFull, my_r, j) : 0;
-        if (active) {
-          const T* row = s >= 0 ? cache + static_cast<size_t>(s) * dim
-                                : table + static_cast<size_t>(i) * dim;
+        const int n = min(lanes, K - k0);
+        for (int j = 0; j < n; ++j) {
+          // K7 shuffles its one index (one shuffle, the shorter chain); the
+          // others their row pointers (two shuffles each, no address math)
+          const T* row = kQR || kCached
+              ? static_cast<const T*>(shfl_ptr(my_row, j, lanes))
+              : table + static_cast<size_t>(__shfl_sync(kFull, my_i, j, lanes)) * dim;
+          const T* rrow = kQR ? static_cast<const T*>(shfl_ptr(my_r, j, lanes)) : nullptr;
+          if (!active) continue;
           float v[V];
           load(row + col, v);
           if constexpr (kQR) {
             float w[V];
-            load(r_lut + static_cast<size_t>(r) * dim + col, w);
+            load(rrow + col, w);
 #pragma unroll
             for (int e = 0; e < V; ++e) v[e] += w[e];
           }
@@ -190,31 +260,60 @@ bag_kernel(const T* __restrict__ table,
           for (int e = 0; e < V; ++e) acc[e] += v[e];
         }
       }
+      if (active) store(out + static_cast<size_t>(g) * dim + col, acc);
     }
-    if (active) store(out + static_cast<size_t>(g) * dim + col, acc);
   }
+}
+
+// lanes a bag takes for `chunks` value chunks: the next power of two, at most 32
+inline int bag_lanes(int chunks) {
+  int l = 1;
+  while (l < chunks && l < kWarp) l *= 2;
+  return l;
+}
+
+template <typename T, int V, bool kQR, bool kCached>
+void launch_v(dim3 grid, cudaStream_t st, const T* t, const T* c, const T* r, const int* idx,
+              const int* slot, const int* r_idx, T* o, long long num_bags, int K, int dim,
+              long long table_rows, long long cache_rows, long long r_rows, int tables,
+              int nb) {
+  bag_kernel<T, V, kQR, kCached><<<grid, kWarp * kWarpsPerBlock, 0, st>>>(
+      t, c, r, idx, slot, r_idx, o, num_bags, K, dim, table_rows, cache_rows, r_rows, tables,
+      nb, bag_lanes(dim / V));
 }
 
 template <typename T, bool kQR, bool kCached>
 int launch(const void* table, const void* cache, const void* r_lut,
            const int* idx, const int* slot, const int* r_idx, void* out,
            long long num_bags, int K, int dim, long long table_rows,
-           long long cache_rows, long long r_rows, void* stream) {
+           long long cache_rows, long long r_rows, int tables, int nb, int vec,
+           void* stream) {
   if (num_bags <= 0 || dim <= 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks = (num_bags + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const dim3 grid(static_cast<unsigned>(blocks)), block(kWarp * kWarpsPerBlock);
+  if (tables <= 0 || num_bags % tables != 0 || nb <= 0 || dim % vec != 0 ||
+      (vec != 1 && vec != 4 && !(vec == 8 && sizeof(T) == 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_table = num_bags / tables;
+  const long long blocks = tables * ((per_table + nb - 1) / nb);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* t = static_cast<const T*>(table);
   const T* c = static_cast<const T*>(cache);
   const T* r = static_cast<const T*>(r_lut);
   T* o = static_cast<T*>(out);
-  if (dim % 4 == 0) {
-    bag_kernel<T, 4, kQR, kCached><<<grid, block, 0, st>>>(
-        t, c, r, idx, slot, r_idx, o, num_bags, K, dim, table_rows, cache_rows, r_rows);
-  } else {
-    bag_kernel<T, 1, kQR, kCached><<<grid, block, 0, st>>>(
-        t, c, r, idx, slot, r_idx, o, num_bags, K, dim, table_rows, cache_rows, r_rows);
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 8) {                              // bf16: 16-byte loads of 8 values
+      launch_v<T, 8, kQR, kCached>(grid, st, t, c, r, idx, slot, r_idx, o, num_bags, K, dim,
+                                   table_rows, cache_rows, r_rows, tables, nb);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
+  if (vec == 4)
+    launch_v<T, 4, kQR, kCached>(grid, st, t, c, r, idx, slot, r_idx, o, num_bags, K, dim,
+                                 table_rows, cache_rows, r_rows, tables, nb);
+  else
+    launch_v<T, 1, kQR, kCached>(grid, st, t, c, r, idx, slot, r_idx, o, num_bags, K, dim,
+                                 table_rows, cache_rows, r_rows, tables, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,10 +325,10 @@ int launch(const void* table, const void* cache, const void* r_lut,
       const void* q_table, const void* cache, const void* r_lut, const int* q_idx,  \
       const int* slot, const int* r_idx, void* out, long long num_bags, int K,      \
       int dim, long long q_rows, long long cache_rows, long long r_rows,            \
-      void* stream) {                                                               \
+      int tables, int nb, int vec, void* stream) {                                  \
     return launch<T, true, true>(q_table, cache, r_lut, q_idx, slot, r_idx, out,    \
                                  num_bags, K, dim, q_rows, cache_rows, r_rows,      \
-                                 stream);                                           \
+                                 tables, nb, vec, stream);                          \
   }
 
 // K3 / K4a: cached dense bag.
@@ -237,10 +336,10 @@ int launch(const void* table, const void* cache, const void* r_lut,
   extern "C" int packed_bag_##SUFFIX(                                               \
       const void* table, const void* cache, const int* idx, const int* slot,        \
       void* out, long long num_bags, int K, int dim, long long table_rows,          \
-      long long cache_rows, void* stream) {                                         \
+      long long cache_rows, int tables, int nb, int vec, void* stream) {            \
     return launch<T, false, true>(table, cache, nullptr, idx, slot, nullptr, out,   \
                                   num_bags, K, dim, table_rows, cache_rows, 0,      \
-                                  stream);                                          \
+                                  tables, nb, vec, stream);                         \
   }
 
 // K6: QR bag, no cache.
@@ -248,18 +347,20 @@ int launch(const void* table, const void* cache, const void* r_lut,
   extern "C" int gnr_bag_##SUFFIX(                                                  \
       const void* q_table, const void* r_lut, const int* q_idx, const int* r_idx,   \
       void* out, long long num_bags, int K, int dim, long long q_rows,              \
-      long long r_rows, void* stream) {                                             \
+      long long r_rows, int nb, int vec, void* stream) {                            \
     return launch<T, true, false>(q_table, nullptr, r_lut, q_idx, nullptr, r_idx,   \
-                                  out, num_bags, K, dim, q_rows, 0, r_rows, stream); \
+                                  out, num_bags, K, dim, q_rows, 0, r_rows, 1, nb,  \
+                                  vec, stream);                                     \
   }
 
 // K7: dense bag, no cache.
 #define GNR_BAG_DENSE(SUFFIX, T)                                                    \
   extern "C" int gnr_bag_dense_##SUFFIX(                                            \
       const void* table, const int* idx, void* out, long long num_bags, int K,      \
-      int dim, long long table_rows, void* stream) {                                \
+      int dim, long long table_rows, int nb, int vec, void* stream) {               \
     return launch<T, false, false>(table, nullptr, nullptr, idx, nullptr, nullptr,  \
-                                   out, num_bags, K, dim, table_rows, 0, 0, stream); \
+                                   out, num_bags, K, dim, table_rows, 0, 0, 1, nb,  \
+                                   vec, stream);                                    \
   }
 
 QR_BAG(f32, float)

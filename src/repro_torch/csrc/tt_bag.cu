@@ -59,6 +59,15 @@
 // rounded 0.01% of outputs one bf16 step away from the plain version, which
 // moves the training path's step-1 table gradients by ~6% of scale (see
 // PERF.md); this body keeps bf16 on the CUDA cores.
+// * A middle-core row too large for the block (rank 64: 128 KiB of fp32 at
+//   dim 128, 256 KiB double-buffered) is staged in d2 slices: M's columns
+//   j*r .. (j+d2s)*r - 1 for d2s of the d2 column groups at a time (a
+//   divisor of d2, the largest whose block fits; d2s = d2 is the one-stage
+//   layout above, unchanged).  t = A @ M is formed one slice at a time, and
+//   each slice's t rows give the outputs of its d2 indices: every product is
+//   the same fmaf chain over the same depth, so the sliced path is bitwise
+//   the one-stage path.  Slices of a run and the runs follow each other
+//   through the same two buffers, the next one always in flight.
 // The scratch round trip (0.87 GB serving, 3.5 GB at the training batch)
 // is this design's own floor beside the bound: 0.52 ms and 2.1 ms at
 // 3.35 TB/s.
@@ -94,9 +103,9 @@ __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m *
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Shared memory of one block, in bytes from the start, for cores of
-// `esize` bytes a value.
+// `esize` bytes a value, staging d2s of M's d2 column groups at a time.
 struct Layout {
-  int ncp;       // columns of M (d2*r), padded to 4
+  int ncp;       // columns of an M stage (d2s*r), padded to 4
   int atstride;  // row stride of A^T in floats (= 4 mod 32: transposing stores spread)
   int seg;       // stride of one rank segment of a t row (floats)
   int ts;        // row stride of t (floats)
@@ -104,21 +113,21 @@ struct Layout {
   size_t pos, src, r1, r3, tcol, tij, at, c3, c3f, m, mbytes, t, total;
 };
 
-__host__ __device__ inline Layout layout(int d1, int d2, int d3, int rank, int esize) {
+__host__ __device__ inline Layout layout(int d1, int d2s, int d3, int rank, int esize) {
   Layout L;
-  const int ncols = d2 * rank;
+  const int ncols = d2s * rank;
   L.ncp = round_up(ncols, 4);
   L.atstride = round_up(kWindow * d1 + kSliceRows, 32) + 4;
   L.r4 = round_up(rank, 4);
   L.seg = L.r4 + 4;                           // float4 reads of 8 segments hit 32 banks
-  L.ts = d2 * L.seg;
+  L.ts = d2s * L.seg;
   size_t off = 0;
   L.pos = off; off = align16(off + sizeof(long long) * kWindow);
   L.src = off; off = align16(off + sizeof(long long) * kWindow);
   L.r1 = off;  off = align16(off + sizeof(int) * kWindow);
   L.r3 = off;  off = align16(off + sizeof(int) * kWindow);
   L.tcol = off; off = align16(off + sizeof(int) * L.ncp);
-  L.tij = off; off = align16(off + sizeof(int2) * d1 * d2);
+  L.tij = off; off = align16(off + sizeof(int2) * d1 * d2s);
   L.at = off;  off = align16(off + sizeof(float) * rank * L.atstride);
   L.c3 = off;  off = align16(off + static_cast<size_t>(esize) * kWindow * L.r4 * d3);
   L.c3f = L.c3;                               // bf16: Cm widened once a window
@@ -176,8 +185,9 @@ tt_rows_kernel(const T* __restrict__ g1, const T* __restrict__ g2, const T* __re
                const int* __restrict__ i2, const int* __restrict__ i3,
                const int* __restrict__ slot, const long long* __restrict__ order,
                float* __restrict__ scratch, long long n, int d1, int d2, int d3, int rank,
-               long long g1_rows, long long g2_rows, long long g3_rows, long long cache_rows) {
-  const Layout L = layout(d1, d2, d3, rank, sizeof(T));
+               int d2s, long long g1_rows, long long g2_rows, long long g3_rows,
+               long long cache_rows) {
+  const Layout L = layout(d1, d2s, d3, rank, sizeof(T));
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
   long long* pos_s = reinterpret_cast<long long*>(smem + L.pos);
@@ -197,17 +207,21 @@ tt_rows_kernel(const T* __restrict__ g1, const T* __restrict__ g2, const T* __re
   const int ne = static_cast<int>(min(static_cast<long long>(kWindow), n - w0));
   const int w1 = d1 * rank, w2 = rank * d2 * rank, w3 = rank * d3;
   const int ncols = d2 * rank, dim = d1 * d2 * d3;
+  const int scols = d2s * rank;       // columns of one M stage
+  const int nstage = d2 / d2s;        // M stages of a run
   const int es = kSliceRows / d1;   // elements of one slice
-  const int dd = d1 * d2;             // rows of t an element has, (i, j) pairs
+  const int dd = d1 * d2s;            // rows of t an element has per stage, (i, j) pairs
   const int c3w = L.r4 * d3;          // Cm values an element, rows padded to r4
 
-  // index tables, so that no loop below divides: column c of A @ M lands at
-  // tcol_s[c] of its t row (-1: padding); pair (i, j) of an element reads its
-  // t row at tij_s[.].x and writes its d3 outputs at tij_s[.].y
+  // index tables, so that no loop below divides: column c of an M stage
+  // lands at tcol_s[c] of its t row (-1: padding); pair (i, j) of an element
+  // (j the stage's j-th d2 index) reads its t row at tij_s[.].x and writes
+  // its d3 outputs at tij_s[.].y, plus the stage's first d2 index times d3
   for (int c = tid; c < L.ncp; c += kThreads)
-    tcol_s[c] = c < ncols ? (c / rank) * L.seg + c % rank : -1;
+    tcol_s[c] = c < scols ? (c / rank) * L.seg + c % rank : -1;
   for (int x = tid; x < dd; x += kThreads)
-    tij_s[x] = make_int2((x / d2) * L.ts + (x % d2) * L.seg, x * d3);
+    tij_s[x] = make_int2((x / d2s) * L.ts + (x % d2s) * L.seg,
+                         ((x / d2s) * d2 + x % d2s) * d3);
   const int el0 = tid / dd, rem0 = tid % dd, del = kThreads / dd, drem = kThreads % dd;
 
   // the pads stay zero, as nothing below writes them: of Cm and t (ranks not
@@ -215,9 +229,9 @@ tt_rows_kernel(const T* __restrict__ g1, const T* __restrict__ g2, const T* __re
   if (rank != L.r4) {
     for (size_t i = tid; i < (L.m - L.c3) / 16; i += kThreads)
       reinterpret_cast<float4*>(smem + L.c3)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i = tid; i < kSliceRows * d2 * L.r4; i += kThreads) {
+    for (int i = tid; i < kSliceRows * d2s * L.r4; i += kThreads) {
       const int q = i % L.r4, seg = i / L.r4;
-      if (q >= rank) t_s[(seg / d2) * L.ts + (seg % d2) * L.seg + q] = 0.f;
+      if (q >= rank) t_s[(seg / d2s) * L.ts + (seg % d2s) * L.seg + q] = 0.f;
     }
   }
 
@@ -268,26 +282,31 @@ tt_rows_kernel(const T* __restrict__ g1, const T* __restrict__ g2, const T* __re
   }
   cp_async_commit();
 
-  // stage the middle row of source `src` into buffer u: cp.async when its
-  // rows are whole 16-byte chunks, plain loads otherwise
-  const bool vec = ncols % kChunk == 0 && reinterpret_cast<size_t>(g2) % 16 == 0 &&
+  // stage columns jj*scols .. (jj+1)*scols - 1 of the middle row of source
+  // `src` into buffer u: cp.async when they are whole 16-byte chunks, plain
+  // loads otherwise
+  const bool vec = scols % kChunk == 0 && reinterpret_cast<size_t>(g2) % 16 == 0 &&
                    (!kCached || reinterpret_cast<size_t>(cache) % 16 == 0);
-  auto stage_m = [&](int u, long long src) {
-    const T* row = src < cache_rows ? cache + static_cast<size_t>(src) * w2
-                                    : g2 + static_cast<size_t>(src - cache_rows) * w2;
+  auto stage_m = [&](int u, long long src, int jj) {
+    const T* row = (src < cache_rows ? cache + static_cast<size_t>(src) * w2
+                                     : g2 + static_cast<size_t>(src - cache_rows) * w2) +
+                   jj * scols;
     T* dst = m_buf(u);
     if (vec) {
-      const int per_row = ncols / kChunk;
+      const int per_row = scols / kChunk;
       for (int c = tid; c < rank * per_row; c += kThreads) {
         const int p = c / per_row, col = (c - p * per_row) * kChunk;
         cp_async16(dst + p * L.ncp + col, row + p * ncols + col);
       }
       cp_async_commit();
     } else {
-      for (int c = tid; c < w2; c += kThreads) dst[(c / ncols) * L.ncp + c % ncols] = row[c];
+      for (int c = tid; c < rank * scols; c += kThreads) {
+        const int p = c / scols, col = c - p * scols;
+        dst[p * L.ncp + col] = row[p * ncols + col];
+      }
     }
   };
-  if (ne > 0) stage_m(0, src_s[0]);
+  if (ne > 0) stage_m(0, src_s[0], 0);
 
   // A^T, widened: a lane takes one value of every element's G1 row, all
   // loads of the window in flight before the stores
@@ -299,113 +318,120 @@ tt_rows_kernel(const T* __restrict__ g1, const T* __restrict__ g2, const T* __re
       col[e * d1] = widen(g1[static_cast<size_t>(r1_s[e]) * w1 + x]);
   }
 
-  for (int s = 0, u = 0; s < ne; ++u) {
+  // stage u is stage jj of a run: the run's M columns jj*scols ..
+  for (int s = 0, u = 0; s < ne;) {
     const unsigned long long later = s + 1 < 64 ? starts >> (s + 1) : 0ull;
     const int e = later ? s + __ffsll(static_cast<long long>(later)) : ne;
-    cp_async_wait_all();
-    __syncthreads();                 // M of run u is in; run u-1 is done with buffer u+1
-    if (e < ne) stage_m(u + 1, src_s[e]);
-    const T* m_s = m_buf(u);
-    if (sizeof(T) != 4 && u == 0)      // each Cm value serves d1*d2 items: widen once
-      for (int x = tid; x < ne * c3w; x += kThreads) c3f_s[x] = widen(c3_s[x]);
+    for (int jj = 0; jj < nstage; ++jj, ++u) {
+      cp_async_wait_all();
+      __syncthreads();                 // stage u is in; stage u-1 is done with buffer u+1
+      if (jj + 1 < nstage)
+        stage_m(u + 1, src_s[s], jj + 1);
+      else if (e < ne)
+        stage_m(u + 1, src_s[e], 0);
+      const T* m_s = m_buf(u);
+      const int jout = jj * d2s * d3;    // output offset of the stage's first d2 index
+      if (sizeof(T) != 4 && u == 0)      // each Cm value serves d1*d2 items: widen once
+        for (int x = tid; x < ne * c3w; x += kThreads) c3f_s[x] = widen(c3_s[x]);
 
-    for (int e0 = s; e0 < e; e0 += es) {
-      const int e1 = min(e, e0 + es);
-      const int rows = (e1 - e0) * d1;
+      for (int e0 = s; e0 < e; e0 += es) {
+        const int e1 = min(e, e0 + es);
+        const int rows = (e1 - e0) * d1;
 
-      // t = A (rows x r) @ M (r x d2*r) into t_s: a thread an 8 x 4 tile,
-      // fmaf in depth order
-      const float* at0 = at_s + e0 * d1;
-      const bool a_vec = (e0 * d1) % 4 == 0;
-      const int nrg = (rows + 7) / 8, ncq = L.ncp / 4;
-      for (int it = tid; it < nrg * ncq; it += kThreads) {
-        const int rg = it / ncq, cq = it - rg * ncq;
-        float acc[8][4] = {};
-        const float* at = at0 + rg * 8;
-        const T* mc = m_s + cq * 4;
+        // t = A (rows x r) @ M stage (r x d2s*r) into t_s: a thread an 8 x 4 tile,
+        // fmaf in depth order
+        const float* at0 = at_s + e0 * d1;
+        const bool a_vec = (e0 * d1) % 4 == 0;
+        const int nrg = (rows + 7) / 8, ncq = L.ncp / 4;
+        for (int it = tid; it < nrg * ncq; it += kThreads) {
+          const int rg = it / ncq, cq = it - rg * ncq;
+          float acc[8][4] = {};
+          const float* at = at0 + rg * 8;
+          const T* mc = m_s + cq * 4;
 #pragma unroll 4
-        for (int p = 0; p < rank; ++p) {
-          float av[8];
-          if (a_vec) {
-            const float4 lo = *reinterpret_cast<const float4*>(at + p * L.atstride);
-            const float4 hi = *reinterpret_cast<const float4*>(at + p * L.atstride + 4);
-            av[0] = lo.x; av[1] = lo.y; av[2] = lo.z; av[3] = lo.w;
-            av[4] = hi.x; av[5] = hi.y; av[6] = hi.z; av[7] = hi.w;
-          } else {
+          for (int p = 0; p < rank; ++p) {
+            float av[8];
+            if (a_vec) {
+              const float4 lo = *reinterpret_cast<const float4*>(at + p * L.atstride);
+              const float4 hi = *reinterpret_cast<const float4*>(at + p * L.atstride + 4);
+              av[0] = lo.x; av[1] = lo.y; av[2] = lo.z; av[3] = lo.w;
+              av[4] = hi.x; av[5] = hi.y; av[6] = hi.z; av[7] = hi.w;
+            } else {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) av[i] = at[p * L.atstride + i];
+              for (int i = 0; i < 8; ++i) av[i] = at[p * L.atstride + i];
+            }
+            const float4 mv = load4(mc + p * L.ncp);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][0] = fmaf(av[i], mv.x, acc[i][0]);
+              acc[i][1] = fmaf(av[i], mv.y, acc[i][1]);
+              acc[i][2] = fmaf(av[i], mv.z, acc[i][2]);
+              acc[i][3] = fmaf(av[i], mv.w, acc[i][3]);
+            }
           }
-          const float4 mv = load4(mc + p * L.ncp);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc[i][0] = fmaf(av[i], mv.x, acc[i][0]);
-            acc[i][1] = fmaf(av[i], mv.y, acc[i][1]);
-            acc[i][2] = fmaf(av[i], mv.z, acc[i][2]);
-            acc[i][3] = fmaf(av[i], mv.w, acc[i][3]);
+          for (int j = 0; j < 4; ++j) {
+            const int o = tcol_s[cq * 4 + j];
+            if (o < 0) continue;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) t_s[(rg * 8 + i) * L.ts + o] = acc[i][j];
           }
         }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = tcol_s[cq * 4 + j];
-          if (o < 0) continue;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) t_s[(rg * 8 + i) * L.ts + o] = acc[i][j];
-        }
-      }
-      __syncthreads();
+        __syncthreads();
 
-      // row = t (d1*d2 x r) @ Cm (r x d3) in fp32, into the scratch slot;
-      // one item is one (element, i, j) row of t and its d3 outputs: this
-      // thread's items step by kThreads through (element, pair) without
-      // dividing
-      for (int el = el0, rem = rem0; el < e1 - e0;) {
-        const int2 ij = tij_s[rem];
-        const float* tr = t_s + el * d1 * L.ts + ij.x;
-        const float* cm = c3f_s + (e0 + el) * c3w;
-        float* dst = scratch + static_cast<size_t>(pos_s[e0 + el]) * dim + ij.y;
-        el += del;
-        rem += drem;
-        if (rem >= dd) {
-          rem -= dd;
-          ++el;
-        }
-        if (d3 % 4 == 0) {              // Cm rows and the output as float4
+        // row = t (d1*d2 x r) @ Cm (r x d3) in fp32, into the scratch slot;
+        // one item is one (element, i, j) row of t and its d3 outputs: this
+        // thread's items step by kThreads through (element, pair) without
+        // dividing
+        for (int el = el0, rem = rem0; el < e1 - e0;) {
+          const int2 ij = tij_s[rem];
+          const float* tr = t_s + el * d1 * L.ts + ij.x;
+          const float* cm = c3f_s + (e0 + el) * c3w;
+          float* dst = scratch + static_cast<size_t>(pos_s[e0 + el]) * dim + ij.y + jout;
+          el += del;
+          rem += drem;
+          if (rem >= dd) {
+            rem -= dd;
+            ++el;
+          }
+          if (d3 % 4 == 0) {              // Cm rows and the output as float4
+            for (int c0 = 0; c0 < d3; c0 += 4) {
+              float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+              for (int q0 = 0; q0 < L.r4; q0 += 4) {
+                const float4 tv = *reinterpret_cast<const float4*>(tr + q0);
+                const float tq[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+                for (int qq = 0; qq < 4; ++qq) {
+                  const float4 cv = *reinterpret_cast<const float4*>(cm + (q0 + qq) * d3 + c0);
+                  acc.x = fmaf(tq[qq], cv.x, acc.x);
+                  acc.y = fmaf(tq[qq], cv.y, acc.y);
+                  acc.z = fmaf(tq[qq], cv.z, acc.z);
+                  acc.w = fmaf(tq[qq], cv.w, acc.w);
+                }
+              }
+              *reinterpret_cast<float4*>(dst + c0) = acc;
+            }
+            continue;
+          }
           for (int c0 = 0; c0 < d3; c0 += 4) {
-            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
+            float acc[4] = {0.f, 0.f, 0.f, 0.f};
             for (int q0 = 0; q0 < L.r4; q0 += 4) {
               const float4 tv = *reinterpret_cast<const float4*>(tr + q0);
               const float tq[4] = {tv.x, tv.y, tv.z, tv.w};
 #pragma unroll
-              for (int qq = 0; qq < 4; ++qq) {
-                const float4 cv = *reinterpret_cast<const float4*>(cm + (q0 + qq) * d3 + c0);
-                acc.x = fmaf(tq[qq], cv.x, acc.x);
-                acc.y = fmaf(tq[qq], cv.y, acc.y);
-                acc.z = fmaf(tq[qq], cv.z, acc.z);
-                acc.w = fmaf(tq[qq], cv.w, acc.w);
-              }
+              for (int qq = 0; qq < 4; ++qq)
+#pragma unroll
+                for (int cc = 0; cc < 4; ++cc)
+                  if (c0 + cc < d3) acc[cc] = fmaf(tq[qq], cm[(q0 + qq) * d3 + c0 + cc], acc[cc]);
             }
-            *reinterpret_cast<float4*>(dst + c0) = acc;
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              if (c0 + cc < d3) dst[c0 + cc] = acc[cc];
           }
-          continue;
         }
-        for (int c0 = 0; c0 < d3; c0 += 4) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int q0 = 0; q0 < L.r4; q0 += 4) {
-            const float4 tv = *reinterpret_cast<const float4*>(tr + q0);
-            const float tq[4] = {tv.x, tv.y, tv.z, tv.w};
-#pragma unroll
-            for (int qq = 0; qq < 4; ++qq)
-#pragma unroll
-              for (int cc = 0; cc < 4; ++cc)
-                if (c0 + cc < d3) acc[cc] = fmaf(tq[qq], cm[(q0 + qq) * d3 + c0 + cc], acc[cc]);
-          }
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-            if (c0 + cc < d3) dst[c0 + cc] = acc[cc];
-        }
+        __syncthreads();               // t_s is free for the next slice
       }
-      __syncthreads();               // t_s is free for the next slice
     }
     s = e;
   }
@@ -455,12 +481,12 @@ template <typename T, bool kCached>
 int launch(const void* g1, const void* g2, const void* g3, const void* cache, const int* i1,
            const int* i2, const int* i3, const int* slot, const long long* order,
            float* scratch, void* out, long long num_bags, int K, int d1, int d2, int d3,
-           int rank, long long g1_rows, long long g2_rows, long long g3_rows,
+           int rank, int d2s, long long g1_rows, long long g2_rows, long long g3_rows,
            long long cache_rows, void* stream) {
   if (d1 <= 0 || d2 <= 0 || d3 <= 0 || rank <= 0 || K < 0 || num_bags < 0 ||
-      d1 > kSliceRows || d1 * d2 * d3 > kMaxDim)
+      d1 > kSliceRows || d1 * d2 * d3 > kMaxDim || d2s <= 0 || d2 % d2s != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = layout(d1, d2, d3, rank, sizeof(T)).total;
+  const size_t smem = layout(d1, d2s, d3, rank, sizeof(T)).total;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n = num_bags * K;
@@ -473,7 +499,7 @@ int launch(const void* g1, const void* g2, const void* g3, const void* cache, co
     tt_rows_kernel<T, kCached><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
         static_cast<const T*>(g1), static_cast<const T*>(g2), static_cast<const T*>(g3),
         static_cast<const T*>(cache), i1, i2, i3, slot, order, scratch, n, d1, d2, d3, rank,
-        g1_rows, g2_rows, g3_rows, cache_rows);
+        d2s, g1_rows, g2_rows, g3_rows, cache_rows);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -490,10 +516,10 @@ int launch(const void* g1, const void* g2, const void* g3, const void* cache, co
 
 }  // namespace
 
-// Shared memory one block of pass 1 takes for these dims and core type, for
-// the wrapper's check.
-extern "C" long long tt_bag_smem_bytes(int d1, int d2, int d3, int rank, int bf16_cores) {
-  return static_cast<long long>(layout(d1, d2, d3, rank, bf16_cores ? 2 : 4).total);
+// Shared memory one block of pass 1 takes for these dims and core type when
+// it stages d2s of M's d2 column groups at a time, for the wrapper's choice.
+extern "C" long long tt_bag_smem_bytes(int d1, int d2s, int d3, int rank, int bf16_cores) {
+  return static_cast<long long>(layout(d1, d2s, d3, rank, bf16_cores ? 2 : 4).total);
 }
 
 // K2: packed TT bag, the middle core routed by slot.
@@ -502,11 +528,11 @@ extern "C" long long tt_bag_smem_bytes(int d1, int d2, int d3, int rank, int bf1
       const void* g1, const void* g2, const void* g3, const void* cache,                \
       const int* i1, const int* i2, const int* i3, const int* slot,                     \
       const long long* order, float* scratch, void* out, long long num_bags, int K,     \
-      int d1, int d2, int d3, int rank, long long g1_rows, long long g2_rows,           \
+      int d1, int d2, int d3, int rank, int d2s, long long g1_rows, long long g2_rows,  \
       long long g3_rows, long long cache_rows, void* stream) {                          \
     return launch<T, true>(g1, g2, g3, cache, i1, i2, i3, slot, order, scratch, out,    \
-                           num_bags, K, d1, d2, d3, rank, g1_rows, g2_rows, g3_rows,    \
-                           cache_rows, stream);                                         \
+                           num_bags, K, d1, d2, d3, rank, d2s, g1_rows, g2_rows,        \
+                           g3_rows, cache_rows, stream);                                \
   }
 
 // K5: one table's TT bag, every access reads G2.
@@ -514,10 +540,10 @@ extern "C" long long tt_bag_smem_bytes(int d1, int d2, int d3, int rank, int bf1
   extern "C" int tt_bag_##SUFFIX(                                                       \
       const void* g1, const void* g2, const void* g3, const int* i1, const int* i2,     \
       const int* i3, const long long* order, float* scratch, void* out,                 \
-      long long num_bags, int K, int d1, int d2, int d3, int rank, long long g1_rows,   \
-      long long g2_rows, long long g3_rows, void* stream) {                             \
+      long long num_bags, int K, int d1, int d2, int d3, int rank, int d2s,             \
+      long long g1_rows, long long g2_rows, long long g3_rows, void* stream) {          \
     return launch<T, false>(g1, g2, g3, nullptr, i1, i2, i3, nullptr, order, scratch,   \
-                            out, num_bags, K, d1, d2, d3, rank, g1_rows, g2_rows,       \
+                            out, num_bags, K, d1, d2, d3, rank, d2s, g1_rows, g2_rows,  \
                             g3_rows, 0, stream);                                        \
   }
 

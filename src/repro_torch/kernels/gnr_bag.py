@@ -49,6 +49,7 @@ def gnr_bag(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
         err = packed_gather.entry("gnr_bag", dtype)(
             q_table.data_ptr(), r_lut.data_ptr(), q_idx.data_ptr(), r_idx.data_ptr(),
             out.data_ptr(), b, k, dim, q_table.shape[0], r_lut.shape[0],
+            *packed_gather.launch_grid(b, 1, dim, dtype, dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.launched(LAUNCHES, "gnr_bag", err)
@@ -69,6 +70,7 @@ def gnr_bag_dense(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = packed_gather.entry("gnr_bag_dense", dtype)(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), b, k, dim, table.shape[0],
+            *packed_gather.launch_grid(b, 1, dim, dtype, dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.launched(LAUNCHES, "gnr_bag_dense", err)

@@ -19,11 +19,17 @@ through their reference-recompute vjps (``repro/kernels/ops.py:135-159,
 359-442``): the forward is the kernel, the backward recomputes the plain
 version in ``ref`` and differentiates it (no kernel has a backward kernel,
 in ``repro`` either).  The index streams get no gradient.  The recompute
-runs over chunks of bags whose gathered rows stay near ``RECOMPUTE_BYTES``,
-and the chunks' table gradients are summed in fp32: the result is linear in
-the bags, so only the order of summation changes.  Without the chunks the
-TT recompute at dlrm-tt's training batch (8,192 x 26 bags of 32) would
-gather one 8 KiB G2 row per element: ~56 GB.
+runs over chunks of bags whose gathered rows stay near ``RECOMPUTE_BYTES``
+of fp32, on fp32 copies of the buffers (widened once per backward) with the
+cotangent widened to fp32: every chunk's gradient is built in fp32, the
+chunks are summed into one fp32 gradient, and that is rounded once to the
+buffer's dtype.  The gradient is linear in the bags, so the chunking changes
+only the order of fp32 summation: a bf16 gradient lies within one bf16
+rounding (2^-8 of its value, plus the fp32 sums' order) of the exact fp32
+gradient of the plain version, whatever ``RECOMPUTE_BYTES`` is.  This is
+tighter than ``repro``'s own bf16 vjp, whose index scatter accumulates in
+bf16.  Without the chunks the TT recompute at dlrm-tt's training batch
+(8,192 x 26 bags of 32) would gather one 8 KiB G2 row per element: ~56 GB.
 """
 
 from __future__ import annotations
@@ -58,25 +64,25 @@ class _KernelRecompute(torch.autograd.Function):
         grads = [None] * len(buffers)
         if not need:
             return (None, None, None, None, *grads)
-        ct = ct.to(ctx.out_dtype)        # repro casts the cotangent to the table dtype
+        # repro casts the cotangent to the table dtype; the recompute is fp32
+        ct = ct.to(ctx.out_dtype).float()
+        wide = [b.detach().float() for b in buffers]           # widened once
         lead = ctx.streams[0].shape[0]
         per_bag = ctx.streams[0][:1].numel() * ctx.row_width * 4
         chunk = max(1, RECOMPUTE_BYTES // max(per_bag, 1))
         sums = None
         for lo in range(0, lead, chunk):
-            leaves = [b.detach().requires_grad_(i in need) for i, b in enumerate(buffers)]
+            leaves = [w.detach().requires_grad_(i in need) for i, w in enumerate(wide)]
             with torch.enable_grad():
                 out = ctx.plain(*leaves, *(s[lo:lo + chunk] for s in ctx.streams))
                 part = torch.autograd.grad(out, [leaves[i] for i in need], ct[lo:lo + chunk])
-            if lead <= chunk:
-                sums = part                          # one chunk: nothing to add
-            elif sums is None:
-                sums = [g.float() for g in part]
+            if sums is None:
+                sums = list(part)
             else:
                 for acc, g in zip(sums, part):
                     acc += g
-        for i, acc in zip(need, sums or [torch.zeros_like(buffers[i]) for i in need]):
-            grads[i] = acc.to(buffers[i].dtype)
+        for i, acc in zip(need, sums or [torch.zeros_like(wide[i]) for i in need]):
+            grads[i] = acc.to(buffers[i].dtype)                 # rounded once
         return (None, None, None, None, *grads)
 
 
@@ -165,15 +171,19 @@ def packed_multi_pooled(params: dict, streams: dict, *, kind: str,
     tt {"i1", "i2", "i3", "slot"}; ``dims`` = (d1, d2, d3, rank) for tt.
     Returns (..., dim); differentiable in the packed buffers (the training
     lookup), ``repro``'s ``_packed_{qr,dense,tt}_diff``."""
+    first = next(iter(streams.values()))
+    tables = first.shape[-2] if first.dim() >= 3 else 1   # (..., T, K): the bag grid's T
     if kind == "qr":
         lead = streams["q_idx"].shape[:-1]
-        out = _diff(packed_gather.packed_qr_bag, ref.packed_qr_bag_ref,
+        out = _diff(functools.partial(packed_gather.packed_qr_bag, tables=tables),
+                    ref.packed_qr_bag_ref,
                     (params["q"], params["cache"], params["r"]),
                     (_flat(streams["q_idx"]), _flat(streams["slot"]),
                      _flat(streams["r_idx"])), params["q"].shape[1])
     elif kind == "dense":
         lead = streams["idx"].shape[:-1]
-        out = _diff(packed_gather.packed_bag, ref.packed_bag_ref,
+        out = _diff(functools.partial(packed_gather.packed_bag, tables=tables),
+                    ref.packed_bag_ref,
                     (params["table"], params["cache"]),
                     (_flat(streams["idx"]), _flat(streams["slot"])), params["table"].shape[1])
     elif kind == "tt":

@@ -23,6 +23,12 @@ The bag kernels and K2 take float32 or bfloat16 tables (one type per call;
 the output is in that type, summed in fp32), int32 (G, K) streams, any dim
 (K2: dims up to 1,024), and buffers that start on 16 bytes.  ``LAUNCHES``
 counts kernel launches per kernel (plain versions do not count).
+
+The bag body's launch math lives here, in plain Python the CPU tests reach:
+``bag_grid`` tiles the grid as (table, run of bags) for streams whose bag g
+belongs to table ``g % tables`` (``tables`` is optional: 1 is the per-table
+kernels' case), ``bag_vec`` the values a lane loads at once and
+``bag_lanes`` the lanes a bag takes.
 """
 
 from __future__ import annotations
@@ -45,11 +51,65 @@ _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 # entry point -> ctypes argument types: pointers, sizes, the stream last
 _ARGS = {
-    "packed_qr_bag": [_P] * 7 + [_I64, _INT, _INT, _I64, _I64, _I64, _P],
-    "packed_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64, _P],
-    "gnr_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64, _P],
-    "gnr_bag_dense": [_P] * 3 + [_I64, _INT, _INT, _I64, _P],
+    "packed_qr_bag": [_P] * 7 + [_I64, _INT, _INT, _I64, _I64, _I64] + [_INT] * 3 + [_P],
+    "packed_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64] + [_INT] * 3 + [_P],
+    "gnr_bag": [_P] * 5 + [_I64, _INT, _INT, _I64, _I64] + [_INT] * 2 + [_P],
+    "gnr_bag_dense": [_P] * 3 + [_I64, _INT, _INT, _I64] + [_INT] * 2 + [_P],
 }
+WARPS = 4                          # warps of a bag-body block (kWarpsPerBlock)
+WIDE_WARPS = 32                    # warps an SM (a warp a bag) from which bf16 rows take 16-byte loads
+
+
+def bag_vec(g: int, dim: int, dtype: torch.dtype, sms: int) -> int:
+    """Values a lane loads at once in the bag body: 8 bf16 values (16 bytes)
+    where dim is a multiple of 8 and a warp a bag would give the card
+    ``WIDE_WARPS`` warps an SM; else 4 where dim is a multiple of 4 (a float4
+    in fp32, 8 bytes in bf16); else 1.  A small bf16 grid (one table's 2,048
+    bags) is latency-bound, and its warps hide more of the latency with a
+    bag each than with two side by side."""
+    if dtype == torch.bfloat16 and dim % 8 == 0 and g >= WIDE_WARPS * sms:
+        return 8
+    return 4 if dim % 4 == 0 else 1
+
+
+def bag_lanes(dim: int, vec: int) -> int:
+    """Lanes one bag takes: its dim in chunks of ``vec`` values, rounded up
+    to a power of two, at most the 32 of a warp; a warp sums 32 / lanes bags
+    side by side."""
+    lanes = 1
+    while lanes < dim // vec and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def bag_grid(g: int, tables: int, dim: int, dtype: torch.dtype, sms: int = 132
+             ) -> tuple[int, int, int]:
+    """The bag body's grid for G bags of ``tables`` tables (bag g of table
+    ``g % tables``) on a card of ``sms`` SMs: (bags per block, blocks, values
+    a lane loads, ``bag_vec``).  Blocks are (table, run of bags),
+    table-major; a run is one pass of the block's warps, each summing
+    ``32 / bag_lanes`` bags side by side."""
+    if tables < 1 or g % tables:
+        raise ValueError(f"{g} bags are not a whole number of bags of {tables} tables")
+    vec = bag_vec(g, dim, dtype, sms)
+    nb = WARPS * 32 // bag_lanes(dim, vec)
+    return nb, tables * -(-(g // tables) // nb), vec
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_grid(g: int, tables: int, dim: int, dtype: torch.dtype, index: int
+                 ) -> tuple[int, int]:
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    nb, _blocks, vec = bag_grid(g, tables, dim, dtype, sms)
+    return nb, vec
+
+
+def launch_grid(g: int, tables: int, dim: int, dtype: torch.dtype, dev: torch.device
+                ) -> tuple[int, int]:
+    """The bag body's launch arguments on the card ``dev``: (bags per block,
+    values a lane loads) of ``bag_grid``, worked out once per shape."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _launch_grid(g, tables, dim, dtype, index)
 
 
 def reset_launches() -> None:
@@ -100,8 +160,8 @@ def check_cuda(buffers: dict, streams: dict, *, ndim: int = 2
     return tuple(shape), dim, dtype
 
 
-def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_idx
-               ) -> torch.Tensor:
+def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_idx,
+               tables: int = 1) -> torch.Tensor:
     """Launch the cached QR bag (K1 on packed buffers, K4b on one table's)
     on CUDA tensors and count it under ``counts[name]``."""
     (g, k), dim, dtype = check_cuda({"q_table": q_table, "cache": cache, "r_lut": r_lut},
@@ -112,14 +172,16 @@ def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_id
         err = entry("packed_qr_bag", dtype)(
             q_table.data_ptr(), cache.data_ptr(), r_lut.data_ptr(),
             q_idx.data_ptr(), slot.data_ptr(), r_idx.data_ptr(), out.data_ptr(),
-            g, k, dim, q_table.shape[0], cache.shape[0], r_lut.shape[0],
+            g, k, dim, q_table.shape[0], cache.shape[0], r_lut.shape[0], tables,
+            *launch_grid(g, tables, dim, dtype, dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.launched(counts, name, err)
     return out
 
 
-def run_bag(counts: dict, name: str, table, cache, idx, slot) -> torch.Tensor:
+def run_bag(counts: dict, name: str, table, cache, idx, slot, tables: int = 1
+            ) -> torch.Tensor:
     """Launch the cached dense bag (K3 on packed buffers, K4a on one
     table's) on CUDA tensors and count it under ``counts[name]``."""
     (g, k), dim, dtype = check_cuda({"table": table, "cache": cache},
@@ -129,7 +191,8 @@ def run_bag(counts: dict, name: str, table, cache, idx, slot) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = entry("packed_bag", dtype)(
             table.data_ptr(), cache.data_ptr(), idx.data_ptr(), slot.data_ptr(),
-            out.data_ptr(), g, k, dim, table.shape[0], cache.shape[0],
+            out.data_ptr(), g, k, dim, table.shape[0], cache.shape[0], tables,
+            *launch_grid(g, tables, dim, dtype, dev),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.launched(counts, name, err)
@@ -138,34 +201,38 @@ def run_bag(counts: dict, name: str, table, cache, idx, slot) -> torch.Tensor:
 
 def packed_qr_bag(
     q_table: torch.Tensor, cache: torch.Tensor, r_lut: torch.Tensor,
-    q_idx: torch.Tensor, slot: torch.Tensor, r_idx: torch.Tensor,
+    q_idx: torch.Tensor, slot: torch.Tensor, r_idx: torch.Tensor, *, tables: int = 1,
 ) -> torch.Tensor:
     """K1: out[g] = Σ_k ( (slot >= 0 ? C[slot] : Q[q_idx]) + R[r_idx] ).
 
     q_table: (total_q_rows, dim), every table's Q packed (+ zero row);
     cache: (slots, dim) staged Q rows; r_lut: (total_r_rows, dim), every R
     LUT packed (+ zero row); q_idx/slot/r_idx: (G, K) globally offset.
+    ``tables``: the streams' table count T, bag g of table g % T (the
+    kernel's grid; any value that divides G gives the same output).
     Returns (G, dim) in the table dtype, summed in fp32.
     """
     dev = device_mod.of(q_table, cache, r_lut, q_idx, slot, r_idx)
     if dev.type == "cpu":
         return packed_qr_bag_ref(q_table, cache, r_lut, q_idx, slot, r_idx)
-    return run_qr_bag(LAUNCHES, "packed_qr_bag", q_table, cache, r_lut, q_idx, slot, r_idx)
+    return run_qr_bag(LAUNCHES, "packed_qr_bag", q_table, cache, r_lut, q_idx, slot, r_idx,
+                      tables)
 
 
 def packed_bag(
-    table: torch.Tensor, cache: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor
+    table: torch.Tensor, cache: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor, *,
+    tables: int = 1,
 ) -> torch.Tensor:
     """K3: out[g] = Σ_k (slot[g,k] >= 0 ? C[slot] : T[idx]).
 
     table: (total_rows, dim), every table packed (+ zero row); cache:
-    (slots, dim); idx/slot: (G, K) globally offset.  Returns (G, dim) in
-    the table dtype, summed in fp32.
+    (slots, dim); idx/slot: (G, K) globally offset; ``tables`` as in
+    ``packed_qr_bag``.  Returns (G, dim) in the table dtype, summed in fp32.
     """
     dev = device_mod.of(table, cache, idx, slot)
     if dev.type == "cpu":
         return packed_bag_ref(table, cache, idx, slot)
-    return run_bag(LAUNCHES, "packed_bag", table, cache, idx, slot)
+    return run_bag(LAUNCHES, "packed_bag", table, cache, idx, slot, tables)
 
 
 def packed_tt_bag(
@@ -184,7 +251,8 @@ def packed_tt_bag(
     dev = device_mod.of(g1, g2, g3, cache, i1, i2, i3, slot)
     if dev.type == "cpu":
         return packed_tt_bag_ref(g1, g2, g3, cache, i1, i2, i3, slot, dims=dims)
-    g, k, dtype = tt_gather.check_cuda({"g1": g1, "g2": g2, "g3": g3, "cache": cache},
-                                       {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
+    g, k, dtype, d2s = tt_gather.check_cuda(
+        {"g1": g1, "g2": g2, "g3": g3, "cache": cache},
+        {"i1": i1, "i2": i2, "i3": i3, "slot": slot}, dims)
     return tt_gather.run("packed_tt_bag", LAUNCHES, (g1, g2, g3), cache, (i1, i2, i3), slot,
-                         dims, g, k, dtype)
+                         dims, g, k, dtype, d2s)

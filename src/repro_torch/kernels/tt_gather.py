@@ -11,7 +11,7 @@ does their launch math (``run``): the elements are ordered by their
 middle-core source (``element_order``, ``torch.sort`` on the card), an fp32
 scratch of one row per element is allocated, and one C call launches the
 contraction pass (each middle row staged once per run of elements that
-share it; fp32 FMAs in depth order on the CUDA cores for both core types,
+share it, whole or in d2 slices; fp32 FMAs in depth order on the CUDA cores for both core types,
 so the output is bitwise the plain version's) and the in-order K sum.
 Both are bound by operations (two small products per element).
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel, or
@@ -21,8 +21,10 @@ raise if the kernel does not take them; CPU tensors take the plain version
 The kernel takes float32 or bfloat16 cores (one type per call; the output
 is in that type, contracted and summed in fp32), contiguous int32 (B, K)
 streams, ``d1*d2*d3 <= 1024``, ``d1 <= 32`` and dims whose block fits 227 KB
-of shared memory; ``repro``'s ``dim % 8`` fallback to the oracle is a TPU
-tiling rule and does not apply.  ``LAUNCHES`` counts kernel launches (the
+of shared memory when it stages the middle core one d2 column group at a
+time (``stage_width``: wider stages where they fit; at rank 16 the whole
+row, at rank 64 slices of it); ``repro``'s ``dim % 8`` fallback to the
+oracle is a TPU tiling rule and does not apply.  ``LAUNCHES`` counts kernel launches (the
 plain version does not count).
 """
 
@@ -53,8 +55,8 @@ _INT = ctypes.c_int
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # entry point -> ctypes argument types: pointers, sizes, the stream last
 _ARGS = {
-    "packed_tt_bag": [_P] * 11 + [_I64] + [_INT] * 5 + [_I64] * 4 + [_P],
-    "tt_bag": [_P] * 9 + [_I64] + [_INT] * 5 + [_I64] * 3 + [_P],
+    "packed_tt_bag": [_P] * 11 + [_I64] + [_INT] * 6 + [_I64] * 4 + [_P],
+    "tt_bag": [_P] * 9 + [_I64] + [_INT] * 6 + [_I64] * 3 + [_P],
 }
 
 
@@ -82,9 +84,21 @@ def entry(name: str, dtype: torch.dtype):
     return getattr(_lib(), f"{name}_{SUFFIX[dtype]}")
 
 
+def stage_width(d2: int, fits) -> int | None:
+    """The TT kernels' staging choice: how many of the middle core's d2
+    column groups (``rank`` columns each) a block stages at once — the
+    largest divisor of d2 for which ``fits(d2s)`` holds (the whole row,
+    d2s = d2, is the one-stage layout), or None if not even one fits."""
+    for d2s in range(d2, 0, -1):
+        if d2 % d2s == 0 and fits(d2s):
+            return d2s
+    return None
+
+
 def check_cuda(cores: dict, streams: dict, dims: tuple[int, int, int, int]
-               ) -> tuple[int, int, torch.dtype]:
-    """Validate what the TT kernels take; returns (G, K, core dtype).
+               ) -> tuple[int, int, torch.dtype, int]:
+    """Validate what the TT kernels take; returns (G, K, core dtype, the
+    stage width ``stage_width`` picks).
 
     ``cores``: g1, g2, g3 (and the cache block for K2); ``streams``: the
     (G, K) index streams."""
@@ -120,11 +134,21 @@ def check_cuda(cores: dict, streams: dict, dims: tuple[int, int, int, int]
         shape = s.shape
     if shape[0] * shape[1] >= 2**36:
         raise ValueError(f"{shape[0]} x {shape[1]} elements exceed one launch's grid")
-    smem = _lib().tt_bag_smem_bytes(d1, d2, d3, rank, int(dtype == torch.bfloat16))
-    if smem > MAX_SMEM:
-        raise ValueError(f"dims {dims} need {smem} B of shared memory a block, "
+    return shape[0], shape[1], dtype, staging(dims, dtype)
+
+
+def staging(dims: tuple[int, int, int, int], dtype: torch.dtype) -> int:
+    """The stage width ``stage_width`` picks for these dims and core type by
+    the kernel's own shared-memory layout (``tt_bag_smem_bytes``); raises
+    where not even one d2 column group a stage fits ``MAX_SMEM``."""
+    d1, d2, d3, rank = (int(x) for x in dims)
+    smem = lambda d2s: _lib().tt_bag_smem_bytes(d1, d2s, d3, rank, int(dtype == torch.bfloat16))
+    d2s = stage_width(d2, lambda w: smem(w) <= MAX_SMEM)
+    if d2s is None:
+        raise ValueError(f"dims {dims} need {smem(1)} B of shared memory a block even "
+                         f"staging one d2 column group of the middle core at a time, "
                          f"more than the {MAX_SMEM} B the kernel may take")
-    return shape[0], shape[1], dtype
+    return d2s
 
 
 def element_order(i2: torch.Tensor, slot: torch.Tensor | None = None,
@@ -145,7 +169,7 @@ def element_order(i2: torch.Tensor, slot: torch.Tensor | None = None,
 
 
 def run(name: str, counts: dict, cores: tuple, cache, streams: tuple, slot,
-        dims: tuple[int, int, int, int], g: int, k: int, dtype) -> torch.Tensor:
+        dims: tuple[int, int, int, int], g: int, k: int, dtype, d2s: int) -> torch.Tensor:
     """Launch K2 (``name`` "packed_tt_bag", with ``cache`` and ``slot``) or
     K5 ("tt_bag") on checked CUDA tensors: order the elements, allocate the
     scratch, one C call for both passes; count it under ``counts[name]``."""
@@ -165,7 +189,7 @@ def run(name: str, counts: dict, cores: tuple, cache, streams: tuple, slot,
     with torch.cuda.device(dev):
         err = entry(name, dtype)(
             *ptrs, order.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            g, k, d1, d2, d3, rank, *rows, torch.cuda.current_stream(dev).cuda_stream)
+            g, k, d1, d2, d3, rank, d2s, *rows, torch.cuda.current_stream(dev).cuda_stream)
     build.launched(counts, name, err)
     return out
 
@@ -184,6 +208,7 @@ def tt_bag(
     dev = device_mod.of(g1, g2, g3, i1, i2, i3)
     if dev.type == "cpu":
         return tt_bag_ref(g1, g2, g3, i1, i2, i3, dims=dims)
-    b, k, dtype = check_cuda({"g1": g1, "g2": g2, "g3": g3},
-                             {"i1": i1, "i2": i2, "i3": i3}, dims)
-    return run("tt_bag", LAUNCHES, (g1, g2, g3), None, (i1, i2, i3), None, dims, b, k, dtype)
+    b, k, dtype, d2s = check_cuda({"g1": g1, "g2": g2, "g3": g3},
+                                  {"i1": i1, "i2": i2, "i3": i3}, dims)
+    return run("tt_bag", LAUNCHES, (g1, g2, g3), None, (i1, i2, i3), None, dims, b, k, dtype,
+               d2s)
