@@ -44,13 +44,26 @@ Phases, each one failing the script if it fails:
    bytes against the HBM peak, row-request rate, an all-in-cache probe);
    then K2 and K5 at rank 64 (dims 64 and 128, fp32 and bf16: the
    d2-sliced staging path), held to their plain versions and read for
-   bitwise equality with them;
+   bitwise equality with them.  The per-table phase also logs the launch
+   overhead: a one-table bag's back-to-back time minus its CUDA-graph time
+   (``launch/mesh.py::DISPATCH_OVERHEAD_S`` holds a reading of it);
 4. serve dlrm-qr at full width (26 x 2M rows, dim 128, pooling 32), batch
    2048, 6 batches, dlrm-dense at full width, 3 batches, and dlrm-tt at full
    width (26 x 2M logical rows as TT cores, rank 16), 6 batches, each in
-   both modes: overlap logits equal sequential logits to 1e-6, all finite,
-   and the kernel's launch count equals the batches served in each run;
-   then one ``tt_embedding.lookup`` on a dlrm-tt table launches K5 once;
+   both modes with telemetry off: overlap logits equal sequential logits to
+   1e-6, all finite, and the kernel's launch count equals the batches
+   served in each run; then one fenced sequential run with telemetry on (4
+   batches, dlrm-dense 3) on the same state and packed buffers: every span
+   of each steady-state batch is there, ``engine/dispatch/serve_gather``
+   counts the batches, the kernel launches once a batch, the traffic
+   report's hit rate is the run's; it logs the attribution table
+   (``obs.attribution``) and prints a ``{"serve_split": ...}`` line (stage
+   -> ms per batch, the fenced total, the unfenced p50s); after
+   ``obs.disable()`` and a reset the profiled run records nothing; then
+   one ``tt_embedding.lookup`` on a dlrm-tt table launches K5 once; and
+   ``serve_rec.main`` on dlrm-qr-smoke with the five telemetry flags
+   (``--metrics-json --trace-out --slo --report --flight-dir``, outputs
+   under ``build/serve_cli``), every artifact parsed;
 5. the per-table paths at full width: ``engine_for(...).cached_lookup`` for
    4 batches of (2,048, 32) on dlrm-qr table 0 (K4b), dlrm-dense table 0
    (K4a) and dlrm-tt table 0 (K5), the scheduler prefetching the next batch
@@ -82,15 +95,16 @@ Phases, each one failing the script if it fails:
    (``examples.train_dlrm --embedding tt --tt-rank 64``, 25 steps: K2 bf16
    on the sliced staging path).
 
-It prints the card's name and power limit, one ``{"training": [...]}``
-line, one ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+It prints the card's name and power limit, one ``{"serve_split": ...}``
+line per served config, one ``{"training": [...]}`` line, one
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -100,9 +114,12 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-BW_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-FP32_FLOP_S = 67e12           # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_S = 989e12          # H100 SXM dense bf16 tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the card's datasheet rates, one definition for the port and this script
+from repro_torch.launch.mesh import (  # noqa: E402
+    DISPATCH_OVERHEAD_S, HBM_BW as BW_BYTES_S, PEAK_FLOPS_BF16 as BF16_FLOP_S,
+    PEAK_FLOPS_FP32 as FP32_FLOP_S,
+)
 ERR_TOL = 1e-4
 BF16_TOL = 1e-2      # card and CPU each round an fp32 sum to bf16 once
 # the previous bodies' times on an NVIDIA H100 80GB HBM3 at 700 W, ranges
@@ -873,6 +890,14 @@ def pertable_kernel_phase(dev, batch, registry, dlrm, synthetic, hashing, qr_emb
         check_library=lambda: gb.gnr_bag_dense(table, idx), shape=shape)
     del table, cache
     torch.cuda.empty_cache()
+    # the host's cost of one launch through a wrapper: back to back, a
+    # one-table bag's time is set by it; in a CUDA graph it is gone
+    over = {r["name"]: r["ms"] - r["device_ms"] for r in rows_out if r["name"] != "qr_gather"}
+    log("[kernels] launch overhead (back to back - CUDA graph), one-table bags at "
+        f"({batch}, {cfg.pooling}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in over.items())
+        + f"; median {float(np.median(list(over.values()))):.4f} ms "
+        f"(launch/mesh.py DISPATCH_OVERHEAD_S = {DISPATCH_OVERHEAD_S * 1e3:.4f} ms)")
     return rows_out
 
 
@@ -888,10 +913,12 @@ def reset_counts(pg, tg) -> None:
     tg.reset_launches()
 
 
-def serve_phase(dev, arch, batch, batches, serve_rec, registry, dlrm, synthetic, pg,
-                tg, tt_embedding) -> dict:
-    """Serve ``arch`` at full width in both modes; returns the launches of
-    each kernel over both runs (and, for TT, of K5 in one lookup)."""
+def serve_phase(dev, arch, batch, batches, tel_batches, serve_rec, registry, dlrm, synthetic,
+                pg, tg, tt_embedding, obs, attribution) -> tuple[dict, dict]:
+    """Serve ``arch`` at full width in both modes with telemetry off, then
+    once fenced and sequential with it on (``telemetry_run``); returns the
+    launches of each kernel over the three runs (and, for TT, of K5 in one
+    lookup) and the fenced run's split of a batch."""
     cfg = registry.get_dlrm(arch)
     kernel = KERNEL_OF[cfg.embedding_kind]
     t0 = time.perf_counter()
@@ -928,12 +955,127 @@ def serve_phase(dev, arch, batch, batches, serve_rec, registry, dlrm, synthetic,
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
     log(f"[{arch}] overlap == sequential to 1e-6 over {batches} batches of {batch}; "
         f"phase {time.perf_counter() - t0:.1f} s")
+    split = telemetry_run(dev, arch, cfg, batch, tel_batches, state, params, packed, serve_rec,
+                          obs, attribution, pg, tg, kernel, res)
+    launches[kernel] += tel_batches
+    # telemetry off and wiped: the profiled run below must record nothing
+    obs.registry().reset()
+    obs.tracer().reset()
     device_share(arch, lambda: serve_rec.run_pipeline(
         cfg, batch=batch, batches=3, mode="sequential", state=state, params=params,
         packed=packed, device=dev))
+    snap = obs.snapshot()
+    if snap.counters or snap.histograms or obs.tracer().events:
+        raise AssertionError(f"{arch}: telemetry recorded while disabled: "
+                             f"{sorted(snap.counters)} {len(obs.tracer().events)} events")
     del packed, params, state
     torch.cuda.empty_cache()
-    return launches
+    log(f"[{arch}] phase {time.perf_counter() - t0:.1f} s")
+    return launches, split
+
+
+# every span of a steady-state batch in a fenced sequential run
+BATCH_SPANS = {"prefetch", "pack", "h2d", "dispatch", "device_compute", "interact",
+               "device_head", "block", "batch"}
+
+
+def telemetry_run(dev, arch, cfg, batch, batches, state, params, packed, serve_rec, obs,
+                  attribution, pg, tg, kernel, unfenced: dict) -> dict:
+    """One fenced sequential run with telemetry on, on the state and packed
+    buffers of the unfenced runs: every span of each steady-state batch is
+    there, ``engine/dispatch/serve_gather`` counts the batches, the kernel
+    launches once a batch (the fence adds no launch), the traffic report's
+    hit rate is the run's.  Logs the attribution table; returns the split
+    of a batch (stage -> ms) beside the unfenced runs' p50."""
+    obs.enable()
+    try:
+        reset_counts(pg, tg)
+        r = serve_rec.run_pipeline(cfg, batch=batch, batches=batches, mode="sequential",
+                                   state=state, params=params, packed=packed, device=dev,
+                                   fence=True)
+        n = pg.LAUNCHES[kernel]
+        events = list(obs.tracer().events)
+        counters = obs.snapshot().counters
+    finally:
+        obs.disable()
+    if n != batches:
+        raise AssertionError(f"{arch} fenced: {kernel} launched {n} times for {batches} "
+                             f"batches")
+    spans: dict = {}
+    for ev in events:
+        b = ev.get("args", {}).get("batch")
+        if ev.get("ph") == "X" and b is not None:
+            spans.setdefault(b, set()).add(ev["name"])
+    for t in range(1, batches):
+        if BATCH_SPANS - spans.get(t, set()):
+            raise AssertionError(f"{arch} fenced: batch {t} lacks spans "
+                                 f"{sorted(BATCH_SPANS - spans.get(t, set()))}")
+    if counters.get("engine/dispatch/serve_gather") != batches:
+        raise AssertionError(f"{arch} fenced: serve_gather dispatches "
+                             f"{counters.get('engine/dispatch/serve_gather')} != {batches}")
+    if r["traffic_report"].hit_rate != r["hit_rate"]:
+        raise AssertionError(f"{arch} fenced: traffic hit rate "
+                             f"{r['traffic_report'].hit_rate} != {r['hit_rate']}")
+    att = attribution.attribute(events, r["traffic_report"], state.eplan, batch=batch,
+                                fenced=True)
+    log(f"[{arch}] attribution of a fenced sequential run ({batches} batches of {batch}, "
+        f"telemetry on): bottleneck {att.bottleneck}, stages {att.total_s * 1e3:.2f} "
+        f"ms/batch, p50 {r['lat_p50_s'] * 1e3:.2f} ms (unfenced sequential p50 "
+        f"{unfenced['sequential']['lat_p50_s'] * 1e3:.2f} ms); {kernel} launches {n}")
+    for line in att.format_table().splitlines():
+        log(f"[{arch}] {line}")
+    return {
+        "config": arch, "batch": batch, "batches": batches, "mode": "sequential",
+        "fenced": True, "bottleneck": att.bottleneck,
+        "stages_ms": {row.stage: row.measured_s * 1e3 for row in att.rows
+                      if row.measured_s is not None},
+        "fenced_total_ms": att.total_s * 1e3,
+        "fenced_p50_ms": r["lat_p50_s"] * 1e3,
+        "unfenced_p50_ms": {m: unfenced[m]["lat_p50_s"] * 1e3
+                            for m in ("sequential", "overlap")},
+    }
+
+
+def cli_serve_run(serve_rec, obs) -> int:
+    """``serve_rec.main`` on dlrm-qr-smoke on the card with all five
+    telemetry flags, both modes; every artifact it writes parses.  Returns
+    the launches of K1."""
+    from repro_torch.kernels import packed_gather as pg
+
+    out = ROOT / "build" / "serve_cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pg.reset_launches()
+    try:
+        rc = serve_rec.main([
+            "--arch", "dlrm-qr", "--smoke", "--mode", "both",
+            "--metrics-json", str(out / "metrics.json"), "--trace-out", str(out / "trace.json"),
+            "--slo", "p99_ms=50,objective=0.99", "--report", str(out / "report.md"),
+            "--flight-dir", str(out / "flight")])
+    finally:
+        obs.disable()
+        obs.install_observatory()
+    if rc != 0:
+        raise AssertionError(f"serve_rec.main returned {rc}")
+    metrics = json.loads((out / "metrics.json").read_text())
+    trace = json.loads((out / "trace.json").read_text())
+    report = json.loads((out / "report.json").read_text())
+    dumps = [json.loads(f.read_text()) for f in sorted((out / "flight").glob("*.json"))]
+    if not ((out / "report.md").read_text().startswith("# Serving report")
+            and metrics["counters"]["engine/dispatch/serve_gather"] == 12
+            and any(e.get("name") == "device_compute" for e in trace["traceEvents"])
+            and report["schema"] == "serving-report/v1" and report["attribution"]["fenced"]
+            and len(dumps) == len(report["flight_dumps"])):
+        raise AssertionError("serve_rec.main: an artifact is missing or malformed")
+    n = pg.LAUNCHES["packed_qr_bag"]
+    log(f"[serve-cli] dlrm-qr-smoke on the card, both modes, fenced: metrics, trace "
+        f"({len(trace['traceEvents'])} events), report (bottleneck "
+        f"{report['attribution']['bottleneck']}), SLO "
+        f"{'breached' if report['slo']['breached'] else 'met'}, {len(dumps)} flight "
+        f"dumps; packed_qr_bag launches {n}")
+    obs.registry().reset()
+    obs.tracer().reset()
+    return n
 
 
 def device_share(arch: str, run) -> None:
@@ -1531,8 +1673,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import engine
+    from repro_torch import engine, obs
     from repro_torch.configs import registry
     from repro_torch.configs.base import DLRM_SHAPES
     from repro_torch.core import embedding_bag, hashing, qr_embedding, tt_embedding
@@ -1550,6 +1691,7 @@ def main() -> int:
     from repro_torch.launch import serve_rec
     from repro_torch.launch import train as train_cli
     from repro_torch.models import dlrm
+    from repro_torch.obs import attribution
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step
     mods = (pg, tg, cg, gb, qg, fa)
@@ -1597,11 +1739,16 @@ def main() -> int:
                              train_dlrm):
         suffix = "" if r["dtype"] == "float32" else "_bf16"
         by_name[r["kernel"] + suffix].setdefault("rank64", []).append(r)
-    for arch, batches in (("dlrm-qr", 6), ("dlrm-dense", 3), ("dlrm-tt", 6)):
-        launches = serve_phase(dev, arch, batch, batches, serve_rec, registry, dlrm,
-                               synthetic, pg, tg, tt_embedding)
+    splits = []
+    for arch, batches, tel_batches in (("dlrm-qr", 6, 4), ("dlrm-dense", 3, 3),
+                                       ("dlrm-tt", 6, 4)):
+        launches, split = serve_phase(dev, arch, batch, batches, tel_batches, serve_rec,
+                                      registry, dlrm, synthetic, pg, tg, tt_embedding, obs,
+                                      attribution)
+        splits.append(split)
         for name, n in launches.items():
             by_name[name]["launches"] = n
+    by_name["packed_qr_bag"]["launches"] += cli_serve_run(serve_rec, obs)
     # phase 5: each run's launches add to its kernel's count
     t0 = time.perf_counter()
     for arch in ("dlrm-qr", "dlrm-dense", "dlrm-tt"):
@@ -1642,6 +1789,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was not launched on its path")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    for split in splits:
+        print(json.dumps({"serve_split": split}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -85,6 +85,22 @@ class DuplicationPlan:
     def comm_free(self) -> bool:
         return all(t.comm_free for t in self.tables)
 
+    def ici_bytes_per_batch(
+        self, batch: int, dim: int, *, bytes_per_elem: int = 4
+    ) -> dict:
+        """Modeled cross-shard combine bytes for one serving batch.
+
+        Baseline two-level GnR: one pooled vector per (sample, table) rides
+        the cross-shard sum — ``(n-1)/n`` of it leaves the shard.
+        Duplication removes the sum for comm-free tables entirely.
+        """
+        n = self.num_shards
+        frac = (n - 1) / max(1, n)
+        vec = dim * bytes_per_elem
+        base = batch * len(self.tables) * vec * frac
+        dup = batch * sum(1 for t in self.tables if not t.comm_free) * vec * frac
+        return {"baseline": base, "duplicated": dup, "saved": base - dup}
+
 
 def _table_candidates(bag, counts: np.ndarray, bytes_per_elem: int):
     """-> (small candidates [(name, rows, bytes)], big name, folded counts,

@@ -238,7 +238,11 @@ def pack_params(tables: Sequence[dict], layout: PackedLayout, *, dtype=None) -> 
 # ---------------------------------------------------------------------------
 
 def _offsets(values: Sequence[int], like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.int32, device=like.device)[None, :, None]
+    # a non-blocking copy of the small host list: ``torch.tensor(...,
+    # device=cuda)`` copies blocking, so the host would wait for all the work
+    # queued before it (in overlap mode, the previous batch's head)
+    return torch.tensor(values, dtype=torch.int32).to(like.device, non_blocking=True)[
+        None, :, None]
 
 
 def _valid_mask(idx: torch.Tensor, lengths: torch.Tensor | None):

@@ -13,6 +13,14 @@
 PyTorch runs eagerly, so the port has no counterpart of ``repro``'s
 plan-keyed jit.  ``lookup`` is the training entry: gradients reach the
 tables through the kernels' plain-version recompute (``kernels/ops.py``).
+
+Telemetry (``repro_torch.obs``, one bool check each while it is off): the
+dispatch sites bump ``engine/dispatch/{lookup,cached_lookup,pack,
+serve_gather}`` once per call, and ``__init__`` attaches the plan summary.
+``repro`` bumps ``engine/compile/serve_gather`` while jax traces its
+plan-keyed jit, once per distinct plan in the process; the port, which
+traces nothing, bumps it on the first ``serve_gather`` of each distinct
+plan in the process, which is what that cache amounts to.
 """
 
 from __future__ import annotations
@@ -23,10 +31,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import embedding_bag, hashing, packed_tables, tt_embedding
 from repro_torch.engine.plan import EmbeddingPlan, plan as _plan
 from repro_torch.engine.spec import EngineSpec
 from repro_torch.kernels import ops
+
+# plans whose serve_gather has run in this process (engine/compile/serve_gather)
+_SERVED_PLANS: set = set()
 
 
 class EmbeddingEngine:
@@ -36,6 +48,10 @@ class EmbeddingEngine:
         self.plan = plan
         self.spec = plan.spec
         self.bags = list(plan.spec.bags)
+        self._served = False
+        self._scales: dict = {}           # device -> (T,) fp32 combiner scale
+        if obs.enabled():
+            obs.attach("engine_plan", plan.summary())
 
     def lookup(self, tables: Sequence[dict], indices: torch.Tensor, *,
                lengths: torch.Tensor | None = None) -> torch.Tensor:
@@ -43,6 +59,7 @@ class EmbeddingEngine:
         dtype.  Packed plans make one launch (``packed_multi_bag_lookup``);
         per-table plans run the semantic loop.  Differentiable in the
         tables: DLRM training runs through it."""
+        obs.inc("engine/dispatch/lookup")
         if self.plan.packed:
             return packed_tables.packed_multi_bag_lookup(tables, indices, self.bags,
                                                          lengths=lengths)
@@ -64,6 +81,7 @@ class EmbeddingEngine:
         expansion does not fit the one-row slot map).  Returns (..., dim) in
         the table dtype (hashed: the compute dtype).
         """
+        obs.inc("engine/dispatch/cached_lookup")
         bag = self.bags[table]
         emb = bag.emb
         if emb.kind == "qr":
@@ -93,7 +111,9 @@ class EmbeddingEngine:
 
     def pack(self, tables: Sequence[dict]) -> dict:
         """Concatenate per-table params into the packed kernel buffers."""
-        return packed_tables.pack_params(tables, self._layout("no packed buffers to build"))
+        layout = self._layout("no packed buffers to build")
+        obs.inc("engine/dispatch/pack")
+        return packed_tables.pack_params(tables, layout)
 
     def serve_gather(self, packed: dict, idx: torch.Tensor, slot: torch.Tensor,
                      cache_rows: torch.Tensor) -> torch.Tensor:
@@ -105,6 +125,12 @@ class EmbeddingEngine:
         (:meth:`packed_cache_rows`).  Returns (B, T, dim).
         """
         layout = self._layout("serve_gather needs a layout")
+        obs.inc("engine/dispatch/serve_gather")
+        if not self._served:
+            self._served = True
+            if self.plan not in _SERVED_PLANS:
+                _SERVED_PLANS.add(self.plan)
+                obs.inc("engine/compile/serve_gather")
         streams = packed_tables.pack_indices(idx, layout)
         streams["slot"] = packed_tables.global_slots(slot, layout)
         # the cache-block gather is the staging copy of the prefetched rows
@@ -113,8 +139,18 @@ class EmbeddingEngine:
             {**packed, "cache": cache}, streams,
             kind=layout.kind, dims=layout.tt_dims,
         )
-        scale = packed_tables.combiner_scale(self.bags, torch.float32, pooled.device)
-        return pooled * scale[None, :, None].to(pooled.dtype)
+        return pooled * self._combiner_scale(pooled.device)[None, :, None].to(pooled.dtype)
+
+    def _combiner_scale(self, device: torch.device) -> torch.Tensor:
+        """The (T,) combiner scale on ``device``, uploaded once.  Built anew
+        each batch it is a blocking copy from a Python list, which waits for
+        the kernel launched before it: the host would wait for the embedding
+        layer inside every ``serve_gather``."""
+        scale = self._scales.get(device)
+        if scale is None:
+            scale = self._scales[device] = packed_tables.combiner_scale(
+                self.bags, torch.float32, device)
+        return scale
 
     def packed_cache_rows(self, schedulers) -> np.ndarray:
         """Per-table scheduler state -> the packed cache block's global rows."""

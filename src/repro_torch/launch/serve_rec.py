@@ -19,11 +19,39 @@ Host-to-device copies of the per-batch streams are ``non_blocking`` from
 pageable numpy arrays that are fresh for every batch, so no buffer is
 reused while a copy may still read it.
 
-Not ported yet: the ``obs`` spans and traffic report, drift, the tuner,
-``--frontend`` and ``--adapt``.
+Telemetry (``repro_torch.obs``; off unless a telemetry flag is passed, and
+then every call is one bool check): the warm-up batch is timed apart
+(``compile_s``); every steady-state batch records a latency sample; the
+record carries the traffic report (cache hits, modeled HBM bytes, combine
+bytes removed by duplication).  The spans of one batch, as in ``repro``:
+
+* ``prefetch`` — the 26 ``PrefetchScheduler.prefetch`` calls (host numpy);
+* ``pack`` — slot translation (``slots_for``) and the packed cache rows;
+* ``h2d`` — the three stream uploads.  The arrays are pageable numpy, so a
+  ``non_blocking`` copy goes through a staging buffer and the host mostly
+  waits for it: this span is close to the copy's own time even unfenced;
+* ``dispatch`` — ``serve_gather``: index packing, slot offsets, the
+  cache-block gather, the kernel launch.  CUDA launches are asynchronous,
+  so unfenced this is the host's enqueue time only;
+* ``interact`` — the MLP head, also an enqueue unless fenced;
+* with ``fence=True`` also ``device_compute`` and ``device_head``, which
+  wait (``torch.cuda.synchronize``) for the embedding layer and the head:
+  the device's time the enqueue spans left out.  The fence serialises
+  overlap mode, so a fenced run's QPS is not the pipeline's.
+
+Around them: ``compile_warmup`` (batch 0), ``batch`` (each steady-state
+batch), ``block`` (sequential mode's per-batch wait) and ``tail_sync``
+(overlap mode's drain).  ``big_rows`` of every batch is computed before the
+timed window, so it is no part of a batch's latency.
+
+Not ported yet: the tuner hook (which arms the drift monitor), ``--frontend``
+and ``--adapt``.
 
 Usage (CPU rehearsal of the smoke config; the card is the default):
     PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-tt --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-qr --smoke --device cpu \
+        --mode both --metrics-json m.json --trace-out t.json --slo p99_ms=50 \
+        --report r.md --flight-dir flight
 """
 
 from __future__ import annotations
@@ -39,19 +67,30 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch import engine as engine_mod
+from repro_torch import obs
 from repro_torch.configs import registry
 from repro_torch.data import synthetic
 from repro_torch.engine import EngineSpec, big_rows, big_subtable
 from repro_torch.models import dlrm
+from repro_torch.obs import attribution as obs_attribution
+from repro_torch.obs import report as obs_report
+from repro_torch.obs import traffic as obs_traffic
 
 
 @dataclasses.dataclass
 class ServeState:
     """The offline pass's output, reusable across pipeline runs (schedulers
-    are stateful, so ``run_pipeline`` makes a fresh set per run)."""
+    are stateful, so ``run_pipeline`` makes a fresh set per run).
+
+    ``predicted_s`` (a cost model's per-batch latency prediction) and
+    ``drift`` (the monitor of predicted against measured batches) stay
+    ``None`` until a tuner plans the state; ``run_pipeline`` feeds the
+    monitor whenever both are set."""
 
     engine: engine_mod.EmbeddingEngine
     device: torch.device
+    predicted_s: float | None = None
+    drift: obs.DriftMonitor | None = None
 
     @property
     def eplan(self) -> engine_mod.EmbeddingPlan:
@@ -105,7 +144,8 @@ def make_packed_gather(params, state: ServeState, *, packed: dict | None = None)
     one ``serve_gather`` launch for the batch."""
     eng = state.engine
     if packed is None:
-        packed = eng.pack(params["tables"])
+        with obs.span("pack_tables", cat="offline"):
+            packed = eng.pack(params["tables"])
 
     def gather(idx, slot, cache_rows):
         return eng.serve_gather(packed, idx, slot, cache_rows)
@@ -113,12 +153,10 @@ def make_packed_gather(params, state: ServeState, *, packed: dict | None = None)
     return gather
 
 
-def latency_percentiles(samples, qs=(50, 95, 99)) -> dict:
-    """``lat_p50_s``... from raw per-batch latency samples (numpy.percentile,
-    0.0 when empty), the keys of ``repro``'s serving records."""
-    samples = np.asarray(samples, dtype=np.float64)
-    return {f"lat_p{q:g}_s": float(np.percentile(samples, q)) if samples.size else 0.0
-            for q in qs}
+# serving-record percentiles come from the exact-quantile helper the obs
+# histograms use (obs.metrics.exact_percentile): one definition, so a metrics
+# snapshot and a result record can never disagree
+_percentiles = obs.latency_percentiles
 
 
 def _host_batch(b: dict, device: torch.device) -> dict:
@@ -138,9 +176,10 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
                  shards: int = 4, seed: int = 0, mode: str = "overlap",
                  state: ServeState | None = None, params=None,
                  packed: dict | None = None, data: list | None = None,
-                 device=None) -> dict:
+                 device=None, fence: bool = False) -> dict:
     """Serve ``batches`` queued request batches; returns logits, QPS, the
-    per-batch latency distribution and the cache statistics.
+    per-batch latency distribution, the cache statistics and the traffic
+    report.
 
     ``data`` injects the batches (dicts with ``dense`` (B, num_dense) and
     ``idx`` (B, T, K), numpy or tensors) instead of drawing them from
@@ -152,6 +191,9 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
     steady-state window.  Sequential latencies are request latencies
     (dispatch to logits on the host); overlap latencies are the pipeline's
     enqueue-to-enqueue cycle, the tail drain folded into the last one.
+    ``fence=True`` waits for the card after the embedding launch and after
+    the head of every batch, so the ``device_compute`` / ``device_head``
+    spans carry device time; it serialises overlap mode.
     """
     dev = device_mod.resolve(device)
     if state is None:
@@ -181,28 +223,43 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
         return torch.from_numpy(a).to(dev, non_blocking=True)
 
     def prefetch(t: int) -> None:
-        for i in range(cfg.num_tables):
-            scheds[i].prefetch(rows_np[t][:, i])
+        with obs.span("prefetch", batch=t):
+            for i in range(cfg.num_tables):
+                scheds[i].prefetch(rows_np[t][:, i])
 
     def dispatch_gather(t: int) -> torch.Tensor:
         """Translate batch t through the slot maps and launch its kernel."""
-        slot = np.stack(
-            [scheds[i].slots_for(rows_np[t][:, i]) for i in range(cfg.num_tables)],
-            axis=1,
-        )
-        cache_rows = state.engine.packed_cache_rows(scheds)
-        return gather(upload(data[t]["idx"]), upload(slot), upload(cache_rows))
+        with obs.span("pack", batch=t):        # host-side slot translation
+            slot = np.stack(
+                [scheds[i].slots_for(rows_np[t][:, i]) for i in range(cfg.num_tables)],
+                axis=1,
+            )
+            cache_rows = state.engine.packed_cache_rows(scheds)
+        with obs.span("h2d", batch=t):         # the three stream uploads
+            args = (upload(data[t]["idx"]), upload(slot), upload(cache_rows))
+        with obs.span("dispatch", batch=t):    # serve_gather: one kernel launch
+            pooled = gather(*args)
+        if fence:
+            with obs.span("device_compute", batch=t):
+                device_mod.synchronize(dev)
+        return pooled
 
-    def head(t: int, pooled: torch.Tensor) -> torch.Tensor:
-        return dlrm.forward_from_pooled(params, data[t]["dense"], pooled, cfg)
+    def interact(t: int, pooled: torch.Tensor) -> torch.Tensor:
+        with obs.span("interact", batch=t):    # pairwise dot + MLP head
+            out = dlrm.forward_from_pooled(params, data[t]["dense"], pooled, cfg)
+        if fence:
+            with obs.span("device_head", batch=t):
+                device_mod.synchronize(dev)
+        return out
 
     logits: list = [None] * batches
     lats: list[float] = []
     device_mod.synchronize(dev)
     tc = time.perf_counter()
-    prefetch(0)                            # cold-start staging for batch 0
-    warm = head(0, dispatch_gather(0))
-    logits[0] = warm.cpu().numpy()         # waits for the warm-up batch
+    with obs.span("compile_warmup", cat="offline"):
+        prefetch(0)                        # cold-start staging for batch 0
+        warm = interact(0, dispatch_gather(0))
+        logits[0] = warm.cpu().numpy()     # waits for the warm-up batch
     compile_s = time.perf_counter() - tc
 
     t0 = time.perf_counter()
@@ -214,33 +271,52 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
         for t in range(1, batches):
             # enqueue batch t's head, then stage + launch batch t+1's gather
             # while the card runs it; wait only at the tail of the stream
-            logits[t] = head(t, pooled)
-            if t + 1 < batches:
-                prefetch(t + 1)
-                pooled = dispatch_gather(t + 1)
+            with obs.span("batch", batch=t, mode=mode):
+                logits[t] = interact(t, pooled)
+                if t + 1 < batches:
+                    prefetch(t + 1)
+                    pooled = dispatch_gather(t + 1)
             if t < batches - 1:            # cycle time: enqueue-to-enqueue
                 now = time.perf_counter()
                 lats.append(now - prev)
                 prev = now
-        device_mod.synchronize(dev)
+                obs.observe_batch(batch=t, mode=mode, latency_s=lats[-1])
+        with obs.span("tail_sync", mode=mode):
+            device_mod.synchronize(dev)
         if batches > 1:                    # last cycle includes the drain
             lats.append(time.perf_counter() - prev)
+            obs.observe_batch(batch=batches - 1, mode=mode, latency_s=lats[-1])
         logits = [x if isinstance(x, np.ndarray) else x.cpu().numpy() for x in logits]
     else:
         for t in range(1, batches):
             tb = time.perf_counter()
-            prefetch(t)
-            out = head(t, dispatch_gather(t))
-            device_mod.synchronize(dev)    # per-batch wait: the baseline
+            with obs.span("batch", batch=t, mode=mode):
+                prefetch(t)
+                out = interact(t, dispatch_gather(t))
+                with obs.span("block", batch=t):
+                    device_mod.synchronize(dev)    # per-batch wait: the baseline
             lats.append(time.perf_counter() - tb)
             logits[t] = out.cpu().numpy()
+            obs.observe_batch(batch=t, mode=mode, latency_s=lats[-1])
     wall_s = time.perf_counter() - t0
+
+    for lat in lats:                       # the SLO histograms (when enabled)
+        obs.observe(f"serve/{mode}/batch_latency_s", lat)
+    obs.observe(f"serve/{mode}/compile_s", compile_s)
+    obs.inc(f"serve/{mode}/batches", len(lats))
+    obs.inc(f"serve/{mode}/requests", batch * len(lats))
+    if state.drift is not None and state.predicted_s is not None:
+        for lat in lats:
+            state.drift.observe(state.predicted_s, lat)
 
     served = batch * max(0, batches - 1)
     stats = [s.stats for s in scheds]
     hits = sum(s.hits for s in stats)
     acc = sum(s.accesses for s in stats)
     staged = sum(s.staged_rows for s in stats) / max(1, batches)
+    report = obs_traffic.collect(state.eplan, scheds, batch=batch)
+    if obs.enabled():
+        obs.trace_counter(f"serve/{mode}/hit_rate", hit_rate=report.hit_rate)
     return {
         "config": cfg.name,
         "device": str(dev),
@@ -251,17 +327,21 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
         "compile_s": compile_s,            # warm-up, excluded from qps
         "wall_s": wall_s,
         "qps": served / max(wall_s, 1e-9),
-        **latency_percentiles(lats),
+        **_percentiles(lats),
         "latencies_s": lats,
         "hit_rate": hits / max(1, acc),
         "staged_per_batch": staged,
         "slot_budgets": list(state.slot_budgets),
+        "traffic": report.describe(),
+        "traffic_report": report,          # the live object (attribution joins)
+        "drift": state.drift.summary() if state.drift is not None else None,
         "logits": logits,
     }
 
 
-# result keys dropped from the --json records (bulk arrays)
-_RECORD_DROP = ("logits", "latencies_s")
+# result keys dropped from the --json / --metrics-json records (bulk arrays
+# and live objects)
+_RECORD_DROP = ("logits", "latencies_s", "traffic_report")
 
 
 def main(argv=None) -> int:
@@ -282,12 +362,46 @@ def main(argv=None) -> int:
                     help="write measured QPS / latency / hit-rate records")
     ap.add_argument("--plan-json", default=None, metavar="PATH",
                     help="write the EmbeddingPlan summary as JSON")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="enable telemetry; write the metric registry "
+                         "(latency histograms, dispatch counters, traffic)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable telemetry; write a Chrome-trace JSON of the "
+                         "stage spans (fences every stage — perturbs overlap)")
+    ap.add_argument("--slo", default=None, metavar="SPEC",
+                    help="serving SLO, e.g. 'p99_ms=50,hit=0.5,qps=100,"
+                         "objective=0.99' — enables telemetry, burn-rate "
+                         "alerts, and the flight recorder")
+    ap.add_argument("--report", default=None, metavar="PATH",
+                    help="write the serving-report artifact (markdown + JSON "
+                         "twin): SLO state, per-stage attribution, traffic. "
+                         "Enables telemetry and fences stages like --trace-out")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="directory for flight-recorder JSON dumps (written "
+                         "when an SLO burns or a latency sample is anomalous)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (the default) needs a card; cpu runs the "
                          "kernels' plain versions")
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve(args.device)
+    telemetry = bool(args.metrics_json or args.trace_out or args.slo
+                     or args.report or args.flight_dir)
+    if telemetry:
+        obs.enable()
+    # --report needs device-honest stage durations for attribution, so it
+    # fences like --trace-out (and carries the same QPS caveat)
+    fence = bool(args.trace_out or args.report)
+
+    slo_engine = recorder = None
+    if args.slo:
+        slo_engine = obs.SLOEngine(obs.SLOSpec.parse(args.slo))
+    if args.slo or args.flight_dir or args.report:
+        recorder = obs.FlightRecorder(out_dir=args.flight_dir)
+    if slo_engine is not None or recorder is not None:
+        # after enable(): the telemetry join cursors into the live registry
+        obs.install_observatory(slo=slo_engine, recorder=recorder)
+
     name = f"{args.arch}-smoke" if (args.smoke or args.tiny) else args.arch
     cfg = registry.get_dlrm(name)
     batch = args.batch or (8 if args.tiny else 16)
@@ -319,8 +433,10 @@ def main(argv=None) -> int:
         res = run_pipeline(
             cfg, batch=batch, batches=args.batches, alpha=args.alpha,
             shards=args.shards, seed=args.seed, mode=mode,
-            state=state, params=params, device=dev,
+            state=state, params=params, device=dev, fence=fence,
         )
+        tr = res["traffic"]
+        ici = plan.ici_bytes_per_batch(batch, cfg.dim)
         print(
             f"[{mode}] served {res['served']} requests in {res['wall_s']:.2f}s "
             f"-> {res['qps']:.1f} QPS on {dev} (steady state; warm-up "
@@ -334,15 +450,80 @@ def main(argv=None) -> int:
         )
         print(
             f"[{mode}] cache hit rate {res['hit_rate']:.3f}, "
-            f"staged {res['staged_per_batch']:.1f} rows/batch"
+            f"staged {res['staged_per_batch']:.1f} rows/batch, "
+            f"HBM {tr['hbm_cached_bytes']}B vs baseline "
+            f"{tr['hbm_baseline_bytes']}B ({tr['hbm_reduction']:.2f}x)"
+        )
+        print(
+            f"modeled combine traffic/batch: baseline {ici['baseline']:.0f} B -> "
+            f"{ici['duplicated']:.0f} B (saved {ici['saved']:.0f} B)"
         )
         print("first logits:", np.asarray(res["logits"][-1][:4]).round(4).tolist())
         records.append({k: v for k, v in res.items() if k not in _RECORD_DROP})
+
+    # -- observatory epilogue: SLO verdict, attribution, serving report -------
+    if slo_engine is not None:
+        floors = slo_engine.finalize(hit_rate=res["hit_rate"], qps=res["qps"])
+        verdict = "BREACHED" if slo_engine.breached else "met"
+        print(
+            f"[slo] {slo_engine.spec.name}: {verdict} — "
+            f"{slo_engine.bad_total}/{slo_engine.n} bad batches, "
+            f"budget remaining {slo_engine.budget_remaining_frac * 100:.1f}%, "
+            f"{len(slo_engine.alerts)} alerts"
+        )
+        for fname, f in floors.items():
+            print(f"[slo] {fname} floor {f['floor']}: measured "
+                  f"{f['measured']:.3f} — "
+                  f"{'BREACHED' if f['breached'] else 'met'}")
+    if recorder is not None and recorder.dumps:
+        for d in recorder.dumps:
+            print(f"[flight] dumped {d['records']} records "
+                  f"({d['reason']}) -> {d.get('path', '<memory>')}")
+    if args.report:
+        att = obs_attribution.attribute(
+            obs.tracer().events, res["traffic_report"], state.eplan,
+            batch=batch, fenced=fence,
+        )
+        print(f"[attribution] bottleneck stage: {att.bottleneck} "
+              f"(measured {att.total_s * 1e3:.2f} ms/batch, "
+              f"cost model {att.modeled_total_s() * 1e3:.2f} ms/batch)")
+        rep = obs_report.build(
+            snapshot=obs.snapshot(),
+            slo_state=slo_engine.state() if slo_engine is not None else None,
+            attribution=att,
+            traffic=res["traffic"],
+            results={r["mode"]: r for r in records},
+            flight_dumps=recorder.dumps if recorder is not None else None,
+            meta={
+                "config": cfg.name, "batch": batch, "batches": args.batches,
+                "shards": args.shards, "alpha": args.alpha,
+                "seed": args.seed, "modes": modes, "fenced": fence,
+                "device": str(dev),
+            },
+        )
+        md_path, jpath = obs_report.write(rep, args.report, attribution=att)
+        print(f"# wrote serving report to {md_path} (+ {jpath})")
 
     if args.json:
         with open(args.json, "w") as f:
             json.dump(records, f, indent=1)
         print(f"# wrote {len(records)} records to {args.json}")
+    if args.metrics_json:
+        snap = obs.snapshot().to_json()
+        snap["config"] = cfg.name
+        snap["modes"] = {r["mode"]: r for r in records}
+        snap["plan"] = state.engine.summary()
+        with open(args.metrics_json, "w") as f:
+            json.dump(snap, f, indent=1)
+        print(f"# wrote metric registry to {args.metrics_json}")
+    if args.trace_out:
+        obs.tracer().write(
+            args.trace_out,
+            metadata={"config": cfg.name, "modes": modes, "fenced": fence,
+                      "device": str(dev)},
+        )
+        print(f"# wrote Chrome trace to {args.trace_out} "
+              f"(load in chrome://tracing or ui.perfetto.dev)")
     return 0
 
 

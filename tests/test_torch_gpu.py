@@ -25,6 +25,7 @@ is at most 2**-7 of the value).
 """
 
 import dataclasses
+import time
 
 import pytest
 
@@ -258,6 +259,75 @@ def test_gpu_serving_overlap_matches_sequential(cuda, arch):
     for a, b in zip(res["sequential"]["logits"], res["overlap"]["logits"]):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
         assert np.isfinite(a).all()
+
+
+@pytest.mark.gpu
+def test_gpu_serving_telemetry_fenced(cuda):
+    """dlrm-qr-smoke served on the card with telemetry on and fenced: every
+    span of each steady-state batch, one dispatch counter and one K1 launch
+    a batch, and the fence's wait for the embedding layer takes time."""
+    from repro_torch import obs
+
+    cfg = registry.get_dlrm("dlrm-qr-smoke")
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=cuda)
+    params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
+    pg.reset_launches()
+    obs.enable()
+    try:
+        res = serve_rec.run_pipeline(cfg, batch=8, batches=4, mode="sequential",
+                                     state=state, params=params, device=cuda, fence=True)
+        events = list(obs.tracer().events)
+        snap = obs.snapshot()
+    finally:
+        obs.disable()
+        obs.registry().reset()
+        obs.tracer().reset()
+    assert pg.LAUNCHES["packed_qr_bag"] == 4
+    assert snap.counters["engine/dispatch/serve_gather"] == 4
+    assert snap.counters["serve/sequential/batches"] == 3
+    assert snap.histograms["serve/sequential/batch_latency_s"].count == 3
+    spans: dict = {}
+    for ev in events:
+        b = ev.get("args", {}).get("batch")
+        if ev["ph"] == "X" and b is not None:
+            spans.setdefault(b, {}).setdefault(ev["name"], []).append(ev["dur"])
+    for t in (1, 2, 3):
+        assert {"prefetch", "pack", "h2d", "dispatch", "device_compute", "interact",
+                "device_head", "block", "batch"} <= set(spans[t])
+        assert spans[t]["device_compute"][0] > 0
+    assert res["traffic"]["hit_rate"] == res["hit_rate"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-tt-smoke"])
+def test_gpu_serve_gather_does_not_wait_for_the_card(cuda, arch):
+    """``serve_gather`` only enqueues: behind a ~0.5 s spin on the card the
+    host returns from it long before the spin ends (it used to wait for its
+    own launch in a blocking upload of the combiner scale, and for earlier
+    work in those of the stream offsets)."""
+    cfg = registry.get_dlrm(arch)
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=cuda)
+    params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
+    eng = state.engine
+    packed = eng.pack(params["tables"])
+    scheds = state.fresh_schedulers()
+    idx = np.asarray(serve_rec._host_batch(
+        serve_rec.synthetic.dlrm_batch(cfg, 8, seed=0), cuda)["idx"])
+    rows = [serve_rec.big_rows(idx[:, t], state.bags[t].emb) for t in range(cfg.num_tables)]
+    for s, r in zip(scheds, rows):
+        s.prefetch(r)
+    slot = np.stack([s.slots_for(r) for s, r in zip(scheds, rows)], axis=1)
+    args = [torch.from_numpy(a).to(cuda) for a in (idx, slot, eng.packed_cache_rows(scheds))]
+    eng.serve_gather(packed, *args)                  # warm: builds, uploads the scale
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))      # ~0.5 s of work ahead in the stream (SM clock ~2 GHz)
+    t0 = time.perf_counter()
+    out = eng.serve_gather(packed, *args)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    assert total_s > 0.2 and host_s < total_s / 4, (host_s, total_s)
+    assert torch.isfinite(out).all()
 
 
 # ---------------------------------------------------------------------------
