@@ -93,11 +93,33 @@ Phases, each one failing the script if it fails:
    4 steps at full width); one ``tt_embedding.lookup`` on bf16 cores under
    grad (K5 bf16); and the train-DLRM example at TT rank 64
    (``examples.train_dlrm --embedding tt --tt-rank 64``, 25 steps: K2 bf16
-   on the sliced staging path).
+   on the sliced staging path);
+8. the serving control plane: ``tune.fit(mode="measure", max_samples=4)``
+   on full-width dlrm-qr traces at batch 2,048 (each sample's knobs,
+   features and CUDA-event time logged, then the coefficients and the
+   choice, which must lie in the knob space and be what ``plan(tuner=)``
+   freezes), ``build_serve_state(tuner=)`` and 5 sequential batches (the
+   prediction against the tuned plan's ``serve_gather`` by CUDA events and
+   against its whole batches, and the drift monitor); one batch of 2,048
+   through every rung of the degradation ladder on dlrm-qr, dlrm-tt and
+   dlrm-dense (1,000,000 rows a table: the ladder holds three copies of the
+   tables): rungs 0-2 bitwise identical, ``baseline`` within
+   ``BASELINE_TOL``, the packed kernel launched once a call on ``full`` and
+   ``nocache``, once per table on ``pertable``, never on ``baseline``, ms a
+   batch of each; a chaos session of the front end on full-width dlrm-qr in
+   ``measured`` mode (flash crowd, stall, replica loss, gather errors, a
+   dropped prefetch): no request unaccounted, the ladder steps down and
+   comes back to ``full``; at batch 256, a stationary adaptive session
+   bitwise ``run_pipeline``'s, the controller's host cost (one ``observe``,
+   one ``evaluate``), then a drifting session with ``refit=True`` on the
+   tuner-armed state; ``serve_rec.main`` on dlrm-qr-smoke with ``--frontend
+   --arrival --faults`` and with ``--adapt --drift`` (records under
+   ``build/serve_cli``).
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+``{"control_plane": ...}`` line, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -1669,6 +1691,391 @@ def tt_lookup_grad_run(dev, registry, dlrm, synthetic, tt_embedding, ref, ops, m
     return {"launches": counts["tt_bag"], **res}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving control plane (tuner, ladder rungs, front end, adaptation)
+# ---------------------------------------------------------------------------
+
+# rows per table of dlrm-dense in the rungs phase: the ladder holds three
+# copies of the tables (the params the baseline rung reads, the packed
+# buffer, the 26 one-table packed buffers); at 2,000,000 rows they would take
+# 80 GB
+RUNG_DENSE_ROWS = 1_000_000
+# the baseline rung (``multi_bag_lookup``) sums each subtable's rows in the
+# compute dtype, bf16, and adds the sums there: where the Q and R sums cancel
+# it sits up to ~180 roundings of the result away from the kernel rungs'
+# fp32 sum (0.0274 max at dlrm-qr's widths on the CPU, batch 2,048), so it is
+# held to repro's own bound between its baseline and kernel rungs
+# (tests/test_serve_frontend.py: rtol = atol = 2e-2)
+BASELINE_TOL = 2e-2
+FRONTEND_BATCH = 256
+# the adaptive sessions' batch: the controller's host work grows with a
+# batch's distinct rows (SpaceSaving walks each against its 256 tracked keys
+# in Python); at batch 2,048 on full-width dlrm-qr the adaptive sessions
+# took 202.6 s on an NVIDIA H100 80GB HBM3 host (PERF.md, PR 18)
+ADAPT_BATCH = 256
+ADAPT_POLICY = dict(check_every=4, min_batches=8, min_gain=0.05, cooldown_batches=4)
+FRONTEND_ARRIVAL = "rate=1000,horizon=3,deadline_ms=400,flash=0.2+0.3x10,seed=5"
+FRONTEND_FAULTS = "stall@0.6:0.5,replica@0.9:0.2,gather@1.2:2,drop@1.3,retries=3"
+FRONTEND_SLO = "p99_ms=150,objective=0.99,fast_window=4,slow_window=8,name=frontend"
+
+
+def launch_delta(mods, before: dict) -> dict:
+    now = launches_now(mods)
+    return {k: n - before.get(k, 0) for k, n in now.items() if n - before.get(k, 0)}
+
+
+def add_launches(by_name: dict, delta: dict) -> None:
+    """Serving launches are the fp32 entries: each adds to its kernel's row."""
+    for name, n in delta.items():
+        by_name[name]["launches"] += n
+
+
+def serving_traces(cfg, synthetic, n: int = 50_000) -> list:
+    """The per-table Zipf traces ``build_serve_state`` profiles (seed 0)."""
+    return [synthetic.zipf_trace(cfg.vocab_per_table, n, alpha=1.05, seed=7 + t)
+            for t in range(cfg.num_tables)]
+
+
+def tuner_phase(dev, batch, registry, dlrm, synthetic, serve_rec, engine, tune, mods):
+    """``tune.fit(mode="measure", max_samples=4)`` on full-width dlrm-qr
+    traces at batch ``batch`` (each sample timed by CUDA events, the median of
+    3 calls), the choice in the knob space and frozen by ``plan(tuner=)``;
+    then ``build_serve_state(tuner=)``, 5 sequential batches, the tuned
+    plan's prediction against its measured ``serve_gather`` and its measured
+    batches.  Returns (record, the tuned state, its params, launches)."""
+    from repro_torch.tune import tuner as tuner_mod
+
+    cfg = registry.get_dlrm("dlrm-qr")
+    spec = engine.EngineSpec.from_dlrm(cfg, serving=True)
+    traces = serving_traces(cfg, synthetic)
+    before = launches_now(mods)
+    t0 = time.perf_counter()
+    tuner = tune.fit(spec, traces, mode="measure", batch=batch, num_shards=4,
+                     max_samples=4, repeats=3, device=dev)
+    fit_s = time.perf_counter() - t0
+    samples = []
+    for s in tuner.samples:
+        samples.append({"knobs": s.knobs.describe(),
+                        "features": dict(zip(tune.FEATURES, s.features)),
+                        "ms": s.measured_s * 1e3})
+        log(f"[tuner] sample {s.knobs.backend} slots {s.knobs.cache_slots} "
+            f"{s.knobs.cache_slot_policy}, features "
+            + ", ".join(f"{k} {v:.6g}" for k, v in samples[-1]["features"].items())
+            + f": {s.measured_s * 1e3:.4f} ms (CUDA events, median of 3)")
+    coef = {b: dict(zip(tune.FEATURES, m.coef)) for b, m in tuner.models.items()}
+    for b, c in coef.items():
+        log(f"[tuner] {b} model: " + ", ".join(f"{k} {v:.4g}" for k, v in c.items()))
+    space = tune.knob_space(spec, packable=True)
+    choice = tuner.choose(spec, backend="packed")
+    if choice not in space:
+        raise AssertionError(f"tuner chose {choice} outside the knob space")
+    eplan = engine.plan(spec, traces, num_shards=4, tuner=tuner)
+    if eplan.knobs != tuner.choose(spec, packable=True):
+        raise AssertionError(f"plan(tuner=) froze {eplan.knobs}, not the tuner's choice")
+    log(f"[tuner] fit {fit_s:.2f} s ({len(tuner.samples)} samples, {tuner.source}, "
+        f"{tuner.metadata['device_kind']}); chosen (packed) {choice.describe()}, "
+        f"default {choice == tune.default_knobs(spec, packable=True)}")
+
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=dev,
+                                        tuner=tuner)
+    if state.eplan.knobs != choice or state.drift is None or state.predicted_s is None:
+        raise AssertionError("build_serve_state(tuner=) did not plan the choice and arm "
+                             "the drift monitor")
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    r = serve_rec.run_pipeline(cfg, batch=batch, batches=5, mode="sequential", state=state,
+                               params=params, device=dev)
+    if not all(np.isfinite(x).all() for x in r["logits"]):
+        raise AssertionError("tuned plan: non-finite logits")
+    idx = synthetic.dlrm_batch(cfg, batch, seed=0, step=1)["idx"].numpy()
+    fn, args = tuner_mod._serving_call(state.engine, params["tables"], idx, dev)
+    gather_s = tuner_mod._time_call(fn, *args, device=dev, iters=5)
+    del fn, args
+    drift = state.drift.summary()
+    rec = {"config": "dlrm-qr", "batch": batch, "fit_s": fit_s, "samples": samples,
+           "coef": coef, "choice": choice.describe(),
+           "predicted_ms": state.predicted_s * 1e3, "serve_gather_ms": gather_s * 1e3,
+           "batch_p50_ms": r["lat_p50_s"] * 1e3, "drift": drift}
+    log(f"[tuner] tuned plan: predicted {state.predicted_s * 1e3:.4f} ms a batch, "
+        f"serve_gather measured {gather_s * 1e3:.4f} ms (CUDA events, median of 5; "
+        f"{gather_s / state.predicted_s:.3f}x the prediction), whole sequential batch p50 "
+        f"{r['lat_p50_s'] * 1e3:.2f} ms ({r['lat_p50_s'] / state.predicted_s:.1f}x: the "
+        f"host's prefetch and slot translation, which the model does not price); drift "
+        f"monitor: {drift['observations']} observations, recent residual "
+        f"{drift['recent_residual']:.1f}, refit recommended {drift['refit_recommended']}")
+    return rec, state, params, launch_delta(mods, before)
+
+
+def rungs_phase(dev, arch, batch, registry, dlrm, synthetic, serve_rec, engine, serve,
+                mods) -> tuple[dict, dict]:
+    """One batch of ``batch`` through every rung of the degradation ladder
+    on ``arch`` at full width (dlrm-dense at ``RUNG_DENSE_ROWS`` rows a
+    table): rungs 0-2 bitwise identical, ``baseline`` within
+    ``BASELINE_TOL`` of them (it sums in the compute dtype, bf16), the packed kernel
+    launched once on ``full`` and ``nocache``, once per table on
+    ``pertable``, never on ``baseline``.  ms: host clock around the rung's
+    call and a synchronise, median of 3."""
+    from repro_torch.serve.degrade import RUNGS
+
+    cfg = registry.get_dlrm(arch)
+    if cfg.embedding_kind == "dense":
+        cfg = cfg.replace(vocab_per_table=RUNG_DENSE_ROWS)
+    kernel = KERNEL_OF[cfg.embedding_kind]
+    before = launches_now(mods)
+    t0 = time.perf_counter()
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=dev)
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    ladder = serve.DegradationLadder(state, params)
+    emb = state.bags[0].emb
+    idx = synthetic.dlrm_batch(cfg, batch, seed=0, step=1)["idx"].numpy()
+    rows = np.stack([engine.big_rows(idx[:, t], emb) for t in range(cfg.num_tables)], axis=1)
+    scheds = state.fresh_schedulers()
+    for t in range(cfg.num_tables):
+        scheds[t].prefetch(rows[:, t])
+    hit = float(np.mean(np.stack([scheds[t].slots_for(rows[:, t], record=False) >= 0
+                                  for t in range(cfg.num_tables)])))
+    if hit <= 0:
+        raise AssertionError(f"{arch} rungs: the staged cache takes no hit")
+    ladder.warm(idx, rows, scheds)
+    out, ms, per_call = {}, {}, {}
+    for rung in RUNGS[:-1]:
+        ladder.rung_i = RUNGS.index(rung)
+        walls = []
+        for rep in range(3):
+            b0 = launches_now(mods)
+            tw = time.perf_counter()
+            pooled = ladder.pooled(idx, rows, scheds)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - tw)
+            if rep == 0:
+                per_call[rung] = launch_delta(mods, b0)
+                out[rung] = pooled
+        ms[rung] = sorted(walls)[1] * 1e3
+    ladder.rung_i = 0
+    want = {"full": 1, "nocache": 1, "pertable": cfg.num_tables, "baseline": 0}
+    got = {r: per_call[r].get(kernel, 0) for r in want}
+    if got != want:
+        raise AssertionError(f"{arch} rungs: {kernel} launches {got}, want {want}")
+    for rung in ("nocache", "pertable"):
+        if out[rung].dtype != out["full"].dtype or not torch.equal(out[rung], out["full"]):
+            diff = float((out[rung].float() - out["full"].float()).abs().max())
+            raise AssertionError(f"{arch}: rung {rung} is not bitwise the full rung "
+                                 f"(max |diff| {diff})")
+    base = out["baseline"].float()
+    err = float((base - out["full"]).abs().max())
+    if not torch.allclose(base, out["full"], rtol=BASELINE_TOL, atol=BASELINE_TOL):
+        raise AssertionError(f"{arch}: baseline rung vs kernel rungs max |diff| {err}")
+    rec = {"config": arch, "rows_per_table": cfg.vocab_per_table, "batch": batch,
+           "hit_share": hit, "ms": ms, "launches": {r: per_call[r] for r in want},
+           "baseline_max_abs_err": err, "baseline_dtype": str(out["baseline"].dtype)}
+    log(f"[rungs] {arch} ({cfg.vocab_per_table:,} rows a table, batch {batch}, hit share "
+        f"{hit:.3f}): full == nocache == pertable bitwise; baseline "
+        f"({out['baseline'].dtype}) within {BASELINE_TOL} (max |diff| {err:.3e}); ms a batch "
+        + ", ".join(f"{r} {v:.3f}" for r, v in ms.items())
+        + f"; {kernel} launches a call " + ", ".join(f"{r} {got[r]}" for r in want)
+        + (f"; baseline runs K5 {per_call['baseline'].get('tt_bag', 0)} times"
+           if cfg.embedding_kind == "tt" else "")
+        + f"; phase {time.perf_counter() - t0:.1f} s")
+    del ladder, state, params, out, pooled, base
+    torch.cuda.empty_cache()
+    return rec, launch_delta(mods, before)
+
+
+def frontend_phase(dev, registry, dlrm, serve_rec, serve, obs, mods) -> tuple[dict, dict]:
+    """A chaos session on full-width dlrm-qr in ``measured`` service mode:
+    a flash crowd, a stall, a replica loss, two transient gather errors and a
+    dropped prefetch.  Every request lands in a bucket, and the ladder steps
+    down and comes back to ``full``."""
+    cfg = registry.get_dlrm("dlrm-qr")
+    before = launches_now(mods)
+    t0 = time.perf_counter()
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=dev)
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    aspec = serve.ArrivalSpec.parse(FRONTEND_ARRIVAL)
+    fspec = serve.FaultSpec.parse(FRONTEND_FAULTS)
+    fe = serve.Frontend(
+        cfg, serve.FrontendConfig(batch_size=FRONTEND_BATCH, queue_cap=1024,
+                                  service_mode="measured"),
+        state, params, slo=obs.SLOEngine(obs.SLOSpec.parse(FRONTEND_SLO)),
+        faults=serve.FaultInjector(fspec))
+    reqs = serve.generate(aspec, cfg)
+    rep = fe.run(reqs)
+    st, deg = rep["requests"], rep["degrade"]
+    if st["unaccounted"] != 0 or st["generated"] != len(reqs):
+        raise AssertionError(f"frontend: accounting broken {st}")
+    if not any(t["from"] == "full" for t in deg["transitions"]):
+        raise AssertionError("frontend: the ladder never stepped down")
+    if not rep["recoveries_s"]:
+        raise AssertionError(f"frontend: the ladder never came back to full "
+                             f"({deg['transitions']})")
+    if not fe.faults.exhausted():
+        raise AssertionError("frontend: a scheduled fault never latched")
+    pcts = {k: rep[k] * 1e3 for k in rep if k.startswith(("req_lat_p", "batch_lat_p"))}
+    rec = {"config": "dlrm-qr", "batch": FRONTEND_BATCH, "arrival": FRONTEND_ARRIVAL,
+           "faults": FRONTEND_FAULTS, "slo": FRONTEND_SLO, "requests": st,
+           "virtual_ms": pcts, "s0_wall_ms": rep["calibration"]["s0_wall_s"] * 1e3,
+           "hit_rate": rep["hit_rate"], "batches_at": deg["batches_at"],
+           "transitions": deg["transitions"], "recoveries_s": rep["recoveries_s"],
+           "wall_s": time.perf_counter() - t0}
+    log(f"[frontend] dlrm-qr, batch {FRONTEND_BATCH}, measured mode (s0 = "
+        f"{rec['s0_wall_ms']:.2f} ms of wall a full-rung batch = one 10 ms virtual unit), "
+        f"{st['generated']} requests: served {st['served']}, missed {st['deadline_missed']}, "
+        f"shed {st['shed_total']} (abandoned {st['abandoned']}), retries {st['retries']}, "
+        f"unaccounted {st['unaccounted']}, hit rate {rep['hit_rate']:.4f}")
+    log("[frontend] virtual latency ms: " + ", ".join(f"{k} {v:.2f}" for k, v in pcts.items()))
+    for tr in deg["transitions"]:
+        log(f"[frontend] batch {tr['at_batch']} t={tr['t_s']:.3f}s {tr['from']} -> "
+            f"{tr['to']} ({tr['reason']})")
+    log(f"[frontend] batches per rung {deg['batches_at']}, time to recover "
+        f"{rep['time_to_recover_s']:.3f} s (virtual); phase {rec['wall_s']:.1f} s")
+    del fe, state, params
+    torch.cuda.empty_cache()
+    return rec, launch_delta(mods, before)
+
+
+def adapt_phase(dev, registry, dlrm, synthetic, serve_rec, adapt, tuned_state, tuned_params,
+                mods) -> tuple[dict, dict]:
+    """A stationary ``serve_adaptive`` session on full-width dlrm-qr is
+    bitwise ``run_pipeline`` on the same batches (pinned residency against
+    the oracle prefetcher: hits and misses load the same bits); the
+    controller's host costs (``observe`` of one batch, ``evaluate`` over
+    every table's 2M rows); then a drifting session with ``refit=True`` on
+    the tuner-armed state.  Batch ``ADAPT_BATCH``."""
+    from repro_torch.adapt import loop
+
+    cfg = registry.get_dlrm("dlrm-qr")
+    batch = ADAPT_BATCH
+    before = launches_now(mods)
+    t0 = time.perf_counter()
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=dev)
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    ref = serve_rec.run_pipeline(cfg, batch=batch, batches=4, mode="sequential", state=state,
+                                 params=params, device=dev)
+    idx = [synthetic.dlrm_batch(cfg, batch, seed=0, step=t, device=dev)["idx"].cpu().numpy()
+           for t in range(4)]
+    res = loop.serve_adaptive(cfg, batch=batch, batches=4, seed=0, state=state,
+                              params=params, idx_override=idx)
+    for t in range(4):
+        if not np.array_equal(ref["logits"][t], res["logits"][t]):
+            raise AssertionError(f"adapt: stationary logits of batch {t} are not the "
+                                 f"pipeline's")
+    log(f"[adapt] stationary: 4 batches of {batch}, logits bitwise run_pipeline's "
+        f"(hit rate pinned {res['hit_rate']:.4f}, prefetch {ref['hit_rate']:.4f})")
+    ctl = adapt.AdaptController(state.eplan, seed=0)
+    tc = time.perf_counter()
+    ctl.observe(idx[1])
+    observe_s = time.perf_counter() - tc
+    tc = time.perf_counter()
+    ctl.evaluate(ctl.fresh_caches())
+    evaluate_s = time.perf_counter() - tc
+    log(f"[adapt] controller host cost on full-width dlrm-qr: observe one batch of {batch} "
+        f"{observe_s:.3f} s, evaluate (26 tables x {cfg.vocab_per_table:,} rows) "
+        f"{evaluate_s:.3f} s")
+    del state, params, ctl
+    torch.cuda.empty_cache()
+    engine_before = tuned_state.engine
+    ctl = adapt.AdaptController(tuned_state.eplan, policy=adapt.AdaptPolicy(**ADAPT_POLICY),
+                                seed=0)
+    drift = loop.serve_adaptive(
+        cfg, batch=batch, batches=16, seed=0, state=tuned_state, params=tuned_params,
+        controller=ctl, schedule=adapt.DriftSchedule(period=6, fraction=0.25), refit=True,
+        refit_kw=dict(max_samples=2, repeats=1))
+    hs = drift["hit_series"]
+    for ev in drift["events"]:
+        log(f"[adapt] drift event at batch {ev['batch']}: {ev['kind']}"
+            + (f", gain {ev['gain']}" if "gain" in ev else "")
+            + (f", staged {ev['staged_rows']} rows" if "staged_rows" in ev else "")
+            + (f", refit knobs {ev['knobs']}" if "knobs" in ev else ""))
+    rec = {"config": "dlrm-qr", "batch": batch, "stationary_bitwise": True,
+           "observe_s": observe_s, "evaluate_s": evaluate_s,
+           "drift_schedule": drift["schedule"], "policy": ADAPT_POLICY, "hit_series": hs,
+           "staged_series": drift["staged_series"],
+           "events": [{k: v for k, v in e.items() if k != "drift"} for e in drift["events"]],
+           "engine_rebuilt": tuned_state.engine is not engine_before,
+           "batch_p50_ms": drift["lat_p50_s"] * 1e3, "wall_s": time.perf_counter() - t0}
+    log(f"[adapt] drifting (period 6 batches, fraction 0.25), 16 batches of {batch}: "
+        f"hit rate per batch {' '.join(f'{h:.3f}' for h in hs)}; "
+        f"{len(drift['events'])} events, engine rebuilt {rec['engine_rebuilt']}, batch p50 "
+        f"{rec['batch_p50_ms']:.2f} ms; phase {rec['wall_s']:.1f} s")
+    return rec, launch_delta(mods, before)
+
+
+def cli_control_runs(serve_rec, obs, mods) -> tuple[dict, dict]:
+    """``serve_rec.main`` on dlrm-qr-smoke with ``--frontend --arrival
+    --faults`` and with ``--adapt --drift``; each ``--json`` record parses."""
+    out = ROOT / "build" / "serve_cli"
+    out.mkdir(parents=True, exist_ok=True)
+    before = launches_now(mods)
+    runs = {
+        "frontend": ["--frontend", "--arrival", "rate=400,horizon=2,flash=0.5+0.4x6",
+                     "--faults", "stall@0.6:0.5,drop@0.7,replica@0.8:0.3,gather@1.0:1"],
+        "adaptive": ["--adapt", "--drift", "period=8,frac=0.25", "--batches", "24"],
+    }
+    recs = {}
+    for mode, flags in runs.items():
+        path = out / f"{mode}.json"
+        try:
+            rc = serve_rec.main(["--arch", "dlrm-qr", "--smoke", *flags, "--json", str(path)])
+        finally:
+            obs.disable()
+            obs.install_observatory()
+        (rec,) = json.loads(path.read_text())
+        if rc != 0 or rec["mode"] != mode:
+            raise AssertionError(f"serve_rec.main --{mode}: rc {rc}, record {rec.get('mode')}")
+        recs[mode] = rec
+    fr, ad = recs["frontend"], recs["adaptive"]
+    if fr["requests"]["unaccounted"] != 0 or not ad["events"]:
+        raise AssertionError("serve_rec.main: frontend accounting or adaptive events wrong")
+    log(f"[control-cli] --frontend: {fr['requests']['generated']} requests, served "
+        f"{fr['requests']['served']}, {len(fr['degrade']['transitions'])} transitions, "
+        f"virtual p99 {fr['req_lat_p99_s'] * 1e3:.1f} ms; --adapt: hit "
+        f"{ad['hit_first']:.3f} -> {ad['hit_last']:.3f}, events "
+        f"{[e['kind'] for e in ad['events']]}")
+    obs.registry().reset()
+    obs.tracer().reset()
+    return ({"frontend": {"requests": fr["requests"],
+                          "transitions": len(fr["degrade"]["transitions"])},
+             "adaptive": {"hit_first": ad["hit_first"], "hit_last": ad["hit_last"],
+                          "events": [e["kind"] for e in ad["events"]]}},
+            launch_delta(mods, before))
+
+
+def control_plane_phase(dev, batch, by_name, mods) -> dict:
+    """Phase 8: the tuner, the ladder's rungs on the three configs, the front
+    end, adaptation and the two CLI runs; their launches add to the kernel
+    rows.  Returns the ``{"control_plane": ...}`` record."""
+    from repro_torch import adapt, engine, obs, serve, tune
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve_rec
+    from repro_torch.models import dlrm
+
+    t0 = time.perf_counter()
+    record = {}
+    tp = time.perf_counter()
+    record["tuner"], tuned_state, tuned_params, n = tuner_phase(
+        dev, batch, registry, dlrm, synthetic, serve_rec, engine, tune, mods)
+    add_launches(by_name, n)
+    log(f"[tuner] phase {time.perf_counter() - tp:.1f} s")
+    record["rungs"] = []
+    for arch in ("dlrm-qr", "dlrm-tt", "dlrm-dense"):
+        rec, n = rungs_phase(dev, arch, batch, registry, dlrm, synthetic, serve_rec, engine,
+                             serve, mods)
+        record["rungs"].append(rec)
+        add_launches(by_name, n)
+    record["frontend"], n = frontend_phase(dev, registry, dlrm, serve_rec, serve, obs, mods)
+    add_launches(by_name, n)
+    record["adapt"], n = adapt_phase(dev, registry, dlrm, synthetic, serve_rec, adapt,
+                                     tuned_state, tuned_params, mods)
+    add_launches(by_name, n)
+    del tuned_state, tuned_params
+    torch.cuda.empty_cache()
+    record["cli"], n = cli_control_runs(serve_rec, obs, mods)
+    add_launches(by_name, n)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[control] phase {record['phase_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1784,6 +2191,9 @@ def main() -> int:
     by_name["tt_bag_bf16"]["launches"] += lookup_grad.pop("launches")
     by_name["tt_bag_bf16"]["lookup_grad"] = lookup_grad
     log(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+    # phase 8: the serving control plane (fp32 serving launches of K1/K3/K2/K5)
+    control = control_plane_phase(dev, batch, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -1792,6 +2202,7 @@ def main() -> int:
     for split in splits:
         print(json.dumps({"serve_split": split}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"control_plane": control}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,11 @@ and every embedding kind, hashed included.  DLRM trains through
 recomputing the plain version.  Attention runs through
 ``kernels.ops.flash_attention_fused`` (``csrc/flash_attention.cu``).  On
 CPU tensors the same wrappers take their plain PyTorch versions.
-``repro_torch.examples`` holds the quickstart, the cache walkthrough and
-the DLRM training example.
+Around the serving path: ``obs`` (telemetry), ``tune`` (the trace-driven
+autotuner ``engine.plan(tuner=)`` consumes), ``serve`` (the resilient front
+end and its degradation ladder) and ``adapt`` (online re-planning).
+``repro_torch.examples`` holds the quickstart, the cache walkthrough, the
+DLRM training example and the autotuner walkthrough.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

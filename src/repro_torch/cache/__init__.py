@@ -9,5 +9,5 @@ from repro_torch.cache.intra_gnr import (               # noqa: F401
     GnRLocality, analyze_bags, analyze_table, rank_prefetch, subtable_traces,
 )
 from repro_torch.cache.sram_cache import (              # noqa: F401
-    CacheStats, PrefetchScheduler,
+    CacheStats, PrefetchScheduler, simulate,
 )

@@ -132,3 +132,21 @@ class PrefetchScheduler:
         """
         return np.maximum(self.slot_rows, 0).astype(np.int32)
 
+
+
+def simulate(
+    batches: list[np.ndarray], num_rows: int, num_slots: int,
+    value: np.ndarray | None = None,
+) -> CacheStats:
+    """Run the full double-buffered schedule over a batch sequence.
+
+    Batch 0's staging is a cold start (nothing to overlap behind); every
+    later prefetch overlaps the preceding batch — exactly the serve_rec loop.
+    """
+    sched = PrefetchScheduler(num_rows, num_slots, value)
+    sched.prefetch(batches[0])
+    for t, batch in enumerate(batches):
+        sched.slots_for(batch)
+        if t + 1 < len(batches):
+            sched.prefetch(batches[t + 1])
+    return sched.stats

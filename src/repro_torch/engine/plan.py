@@ -1,9 +1,12 @@
 """plan() — the offline half of the engine: analyze, budget, place, pack
-(port of ``repro.engine.plan``; no tuner in this slice).
+(port of ``repro.engine.plan``).
 
 ``plan(spec, trace=...)`` runs the intra-GnR locality analyzer, the
 cache-slot waterfill, the duplication planner and the packed-layout build
-once and freezes the result into an ``EmbeddingPlan``.  All host-side numpy.
+once and freezes the result into an ``EmbeddingPlan``.  Every tunable
+decision is a ``tune.Knobs`` frozen into the plan: an explicit ``knobs=``,
+a fitted tuner's argmin (``tuner=``), or the heuristic defaults.  All
+host-side numpy.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ class EmbeddingPlan:
     )
     values: tuple = dataclasses.field(default=(), compare=False, repr=False)
     locality: tuple = dataclasses.field(default=(), compare=False, repr=False)
+    # per-table logical-id access profile (the trace's popularity counts) —
+    # the plan's own notion of "hot"; the online re-planner pins against it
+    counts: tuple = dataclasses.field(default=(), compare=False, repr=False)
 
     @property
     def bags(self):
@@ -134,15 +140,21 @@ def plan(
     trace: Sequence[np.ndarray] | None = None,
     *,
     num_shards: int = 1,
+    knobs: Knobs | None = None,
+    tuner=None,
 ) -> EmbeddingPlan:
     """Run the offline pipeline once: analyze -> budget -> duplicate -> pack.
 
     ``trace`` is one logical-index trace per table, flat ``(N,)`` or
-    bag-shaped ``(bags, pooling)``; ``num_shards`` sizes the row-shard axis
-    the duplication planner models.  The knobs are ``repro``'s heuristic
-    defaults (the tuner is a later slice).  Without a trace, cache budgets
-    take the uniform policy; serving specs, which plan duplication, need
-    one.
+    bag-shaped ``(bags, pooling)``, positional or by keyword
+    (``plan(spec, traces, tuner=...)``); ``num_shards`` sizes the row-shard
+    axis the duplication planner models.
+
+    Knob resolution, as in ``repro``: an explicit ``knobs=`` wins; else a
+    fitted ``tuner=`` (:func:`repro_torch.tune.fit`) picks the
+    predicted-latency argmin over the knob space; else the heuristic
+    defaults (``tune.default_knobs``).  Without a trace, cache budgets take
+    the uniform policy; serving specs, which plan duplication, need one.
     """
     bags = spec.bags
     locs: list[dict] = []
@@ -162,7 +174,13 @@ def plan(
                 placement.profile_counts(shaped.reshape(-1), bag.emb.vocab)
             )
 
-    knobs = default_knobs(spec, packable=packed_tables.packable(bags))
+    packable = packed_tables.packable(bags)
+    if knobs is None and tuner is not None:
+        knobs = tuner.choose(spec, packable=packable)
+    if knobs is None:
+        knobs = default_knobs(spec, packable=packable)
+    if knobs.backend == "packed" and not packable:
+        raise ValueError("knobs.backend='packed' but the bag set is not packable")
     budgets = _knob_budgets(spec, knobs, values)
 
     dup = None
@@ -192,4 +210,5 @@ def plan(
         dup=dup,
         values=tuple(values) if values is not None else (),
         locality=tuple(locs),
+        counts=tuple(counts) if counts is not None else (),
     )

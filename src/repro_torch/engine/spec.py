@@ -56,6 +56,9 @@ class EngineSpec:
     def kind(self) -> str:
         return self.bags[0].emb.kind
 
+    def replace(self, **kw) -> "EngineSpec":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_bags(cls, bags, **kw) -> "EngineSpec":
         return cls(bags=tuple(bags), **kw)

@@ -44,14 +44,24 @@ batch), ``block`` (sequential mode's per-batch wait) and ``tail_sync``
 (overlap mode's drain).  ``big_rows`` of every batch is computed before the
 timed window, so it is no part of a batch's latency.
 
-Not ported yet: the tuner hook (which arms the drift monitor), ``--frontend``
-and ``--adapt``.
+``build_serve_state(tuner=...)`` plans with a fitted tuner's choice and
+arms the drift monitor with its prediction.  ``--frontend`` serves
+open-loop traffic through the resilient front end (``repro_torch.serve``:
+admission queue, deadline batching, fault injection, the degradation
+ladder); ``--adapt`` serves the pinned adaptive session
+(``repro_torch.adapt``), or with ``--frontend`` feeds the admission loop's
+caches.
 
 Usage (CPU rehearsal of the smoke config; the card is the default):
     PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-tt --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-qr --smoke --device cpu \
         --mode both --metrics-json m.json --trace-out t.json --slo p99_ms=50 \
         --report r.md --flight-dir flight
+    PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-qr --smoke --device cpu \
+        --frontend --arrival rate=400,horizon=2,flash=0.5+0.4x6 \
+        --faults stall@0.6:0.5,gather@1.0:1 --service-mode fixed
+    PYTHONPATH=src python -m repro_torch.launch.serve_rec --arch dlrm-qr --smoke --device cpu \
+        --adapt --drift period=8,frac=0.25 --batches 24
 """
 
 from __future__ import annotations
@@ -121,10 +131,19 @@ class ServeState:
 
 
 def build_serve_state(cfg, *, shards: int, alpha: float, seed: int,
-                      profile_n: int = 50_000, device=None) -> ServeState:
+                      profile_n: int = 50_000, device=None, tuner=None,
+                      knobs=None) -> ServeState:
     """Offline pass, one ``engine.plan`` call: profile -> analyze -> slot
     waterfill -> dup plan -> packed layout, compiled into the serving engine
-    for ``device`` (the card unless ``device="cpu"``)."""
+    for ``device`` (the card unless ``device="cpu"``).
+
+    ``tuner`` (a fitted ``repro_torch.tune.Tuner``) or an explicit ``knobs``
+    routes the plan through the cost-model argmin instead of the
+    heuristics; the serving pipeline needs the packed backend, so tuner
+    choices are constrained to it.  A tuner also arms the drift monitor: its
+    per-batch latency prediction for the chosen knobs is compared against
+    measured batches while serving.
+    """
     dev = device_mod.resolve(device)
     # per-table request streams: each sparse feature sees its own skew
     traces = [
@@ -134,8 +153,14 @@ def build_serve_state(cfg, *, shards: int, alpha: float, seed: int,
         for t in range(cfg.num_tables)
     ]
     spec = EngineSpec.from_dlrm(cfg, serving=True)
-    eplan = engine_mod.plan(spec, traces, num_shards=shards)
-    return ServeState(engine=engine_mod.compile(eplan), device=dev)
+    predicted_s = drift = None
+    if knobs is None and tuner is not None:
+        knobs = tuner.choose(spec, backend="packed")
+        predicted_s = tuner.predict(spec, knobs)
+        drift = obs.DriftMonitor()
+    eplan = engine_mod.plan(spec, traces, num_shards=shards, knobs=knobs)
+    return ServeState(engine=engine_mod.compile(eplan), device=dev,
+                      predicted_s=predicted_s, drift=drift)
 
 
 def make_packed_gather(params, state: ServeState, *, packed: dict | None = None):
@@ -344,6 +369,89 @@ def run_pipeline(cfg, *, batch: int = 16, batches: int = 6, alpha: float = 1.05,
 _RECORD_DROP = ("logits", "latencies_s", "traffic_report")
 
 
+# -- resilient front-end mode (--frontend) ------------------------------------
+
+_DEFAULT_ARRIVAL = "rate=400,horizon=3,deadline_ms=250"
+_DEFAULT_FRONTEND_SLO = ("p99_ms=60,objective=0.99,fast_window=4,"
+                         "slow_window=8,name=frontend")
+
+
+def run_frontend(cfg, state, params, args, slo_engine=None) -> dict:
+    """The ``--frontend`` serving session: open-loop traffic through the
+    admission queue, fault injector, and degradation ladder.
+
+    Returns the front end's report with the arrival/fault specs (seeds
+    included) stamped in, so a saved record reproduces the run exactly.
+    """
+    from repro_torch import serve
+
+    aspec = serve.ArrivalSpec.parse(args.arrival or _DEFAULT_ARRIVAL)
+    if args.seed and aspec.seed == 0:      # --seed flows into the traffic
+        aspec = dataclasses.replace(aspec, seed=args.seed)
+    fspec = serve.FaultSpec.parse(args.faults) if args.faults else serve.FaultSpec()
+    if slo_engine is None:
+        slo_engine = obs.SLOEngine(obs.SLOSpec.parse(_DEFAULT_FRONTEND_SLO))
+    fcfg = serve.FrontendConfig(
+        batch_size=args.batch or (8 if args.tiny else 16),
+        queue_cap=args.queue_cap,
+        shed_policy=args.shed_policy,
+        queue_order=args.queue_order,
+        # adaptation adapts *pinned* residency; the oracle prefetcher would
+        # self-heal under drift and mask what the controller does
+        residency="pinned" if args.adapt else "prefetch",
+        service_mode=args.service_mode,
+    )
+    adapt_ctl = None
+    if args.adapt:
+        from repro_torch.adapt import AdaptController
+
+        adapt_ctl = AdaptController(state.eplan, seed=args.seed)
+    frontend = serve.Frontend(
+        cfg, fcfg, state, params,
+        slo=slo_engine, faults=serve.FaultInjector(fspec),
+        adapt=adapt_ctl,
+    )
+    requests = serve.generate(aspec, cfg)
+    report = frontend.run(requests)
+    report["arrival"] = aspec.describe()
+    report["faults"] = fspec.describe()
+    report["config"] = cfg.name
+    report["device"] = str(state.device)
+    report["mode"] = "frontend"
+
+    req = report["requests"]
+    print(
+        f"[frontend] {req['generated']} requests over {aspec.horizon_s:.1f}s "
+        f"(virtual): served {req['served']}, deadline-missed "
+        f"{req['deadline_missed']}, shed {req['shed_total']} "
+        f"(reject {req['shed_reject']} / evict {req['shed_evict']} / "
+        f"shed-mode {req['shed_mode']} / abandoned {req['abandoned']}), "
+        f"unaccounted {req['unaccounted']}"
+    )
+    print(
+        f"[frontend] request latency p50={report['req_lat_p50_s'] * 1e3:.1f}ms "
+        f"p95={report['req_lat_p95_s'] * 1e3:.1f}ms "
+        f"p99={report['req_lat_p99_s'] * 1e3:.1f}ms (virtual), "
+        f"miss rate {report['deadline_miss_rate']:.3f}, "
+        f"shed rate {report['shed_rate']:.3f}, "
+        f"hit rate {report['hit_rate']:.3f}"
+    )
+    deg = report["degrade"]
+    for tr in deg["transitions"]:
+        print(f"[degrade] batch {tr['at_batch']} t={tr['t_s']:.2f}s "
+              f"{tr['from']} -> {tr['to']} ({tr['reason']})")
+    ttr = report["time_to_recover_s"]
+    print(
+        f"[degrade] final rung {deg['rung']}, "
+        f"{len(deg['transitions'])} transitions, time-to-recover "
+        f"{'%.2fs' % ttr if ttr is not None else 'n/a'}"
+    )
+    if adapt_ctl is not None:
+        print(f"[adapt] {adapt_ctl.batch_i} batches sketched, "
+              f"events {report['adapt']['events'] or '{}'}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, help="dlrm config id (dlrm-qr | dlrm-tt | dlrm-dense)")
@@ -379,6 +487,38 @@ def main(argv=None) -> int:
     ap.add_argument("--flight-dir", default=None, metavar="DIR",
                     help="directory for flight-recorder JSON dumps (written "
                          "when an SLO burns or a latency sample is anomalous)")
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve open-loop traffic through the resilient "
+                         "front end (admission queue + deadline batching + "
+                         "fault injection + degradation ladder)")
+    ap.add_argument("--arrival", default=None, metavar="SPEC",
+                    help="traffic model, e.g. 'rate=400,horizon=3,"
+                         "deadline_ms=250,flash=1.0+0.5x8,drift_s=1,seed=0'")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="fault schedule, e.g. 'stall@1.0:0.5,drop@1.5,"
+                         "replica@2.0:1.0,gather@3.0:2,retries=3'")
+    ap.add_argument("--shed-policy", default="reject_new",
+                    choices=["reject_new", "drop_oldest"],
+                    help="load-shedding policy at a full admission queue")
+    ap.add_argument("--queue-cap", type=int, default=64,
+                    help="admission queue bound (requests)")
+    ap.add_argument("--service-mode", default="measured",
+                    choices=["measured", "fixed"],
+                    help="virtual service time: calibrated from measured "
+                         "wall ('measured') or exactly one unit per batch "
+                         "('fixed' — the deterministic configuration)")
+    ap.add_argument("--queue-order", default="fifo", choices=["fifo", "edf"],
+                    help="admission-queue dispatch order: arrival order or "
+                         "deadline-earliest-first")
+    ap.add_argument("--adapt", action="store_true",
+                    help="online adaptation (repro_torch.adapt): frequency "
+                         "sketches + incremental re-pinning; standalone it "
+                         "runs the pinned adaptive session, with --frontend "
+                         "it feeds the admission loop's caches")
+    ap.add_argument("--drift", default=None, metavar="SPEC",
+                    help="batch-indexed hot-set drift for the --adapt "
+                         "session, e.g. 'period=8,frac=0.25' (rotations "
+                         "every `period` batches)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (the default) needs a card; cpu runs the "
                          "kernels' plain versions")
@@ -399,8 +539,12 @@ def main(argv=None) -> int:
     if args.slo or args.flight_dir or args.report:
         recorder = obs.FlightRecorder(out_dir=args.flight_dir)
     if slo_engine is not None or recorder is not None:
-        # after enable(): the telemetry join cursors into the live registry
-        obs.install_observatory(slo=slo_engine, recorder=recorder)
+        # after enable(): the telemetry join cursors into the live registry.
+        # In --frontend mode the front end feeds the SLO engine itself, so
+        # the observatory carries only the recorder (no double observation).
+        obs.install_observatory(
+            slo=None if args.frontend else slo_engine, recorder=recorder,
+        )
 
     name = f"{args.arch}-smoke" if (args.smoke or args.tiny) else args.arch
     cfg = registry.get_dlrm(name)
@@ -426,6 +570,77 @@ def main(argv=None) -> int:
         f"{plan.tables[0].local_share:.2f}, "
         f"intra-GnR reuse[{big_name}]={state.locs[0][big_name].mean_intra_reuse:.2f}"
     )
+
+    if args.frontend:
+        report = run_frontend(cfg, state, params, args, slo_engine=slo_engine)
+        if recorder is not None and recorder.dumps:
+            for d in recorder.dumps:
+                print(f"[flight] dumped {d['records']} records "
+                      f"({d['reason']}) -> {d.get('path', '<memory>')}")
+            report["flight_dumps"] = [
+                {k: v for k, v in d.items() if k != "context"}
+                for d in recorder.dumps
+            ]
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump([report], f, indent=1)
+            print(f"# wrote frontend record to {args.json}")
+        if args.metrics_json:
+            snap = obs.snapshot().to_json()
+            snap["config"] = cfg.name
+            snap["frontend"] = report
+            with open(args.metrics_json, "w") as f:
+                json.dump(snap, f, indent=1)
+            print(f"# wrote metric registry to {args.metrics_json}")
+        return 0
+
+    if args.adapt:
+        from repro_torch.adapt import DriftSchedule
+        from repro_torch.adapt.loop import serve_adaptive
+
+        schedule = (DriftSchedule.parse(args.drift) if args.drift
+                    else DriftSchedule(seed=args.seed))
+        res = serve_adaptive(
+            cfg, batch=batch, batches=args.batches, alpha=args.alpha,
+            seed=args.seed, state=state, params=params,
+            schedule=schedule, refit=True,
+        )
+        print(
+            f"[adaptive] served {res['served']} requests in "
+            f"{res['wall_s']:.2f}s -> {res['qps']:.1f} QPS on {dev}, hit rate "
+            f"{res['hit_rate']:.3f} (pinned residency)"
+        )
+        hs = res["hit_series"]
+        print(f"[adaptive] hit-rate trajectory first->last: "
+              f"{hs[0]:.3f} -> {hs[-1]:.3f} over {len(hs)} batches, "
+              f"drift {res['schedule']}")
+        for ev in res["events"]:
+            print(f"[adapt] batch {ev['batch']}: {ev['kind']} "
+                  f"(gain {ev.get('gain', 'n/a')})")
+        if not res["events"]:
+            print("[adapt] no re-plan events (policy held)")
+        record = {k: v for k, v in res.items()
+                  if k not in _RECORD_DROP and k != "hit_series"}
+        record["hit_first"], record["hit_last"] = hs[0], hs[-1]
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump([record], f, indent=1)
+            print(f"# wrote adaptive record to {args.json}")
+        if args.metrics_json:
+            snap = obs.snapshot().to_json()
+            snap["config"] = cfg.name
+            snap["adaptive"] = record
+            with open(args.metrics_json, "w") as f:
+                json.dump(snap, f, indent=1)
+            print(f"# wrote metric registry to {args.metrics_json}")
+        if args.trace_out:
+            obs.tracer().write(
+                args.trace_out,
+                metadata={"config": cfg.name, "modes": ["adaptive"],
+                          "device": str(dev)},
+            )
+            print(f"# wrote Chrome trace to {args.trace_out}")
+        return 0
 
     modes = ["sequential", "overlap"] if args.mode == "both" else [args.mode]
     records = []

@@ -9,13 +9,14 @@ packed kernel vs the per-table kernel loop), one nonnegative linear model
                 + c_tiles    * row_tiles
                 + c_comm     * comm_bytes
 
-whose coefficients are fitted from observed samples (timed runs of the real
-kernels on the card), or priced from the card's constants when no fit
-exists (``obs.attribution.analytic_cost_model``).  The serving attribution
-splits a batch's time along these terms.
-
-``repro``'s ``plan_features`` (the features of a knob setting against a
-trace profile) belongs to the tuner and comes with it.
+whose features are computed analytically from the trace profile and a knob
+setting (:func:`plan_features`, equal to ``repro``'s), and whose
+coefficients are fitted from observed samples: timed runs of the real
+kernels on the card, or the bytes and flops the packed kernel needs for a
+sampled batch priced at the card's constants (``tune.tuner``'s
+``analytic`` mode), or priced from the constants alone when no fit exists
+(``obs.attribution.analytic_cost_model``).  The serving attribution splits a
+batch's time along these terms.
 
 The model only has to *rank* candidate knob settings correctly; absolute
 accuracy is a bonus.
@@ -29,6 +30,10 @@ import numpy as np
 
 from repro_torch.tune.knobs import Knobs
 
+# repro's 128-lane vector width of its dim-tiled TPU kernels: the padding
+# ``_padded_row_bytes`` prices, kept so the features equal repro's
+_LANES = 128
+
 FEATURES = ("dispatches", "hbm_bytes", "row_tiles", "comm_bytes")
 
 
@@ -39,7 +44,7 @@ class CostSample:
     knobs: Knobs
     features: tuple[float, ...]
     measured_s: float
-    source: str = "measure"           # where measured_s came from
+    source: str = "measure"           # measure | analytic
 
     def describe(self) -> dict:
         return {
@@ -108,3 +113,60 @@ def fit_cost_model(
         coef=tuple(float(c) for c in coef), backend=backend, source=source,
         num_samples=len(samples),
     )
+
+
+# ---------------------------------------------------------------------------
+# analytic features of (spec, knobs) against a trace profile
+# ---------------------------------------------------------------------------
+
+def _padded_row_bytes(row_bytes: int, width_elems: int, dim_block: int | None
+                      ) -> float:
+    """Bytes one streamed row costs under a lane tile choice.
+
+    Full-lane tiles stream exactly the row; a partial trailing tile is padded
+    to the 128-lane width (the single-wide-tile fallback for dims like 96),
+    so its traffic is inflated by ``ceil(bd/128)*128 / bd``.
+    """
+    if dim_block is None or width_elems <= 0:
+        return float(row_bytes)
+    bd = min(dim_block, width_elems)
+    padded = -(-bd // _LANES) * _LANES
+    return row_bytes * (padded / bd)
+
+
+def plan_features(spec, knobs: Knobs, profile) -> tuple[float, ...]:
+    """Per-batch feature vector of one knob setting.
+
+    ``profile`` is a :class:`repro_torch.tune.tuner.TraceProfile`; features
+    are the cost model's regressors:
+
+    * ``dispatches`` — kernel launches per batch (1 packed, T per-table);
+    * ``hbm_bytes`` — streamed big-subtable bytes after the prefetch cache:
+      misses + staging copies, padded by the lane-tile choice;
+    * ``row_tiles`` — gathered rows x dim tiles (per-tile issue overhead:
+      a smaller ``dim_block`` means more grid steps per row);
+    * ``comm_bytes`` — modeled cross-shard combine bytes left after the
+      duplication budget kills comm-free tables.
+    """
+    from repro_torch.tune import knobs as knobs_mod
+
+    num_t = spec.num_tables
+    dispatches = 1.0 if knobs.backend == "packed" else float(num_t)
+
+    values = [t.values for t in profile.tables]
+    budgets = knobs_mod.slot_budgets(spec, knobs, values)
+
+    hbm = 0.0
+    tiles = 0.0
+    for t, (tp, slots) in enumerate(zip(profile.tables, budgets)):
+        hit_rate, staged = profile.hit_stats(t, slots)
+        acc = tp.accesses_per_batch
+        streamed_rows = acc * (1.0 - hit_rate) + staged
+        hbm += streamed_rows * _padded_row_bytes(
+            tp.row_bytes, tp.width_elems, knobs.dim_block
+        )
+        width = max(1, tp.width_elems)
+        bd = knobs.dim_block or width
+        tiles += acc * max(1.0, width / min(bd, width))
+    comm = profile.comm_bytes(spec, knobs.dup_budget_bytes)
+    return (dispatches, hbm, tiles, comm)

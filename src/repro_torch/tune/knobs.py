@@ -1,9 +1,10 @@
-"""The tunable decisions of ``plan()`` as one dataclass (port of
-``repro.tune.knobs``, minus the tuner's knob space).
+"""The tunable decisions of ``plan()`` as one dataclass, and the tuner's
+candidate space (port of ``repro.tune.knobs``).
 
-``dim_block`` is ``repro``'s TPU lane tile.  The port keeps the field and
-its default (``valid_dim_blocks`` / ``default_dim_block``) only so that
-``plan.summary()`` matches ``repro``'s; no kernel of the port reads it.
+``dim_block`` is ``repro``'s TPU lane tile.  The port keeps the field, its
+default (``valid_dim_blocks`` / ``default_dim_block``) and its ladder in
+``knob_space`` so that ``plan.summary()``, the knob space and the cost
+model's features equal ``repro``'s; no kernel of the port reads it.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ class Knobs:
     backend: str = "pertable"         # packed | pertable
 
     def describe(self) -> dict:
-        """JSON-serializable form (plan summaries)."""
+        """JSON-serializable form (plan summaries, tuner cache entries)."""
         return {
             "dim_block": self.dim_block,
             "cache_slots": int(self.cache_slots),
@@ -67,6 +68,50 @@ def default_knobs(spec, *, packable: bool) -> Knobs:
         dup_budget_bytes=spec_dup_budget_bytes(spec),
         backend="packed" if (spec.packing == "auto" and packable) else "pertable",
     )
+
+
+def knob_space(spec, *, packable: bool) -> tuple[Knobs, ...]:
+    """Enumerate the candidate knob settings for a spec, default first.
+
+    The space stays small by construction (a few dozen points): lane tiles
+    from :func:`valid_dim_blocks`, a halve/keep/double ladder around the
+    spec's slot and duplication budgets, both split policies when a cache
+    exists, and both backends when the bag set is packable.
+    """
+    base = default_knobs(spec, packable=packable)
+
+    dims: tuple = valid_dim_blocks(spec.bags[0].emb.dim) or (None,)
+    if spec.cache_slots > 0:
+        slot_ladder = sorted({max(1, spec.cache_slots // 2), spec.cache_slots,
+                              spec.cache_slots * 2})
+        policies = ("adaptive", "uniform")
+    else:
+        slot_ladder = [0]
+        policies = (spec.cache_slot_policy,)
+    dup_base = spec_dup_budget_bytes(spec)
+    if dup_base > 0:
+        dup_ladder = sorted({dup_base // 2, dup_base, dup_base * 2})
+    else:
+        dup_ladder = [0]
+    if spec.packing == "auto" and packable:
+        backends = ("packed", "pertable")
+    else:
+        backends = (base.backend,)
+
+    space = [base]
+    for backend in backends:
+        for bd in dims:
+            for slots in slot_ladder:
+                for policy in policies:
+                    for dup in dup_ladder:
+                        k = Knobs(
+                            dim_block=bd, cache_slots=slots,
+                            cache_slot_policy=policy, dup_budget_bytes=dup,
+                            backend=backend,
+                        )
+                        if k != base:
+                            space.append(k)
+    return tuple(space)
 
 
 def slot_budgets(spec, knobs: Knobs, values: "list[np.ndarray] | None"

@@ -911,3 +911,99 @@ def test_gpu_tt_wrappers_raise_where_even_one_slice_does_not_fit(cuda):
     with pytest.raises(ValueError, match="232448 B"):
         tg.tt_bag(*one, dims=dims)
     assert tg.LAUNCHES["tt_bag"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the serving control plane on the card: ladder rungs, front end, tuner
+# ---------------------------------------------------------------------------
+
+PACKED_KERNEL = {"qr": "packed_qr_bag", "dense": "packed_bag", "tt": "packed_tt_bag"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-dense-smoke", "dlrm-tt-smoke"])
+def test_gpu_kernel_rungs_are_bitwise_identical(cuda, arch):
+    """The degradation ladder's kernel rungs on the card: full (staged
+    cache, one launch), nocache (all miss, one launch) and pertable (one
+    one-table launch per table) give the same bits; baseline (the semantic
+    loop) launches no packed kernel and agrees to bf16 tolerance."""
+    from repro_torch import serve
+    from repro_torch.data import synthetic
+    from repro_torch.serve.degrade import RUNGS
+
+    cfg = registry.get_dlrm(arch)
+    kernel = PACKED_KERNEL[cfg.embedding_kind]
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=cuda)
+    params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
+    ladder = serve.DegradationLadder(state, params)
+    fe = serve.Frontend(cfg, serve.FrontendConfig(batch_size=8), state, params)
+    idx = synthetic.dlrm_batch(cfg, 8, seed=0, step=1)["idx"].numpy()
+    rows = fe._rows_for(idx)
+    scheds = state.fresh_schedulers()
+    for t in range(cfg.num_tables):
+        scheds[t].prefetch(rows[:, t])
+    assert any((scheds[t].slots_for(rows[:, t], record=False) >= 0).any()
+               for t in range(cfg.num_tables))
+    ladder.warm(idx, rows, scheds)
+    out, launches = {}, {}
+    for rung in RUNGS[:-1]:
+        ladder.rung_i = RUNGS.index(rung)
+        pg.reset_launches()
+        out[rung] = ladder.pooled(idx, rows, scheds).float().cpu()
+        torch.cuda.synchronize()
+        launches[rung] = pg.LAUNCHES[kernel]
+    assert launches == {"full": 1, "nocache": 1, "pertable": cfg.num_tables, "baseline": 0}
+    assert torch.equal(out["full"], out["nocache"])
+    assert torch.equal(out["full"], out["pertable"])
+    torch.testing.assert_close(out["baseline"], out["full"], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_gpu_launch_error_propagates_out_of_the_front_end(cuda, monkeypatch):
+    """An error raised inside ``serve_gather`` on the card is not the
+    injector's transient fault: it leaves ``Frontend.run`` unretried, and
+    the ladder stays on its rung."""
+    from repro_torch import serve
+
+    cfg = registry.get_dlrm("dlrm-qr-smoke")
+    state = serve_rec.build_serve_state(cfg, shards=4, alpha=1.05, seed=0, device=cuda)
+    params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
+    fe = serve.Frontend(cfg, serve.FrontendConfig(batch_size=8, service_mode="fixed"),
+                        state, params,
+                        faults=serve.FaultInjector(serve.FaultSpec.parse("gather@0.0:1")))
+    fe.calibrate()
+    real = state.engine.serve_gather
+    calls = []
+
+    def failing(*a, **k):
+        calls.append(1)
+        real(*a, **k)                       # the kernel launches, then the error
+        raise RuntimeError("CUDA error: unspecified launch failure")
+
+    monkeypatch.setattr(state.engine, "serve_gather", failing)
+    reqs = serve.generate(serve.ArrivalSpec(rate_rps=300, horizon_s=0.3, seed=1), cfg)
+    with pytest.raises(RuntimeError, match="unspecified launch failure"):
+        fe.run(reqs)
+    # the one injected transient error was retried once; the launch error was not
+    assert fe.stats.retries == 1 and len(calls) == 1
+    assert fe.stats.abandoned == 0 and fe.ladder.transitions == []
+
+
+@pytest.mark.gpu
+def test_gpu_fit_auto_measures_on_the_card(cuda):
+    from repro_torch import engine as engine_mod
+    from repro_torch import tune
+    from repro_torch.data.synthetic import zipf_trace
+
+    cfg = registry.get_dlrm("dlrm-qr-smoke")
+    spec = EngineSpec.from_dlrm(cfg, serving=True).replace(duplication=False)
+    traces = [zipf_trace(b.emb.vocab, 4096, seed=t) for t, b in enumerate(spec.bags)]
+    pg.reset_launches()
+    tuner = tune.fit(spec, traces, mode="auto", batch=16, max_samples=2, repeats=2)
+    assert tuner.source == "measure"
+    assert tuner.metadata["device_kind"] == torch.cuda.get_device_name(0)
+    assert tuner.metadata["cuda_version"] == torch.version.cuda
+    assert all(s.measured_s > 0 for s in tuner.samples)
+    assert pg.LAUNCHES["packed_qr_bag"] > 0
+    p = engine_mod.plan(spec, traces, tuner=tuner)
+    assert p.knobs in tune.knob_space(spec, packable=True)

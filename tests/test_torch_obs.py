@@ -15,9 +15,7 @@ Behaviour: the cases of ``tests/test_obs.py`` and
 ``tests/test_observatory.py`` on the port (histogram math against numpy,
 span nesting, burn-rate windows against hand-computed budgets, the flight
 recorder, the disabled path).  The serving-loop cases live in
-``tests/test_torch_obs_serve.py``.  ``repro``'s
-``test_cache_traffic_agrees_with_cache_sim`` waits for the port's
-``sram_cache.simulate``.
+``tests/test_torch_obs_serve.py``.
 """
 
 import json
@@ -520,6 +518,28 @@ def test_cache_traffic_matches_cachestats():
     assert (tr["hbm_baseline_bytes"], tr["hbm_cached_bytes"]) == (tb["baseline"], tb["cached"])
     assert tr["hbm_cached_bytes"] <= tr["hbm_baseline_bytes"]
     assert "hit=" in F.format_cache_traffic(tr)
+
+
+def test_cache_traffic_agrees_with_cache_sim(capsys):
+    """``repro``'s cache benchmark reports a hit rate; the port's traffic
+    module, fed the port's ``sram_cache.simulate`` on the same trace (same
+    scheduler, same slots), must report the same number."""
+    from benchmarks.cache_sim import qr_cache_sweep
+    from repro_torch.cache import intra_gnr
+    from repro_torch.core.qr_embedding import EmbeddingConfig
+    from repro_torch.data.synthetic import zipf_trace
+
+    kw = dict(vocab=16_384, collision=16, pooling=8, batch=64, n_batches=6)
+    bench_hit = qr_cache_sweep(slot_sweep=(64, 128), default_slots=128, **kw)
+    capsys.readouterr()                    # swallow the emitted rows
+    # replay: the trace construction of benchmarks.cache_sim._batches
+    trace = zipf_trace(kw["vocab"], kw["n_batches"] * kw["batch"] * kw["pooling"],
+                       alpha=1.05, seed=3).reshape(kw["n_batches"], -1)
+    cfg = EmbeddingConfig(vocab=kw["vocab"], dim=128, kind="qr", collision=kw["collision"])
+    q, q_rows, row_bytes = intra_gnr.subtable_traces(trace, cfg)["q"]
+    stats = t_cache.simulate([q[t] for t in range(kw["n_batches"])], q_rows, 128)
+    tr = F.cache_traffic(stats, row_bytes)
+    assert tr["hit_rate"] == pytest.approx(bench_hit)
 
 
 def test_slospec_parse_cli_form():

@@ -317,6 +317,8 @@ def test_port_telemetry_imports_no_jax():
         "import repro_torch.obs, repro_torch.obs.attribution, repro_torch.obs.report\n"
         "import repro_torch.obs.traffic, repro_torch.tune.cost_model\n"
         "import repro_torch.launch.mesh, repro_torch.engine, repro_torch.launch.serve_rec\n"
+        "import repro_torch.tune.tuner, repro_torch.serve, repro_torch.adapt.loop\n"
+        "import repro_torch.distributed.elastic, repro_torch.examples.autotune_plan\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
