@@ -114,12 +114,31 @@ Phases, each one failing the script if it fails:
    one ``evaluate``), then a drifting session with ``refit=True`` on the
    tuner-armed state; ``serve_rec.main`` on dlrm-qr-smoke with ``--frontend
    --arrival --faults`` and with ``--adapt --drift`` (records under
-   ``build/serve_cli``).
+   ``build/serve_cli``);
+9. the sharded two-level GnR (``engine.gnr``, ``forward_partial``,
+   ``inline_gnr``, ``baseline``), batch 2,048, bf16: world 1 over nccl in
+   this process (mesh (1, 1), full-width dlrm-qr): ``gnr`` against the
+   single-card ``lookup``, then a duplication plan of a 1 TiB budget (every
+   table comm-free) that calls no collective; then four ranks over gloo on
+   the one card (``launch.mesh.spawn``, mesh (1, 4), the kernels built here
+   first): full-width dlrm-qr and dlrm-tt and dlrm-dense at 1,000,000 rows
+   a table, each on the packed plan (one launch of K1 / K2 / K3 a rank a
+   call on its routed streams), the per-table plan, duplication at 1 TiB
+   (comm-free: no collective) and at 1 MiB (hot rows, mixed), and
+   ``baseline`` on dlrm-qr (raw rows on the wire); every output held to
+   ``SHARDED_RULE`` against the fp32 sum over the bf16-rounded tables and
+   the single-card bf16 ``lookup``, every rank's output the same; per rank
+   the gnr call (host clock), the local partial (CUDA events) and the
+   combine (host clock), the bytes combined beside
+   ``DuplicationPlan.ici_bytes_per_batch``; whether gloo reduced bf16 CUDA
+   tensors and how; ``forward_dlrm`` under ``use_rules`` on a (2, 2) mesh
+   of the same ranks (dlrm-qr, fp32 compute) against the single card to
+   ``DLRM_TOL``.  A rank's exception or the ranks' timeout fails the script.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
-``{"control_plane": ...}`` line, one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -2076,6 +2095,546 @@ def control_plane_phase(dev, batch, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded two-level GnR
+# ---------------------------------------------------------------------------
+
+SHARDED_ARCHS = ("dlrm-qr", "dlrm-tt", "dlrm-dense")
+# dlrm-dense's cut (the ladder's, RUNG_DENSE_ROWS): at 2,000,000 rows each
+# rank's bf16 replicas and packed buffer of the comm-free plan take 26.6 GB,
+# four ranks 106 GB, more than the card (at 1,000,000 rows 13.3 GB a rank)
+SHARDED_DENSE_ROWS = RUNG_DENSE_ROWS
+SHARDED_WORLD = (1, 4)
+GENEROUS_BUDGET = 1 << 40      # every table whole on every rank: all comm-free
+STARVED_BUDGET = 1 << 20       # the small subtables and a few hot rows: mixed
+SHARDED_REPS = 5
+SHARDED_TIMEOUT_S = 600
+DLRM_TOL = 2e-3                # repro's sharded DLRM bound (tests/test_dlrm.py), fp32 compute
+# Roundings to bf16 inside one rank's partial (PARTIAL_ROUNDINGS of
+# tests/test_torch_sharded_ranks.py): the packed kernel sums in fp32 and rounds
+# once; the per-table partials and the baseline's pooling round the Q + R add
+# and the sum (QR), the sum (dense), the two chained products and the sum
+# (TT).  Each errs by at most 2^-8 of a value whose magnitudes sum to at most
+# A, the sum of |term| over the output's terms, so all shards' partials count
+# once together.
+PARTIAL_ROUNDINGS = {"packed": {"qr": 1, "dense": 1, "tt": 1},
+                     "pertable": {"qr": 2, "dense": 1, "tt": 3}}
+SHARDED_RULE = ("|out - S| <= ((P + C) 2^-8 (1 + 2^-8) + 2 n 2^-24) A: S the fp32 sum over "
+                "the bf16-rounded tables, A the sum of its terms' magnitudes, P the roundings "
+                "in a partial, C the combine's additions (N - 1, 0 without a combine), n the "
+                "fp32 additions of a term chain; against the single-card bf16 lookup one "
+                "rounding more")
+
+
+def sharded_cfg(arch, registry):
+    cfg = registry.get_dlrm(arch)
+    return cfg.replace(vocab_per_table=SHARDED_DENSE_ROWS) if arch == "dlrm-dense" else cfg
+
+
+def chain_terms(cfg) -> int:
+    """fp32 additions in one output element's chain: 2K (QR), K (dense),
+    K plus the two rank-long products (TT)."""
+    k = cfg.pooling
+    return {"qr": 2 * k, "dense": k}.get(cfg.embedding_kind, k + 2 * cfg.tt_rank)
+
+
+def sharded_tol(a: torch.Tensor, roundings: int, terms: int) -> torch.Tensor:
+    u = 2.0 ** -8
+    return (roundings * u * (1 + u) + 2 * terms * 2.0 ** -24) * a
+
+
+def plain_bag_sums(kind, params: dict, idx: torch.Tensor, spec, tt_embedding, hashing,
+                   collision: int):
+    """(S, A) of one table in fp32 by plain gathers: S the sum of the bag's
+    rows over params rounded to bf16, A the same over their magnitudes (for
+    TT the contraction of |G1|, |G2|, |G3|)."""
+    r = {k: v.to(torch.bfloat16).float() for k, v in params.items()}
+    out = []
+    for p in (r, {k: v.abs() for k, v in r.items()}):
+        if kind == "qr":
+            q_idx, r_idx = hashing.qr_decompose(idx, collision)
+            out.append(p["q"][q_idx].sum(-2) + p["r"][r_idx].sum(-2))
+        elif kind == "tt":
+            i1, i2, i3 = tt_embedding.tt_decompose(idx, spec)
+            out.append(tt_embedding.contract_rows(p["g1"][i1], p["g2"][i2], p["g3"][i3],
+                                                  spec).sum(-2))
+        else:
+            out.append(p["table"][idx].sum(-2))
+    return out
+
+
+def sharded_tables(cfg, dev, *, keep, seed: int = 0):
+    """The config's tables drawn on the card from ``seed`` one at a time (the
+    draws of ``init_tables``), each reduced by ``keep(t, params)`` before the
+    next is drawn, so a rank never holds every global table at once."""
+    from repro_torch.core import qr_embedding
+    from repro_torch.models import dlrm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [keep(t, qr_embedding.init(bag.emb, generator=g, device=dev))
+            for t, bag in enumerate(dlrm.make_bags(cfg))]
+
+
+def sharded_batch(cfg, batch: int, dev) -> torch.Tensor:
+    from repro_torch.data import synthetic
+
+    return synthetic.dlrm_batch(cfg, batch, seed=0, step=0, device=dev)["idx"]
+
+
+def sharded_reference(dev, arch, batch, registry) -> dict:
+    """The parent's single-card results for ``arch``: S and A (fp32, plain
+    gathers over the bf16-rounded tables) and the single-card bf16
+    ``engine.lookup`` (one packed launch), on the CPU."""
+    from repro_torch import engine as E
+    from repro_torch.core import hashing, tt_embedding
+    from repro_torch.models import dlrm
+
+    cfg = sharded_cfg(arch, registry)
+    bags = dlrm.make_bags(cfg)
+    idx = sharded_batch(cfg, batch, dev)
+    tables = sharded_tables(cfg, dev, keep=lambda t, p: p)
+    spec = bags[0].emb.tt_spec if cfg.embedding_kind == "tt" else None
+    s, a = zip(*(plain_bag_sums(cfg.embedding_kind, p, idx[:, t], spec, tt_embedding,
+                                hashing, cfg.qr_collision) for t, p in enumerate(tables)))
+    single = E.engine_for(E.EngineSpec.from_bags(bags)).lookup(tables, idx)
+    out = {"s": torch.stack(s, 1).cpu(), "a": torch.stack(a, 1).cpu(),
+           "single": single.float().cpu()}
+    del tables, single
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_world1(dev, batch, registry, mods, ref: dict) -> tuple[dict, dict]:
+    """World 1 over nccl in this process, mesh (1, 1), full-width dlrm-qr:
+    ``gnr`` against the single-card ``lookup`` of the same tables in the
+    same dtype (bf16), then an all-comm-free duplication plan: no
+    collective.  Each output is held to the rule against the lookup (one
+    rounding in the partial, one in the lookup; ``ref`` is dlrm-qr's
+    ``sharded_reference``), and whether it equals the lookup bit for bit
+    (the same rows summed in the same order) is recorded.  Returns the
+    record and the gnr calls' launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import engine as E
+    from repro_torch.cache import duplication
+    from repro_torch.core import placement
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import collectives
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import dlrm
+
+    rdv = ROOT / "build" / "sharded" / "rdv_world1"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    log("[mesh] 1 rank, mesh (1, 1) over ('data', 'model'), backend nccl, on 1 card "
+        "(in process)")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    launched = {}
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        cfg = registry.get_dlrm("dlrm-qr")
+        bags = dlrm.make_bags(cfg)
+        tables = sharded_tables(cfg, dev, keep=lambda t, p: p)
+        idx = sharded_batch(cfg, batch, dev)
+        single = E.engine_for(E.EngineSpec.from_bags(bags)).lookup(tables, idx)
+        rec = {"mesh": [1, 1], "backend": "nccl", "arch": "dlrm-qr", "batch": batch}
+        eng = E.compile(E.plan(E.EngineSpec.from_bags(bags), mesh=mesh))
+        counts = [placement.profile_counts(tr, cfg.vocab_per_table)
+                  for tr in serving_traces(cfg, synthetic)]
+        dup = duplication.plan_duplication(bags, counts, num_shards=1,
+                                           budget_bytes=GENEROUS_BUDGET)
+        engd = E.compile(E.plan(E.EngineSpec.from_bags(bags, duplication=True), mesh=mesh,
+                                dup=dup))
+        tol = sharded_tol(ref["a"], 2, chain_terms(cfg))
+        for name, e, tiers in (("packed", eng, None), ("dup_generous", engd,
+                                                       engd.hot_tiers(tables))):
+            collectives.reset_counts()
+            before = launches_now(mods)
+            out = e.gnr(mesh)(e.shard_tables(tables, mesh), idx, tiers)
+            torch.cuda.synchronize()
+            for k, v in launch_delta(mods, before).items():
+                launched[k] = launched.get(k, 0) + v
+            diff = (out.float() - single.float()).abs()
+            rec[name] = {"max_abs_diff_vs_lookup": float(diff.max()),
+                         "bitwise_equal_to_lookup": bool(torch.equal(out, single)),
+                         "collectives": collectives.CALLS["all_reduce"],
+                         "comm_free": all(e.plan.comm_free)}
+            if not torch.isfinite(out.float()).all() or (diff.cpu() > tol).any():
+                raise AssertionError(f"world 1 {name}: gnr differs from lookup beyond the "
+                                     f"rule (max |diff| {rec[name]['max_abs_diff_vs_lookup']})")
+            del out
+        if rec["dup_generous"]["collectives"] != 0 or not rec["dup_generous"]["comm_free"]:
+            raise AssertionError(f"world 1: the all-comm-free plan combined: {rec}")
+        if rec["packed"]["collectives"] != 1:
+            raise AssertionError(f"world 1: the packed plan made "
+                                 f"{rec['packed']['collectives']} collectives, not 1")
+        log(f"[sharded] world 1 nccl dlrm-qr: gnr vs lookup max |diff| "
+            f"{rec['packed']['max_abs_diff_vs_lookup']} (1 collective, bitwise "
+            f"{rec['packed']['bitwise_equal_to_lookup']}), all-comm-free "
+            f"{rec['dup_generous']['max_abs_diff_vs_lookup']} (0 collectives, bitwise "
+            f"{rec['dup_generous']['bitwise_equal_to_lookup']})")
+        del tables, single
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec, launched
+
+
+def _host_ms(fn, reps: int) -> list[float]:
+    """Host-clock ms of each of ``reps`` calls, the card synchronised before
+    and after each (the combine crosses the host)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _fingerprint(out: torch.Tensor) -> list:
+    return [float(out.float().sum()), int(out.view(torch.int16).long().sum())]
+
+
+def sharded_run(fn, args, mesh, pg, tg, collectives, SE, *, eng=None, plans=None,
+                tables=None, tiers=None, idx=None, modeled=None, reps: int = SHARDED_REPS,
+                combine: bool = True) -> dict:
+    """One plan's gnr (or baseline) on this rank: its output (rank 0) or a
+    fingerprint, the packed launches and collectives of one call, the bytes
+    it combined, ms per call (host clock; the local partial by CUDA events
+    on the packed plans, with the ranks side by side and then one rank at a
+    time while the others wait in a barrier; the combine alone by the host
+    clock)."""
+    launches = lambda: sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values())
+    collectives.reset_counts()
+    before = launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    rec = {"launches_per_call": launches() - before,
+           "collectives_per_call": collectives.CALLS["all_reduce"],
+           "bytes_combined": collectives.BYTES["all_reduce"], "modeled_bytes": modeled,
+           "fingerprint": _fingerprint(out)}
+    if mesh.axis_index("model") == 0:
+        rec["out"] = out.cpu()
+    rec["gnr_ms"] = _host_ms(lambda: fn(*args), reps)
+    if plans is not None:
+        import torch.distributed as dist
+
+        pack = eng.local_pack(tables, mesh, hot_tiers=tiers)
+        local = lambda: SE.packed_local_partial(tables, idx, eng.bags, plans, mesh=mesh,
+                                                pack=pack)
+        rec["local_ms"] = timed(local, SHARDED_REPS)     # the ranks side by side
+        group = mesh.group("model")
+        for r in range(mesh.shape["model"]):              # then one rank at a time
+            dist.barrier(group=group)
+            if r == mesh.axis_index("model"):
+                rec["local_ms_alone"] = timed(local, SHARDED_REPS)
+        dist.barrier(group=group)
+    if combine and rec["collectives_per_call"]:
+        rec["combine_ms"] = _host_ms(lambda: collectives.psum(out, mesh, "model"), reps)
+    rec["launches"] = launches() - before
+    return rec
+
+
+def gloo_bf16_check(mesh) -> dict:
+    """Whether gloo reduces bf16 CUDA tensors, and how: four ranks' random
+    bf16 vectors summed in place by ``dist.all_reduce`` on the card tensor,
+    against their fp32 sum rounded once and the chain of bf16 additions."""
+    import torch.distributed as dist
+
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(100)
+    n = mesh.shape["model"]
+    xs = [torch.randn(65536, generator=g, device=mesh.device).to(torch.bfloat16)
+          for _ in range(n)]
+    x = xs[mesh.axis_index("model")].clone()
+    dist.all_reduce(x, group=mesh.group("model"))
+    once = torch.stack(xs).float().sum(0).to(torch.bfloat16)
+    chain = xs[0]
+    for y in xs[1:]:
+        chain = chain + y
+    stacked = torch.stack(xs).double()
+    exact = stacked.sum(0)
+    # N - 1 additions in some order, each rounded to bf16 (2^-8 of a
+    # partial sum, at most the sum of magnitudes)
+    bound = (n - 1) * 2.0 ** -8 * (1 + 2.0 ** -8) * stacked.abs().sum(0)
+    err = (x.double() - exact).abs()
+    return {"device": str(x.device), "dtype": str(x.dtype),
+            "finite": bool(torch.isfinite(x.float()).all()),
+            "within_n_minus_1_roundings": bool((err <= bound).all()),
+            "max_abs_err_vs_exact": float(err.max()),
+            "equals_fp32_sum_rounded_once": bool(torch.equal(x, once)),
+            "equals_bf16_chain": bool(torch.equal(x, chain))}
+
+
+def sharded_rank(mesh, batch: int) -> dict:
+    """Phase 9 on one rank of the (1, 4) gloo mesh on the card: per config
+    the packed, per-table and starved-duplication plans on the rank's row
+    shards (and ``baseline`` on dlrm-qr), then the generous-duplication
+    plan on whole bf16 replicas; the gloo bf16 check; ``forward_dlrm`` on a
+    (2, 2) mesh of the same ranks."""
+    import dataclasses as dc
+
+    from repro_torch import engine as E
+    from repro_torch.cache import duplication
+    from repro_torch.configs import registry
+    from repro_torch.core import placement
+    from repro_torch.core import sharded_embedding as SE
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.sharding import P
+    from repro_torch.kernels import packed_gather as pg
+    from repro_torch.kernels import tt_gather as tg
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import dlrm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    nsh = mesh.shape["model"]
+    res = {"rank": mesh.axis_index("model"), "configs": {}}
+    for arch in SHARDED_ARCHS:
+        cfg = sharded_cfg(arch, registry)
+        bags = dlrm.make_bags(cfg)
+        cdt = cfg.cdtype
+        idx = sharded_batch(cfg, batch, dev)
+        counts = [placement.profile_counts(tr, cfg.vocab_per_table)
+                  for tr in serving_traces(cfg, synthetic)]
+        dups = {b: duplication.plan_duplication(bags, counts, num_shards=nsh, budget_bytes=v)
+                for b, v in (("generous", GENEROUS_BUDGET), ("starved", STARVED_BUDGET))}
+        plans = [SE.ShardPlan(b.emb, nsh) for b in bags]
+        ici = {b: d.ici_bytes_per_batch(batch, cfg.dim, bytes_per_elem=2)
+               for b, d in dups.items()}
+        runs = res["configs"][arch] = {}
+
+        # pass 1: the rank's row shards (bf16), the starved plan's layout
+        # (its comm-free tables whole) and hot tiers
+        starved = dups["starved"]
+
+        def keep_shard(t, p, bag_of=bags, plan=starved):
+            tp = plan.tables[t]
+            tier = SE.make_dup_hot_tiers([p], [bag_of[t]], dc.replace(plan, tables=(tp,)))[0]
+            shard = {k: v.to(cdt) for k, v in SE.shard_qr_params(p, bag_of[t].emb,
+                                                                 mesh).items()}
+            whole = {k: v.to(cdt) for k, v in p.items()} if tp.comm_free else shard
+            return shard, whole, {"hot_table": tier["hot_table"].to(cdt),
+                                  "hot_slot": tier["hot_slot"]}
+
+        local, local_s, tiers = (list(x) for x in zip(*sharded_tables(cfg, dev,
+                                                                       keep=keep_shard)))
+        torch.cuda.empty_cache()
+        spec = E.EngineSpec.from_bags(bags)
+        eng = E.compile(E.plan(spec, mesh=mesh))
+        runs["packed"] = sharded_run(eng.gnr(mesh), (local, idx), mesh, pg, tg, collectives,
+                                     SE, eng=eng, plans=plans, tables=local, idx=idx,
+                                     modeled=ici["starved"]["baseline"])
+        del eng
+        engp = E.compile(E.plan(spec.replace(packing="off"), mesh=mesh))
+        runs["pertable"] = sharded_run(engp.gnr(mesh), (local, idx), mesh, pg, tg,
+                                       collectives, SE, modeled=ici["starved"]["baseline"])
+        del engp
+        engs = E.compile(E.plan(spec.replace(duplication=True), mesh=mesh, dup=starved))
+        runs["dup_starved"] = sharded_run(
+            engs.gnr(mesh), (local_s, idx, tiers), mesh, pg, tg, collectives, SE, eng=engs,
+            plans=plans, tables=local_s, tiers=tiers, idx=idx,
+            modeled=ici["starved"]["duplicated"])
+        runs["dup_starved"]["comm_free_tables"] = sum(engs.plan.comm_free)
+        runs["dup_starved"]["hot_rows"] = sum(t.hot_plan.num_hot for t in starved.tables)
+        del engs
+        torch.cuda.empty_cache()
+        if arch == "dlrm-qr":
+            # raw rows on the wire: ~0.9 GB a rank a call, so one timed call
+            engb = E.compile(E.plan(spec, mesh=mesh))
+            runs["baseline"] = sharded_run(engb.baseline(mesh), (local, idx), mesh, pg, tg,
+                                           collectives, SE, reps=1, combine=False)
+            del engb
+        del local, local_s, tiers
+        torch.cuda.empty_cache()
+
+        # pass 2: the generous plan's whole replicas (bf16) on every rank
+        generous = dups["generous"]
+        full = sharded_tables(cfg, dev, keep=lambda t, p: {k: v.to(cdt) for k, v in p.items()})
+        engg = E.compile(E.plan(spec.replace(duplication=True), mesh=mesh, dup=generous))
+        tiers_g = engg.hot_tiers(full)
+        local_g = engg.shard_tables(full, mesh)
+        runs["dup_generous"] = sharded_run(
+            engg.gnr(mesh), (local_g, idx, tiers_g), mesh, pg, tg, collectives, SE, eng=engg,
+            plans=plans, tables=local_g, tiers=tiers_g, idx=idx,
+            modeled=ici["generous"]["duplicated"])
+        runs["dup_generous"]["comm_free_tables"] = sum(engg.plan.comm_free)
+        del engg, full, local_g, tiers_g
+        torch.cuda.empty_cache()
+
+    res["gloo_bf16"] = gloo_bf16_check(mesh)
+
+    # forward_dlrm on a (2, 2) mesh of the same four ranks, fp32 compute
+    mesh22 = M.make_mesh((2, 2), ("data", "model"), device=dev)
+    cfg = registry.get_dlrm("dlrm-qr").replace(compute_dtype="float32")
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    b = synthetic.dlrm_batch(cfg, batch, seed=0, step=0, device=dev)
+    padded = dlrm.pad_tables_for_mesh(params, cfg, mesh22.shape["model"])
+    local = {**padded, "tables": [SE.shard_qr_params(t, bag.emb, mesh22) for t, bag in
+                                  zip(padded["tables"], dlrm.make_bags(cfg))]}
+    del params, padded
+    dense = SH.local_shard(b["dense"], mesh22, P("data"))
+    idx = SH.local_shard(b["idx"], mesh22, P("data"))
+    before = sum(pg.LAUNCHES.values())
+    collectives.reset_counts()
+    with SH.use_rules(mesh22, SH.DEFAULT_RULES):
+        logits = dlrm.forward_dlrm(local, dense, idx, cfg)
+    torch.cuda.synchronize()
+    res["dlrm"] = {"coords": dict(mesh22.coords), "logits": logits.cpu(),
+                   "launches": sum(pg.LAUNCHES.values()) - before,
+                   "collectives": collectives.CALLS["all_reduce"]}
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return res
+
+
+def sharded_phase(dev, batch, by_name, mods) -> dict:
+    """Phase 9: the sharded two-level GnR.  World 1 over nccl in this
+    process; the parent's single-card references; then four gloo ranks on
+    the card (``launch.mesh.spawn``) run every plan of the three configs,
+    the gloo bf16 check and the (2, 2) DLRM forward; their outputs are held
+    to ``SHARDED_RULE`` and ``DLRM_TOL``; the ranks' launches add to the
+    bf16 rows of K1 / K2 / K3 (the DLRM forward's to K1 fp32).  Returns the
+    ``{"sharded": ...}`` record."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import dlrm
+
+    t0 = time.perf_counter()
+    record = {"world1": None, "configs": [], "rule": SHARDED_RULE}
+    refs = {arch: sharded_reference(dev, arch, batch, registry) for arch in SHARDED_ARCHS}
+    record["world1"], n = sharded_world1(dev, batch, registry, mods, refs["dlrm-qr"])
+    for name, k in n.items():
+        by_name[name + "_bf16"]["launches"] += k
+    cfg = registry.get_dlrm("dlrm-qr").replace(compute_dtype="float32")
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    b = synthetic.dlrm_batch(cfg, batch, seed=0, step=0, device=dev)
+    single_logits = dlrm.forward_dlrm(params, b["dense"], b["idx"], cfg).cpu()
+    del params, b
+    torch.cuda.empty_cache()
+    log(f"[sharded] references in {time.perf_counter() - t0:.1f} s")
+
+    log(f"[sharded] parent before the ranks: {torch.cuda.memory_allocated(dev) / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved")
+    t1 = time.perf_counter()
+    ranks = M.spawn(sharded_rank, SHARDED_WORLD, args=(batch,), device="cuda",
+                    backend="gloo", init_file=ROOT / "build" / "sharded" / "rdv",
+                    timeout_s=SHARDED_TIMEOUT_S)
+    record["spawn_s"] = time.perf_counter() - t1
+    nsh = SHARDED_WORLD[1]
+    for arch in SHARDED_ARCHS:
+        cfg = sharded_cfg(arch, registry)
+        kind = cfg.embedding_kind
+        ref = refs[arch]
+        terms = chain_terms(cfg)
+        rec = {"arch": arch, "rows": cfg.vocab_per_table, "batch": batch,
+               "mesh": list(SHARDED_WORLD), "backend": "gloo", "runs": {}}
+        for name, r0 in ranks[0]["configs"][arch].items():
+            rs = [r["configs"][arch][name] for r in ranks]
+            for r in rs[1:]:
+                if r["fingerprint"] != r0["fingerprint"]:
+                    raise AssertionError(f"{arch} {name}: ranks hold different outputs")
+            path = "packed" if name in ("packed", "dup_starved", "dup_generous") else "pertable"
+            # a plan whose every table is comm-free combines nothing
+            all_cf = r0.get("comm_free_tables") == cfg.num_tables
+            if name == "dup_generous" and not all_cf:
+                raise AssertionError(f"{arch}: the generous budget left tables sharded")
+            adds = 0 if name == "baseline" or all_cf else nsh - 1
+            roundings = PARTIAL_ROUNDINGS[path][kind] + adds
+            out = r0["out"].float()
+            err = (out - ref["s"]).abs()
+            tol = sharded_tol(ref["a"], roundings, terms)
+            err_single = (out - ref["single"]).abs()
+            tol_single = sharded_tol(ref["a"], roundings + 1, terms)
+            if not torch.isfinite(out).all() or (err > tol).any() or (
+                    err_single > tol_single).any():
+                raise AssertionError(
+                    f"{arch} {name}: max |diff| {float(err.max())} vs fp32, "
+                    f"{float(err_single.max())} vs the single card, beyond the rule "
+                    f"({roundings} roundings)")
+            run = {"roundings": roundings,
+                   "max_abs_err_vs_fp32": float(err.max()),
+                   "max_err_over_tol": float((err / tol.clamp_min(1e-30)).max()),
+                   "max_abs_err_vs_single_card": float(err_single.max()),
+                   "launches_per_call": r0["launches_per_call"],
+                   "collectives_per_call": r0["collectives_per_call"],
+                   "bytes_combined_per_rank": r0["bytes_combined"],
+                   "modeled_bytes": r0["modeled_bytes"],
+                   "gnr_ms_max_over_ranks": max(np.median(r["gnr_ms"]) for r in rs)}
+            for key in ("local_ms", "local_ms_alone"):
+                if key in r0:
+                    run[key + "_max_over_ranks"] = max(r[key] for r in rs)
+            for key in ("comm_free_tables", "hot_rows"):
+                if key in r0:
+                    run[key] = r0[key]
+            if "combine_ms" in r0:
+                run["combine_ms_max_over_ranks"] = max(np.median(r["combine_ms"]) for r in rs)
+            want_launch = 1 if path == "packed" else 0
+            want_calls = 0 if all_cf else 1
+            for r in rs:
+                if r["launches_per_call"] != want_launch or \
+                        r["collectives_per_call"] != want_calls:
+                    raise AssertionError(f"{arch} {name}: {r['launches_per_call']} launches, "
+                                         f"{r['collectives_per_call']} collectives a call")
+                by_name[KERNEL_OF[kind] + "_bf16"]["launches"] += r["launches"]
+            rec["runs"][name] = run
+            log(f"[sharded] {arch} {name}: max |diff| {run['max_abs_err_vs_fp32']:.3g} vs fp32 "
+                f"({run['max_err_over_tol']:.3f} of the rule, {roundings} roundings), "
+                f"{run['max_abs_err_vs_single_card']:.3g} vs the single card; "
+                f"{run['launches_per_call']} launch(es), {run['collectives_per_call']} "
+                f"collective(s) a call, {run['bytes_combined_per_rank']} B combined a rank "
+                f"(modeled {run['modeled_bytes']}); gnr {run['gnr_ms_max_over_ranks']:.3f} ms"
+                + (f", local partial {run['local_ms_max_over_ranks']:.4f} ms "
+                   f"({run['local_ms_alone_max_over_ranks']:.4f} ms a rank alone)"
+                   if "local_ms_max_over_ranks" in run else "")
+                + (f", {run['comm_free_tables']} comm-free tables"
+                   if "comm_free_tables" in run else "")
+                + (f", {run['hot_rows']} hot rows" if "hot_rows" in run else "")
+                + (f", combine {run['combine_ms_max_over_ranks']:.3f} ms"
+                   if "combine_ms_max_over_ranks" in run else "")
+                + " (max over 4 ranks sharing one card)")
+        record["configs"].append(rec)
+
+    logits = torch.cat([r["dlrm"]["logits"] for r in ranks if r["dlrm"]["coords"]["model"] == 0])
+    for r in ranks:
+        other = [q for q in ranks if q["dlrm"]["coords"]["data"] == r["dlrm"]["coords"]["data"]]
+        if any(not torch.equal(q["dlrm"]["logits"], r["dlrm"]["logits"]) for q in other):
+            raise AssertionError("dlrm (2, 2): ranks of one data block differ")
+    diff = (logits - single_logits).abs()
+    if not torch.isfinite(logits).all() or not torch.allclose(logits, single_logits,
+                                                              rtol=DLRM_TOL, atol=DLRM_TOL):
+        raise AssertionError(f"dlrm (2, 2): logits differ from the single card by "
+                             f"{float(diff.max())}")
+    if any(r["dlrm"]["launches"] != 1 or r["dlrm"]["collectives"] != 1 for r in ranks):
+        raise AssertionError("dlrm (2, 2): not one launch and one collective a rank")
+    by_name["packed_qr_bag"]["launches"] += sum(r["dlrm"]["launches"] for r in ranks)
+    record["dlrm_2x2"] = {"arch": "dlrm-qr", "compute_dtype": "float32", "batch": batch,
+                          "max_abs_diff_vs_single_card": float(diff.max()), "tol": DLRM_TOL}
+    log(f"[sharded] dlrm-qr forward on mesh (2, 2), fp32 compute: logits max |diff| "
+        f"{float(diff.max()):.3g} vs the single card (tol {DLRM_TOL})")
+    gb = ranks[0]["gloo_bf16"]
+    if not (gb["finite"] and gb["within_n_minus_1_roundings"]):
+        raise AssertionError(f"gloo bf16: {gb}")
+    record["gloo_bf16"] = gb
+    record["rank_peak_gib"] = [r["peak_gib"] for r in ranks]
+    log(f"[sharded] gloo reduced bf16 CUDA tensors in place ({gb['device']}): "
+        f"max |err| {gb['max_abs_err_vs_exact']:.3g} vs the exact sum, within "
+        f"{SHARDED_WORLD[1] - 1} bf16 roundings: {gb['within_n_minus_1_roundings']}; the fp32 sum "
+        f"rounded once: {gb['equals_fp32_sum_rounded_once']}; the chain of bf16 adds: "
+        f"{gb['equals_bf16_chain']}")
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[sharded] phase {record['phase_s']:.1f} s (ranks {record['spawn_s']:.1f} s)")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2194,6 +2753,8 @@ def main() -> int:
 
     # phase 8: the serving control plane (fp32 serving launches of K1/K3/K2/K5)
     control = control_plane_phase(dev, batch, by_name, mods)
+    # phase 9: the sharded two-level GnR (bf16 launches of K1/K2/K3 on the ranks)
+    sharded = sharded_phase(dev, batch, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -2203,6 +2764,7 @@ def main() -> int:
         print(json.dumps({"serve_split": split}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"control_plane": control}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

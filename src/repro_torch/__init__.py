@@ -20,7 +20,12 @@ recomputing the plain version.  Attention runs through
 CPU tensors the same wrappers take their plain PyTorch versions.
 Around the serving path: ``obs`` (telemetry), ``tune`` (the trace-driven
 autotuner ``engine.plan(tuner=)`` consumes), ``serve`` (the resilient front
-end and its degradation ladder) and ``adapt`` (online re-planning).
+end and its degradation ladder) and ``adapt`` (online re-planning).  The
+sharded two-level GnR (``EmbeddingEngine.gnr`` / ``forward_partial`` /
+``inline_gnr`` / ``baseline``, ``core.sharded_embedding``) runs one process
+per mesh rank under ``torch.distributed`` (``launch.mesh.spawn`` and
+``make_mesh``, ``distributed.sharding`` and ``collectives``): each rank's
+partial is one packed launch on its row shard, one psum combines them.
 ``repro_torch.examples`` holds the quickstart, the cache walkthrough, the
 DLRM training example and the autotuner walkthrough.
 

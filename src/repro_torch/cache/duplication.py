@@ -189,15 +189,26 @@ def plan_duplication(
     all_v = np.concatenate(row_counts) if row_counts else np.empty(0)
     order2 = np.argsort(-all_v, kind="stable")
     num_hot = [0] * len(infos)
-    min_rb = min((info[3] for info in infos), default=0)
-    for j in order2:
-        if budget < min_rb:
-            break
-        t = int(all_t[j])
-        rb = infos[t][3]
-        if rb <= budget:
-            budget -= rb
-            num_hot[t] += 1
+    widths = {info[3] for info in infos}
+    if len(widths) == 1:
+        # one row width (every packable set): the scan below takes exactly
+        # the first budget // width rows of the order, so count them at once
+        # (scanning 26M dense rows in Python under a budget that fits them
+        # all takes ~15 s)
+        rb = widths.pop()
+        taken = order2[:min(order2.size, budget // rb)]
+        num_hot = np.bincount(all_t[taken], minlength=len(infos)).tolist()
+        budget -= taken.size * rb
+    else:
+        min_rb = min((info[3] for info in infos), default=0)
+        for j in order2:
+            if budget < min_rb:
+                break
+            t = int(all_t[j])
+            rb = infos[t][3]
+            if rb <= budget:
+                budget -= rb
+                num_hot[t] += 1
 
     tables = []
     for t, (smalls, big, folded, rb, rows, touches) in enumerate(infos):

@@ -7,7 +7,9 @@
 {"g1","g2","g3"}]}``; ``tables_from_numpy(tables, device)`` does the same
 for a list of single tables (``embedding_bag.init_tables``'s output), and
 ``opt_state_from_numpy(state, device)`` for ``repro.train.optimizer``'s
-state (``mu`` and ``nu`` shaped like the params, ``step``).  Both packages
+state (``mu`` and ``nu`` shaped like the params, ``step``), and
+``hot_tiers_from_numpy(tiers, device)`` for ``repro``'s hot-tier dicts
+(``{"hot_table", "hot_slot"}`` per table, the slot maps int32).  Both packages
 then compute on the same weights and resume from the same optimizer state.
 """
 
@@ -41,3 +43,9 @@ def opt_state_from_numpy(state: dict, device=None) -> dict:
     return {"mu": params_from_numpy(state["mu"], device),
             "nu": params_from_numpy(state["nu"], device),
             "step": _tensor(state["step"], dev)}
+
+
+def hot_tiers_from_numpy(tiers, device=None) -> list[dict]:
+    dev = device_mod.resolve(device)
+    return [{"hot_table": _tensor(t["hot_table"], dev),
+             "hot_slot": _tensor(t["hot_slot"], dev).to(torch.int32)} for t in tiers]

@@ -1,5 +1,6 @@
 """Weight-sharing index math (port of ``repro.core.hashing``: the
-quotient-remainder split and the hashing trick's universal hash).
+quotient-remainder split, the hashing trick's universal hash, and the
+row-shard owners of the two-level sharded GnR).
 
 ``qr_decompose``, ``universal_hash`` and ``k_ary_hash`` take a numpy array
 (the host-side planners) or a torch tensor (the lookups) and return the
@@ -84,3 +85,31 @@ def k_ary_hash(idx, buckets: int, k: int):
     """k independent hashes per index; shape ``idx.shape + (k,)``."""
     hs = [universal_hash(idx, buckets, seed=s) for s in range(k)]
     return torch.stack(hs, dim=-1) if isinstance(hs[0], torch.Tensor) else np.stack(hs, axis=-1)
+
+
+def _int32(x):
+    return x.to(torch.int32) if isinstance(x, torch.Tensor) else np.asarray(x).astype(np.int32)
+
+
+def qr_shard_owner(idx, collision: int, q_rows: int, num_shards: int):
+    """Which row-shard ("bank group") owns the Q row of each logical index."""
+    q, _ = qr_decompose(idx, collision)
+    return row_owner(q, q_rows, num_shards)
+
+
+def row_owner(row_idx, table_rows: int, num_shards: int):
+    """Owner shard under contiguous ("blocked") row sharding."""
+    rows_per_shard = -(-table_rows // num_shards)
+    return _int32(row_idx // rows_per_shard)
+
+
+def local_row(row_idx, table_rows: int, num_shards: int):
+    """Row offset within the owner shard under contiguous sharding."""
+    rows_per_shard = -(-table_rows // num_shards)
+    return _int32(row_idx % rows_per_shard)
+
+
+def padded_rows(table_rows: int, num_shards: int) -> int:
+    """Total rows after padding so every shard holds the same count."""
+    rows_per_shard = -(-table_rows // num_shards)
+    return rows_per_shard * num_shards

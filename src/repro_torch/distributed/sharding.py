@@ -1,0 +1,225 @@
+"""Logical-axis sharding rules (port of ``repro.distributed.sharding``).
+
+Models annotate tensors with *logical* axis names ("batch", "qrow", ...); a
+rules table maps logical names to mesh axes.  ``repro`` runs SPMD inside one
+process: ``jit`` places each array by its ``NamedSharding`` and
+``constrain`` pins an intermediate's layout.  The port runs one process per
+mesh rank (``launch.mesh.make_mesh`` / ``spawn``): every tensor a rank holds
+already is its local shard, so a spec says which slice of the global tensor
+that is (``local_shard``) and ``constrain`` only checks its arguments.
+
+``P`` stands in for ``jax.sharding.PartitionSpec``: one entry per tensor dim,
+each None (replicated), a mesh axis name, or a tuple of names.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Mapping, Sequence
+
+import torch
+
+_state = threading.local()
+
+
+class P(tuple):
+    """Partition spec: ``P("model", None)`` shards dim 0 over ``model`` and
+    replicates dim 1."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# Default production rules (single-pod).  "pod" is prepended to batch for the
+# multi-pod mesh.  None = replicated along that logical axis.
+DEFAULT_RULES: dict[str, tuple[str, ...] | None] = {
+    "batch": ("data",),
+    "seq": None,
+    "kvseq": ("model",),
+    "embed": None,
+    "heads": ("model",),
+    "kv_heads": None,
+    "head_dim": None,
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "qrow": ("model",),     # Q-table rows = the "bank group" axis
+    "rrow": None,            # R table = replicated LUT tier
+    "experts": ("model",),
+    "expert_ffn": None,
+    "layers": None,
+    "state": None,
+    "mlp": None,
+    "table": None,           # DLRM table index axis
+}
+
+
+def multi_pod_rules(rules: Mapping[str, tuple[str, ...] | None] | None = None) -> dict:
+    """Extend batch-like axes over the 'pod' axis for the 2-pod mesh."""
+    base = dict(DEFAULT_RULES if rules is None else rules)
+    for k in ("batch",):
+        v = base.get(k) or ()
+        if "pod" not in v:
+            base[k] = ("pod",) + tuple(v)
+    return base
+
+
+# Parameter (at-rest) rules: TP over `model`, FSDP over `data`.
+PARAM_RULES: dict[str, tuple[str, ...] | None] = {
+    "batch": None,
+    "embed": ("data",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "qrow": ("model",),
+    "rrow": None,
+    "experts": ("model",),
+    "expert_ffn": ("model",),
+    "layers": None,
+    "state": None,
+    "mlp": ("model",),
+    "table": None,
+}
+
+
+def multi_pod_param_rules(rules: Mapping | None = None) -> dict:
+    """FSDP additionally over 'pod' for the 2-pod mesh."""
+    base = dict(PARAM_RULES if rules is None else rules)
+    v = base.get("embed") or ()
+    if "pod" not in v:
+        base["embed"] = ("pod",) + tuple(v)
+    return base
+
+
+def resolve_spec(
+    mesh,
+    shape: Sequence[int],
+    logical_axes: Sequence[str | None],
+    rules: Mapping[str, tuple[str, ...] | None],
+) -> P:
+    """First-fit spec resolution with divisibility + duplicate-axis dropping.
+
+    For each tensor dim, the rule's mesh axes are applied only if (a) the axis
+    is not already used by an earlier dim of the same tensor and (b) the dim
+    size is divisible by the product of the accepted axes.  ``mesh`` is
+    anything with a ``shape`` mapping of axis name -> size.
+    """
+    used: set[str] = set()
+    parts: list = []
+    for dim, ax in zip(shape, logical_axes):
+        ent = rules.get(ax) if ax else None
+        if not ent:
+            parts.append(None)
+            continue
+        accepted: list[str] = []
+        prod = 1
+        for mesh_ax in ent:
+            if mesh_ax in used or mesh_ax not in mesh.shape:
+                continue
+            size = mesh.shape[mesh_ax]
+            if dim % (prod * size) == 0:
+                accepted.append(mesh_ax)
+                prod *= size
+        used.update(accepted)
+        if not accepted:
+            parts.append(None)
+        elif len(accepted) == 1:
+            parts.append(accepted[0])
+        else:
+            parts.append(tuple(accepted))
+    return P(*parts)
+
+
+@contextlib.contextmanager
+def use_rules(mesh, rules: Mapping[str, tuple[str, ...] | None] | None):
+    prev = getattr(_state, "ctx", None)
+    _state.ctx = (mesh, dict(rules) if rules else None)
+    try:
+        yield
+    finally:
+        _state.ctx = prev
+
+
+def current_mesh():
+    ctx = getattr(_state, "ctx", None)
+    return ctx[0] if ctx else None
+
+
+def current_rules() -> dict | None:
+    ctx = getattr(_state, "ctx", None)
+    return ctx[1] if ctx else None
+
+
+def spec_for(logical_axes: Sequence[str | None]) -> P:
+    """PartitionSpec for a tuple of logical axis names under current rules.
+
+    Mesh axes are assigned first-come-first-served across the tensor's dims
+    (a mesh axis may appear at most once in a spec)."""
+    rules = current_rules()
+    if rules is None:
+        return P()
+    used: set[str] = set()
+    parts = []
+    for ax in logical_axes:
+        ent = rules.get(ax) if ax else None
+        ent = tuple(a for a in (ent or ()) if a not in used)
+        used.update(ent)
+        if not ent:
+            parts.append(None)
+        elif len(ent) == 1:
+            parts.append(ent[0])
+        else:
+            parts.append(tuple(ent))
+    return P(*parts)
+
+
+def constrain(x: torch.Tensor, *logical_axes: str | None) -> torch.Tensor:
+    """``repro``'s ``with_sharding_constraint`` by logical axes, as a checked
+    identity.  In the port's SPMD processes ``x`` already is this rank's
+    local shard, so there is no layout to pin: the call checks that one
+    logical axis is named per dim (as ``repro`` does under a mesh) and
+    returns ``x``.  No-op without rules or mesh."""
+    if current_mesh() is None or current_rules() is None:
+        return x
+    if len(logical_axes) != x.dim():
+        raise ValueError(f"{len(logical_axes)} axes for rank-{x.dim()} tensor")
+    return x
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shard(t: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` under ``spec`` (one entry
+    per leading dim; missing entries replicate), as ``jit`` would hand it to
+    the rank's device: each sharded dim is split into equal contiguous
+    blocks, ordered by the rank's coordinates along the named mesh axes
+    (major to minor, as ``NamedSharding`` orders a tuple of axes).  A
+    sharded block comes back as this rank's own copy, so the caller may free
+    the global tensor; a replicated tensor comes back as it is."""
+    out = t
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        n, pos = 1, 0
+        for ax in axes:
+            n *= mesh.shape[ax]
+            pos = pos * mesh.shape[ax] + mesh.axis_index(ax)
+        size = t.shape[d]
+        if n == 1:
+            continue
+        if size % n:
+            raise ValueError(f"dim {d} of size {size} does not split over "
+                             f"{axes} ({n} blocks)")
+        block = size // n
+        out = out.narrow(d, pos * block, block)
+    return out if out is t else out.clone()

@@ -1,7 +1,7 @@
 """plan() — the offline half of the engine: analyze, budget, place, pack
 (port of ``repro.engine.plan``).
 
-``plan(spec, trace=...)`` runs the intra-GnR locality analyzer, the
+``plan(spec, trace=..., mesh=...)`` runs the intra-GnR locality analyzer, the
 cache-slot waterfill, the duplication planner and the packed-layout build
 once and freezes the result into an ``EmbeddingPlan``.  Every tunable
 decision is a ``tune.Knobs`` frozen into the plan: an explicit ``knobs=``,
@@ -139,7 +139,9 @@ def plan(
     spec: EngineSpec,
     trace: Sequence[np.ndarray] | None = None,
     *,
-    num_shards: int = 1,
+    mesh=None,
+    num_shards: int | None = None,
+    dup: duplication.DuplicationPlan | None = None,
     knobs: Knobs | None = None,
     tuner=None,
 ) -> EmbeddingPlan:
@@ -147,8 +149,10 @@ def plan(
 
     ``trace`` is one logical-index trace per table, flat ``(N,)`` or
     bag-shaped ``(bags, pooling)``, positional or by keyword
-    (``plan(spec, traces, tuner=...)``); ``num_shards`` sizes the row-shard
-    axis the duplication planner models.
+    (``plan(spec, traces, tuner=...)``).  ``mesh`` (a ``launch.mesh.Mesh``)
+    or ``num_shards`` sizes the row-shard axis the duplication planner
+    models: the mesh's ``spec.row_axis`` size, else 1.  A pre-built ``dup``
+    plan may be adopted instead of re-planning.
 
     Knob resolution, as in ``repro``: an explicit ``knobs=`` wins; else a
     fitted ``tuner=`` (:func:`repro_torch.tune.fit`) picks the
@@ -157,6 +161,10 @@ def plan(
     the uniform policy; serving specs, which plan duplication, need one.
     """
     bags = spec.bags
+    if num_shards is None:
+        num_shards = 1
+        if mesh is not None and spec.row_axis in mesh.shape:
+            num_shards = mesh.shape[spec.row_axis]
     locs: list[dict] = []
     values: list[np.ndarray] | None = None
     counts: list[np.ndarray] | None = None
@@ -183,12 +191,11 @@ def plan(
         raise ValueError("knobs.backend='packed' but the bag set is not packable")
     budgets = _knob_budgets(spec, knobs, values)
 
-    dup = None
-    if spec.duplication:
+    if dup is None and spec.duplication:
         if counts is None:
             raise ValueError(
                 "spec.duplication=True needs an access profile: pass trace= "
-                "(one per table)"
+                "(one per table) or adopt a pre-built plan via dup="
             )
         dup = duplication.plan_duplication(
             list(bags), counts,

@@ -22,7 +22,9 @@ class EngineSpec:
     * ``duplication`` / ``dup_budget_mb`` — run the replicate-vs-shard planner
       under a per-device byte budget;
     * ``packing`` — ``"auto"`` packs uniform bag sets into the one-launch
-      layout, ``"off"`` forces the per-table path.
+      layout, ``"off"`` forces the per-table path;
+    * ``batch_axis`` / ``row_axis`` — mesh axis names of the two-level
+      scheme (requests over ``batch_axis``, table rows over ``row_axis``).
     """
 
     bags: tuple[BagConfig, ...]
@@ -37,6 +39,8 @@ class EngineSpec:
     # execution policy
     packing: str = "auto"                   # auto | off
     exec_backend: str = "auto"              # repro's backend name (summary only)
+    batch_axis: str = "data"
+    row_axis: str = "model"
 
     def __post_init__(self):
         if not self.bags:

@@ -1,6 +1,13 @@
-"""Hardware constants of one NVIDIA H100 (the port's counterpart of the
-constants in ``repro.launch.mesh``; the mesh builder comes with the sharded
-slice).
+"""Mesh construction and the hardware constants of one NVIDIA H100 (port of
+``repro.launch.mesh``).
+
+``repro`` runs its mesh programs SPMD inside one process (``shard_map`` over
+``jax.make_mesh``).  The port runs one process per mesh rank under
+``torch.distributed``: ``spawn`` starts the ranks (a ``file://``
+rendezvous, so side-by-side runs need no TCP port) and ``make_mesh`` gives
+each rank its ``Mesh``: the axis sizes, its coordinates and one process
+group per axis (its line of ranks along that axis), over which
+``distributed.collectives.psum`` is ``repro``'s ``jax.lax.psum``.
 
 Rates are the NVIDIA H100 Tensor Core GPU datasheet's, SXM5 column (dense,
 without sparsity), at the card's full power limit of 700 W; a card set
@@ -11,6 +18,20 @@ one number measured here rather than read from the datasheet.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import datetime
+import itertools
+import math
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
 
 # datasheet, H100 SXM5: bf16 Tensor Core 989 TFLOP/s (dense)
 PEAK_FLOPS_BF16 = 989e12
@@ -37,3 +58,182 @@ HOST_LINK_BW = 128e9 / 2
 # read from chip_smoke.py's "launch overhead" line on an NVIDIA H100 80GB
 # HBM3 at a 700.00 W power limit.  It varies from run to run with the host.
 DISPATCH_OVERHEAD_S = 33.0e-6
+
+
+# ---------------------------------------------------------------------------
+# the mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """One rank's view of the device mesh.
+
+    ``shape`` maps each axis name to its size, in mesh order (as
+    ``jax.sharding.Mesh.shape`` does); ``coords`` holds this rank's
+    coordinate along each axis (``jax.lax.axis_index``); ``groups`` the
+    process group of this rank's line along each axis (the ranks a ``psum``
+    over that axis combines).  ``device`` is the rank's device, ``backend``
+    the process groups' (``gloo`` or ``nccl``).
+    """
+
+    shape: dict
+    coords: dict
+    groups: dict
+    device: torch.device
+    backend: str
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device=None) -> Mesh:
+    """This rank's ``Mesh`` over the initialized default process group.
+
+    Ranks are laid out row-major over ``shape`` (rank = its coordinates'
+    row-major index, as ``jax.make_mesh`` orders devices).  Every rank must
+    call it with the same arguments: each axis gets one ``new_group`` per
+    line of ranks along it, created by all ranks in one order.  ``device``
+    is the rank's device (the card unless ``"cpu"``)."""
+    from repro_torch import device as device_mod
+
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} vs axes {axes}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized default process group "
+                           "(launch.mesh.spawn, or torch.distributed.init_process_group)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the group has {world}")
+    coords = [int(c) for c in np.unravel_index(rank, shape)]
+    groups = {}
+    for a, ax in enumerate(axes):
+        others = [range(s) for i, s in enumerate(shape) if i != a]
+        for rest in itertools.product(*others):
+            members = []
+            for c in range(shape[a]):
+                full = list(rest)
+                full.insert(a, c)
+                members.append(int(np.ravel_multi_index(full, shape)))
+            group = dist.new_group(members)
+            if rank in members:
+                groups[ax] = group
+    return Mesh(shape=dict(zip(axes, shape)), coords=dict(zip(axes, coords)),
+                groups=groups, device=device_mod.resolve(device),
+                backend=dist.get_backend())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """``repro``'s production mesh shape, (16, 16) or (2, 16, 16)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device)
+
+
+# ---------------------------------------------------------------------------
+# one process per rank
+# ---------------------------------------------------------------------------
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def _result_path(init_file: str, rank: int) -> Path:
+    return Path(f"{init_file}.rank{rank}.pt")
+
+
+def _rank_main(rank, fn, shape, axes, args, device_type, backend, init_file, timeout_s):
+    world = math.prod(shape)
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        mesh = make_mesh(shape, axes, device=dev)
+        result = fn(mesh, *args)
+        torch.save(_to_cpu(result), _result_path(init_file, rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, shape: tuple[int, ...], *, axes: tuple[str, ...] = ("data", "model"),
+          args: Sequence = (), device=None, backend: str, init_file: str | os.PathLike,
+          timeout_s: float = 300.0) -> list:
+    """Run ``fn(mesh, *args)`` on every rank of a ``shape`` mesh, one process
+    per rank (``torch.multiprocessing``, ``spawn`` start method), and return
+    each rank's return value in rank order, its tensors moved to the CPU.
+
+    ``fn`` must be importable by name (a module-level function); ``args``
+    are pickled to every rank.  ``backend`` is explicit: ``nccl`` where each
+    rank has a card of its own, ``gloo`` where ranks share one card or run
+    on the CPU (NCCL refuses two ranks on one device); with ``gloo`` on the
+    card the kernels run on the card and only the combine crosses the host.
+    ``device`` is the ranks' device type (the card unless ``"cpu"``): rank r
+    takes card ``r % device_count``.  ``init_file`` is the rendezvous file
+    (it must not be in use; results land beside it).  Every process group
+    has ``timeout_s``, so a rank stuck in a collective fails the run, and
+    the whole run fails with ``TimeoutError`` past ``timeout_s``; a rank's
+    exception ends every rank and is raised here.  Build the CUDA kernels
+    before spawning, so that the ranks do not race the build.
+    """
+    import torch.multiprocessing as mp
+
+    from repro_torch import device as device_mod
+
+    world = math.prod(shape)
+    dev_type = device_mod.resolve(device).type
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: choose gloo or nccl")
+    if backend == "nccl" and (dev_type != "cuda" or world > torch.cuda.device_count()):
+        raise ValueError(f"nccl needs one card a rank: {world} ranks, "
+                         f"{torch.cuda.device_count() if dev_type == 'cuda' else 0} cards; "
+                         f"use gloo")
+    cards = torch.cuda.device_count() if dev_type == "cuda" else 0
+    where = f"{min(world, cards)} card(s)" if dev_type == "cuda" else "the CPU"
+    print(f"[mesh] {world} ranks, mesh {tuple(shape)} over {tuple(axes)}, backend "
+          f"{backend}, on {where}", file=sys.stderr, flush=True)
+    init_file = str(Path(init_file).resolve())
+    for path in [Path(init_file)] + [_result_path(init_file, r) for r in range(world)]:
+        path.unlink(missing_ok=True)
+    ctx = mp.start_processes(
+        _rank_main, args=(fn, tuple(shape), tuple(axes), tuple(args), dev_type, backend,
+                          init_file, timeout_s),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=0.5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {world} ranks did not finish within {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results = []
+    for r in range(world):
+        path = _result_path(init_file, r)
+        # written by this function's own ranks just above
+        results.append(torch.load(path, weights_only=False))
+        path.unlink()
+    return results

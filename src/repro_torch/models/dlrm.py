@@ -1,14 +1,19 @@
-"""DLRM — the paper's own model family (port of ``repro.models.dlrm``,
-single card).
+"""DLRM — the paper's own model family (port of ``repro.models.dlrm``).
 
 Dense features -> bottom MLP; sparse features -> the packed embedding bags
 (``repro_torch.engine``); pairwise-dot interaction; top MLP -> CTR logit.
 The head runs in the config's compute dtype (bf16), as ``repro``'s does;
 its products are ``torch.matmul``, as ``repro`` left them to XLA.
 ``forward_dlrm`` is the training forward (the embedding layer through
-``EmbeddingEngine.lookup``, differentiable); ``forward_from_pooled`` the
-serving head; ``bce_loss`` and ``auc`` the training loss and the quality
-metric.
+``EmbeddingEngine.inline_gnr``: the single-card ``lookup``, differentiable,
+without a mesh; under ``sharding.use_rules(mesh, ...)`` the two-level
+sharded GnR on this rank's row-sharded tables and batch shard, forward
+only); ``forward_from_pooled`` the serving head; ``bce_loss`` and ``auc`` the
+training loss and the quality metric.
+
+Distribution, as in ``repro``: tables row-sharded over ``model`` ("bank
+groups"), requests over ``data``; the only ``model``-axis collective is one
+psum of pooled vectors.
 """
 
 from __future__ import annotations
@@ -84,6 +89,28 @@ def init_dlrm(cfg: DLRMConfig, *, seed: int = 0, device=None) -> dict:
     }
 
 
+def _gnr(tables, idx: torch.Tensor, bags, cfg: DLRMConfig) -> torch.Tensor:
+    """(B, T, pooling) indices -> (B, T, dim) pooled, through the memoised
+    engine's ``inline_gnr``: single card without a mesh, two-level under
+    one."""
+    return engine_for(EngineSpec.from_bags(bags)).inline_gnr(tables, idx)
+
+
+def pad_tables_for_mesh(params: dict, cfg: DLRMConfig, num_shards: int) -> dict:
+    """Pad Q / G2 / dense tables so the ``model`` axis divides their rows."""
+    from repro_torch.core import sharded_embedding as SE
+
+    out = []
+    for t, bag in zip(params["tables"], make_bags(cfg)):
+        if "q" in t:
+            out.append({"q": SE.pad_q_table(t["q"], bag.emb), "r": t["r"]})
+        elif "g2" in t:
+            out.append({"g1": t["g1"], "g2": SE.pad_q_table(t["g2"], bag.emb), "g3": t["g3"]})
+        else:
+            out.append({"table": SE.pad_q_table(t["table"], bag.emb)})
+    return {**params, "tables": out}
+
+
 def interact(bottom: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
     """Pairwise-dot interaction. bottom: (B, dim); pooled: (B, T, dim) ->
     (B, F*(F-1)/2), pairs in row-major upper-triangle order."""
@@ -106,11 +133,13 @@ def forward_from_pooled(params: dict, dense: torch.Tensor, pooled: torch.Tensor,
 def forward_dlrm(params: dict, dense: torch.Tensor, idx: torch.Tensor,
                  cfg: DLRMConfig) -> torch.Tensor:
     """dense: (B, num_dense) fp; idx: (B, T, pooling) int -> CTR logits (B,)
-    fp32.  The embedding layer is the memoised engine's ``lookup`` on the
-    per-table params (one packed kernel launch on packable sets), the
-    single-card branch of ``repro``'s ``inline_gnr``."""
-    pooled = engine_for(EngineSpec.from_bags(make_bags(cfg))).lookup(params["tables"], idx)
-    return forward_from_pooled(params, dense, pooled, cfg)
+    fp32.  The embedding layer is ``_gnr`` (one packed kernel launch on
+    packable sets).  Under a mesh every argument is this rank's piece: its
+    batch shard of ``dense`` / ``idx``, its row shards of the tables
+    (``pad_tables_for_mesh``, then ``sharded_embedding.shard_qr_params``),
+    the MLPs whole."""
+    return forward_from_pooled(params, dense, _gnr(params["tables"], idx, make_bags(cfg), cfg),
+                               cfg)
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

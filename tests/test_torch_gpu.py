@@ -1007,3 +1007,42 @@ def test_gpu_fit_auto_measures_on_the_card(cuda):
     assert pg.LAUNCHES["packed_qr_bag"] > 0
     p = engine_mod.plan(spec, traces, tuner=tuner)
     assert p.knobs in tune.knob_space(spec, packable=True)
+
+
+# ---------------------------------------------------------------------------
+# the sharded two-level GnR: two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_two_gloo_ranks_equal_the_single_card_lookup(cuda, dtype, tmp_path):
+    """Mesh (1, 2) over gloo on the one card: each rank's partial is one
+    packed launch on its routed streams, the psum crosses the host, and the
+    combined output lies within the rounding rule of the exact sum
+    (``test_torch_sharded_ranks.rounding_tol``: one rounding in the partials, one
+    addition of the combine) and of the single-card ``lookup`` (one rounding
+    more); an all-comm-free plan calls no collective."""
+    import test_torch_sharded_ranks as R
+    from repro_torch import engine as E
+    from repro_torch.launch import mesh as M
+
+    build.build(["packed_gather", "tt_bag"])     # before the ranks: no build race
+    res = M.spawn(R.invariants, (1, 2), args=(dtype, "cuda"), device="cuda",
+                  backend="gloo", init_file=tmp_path / "rdv", timeout_s=300)
+    for kind, kw in R.INVARIANT_KINDS:
+        bags, tables, idx, _tr = R.invariant_case(kind, kw, dtype)
+        s, a = R.reference(kind, kw, dtype, tables, idx)
+        single = E.compile(E.plan(EngineSpec.from_bags(bags))).lookup(
+            [{k: v.to(cuda) for k, v in t.items()} for t in tables], idx.to(cuda))
+        single = single.float().cpu().numpy()
+        terms = R.terms_of(kind, kw)
+        for r in res:
+            got = r[kind]["packed"]
+            assert got["launches"] == 1 and got["calls"] == 1, kind
+            tol = R.rounding_tol(a, dtype, combine_adds=1, partial=1, terms=terms)
+            assert (np.abs(got["out"] - s) <= tol).all(), kind
+            tol = R.rounding_tol(a, dtype, combine_adds=1, partial=2, terms=terms)
+            assert (np.abs(got["out"] - single) <= tol).all(), kind
+            for name in ("dup_auto", "dup_off"):
+                assert all(r[kind][name]["comm_free"]) and r[kind][name]["calls"] == 0
+            assert r[kind]["dup_auto"]["launches"] == 1

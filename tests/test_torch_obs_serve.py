@@ -319,6 +319,9 @@ def test_port_telemetry_imports_no_jax():
         "import repro_torch.launch.mesh, repro_torch.engine, repro_torch.launch.serve_rec\n"
         "import repro_torch.tune.tuner, repro_torch.serve, repro_torch.adapt.loop\n"
         "import repro_torch.distributed.elastic, repro_torch.examples.autotune_plan\n"
+        "import repro_torch.distributed.sharding, repro_torch.distributed.collectives\n"
+        "import repro_torch.core.sharded_embedding, repro_torch.core.overlap\n"
+        "import repro_torch.models.dlrm, repro_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"
