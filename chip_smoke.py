@@ -133,18 +133,45 @@ Phases, each one failing the script if it fails:
    ``DuplicationPlan.ici_bytes_per_batch``; whether gloo reduced bf16 CUDA
    tensors and how; ``forward_dlrm`` under ``use_rules`` on a (2, 2) mesh
    of the same ranks (dlrm-qr, fp32 compute) against the single card to
-   ``DLRM_TOL``.  A rank's exception or the ranks' timeout fails the script.
+   ``DLRM_TOL``.  A rank's exception or the ranks' timeout fails the script;
+10. DLRM training on a mesh (``launch.train --mesh-shape``'s path: the
+   params placed by their logical axes, the loss under ``use_rules``,
+   ``inline_gnr`` -> ``forward_partial`` under grad, the data-axis gradient
+   mean, AdamW on each rank's blocks with the mesh's global norm), batch
+   8,192, bf16: the single-card references first (step-1 gradients, three
+   steps' losses and norms, the lookup's backward at 4,096 bags); world 1
+   over nccl in this process (mesh (1, 1), full-width dlrm-qr): the meshed
+   step-1 gradients within ``GRAD_TOL`` of the single card's per leaf,
+   bitwise or not recorded, loss and norm within ``MESH_LOSS_TOL``; four
+   gloo ranks on the card, mesh (2, 2) (4,096 bags a ``data`` rank):
+   full-width dlrm-qr and dlrm-tt and dlrm-dense at 200,000 rows a table
+   (phase 7's cut), three steps each: the step-1 gradients, gathered to the
+   logical shapes, within ``GRAD_TOL`` of the single card's per leaf, the
+   three losses and norms within ``MESH_LOSS_TOL``, one packed launch a
+   rank a step, a step's collectives (one combine, one entry psum for QR and
+   TT, one data mean, one norm); ms a step (host clock, max over ranks), one
+   step split into forward, backward, gradient mean and update, bytes
+   all-reduced a rank a step on each axis, peak memory a rank, a rank's
+   local backward alone against the single card's at the same bags (the
+   share of accesses routed to the zero row beside it); then the CLI's
+   elastic drill (``launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 4
+   --ckpt-dir D``, then ``--mesh-shape 4,1 --steps 8``, batch 2,048, full
+   width): both exit 0, the second resumes at step 4, the checkpoint holds
+   the full logical arrays.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+``{"mesh_training": ...}`` line, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2635,6 +2662,602 @@ def sharded_phase(dev, batch, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 10: DLRM training on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_TRAIN_STEPS = 3
+# three steps' losses and gradient norms against the single card
+# (tests/test_torch_train.py::test_train_steps_match_repro's bound)
+MESH_LOSS_TOL = 2e-2
+MESH_OPT = dict(lr=3e-4, warmup_steps=MESH_TRAIN_STEPS, total_steps=MESH_TRAIN_STEPS)
+MESH_TIMEOUT_S = 600
+# The step-1 gradients are held per leaf to GRAD_TOL against the single
+# card's in fp32 compute (the tables packed fp32, K1 / K2 / K3's fp32
+# entries, an fp32 combine).  In bf16 the mesh's combine adds two partials
+# each rounded to bf16, so a share of the pooled values sits one bf16 step
+# from the single card's, and the bf16 head's gradients move by several
+# percent of a leaf's scale under such steps (ReLU and rounding flips): the
+# bf16 gradients are held per leaf to GRAD_TOL against the single card fed
+# the mesh's pooled values (a straight-through of the forward only), and
+# their distance from the single card's own is recorded beside it.
+# the CLI's elastic drill: full-width dlrm-qr, (2, 2) to step 4, then (4, 1)
+# to step 8 from its checkpoint, which holds the full logical arrays (a Q
+# table of dlrm-qr: 31,360 padded rows of 128)
+MESH_CLI_BATCH = 2048
+MESH_CLI_Q_SHAPE = [31360, 128]
+
+
+def mesh_batches(cfg, batch: int, dev, synthetic) -> list:
+    """The global batches of steps 0.. of a meshed run (seed 0), planted."""
+    truth = synthetic.dlrm_truth(cfg, device=dev)
+    return [synthetic.dlrm_planted_batch(cfg, truth, batch, seed=0, step=s, device=dev)
+            for s in range(MESH_TRAIN_STEPS)]
+
+
+def gathered_leaves(local, specs, mesh, keep: bool, tree, SH) -> list | None:
+    """The full logical leaves of ``local`` (this rank's blocks under
+    ``specs``), one all-gather at a time; on the host where ``keep`` (the
+    writer), dropped on the other ranks, so no rank holds more than one full
+    leaf on the card."""
+    out = [] if keep else None
+    for x, spec in zip(tree.leaves(local), specs):
+        full = SH.gather(x, spec, mesh)
+        if keep:
+            out.append(full.cpu())
+        del full
+    return out
+
+
+def leaf_errors(got: list, want: list) -> list:
+    """max |got - want| over max |want|, per leaf (both on one device)."""
+    return [float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-12)
+            for a, b in zip(got, want)]
+
+
+def mesh_train_reference(dev, arch, batch, registry, mods) -> dict:
+    """The single-card run a meshed one is held to: ``train_config``'s
+    params (seed 0) and the global batches, the step-1 gradients of every
+    leaf in bf16 and in fp32 compute (moved to the CPU), the losses and
+    norms of ``MESH_TRAIN_STEPS`` steps, and the lookup's backward at one
+    data rank's batch (batch / 2) by CUDA events: the recompute over as
+    many accesses as a rank's, none of them routed to the zero row."""
+    from repro_torch import engine as E
+    from repro_torch import tree
+    from repro_torch.data import synthetic
+    from repro_torch.models import dlrm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step
+
+    cfg = train_config(arch, registry)
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    batches = mesh_batches(cfg, batch, dev, synthetic)
+    loss_fn = train_step.make_dlrm_loss(cfg)
+    out = {}
+    for key, c in (("grads", cfg), ("grads32", cfg.replace(compute_dtype="float32"))):
+        _l, _m, grads = train_step.value_and_grad(train_step.make_dlrm_loss(c), params,
+                                                  batches[0])
+        out[key] = [g.cpu() for g in tree.leaves(grads)]
+        del grads
+    half = batch // MESH_TRAIN_SHAPE[0]
+    leaves = [t.detach().requires_grad_(True) for t in tree.leaves(params["tables"])]
+    eng = E.engine_for(E.EngineSpec.from_bags(dlrm.make_bags(cfg)))
+    pooled = eng.lookup(tree.unflatten(params["tables"], leaves), batches[0]["idx"][:half])
+    ct = torch.randn(pooled.shape, generator=torch.Generator(dev).manual_seed(11),
+                     device=dev).to(pooled.dtype)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.autograd.grad(pooled, leaves, ct)
+    end.record()
+    torch.cuda.synchronize()
+    out["backward_half_batch_ms"] = start.elapsed_time(end)
+    del pooled, leaves, ct
+    step = train_step.make_train_step(loss_fn, opt.OptConfig(**MESH_OPT))
+    state = opt.init(params)
+    out["losses"], out["norms"] = [], []
+    for b in batches:
+        params, state, m = step(params, state, b)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+    reset_all(mods)
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pooled_reference(dev, cfg, batch, pooled) -> dict:
+    """The single card's bf16 step-1 gradients with its forward fed the
+    mesh's pooled values (``pooled``, the ranks' data blocks in order) and
+    its own backward (a straight-through of the forward only), and how far
+    those pooled values are from the single card's own."""
+    from repro_torch import engine as E
+    from repro_torch import tree
+    from repro_torch.data import synthetic
+    from repro_torch.models import dlrm
+    from repro_torch.train import train_step
+
+    params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+    b = mesh_batches(cfg, batch, dev, synthetic)[0]
+    eng = E.engine_for(E.EngineSpec.from_bags(dlrm.make_bags(cfg)))
+    fed = pooled.to(dev)
+    with torch.no_grad():
+        own = eng.lookup(params["tables"], b["idx"])
+    diff = (own.float() - fed.float()).abs()
+    out = {"pooled_differ_share": float((diff > 0).float().mean()),
+           "pooled_max_abs_diff": float(diff.max())}
+    del own, diff
+
+    def loss_fed(p, bb):
+        mine = eng.lookup(p["tables"], bb["idx"])
+        logits = dlrm.forward_from_pooled(p, bb["dense"], fed + (mine - mine.detach()), cfg)
+        return dlrm.bce_loss(logits, bb["labels"]), {}
+
+    _l, _m, grads = train_step.value_and_grad(loss_fed, params, b)
+    out["grads"] = [g.cpu() for g in tree.leaves(grads)]
+    del params, b, grads, fed
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_world1(dev, batch, registry, mods, ref: dict) -> tuple[dict, dict]:
+    """World 1 over nccl in this process, mesh (1, 1), full-width dlrm-qr:
+    the meshed step-1 gradients (``inline_gnr`` -> ``forward_partial``
+    under grad, the combine and entry ops over a group of one) against the
+    single-card step's (``ref``) within ``GRAD_TOL`` per leaf, whether they
+    are bitwise equal, and one meshed step's loss and norm against the
+    single card's.  Returns the record and the launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import dlrm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step
+
+    rdv = ROOT / "build" / "mesh_train" / "rdv_world1"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    log("[mesh] 1 rank, mesh (1, 1) over ('data', 'model'), backend nccl, on 1 card "
+        "(in process)")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        cfg = train_config("dlrm-qr", registry)
+        params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+        specs = SH.tree_specs(params, dlrm.param_axes(cfg), mesh, SH.TRAIN_PARAM_RULES)
+        local = SH.shard_tree(params, specs, mesh)
+        b = mesh_batches(cfg, batch, dev, synthetic)[0]
+        loss_fn = train_step.make_dlrm_loss(cfg)
+
+        def meshed_loss(p, bb):
+            with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                return loss_fn(p, bb)
+
+        reset_all(mods)
+        collectives.reset_counts()
+        loss, _m, grads = train_step.value_and_grad(meshed_loss, local, b)
+        grads, loss = train_step.data_mean(grads, loss, mesh)
+        torch.cuda.synchronize()
+        got = [SH.gather(g, s, mesh) for g, s in zip(tree.leaves(grads), specs)]
+        want = [g.to(dev) for g in ref["grads"]]
+        errs = leaf_errors(got, want)
+        bitwise = all(torch.equal(a, w) for a, w in zip(got, want))
+        sites = {f"{k[0]}/{k[1]}": v[0] for k, v in collectives.SITES.items()}
+        del got, want, grads
+        step = train_step.make_train_step(loss_fn, opt.OptConfig(**MESH_OPT), mesh=mesh,
+                                          specs=specs)
+        _p, _s, m = step(local, opt.init(local), b)
+        torch.cuda.synchronize()
+        del _p, _s
+        launched = {k: v for k, v in launches_now(mods).items() if v}
+        rec = {"mesh": [1, 1], "backend": "nccl", "arch": cfg.name, "batch": batch,
+               "step1_grad_rel_err_max": max(errs), "bitwise_equal_to_single_card": bitwise,
+               "loss": float(m["loss"]), "loss_single_card": ref["losses"][0],
+               "grad_norm": float(m["grad_norm"]), "grad_norm_single_card": ref["norms"][0],
+               "collectives_of_the_gradient": sites}
+        if not max(errs) <= GRAD_TOL:
+            raise AssertionError(f"world 1 nccl: step-1 gradients {max(errs)} of scale")
+        for key in ("loss", "grad_norm"):
+            if not abs(rec[key] - rec[key + "_single_card"]) <= MESH_LOSS_TOL * (
+                    1 + abs(rec[key + "_single_card"])):
+                raise AssertionError(f"world 1 nccl: {key} {rec}")
+        if launched.get("packed_qr_bag") != 2 or sum(launched.values()) != 2:
+            raise AssertionError(f"world 1 nccl: launches {launched} for two forwards")
+        log(f"[mesh-train] world 1 nccl {cfg.name} batch {batch}: step-1 gradients vs the "
+            f"single card {max(errs):.3g} of scale (bitwise {bitwise}), loss {rec['loss']:.6f} "
+            f"vs {rec['loss_single_card']:.6f}, grad norm {rec['grad_norm']:.6f} vs "
+            f"{rec['grad_norm_single_card']:.6f}; collectives {sites}")
+        del local, params, b
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return rec, launched
+
+
+def _split_step(local, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree, SH):
+    """One meshed step (``make_train_step(mesh=)``'s, written out) cut into
+    forward, backward (the entry ops' psum inside), the data-axis gradient
+    mean and the update (the norm's psum inside).  Returns the new params,
+    state and metrics, the data-averaged gradients, and host ms of each
+    part with the card synchronised between them (gloo crosses the host)
+    and CUDA-event ms of each."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(local)]
+    live = tree.unflatten(local, leaves)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    host = []
+    torch.cuda.synchronize()
+    host.append(time.perf_counter())
+    ev[0].record()
+    with torch.enable_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+        loss, _ = loss_fn(live, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    torch.cuda.synchronize()
+    host.append(time.perf_counter())
+    grads, _loss = train_step.data_mean(tree.unflatten(local, list(grads)), loss.detach(), mesh)
+    ev[3].record()
+    torch.cuda.synchronize()
+    host.append(time.perf_counter())
+    params, state, m = opt.update(local, grads, state, opt_cfg, mesh=mesh, specs=specs)
+    ev[4].record()
+    torch.cuda.synchronize()
+    host.append(time.perf_counter())
+    names = ("forward", "backward", "grad_reduce", "update")
+    return (params, state, {**m, "loss": _loss}, grads,
+            {n: (host[i + 1] - host[i]) * 1e3 for i, n in enumerate(names)},
+            {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)})
+
+
+def _zero_row_share(cfg, idx, mesh, SE, hashing, tt_embedding, dlrm) -> float:
+    """The share of this rank's big-subtable accesses that route to the zero
+    row (rows another rank owns)."""
+    emb = dlrm.make_bags(cfg)[0].emb
+    if cfg.embedding_kind == "qr":
+        big, _ = hashing.qr_decompose(idx, cfg.qr_collision)
+    elif cfg.embedding_kind == "tt":
+        _i1, big, _i3 = tt_embedding.tt_decompose(idx, emb.tt_spec)
+    else:
+        big = idx
+    rows = SE.ShardPlan(emb, mesh.shape["model"]).rows_per_shard
+    return float((big.long() // rows != mesh.axis_index("model")).float().mean())
+
+
+def mesh_train_rank(mesh, batch: int) -> dict:
+    """Phase 10 on one rank of the (2, 2) gloo mesh on the card: per config
+    the params (seed 0) placed by their logical axes, this rank's ``data``
+    block of the global batches, the step-1 gradients in fp32 compute
+    (data-averaged, gathered to the logical shapes; rank (0, 0) returns
+    them), the bf16 pooled values of step 1 (the ranks at ``model`` 0
+    return their data block's), then ``MESH_TRAIN_STEPS`` steps of
+    ``make_train_step(mesh=)``'s (host ms of each, launches and
+    collectives; the first's bf16 gradients, gathered; the last split),
+    peak memory, and rank (0, 0)'s local partial backward alone on the
+    card."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core import hashing, tt_embedding
+    from repro_torch.core import sharded_embedding as SE
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import packed_gather as pg
+    from repro_torch.kernels import tt_gather as tg
+    from repro_torch.models import dlrm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    writer = not any(mesh.coords.values())
+    launches = lambda: sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values())
+    res = {"coords": dict(mesh.coords), "configs": {}}
+    for arch in ("dlrm-qr", "dlrm-tt", "dlrm-dense"):
+        cfg = train_config(arch, registry)
+        bags = dlrm.make_bags(cfg)
+        params = dlrm.init_dlrm(cfg, seed=0, device=dev)
+        specs = SH.tree_specs(params, dlrm.param_axes(cfg), mesh, SH.TRAIN_PARAM_RULES)
+        local = SH.shard_tree(params, specs, mesh)
+        del params
+        batches = [synthetic.data_block(b, mesh) for b in mesh_batches(cfg, batch, dev,
+                                                                       synthetic)]
+        torch.cuda.empty_cache()
+        loss_fn = train_step.make_dlrm_loss(cfg)
+        opt_cfg = opt.OptConfig(**MESH_OPT)
+        rec = {"local_batch": int(batches[0]["idx"].shape[0]),
+               "paths": [path for path, _leaf in tree.leaves_with_paths(local)],
+               "zero_row_share": _zero_row_share(cfg, batches[0]["idx"], mesh, SE, hashing,
+                                                 tt_embedding, dlrm)}
+
+        # step-1 gradients in fp32 compute, data-averaged and gathered
+        fn32 = train_step.make_dlrm_loss(cfg.replace(compute_dtype="float32"))
+
+        def meshed32(p, b):
+            with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                return fn32(p, b)
+
+        loss, _m, grads = train_step.value_and_grad(meshed32, local, batches[0])
+        grads, _ = train_step.data_mean(grads, loss, mesh)
+        rec["grads32"] = gathered_leaves(grads, specs, mesh, writer, tree, SH)
+        del grads
+        # the pooled values the bf16 step's head sees, this data block's
+        # (every rank of the block takes part in the combine)
+        with torch.no_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+            pooled = dlrm._gnr(local["tables"], batches[0]["idx"], bags, cfg)
+        if mesh.axis_index("model") == 0:
+            rec["pooled"] = pooled.cpu()
+        del pooled
+        torch.cuda.empty_cache()
+
+        # MESH_TRAIN_STEPS steps: the first and the last split (both written
+        # out as make_train_step(mesh=) runs them; the first's data-averaged
+        # gradients are the bf16 step-1 check's), the others whole
+        step = train_step.make_train_step(loss_fn, opt_cfg, mesh=mesh, specs=specs)
+        p, state = local, opt.init(local)
+        torch.cuda.reset_peak_memory_stats(dev)
+        collectives.reset_counts()
+        before = launches()
+        rec["losses"], rec["norms"], rec["step_ms"] = [], [], []
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i in (0, len(batches) - 1):
+                p, state, m, grads, host, event = _split_step(
+                    p, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree, SH)
+            else:
+                p, state, m = step(p, state, b)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            if i == 0:      # the gather's all_gather calls count under their own site
+                rec["grads"] = gathered_leaves(grads, specs, mesh, writer, tree, SH)
+            elif i == len(batches) - 1:
+                rec["split_host_ms"], rec["split_event_ms"] = host, event
+            if i in (0, len(batches) - 1):
+                del grads
+        rec["launches"] = launches() - before
+        rec["sites"] = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()
+                        if k[0] != "all_gather"}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        del state, p
+        torch.cuda.empty_cache()
+
+        # the local partial's backward with this rank alone on the card:
+        # the chunked fp32 recompute over every access of its block, those
+        # routed to the zero row included
+        tables = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
+                  for t in local["tables"]]
+        plans = [SE.ShardPlan(bag.emb, mesh.shape["model"]) for bag in bags]
+        with torch.enable_grad():
+            parts = SE.packed_local_partial(tables, batches[0]["idx"], bags, plans, mesh=mesh)
+        ct = torch.randn(parts.shape, generator=torch.Generator(dev).manual_seed(11),
+                         device=dev).to(parts.dtype)
+        leaves = [v for t in tables for v in t.values()]
+        # rank (0, 0) alone; the others wait at the barrier
+        dist.barrier()
+        if writer:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            torch.autograd.grad(parts, leaves, ct)
+            end.record()
+            torch.cuda.synchronize()
+            rec["local_backward_alone_ms"] = start.elapsed_time(end)
+        dist.barrier()
+        res["configs"][cfg.name] = rec
+        del tables, parts, ct, leaves, local, batches
+        torch.cuda.empty_cache()
+    return res
+
+
+def mesh_cli_drill() -> dict:
+    """The training CLI's elastic drill on the card: ``python -m
+    repro_torch.launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 4
+    --ckpt-dir D`` (full width, batch ``MESH_CLI_BATCH``), then ``--mesh-shape
+    4,1 --steps 8``, which must resume from step 4; both exit 0, four gloo
+    ranks on the one card each."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+
+    d = ROOT / "build" / "mesh_train" / "cli_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-qr",
+            "--batch", str(MESH_CLI_BATCH), "--ckpt-dir", str(d), "--log-every", "1",
+            "--ckpt-every", "1000", "--rank-timeout", str(MESH_TIMEOUT_S - 60)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec = {"batch": MESH_CLI_BATCH}
+    for name, mesh, steps in (("first", "2,2", 4), ("resumed", "4,1", 8)):
+        t0 = time.perf_counter()
+        run = subprocess.run(base + ["--mesh-shape", mesh, "--steps", str(steps)],
+                             capture_output=True, text=True, env=env, timeout=MESH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for line in (run.stderr + run.stdout).splitlines():
+            if line.startswith(("[mesh]", "[resume]", "step", "done")):
+                log(f"[mesh-cli] {line}")
+        if run.returncode != 0:
+            raise AssertionError(f"train CLI --mesh-shape {mesh}: exit {run.returncode}\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        latest = ckpt.latest_step(str(d))
+        rec[name] = {"mesh": mesh, "steps": steps, "exit": run.returncode, "s": secs,
+                     "latest_checkpoint": latest}
+        if latest != steps:
+            raise AssertionError(f"train CLI --mesh-shape {mesh}: newest checkpoint {latest}")
+    out = (run.stdout or "")
+    if "[resume] step 4" not in out or "step     5" not in out:
+        raise AssertionError(f"train CLI --mesh-shape 4,1 did not resume at step 4:\n{out}")
+    with open(d / "step_00000008" / "manifest.json") as f:
+        manifest = json.load(f)
+    shapes = {leaf["path"]: leaf["shape"] for leaf in manifest["leaves"]}
+    rec["q_shape_on_disk"] = shapes["opt/mu/tables/0/q"]
+    if shapes["opt/mu/tables/0/q"] != MESH_CLI_Q_SHAPE:
+        raise AssertionError(f"checkpoint leaf shapes: {shapes['opt/mu/tables/0/q']}")
+    log(f"[mesh-cli] (2, 2) to step 4 in {rec['first']['s']:.1f} s, then (4, 1) resumed to "
+        f"step 8 in {rec['resumed']['s']:.1f} s; opt/mu/tables/0/q on disk "
+        f"{rec['q_shape_on_disk']} (the full logical array)")
+    shutil.rmtree(d, ignore_errors=True)
+    return rec
+
+
+def mesh_train_phase(dev, batch, by_name, mods) -> dict:
+    """Phase 10: DLRM training on a mesh.  The single-card references; world
+    1 over nccl in this process; four gloo ranks on the card
+    (``MESH_TRAIN_SHAPE``) train every config, held per leaf to
+    ``GRAD_TOL`` at step 1 (fp32 compute against the single card, bf16
+    against the single card fed the mesh's pooled values) and to
+    ``MESH_LOSS_TOL`` on three losses and norms, one packed launch a rank a
+    forward, one combine, the entry psums, one data mean and one norm a
+    step; then the CLI's elastic drill.  The ranks' launches add to the
+    bf16 rows of K1 / K2 / K3.  Returns the ``{"mesh_training": ...}``
+    record."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    archs = ("dlrm-qr", "dlrm-tt", "dlrm-dense")
+    refs = {arch: mesh_train_reference(dev, arch, batch, registry, mods) for arch in archs}
+    record = {"mesh": list(MESH_TRAIN_SHAPE), "batch": batch, "steps": MESH_TRAIN_STEPS,
+              "configs": []}
+    record["world1"], n = mesh_train_world1(dev, batch, registry, mods, refs["dlrm-qr"])
+    for name, k in n.items():
+        by_name[name + "_bf16"]["launches"] += k
+    log(f"[mesh-train] references and world 1 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh-train] parent before the ranks: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved")
+    t1 = time.perf_counter()
+    # four ranks share the card's 80 GB: let each rank's allocator grow its
+    # segments in place rather than strand reserved blocks
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = M.spawn(mesh_train_rank, MESH_TRAIN_SHAPE, args=(batch,), device="cuda",
+                        backend="gloo", init_file=ROOT / "build" / "mesh_train" / "rdv",
+                        timeout_s=MESH_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    record["spawn_s"] = time.perf_counter() - t1
+    writer = next(r for r in ranks if not any(r["coords"].values()))
+    nsh = MESH_TRAIN_SHAPE[1]
+    faults = []
+    for arch in archs:
+        cfg = train_config(arch, registry)
+        kind = cfg.embedding_kind
+        ref = refs[arch]
+        rs = [r["configs"][cfg.name] for r in ranks]
+        mine = writer["configs"][cfg.name]
+        paths = mine["paths"]
+        errs32 = leaf_errors(mine["grads32"], ref["grads32"])
+        if not max(errs32) <= GRAD_TOL:
+            worst = int(np.argmax(errs32))
+            faults.append(f"{cfg.name} (2, 2): fp32 step-1 gradient {paths[worst]} "
+                          f"{errs32[worst]} of scale")
+        pooled = torch.cat([r["configs"][cfg.name]["pooled"] for r in ranks
+                            if r["coords"]["model"] == 0])
+        st = mesh_pooled_reference(dev, cfg, batch, pooled)
+        errs = leaf_errors(mine["grads"], ref["grads"])
+        errs_st = leaf_errors(st["grads"], ref["grads"])
+        errs_mesh_st = leaf_errors(mine["grads"], st["grads"])
+        del st["grads"]
+        if not max(errs_mesh_st) <= GRAD_TOL:
+            worst = int(np.argmax(errs_mesh_st))
+            faults.append(f"{cfg.name} (2, 2): bf16 step-1 gradient {paths[worst]} "
+                          f"{errs_mesh_st[worst]} of scale from the single card fed the "
+                          f"mesh's pooled values")
+        worst = lambda e: f"{max(e):.3g} ({paths[int(np.argmax(e))]})"
+        log(f"[mesh-train] {cfg.name} (2, 2) step-1 gradients, worst leaf's share of its "
+            f"scale: fp32 compute vs the single card {worst(errs32)} (held to {GRAD_TOL}); "
+            f"bf16 vs the single card {worst(errs)}, the single card fed the mesh's pooled "
+            f"values vs itself {worst(errs_st)}, the mesh vs that {worst(errs_mesh_st)} "
+            f"(held to {GRAD_TOL}); "
+            f"bf16 pooled values: {st['pooled_differ_share']:.4f} of them differ from the "
+            f"single card's, by at most {st['pooled_max_abs_diff']:.3g}")
+        for r in rs:
+            for key, want in (("losses", ref["losses"]), ("norms", ref["norms"])):
+                if not np.allclose(r[key], want, rtol=MESH_LOSS_TOL, atol=MESH_LOSS_TOL):
+                    faults.append(f"{cfg.name} (2, 2) {key} {r[key]} vs {want}")
+            if r["launches"] != MESH_TRAIN_STEPS:
+                faults.append(f"{cfg.name} (2, 2): {r['launches']} launches in "
+                              f"{MESH_TRAIN_STEPS} steps")
+            want_sites = {"combine/model": MESH_TRAIN_STEPS, "grad_mean/data": MESH_TRAIN_STEPS,
+                          "norm/model": MESH_TRAIN_STEPS}
+            if kind in ("qr", "tt"):
+                want_sites["entry/model"] = MESH_TRAIN_STEPS
+            if {k: v[0] for k, v in r["sites"].items()} != want_sites:
+                faults.append(f"{cfg.name} (2, 2) collectives {r['sites']}")
+        by_name[KERNEL_OF[kind] + "_bf16"]["launches"] += sum(r["launches"] for r in rs)
+        per_axis = {}
+        for (site_axis, (calls, nbytes)) in rs[0]["sites"].items():
+            axis = site_axis.split("/")[1]
+            per_axis[axis] = per_axis.get(axis, 0) + nbytes // MESH_TRAIN_STEPS
+        rec = {"arch": cfg.name, "rows": cfg.vocab_per_table, "backend": "gloo",
+               "step1_grad_fp32_rel_err_max": max(errs32),
+               "step1_grad_fp32_rel_err": dict(zip(paths, errs32)),
+               "step1_grad_bf16_rel_err": dict(zip(paths, errs)),
+               "step1_grad_bf16_single_fed_mesh_pooled_rel_err": dict(zip(paths, errs_st)),
+               "step1_grad_bf16_mesh_vs_single_fed_mesh_pooled_rel_err": dict(
+                   zip(paths, errs_mesh_st)), **st, "losses": rs[0]["losses"],
+               "losses_single_card": ref["losses"], "grad_norms": rs[0]["norms"],
+               "grad_norms_single_card": ref["norms"],
+               "ms_per_step_max_over_ranks": max(float(np.mean(r["step_ms"])) for r in rs),
+               "step_ms_rank0": rs[0]["step_ms"],
+               "split_host_ms_max_over_ranks": {k: max(r["split_host_ms"][k] for r in rs)
+                                                for k in rs[0]["split_host_ms"]},
+               "split_event_ms_max_over_ranks": {k: max(r["split_event_ms"][k] for r in rs)
+                                                 for k in rs[0]["split_event_ms"]},
+               "bytes_all_reduced_per_rank_per_step": per_axis,
+               "collectives_per_step": {k: v[0] // MESH_TRAIN_STEPS
+                                        for k, v in rs[0]["sites"].items()},
+               "launches_per_rank_per_step": rs[0]["launches"] // MESH_TRAIN_STEPS,
+               "peak_gib_max_over_ranks": max(r["peak_gib"] for r in rs),
+               "local_backward_alone_ms": mine["local_backward_alone_ms"],
+               "single_card_backward_half_batch_ms": ref["backward_half_batch_ms"],
+               "zero_row_share": [r["zero_row_share"] for r in rs],
+               "local_batch": rs[0]["local_batch"]}
+        record["configs"].append(rec)
+        split = rec["split_host_ms_max_over_ranks"]
+        log(f"[mesh-train] {cfg.name} mesh {MESH_TRAIN_SHAPE} gloo, batch {batch} "
+            f"({rec['local_batch']} a data rank): losses "
+            f"{', '.join(f'{x:.4f}' for x in rec['losses'])} vs "
+            f"{', '.join(f'{x:.4f}' for x in ref['losses'])}; grad norms "
+            f"{', '.join(f'{x:.3f}' for x in rec['grad_norms'])} vs "
+            f"{', '.join(f'{x:.3f}' for x in ref['norms'])}; "
+            f"{rec['ms_per_step_max_over_ranks']:.1f} ms a step (max over ranks; forward "
+            f"{split['forward']:.1f}, backward {split['backward']:.1f}, gradient mean "
+            f"{split['grad_reduce']:.1f}, update {split['update']:.1f} ms); all-reduced a rank "
+            f"a step {per_axis} B; collectives a step {rec['collectives_per_step']}; "
+            f"{rec['launches_per_rank_per_step']} launch a rank a step; peak "
+            f"{rec['peak_gib_max_over_ranks']:.2f} GiB a rank; local backward alone "
+            f"{rec['local_backward_alone_ms']:.1f} ms ({np.mean(rec['zero_row_share']):.3f} "
+            f"of its big-subtable accesses and {(nsh - 1) / nsh if kind == 'qr' else 0:.2f} of "
+            f"its R accesses to the zero row) vs the single card's "
+            f"{rec['single_card_backward_half_batch_ms']:.1f} ms at batch "
+            f"{rec['local_batch']}")
+    del ranks, refs
+    if faults:
+        raise AssertionError("; ".join(faults))
+    record["cli"] = mesh_cli_drill()
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[mesh-train] phase {record['phase_s']:.1f} s (ranks {record['spawn_s']:.1f} s)")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -2755,6 +3378,8 @@ def main() -> int:
     control = control_plane_phase(dev, batch, by_name, mods)
     # phase 9: the sharded two-level GnR (bf16 launches of K1/K2/K3 on the ranks)
     sharded = sharded_phase(dev, batch, by_name, mods)
+    # phase 10: DLRM training on a mesh (bf16 launches of K1/K2/K3 on the ranks)
+    mesh_training = mesh_train_phase(dev, train_batch, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -2765,6 +3390,7 @@ def main() -> int:
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"control_plane": control}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"mesh_training": mesh_training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

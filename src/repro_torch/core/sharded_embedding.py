@@ -23,7 +23,18 @@ them in each rank's process (``launch.mesh.spawn``) on the rank's local
 shards, with the rank's ``Mesh`` in place of the axis name's context.
 ``packed_local_partial`` is one launch of the packed kernels (K1 for QR, K3
 for dense, K2 for TT) over the rank's packed local buffer, which
-``pack_local`` builds once per set of tables and hot tiers.
+``pack_local`` builds once per set of tables and hot tiers for serving.
+
+Every partial is differentiable in the rank's tables, as ``repro``'s are
+under ``jax.grad``: the gathers and masks are autograd ops, the packed
+kernels take their plain-version recompute backward (``kernels/ops.py``)
+and ``pack_local`` copies each table into the packed buffer inside
+autograd (a training step packs afresh, in the compute dtype, as
+``packed_tables.packed_multi_bag_lookup`` does on one card).  The
+replicated operands (``REPLICATED``: the R LUTs, the TT outer cores) get
+only this rank's share of their gradient (its bag positions, its G2 rows);
+``enter_replicated`` passes them through ``collectives.enter``, whose
+backward sums the shares over the row axis.
 """
 
 from __future__ import annotations
@@ -43,6 +54,26 @@ from repro_torch.kernels import ops
 
 # Q tables are padded so every potential model-axis size divides the row count.
 ROW_PAD = 128
+
+# each kind's params replicated on every rank of the row axis (the rest are
+# row-sharded): ``repro``'s ``P()`` in_specs of ``engine._table_specs``
+REPLICATED = {"qr": ("r",), "tt": ("g1", "g3"), "dense": (), "hashed": ()}
+
+
+def enter_replicated(tables: Sequence[dict], bags: Sequence[BagConfig], mesh,
+                     axis: str) -> list[dict]:
+    """``tables`` with every replicated param passed through
+    ``collectives.enter`` (one all-reduce of their gradients over ``axis``
+    in the backward); the row-sharded params as they are.  A set without
+    replicated params is returned unchanged."""
+    keys = [(t, k) for t, bag in enumerate(bags) for k in REPLICATED[bag.emb.kind]]
+    if not keys:
+        return list(tables)
+    entered = collectives.enter([tables[t][k] for t, k in keys], mesh, axis)
+    out = [dict(p) for p in tables]
+    for (t, k), x in zip(keys, entered):
+        out[t][k] = x
+    return out
 
 
 def padded_q_rows(cfg: EmbeddingConfig) -> int:
@@ -215,7 +246,8 @@ def _packed_rows(parts: Sequence[torch.Tensor], dtype, *, zero_row: bool) -> tor
     """Row-concatenate ``parts`` cast to ``dtype`` into one new buffer (each
     part copied in place, no cast copy of the whole set), with one trailing
     all-zero row if ``zero_row`` (``repro``'s ``concat_with_zero(parts,
-    dtype)``)."""
+    dtype)``).  Differentiable: each slice's ``copy_`` hands its part the
+    buffer gradient's rows, cast back to the part's dtype."""
     rows = sum(int(p.shape[0]) for p in parts)
     out = torch.empty((rows + int(zero_row), parts[0].shape[1]), dtype=dtype,
                       device=parts[0].device)
@@ -262,8 +294,10 @@ def pack_local(tables: Sequence[dict], bags: Sequence[BagConfig],
                comm_free: Sequence[bool] | None = None) -> LocalPack:
     """Build this rank's ``LocalPack`` from its local tables: the
     concatenation ``repro``'s ``packed_local_partial`` does inside every
-    (jitted) call, done once, since in eager PyTorch it is a copy of the
-    whole local shard (1.66 GB at dlrm-dense 1M rows on 4 ranks)."""
+    (jitted) call.  Serving builds it once (``EmbeddingEngine.local_pack``),
+    since in eager PyTorch it is a copy of the whole local shard (1.66 GB at
+    dlrm-dense 1M rows on 4 ranks); under grad it is built in every call,
+    inside autograd, so the buffers' gradients reach the tables."""
     emb0 = bags[0].emb
     kind, compute = emb0.kind, emb0.compute_dtype
     num_t = len(bags)
@@ -334,7 +368,8 @@ def packed_local_partial(
     ``comm_free[t]`` marks tables whose params are full local replicas:
     every access is served locally and their output columns must be
     EXCLUDED from the caller's psum.  Returns (B, T, dim) partials in the
-    compute dtype.
+    compute dtype, differentiable in ``tables`` when ``pack`` is None (the
+    buffers are then packed here, inside autograd).
     """
     emb0 = bags[0].emb
     kind, compute = emb0.kind, emb0.compute_dtype

@@ -1,6 +1,11 @@
 """Criteo-like long-tail traces, DLRM request and training batches, and the
 restart-safe batch pipeline (port of ``repro.data.synthetic``, DLRM part).
 
+On a mesh every rank makes the global batch of (seed, step) and keeps its
+block along the batch axes (``data_block``), as ``repro``'s meshed launcher
+makes the global batch and lets XLA split it: the ranks train on the same
+stream as one card, and a restart onto another ``data`` size replays it.
+
 ``zipf_probs`` / ``zipf_trace`` are numpy and copied verbatim, so both
 packages plan from the same traces bit for bit.  ``dlrm_batch`` draws on an
 explicit ``torch.Generator`` seeded from ``(seed, step)``: its numbers differ
@@ -118,19 +123,35 @@ def dlrm_planted_batch(
     return {"dense": dense, "idx": idx, "labels": (u < prob).to(torch.float32)}
 
 
+def data_block(batch: dict, mesh) -> dict:
+    """This rank's block of every tensor of the global ``batch`` along the
+    batch axes of ``mesh`` (``sharding.batch_axes``); raises if the batch
+    does not split evenly."""
+    from repro_torch.distributed import sharding as SH
+
+    axes = SH.batch_axes(mesh)
+    if not axes:
+        return batch
+    spec = SH.P(axes if len(axes) > 1 else axes[0])
+    return {k: SH.local_shard(v, mesh, spec) for k, v in batch.items()}
+
+
 @dataclasses.dataclass
 class Pipeline:
     """Deterministic, restart-safe batch iterator.
 
     ``state()`` is the cursor a checkpoint keeps; ``seek`` resumes from it.
     A worker of a multi-worker launch takes its own ``shard`` of
-    ``num_shards`` and makes only its slice, the same on every retry."""
+    ``num_shards`` and makes only its slice (another stream), the same on
+    every retry.  A rank of a ``mesh`` instead makes the global batch and
+    keeps its ``data_block`` of it."""
 
     make_batch: Callable
     seed: int = 0
     step: int = 0
     shard: int = 0
     num_shards: int = 1
+    mesh: object = None
 
     def __iter__(self):
         return self
@@ -138,7 +159,7 @@ class Pipeline:
     def __next__(self):
         b = self.make_batch(seed=self.seed * self.num_shards + self.shard, step=self.step)
         self.step += 1
-        return b
+        return b if self.mesh is None else data_block(b, self.mesh)
 
     def state(self) -> dict:
         return {"seed": self.seed, "step": self.step}

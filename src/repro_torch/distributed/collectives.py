@@ -5,7 +5,24 @@
 ``launch.mesh.Mesh``: an ``all_reduce`` over the process group of this
 rank's line along that axis.  Every call counts in ``CALLS`` (collectives)
 and ``BYTES`` (the payload each rank puts in, bytes of the reduced tensor),
-so a caller can tell how many combines a path made and what they carried.
+and in ``SITES`` under its site and axis, so a caller can tell how many
+combines a path made, what they carried and over which axis.
+
+Two collectives carry gradients, as ``shard_map`` transposes its boundary
+in ``repro`` (``check_vma=False``):
+
+* ``combine`` — the psum of the ranks' partials over the row axis: a psum
+  in the forward, the identity in the backward, so each rank's partial gets
+  the whole cotangent of its batch block (the pooled output is replicated
+  over the row axis, and every rank holds the same cotangent of it);
+* ``enter`` — a replicated operand entering a rank's partial (the R LUTs,
+  the TT outer cores): the identity in the forward, a psum of the ranks'
+  gradients over the axis in the backward, the transpose of the implicit
+  broadcast.  Every operand goes in one all-reduce.
+
+``all_gather`` rebuilds a tensor split along one dim over an axis (a
+checkpoint's full logical leaf).  ``any_rank`` agrees a flag across every
+rank (the trainer's stop flag).
 
 ``compressed_psum`` agrees a shared scale first (a MAX of the local amax),
 then sums int8 payloads in int32 and dequantizes by the shared scale.
@@ -18,32 +35,113 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-CALLS = {"all_reduce": 0}
-BYTES = {"all_reduce": 0}
+CALLS = {"all_reduce": 0, "all_gather": 0}
+BYTES = {"all_reduce": 0, "all_gather": 0}
+# (site, axis) -> [calls, bytes]; sites: psum, pmax, combine, entry,
+# grad_mean, norm, all_gather, any_rank
+SITES: dict = {}
 
 
 def reset_counts() -> None:
-    CALLS["all_reduce"] = 0
-    BYTES["all_reduce"] = 0
+    for d in (CALLS, BYTES):
+        for k in d:
+            d[k] = 0
+    SITES.clear()
 
 
-def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+def _count(op: str, site: str, axis, nbytes: int) -> None:
+    CALLS[op] += 1
+    BYTES[op] += nbytes
+    rec = SITES.setdefault((site, axis), [0, 0])
+    rec[0] += 1
+    rec[1] += nbytes
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op, site: str = "psum") -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    CALLS["all_reduce"] += 1
-    BYTES["all_reduce"] += out.numel() * out.element_size()
+    _count("all_reduce", site, axis, out.numel() * out.element_size())
     dist.all_reduce(out, op=op, group=mesh.group(axis))
     return out
 
 
-def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, mesh, axis: str, *, site: str = "psum") -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``axis`` (``jax.lax.psum``), in
-    ``x``'s dtype; returns a new tensor."""
-    return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM)
+    ``x``'s dtype; returns a new tensor.  ``site`` names the call in
+    ``SITES``."""
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM, site)
 
 
 def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Elementwise max of ``x`` over the ranks of ``axis`` (``jax.lax.pmax``)."""
-    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX, "pmax")
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM, "combine")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+def combine(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The ranks' partials summed over ``axis`` (``psum``); its backward is
+    the identity: the sum is replicated over ``axis``, so each rank's
+    partial takes the cotangent of its own copy whole, not the sum of the
+    copies' (which would count it ``mesh.shape[axis]`` times)."""
+    return _Combine.apply(x, mesh, axis)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        dtype = torch.promote_types(cts[0].dtype, torch.float32)
+        flat = torch.cat([c.reshape(-1).to(dtype) for c in cts])
+        flat = _all_reduce(flat, ctx.mesh, ctx.axis, dist.ReduceOp.SUM, "entry")
+        out, at = [], 0
+        for c in cts:
+            out.append(flat[at:at + c.numel()].view_as(c).to(c.dtype))
+            at += c.numel()
+        return (None, None, *out)
+
+
+def enter(xs, mesh, axis: str) -> list:
+    """Replicated operands ``xs`` entering this rank's partial: the same
+    tensors in the forward; in the backward the ranks' gradients of them are
+    summed over ``axis`` (one all-reduce for all of them, in fp32 or
+    wider), since each rank's partial uses its own share of every replica
+    (the R rows of its bag positions, the outer cores of its G2 rows)."""
+    return list(_Enter.apply(mesh, axis, *xs))
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The blocks of ``x`` that the ranks along ``axis`` hold, concatenated
+    along ``dim`` in the order of their coordinates, on ``x``'s device (gloo
+    gathers a card's tensor through host memory)."""
+    home = x.device
+    if mesh.backend == "gloo":
+        x = x.cpu()
+    x = x.contiguous()
+    _count("all_gather", "all_gather", axis, x.numel() * x.element_size())
+    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, x, group=mesh.group(axis))
+    return torch.cat(parts, dim=dim).to(home)
+
+
+def any_rank(flag: bool, device) -> bool:
+    """Whether any rank of the default process group passes a true
+    ``flag`` (a MAX all-reduce over every rank)."""
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+    _count("all_reduce", "any_rank", None, t.numel() * t.element_size())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

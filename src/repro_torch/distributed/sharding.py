@@ -10,6 +10,12 @@ that is (``local_shard``) and ``constrain`` only checks its arguments.
 
 ``P`` stands in for ``jax.sharding.PartitionSpec``: one entry per tensor dim,
 each None (replicated), a mesh axis name, or a tuple of names.
+
+A tree of params lies on a mesh by its logical axes (``tree_specs``, one
+spec per leaf in flatten order): ``shard_tree`` takes this rank's block of
+every leaf from the full logical tree (``repro``'s ``shardings_for_tree``
+plus ``device_put``), ``gather`` rebuilds one full leaf from the ranks'
+blocks (a checkpoint's logical array), ``full_shape`` gives its shape.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import threading
 from typing import Mapping, Sequence
 
 import torch
+
+from repro_torch import tree as tree_mod
 
 _state = threading.local()
 
@@ -85,6 +93,16 @@ PARAM_RULES: dict[str, tuple[str, ...] | None] = {
     "mlp": ("model",),
     "table": None,
 }
+
+
+# The port's at-rest layout of a training run: ``PARAM_RULES`` with ``embed``
+# and ``mlp`` kept whole.  ``repro`` stores those dims split (FSDP over
+# ``data``, the MLPs over ``model``) and XLA gathers them before every use;
+# the two-level GnR reads its tables as ``P(model, None)`` / ``P()`` (its
+# ``shard_map`` in_specs) and the head reads whole MLPs, so the port keeps
+# them in the layout that is computed on: the same result, no gather a step.
+TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None,
+                                                        "mlp": None}
 
 
 def multi_pod_param_rules(rules: Mapping | None = None) -> dict:
@@ -223,3 +241,74 @@ def local_shard(t: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
         block = size // n
         out = out.narrow(d, pos * block, block)
     return out if out is t else out.clone()
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes of size > 1 that split the batch under ``DEFAULT_RULES``
+    (``data``; an axis the rule does not name, such as ``pod``, replicates
+    it)."""
+    return tuple(ax for ax in (DEFAULT_RULES["batch"] or ())
+                 if ax in mesh.shape and mesh.shape[ax] > 1)
+
+
+def _is_axes(a) -> bool:
+    return isinstance(a, tuple) and all(isinstance(x, (str, type(None))) for x in a)
+
+
+def tree_specs(tree, axes_tree, mesh, rules: Mapping) -> list[P]:
+    """One spec per leaf of ``tree`` (flatten order): ``resolve_spec`` of
+    the leaf's shape and its logical axes in ``axes_tree`` (a tree of the
+    same nesting whose leaves are tuples of axis names).  A leaf without
+    axes (``None``, an empty tuple, or a subtree ``axes_tree`` does not
+    describe) is replicated."""
+    out: list[P] = []
+
+    def walk(t, a):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], a.get(k) if isinstance(a, dict) else None)
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                walk(x, a[i] if isinstance(a, (list, tuple)) and not _is_axes(a)
+                     and i < len(a) else None)
+        elif t is not None:
+            if _is_axes(a) and len(a) == t.dim():
+                out.append(resolve_spec(mesh, t.shape, a, rules))
+            else:
+                out.append(P())
+
+    walk(tree, axes_tree)
+    return out
+
+
+def shard_tree(tree, specs: Sequence, mesh):
+    """This rank's block of every leaf of the full logical ``tree`` under
+    ``specs`` (``tree_specs``), as ``device_put`` with those shardings would
+    hand them to the rank's device."""
+    leaves = tree_mod.leaves(tree)
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(specs)} specs for {len(leaves)} leaves")
+    return tree_mod.unflatten(tree, [local_shard(x, mesh, s) for x, s in zip(leaves, specs)])
+
+
+def full_shape(local: torch.Tensor, spec: Sequence, mesh) -> tuple[int, ...]:
+    """The logical shape of the leaf whose block on this rank is ``local``."""
+    shape = list(local.shape)
+    for d, entry in enumerate(spec):
+        for ax in _axes(entry):
+            shape[d] *= mesh.shape[ax]
+    return tuple(shape)
+
+
+def gather(local: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """The full logical leaf from the ranks' blocks under ``spec`` (the
+    inverse of ``local_shard``), on every rank: one ``all_gather`` a
+    sharded dim and mesh axis, the minor axis first."""
+    from repro_torch.distributed import collectives
+
+    out = local
+    for d, entry in enumerate(spec):
+        for ax in reversed(_axes(entry)):
+            if mesh.shape[ax] > 1:
+                out = collectives.all_gather(out, mesh, ax, dim=d)
+    return out

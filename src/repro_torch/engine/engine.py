@@ -6,7 +6,8 @@
 * ``forward_partial`` — the sharded two-level GnR on one rank of a mesh:
   the rank's local partials (one packed launch on its routed streams, or
   the per-kind loop) plus the pooled psum over the row axis, with the
-  duplication plan's comm-free tables skipping the combine;
+  duplication plan's comm-free tables skipping the combine; differentiable
+  (the sharded training step);
 * ``gnr`` — the global two-level GnR over a mesh (``repro``'s jitted
   ``shard_map`` wrapper), ``inline_gnr`` the mesh-aware dispatch of a model
   forward (single card without a mesh), ``baseline`` the no-technique
@@ -106,12 +107,12 @@ class EmbeddingEngine:
 
     def local_pack(self, tables: Sequence[dict], mesh, *, hot_tiers=None) -> SE.LocalPack:
         """The rank's ``LocalPack`` (``SE.pack_local``) for these local tables
-        and hot tiers on ``mesh``: built on the first call with them and
-        reused while the same tensors come back unmodified (identity and
-        ``_version``, so an in-place update such as an optimizer step
-        repacks).  One pack is kept at a time, and only while its tensors
-        live: the engine holds them by weak reference and drops the pack
-        as soon as one of them is freed, so a memoised engine
+        and hot tiers on ``mesh``, for calls without grad: built on the
+        first call with them and reused while the same tensors come back
+        unmodified (identity and ``_version``, so an in-place update such
+        as an optimizer step repacks).  One pack is kept at a time, and only
+        while its tensors live: the engine holds them by weak reference and
+        drops the pack as soon as one of them is freed, so a memoised engine
         (``engine_for``) keeps no rank's shard alive."""
         nsh = mesh.shape[self.spec.row_axis]
         tensors = [v for t in tables for v in t.values()]
@@ -152,32 +153,52 @@ class EmbeddingEngine:
         plans run the per-kind partials in a loop.  Comm-free tables are
         served entirely from local replicas and skip the psum; an
         all-comm-free plan calls no collective.  Returns (B_local, T, dim)
-        in the compute dtype.  Forward only.
+        in the compute dtype.
+
+        Differentiable in ``tables`` (``repro``'s ``shard_map`` under
+        ``jax.grad``): the psum is ``collectives.combine`` (identity
+        backward), the replicated params enter through
+        ``collectives.enter`` (their gradients summed over the row axis),
+        and the packed buffers are built in the call, inside autograd.
+        Under grad it refuses hot tiers and comm-free tables, which
+        ``repro``'s training path does not run either.
         """
         obs.inc("engine/dispatch/forward_partial")
         mesh = mesh if mesh is not None else SH.current_mesh()
         if mesh is None:
             raise ValueError("forward_partial runs on a mesh rank: pass mesh= or use_rules")
-        if torch.is_grad_enabled() and any(v.requires_grad for t in tables for v in t.values()):
-            # the psum records no gradient: a backward would drop the other ranks'
-            raise NotImplementedError("the sharded GnR is forward only (its backward "
-                                      "comes with the sharded training path)")
         axis = self.spec.row_axis
         nsh = mesh.shape[axis]
         bags = self.bags
         plans = [SE.ShardPlan(b.emb, nsh) for b in bags]
         cf = list(self.plan.comm_free)
         psum_cols = [t for t, c in enumerate(cf) if not c]
+        grad = torch.is_grad_enabled() and any(v.requires_grad for t in tables
+                                               for v in t.values())
+        if grad:
+            if hot_tiers is not None or any(cf):
+                # repro's training path (inline_gnr) runs neither
+                raise NotImplementedError(
+                    "forward_partial under grad takes no hot tiers or comm-free tables: "
+                    "a hot tier is a copy of table rows made outside the graph "
+                    "(make_dup_hot_tiers), so a row served from it would never pass its "
+                    "gradient to the table, and a comm-free table skips the combine, so "
+                    "its replicas' gradients would need a sum over the row axis that "
+                    "this path does not make")
+            tables = SE.enter_replicated(tables, bags, mesh, axis)
 
         if self.plan.packed:
-            pack = self.local_pack(tables, mesh, hot_tiers=hot_tiers)
+            # under grad the rank's tables are packed in this call, inside
+            # autograd: a cached pack would only repack the fresh leaves of
+            # every step, and would keep the previous step's graph alive
+            pack = None if grad else self.local_pack(tables, mesh, hot_tiers=hot_tiers)
             parts = SE.packed_local_partial(tables, indices, bags, plans, mesh=mesh,
                                             axis=axis, pack=pack)
             if len(psum_cols) == len(bags):
-                return collectives.psum(parts, mesh, axis)
+                return collectives.combine(parts, mesh, axis)
             if psum_cols:
                 cols = torch.tensor(psum_cols, device=parts.device)
-                parts[:, cols] = collectives.psum(parts[:, cols], mesh, axis)
+                parts[:, cols] = collectives.combine(parts[:, cols], mesh, axis)
             return parts
 
         outs, needs_psum = [], []
@@ -203,9 +224,9 @@ class EmbeddingEngine:
             outs.append(part)
             needs_psum.append(True)
         if all(needs_psum):
-            return collectives.psum(torch.stack(outs, dim=1), mesh, axis)
+            return collectives.combine(torch.stack(outs, dim=1), mesh, axis)
         if any(needs_psum):
-            combined = collectives.psum(
+            combined = collectives.combine(
                 torch.stack([o for o, n in zip(outs, needs_psum) if n], dim=1), mesh, axis)
         res, si = [], 0
         for o, n in zip(outs, needs_psum):
@@ -279,8 +300,8 @@ class EmbeddingEngine:
         """GnR of a model forward (the DLRM forward): no mesh set by
         ``sharding.use_rules``, or no row axis in it -> the single-card
         ``lookup``; otherwise the two-level ``forward_partial`` on this
-        rank's row-sharded tables and batch shard.  Forward only under a
-        mesh (the backward comes with the sharded training path)."""
+        rank's row-sharded tables and batch shard.  Differentiable on both
+        paths (the sharded DLRM training step runs through it)."""
         obs.inc("engine/dispatch/inline_gnr")
         mesh = SH.current_mesh()
         if mesh is None or self.spec.row_axis not in mesh.shape:

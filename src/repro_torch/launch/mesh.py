@@ -24,6 +24,7 @@ import datetime
 import itertools
 import math
 import os
+import signal
 import sys
 import time
 from pathlib import Path
@@ -179,7 +180,7 @@ def _rank_main(rank, fn, shape, axes, args, device_type, backend, init_file, tim
 
 def spawn(fn: Callable, shape: tuple[int, ...], *, axes: tuple[str, ...] = ("data", "model"),
           args: Sequence = (), device=None, backend: str, init_file: str | os.PathLike,
-          timeout_s: float = 300.0) -> list:
+          timeout_s: float = 300.0, forward_signals: Sequence[int] = ()) -> list:
     """Run ``fn(mesh, *args)`` on every rank of a ``shape`` mesh, one process
     per rank (``torch.multiprocessing``, ``spawn`` start method), and return
     each rank's return value in rank order, its tensors moved to the CPU.
@@ -195,7 +196,10 @@ def spawn(fn: Callable, shape: tuple[int, ...], *, axes: tuple[str, ...] = ("dat
     has ``timeout_s``, so a rank stuck in a collective fails the run, and
     the whole run fails with ``TimeoutError`` past ``timeout_s``; a rank's
     exception ends every rank and is raised here.  Build the CUDA kernels
-    before spawning, so that the ranks do not race the build.
+    before spawning, so that the ranks do not race the build.  Each signal
+    of ``forward_signals`` that reaches this process while the ranks run is
+    sent on to every rank (a preempted launcher's SIGTERM: the ranks decide
+    together when to stop).
     """
     import torch.multiprocessing as mp
 
@@ -221,11 +225,20 @@ def spawn(fn: Callable, shape: tuple[int, ...], *, axes: tuple[str, ...] = ("dat
                           init_file, timeout_s),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
+
+    def _forward(signum, frame):
+        for p in ctx.processes:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    previous = {s: signal.signal(s, _forward) for s in forward_signals}
     try:
         while not ctx.join(timeout=0.5):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"the {world} ranks did not finish within {timeout_s} s")
     finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()

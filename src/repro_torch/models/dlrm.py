@@ -5,11 +5,13 @@ Dense features -> bottom MLP; sparse features -> the packed embedding bags
 The head runs in the config's compute dtype (bf16), as ``repro``'s does;
 its products are ``torch.matmul``, as ``repro`` left them to XLA.
 ``forward_dlrm`` is the training forward (the embedding layer through
-``EmbeddingEngine.inline_gnr``: the single-card ``lookup``, differentiable,
-without a mesh; under ``sharding.use_rules(mesh, ...)`` the two-level
-sharded GnR on this rank's row-sharded tables and batch shard, forward
-only); ``forward_from_pooled`` the serving head; ``bce_loss`` and ``auc`` the
-training loss and the quality metric.
+``EmbeddingEngine.inline_gnr``: the single-card ``lookup`` without a mesh;
+under ``sharding.use_rules(mesh, ...)`` the two-level sharded GnR on this
+rank's row-sharded tables and batch shard; differentiable on both);
+``forward_from_pooled`` the serving head; ``bce_loss`` and ``auc`` the
+training loss and the quality metric.  ``param_axes`` gives each param's
+logical axes (``repro``'s ``init_dlrm`` returns them beside the params),
+by which a meshed training run places them (``sharding.tree_specs``).
 
 Distribution, as in ``repro``: tables row-sharded over ``model`` ("bank
 groups"), requests over ``data``; the only ``model``-axis collective is one
@@ -87,6 +89,16 @@ def init_dlrm(cfg: DLRMConfig, *, seed: int = 0, device=None) -> dict:
         "top": _init_mlp(cfg.top_mlp, top_in, cfg.pdtype, g, dev),
         "tables": embedding_bag.init_tables(make_bags(cfg), generator=g, device=dev),
     }
+
+
+def param_axes(cfg: DLRMConfig) -> dict:
+    """Logical axes of every param of ``init_dlrm(cfg)``, the same nesting:
+    the tables' ``embedding_bag.table_axes``, ``("mlp", "mlp")`` and
+    ``("mlp",)`` for each MLP layer's weight and bias."""
+    layer = lambda: {"w": ("mlp", "mlp"), "b": ("mlp",)}
+    return {"bottom": [layer() for _ in cfg.bottom_mlp],
+            "top": [layer() for _ in cfg.top_mlp],
+            "tables": embedding_bag.table_axes(make_bags(cfg))}
 
 
 def _gnr(tables, idx: torch.Tensor, bags, cfg: DLRMConfig) -> torch.Tensor:

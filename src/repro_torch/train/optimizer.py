@@ -7,6 +7,12 @@ Plain tensor operations on the params' nesting (``repro_torch.tree``), not
 precision params updated through an fp32 round trip.  ``update`` is
 functional, as ``repro``'s: it returns new params and state and leaves its
 arguments as they were.
+
+On a mesh (one process a rank) each rank updates its own blocks of the
+params, and the state mirrors them leaf for leaf (``opt_axes``); the global
+norm, on which clipping acts, counts every block once: a leaf sharded over
+mesh axes has its squared sum summed over those axes (one all-reduce per
+set of axes), a replicated leaf counts as it is.
 """
 
 from __future__ import annotations
@@ -44,6 +50,11 @@ def init(params) -> dict:
     }
 
 
+def opt_axes(param_axes: dict) -> dict:
+    """Logical axes for the optimizer state tree (mirrors params)."""
+    return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+
 def learning_rate(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warm-up, then cosine, linear or constant decay, in fp32."""
     step = torch.as_tensor(step).to(torch.float32)
@@ -61,28 +72,60 @@ def learning_rate(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(grads) -> torch.Tensor:
+def _sharding_axes(spec, mesh) -> tuple[str, ...]:
+    """The mesh axes of size > 1 that split a leaf under ``spec``, in mesh
+    order."""
+    named = {ax for e in spec for ax in ((e,) if isinstance(e, str) else (e or ()))}
+    return tuple(ax for ax in mesh.shape if ax in named and mesh.shape[ax] > 1)
+
+
+def global_norm(grads, *, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squared fp32 entries, leaves summed
-    in ``repro``'s order."""
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads))
-    return torch.sqrt(sq)
+    in ``repro``'s order.  On a ``mesh``, ``grads`` are this rank's blocks
+    under ``specs`` (one per leaf, ``sharding.tree_specs``): the squared
+    sums of the leaves split over a set of axes are psummed over those
+    axes, so every block counts once, and the replicated leaves count as
+    they are; every rank gets the same norm."""
+    leaves = tree.leaves(grads)
+    if mesh is None:
+        sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+        return torch.sqrt(sq)
+    from repro_torch.distributed import collectives
+
+    if specs is None or len(specs) != len(leaves):
+        raise ValueError("global_norm on a mesh needs one spec per leaf")
+    groups: dict = {}
+    for g, spec in zip(leaves, specs):
+        key = _sharding_axes(spec, mesh)
+        part = torch.sum(torch.square(g.to(torch.float32)))
+        groups[key] = part if key not in groups else groups[key] + part
+    total = groups.pop((), None)
+    for axes, part in groups.items():
+        for ax in axes:
+            part = collectives.psum(part.reshape(1), mesh, ax, site="norm")[0]
+        total = part if total is None else total + part
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, clip: float):
+def clip_by_global_norm(grads, clip: float, *, mesh=None, specs=None):
     """Scale every leaf by min(1, clip / max(norm, 1e-12)); returns (grads,
     norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
     return tree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def update(params, grads, state: dict, cfg: OptConfig):
-    """One AdamW step.  Returns (new_params, new_state, {"lr", "grad_norm"})."""
+def update(params, grads, state: dict, cfg: OptConfig, *, mesh=None, specs=None):
+    """One AdamW step.  Returns (new_params, new_state, {"lr", "grad_norm"}).
+    On a ``mesh``: this rank's blocks of the params, gradients and state,
+    laid out by ``specs`` (the global norm's)."""
     grads = tree.tree_map(lambda g: g.to(torch.float32), grads)
     if cfg.clip_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh=mesh, specs=specs)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, mesh=mesh, specs=specs)
 
     step = state["step"] + 1
     lr = learning_rate(cfg, step)

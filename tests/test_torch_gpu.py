@@ -1046,3 +1046,35 @@ def test_gpu_two_gloo_ranks_equal_the_single_card_lookup(cuda, dtype, tmp_path):
             for name in ("dup_auto", "dup_off"):
                 assert all(r[kind][name]["comm_free"]) and r[kind][name]["calls"] == 0
             assert r[kind]["dup_auto"]["launches"] == 1
+
+
+# ---------------------------------------------------------------------------
+# DLRM training on a mesh: world 1 over nccl
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dlrm-qr-smoke", "dlrm-tt-smoke", "dlrm-dense-smoke"])
+def test_gpu_world1_nccl_step_matches_the_single_card_step(cuda, arch, tmp_path):
+    """Mesh (1, 1) over nccl on the card: the meshed step (``inline_gnr`` ->
+    ``forward_partial`` under grad, the combine and the entry op over a
+    group of one, the packed kernel's bf16 entry on the rank's routed
+    streams) gives the single-card step's gradients within ``chip_smoke``'s
+    ``GRAD_TOL`` (2^-6 of each leaf's scale), and its loss and norm within
+    2e-2 (``test_train_steps_match_repro``'s bound); one launch a forward."""
+    import test_torch_mesh_ranks as R
+    from repro_torch.launch import mesh as M
+
+    build.build(["packed_gather", "tt_bag"])     # before the rank: no build race
+    res = M.spawn(R.world1_step, (1, 1), args=(arch, 64), device="cuda", backend="nccl",
+                  init_file=tmp_path / "rdv", timeout_s=300)[0]
+    cfg = R.config(arch)
+    params = dlrm.init_dlrm(cfg, seed=0, device=cuda)
+    b = {k: v.to(cuda) for k, v in R.global_batch(cfg, 64, 0).items()}
+    want = R.single_step(cfg, params, b)
+    assert res["launches"] == 2
+    assert len(res["grads"]) == len(want["grads"])
+    for got, g in zip(res["grads"], want["grads"]):
+        scale = max(float(np.abs(g).max()), 1e-12)
+        assert float(np.abs(got - g).max()) <= 2.0 ** -6 * scale
+    np.testing.assert_allclose(res["loss"], want["loss"], rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(res["gnorm"], want["gnorm"], rtol=2e-2, atol=2e-2)

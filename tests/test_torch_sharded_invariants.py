@@ -235,12 +235,16 @@ def test_parallel_branches_and_chunked_psum(tmp_path):
 
 
 def test_sharded_gnr_refuses_tables_that_need_gradients():
-    """The psum records no gradient, so a backward through the sharded path
-    would silently drop the other ranks' share: it refuses instead."""
+    """Under grad the sharded GnR trains (``test_torch_mesh_train.py``), but
+    not through hot tiers: a hot row is a copy made outside the graph, so a
+    backward would silently drop its gradient: it refuses instead."""
     bags, tables, idx, _tr = R.invariant_case("dense", {}, torch.float32)
     mesh = _fake_mesh(2, 0)
     eng = E.compile(E.plan(EngineSpec.from_bags(bags), mesh=mesh))
     local = eng.shard_tables(tables, mesh)
     local[0]["table"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        eng.gnr(mesh)(local, idx)
+    tiers = [{"hot_table": torch.zeros((1, t["table"].shape[1])),
+              "hot_slot": torch.full((t["table"].shape[0] * 2,), -1, dtype=torch.int32)}
+             for t in local]
+    with pytest.raises(NotImplementedError, match="outside the graph"):
+        eng.gnr(mesh, hot=True)(local, idx, tiers)
