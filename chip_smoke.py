@@ -153,25 +153,57 @@ Phases, each one failing the script if it fails:
    step split into forward, backward, gradient mean and update, bytes
    all-reduced a rank a step on each axis, peak memory a rank, a rank's
    local backward alone against the single card's at the same bags (the
-   share of accesses routed to the zero row beside it); then the CLI's
+   share of accesses routed to the zero row beside it), with the zero rows
+   left out of the recompute (what the step runs) and with every access in
+   (the full recompute), each traced by the profiler (top device
+   operations); the fp32 reading: the single card fed the mesh's fp32
+   pooled values against the mesh's fp32 step-1 gradients, and the top
+   MLP's ReLUs the pooled values flip (bf16 and fp32); then the CLI's
    elastic drill (``launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 4
    --ckpt-dir D``, then ``--mesh-shape 4,1 --steps 8``, batch 2,048, full
    width): both exit 0, the second resumes at step 4, the checkpoint holds
-   the full logical arrays.
+   the full logical arrays;
+11. the dense transformer served (``launch.serve``'s path:
+   ``transformer.forward_prefill`` with K9 in every layer, K8 for a QR
+   vocabulary's tokens, ``forward_decode`` on the in-place cache):
+   ``[lm-ref]`` the four dense smoke configs (qwen2-1.5b, granite-34b,
+   chatglm3-6b, minitron-4b) with a dense and a QR (collision 8) vocabulary
+   on the card and on the CPU, same weights and tokens: fp32 logits of
+   ``forward_train``, prefill and decode within 1e-4, the greedy tokens
+   equal, bf16 within 2e-2 of scale, K9 once a layer a forward and K8 once
+   a QR ``embed_tokens``; qwen2-1.5b at full width and depth (28 layers)
+   with the dense and the QR vocabulary (collision 64): ``repro``'s
+   decode-vs-train consistency in fp32 at batch 2, sequence 256 (5e-5), K9
+   on layer 0's own q/k/v at 4,096 tokens against the plain blockwise
+   attention (fp32 1e-4, bf16 one rounding), ``prefill_32k`` at the largest
+   batch that fits by the line through two smaller prefills' reserved
+   memory (ms, tokens/s, K9's ms and share by CUDA events around every
+   attention call, peak memory, the FLOP bound; K9 on the call's own
+   layer-0 q/k/v and K8 on its lookups held against their plain versions)
+   and ``decode_32k`` (one step against 32,768 positions at the largest
+   batch whose cache fits: ms, tokens/s, peak memory, the bytes bound; each
+   step's K8 call held against the plain sum), on the weights cast once to
+   bf16; ``launch.serve --arch qwen2-1.5b --batch 8 --prompt-len
+   512 --max-new 32`` with each vocabulary; chatglm3-6b and minitron-4b at
+   full depth and granite-34b at the depth whose fp32 params fit: the fp32
+   consistency at batch 1, sequence 128, and one ``greedy_generate`` at
+   batch 4, prompt 512, 16 new tokens.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
-``{"mesh_training": ...}`` line, one ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
+``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1146,30 +1178,34 @@ def cli_serve_run(serve_rec, obs) -> int:
     return n
 
 
+def device_rows(prof) -> list:
+    """(name, device ms) of a profile's device operations (kernels,
+    copies): a CPU op's device time counts the same kernels again."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
 def device_share(arch: str, run) -> None:
     """Trace one short sequential run with ``torch.profiler``: the share of
     its wall time the card spent in kernels and copies, and the device
     operations that took most of it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # the device's own events (kernels, copies): a CPU op's device time
-    # counts the same kernels again
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
     if not rows:
         log(f"[{arch}] profiler saw no device time: device share not measured")
         return
-    busy_us = sum(t for _k, t in rows)
-    top = ", ".join(f"{k[:64]} {t / 1e3:.2f} ms"
-                    for k, t in sorted(rows, key=lambda r: -r[1])[:5])
-    log(f"[{arch}] profiler, 3 sequential batches: wall {wall_us / 1e3:.1f} ms, device "
-        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%); top: {top}")
+    busy_ms = sum(t for _k, t in rows)
+    top = ", ".join(f"{k[:64]} {t:.2f} ms" for k, t in sorted(rows, key=lambda r: -r[1])[:5])
+    log(f"[{arch}] profiler, 3 sequential batches: wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%); top: {top}")
 
 
 def tt_lookup_check(dev, cfg, batch, state, params, synthetic, tt_embedding, tg,
@@ -2747,10 +2783,19 @@ def mesh_train_reference(dev, arch, batch, registry, mods) -> dict:
     ct = torch.randn(pooled.shape, generator=torch.Generator(dev).manual_seed(11),
                      device=dev).to(pooled.dtype)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.autograd.grad(pooled, leaves, ct)
-    end.record()
-    torch.cuda.synchronize()
+    for i in range(3):      # a warm-up, the timed call, then one under the profiler
+        pooled = eng.lookup(tree.unflatten(params["tables"], leaves), batches[0]["idx"][:half])
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.autograd.grad(pooled, leaves, ct)
+        elif i == 1:
+            start.record()
+            torch.autograd.grad(pooled, leaves, ct)
+            end.record()
+            torch.cuda.synchronize()
+        else:
+            out["backward_half_batch_top"] = top_device_ops(
+                lambda: torch.autograd.grad(pooled, leaves, ct))
     out["backward_half_batch_ms"] = start.elapsed_time(end)
     del pooled, leaves, ct
     step = train_step.make_train_step(loss_fn, opt.OptConfig(**MESH_OPT))
@@ -2766,11 +2811,25 @@ def mesh_train_reference(dev, arch, batch, registry, mods) -> dict:
     return out
 
 
+def top_relu_signs(params, dense, pooled, cfg, dlrm) -> torch.Tensor:
+    """The signs of the top MLP's hidden pre-activations (its ReLUs'
+    inputs) for these pooled values, ``forward_from_pooled``'s arithmetic."""
+    bottom = dlrm._mlp_fwd(params["bottom"], dense, cfg.cdtype, final_linear=False)
+    x = torch.cat([bottom, dlrm.interact(bottom.to(cfg.cdtype), pooled.to(cfg.cdtype))], -1)
+    signs = []
+    for p in params["top"][:-1]:
+        x = x.to(cfg.cdtype) @ p["w"].to(cfg.cdtype) + p["b"].to(cfg.cdtype)
+        signs.append((x > 0).reshape(-1))
+        x = torch.relu(x)
+    return torch.cat(signs)
+
+
 def mesh_pooled_reference(dev, cfg, batch, pooled) -> dict:
-    """The single card's bf16 step-1 gradients with its forward fed the
-    mesh's pooled values (``pooled``, the ranks' data blocks in order) and
-    its own backward (a straight-through of the forward only), and how far
-    those pooled values are from the single card's own."""
+    """The single card's step-1 gradients (in ``cfg``'s compute dtype) with
+    its forward fed the mesh's pooled values (``pooled``, the ranks' data
+    blocks in order) and its own backward (a straight-through of the forward
+    only), how far those pooled values are from the single card's own, and
+    how many of the top MLP's ReLUs they flip."""
     from repro_torch import engine as E
     from repro_torch import tree
     from repro_torch.data import synthetic
@@ -2784,9 +2843,13 @@ def mesh_pooled_reference(dev, cfg, batch, pooled) -> dict:
     with torch.no_grad():
         own = eng.lookup(params["tables"], b["idx"])
     diff = (own.float() - fed.float()).abs()
+    with torch.no_grad():
+        flips = top_relu_signs(params, b["dense"], own, cfg, dlrm) != top_relu_signs(
+            params, b["dense"], fed, cfg, dlrm)
     out = {"pooled_differ_share": float((diff > 0).float().mean()),
-           "pooled_max_abs_diff": float(diff.max())}
-    del own, diff
+           "pooled_max_abs_diff": float(diff.max()), "top_relu_flips": int(flips.sum()),
+           "top_relu_units": int(flips.numel())}
+    del own, diff, flips
 
     def loss_fed(p, bb):
         mine = eng.lookup(p["tables"], bb["idx"])
@@ -2932,6 +2995,55 @@ def _zero_row_share(cfg, idx, mesh, SE, hashing, tt_embedding, dlrm) -> float:
     return float((big.long() // rows != mesh.axis_index("model")).float().mean())
 
 
+def top_device_ops(run, n: int = 5) -> list:
+    """``run()`` traced by ``torch.profiler``: its ``n`` device operations
+    (kernels, copies) with the most device time, ``[name, ms]``, and last
+    ``["device busy", ms]``, the sum over all of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    top = sorted(rows, key=lambda r: -r[1])[:n] + [("device busy", sum(t for _k, t in rows))]
+    return [[k[:80], round(t, 3)] for k, t in top]
+
+
+def local_backward_alone(tables, idx, bags, plans, mesh, SE, *, full: bool) -> tuple:
+    """This rank's packed local partial's backward: CUDA-event ms of one
+    after a warm-up (each on its own forward), then the top device
+    operations of another under the profiler.  ``full`` strips the zero
+    rows' sinks from the packed entry, so the recompute runs over every
+    access, as before they were sinks."""
+    ops = SE.ops
+    entry = ops.packed_multi_pooled
+
+    def backward():
+        if full:
+            ops.packed_multi_pooled = lambda *a, sinks=None, **kw: entry(*a, **kw)
+        try:
+            leaves = [v.detach().requires_grad_(True) for t in tables for v in t.values()]
+            it = iter(leaves)
+            live = [{k: next(it) for k in t} for t in tables]
+            with torch.enable_grad():
+                parts = SE.packed_local_partial(live, idx, bags, plans, mesh=mesh)
+        finally:
+            ops.packed_multi_pooled = entry
+        ct = torch.randn(parts.shape, generator=torch.Generator(parts.device).manual_seed(11),
+                         device=parts.device).to(parts.dtype)
+        torch.cuda.synchronize()
+        return lambda: torch.autograd.grad(parts, leaves, ct)
+
+    backward()()
+    grad = backward()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    grad()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), top_device_ops(backward())
+
+
 def mesh_train_rank(mesh, batch: int) -> dict:
     """Phase 10 on one rank of the (2, 2) gloo mesh on the card: per config
     the params (seed 0) placed by their logical axes, this rank's ``data``
@@ -2991,13 +3103,15 @@ def mesh_train_rank(mesh, batch: int) -> dict:
         grads, _ = train_step.data_mean(grads, loss, mesh)
         rec["grads32"] = gathered_leaves(grads, specs, mesh, writer, tree, SH)
         del grads
-        # the pooled values the bf16 step's head sees, this data block's
-        # (every rank of the block takes part in the combine)
-        with torch.no_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
-            pooled = dlrm._gnr(local["tables"], batches[0]["idx"], bags, cfg)
-        if mesh.axis_index("model") == 0:
-            rec["pooled"] = pooled.cpu()
-        del pooled
+        # the pooled values the bf16 and the fp32 step's heads see, this data
+        # block's (every rank of the block takes part in the combine)
+        cfg32 = cfg.replace(compute_dtype="float32")
+        for key, c in (("pooled", cfg), ("pooled32", cfg32)):
+            with torch.no_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+                pooled = dlrm._gnr(local["tables"], batches[0]["idx"], dlrm.make_bags(c), c)
+            if mesh.axis_index("model") == 0:
+                rec[key] = pooled.cpu()
+            del pooled
         torch.cuda.empty_cache()
 
         # MESH_TRAIN_STEPS steps: the first and the last split (both written
@@ -3034,31 +3148,23 @@ def mesh_train_rank(mesh, batch: int) -> dict:
         del state, p
         torch.cuda.empty_cache()
 
-        # the local partial's backward with this rank alone on the card:
-        # the chunked fp32 recompute over every access of its block, those
-        # routed to the zero row included
-        tables = [{k: v.detach().requires_grad_(True) for k, v in t.items()}
-                  for t in local["tables"]]
-        plans = [SE.ShardPlan(bag.emb, mesh.shape["model"]) for bag in bags]
-        with torch.enable_grad():
-            parts = SE.packed_local_partial(tables, batches[0]["idx"], bags, plans, mesh=mesh)
-        ct = torch.randn(parts.shape, generator=torch.Generator(dev).manual_seed(11),
-                         device=dev).to(parts.dtype)
-        leaves = [v for t in tables for v in t.values()]
-        # rank (0, 0) alone; the others wait at the barrier
+        # the local partial's backward with this rank alone on the card, the
+        # others waiting at the barrier: the recompute that leaves the zero
+        # rows out (what the step runs), then the full one over every access
+        # (the backward before the zero rows became sinks), each timed by CUDA
+        # events and traced by the profiler (top device operations)
         dist.barrier()
         if writer:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            torch.autograd.grad(parts, leaves, ct)
-            end.record()
-            torch.cuda.synchronize()
-            rec["local_backward_alone_ms"] = start.elapsed_time(end)
+            plans = [SE.ShardPlan(bag.emb, mesh.shape["model"]) for bag in bags]
+            for name, full in (("sinks", False), ("full", True)):
+                ms, top = local_backward_alone(local["tables"], batches[0]["idx"], bags,
+                                               plans, mesh, SE, full=full)
+                rec[f"local_backward_alone_{name}_ms"] = ms
+                rec[f"local_backward_alone_{name}_top"] = top
+            rec["local_backward_alone_ms"] = rec["local_backward_alone_sinks_ms"]
         dist.barrier()
         res["configs"][cfg.name] = rec
-        del tables, parts, ct, leaves, local, batches
+        del local, batches
         torch.cuda.empty_cache()
     return res
 
@@ -3168,6 +3274,16 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
             worst = int(np.argmax(errs32))
             faults.append(f"{cfg.name} (2, 2): fp32 step-1 gradient {paths[worst]} "
                           f"{errs32[worst]} of scale")
+        # the fp32 reading: the single card fed the mesh's fp32 pooled values
+        # (near 1e-5 of scale from the mesh: the forward's order is the gap's
+        # cause; recorded, held only by GRAD_TOL above)
+        pooled32 = torch.cat([r["configs"][cfg.name].pop("pooled32") for r in ranks
+                              if r["coords"]["model"] == 0])
+        st32 = mesh_pooled_reference(dev, cfg.replace(compute_dtype="float32"), batch,
+                                     pooled32)
+        errs32_st = leaf_errors(st32["grads"], ref["grads32"])
+        errs32_mesh_st = leaf_errors(mine["grads32"], st32.pop("grads"))
+        del pooled32
         pooled = torch.cat([r["configs"][cfg.name]["pooled"] for r in ranks
                             if r["coords"]["model"] == 0])
         st = mesh_pooled_reference(dev, cfg, batch, pooled)
@@ -3187,7 +3303,13 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
             f"values vs itself {worst(errs_st)}, the mesh vs that {worst(errs_mesh_st)} "
             f"(held to {GRAD_TOL}); "
             f"bf16 pooled values: {st['pooled_differ_share']:.4f} of them differ from the "
-            f"single card's, by at most {st['pooled_max_abs_diff']:.3g}")
+            f"single card's, by at most {st['pooled_max_abs_diff']:.3g}, flipping "
+            f"{st['top_relu_flips']} of {st['top_relu_units']} top-MLP ReLUs")
+        log(f"[mesh-train] {cfg.name} (2, 2) fp32 reading: the single card fed the mesh's "
+            f"fp32 pooled values vs itself {worst(errs32_st)}, the mesh vs that "
+            f"{worst(errs32_mesh_st)}; fp32 pooled values: {st32['pooled_differ_share']:.4f} "
+            f"of them differ, by at most {st32['pooled_max_abs_diff']:.3g}, flipping "
+            f"{st32['top_relu_flips']} of {st32['top_relu_units']} top-MLP ReLUs")
         for r in rs:
             for key, want in (("losses", ref["losses"]), ("norms", ref["norms"])):
                 if not np.allclose(r[key], want, rtol=MESH_LOSS_TOL, atol=MESH_LOSS_TOL):
@@ -3212,7 +3334,13 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
                "step1_grad_bf16_rel_err": dict(zip(paths, errs)),
                "step1_grad_bf16_single_fed_mesh_pooled_rel_err": dict(zip(paths, errs_st)),
                "step1_grad_bf16_mesh_vs_single_fed_mesh_pooled_rel_err": dict(
-                   zip(paths, errs_mesh_st)), **st, "losses": rs[0]["losses"],
+                   zip(paths, errs_mesh_st)), **st,
+               "step1_grad_fp32_single_fed_mesh_pooled_rel_err_max": max(errs32_st),
+               "step1_grad_fp32_mesh_vs_single_fed_mesh_pooled_rel_err_max": max(
+                   errs32_mesh_st),
+               "fp32_pooled": {k: st32[k] for k in ("pooled_differ_share", "pooled_max_abs_diff",
+                                                    "top_relu_flips", "top_relu_units")},
+               "losses": rs[0]["losses"],
                "losses_single_card": ref["losses"], "grad_norms": rs[0]["norms"],
                "grad_norms_single_card": ref["norms"],
                "ms_per_step_max_over_ranks": max(float(np.mean(r["step_ms"])) for r in rs),
@@ -3227,6 +3355,10 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
                "launches_per_rank_per_step": rs[0]["launches"] // MESH_TRAIN_STEPS,
                "peak_gib_max_over_ranks": max(r["peak_gib"] for r in rs),
                "local_backward_alone_ms": mine["local_backward_alone_ms"],
+               "local_backward_alone_full_recompute_ms": mine["local_backward_alone_full_ms"],
+               "local_backward_top_device_ops": {
+                   "sinks": mine["local_backward_alone_sinks_top"],
+                   "full": mine["local_backward_alone_full_top"]},
                "single_card_backward_half_batch_ms": ref["backward_half_batch_ms"],
                "zero_row_share": [r["zero_row_share"] for r in rs],
                "local_batch": rs[0]["local_batch"]}
@@ -3246,15 +3378,670 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
             f"{rec['peak_gib_max_over_ranks']:.2f} GiB a rank; local backward alone "
             f"{rec['local_backward_alone_ms']:.1f} ms ({np.mean(rec['zero_row_share']):.3f} "
             f"of its big-subtable accesses and {(nsh - 1) / nsh if kind == 'qr' else 0:.2f} of "
-            f"its R accesses to the zero row) vs the single card's "
-            f"{rec['single_card_backward_half_batch_ms']:.1f} ms at batch "
+            f"its R accesses to the zero row, left out of the recompute; "
+            f"{rec['local_backward_alone_full_recompute_ms']:.1f} ms with them in) vs the "
+            f"single card's {rec['single_card_backward_half_batch_ms']:.1f} ms at batch "
             f"{rec['local_batch']}")
+        rec["local_backward_top_device_ops"]["single card"] = ref["backward_half_batch_top"]
+        for name, top in rec["local_backward_top_device_ops"].items():
+            log(f"[mesh-train] {cfg.name} local backward ({name} recompute), top device "
+                f"operations: " + ", ".join(f"{k} {t:.2f} ms" for k, t in top))
     del ranks, refs
     if faults:
         raise AssertionError("; ".join(faults))
     record["cli"] = mesh_cli_drill()
     record["phase_s"] = time.perf_counter() - t0
     log(f"[mesh-train] phase {record['phase_s']:.1f} s (ranks {record['spawn_s']:.1f} s)")
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dense transformer served (LM side's first path)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen2-1.5b", "granite-34b", "chatglm3-6b", "minitron-4b")
+LM_MAIN = "qwen2-1.5b"
+LM_REF_TOL = 1e-4         # card vs CPU, fp32 compute, TF32 off (tests/test_torch_gpu.py)
+LM_BF16_SCALE = 2e-2      # card vs CPU in bf16 compute, of the logits' scale
+LM_CONSIST_TOL = 5e-5     # repro's decode-vs-train bound (tests/test_models_consistency.py)
+LM_CONSIST_MAIN = (2, 256)                 # batch, sequence at qwen2-1.5b's full width
+LM_CONSIST_OTHER = (1, 128)
+LM_K9_SEQ = 4096          # one layer's attention on the model's own q/k/v
+LM_HEADROOM = 6 << 30     # device bytes left free when a batch or a depth is sized
+LM_K8_CHUNK = 1 << 16     # lookups held against the plain sum at a time
+# the prefill batches whose reserved memory gives the fit's line: from
+# batches 1 and 2 the slope read 3.36 and 3.83 GiB a sequence in two runs
+# (NVIDIA H100 80GB HBM3, 700 W) where batches 18-20 reserved ~3.6
+LM_FIT_BATCHES = (2, 4)
+LM_CLI = ("--batch", "8", "--prompt-len", "512", "--max-new", "32")
+LM_GEN = (4, 512, 16)                      # batch, prompt, new tokens (the other archs)
+LM_DECODE_REPS = 3
+
+
+def lm_config(arch: str):
+    """An arch's full-width config (a CPU rehearsal patches this)."""
+    from repro_torch.configs import registry
+
+    return registry.get(arch).config
+
+
+def take_launches(mods, totals: dict) -> dict:
+    """The launches since the last reset, added to ``totals``; then reset."""
+    now = {k: v for k, v in launches_now(mods).items() if v}
+    for k, v in now.items():
+        totals[k] = totals.get(k, 0) + v
+    reset_all(mods)
+    return now
+
+
+def lm_ref_phase(dev, mods, totals: dict) -> dict:
+    """``[lm-ref]``: each dense smoke config with a dense and a QR
+    (collision 8) vocabulary on the card and on the CPU, the same weights
+    (built on the CPU and copied) and tokens: in fp32 compute
+    ``forward_train``, prefill and decode logits within ``LM_REF_TOL`` and
+    the greedy tokens equal; in bf16 compute ``forward_train`` within
+    ``LM_BF16_SCALE`` of scale; K9 launched once a layer a forward, K8 once
+    a QR ``embed_tokens``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
+    from repro_torch.tree import tree_map
+    from repro_torch.configs import registry
+
+    fam = S.serve_family("transformer")
+    out = {}
+    for arch in LM_ARCHS:
+        for vocab in ("dense", "qr"):
+            cfg = registry.get(arch).smoke.replace(embedding_kind=vocab, qr_collision=8,
+                                                   compute_dtype="float32")
+            cpu, _ = T.init_lm(cfg, seed=0, device="cpu")
+            card = tree_map(lambda a: a.to(dev), cpu)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                                    .astype(np.int32))
+            errs = {}
+            with torch.inference_mode():
+                reset_all(mods)
+                got = T.forward_train(card, toks.to(dev), cfg)
+                torch.cuda.synchronize()
+                n = take_launches(mods, totals)
+                want_n = {"flash_fwd": cfg.num_layers, **({"qr_gather": 1} if vocab == "qr"
+                                                          else {})}
+                if n != want_n:
+                    raise AssertionError(f"[lm-ref] {arch} {vocab}: launches {n}, not {want_n}")
+                pairs = [("train", got, T.forward_train(cpu, toks, cfg))]
+                lg, cache = T.forward_prefill(card, toks[:, :11].to(dev), cfg, 16)
+                clg, ccache = T.forward_prefill(cpu, toks[:, :11], cfg, 16)
+                pairs += [("prefill", lg, clg), ("cache_k", cache["k"], ccache["k"])]
+                lg2, _ = T.forward_decode(card, toks[:, 11:].to(dev), cache, 11, cfg)
+                clg2, _ = T.forward_decode(cpu, toks[:, 11:], ccache, 11, cfg)
+                pairs.append(("decode", lg2, clg2))
+                for name, a, b in pairs:
+                    d = (a.cpu().float() - b.float()).abs()
+                    errs[name] = float(d.max())
+                    if not bool((d <= LM_REF_TOL + LM_REF_TOL * b.float().abs()).all()):
+                        raise AssertionError(f"[lm-ref] {arch} {vocab} {name}: card vs CPU "
+                                             f"{errs[name]}")
+                b16 = cfg.replace(compute_dtype="bfloat16")
+                a, b = T.forward_train(card, toks.to(dev), b16), T.forward_train(cpu, toks, b16)
+                errs["train_bf16_share"] = float((a.cpu().float() - b.float()).abs().max()) / float(
+                    b.float().abs().max())
+                if not errs["train_bf16_share"] <= LM_BF16_SCALE:
+                    raise AssertionError(f"[lm-ref] {arch} {vocab} bf16: {errs}")
+            batch = {"tokens": toks[:, :8]}
+            tok_card = S.greedy_generate(fam, card, {"tokens": toks[:, :8].to(dev)}, cfg,
+                                         max_new=4, max_len=12).cpu()
+            tok_cpu = S.greedy_generate(fam, cpu, batch, cfg, max_new=4, max_len=12)
+            if not torch.equal(tok_card, tok_cpu):
+                raise AssertionError(f"[lm-ref] {arch} {vocab}: greedy tokens {tok_card} vs "
+                                     f"{tok_cpu}")
+            take_launches(mods, totals)
+            out[f"{arch}/{vocab}"] = errs
+            log(f"[lm-ref] {cfg.name} {vocab} vocab: card vs CPU max |diff| "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f"; launches a forward {n}; greedy tokens equal")
+    return out
+
+
+def lm_consistency(params, cfg, batch: int, seq: int, dev) -> dict:
+    """``repro``'s decode-vs-train test on the card (fp32 compute): prefill
+    of seq - 1 tokens and one decode step reproduce ``forward_train``'s
+    logits at the last two positions within ``LM_CONSIST_TOL``."""
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        full = T.forward_train(params, toks, cfg)
+        lg, cache = T.forward_prefill(params, toks[:, :seq - 1], cfg, seq)
+        lg2, _ = T.forward_decode(params, toks[:, seq - 1:], cache, seq - 1, cfg)
+        out = {}
+        for name, a, b in (("prefill", lg[:, 0], full[:, seq - 2]),
+                           ("decode", lg2[:, 0], full[:, seq - 1])):
+            d = (a - b).abs()
+            out[name] = float(d.max())
+            if not bool((d <= LM_CONSIST_TOL + LM_CONSIST_TOL * b.abs()).all()):
+                raise AssertionError(f"[lm] {cfg.name} consistency {name}: {out[name]}")
+        out["logit_scale"] = float(full.abs().max())
+    del full, cache
+    return out
+
+
+def hold_attention(q, k, v, out) -> dict:
+    """K9's ``out`` on (q, k, v) against the plain blockwise
+    ``layers.flash_attention`` on their fp32 widening (causal): fp32 to
+    ``ERR_TOL``, bf16 per element within one rounding (phase 6's rule)."""
+    from repro_torch.models import layers
+
+    with torch.inference_mode():
+        plain = layers.flash_attention(q.float(), k.float(), v.float(), causal=True)
+    if out.dtype == torch.float32:
+        err = float((out - plain).abs().max())
+        rec = {"max_abs_err": err, "tolerance": ERR_TOL}
+        ok = err <= ERR_TOL
+    else:
+        ratio, err = one_rounding(out, plain)
+        rec = {"max_abs_err": err, "rounding_ratio": ratio, "tolerance": ROUND_RULE}
+        ok = ratio <= 1.0
+    rec["shape"] = list(q.shape) + [k.shape[1]]
+    rec["ok"] = ok
+    return rec
+
+
+def hold_qr_rows(q, r, q_idx, r_idx, out) -> dict:
+    """K8's ``out`` against ``q[q_idx] + r[r_idx]``, ``LM_K8_CHUNK`` lookups
+    at a time: a bf16 row per element within one rounding of the fp32 sum
+    (``one_rounding``), an fp32 row to ``ERR_TOL``; also whether it is
+    bitwise the sum in the tables' dtype (one rounding of an exact sum)."""
+    qi, ri = q_idx.reshape(-1).long(), r_idx.reshape(-1).long()
+    rows = out.reshape(qi.numel(), -1)
+    q32, r32 = q.float(), r.float()
+    worst, err, bitwise = 0.0, 0.0, True
+    for lo in range(0, qi.numel(), LM_K8_CHUNK):
+        part = slice(lo, lo + LM_K8_CHUNK)
+        got = rows[part]
+        bitwise &= torch.equal(got, q[qi[part]] + r[ri[part]])
+        plain = q32[qi[part]] + r32[ri[part]]
+        if got.dtype == torch.float32:
+            err = max(err, float((got - plain).abs().max()))
+        else:
+            ratio, e = one_rounding(got, plain)
+            worst, err = max(worst, ratio), max(err, e)
+    ok = err <= ERR_TOL if out.dtype == torch.float32 else worst <= 1.0
+    rec = {"lookups": qi.numel(), "table": list(q.shape), "dtype": str(out.dtype),
+           "max_abs_err": err, "bitwise": bitwise, "ok": ok}
+    if out.dtype != torch.float32:
+        rec.update(rounding_ratio=worst, tolerance=ROUND_RULE)
+    else:
+        rec["tolerance"] = ERR_TOL
+    return rec
+
+
+@contextlib.contextmanager
+def kept_calls(ops, name, keep):
+    """While the context is open, every call of ``ops.<name>`` also hands
+    its positional arguments and its output to ``keep``, after the call."""
+    saved = getattr(ops, name)
+
+    def call(*a, **kw):
+        out = saved(*a, **kw)
+        keep(a, out)
+        return out
+
+    setattr(ops, name, call)
+    try:
+        yield
+    finally:
+        setattr(ops, name, saved)
+
+
+@contextlib.contextmanager
+def kept_model_path(ops, kept: dict):
+    """While open: layer 0's K9 q/k/v and output (the last batch row, the
+    one at the largest offsets, copied) into ``kept["k9"]``, and every K8
+    call's inputs and output into the list ``kept["k8"]``."""
+    def k9(a, out):
+        if "k9" not in kept:
+            kept["k9"] = tuple(t[-1:].clone() for t in (*a[:3], out))
+
+    def k8(a, out):
+        kept.setdefault("k8", []).append((*a[:4], out))
+
+    with kept_calls(ops, "flash_attention_fused", k9), kept_calls(ops, "qr_lookup", k8):
+        yield kept
+
+
+def hold_kept(kept: dict, where: str) -> dict:
+    """``kept_model_path``'s captures held against their plain versions:
+    K9's by ``hold_attention``, each K8 call's by ``hold_qr_rows``."""
+    rec = {}
+    if "k9" in kept:
+        rec["k9"] = hold_attention(*kept["k9"])
+    if "k8" in kept:
+        calls = [hold_qr_rows(*c) for c in kept["k8"]]
+        rec["k8"] = {**max(calls, key=lambda c: c.get("rounding_ratio", c["max_abs_err"])),
+                     "calls": len(calls), "all_bitwise": all(c["bitwise"] for c in calls),
+                     "ok": all(c["ok"] for c in calls)}
+    bad = {k: v for k, v in rec.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"[lm] {where}: kernel vs plain on the main path {bad}")
+    return rec
+
+
+def held_text(held: dict) -> str:
+    """``hold_kept``'s record as one line."""
+    parts = []
+    if "k9" in held:
+        parts.append(f"K9 on layer 0's q/k/v {held['k9']['shape']} (last batch row) "
+                     f"{fmt_err(held['k9'])}")
+    if "k8" in held:
+        k8 = held["k8"]
+        parts.append(f"K8 on {k8['lookups']} lookups of a {k8['table']} {k8['dtype']} table "
+                     f"x {k8['calls']} call(s): {fmt_err(k8)}, bitwise the sum in the tables' "
+                     f"dtype: {k8['all_bitwise']}")
+    return "; ".join(parts)
+
+
+def lm_k9_check(params, cfg, dev) -> dict:
+    """Layer 0's attention of a batch-1 prefill at ``LM_K9_SEQ`` tokens:
+    K9's output on the model's own q/k/v by ``hold_attention``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    seen = []
+    g = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, LM_K9_SEQ), generator=g, device=dev,
+                         dtype=torch.int32)
+    with kept_calls(ops, "flash_attention_fused",
+                    lambda a, out: seen or seen.append((*a[:3], out))):
+        with torch.inference_mode():
+            T.forward_prefill(params, toks, cfg, LM_K9_SEQ)
+    rec = hold_attention(*seen[0])
+    if not rec["ok"]:
+        raise AssertionError(f"[lm] {cfg.name} K9 on the model path: {rec}")
+    return rec
+
+
+def layer_weights(cfg) -> int:
+    """One layer's projection weights (q, k, v, o and the MLP's)."""
+    d, hd, h, kh, f = cfg.d_model, cfg.head_dim_, cfg.num_heads, cfg.kv_heads, cfg.d_ff
+    return d * (h + 2 * kh) * hd + h * hd * d + (3 if cfg.activation == "silu" else 2) * d * f
+
+
+def prefill_flops(cfg, batch: int, seq: int) -> int:
+    """A prefill's matrix-product and attention flops: 2 x the layers'
+    projection weights x tokens, causal attention's 4 D per visible (query,
+    key) pair and head, and the head on the last token."""
+    attn = 4 * cfg.head_dim_ * cfg.num_heads * seq * (seq + 1) // 2
+    return batch * (cfg.num_layers * (2 * layer_weights(cfg) * seq + attn)
+                    + 2 * cfg.d_model * cfg.vocab)
+
+
+@contextlib.contextmanager
+def timed_entries(ops, names):
+    """Each ``ops`` entry in ``names`` wrapped in a pair of CUDA events a
+    call while the context is open; yields ``{name: [(start, end), ...]}``."""
+    marks = {n: [] for n in names}
+    saved = {n: getattr(ops, n) for n in names}
+
+    def wrap(n):
+        def call(*a, **kw):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = saved[n](*a, **kw)
+            e[1].record()
+            marks[n].append(e)
+            return out
+        return call
+
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield marks
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+
+
+def k9_against_sdpa(cfg, batch: int, seq: int, dev) -> dict:
+    """One layer's attention at the prefill's shapes on random bf16 q/k/v:
+    K9 (``fa.flash_fwd``) and ``scaled_dot_product_attention`` (the flash
+    backend, causal, k and v repeated to the query heads beforehand), CUDA
+    events, mean of 2 calls after one."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    h, kh, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
+    q = torch.randn((batch, h, seq, d), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((batch, kh, seq, d), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    k9 = timed(lambda: fa.flash_fwd(q, k, v, causal=True), 2, warm=1)
+    kk, vv = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        sdpa = timed(lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=True), 2,
+                     warm=1)
+    del q, k, v, kk, vv
+    torch.cuda.empty_cache()
+    return {"k9_ms": k9, "sdpa_ms": sdpa, "shape": [batch, h, kh, seq, d]}
+
+
+def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
+    """``prefill_32k``: one prefill of ``seq`` tokens at the largest batch
+    that fits, timed by CUDA events, K9's and K8's time by events around
+    every call.  The fit is measured: the device memory a prefill reserves
+    at the two ``LM_FIT_BATCHES`` gives a line, fixed + slope x batch, that
+    counts the allocator's blocks reserved but unallocated as well as the
+    tensors (a batch-1 prefill runs first under the profiler); the
+    batch is the largest whose line fits the free memory less
+    ``LM_HEADROOM``, cut to the cell's.  In the timed call
+    ``kept_model_path`` keeps layer 0's K9 q/k/v and output and K8's inputs
+    and output, held against their plain versions after it (``hold_kept``);
+    the sizing runs keep the same, so the fit counts them.  Then K9 against
+    SDPA at the prefill's attention shapes."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cell = next(s for s in LM_SHAPES if s.name == "prefill_32k")
+    seq = cell.seq_len
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def prefill(batch: int):
+        toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev,
+                             dtype=torch.int32)
+        with kept_model_path(ops, {}), torch.inference_mode():
+            T.forward_prefill(params, toks, cfg, seq)
+
+    def reserved_peak(run) -> int:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_reserved(dev) - before
+
+    top = []
+    reserved = {1: reserved_peak(lambda: top.extend(top_device_ops(lambda: prefill(1), 8)))}
+    reserved.update((b, reserved_peak(lambda: prefill(b))) for b in LM_FIT_BATCHES)
+    lo, hi = LM_FIT_BATCHES
+    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+    fixed = max(reserved[lo] - lo * slope, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    fit = (free - LM_HEADROOM - fixed) // slope
+    batch = max(1, min(cell.global_batch, fit))
+    reset_all(mods)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kept = {}
+    with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
+            kept_model_path(ops, kept):
+        with torch.inference_mode():
+            start.record()
+            logits, cache = T.forward_prefill(params, toks, cfg, seq)
+            end.record()
+            torch.cuda.synchronize()
+    n = take_launches(mods, totals)
+    ms = start.elapsed_time(end)
+    peak, peak_reserved = (torch.cuda.max_memory_allocated(dev),
+                           torch.cuda.max_memory_reserved(dev))
+    k9_ms = sum(a.elapsed_time(b) for a, b in marks["flash_attention_fused"])
+    k8_ms = sum(a.elapsed_time(b) for a, b in marks["qr_lookup"])
+    want = {"flash_fwd": cfg.num_layers, **({"qr_gather": 1} if cfg.embedding_kind == "qr"
+                                            else {})}
+    if n != want or tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm] {cfg.name} prefill_32k: launches {n}, logits "
+                             f"{tuple(logits.shape)}")
+    del logits, cache, toks
+    torch.cuda.empty_cache()
+    held = hold_kept(kept, f"{cfg.name} prefill_32k")
+    del kept
+    flops = prefill_flops(cfg, batch, seq)
+    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch,
+           "reserved_by_batch": reserved, "reserved_a_sequence": slope,
+           "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM, "fit": fit,
+           "ms": ms, "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms,
+           "k9_share": k9_ms / ms, "k9_ms_a_call": k9_ms / cfg.num_layers, "k8_ms": k8_ms,
+           "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+           "flops": flops, "bound_ms": flops / BF16_FLOP_S * 1e3, "launches": n,
+           "held": held, "top_ops_batch1": top}
+    rec["k9_vs_sdpa"] = k9_against_sdpa(cfg, batch, seq, dev)
+    reset_all(mods)                 # the yardstick's launches are not the path's
+    return rec
+
+
+def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
+    """``decode_32k``: one ``forward_decode`` step against a cache 32,768
+    deep (random, every position attended) at the largest batch whose cache
+    fits the free memory less ``LM_HEADROOM``; ms a step by CUDA events over
+    ``LM_DECODE_REPS`` steps, beside the bytes bound: every weight read once
+    plus the whole cache read, over the HBM rate.  Each timed step's K8
+    call (a QR vocabulary) is kept and held against the plain sum after
+    them (``hold_kept``)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cell = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    depth = cell.seq_len
+    elem = torch.empty((), dtype=cfg.cdtype).element_size()
+    cache_seq = 2 * cfg.num_layers * depth * cfg.kv_heads * cfg.head_dim_ * elem
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    batch = max(1, min(cell.global_batch, (free - LM_HEADROOM) // cache_seq))
+    cache = T.init_cache(cfg, batch, depth, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for key in ("k", "v"):
+        cache[key].normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
+    reset_all(mods)
+    with torch.inference_mode():
+        top = top_device_ops(lambda: T.forward_decode(params, tok, cache, depth - 1, cfg), 8)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kept = {}
+        with kept_model_path(ops, kept):
+            start.record()
+            for _ in range(LM_DECODE_REPS):
+                logits, out = T.forward_decode(params, tok, cache, depth - 1, cfg)
+            end.record()
+            torch.cuda.synchronize()
+    n = take_launches(mods, totals)
+    if out is not cache or tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[lm] {cfg.name} decode_32k: logits {tuple(logits.shape)}")
+    held = hold_kept(kept, f"{cfg.name} decode_32k")
+    ms = start.elapsed_time(end) / LM_DECODE_REPS
+    weight_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(params))
+    nbytes = weight_bytes + batch * cache_seq
+    rec = {"depth": depth, "batch": batch, "cell_batch": cell.global_batch,
+           "cache_bytes": batch * cache_seq, "weight_bytes": weight_bytes, "ms": ms,
+           "tokens_per_s": batch / ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top}
+    del cache, logits, out, kept
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_cli_run(vocab: str, mods, totals) -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen2-1.5b`` with
+    ``LM_CLI`` (its ``main``, in this process): exit 0, a tokens/s line, K9
+    once a layer for its prefill, K8 once a QR lookup."""
+    import io
+
+    from repro_torch.launch import serve
+
+    reset_all(mods)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", LM_MAIN, "--embedding", vocab, *LM_CLI])
+    secs = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    text = buf.getvalue()
+    layers_n = lm_config(LM_MAIN).num_layers
+    new = int(LM_CLI[LM_CLI.index("--max-new") + 1])
+    want = {"flash_fwd": layers_n, **({"qr_gather": 1 + new} if vocab == "qr" else {})}
+    if rc != 0 or "tok/s" not in text or n != want:
+        raise AssertionError(f"[lm] serve CLI --embedding {vocab}: exit {rc}, launches {n}, "
+                             f"output {text[-500:]}")
+    line = next(x for x in text.splitlines() if "tok/s" in x)
+    log(f"[lm-cli] --embedding {vocab} {' '.join(LM_CLI)}: {line} (call {secs:.1f} s, set-up "
+        f"included; launches {n})")
+    return {"embedding": vocab, "exit": rc, "line": line, "s": secs, "launches": n,
+            "tokens_per_s": float(re.search(r"([0-9.]+) tok/s", line).group(1))}
+
+
+def lm_main_run(dev, vocab: str, mods, totals) -> dict:
+    """qwen2-1.5b at full width and depth with a ``vocab`` vocabulary (QR at
+    the config's collision): the fp32 consistency check, K9 on the model
+    path in fp32 and bf16, then ``prefill_32k`` and ``decode_32k`` on the
+    weights cast once for serving (``ServeFamily.prepare``)."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
+
+    cfg = lm_config(LM_MAIN).replace(embedding_kind=vocab)
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    c32 = cfg.replace(compute_dtype="float32")
+    rec = {"arch": cfg.name, "vocab": vocab, "collision": cfg.qr_collision,
+           "layers": cfg.num_layers,
+           "param_bytes_fp32": sum(a.numel() * 4 for a in tree.leaves(params))}
+    rec["consistency_fp32"] = lm_consistency(params, c32, *LM_CONSIST_MAIN, dev)
+    rec["k9_model_path"] = {"float32": lm_k9_check(params, c32, dev)}
+    take_launches(mods, totals)
+    params = S.serve_family("transformer").prepare(params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["k9_model_path"]["bfloat16"] = lm_k9_check(params, cfg, dev)
+    take_launches(mods, totals)
+    rec["prefill_32k"] = lm_prefill_run(params, cfg, dev, mods, totals)
+    rec["decode_32k"] = lm_decode_run(params, cfg, dev, mods, totals)
+    k9, p, d = rec["k9_model_path"], rec["prefill_32k"], rec["decode_32k"]
+    log(f"[lm] {cfg.name} {vocab} vocab, {cfg.num_layers} layers: fp32 consistency "
+        f"(batch {LM_CONSIST_MAIN[0]}, seq {LM_CONSIST_MAIN[1]}) prefill "
+        f"{rec['consistency_fp32']['prefill']:.2e} decode {rec['consistency_fp32']['decode']:.2e} "
+        f"(held to {LM_CONSIST_TOL}, logits up to {rec['consistency_fp32']['logit_scale']:.2f}); "
+        f"K9 on layer 0's q/k/v {k9['float32']['shape']}: fp32 {fmt_err(k9['float32'])}, bf16 "
+        f"{fmt_err(k9['bfloat16'])}")
+    log(f"[lm] {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; fit "
+        f"{p['fit']}: {p['reserved_a_sequence'] / 2**30:.2f} GiB reserved a sequence + "
+        f"{p['reserved_fixed'] / 2**30:.2f} GiB, from batches {LM_FIT_BATCHES}, in "
+        f"{p['free_bytes'] / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}) x {p['seq']}: "
+        f"{p['ms']:.1f} ms, "
+        f"{p['tokens_per_s']:.0f} tokens/s, K9 {p['k9_ms']:.1f} ms ({100 * p['k9_share']:.1f}%, "
+        f"{p['k9_ms_a_call']:.2f} ms a layer), peak {p['peak_gib']:.2f} GiB allocated, "
+        f"{p['peak_reserved_gib']:.2f} GiB reserved, bound "
+        f"{p['bound_ms']:.1f} ms ({p['flops']:.3e} flop at the bf16 peak); K8 {p['k8_ms']:.2f} "
+        f"ms; launches {p['launches']}; one layer's attention at these shapes: K9 "
+        f"{p['k9_vs_sdpa']['k9_ms']:.1f} ms, SDPA (flash backend) "
+        f"{p['k9_vs_sdpa']['sdpa_ms']:.1f} ms")
+    log(f"[lm] {cfg.name} {vocab} prefill_32k kernels vs plain on the main path: "
+        + held_text(p["held"]))
+    log(f"[lm] {cfg.name} {vocab} prefill at batch 1, top device operations: "
+        + ", ".join(f"{k} {t:.1f} ms" for k, t in p["top_ops_batch1"]))
+    log(f"[lm] {cfg.name} {vocab} decode_32k: batch {d['batch']} (cell {d['cell_batch']}; cache "
+        f"{d['cache_bytes'] / 2**30:.2f} GiB) against {d['depth']} positions: {d['ms']:.2f} ms a "
+        f"step, {d['tokens_per_s']:.0f} tokens/s, peak {d['peak_gib']:.2f} GiB, bound "
+        f"{d['bound_ms']:.2f} ms ({d['weight_bytes'] / 1e9:.2f} GB of weights + the cache at "
+        f"{BW_BYTES_S / 1e12:.2f} TB/s); launches {d['launches']}"
+        + (f"; K8 vs plain: {held_text(d['held'])}" if d["held"] else ""))
+    log(f"[lm] {cfg.name} {vocab} decode step, top device operations: "
+        + ", ".join(f"{k} {t:.2f} ms" for k, t in d["top_ops"]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_other_run(dev, arch: str, mods, totals) -> dict:
+    """One of the other dense archs at full width (granite-34b at the depth
+    whose fp32 params fit the free memory less ``LM_HEADROOM``): the fp32
+    consistency check at ``LM_CONSIST_OTHER``, then one ``greedy_generate``
+    at ``LM_GEN`` in bf16 compute on the fp32 params (each weight cast per
+    call, as ``repro`` does), host clock."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
+
+    cfg = lm_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer_bytes = layer_weights(cfg) * 4
+    embed_bytes = cfg.vocab * cfg.d_model * 4 * (1 if cfg.tie_embedding else 2)
+    fit = (torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM - embed_bytes) // max(layer_bytes, 1)
+    depth = int(min(cfg.num_layers, fit))
+    if depth < cfg.num_layers:
+        cfg = cfg.replace(num_layers=depth)
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    rec = {"arch": arch, "layers": cfg.num_layers, "full_layers": lm_config(arch).num_layers,
+           "param_bytes_fp32": sum(a.numel() * 4 for a in tree.leaves(params))}
+    rec["consistency_fp32"] = lm_consistency(params, cfg.replace(compute_dtype="float32"),
+                                             *LM_CONSIST_OTHER, dev)
+    take_launches(mods, totals)
+    b, prompt, new = LM_GEN
+    fam = S.serve_family("transformer")
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, prompt), generator=g, device=dev,
+                                     dtype=torch.int32)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = S.greedy_generate(fam, params, batch, cfg, max_new=new, max_len=prompt + new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    if tuple(out.shape) != (b, new) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab or (
+            n.get("flash_fwd") != cfg.num_layers):
+        raise AssertionError(f"[lm] {arch} greedy_generate: {tuple(out.shape)}, launches {n}")
+    rec.update(generate_s=secs, tokens_per_s=b * new / secs, launches=n,
+               first_tokens=out[0].tolist())
+    log(f"[lm] {arch} ({cfg.num_layers} of {rec['full_layers']} layers, "
+        f"{rec['param_bytes_fp32'] / 1e9:.1f} GB fp32; {cfg.norm} norm, {cfg.activation}, "
+        f"{cfg.num_heads}/{cfg.kv_heads} heads, rotary {cfg.partial_rotary}, "
+        f"{'tied' if cfg.tie_embedding else 'untied'} head): fp32 consistency prefill "
+        f"{rec['consistency_fp32']['prefill']:.2e} decode {rec['consistency_fp32']['decode']:.2e}; "
+        f"greedy_generate batch {b}, prompt {prompt}, {new} new in {secs:.2f} s "
+        f"({rec['tokens_per_s']:.1f} tokens/s, prefill + decode, host clock); launches {n}")
+    del params, batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serving_phase(dev, by_name, mods) -> dict:
+    """Phase 11: the dense transformer served.  ``[lm-ref]`` on the smoke
+    configs; qwen2-1.5b at full width and depth with the dense and the QR
+    vocabulary (consistency, K9 on the model path, ``prefill_32k``,
+    ``decode_32k``), the serve CLI with each; the other three dense archs
+    at full width (granite-34b's depth cut to fit).  The phase's launches
+    add to the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
+    ``{"lm_serving": ...}`` record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] before the phase: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free")
+    totals = {}
+    reset_all(mods)
+    record = {"ref": lm_ref_phase(dev, mods, totals)}
+    record["main"] = [lm_main_run(dev, vocab, mods, totals) for vocab in ("dense", "qr")]
+    record["cli"] = [lm_cli_run(vocab, mods, totals) for vocab in ("dense", "qr")]
+    record["others"] = [lm_other_run(dev, arch, mods, totals)
+                        for arch in LM_ARCHS if arch != LM_MAIN]
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[lm] phase {record['phase_s']:.1f} s; launches {totals}")
     return record
 
 
@@ -3355,6 +4142,7 @@ def main() -> int:
     # phase 6: attention
     t0 = time.perf_counter()
     kernels.append(flash_phase(dev, ops, fa, ref, sass))
+    by_name["flash_fwd"] = kernels[-1]
     log(f"[flash] phase {time.perf_counter() - t0:.1f} s")
 
     # phase 7: training at train_8k (every launch of the packed kernels there
@@ -3380,6 +4168,8 @@ def main() -> int:
     sharded = sharded_phase(dev, batch, by_name, mods)
     # phase 10: DLRM training on a mesh (bf16 launches of K1/K2/K3 on the ranks)
     mesh_training = mesh_train_phase(dev, train_batch, by_name, mods)
+    # phase 11: the dense transformer served (K9 a layer a prefill, K8 for QR tokens)
+    lm_serving = lm_serving_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -3391,6 +4181,7 @@ def main() -> int:
     print(json.dumps({"control_plane": control}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"mesh_training": mesh_training}), flush=True)
+    print(json.dumps({"lm_serving": lm_serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,93 @@
-"""DLRM config registry (port of ``repro.configs.registry``, DLRM part)."""
+"""Architecture registry (port of ``repro.configs.registry``): ``--arch``
+ids -> configs, model bindings and the shape grid; ``--config`` ids -> the
+DLRM configs.
+
+The ten assigned LM architectures are all listed, with ``repro``'s
+bindings, shape grid and skip rules.  The dense transformers (qwen2-1.5b,
+granite-34b, chatglm3-6b, minitron-4b) have a model in the port; for every
+other arch ``init_fn`` and ``make_batch_fn`` raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that brings it.  ``train_loss_fn`` waits for
+the LM training slice.  ``batch_specs``, ``cache_specs`` and
+``abstract_params`` are not ported: they come with the dry run.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
+from typing import Callable
+
 from repro_torch.configs import dlrm_qr, dlrm_tt
+from repro_torch.configs.base import LM_SHAPES, ModelConfig, ShapeConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchBinding:
+    arch_id: str
+    module: str                    # repro_torch.configs.<module> holding CONFIG/SMOKE
+    kind: str                      # transformer | zamba2 | xlstm | whisper | pixtral
+    sub_quadratic: bool            # eligible for long_500k
+    has_decode: bool = True
+
+    @property
+    def config(self) -> ModelConfig:
+        return importlib.import_module(f"repro_torch.configs.{self.module}").CONFIG
+
+    @property
+    def smoke(self) -> ModelConfig:
+        return importlib.import_module(f"repro_torch.configs.{self.module}").SMOKE
+
+
+ARCHS: dict[str, ArchBinding] = {
+    b.arch_id: b
+    for b in [
+        ArchBinding("qwen2-1.5b", "qwen2_1_5b", "transformer", False),
+        ArchBinding("granite-34b", "granite_34b", "transformer", False),
+        ArchBinding("chatglm3-6b", "chatglm3_6b", "transformer", False),
+        ArchBinding("minitron-4b", "minitron_4b", "transformer", False),
+        ArchBinding("zamba2-7b", "zamba2_7b", "zamba2", True),
+        ArchBinding("whisper-large-v3", "whisper_large_v3", "whisper", False),
+        ArchBinding("pixtral-12b", "pixtral_12b", "pixtral", False),
+        ArchBinding("granite-moe-3b-a800m", "granite_moe_3b_a800m", "transformer", False),
+        ArchBinding("qwen3-moe-235b-a22b", "qwen3_moe_235b_a22b", "transformer", False),
+        ArchBinding("xlstm-125m", "xlstm_125m", "xlstm", True),
+    ]
+}
+
+# what brings each family the port does not run yet (ROADMAP.md §1)
+NOT_PORTED = {
+    "moe": "ROADMAP.md §1 item 3 (MoE: models/moe.py)",
+    "zamba2": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
+    "xlstm": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
+    "whisper": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
+    "pixtral": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
+}
+LM_TRAINING = "ROADMAP.md §1 item 1 (LM training on one card)"
+
+
+def get(arch_id: str) -> ArchBinding:
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; choose from {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+def ported(binding: ArchBinding) -> bool:
+    """Whether the port has a model for ``binding`` (the dense transformers)."""
+    return binding.kind == "transformer" and binding.config.num_experts == 0
+
+
+def _require_ported(binding: ArchBinding, what: str) -> None:
+    if ported(binding):
+        return
+    family = "moe" if binding.kind == "transformer" else binding.kind
+    raise NotImplementedError(
+        f"{binding.arch_id}: {what} of the {family} family is not ported yet; "
+        f"{NOT_PORTED[family]} brings it")
+
+
+# ---------------------------------------------------------------------------
+# DLRM (the paper's own model): --config ids -> DLRMConfig objects
+# ---------------------------------------------------------------------------
 
 DLRM_CONFIGS = {
     "dlrm-qr": dlrm_qr.CONFIG,
@@ -19,3 +104,53 @@ def get_dlrm(name: str):
     if name not in DLRM_CONFIGS:
         raise KeyError(f"unknown dlrm config {name!r}; choose from {sorted(DLRM_CONFIGS)}")
     return DLRM_CONFIGS[name]
+
+
+# ---------------------------------------------------------------------------
+# shape grid + skip rules
+# ---------------------------------------------------------------------------
+
+def shape_status(binding: ArchBinding, shape: ShapeConfig) -> str:
+    """'run' or a skip reason."""
+    if shape.kind == "decode" and not binding.has_decode:
+        return "skip: encoder-only, no decode step"
+    if shape.name.startswith("long_") and not binding.sub_quadratic:
+        return "skip: pure full-attention arch; long_500k needs sub-quadratic"
+    return "run"
+
+
+def cells(include_skipped: bool = False):
+    """Iterate (binding, shape, status) over the 10 x 4 assigned grid."""
+    for binding in ARCHS.values():
+        for shape in LM_SHAPES:
+            status = shape_status(binding, shape)
+            if status == "run" or include_skipped:
+                yield binding, shape, status
+
+
+# ---------------------------------------------------------------------------
+# model bindings
+# ---------------------------------------------------------------------------
+
+def init_fn(binding: ArchBinding) -> Callable:
+    """``(cfg, *, generator, device) -> params`` for this family."""
+    _require_ported(binding, "the model")
+    from repro_torch.models import transformer as T
+
+    return T.init_lm
+
+
+def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
+    """The LM losses come with the training slice."""
+    raise NotImplementedError(
+        f"{binding.arch_id}: the LM training loss is not ported yet; {LM_TRAINING} "
+        f"brings it")
+
+
+def make_batch_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
+    """``(batch, seq, seed=, step=, device=) -> {"tokens"}`` for this family."""
+    _require_ported(binding, "the batch maker")
+    from repro_torch.data import synthetic as syn
+
+    return lambda b, s, **kw: syn.lm_batch(cfg, b, s, **kw)
+

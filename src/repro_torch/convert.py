@@ -9,8 +9,11 @@ for a list of single tables (``embedding_bag.init_tables``'s output), and
 ``opt_state_from_numpy(state, device)`` for ``repro.train.optimizer``'s
 state (``mu`` and ``nu`` shaped like the params, ``step``), and
 ``hot_tiers_from_numpy(tiers, device)`` for ``repro``'s hot-tier dicts
-(``{"hot_table", "hot_slot"}`` per table, the slot maps int32).  Both packages
-then compute on the same weights and resume from the same optimizer state.
+(``{"hot_table", "hot_slot"}`` per table, the slot maps int32), and
+``lm_params_from_numpy(tree, device)`` for ``repro.models.transformer``'s
+``init_lm`` tree (``embed``, the stacked ``layers``, ``final_norm``,
+optional ``head``; nested dicts kept as they are).  Both packages then
+compute on the same weights and resume from the same optimizer state.
 """
 
 from __future__ import annotations
@@ -49,3 +52,16 @@ def hot_tiers_from_numpy(tiers, device=None) -> list[dict]:
     dev = device_mod.resolve(device)
     return [{"hot_table": _tensor(t["hot_table"], dev),
              "hot_slot": _tensor(t["hot_slot"], dev).to(torch.int32)} for t in tiers]
+
+
+def lm_params_from_numpy(tree: dict, device=None) -> dict:
+    """``repro``'s LM params (nested dicts of numpy leaves, bf16 included)
+    as the port's: the same nesting, tensors on ``device``."""
+    dev = device_mod.resolve(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)

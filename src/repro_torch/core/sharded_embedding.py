@@ -396,6 +396,10 @@ def packed_local_partial(
         return stream.to(torch.int32)
 
     miss = packed_tables.miss_slots(indices)
+    # the zero rows take no part in the backward's recompute: their
+    # gradients are discarded (one shard routes nothing there)
+    sharded = plans[0].num_shards > 1
+    big_sink = {{"qr": "q_idx", "tt": "i2"}.get(kind, "idx"): pack.zero_row} if sharded else {}
     if kind == "qr":
         q_idx, r_idx = hashing.qr_decompose(indices, emb0.collision)
         # replicated LUT: spread across shards by bag position; comm-free
@@ -403,7 +407,8 @@ def packed_local_partial(
         r_stream = torch.where(pos_mine | cf_b, pack.r_off + r_idx, pack.r_zero)
         out = ops.packed_multi_pooled(
             pack.buffers, {"q_idx": route_big(q_idx), "slot": miss,
-                           "r_idx": r_stream.to(torch.int32)}, kind="qr")
+                           "r_idx": r_stream.to(torch.int32)}, kind="qr",
+            sinks={**big_sink, "r_idx": pack.r_zero} if sharded else None)
     elif kind == "tt":
         spec = emb0.tt_spec
         i1, i2, i3 = tt_embedding.tt_decompose(indices, spec)
@@ -411,10 +416,10 @@ def packed_local_partial(
         out = ops.packed_multi_pooled(
             pack.buffers, {"i1": (i1 + t_ids * spec.v1).to(torch.int32), "i2": route_big(i2),
                            "i3": (i3 + t_ids * spec.v3).to(torch.int32), "slot": miss},
-            kind="tt", dims=spec.dims)
+            kind="tt", dims=spec.dims, sinks=big_sink)
     else:
         out = ops.packed_multi_pooled(pack.buffers, {"idx": route_big(indices), "slot": miss},
-                                      kind="dense")
+                                      kind="dense", sinks=big_sink)
     return (out * pack.scale[None, :, None].to(out.dtype)).to(compute)
 
 

@@ -1,5 +1,7 @@
-"""Criteo-like long-tail traces, DLRM request and training batches, and the
-restart-safe batch pipeline (port of ``repro.data.synthetic``, DLRM part).
+"""LM token batches, criteo-like long-tail traces, DLRM request and
+training batches, and the restart-safe batch pipeline (port of
+``repro.data.synthetic``; ``whisper_batch`` and ``pixtral_batch`` come with
+their models).
 
 On a mesh every rank makes the global batch of (seed, step) and keeps its
 block along the batch axes (``data_block``), as ``repro``'s meshed launcher
@@ -22,7 +24,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DLRMConfig
+from repro_torch.configs.base import DLRMConfig, ModelConfig
 
 # the multiplicative shuffle constant of ``repro``'s zipf_batch_jax
 _SHUFFLE = 2654435761
@@ -55,6 +57,16 @@ def generator(seed: int, step: int, tag: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(np.random.SeedSequence([seed, step, tag]).generate_state(1)[0]))
     return g
+
+
+def lm_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int = 0,
+             device="cpu") -> dict:
+    """(batch, seq) int32 tokens drawn uniformly from [0, vocab), a pure
+    function of ``(seed, step)`` (``repro``'s law; its numbers are
+    ``jax.random``'s, these a ``torch.Generator``'s)."""
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator(seed, step, 0, device),
+                           device=device, dtype=torch.int32)
+    return {"tokens": tokens}
 
 
 def zipf_from_uniform(u: torch.Tensor, vocab: int, alpha: float = 1.05) -> torch.Tensor:

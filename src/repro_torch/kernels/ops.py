@@ -3,7 +3,7 @@ launch for every table's pooled bag (``packed_multi_pooled``, kinds ``qr``,
 ``dense`` and ``tt``), the per-table bags (``gnr_pooled`` K6,
 ``gnr_pooled_dense`` K7, ``cached_pooled`` K4a, ``cached_qr_pooled`` K4b),
 the unpooled QR gather ``qr_lookup`` (K8), the TT bag entry points
-``tt_pooled_auto`` and ``tt_lookup`` (K5), and attention,
+``tt_pooled``, ``tt_pooled_auto`` and ``tt_lookup`` (K5), and attention,
 ``flash_attention_fused`` (K9).
 
 The streams may carry any leading shape (..., K) (``qr_lookup``: any shape
@@ -47,11 +47,20 @@ RECOMPUTE_BYTES = 1 << 30      # fp32 rows a recompute chunk may gather
 
 class _KernelRecompute(torch.autograd.Function):
     """Kernel forward; the backward recomputes the plain version over
-    chunks of the streams' leading dim and sums the buffers' gradients."""
+    chunks of the streams' leading dim and sums the buffers' gradients.
+
+    ``sinks`` lists ``(stream, row, buffers)`` groups: every access whose
+    ``stream`` entry is ``row`` (a sink, whose gradient the caller
+    discards) is left out of the recompute that gives ``buffers``'
+    gradients.  The kept accesses of each chunk are taken in order as bags
+    of one (the cotangent of their bag beside each), so every kept row sums
+    the same terms in the same order as without the groups.  A group may
+    name a buffer the stream does not index only where the sink row zeroes
+    the access's whole contribution (a TT middle core's zero row)."""
 
     @staticmethod
-    def forward(ctx, kernel, plain, streams, row_width, *buffers):
-        ctx.plain, ctx.streams, ctx.row_width = plain, streams, row_width
+    def forward(ctx, kernel, plain, streams, row_width, sinks, *buffers):
+        ctx.plain, ctx.streams, ctx.row_width, ctx.sinks = plain, streams, row_width, sinks
         ctx.save_for_backward(*buffers)
         out = kernel(*buffers, *streams)
         ctx.out_dtype = out.dtype                  # the table dtype
@@ -60,41 +69,71 @@ class _KernelRecompute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         buffers = ctx.saved_tensors
-        need = [i for i, b in enumerate(buffers) if ctx.needs_input_grad[4 + i]]
+        need = [i for i, b in enumerate(buffers) if ctx.needs_input_grad[5 + i]]
         grads = [None] * len(buffers)
         if not need:
-            return (None, None, None, None, *grads)
+            return (None,) * 5 + tuple(grads)
         # repro casts the cotangent to the table dtype; the recompute is fp32
         ct = ct.to(ctx.out_dtype).float()
         wide = [b.detach().float() for b in buffers]           # widened once
-        lead = ctx.streams[0].shape[0]
         per_bag = ctx.streams[0][:1].numel() * ctx.row_width * 4
         chunk = max(1, RECOMPUTE_BYTES // max(per_bag, 1))
-        sums = None
-        for lo in range(0, lead, chunk):
-            leaves = [w.detach().requires_grad_(i in need) for i, w in enumerate(wide)]
-            with torch.enable_grad():
-                out = ctx.plain(*leaves, *(s[lo:lo + chunk] for s in ctx.streams))
-                part = torch.autograd.grad(out, [leaves[i] for i in need], ct[lo:lo + chunk])
-            if sums is None:
-                sums = list(part)
+        sums = {}
+        grouped = set()
+        for stream, row, bufs in ctx.sinks:
+            want = [i for i in bufs if i in need]
+            grouped.update(want)
+            sums.update(_recompute(ctx.plain, wide, ctx.streams, ct, want, chunk,
+                                   keep=(stream, row)))
+        rest = [i for i in need if i not in grouped]
+        sums.update(_recompute(ctx.plain, wide, ctx.streams, ct, rest, chunk))
+        for i in need:
+            grads[i] = sums[i].to(buffers[i].dtype)             # rounded once
+        return (None,) * 5 + tuple(grads)
+
+
+def _recompute(plain, wide: list, streams: tuple, ct: torch.Tensor, need: list,
+               chunk: int, keep: tuple | None = None) -> dict:
+    """fp32 gradients of the buffers ``need`` (indices into ``wide``): the
+    plain version differentiated chunk by chunk over ``chunk`` bags, the
+    chunks summed in order.  ``keep = (stream, row)`` recomputes only the
+    accesses whose ``stream`` entry is not ``row``, each a bag of one."""
+    sums = {}
+    if not need:
+        return sums
+    for lo in range(0, streams[0].shape[0], chunk):
+        part = [s[lo:lo + chunk] for s in streams]
+        cot = ct[lo:lo + chunk]
+        if keep is not None:
+            stream, row = keep
+            k = part[stream].shape[-1]
+            kept = (part[stream] != row).reshape(-1).nonzero().squeeze(1)
+            if kept.numel() == 0:
+                continue
+            part = [s.reshape(-1)[kept][:, None] for s in part]
+            cot = cot[kept // k]
+        leaves = [w.detach().requires_grad_(i in need) for i, w in enumerate(wide)]
+        with torch.enable_grad():
+            out = plain(*leaves, *part)
+            got = torch.autograd.grad(out, [leaves[i] for i in need], cot)
+        for i, g in zip(need, got):
+            if i in sums:
+                sums[i] += g
             else:
-                for acc, g in zip(sums, part):
-                    acc += g
-        for i, acc in zip(need, sums or [torch.zeros_like(wide[i]) for i in need]):
-            grads[i] = acc.to(buffers[i].dtype)                 # rounded once
-        return (None, None, None, None, *grads)
+                sums[i] = g
+    return {i: sums[i] if i in sums else torch.zeros_like(wide[i]) for i in need}
 
 
-def _diff(kernel, plain, buffers: tuple, streams: tuple, row_width: int,
-          **kw) -> torch.Tensor:
+def _diff(kernel, plain, buffers: tuple, streams: tuple, row_width: int, *,
+          sinks: tuple = (), **kw) -> torch.Tensor:
     """``kernel(*buffers, *streams, **kw)`` with the plain version's
     chunked-recompute gradient in the buffers; ``row_width`` is the widest
-    row one stream element gathers (it sizes the chunks)."""
+    row one stream element gathers (it sizes the chunks); ``sinks`` the
+    recompute's ``(stream, row, buffers)`` groups (``_KernelRecompute``)."""
     if kw:
         kernel = functools.partial(kernel, **kw)
         plain = functools.partial(plain, **kw)
-    return _KernelRecompute.apply(kernel, plain, streams, row_width, *buffers)
+    return _KernelRecompute.apply(kernel, plain, streams, row_width, tuple(sinks), *buffers)
 
 
 def _flat(s: torch.Tensor) -> torch.Tensor:
@@ -163,38 +202,63 @@ def cached_qr_pooled(q_table: torch.Tensor, cache: torch.Tensor, r_lut: torch.Te
     return out.reshape(*q_idx.shape[:-1], out.shape[-1])
 
 
+# each kind's streams and buffers, in the kernels' argument order
+PACKED_STREAMS = {"qr": ("q_idx", "slot", "r_idx"), "dense": ("idx", "slot"),
+                  "tt": ("i1", "i2", "i3", "slot")}
+PACKED_BUFFERS = {"qr": ("q", "cache", "r"), "dense": ("table", "cache"),
+                  "tt": ("g1", "g2", "g3", "cache")}
+# the buffers whose gradient a stream's sink row decides: its own table, and
+# for the TT middle core the outer cores too (a zero G2 row zeroes the row)
+SINK_BUFFERS = {("qr", "q_idx"): ("q",), ("qr", "r_idx"): ("r",), ("dense", "idx"): ("table",),
+                ("tt", "i2"): ("g1", "g2", "g3")}
+
+
 def packed_multi_pooled(params: dict, streams: dict, *, kind: str,
-                        dims: tuple[int, int, int, int] | None = None) -> torch.Tensor:
+                        dims: tuple[int, int, int, int] | None = None,
+                        sinks: dict | None = None) -> torch.Tensor:
     """``params``: packed buffers — dense {"table", "cache"}, qr {"q", "cache",
     "r"}, tt {"g1", "g2", "g3", "cache"}; ``streams``: globally offset int32
     (..., K) streams — dense {"idx", "slot"}, qr {"q_idx", "slot", "r_idx"},
     tt {"i1", "i2", "i3", "slot"}; ``dims`` = (d1, d2, d3, rank) for tt.
     Returns (..., dim); differentiable in the packed buffers (the training
-    lookup), ``repro``'s ``_packed_{qr,dense,tt}_diff``."""
-    first = next(iter(streams.values()))
-    tables = first.shape[-2] if first.dim() >= 3 else 1   # (..., T, K): the bag grid's T
-    if kind == "qr":
-        lead = streams["q_idx"].shape[:-1]
-        out = _diff(functools.partial(packed_gather.packed_qr_bag, tables=tables),
-                    ref.packed_qr_bag_ref,
-                    (params["q"], params["cache"], params["r"]),
-                    (_flat(streams["q_idx"]), _flat(streams["slot"]),
-                     _flat(streams["r_idx"])), params["q"].shape[1])
-    elif kind == "dense":
-        lead = streams["idx"].shape[:-1]
-        out = _diff(functools.partial(packed_gather.packed_bag, tables=tables),
-                    ref.packed_bag_ref,
-                    (params["table"], params["cache"]),
-                    (_flat(streams["idx"]), _flat(streams["slot"])), params["table"].shape[1])
-    elif kind == "tt":
-        lead = streams["i1"].shape[:-1]
-        out = _diff(packed_gather.packed_tt_bag, ref.packed_tt_bag_ref,
-                    (params["g1"], params["g2"], params["g3"], params["cache"]),
-                    (_flat(streams["i1"]), _flat(streams["i2"]), _flat(streams["i3"]),
-                     _flat(streams["slot"])), params["g2"].shape[1], dims=dims)
-    else:
+    lookup), ``repro``'s ``_packed_{qr,dense,tt}_diff``.
+
+    ``sinks`` maps a stream (dense ``idx``, qr ``q_idx`` / ``r_idx``, tt
+    ``i2``) to an all-zero row of its buffer whose gradient the caller
+    discards (a rank's zero row, ``core/sharded_embedding.py``): the
+    backward leaves the accesses routed there out of its recompute, and
+    the gradients of every other row are those of the full recompute."""
+    if kind not in PACKED_STREAMS:
         raise ValueError(f"packed_multi_pooled: unsupported kind {kind!r}")
-    return out.reshape(*lead, out.shape[-1])
+    names, bufs = PACKED_STREAMS[kind], PACKED_BUFFERS[kind]
+    first = streams[names[0]]
+    tables = first.shape[-2] if first.dim() >= 3 else 1   # (..., T, K): the bag grid's T
+    groups = tuple((names.index(name), int(row),
+                    tuple(bufs.index(b) for b in SINK_BUFFERS[(kind, name)]))
+                   for name, row in (sinks or {}).items())
+    flat = tuple(_flat(streams[n]) for n in names)
+    buffers = tuple(params[b] for b in bufs)
+    if kind == "qr":
+        out = _diff(functools.partial(packed_gather.packed_qr_bag, tables=tables),
+                    ref.packed_qr_bag_ref, buffers, flat, params["q"].shape[1], sinks=groups)
+    elif kind == "dense":
+        out = _diff(functools.partial(packed_gather.packed_bag, tables=tables),
+                    ref.packed_bag_ref, buffers, flat, params["table"].shape[1],
+                    sinks=groups)
+    else:
+        out = _diff(packed_gather.packed_tt_bag, ref.packed_tt_bag_ref, buffers, flat,
+                    params["g2"].shape[1], sinks=groups, dims=dims)
+    return out.reshape(*first.shape[:-1], out.shape[-1])
+
+
+def tt_pooled(g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
+              i1: torch.Tensor, i2: torch.Tensor, i3: torch.Tensor, *,
+              dims: tuple[int, int, int, int]) -> torch.Tensor:
+    """``repro``'s public uncached TT bag, index shape (..., K) -> (..., dim):
+    the TT-bag kernel K5 (``tt_pooled_auto(exec_mode="pallas")``) for every
+    dim.  ``repro``'s ``dim % 8`` fallback to its jnp reference is a TPU
+    tiling rule and is not ported (``kernels/tt_gather.py``)."""
+    return tt_pooled_auto(g1, g2, g3, i1, i2, i3, dims=dims, exec_mode="pallas")
 
 
 def tt_pooled_auto(g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,

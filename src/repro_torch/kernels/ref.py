@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``:
-the QR gather, the plain, cached and packed bags, the TT bags, and
+the QR gather, the plain, cached and packed bags, the TT rows and bags, and
 attention).
 
 They are the kernels' oracles: the CPU path runs them, and ``chip_smoke.py``
@@ -98,6 +98,22 @@ def _sum_k(rows: torch.Tensor) -> torch.Tensor:
     for k in range(rows.shape[-2]):
         out = out + rows[..., k, :]
     return out
+
+
+def tt_row_ref(
+    g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
+    i1: torch.Tensor, i2: torch.Tensor, i3: torch.Tensor,
+    *, dims: tuple[int, int, int, int],
+) -> torch.Tensor:
+    """Unpooled TT rows (fp32 contraction, ``repro``'s einsum order):
+    out[n] = G1[i1[n]] · G2[i2[n]] · G3[i3[n]] reshaped to d1*d2*d3, cast to
+    the G2 dtype."""
+    d1, d2, d3, rank = dims
+    a = g1[i1.long()].float().reshape(*i1.shape, d1, rank)
+    b = g2[i2.long()].float().reshape(*i2.shape, rank, d2, rank)
+    c = g3[i3.long()].float().reshape(*i3.shape, rank, d3)
+    rows = torch.einsum("...ap,...pbq,...qc->...abc", a, b, c)
+    return rows.reshape(*i1.shape, d1 * d2 * d3).to(g2.dtype)
 
 
 def tt_bag_ref(

@@ -1,0 +1,219 @@
+"""Decoder-only LM (port of ``repro.models.transformer``): the dense
+transformers qwen2-1.5b, granite-34b, chatglm3-6b and minitron-4b.
+
+GQA (and MQA) attention with an explicit head_dim, RoPE (full or partial),
+qkv bias, q/k norm, SwiGLU / GeLU / ReLU² MLP, tied or untied vocab head,
+and the paper's weight-sharing vocabulary (dense / hashed / qr) with the
+QR-factorized tied head.  The MoE layer comes with ``models/moe.py``.
+
+Layers are stacked, as ``repro``'s: every leaf of ``params["layers"]``
+holds all L layers along a leading axis, and layer i runs on the views
+``[i]`` (a Python loop where ``repro`` scans), so ``convert`` and
+checkpoints map the two packages' trees one to one.  ``forward_train``
+recomputes nothing (``remat`` comes with the training slice).
+
+On the card, every layer's attention in ``forward_train`` and
+``forward_prefill`` is the attention kernel K9, and a QR vocabulary's token
+lookup (``add`` reconstruction) is the QR gather K8; the projections, the
+MLP, the heads, the norms and the decode attention are plain torch.
+``forward_prefill`` writes each layer's k and v into a cache allocated once
+(``init_cache``) and ``forward_decode`` writes row ``pos`` of it in place,
+where ``repro`` returns new caches.  ``repro``'s sharding constraints have
+no counterpart on one card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hashing, qr_embedding
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
+
+MESHED_LM = "ROADMAP.md §1 item 2 (the meshed LM: token_embed_inline)"
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE layer is not ported yet; ROADMAP.md §1 item 3 (MoE) "
+            f"brings it")
+    kw = dict(generator=generator, device=device)
+    params, axes = {}, {}
+    params["attn"], axes["attn"] = L.init_attention(cfg, **kw)
+    params["mlp"], axes["mlp"] = L.init_mlp(cfg, **kw)
+    params["ln1"], axes["ln1"] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
+    params["ln2"], axes["ln2"] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
+    return params, axes
+
+
+def _stack_layers(cfg: ModelConfig, init_fn, *, generator: torch.Generator, device):
+    """``cfg.num_layers`` layers of ``init_fn`` stacked along a leading L
+    axis: the stacked leaves are allocated once and each layer's draws are
+    copied into row i (no stack of L separate trees)."""
+    first, axes = init_fn(cfg, generator=generator, device=device)
+    stacked = tree_map(
+        lambda a: torch.empty((cfg.num_layers, *a.shape), dtype=a.dtype, device=a.device),
+        first)
+    for i in range(cfg.num_layers):
+        layer = first if i == 0 else init_fn(cfg, generator=generator, device=device)[0]
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+    return stacked, _prefix_axes(axes)
+
+
+def _prefix_axes(axes: dict) -> dict:
+    """Each leaf's axis tuple with ``"layers"`` in front."""
+    return {k: _prefix_axes(a) if isinstance(a, dict) else ("layers",) + a
+            for k, a in axes.items()}
+
+
+def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """Random params and their logical axes, ``(params, axes)``: ``embed``
+    (the vocabulary's table(s)), ``layers`` (stacked), ``final_norm`` and,
+    untied, ``head``; drawn from a ``torch.Generator`` seeded with ``seed``
+    on the target device (the card unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    params, axes = {}, {}
+    params["embed"] = qr_embedding.init(cfg.emb_config, generator=g, device=dev)
+    axes["embed"] = qr_embedding.param_axes(cfg.emb_config)
+    params["layers"], axes["layers"] = _stack_layers(cfg, init_layer, generator=g, device=dev)
+    params["final_norm"], axes["final_norm"] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype,
+                                                           device=dev)
+    if not cfg.tie_embedding:
+        params["head"], axes["head"] = L.init_dense(
+            cfg.d_model, cfg.vocab, ("embed", "vocab"), dtype=cfg.pdtype, generator=g,
+            device=dev)
+    return params, axes
+
+
+def serving_params(params: dict, cfg: ModelConfig) -> dict:
+    """``params`` with the vocabulary's tables and every projection's ``w``
+    and ``b`` (the head's too) cast once to the compute dtype.  The lookup,
+    ``dense`` and the heads cast those to it on every call, so serving from
+    this tree gives the same logits bit for bit and reads half the weight
+    bytes a decode step.  The norms keep their dtype (``apply_norm`` widens
+    them to fp32)."""
+    cd = cfg.cdtype
+
+    def cast(tree: dict) -> dict:
+        return {k: cast(v) if isinstance(v, dict) else (v.to(cd) if k in ("w", "b") else v)
+                for k, v in tree.items()}
+
+    out = cast(params)
+    out["embed"] = {k: v.to(cd) for k, v in params["embed"].items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# embedding in/out (the paper's technique lives here)
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S) tokens -> (B, S, d_model) in the compute dtype.  A QR
+    vocabulary with ``add`` reconstruction goes through ``ops.qr_lookup`` on
+    the compute-dtype casts of Q and R (K8 on the card): the value
+    ``qr_embedding.lookup`` gives, one rounding of an exact sum."""
+    if cfg.embedding_exec == "twolevel":
+        raise NotImplementedError(
+            f"embedding_exec='twolevel' (token_embed_inline) is the meshed LM path; "
+            f"{MESHED_LM} brings it")
+    emb = cfg.emb_config
+    if emb.kind == "qr" and emb.reconstruction == "add":
+        q_idx, r_idx = hashing.qr_decompose(tokens, emb.collision)
+        return ops.qr_lookup(params["embed"]["q"].to(emb.compute_dtype),
+                             params["embed"]["r"].to(emb.compute_dtype), q_idx, r_idx)
+    return qr_embedding.lookup(params["embed"], tokens, emb)
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embedding:
+        return qr_embedding.logits_head(params["embed"], x, cfg.emb_config)
+    return L.dense(params["head"], x, cfg.cdtype)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer i's params: views ``[i]`` of the stacked leaves."""
+    return tree_map(lambda a: a[i], params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# layer body (shared by train/prefill/decode)
+# ---------------------------------------------------------------------------
+
+def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None,
+              positions=None):
+    h = L.apply_norm(p["ln1"], x)
+    attn_out, new_cache = L.attention(p["attn"], h, cfg, causal=True, cache=cache, pos=pos,
+                                      positions=positions)
+    x = x + attn_out
+    h = L.apply_norm(p["ln2"], x)
+    x = x + L.mlp(p["mlp"], h, cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  positions=None) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, vocab)."""
+    x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    for i in range(cfg.num_layers):
+        x, _ = layer_fwd(layer_params(params, i), x, cfg, positions=positions)
+    x = L.apply_norm(params["final_norm"], x)
+    return lm_logits(params, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device=None) -> dict:
+    """Stacked KV cache, ``{"k", "v"}`` each (L, B, max_len, KH, D), zeros."""
+    dtype = dtype or cfg.cdtype
+    dev = device_mod.resolve(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def cache_axes() -> dict:
+    return {
+        "k": ("layers", "batch", "kvseq", "kv_heads", "head_dim"),
+        "v": ("layers", "batch", "kvseq", "kv_heads", "head_dim"),
+    }
+
+
+def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    max_len: int) -> tuple[torch.Tensor, dict]:
+    """Prefill: (last-token logits (B, 1, vocab), the cache of length
+    ``max_len`` with positions [0, S) filled)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    for i in range(cfg.num_layers):
+        x, (k, v) = layer_fwd(layer_params(params, i), x, cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    x = L.apply_norm(params["final_norm"], x)
+    return lm_logits(params, x[:, -1:, :], cfg), cache
+
+
+def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos: int,
+                   cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step. token: (B, 1); cache: stacked (L, ...), updated in
+    place at ``pos`` and returned; pos: the token's position."""
+    pos = int(pos)
+    x = embed_tokens(params, token, cfg).to(cfg.cdtype)
+    for i in range(cfg.num_layers):
+        x, _ = layer_fwd(layer_params(params, i), x, cfg,
+                         cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    x = L.apply_norm(params["final_norm"], x)
+    return lm_logits(params, x, cfg), cache

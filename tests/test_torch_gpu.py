@@ -9,9 +9,11 @@ redesigned bodies — K9 bf16 on the tensor cores, K2/K5 in sorted runs — also
 by the one-rounding rule of ``chip_smoke.py``); hold the
 gradients of the training entries (the kernels' forward, the plain
 versions' recompute backward) and of ``flash_mha`` against plain autograd;
-serve the smoke configs there and run the two per-table examples;
-each decides inside the ``cuda`` fixture whether a card exists, and skips
-without one.  Run them on the card with
+serve the smoke configs there and run the two per-table examples; serve
+the dense transformers' smoke configs against the CPU (K9 once a layer a
+prefill, K8 once a QR token lookup, decode writing the prefill's cache in
+place); each decides inside the ``cuda`` fixture whether a card exists,
+and skips without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
 the machine with the card has none.
 
@@ -48,6 +50,7 @@ from repro_torch.kernels import qr_gather as qg  # noqa: E402
 from repro_torch.kernels import tt_gather as tg  # noqa: E402
 from repro_torch.launch import serve_rec  # noqa: E402
 from repro_torch.models import dlrm  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 from torch_bag_inputs import CASES, bag_inputs, dense_args, qr_args  # noqa: E402
 import torch_pertable_inputs as pti  # noqa: E402
 from torch_tt_inputs import (  # noqa: E402
@@ -1078,3 +1081,86 @@ def test_gpu_world1_nccl_step_matches_the_single_card_step(cuda, arch, tmp_path)
         assert float(np.abs(got - g).max()) <= 2.0 ** -6 * scale
     np.testing.assert_allclose(res["loss"], want["loss"], rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(res["gnorm"], want["gnorm"], rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the dense transformer served on the card (K9 in every prefill layer, K8
+# for a QR vocabulary's tokens)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen2-1.5b", "granite-34b", "chatglm3-6b", "minitron-4b")
+
+
+def _lm(arch, vocab, compute, device):
+    from repro_torch.models import transformer as T
+
+    kw = dict(embedding_kind=vocab, compute_dtype=compute)
+    if vocab == "qr":
+        kw["qr_collision"] = 8
+    cfg = registry.get(arch).smoke.replace(**kw)
+    params, _ = T.init_lm(cfg, seed=0, device="cpu")
+    return cfg, params, tree_map(lambda a: a.to(device), params)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", ["dense", "qr"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_gpu_smoke_transformer_agrees_with_the_cpu(cuda, arch, vocab):
+    """fp32 compute (TF32 off): the card's forward_train, prefill and decode
+    logits within 1e-4 of the CPU's, the greedy tokens equal; K9 launches
+    once a layer a forward, K8 once a QR ``embed_tokens``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
+
+    cfg, cpu_params, params = _lm(arch, vocab, "float32", cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                            .astype(np.int32))
+    fam = S.serve_family("transformer")
+    with torch.inference_mode():
+        fa.reset_launches()
+        qg.reset_launches()
+        got = T.forward_train(params, toks.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_fwd"] == cfg.num_layers
+        assert qg.LAUNCHES["qr_gather"] == (1 if vocab == "qr" else 0)
+        torch.testing.assert_close(got.cpu(), T.forward_train(cpu_params, toks, cfg),
+                                   rtol=1e-4, atol=1e-4)
+        lg, cache = T.forward_prefill(params, toks[:, :11].to(cuda), cfg, 16)
+        clg, ccache = T.forward_prefill(cpu_params, toks[:, :11], cfg, 16)
+        torch.testing.assert_close(lg.cpu(), clg, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cache["k"].cpu(), ccache["k"], rtol=1e-4, atol=1e-4)
+        lg2, _ = T.forward_decode(params, toks[:, 11:].to(cuda), cache, 11, cfg)
+        clg2, _ = T.forward_decode(cpu_params, toks[:, 11:], ccache, 11, cfg)
+        torch.testing.assert_close(lg2.cpu(), clg2, rtol=1e-4, atol=1e-4)
+    batch = {"tokens": toks[:, :8]}
+    want = S.greedy_generate(fam, cpu_params, batch, cfg, max_new=4, max_len=12)
+    out = S.greedy_generate(fam, params, {"tokens": toks[:, :8].to(cuda)}, cfg, max_new=4,
+                            max_len=12)
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_gpu_prefill_launches_k9_once_a_layer_and_decode_writes_in_place(cuda):
+    """bf16 compute: one K9 launch a layer a prefill, one K8 launch a QR
+    ``embed_tokens``; decode updates the prefill's cache in place (no new
+    cache), and its logits agree with the plain versions' on the card."""
+    from repro_torch.models import transformer as T
+
+    cfg, _, params = _lm("qwen2-1.5b", "qr", "bfloat16", cuda)
+    params = T.serving_params(params, cfg)
+    toks = torch.randint(0, cfg.vocab, (3, 20), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        fa.reset_launches()
+        qg.reset_launches()
+        _, cache = T.forward_prefill(params, toks, cfg, 32)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_fwd"] == cfg.num_layers
+        assert qg.LAUNCHES["qr_gather"] == 1
+        ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
+        before = torch.cuda.memory_allocated(cuda)
+        _, out = T.forward_decode(params, toks[:, :1], cache, 20, cfg)
+        torch.cuda.synchronize()
+        assert out is cache and (out["k"].data_ptr(), out["v"].data_ptr()) == ptrs
+        assert out["k"][:, :, 20].abs().sum() > 0 and not out["k"][:, :, 21:].any()
+        assert torch.cuda.memory_allocated(cuda) - before < cache["k"].numel()
+        assert qg.LAUNCHES["qr_gather"] == 2 and fa.LAUNCHES["flash_fwd"] == cfg.num_layers
