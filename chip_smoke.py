@@ -187,13 +187,47 @@ Phases, each one failing the script if it fails:
    512 --max-new 32`` with each vocabulary; chatglm3-6b and minitron-4b at
    full depth and granite-34b at the depth whose fp32 params fit: the fp32
    consistency at batch 1, sequence 128, and one ``greedy_generate`` at
-   batch 4, prompt 512, 16 new tokens.
+   batch 4, prompt 512, 16 new tokens;
+12. the dense transformer trained (``launch.train``'s path:
+   ``registry.train_loss_fn`` -> ``next_token_loss`` on
+   ``transformer.forward_train``, each layer under
+   ``torch.utils.checkpoint``, K9 in every layer's forward and again in
+   its recompute, the blockwise attention backward, K8 / K5 for a QR / TT
+   vocabulary with the chunked plain recompute as backward;
+   ``make_train_step``'s fp32 accumulation; AdamW): ``[lm-train-ref]``
+   one step (2 microbatches) of the four dense smoke configs with a
+   dense, a QR (collision 8) and a TT (``tt_exec="pallas"``) vocabulary
+   on the card and on the CPU, same weights and tokens: fp32 loss within
+   1e-5 relative, updated params and the batch's gradients within 1e-5 of
+   each leaf's scale, bf16 loss within 2e-2, each step's launches counted;
+   qwen2-1.5b at full width and depth, S 4,096 (train_4k), with the QR
+   (collision 64) and the dense vocabulary under remat ``full`` and the QR
+   one under ``dots``: the microbatch that fits by the line through two
+   microbatches' reserved memory (the allocator's expandable segments on
+   for the phase), one microbatch's backward traced by the profiler (top
+   device operations), then one step of 2 microbatches (train_4k's 256
+   cut): ms a step and tokens/s, the split into forward, backward and
+   update (CUDA events), K9's ms in the forwards and in the recompute,
+   the blockwise attention backward's ms, peak memory, the model-FLOP
+   bound and its share, K9 on the step's layer-0 q/k/v and K8 on its
+   lookups held against their plain versions; one step with the TT
+   vocabulary (K5's launches and ms, its first two calls held to 1e-4
+   against the plain version); the step-1 gradients of a 2-layer cut at
+   full width, each vocabulary, within 2^-6 of each leaf's scale of the
+   same step through the kernels' plain versions on the card;
+   ``launch.train --arch qwen2-1.5b --embedding qr --seq 4096 --batch 2
+   --microbatches 2 --steps 4 --ckpt-dir`` twice (the second prints
+   ``[resume] step 4``); minitron-4b, chatglm3-6b and granite-34b at full
+   width, microbatch 1, S 4,096, at the depth whose step fits by the line
+   through two depths' reserved memory: 3 steps on one batch, losses
+   finite and falling, tokens/s.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
+``{"lm_training": ...}`` line, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -1361,12 +1395,17 @@ def hashed_lookup_run(dev, batch, registry, dlrm, synthetic, embedding_bag, engi
 
 def examples_run(mods, quickstart, cache_plan) -> dict:
     """Both per-table examples on the card: the quickstart launches K6 and
-    K1 once each, the cache walkthrough K4b once per batch."""
+    K1 once each, then its QR LM's 10 training steps K8 once a step and K9
+    twice a layer a step (the forward and the backward's recompute); the
+    cache walkthrough K4b once per batch."""
     reset_all(mods)
-    quickstart.main(["--device", "cuda"])
+    res = quickstart.main(["--device", "cuda"])
     counts = launches_now(mods)
-    if counts["gnr_bag"] != 1 or counts["packed_qr_bag"] != 1 or sum(counts.values()) != 2:
-        raise AssertionError(f"quickstart launches {counts}")
+    steps = len(res["lm_losses"])
+    # qwen2-1.5b-smoke: 2 layers, K9 twice each a step
+    want = {"gnr_bag": 1, "packed_qr_bag": 1, "qr_gather": steps, "flash_fwd": 2 * 2 * steps}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"quickstart launches {counts}, not {want}")
     reset_all(mods)
     res = cache_plan.main(["--device", "cuda"])
     n = launches_now(mods)
@@ -1375,7 +1414,7 @@ def examples_run(mods, quickstart, cache_plan) -> dict:
     log(f"[per-table] examples: quickstart launched {counts}; cache_plan launched "
         f"cached_qr_bag {n['cached_qr_bag']} times, hit rate {res['hit_rate']:.3f}")
     return {"gnr_bag": counts["gnr_bag"], "packed_qr_bag": counts["packed_qr_bag"],
-            "cached_qr_bag": n["cached_qr_bag"]}
+            "qr_gather": counts["qr_gather"], "cached_qr_bag": n["cached_qr_bag"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3600,10 +3639,10 @@ def kept_model_path(ops, kept: dict):
     call's inputs and output into the list ``kept["k8"]``."""
     def k9(a, out):
         if "k9" not in kept:
-            kept["k9"] = tuple(t[-1:].clone() for t in (*a[:3], out))
+            kept["k9"] = tuple(t[-1:].detach().clone() for t in (*a[:3], out))
 
     def k8(a, out):
-        kept.setdefault("k8", []).append((*a[:4], out))
+        kept.setdefault("k8", []).append(tuple(t.detach() for t in (*a[:4], out)))
 
     with kept_calls(ops, "flash_attention_fused", k9), kept_calls(ops, "qr_lookup", k8):
         yield kept
@@ -3726,6 +3765,20 @@ def k9_against_sdpa(cfg, batch: int, seq: int, dev) -> dict:
     return {"k9_ms": k9, "sdpa_ms": sdpa, "shape": [batch, h, kh, seq, d]}
 
 
+def reserved_growth(run, dev) -> int:
+    """The device memory ``run()`` reserves beyond what was reserved before
+    it (the allocator's cache emptied first): the tensors it allocates and
+    the blocks reserved but unallocated around them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_reserved(dev) - before
+
+
 def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
     """``prefill_32k``: one prefill of ``seq`` tokens at the largest batch
     that fits, timed by CUDA events, K9's and K8's time by events around
@@ -3753,19 +3806,10 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
         with kept_model_path(ops, {}), torch.inference_mode():
             T.forward_prefill(params, toks, cfg, seq)
 
-    def reserved_peak(run) -> int:
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_reserved(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        run()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_reserved(dev) - before
-
     top = []
-    reserved = {1: reserved_peak(lambda: top.extend(top_device_ops(lambda: prefill(1), 8)))}
-    reserved.update((b, reserved_peak(lambda: prefill(b))) for b in LM_FIT_BATCHES)
+    reserved = {1: reserved_growth(lambda: top.extend(top_device_ops(lambda: prefill(1), 8)),
+                                   dev)}
+    reserved.update((b, reserved_growth(lambda: prefill(b), dev)) for b in LM_FIT_BATCHES)
     lo, hi = LM_FIT_BATCHES
     slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
     fixed = max(reserved[lo] - lo * slope, 0)
@@ -4045,6 +4089,702 @@ def lm_serving_phase(dev, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dense transformer trained on one card
+# ---------------------------------------------------------------------------
+
+LMT_VOCABS = ("dense", "qr", "tt")
+LMT_REF_SHAPE = (4, 16)   # batch, sequence of the smoke reference step (2 microbatches)
+LMT_REF_TOL = 1e-5        # card vs CPU in fp32 compute: loss relative, each leaf of its scale
+LMT_BF16_TOL = 2e-2       # card vs CPU in bf16 compute: the loss, relative
+# AdamW's first step moves an entry by lr u, u = g / (|g| + eps), and
+# |du| <= |dg| / eps: at the default eps 1e-8 an entry whose |g| is near
+# 1e-8 moves by anything up to lr when the card's and the CPU's fp32
+# gradient sums, taken in other orders, differ in the last bit.  The two
+# gradients differ by up to ~2.3e-6 of each leaf's scale at these shapes;
+# a zero-initialized bias (its updated scale lr) read 3.4e-5 of its scale
+# at eps 1e-4 and 1.0e-5 at 1e-3; eps 1e-2 bounds du by ~2e-6 for a leaf
+# whose gradient scale is below 1e-2
+LMT_REF_OPT = dict(lr=1e-3, eps=1e-2, warmup_steps=1, total_steps=4)
+# qwen2-1.5b at full width: (vocabulary, remat policy) of each timed config
+LMT_MAIN = (("qr", "full"), ("dense", "full"), ("qr", "dots"))
+LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fitted one
+# the microbatch sizes whose reserved memory gives the fit's line (the last
+# two).  One microbatch's forward and backward at full width reserved, for
+# 1, 2, 3, 4 and 6 sequences, 12.09 / 12.67 / 12.45 / 16.63 / 24.95 GiB
+# (QR, remat full), 12.81 / 14.38 / 13.95 / 15.59 / 20.79 (dense) and
+# 13.30 / 18.05 / 27.08 / 36.10 / 54.14 (QR, dots) on an NVIDIA H100 80GB
+# HBM3: up to 3 sequences the layers' gradients and their stack set the
+# peak, from 4 the activations
+LMT_FIT = (4, 6)
+LMT_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=1)
+LMT_GRAD = (2, 2)         # layers, sequences of the step-1 gradient check
+LMT_CLI = ("--batch", "2", "--microbatches", "2", "--steps", "4")
+LMT_OTHER_STEPS = 3
+# AdamW's first steps move every weight by ~lr: at lr 1e-3 chatglm3-6b's
+# third loss rose above its first (11.57, 11.51, 11.91; granite-34b fell)
+LMT_OTHER_OPT = dict(lr=1e-4, warmup_steps=1, schedule="constant")
+LMT_DEPTHS = (1, 2)       # depths whose reserved memory gives the other archs' depth fit
+# a step at full width holds (microbatch, 4,096, 151,936) bf16 tensors of
+# ~1.2 GiB a sequence (the logits, their gradient): in the default
+# allocator's fixed segments the steps left 14-32 GiB reserved but
+# unallocated and a 13.9-16.2 GiB request failed (NVIDIA H100 80GB HBM3);
+# segments that grow in place keep reserved near allocated
+LMT_ALLOCATOR = "expandable_segments:True"
+
+
+def lmt_shape():
+    from repro_torch.configs.base import LM_SHAPES
+
+    return next(s for s in LM_SHAPES if s.name == "train_4k")
+
+
+def step_launches(cfg, microbatches: int) -> dict:
+    """The kernels a training step launches: per microbatch K9 once a layer
+    in the forward and once more in the backward's recompute (``remat``), K8
+    once for a QR vocabulary's tokens, K5 once for a TT vocabulary's tokens
+    (``tt_exec="pallas"``) and once more for a tied head's ``materialize``,
+    each K5 call one launch per ``d1_slices`` range of the row."""
+    n = {"flash_fwd": cfg.num_layers * (2 if cfg.remat else 1) * microbatches}
+    if cfg.embedding_kind == "qr":
+        n["qr_gather"] = microbatches
+    if cfg.embedding_kind == "tt" and cfg.tt_exec == "pallas":
+        from repro_torch.kernels import tt_gather
+
+        slices = len(tt_gather.d1_slices(cfg.emb_config.tt_spec.dims))
+        n["tt_bag"] = (2 if cfg.tie_embedding else 1) * microbatches * slices
+    return n
+
+
+def leaf_scale_errors(got, want) -> tuple[float, str]:
+    """The worst leaf's max |got - want| over its max |want|, and its path."""
+    from repro_torch import tree
+
+    worst, where = 0.0, ""
+    for (path, a), b in zip(tree.leaves_with_paths(got), tree.leaves(want)):
+        b = b.to(a.device).float()
+        rel = float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > worst:
+            worst, where = rel, path
+    return worst, where
+
+
+def lm_train_ref(dev, mods, totals) -> dict:
+    """``[lm-train-ref]``: one ``make_train_step`` step (2 microbatches of
+    the ``LMT_REF_SHAPE`` batch) of each dense smoke config with a dense, a
+    QR (collision 8) and a TT (``tt_exec="pallas"``) vocabulary on the card
+    and on the CPU, from the same weights and tokens: in fp32 compute the
+    loss within ``LMT_REF_TOL`` relative and every updated leaf within
+    ``LMT_REF_TOL`` of its scale, and the batch's gradient (one pass, no
+    microbatches) within ``LMT_REF_TOL`` of each leaf's scale; in bf16
+    compute the loss within ``LMT_BF16_TOL``; each step's launches
+    ``step_launches``."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_map
+
+    ocfg = opt.OptConfig(**LMT_REF_OPT)
+    out = {}
+    for arch in LM_ARCHS:
+        binding = registry.get(arch)
+        for vocab in LMT_VOCABS:
+            cfg = binding.smoke.replace(embedding_kind=vocab, qr_collision=8, tt_exec="pallas",
+                                        compute_dtype="float32")
+            cpu, _ = T.init_lm(cfg, seed=0, device="cpu")
+            card = tree_map(lambda a: a.to(dev), cpu)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, LMT_REF_SHAPE)
+                                    .astype(np.int32))
+            rec = {}
+            for compute in ("float32", "bfloat16"):
+                c = cfg.replace(compute_dtype=compute)
+                step = TS.make_train_step(registry.train_loss_fn(binding, c), ocfg,
+                                          microbatches=2)
+                want, _, wm = step(cpu, opt.init(cpu), {"tokens": toks})
+                reset_all(mods)
+                got, _, gm = step(card, opt.init(card), {"tokens": toks.to(dev)})
+                torch.cuda.synchronize()
+                n = take_launches(mods, totals)
+                if n != step_launches(c, 2):
+                    raise AssertionError(f"[lm-train-ref] {arch} {vocab} {compute}: launches "
+                                         f"{n}, not {step_launches(c, 2)}")
+                loss_rel = abs(float(gm["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
+                rec[compute] = {"loss": float(gm["loss"]), "loss_rel": loss_rel, "launches": n}
+                if compute == "float32":
+                    worst, where = leaf_scale_errors(got, want)
+                    loss_fn = registry.train_loss_fn(binding, c)
+                    g_card = TS.value_and_grad(loss_fn, card, {"tokens": toks.to(dev)})[2]
+                    g_cpu = TS.value_and_grad(loss_fn, cpu, {"tokens": toks})[2]
+                    take_launches(mods, totals)
+                    g_worst, g_where = leaf_scale_errors(g_card, g_cpu)
+                    rec[compute].update(param_rel=worst, param_leaf=where, grad_rel=g_worst,
+                                        grad_leaf=g_where)
+                    ok = loss_rel <= LMT_REF_TOL and max(worst, g_worst) <= LMT_REF_TOL
+                else:
+                    ok = loss_rel <= LMT_BF16_TOL
+                if not ok:
+                    raise AssertionError(f"[lm-train-ref] {arch} {vocab} {compute}: {rec}")
+            out[f"{arch}/{vocab}"] = rec
+            f32 = rec["float32"]
+            log(f"[lm-train-ref] {cfg.name} {vocab} vocab, one step of 2 microbatches card vs "
+                f"CPU: fp32 loss {f32['loss']:.5f} ({f32['loss_rel']:.1e} rel), updated params "
+                f"{f32['param_rel']:.1e} of scale (worst {f32['param_leaf']}), gradients "
+                f"{f32['grad_rel']:.1e} (worst {f32['grad_leaf']}); bf16 loss "
+                f"{rec['bfloat16']['loss_rel']:.1e} rel; launches a step {f32['launches']}")
+    return out
+
+
+def lm_train_flops(cfg, tokens: int, seq: int) -> int:
+    """Model flops of a training step (no recompute counted): 6 x the
+    layers' projection weights a token, causal attention's 12 D flops a
+    visible (query, key) pair and head (4 D forward, 8 D backward), and the
+    head's products: 6 d x the vocabulary (dense, TT, hashed rows) or x the
+    Q and R rows (the factorized QR head)."""
+    if cfg.embedding_kind == "qr" and cfg.tie_embedding:
+        spec = cfg.emb_config.qr_spec
+        rows = -(-spec.q_rows // 128) * 128 + spec.r_rows
+    elif cfg.embedding_kind == "hashed" and cfg.tie_embedding:
+        rows = cfg.emb_config.physical_hashed_rows
+    else:
+        rows = cfg.vocab
+    attn = 12 * cfg.head_dim_ * cfg.num_heads * (seq + 1) // 2
+    return tokens * (cfg.num_layers * (6 * layer_weights(cfg) + attn) + 6 * cfg.d_model * rows)
+
+
+@contextlib.contextmanager
+def timed_backward(cls, marks: list):
+    """While open, each call of the autograd Function ``cls``'s backward
+    runs between a pair of CUDA events appended to ``marks``."""
+    saved = cls.backward
+
+    def backward(ctx, *grads):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = saved(ctx, *grads)
+        e[1].record()
+        marks.append(e)
+        return out
+
+    cls.backward = staticmethod(backward)
+    try:
+        yield marks
+    finally:
+        cls.backward = staticmethod(saved)
+
+
+def event_ms(pairs) -> float:
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
+    """qwen2-1.5b at full width and depth, ``vocab`` vocabulary (QR at the
+    config's collision), ``remat_policy=policy``, S 4,096 (train_4k).  The
+    microbatch is the largest that fits: the device memory one microbatch's
+    forward and backward reserves at ``LMT_FIT`` sizes, with the params,
+    the AdamW state and a step's fp32 accumulator in place, gives a line
+    fixed + slope x sequences; the microbatch is the largest whose line fits
+    the free memory less ``LM_HEADROOM``.  The global batch is
+    ``LMT_MICRO`` microbatches (train_4k's 256 cut).  First one
+    microbatch's forward and backward at that size, its backward traced by
+    the profiler (top device operations; it also warms the allocator and
+    the libraries at the step's shapes), then one step of
+    ``make_train_step``, timed (host clock) and split by CUDA events: the
+    forwards (around each microbatch's loss), the update (around
+    ``optimizer.update``), the backward the rest; K9's ms in the forwards
+    and in the backward's recompute, the blockwise attention backward's ms
+    (events around each ``_FlashMHA.backward``), K8's ms.  Where either
+    runs out of memory, both run again an eighth smaller (each such size
+    recorded).  In the step ``kept_model_path`` keeps layer 0's K9 q/k/v
+    and output and every K8 call, held against their plain versions
+    after it."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    cell = lmt_shape()
+    seq = cell.seq_len
+    binding = registry.get(LM_MAIN)
+    cfg = lm_config(LM_MAIN).replace(embedding_kind=vocab, remat_policy=policy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    loss_fn = registry.train_loss_fn(binding, cfg)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def toks(b: int) -> dict:
+        return {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
+                                        dtype=torch.int32)}
+
+    acc = tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
+    reserved = {b: reserved_growth(lambda: TS.value_and_grad(loss_fn, params, toks(b)), dev)
+                for b in LMT_FIT}
+    lo, hi = LMT_FIT[-2:]
+    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+    fixed = max(reserved[lo] - lo * slope, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    fit = (free - LM_HEADROOM - fixed) // slope
+    del acc
+    mb = int(max(1, min(cell.global_batch // LMT_MICRO, fit)))
+    take_launches(mods, totals)
+
+    def backward_ops() -> list:
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+        live = tree.unflatten(params, leaves)
+        with torch.enable_grad():
+            loss, _ = loss_fn(live, toks(mb))
+            return top_device_ops(lambda: torch.autograd.grad(loss, leaves), 8)
+
+    fwd, upd, k9_at, k9_marks, attn_bwd = [], [], [], [], []
+
+    def timed_loss(p, b):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        k9_at.append(len(k9_marks))
+        e[0].record()
+        out = loss_fn(p, b)
+        e[1].record()
+        k9_at.append(len(k9_marks))
+        fwd.append(e)
+        return out
+
+    saved_update = TS.opt_mod.update
+
+    def timed_update(*a, **kw):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = saved_update(*a, **kw)
+        e[1].record()
+        upd.append(e)
+        return out
+
+    step = TS.make_train_step(timed_loss, opt.OptConfig(**LMT_OPT), microbatches=LMT_MICRO)
+    too_big = []
+    while True:
+        kept = {}
+        for marks_list in (fwd, upd, k9_at, k9_marks, attn_bwd):
+            marks_list.clear()
+        try:
+            top = backward_ops()
+            take_launches(mods, totals)
+            batch = toks(mb * LMT_MICRO)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            TS.opt_mod.update = timed_update
+            try:
+                with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
+                        timed_backward(fa._FlashMHA, attn_bwd), kept_model_path(ops, kept):
+                    marks["flash_attention_fused"] = k9_marks
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    new_params, _state, m = step(params, state, batch)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                TS.opt_mod.update = saved_update
+            break
+        except torch.OutOfMemoryError:
+            if mb == 1:
+                raise
+            too_big.append(mb)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mb -= max(1, mb // 8)
+    batch_n = mb * LMT_MICRO
+    loss, norm = float(m["loss"]), float(m["grad_norm"])
+    n = take_launches(mods, totals)
+    peak, peak_reserved = (torch.cuda.max_memory_allocated(dev),
+                           torch.cuda.max_memory_reserved(dev))
+    del new_params, _state, batch
+    if n != step_launches(cfg, LMT_MICRO) or not (np.isfinite(loss) and np.isfinite(norm)):
+        raise AssertionError(f"[lm-train] {cfg.name} {vocab} {policy}: launches {n}, loss "
+                             f"{loss}, norm {norm}")
+    total = start.elapsed_time(upd[-1][1])
+    forward = event_ms(fwd)
+    update = event_ms(upd)
+    in_fwd = set()
+    for i in range(0, len(k9_at), 2):
+        in_fwd.update(range(k9_at[i], k9_at[i + 1]))
+    k9_fwd = event_ms(p for i, p in enumerate(k9_marks) if i in in_fwd)
+    k9_re = event_ms(p for i, p in enumerate(k9_marks) if i not in in_fwd)
+    held = hold_kept(kept, f"{cfg.name} {vocab} train step")
+    del kept, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = lm_train_flops(cfg, batch_n * seq, seq)
+    bound = flops / BF16_FLOP_S * 1e3
+    rec = {"arch": cfg.name, "vocab": vocab, "remat_policy": policy, "layers": cfg.num_layers,
+           "seq": seq, "microbatch": mb, "microbatches": LMT_MICRO, "batch": batch_n,
+           "cell_batch": cell.global_batch, "fit": int(fit), "out_of_memory_at": too_big,
+           "reserved_by_microbatch": reserved, "reserved_a_sequence": slope,
+           "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
+           "loss": loss, "grad_norm": norm, "ms_per_step": wall * 1e3, "event_ms": total,
+           "tokens_per_s": batch_n * seq / wall, "forward_ms": forward,
+           "backward_ms": total - forward - update, "update_ms": update,
+           "k9_forward_ms": k9_fwd, "k9_recompute_ms": k9_re,
+           "attention_backward_ms": event_ms(attn_bwd), "k8_ms": event_ms(marks["qr_lookup"]),
+           "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+           "flops": flops, "bound_ms": bound, "bound_share": bound / (wall * 1e3),
+           "launches": n, "held": held, "top_backward_ops": top}
+    shown = {b: round(r / 2**30, 2) for b, r in reserved.items()}
+    log(f"[lm-train] {cfg.name} {vocab} vocab, remat {policy}, {cfg.num_layers} layers, S {seq}: "
+        f"microbatch {mb} (fit {fit}: {slope / 2**30:.2f} GiB reserved a sequence + "
+        f"{fixed / 2**30:.2f} GiB, from microbatches {LMT_FIT[-2:]} of {shown} GiB, in "
+        f"{free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of memory at "
+        f"{too_big or 'none'}) x {LMT_MICRO} = batch {batch_n} (cell {cell.global_batch}): "
+        f"{rec['ms_per_step']:.1f} ms a step, {rec['tokens_per_s']:.0f} tokens/s; forward "
+        f"{forward:.1f} ms (K9 {k9_fwd:.1f}), backward {rec['backward_ms']:.1f} ms (K9 "
+        f"recompute {k9_re:.1f}, blockwise attention backward "
+        f"{rec['attention_backward_ms']:.1f}), update {update:.1f} ms; peak "
+        f"{rec['peak_gib']:.2f} GiB allocated, {rec['peak_reserved_gib']:.2f} GiB reserved; "
+        f"bound {bound:.1f} ms ({flops:.3e} model flop at the bf16 peak, "
+        f"{100 * rec['bound_share']:.1f}% reached); K8 {rec['k8_ms']:.2f} ms; loss {loss:.4f}, "
+        f"gradient norm {norm:.3f}; launches {n}")
+    log(f"[lm-train] {cfg.name} {vocab} {policy} train step kernels vs plain on the main path: "
+        + held_text(held))
+    log(f"[lm-train] {cfg.name} {vocab} {policy} one microbatch's backward ({mb} x {seq}), top "
+        f"device operations: " + ", ".join(f"{k} {t:.1f} ms" for k, t in top))
+    return rec
+
+
+@contextlib.contextmanager
+def kept_tt_calls(ops, kept: list, calls: int):
+    """While open, the first ``calls`` calls of ``ops.tt_pooled_auto`` hand
+    their cores, streams, dims and output (detached, on the card) to
+    ``kept``."""
+    saved = ops.tt_pooled_auto
+
+    def call(*a, **kw):
+        out = saved(*a, **kw)
+        if len(kept) < calls:
+            kept.append((tuple(t.detach() for t in a[:6]), kw["dims"], out.detach()))
+        return out
+
+    ops.tt_pooled_auto = call
+    try:
+        yield kept
+    finally:
+        ops.tt_pooled_auto = saved
+
+
+def hold_tt_rows(kept, ref) -> dict:
+    """Each kept K5 call's output against its plain version on the same
+    cores and (N, 1) streams (``chunked``): fp32 to ``ERR_TOL``, phase 3's
+    rule for the fp32 body."""
+    recs = []
+    for (g1, g2, g3, i1, i2, i3), dims, out in kept:
+        with torch.no_grad():
+            plain = chunked(ref.tt_bag_ref, (g1, g2, g3), (i1, i2, i3), dims)
+        recs.append({"lookups": int(i1.shape[0]),
+                     "max_abs_err": float((out.float() - plain.float()).abs().max())})
+    err = max(r["max_abs_err"] for r in recs)
+    return {"calls": [r["lookups"] for r in recs], "max_abs_err": err, "tolerance": ERR_TOL,
+            "ok": err <= ERR_TOL}
+
+
+def lm_train_tt(dev, mods, totals) -> dict:
+    """One step of qwen2-1.5b at full width with the TT vocabulary
+    (``tt_exec="pallas"``, the config's rank), 2 microbatches of one
+    sequence of 4,096: K5 launches for the tokens and the tied head's
+    ``materialize`` of all 151,936 rows, its ms by CUDA events around each
+    call, and the first microbatch's two calls held against the plain
+    version."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    seq = lmt_shape().seq_len
+    cfg = lm_config(LM_MAIN).replace(embedding_kind="tt", tt_exec="pallas")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    step = TS.make_train_step(registry.train_loss_fn(registry.get(LM_MAIN), cfg),
+                              opt.OptConfig(**LMT_OPT), microbatches=LMT_MICRO)
+    g = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LMT_MICRO, seq), generator=g, device=dev,
+                                     dtype=torch.int32)}
+    take_launches(mods, totals)
+    kept = []
+    with timed_entries(ops, ("tt_pooled_auto",)) as marks, kept_tt_calls(ops, kept, 2):
+        t0 = time.perf_counter()
+        params, _state, m = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    if n != step_launches(cfg, LMT_MICRO) or not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"[lm-train] {cfg.name} tt: launches {n}, loss {float(m['loss'])}")
+    calls = [a.elapsed_time(b) for a, b in marks["tt_pooled_auto"]]
+    held = hold_tt_rows(kept, ref)
+    if not held["ok"]:
+        raise AssertionError(f"[lm-train] {cfg.name} tt: K5 vs plain {held}")
+    spec = cfg.emb_config.tt_spec
+    rec = {"arch": cfg.name, "vocab": "tt", "tt_dims": list(spec.dims), "batch": LMT_MICRO,
+           "seq": seq, "ms_per_step": wall * 1e3, "loss": float(m["loss"]), "launches": n,
+           "k5_call_ms": calls, "k5_ms": sum(calls), "held": held}
+    log(f"[lm-train] {cfg.name} tt vocab (dims {spec.dims}, cores fp32), one step of "
+        f"{LMT_MICRO} x 1 x {seq}: {rec['ms_per_step']:.1f} ms (first step, set-up inside), "
+        f"loss {rec['loss']:.4f}; K5 launches {n.get('tt_bag')}, ms a call (wrapper, events) "
+        + ", ".join(f"{x:.2f}" for x in calls)
+        + f"; K5 vs plain on the step's first {len(kept)} calls ({held['calls']} lookups) "
+        f"max |diff| {held['max_abs_err']:.2e} (held to {ERR_TOL})")
+    del params, _state, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
+def plain_lm_path(fa, qg, tg, ref):
+    """While open, each kernel the model's entries launch is its plain
+    version on the card: K9's forward ``ref.flash_fwd_ref`` (fp32 softmax,
+    rounded to q's dtype), K8 ``ref.qr_lookup_ref``, K5 ``ref.tt_bag_ref``;
+    everything around them stays as it is, the backwards too (K9's
+    blockwise recompute, the lookups' chunked fp32 recompute)."""
+    saved = {(fa, "flash_fwd"): fa.flash_fwd, (qg, "qr_gather"): qg.qr_gather,
+             (tg, "tt_bag"): tg.tt_bag}
+    fa.flash_fwd = lambda q, k, v, *, causal=True: ref.flash_fwd_ref(q, k, v, causal=causal)
+    qg.qr_gather = lambda q, r, qi, ri, **kw: ref.qr_lookup_ref(q, r, qi, ri)
+    tg.tt_bag = lambda g1, g2, g3, i1, i2, i3, *, dims: ref.tt_bag_ref(g1, g2, g3, i1, i2, i3,
+                                                                       dims=dims)
+    try:
+        yield
+    finally:
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+
+
+def lm_train_grad_check(dev, mods, totals) -> dict:
+    """Step-1 gradients of qwen2-1.5b at full width cut to ``LMT_GRAD``
+    layers (bf16 compute, remat ``full``) on ``LMT_GRAD`` sequences of
+    4,096, through the kernels (K9, K8 for QR, K5 for TT) against the same
+    step through their plain versions on the card (``plain_lm_path``): each
+    leaf within ``GRAD_TOL`` of its scale (phase 7's bound).  Only the
+    kernels' forwards differ between the two, each within one rounding of
+    the other's."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qr_gather as qg
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import tt_gather as tg
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    depth, b = LMT_GRAD
+    seq = lmt_shape().seq_len
+    out = {}
+    for vocab in LMT_VOCABS:
+        cfg = lm_config(LM_MAIN).replace(num_layers=depth, embedding_kind=vocab,
+                                         tt_exec="pallas")
+        params, _ = T.init_lm(cfg, seed=0, device=dev)
+        loss_fn = registry.train_loss_fn(registry.get(LM_MAIN), cfg)
+        g = torch.Generator(device=dev).manual_seed(9)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
+                                         dtype=torch.int32)}
+        take_launches(mods, totals)
+        loss_k, _, g_kernel = TS.value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        n = take_launches(mods, totals)
+        with plain_lm_path(fa, qg, tg, ref):
+            loss_p, _, g_plain = TS.value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        if take_launches(mods, totals) or n != step_launches(cfg, 1):
+            raise AssertionError(f"[lm-train] grad check {vocab}: launches {n}")
+        worst, where = leaf_scale_errors(g_kernel, g_plain)
+        out[vocab] = {"layers": depth, "batch": b, "seq": seq, "rel_err": worst, "leaf": where,
+                      "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "launches": n}
+        if not worst <= GRAD_TOL:
+            raise AssertionError(f"[lm-train] step-1 gradient {vocab} {where}: kernel vs "
+                                 f"plain {worst}")
+        log(f"[lm-train] {cfg.name} {vocab} vocab at {depth} layers, {b} x {seq}: step-1 "
+            f"gradients kernels vs plain on the card {worst:.2e} of scale (worst {where}; held "
+            f"to {GRAD_TOL}), loss {float(loss_k):.6f} / {float(loss_p):.6f}; launches {n}")
+        del params, g_kernel, g_plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_cli(mods, totals) -> dict:
+    """``python -m repro_torch.launch.train --arch qwen2-1.5b --embedding
+    qr --seq 4096`` with ``LMT_CLI`` and a checkpoint directory under
+    ``build/`` (its ``main``, in this process), twice: the first trains
+    (exit 0, a step line a step, ``step_launches`` a step), the second
+    prints ``[resume] step 4`` and launches nothing."""
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    seq = lmt_shape().seq_len
+    ckdir = ROOT / "build" / "lm_train_cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = ["--arch", LM_MAIN, "--embedding", "qr", "--seq", str(seq), *LMT_CLI,
+            "--ckpt-dir", str(ckdir), "--log-every", "1"]
+    steps = int(LMT_CLI[LMT_CLI.index("--steps") + 1])
+    micro = int(LMT_CLI[LMT_CLI.index("--microbatches") + 1])
+    cfg = lm_config(LM_MAIN).replace(embedding_kind="qr")
+    want = {k: v * steps for k, v in step_launches(cfg, micro).items()}
+    runs = []
+    try:
+        for i in range(2):
+            take_launches(mods, totals)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = take_launches(mods, totals)
+            text = buf.getvalue()
+            lines = [x for x in text.splitlines() if x.startswith("step")]
+            ok = rc == 0 and (n == want and len(lines) == steps if i == 0
+                              else not n and f"[resume] step {steps}" in text)
+            if not ok:
+                raise AssertionError(f"[lm-train-cli] run {i + 1}: exit {rc}, launches {n}, "
+                                     f"output {text[-800:]}")
+            runs.append({"exit": rc, "s": secs, "launches": n, "lines": lines or [
+                x for x in text.splitlines() if x.startswith("[resume]")]})
+            log(f"[lm-train-cli] run {i + 1}: {' '.join(argv[:argv.index('--ckpt-dir')])}: "
+                f"exit {rc} in {secs:.1f} s "
+                f"(set-up and checkpoint included), launches {n}; "
+                + " | ".join(runs[-1]["lines"]))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"argv": argv, "runs": runs}
+
+
+def lm_train_other(dev, arch: str, mods, totals) -> dict:
+    """One of the other dense archs at full width and S 4,096, microbatch 1,
+    at the depth that fits: a full step's reserved memory at ``LMT_DEPTHS``
+    layers gives a line, fixed + slope x layers (params, gradient, AdamW
+    state, the functional update's new copies and the activations); the
+    depth is the largest whose line fits the free memory less
+    ``LM_HEADROOM`` (the first step confirms it, as in ``lm_train_main``).
+    ``LMT_OTHER_STEPS`` steps on one batch: losses finite
+    and falling; tokens/s of the steps after the first (host clock)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    seq = lmt_shape().seq_len
+    binding = registry.get(arch)
+    full = lm_config(arch)
+    g = torch.Generator(device=dev).manual_seed(10)
+    batch = {"tokens": torch.randint(0, full.vocab, (1, seq), generator=g, device=dev,
+                                     dtype=torch.int32)}
+    ocfg = opt.OptConfig(**LMT_OTHER_OPT)
+
+    def one(depth: int):
+        cfg = full.replace(num_layers=depth)
+        params, _ = T.init_lm(cfg, seed=0, device=dev)
+        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
+        step(params, opt.init(params), batch)
+
+    reserved = {d: reserved_growth(lambda: one(d), dev) for d in LMT_DEPTHS}
+    lo, hi = LMT_DEPTHS
+    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+    fixed = max(reserved[lo] - lo * slope, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    depth = int(max(1, min(full.num_layers, (free - LM_HEADROOM - fixed) // slope)))
+    too_big = []
+    while True:         # the first step confirms the fit, as in ``lm_train_main``
+        cfg = full.replace(num_layers=depth)
+        take_launches(mods, totals)
+        params, _ = T.init_lm(cfg, seed=0, device=dev)
+        state = opt.init(params)
+        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
+        losses, secs = [], []
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            for _ in range(LMT_OTHER_STEPS):
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            break
+        except torch.OutOfMemoryError:
+            if depth == 1 or secs:
+                raise
+            too_big.append(depth)
+        del params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        depth -= max(1, depth // 8)
+    n = take_launches(mods, totals)
+    want = {k: v * LMT_OTHER_STEPS for k, v in step_launches(cfg, 1).items()}
+    if n != want or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"[lm-train] {arch}: launches {n}, losses {losses}")
+    later = secs[1:]
+    rec = {"arch": arch, "layers": depth, "full_layers": full.num_layers, "seq": seq,
+           "batch": 1, "out_of_memory_at": too_big, "reserved_by_depth": reserved,
+           "reserved_a_layer": slope,
+           "reserved_fixed": fixed, "free_bytes": free, "losses": losses,
+           "step_s": secs, "tokens_per_s": seq * len(later) / sum(later),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "launches": n}
+    log(f"[lm-train] {arch} ({depth} of {full.num_layers} layers: {slope / 2**30:.2f} GiB "
+        f"reserved a layer + {fixed / 2**30:.2f} GiB, from depths {LMT_DEPTHS}, in "
+        f"{free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of memory at "
+        f"{too_big or 'none'}), 1 x {seq}, "
+        f"{LMT_OTHER_STEPS} steps on one batch: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{rec['tokens_per_s']:.0f} tokens/s after the first step; peak {rec['peak_gib']:.2f} "
+        f"GiB; launches {n}")
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_phase(dev, by_name, mods) -> dict:
+    """Phase 12: the dense transformer trained on one card.  ``[lm-train-ref]``
+    on the smoke configs; qwen2-1.5b at full width and depth, S 4,096, with
+    the QR and the dense vocabulary under remat ``full`` and the QR one
+    under ``dots``; one TT step; the step-1 gradient check at 2 layers; the
+    training CLI twice (the second resumes); the other three dense archs at
+    the depth that fits.  The phase's launches add to the ``flash_fwd``,
+    ``qr_gather`` and ``tt_bag`` rows.  Returns the ``{"lm_training": ...}``
+    record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm-train] before the phase: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free; the allocator runs "
+        f"with {LMT_ALLOCATOR} for the phase")
+    totals = {}
+    reset_all(mods)
+    torch.cuda.memory._set_allocator_settings(LMT_ALLOCATOR)
+    try:
+        record = {"allocator": LMT_ALLOCATOR, "ref": lm_train_ref(dev, mods, totals)}
+        record["main"] = [lm_train_main(dev, vocab, policy, mods, totals)
+                          for vocab, policy in LMT_MAIN]
+        record["tt"] = lm_train_tt(dev, mods, totals)
+        record["grad_check"] = lm_train_grad_check(dev, mods, totals)
+        record["cli"] = lm_train_cli(mods, totals)
+        record["others"] = [lm_train_other(dev, arch, mods, totals)
+                            for arch in LM_ARCHS if arch != LM_MAIN]
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather", "tt_bag"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[lm-train] phase {record['phase_s']:.1f} s; launches {totals}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4170,6 +4910,9 @@ def main() -> int:
     mesh_training = mesh_train_phase(dev, train_batch, by_name, mods)
     # phase 11: the dense transformer served (K9 a layer a prefill, K8 for QR tokens)
     lm_serving = lm_serving_phase(dev, by_name, mods)
+    # phase 12: the dense transformer trained (K9 twice a layer a microbatch,
+    # K8 for QR tokens, K5 for TT tokens and the tied head)
+    lm_training = lm_train_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -4182,6 +4925,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"mesh_training": mesh_training}), flush=True)
     print(json.dumps({"lm_serving": lm_serving}), flush=True)
+    print(json.dumps({"lm_training": lm_training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

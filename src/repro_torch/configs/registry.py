@@ -5,9 +5,9 @@ DLRM configs.
 The ten assigned LM architectures are all listed, with ``repro``'s
 bindings, shape grid and skip rules.  The dense transformers (qwen2-1.5b,
 granite-34b, chatglm3-6b, minitron-4b) have a model in the port; for every
-other arch ``init_fn`` and ``make_batch_fn`` raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that brings it.  ``train_loss_fn`` waits for
-the LM training slice.  ``batch_specs``, ``cache_specs`` and
+other arch ``init_fn``, ``train_loss_fn`` and ``make_batch_fn`` raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+``batch_specs``, ``cache_specs`` and
 ``abstract_params`` are not ported: they come with the dry run.
 """
 
@@ -62,7 +62,6 @@ NOT_PORTED = {
     "whisper": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
     "pixtral": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
 }
-LM_TRAINING = "ROADMAP.md §1 item 1 (LM training on one card)"
 
 
 def get(arch_id: str) -> ArchBinding:
@@ -141,10 +140,13 @@ def init_fn(binding: ArchBinding) -> Callable:
 
 
 def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
-    """The LM losses come with the training slice."""
-    raise NotImplementedError(
-        f"{binding.arch_id}: the LM training loss is not ported yet; {LM_TRAINING} "
-        f"brings it")
+    """``loss_fn(params, batch) -> (loss, metrics)`` for this family: the
+    causal LM loss on ``transformer.forward_train``."""
+    _require_ported(binding, "the training loss")
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    return TS.make_lm_loss(T.forward_train, cfg)
 
 
 def make_batch_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:

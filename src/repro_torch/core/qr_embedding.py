@@ -157,7 +157,11 @@ def materialize(params: dict, cfg: EmbeddingConfig) -> torch.Tensor:
 def logits_head(params: dict, x: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
     """Tied-embedding LM head ``x @ E^T``.  For ``add`` reconstruction,
     ``logits[v] = x·Q[v//c] + x·R[v%c]``: the products run against the
-    physical tables and expand by gather."""
+    physical tables, and the expansion is one broadcast add of the (..., q,
+    1) and (..., 1, c) products read out as (..., q·c), ``v = (v//c)·c +
+    v%c`` (the values ``repro``'s two gathers and add give, bit for bit).
+    Its backward sums the logits' gradient over each axis, where two
+    gathers would write two (..., vocab) copies forward and scatter back."""
     compute = cfg.compute_dtype
     if cfg.kind == "dense":
         return (x @ params["table"].to(compute).T)[..., : cfg.vocab]
@@ -169,7 +173,8 @@ def logits_head(params: dict, x: torch.Tensor, cfg: EmbeddingConfig) -> torch.Te
         return small[..., hs.long()].sum(dim=-1)
     if cfg.kind == "tt" or cfg.reconstruction != "add" or cfg.head == "materialize":
         return x @ materialize(params, cfg).T
-    q_idx, r_idx = hashing.qr_decompose(_all_rows(cfg, x.device), cfg.collision)
-    xq = x @ params["q"].to(compute).T                              # (..., q_rows)
+    q_rows, c = cfg.qr_spec.q_rows, cfg.collision
+    xq = x @ params["q"].to(compute).T                              # (..., padded q rows)
     xr = x @ params["r"].to(compute).T                              # (..., c)
-    return xq[..., q_idx.long()] + xr[..., r_idx.long()]
+    full = xq[..., :q_rows, None] + xr[..., None, :]                # (..., q_rows, c)
+    return full.reshape(*x.shape[:-1], q_rows * c)[..., : cfg.vocab]

@@ -1,13 +1,13 @@
 """Quickstart: the paper's operator in a few lines (port of
-``examples/quickstart.py``, sections 1-3).
+``examples/quickstart.py``).
 
 Builds a QR (weight-sharing) embedding table, looks a batch of bags up three
 ways — the naive double gather, the associativity-fused bag and the pooled
 QR bag kernel K6 (``ops.gnr_pooled``) — checks they agree, then runs the
 same bags through the engine front door (declare -> plan -> compile ->
-``lookup``: one launch of K1 on the packed table).  Section 4 of the
-original, a small LM with a QR vocabulary, waits for the LM side of the
-port.
+``lookup``: one launch of K1 on the packed table), then trains a small LM
+(qwen2-1.5b-smoke) whose vocabulary is the QR operator for 10 steps on one
+batch (K8 for its tokens and K9 in every layer on the card).
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 """
@@ -22,8 +22,11 @@ from repro_torch import device as device_mod
 from repro_torch import engine as engine_mod
 from repro_torch.core import embedding_bag, hashing, qr_embedding
 from repro_torch.core.embedding_bag import BagConfig
+from repro_torch.configs import registry
 from repro_torch.core.qr_embedding import EmbeddingConfig
 from repro_torch.kernels import ops
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.train_step import make_train_step
 
 
 def main(argv=None) -> dict:
@@ -59,9 +62,24 @@ def main(argv=None) -> dict:
     pooled = eng.lookup([params], idx[:, None, :])[:, 0]
     torch.testing.assert_close(pooled, naive, rtol=1e-4, atol=1e-4)
     print(f"engine lookup == naive: OK  (plan: {eng.summary()})")
+
+    # --- 4. a small LM whose vocab table is the QR operator ----------------
+    binding = registry.get("qwen2-1.5b")
+    lm_cfg = binding.smoke.replace(embedding_kind="qr", qr_collision=8)
+    lm_params, _ = registry.init_fn(binding)(lm_cfg, seed=2, device=dev)
+    step = make_train_step(registry.train_loss_fn(binding, lm_cfg),
+                           opt_mod.OptConfig(lr=1e-3, warmup_steps=2, total_steps=20))
+    opt = opt_mod.init(lm_params)
+    batch = registry.make_batch_fn(binding, lm_cfg)(8, 64, seed=0, step=0, device=dev)
+    losses = []
+    for i in range(10):
+        lm_params, opt, metrics = step(lm_params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        if i % 3 == 0:
+            print(f"  step {i}: loss {losses[-1]:.4f}")
     print("quickstart done.")
     return {"naive": naive, "fused": fused, "kernel": kernel, "pooled": pooled,
-            "summary": eng.summary()}
+            "summary": eng.summary(), "lm_losses": losses}
 
 
 if __name__ == "__main__":

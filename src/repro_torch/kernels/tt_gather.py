@@ -20,7 +20,11 @@ raise if the kernel does not take them; CPU tensors take the plain version
 
 The kernel takes float32 or bfloat16 cores (one type per call; the output
 is in that type, contracted and summed in fp32), contiguous int32 (B, K)
-streams, ``d1*d2*d3 <= 1024``, ``d1 <= 32`` and dims whose block fits 227 KB
+streams, ``d1*d2*d3 <= 1024`` (``tt_bag`` takes a wider row, such as a
+qwen2-1.5b vocabulary's 1,536, in ``d1_slices``: one launch per slice of
+G1's d1 rows, each on the slice's G1 columns and the whole G2 and G3, the
+outputs side by side in the row's d1-major layout; every output is the
+same fmaf chain as in one launch), ``d1 <= 32`` and dims whose block fits 227 KB
 of shared memory when it stages the middle core one d2 column group at a
 time (``stage_width``: wider stages where they fit; at rank 16 the whole
 row, at rank 64 slices of it); ``repro``'s ``dim % 8`` fallback to the
@@ -208,7 +212,31 @@ def tt_bag(
     dev = device_mod.of(g1, g2, g3, i1, i2, i3)
     if dev.type == "cpu":
         return tt_bag_ref(g1, g2, g3, i1, i2, i3, dims=dims)
+    d1, d2, d3, rank = (int(x) for x in dims)
+    slices = d1_slices(dims)
+    if len(slices) > 1:
+        if g1.dim() != 2 or g1.shape[1] != d1 * rank:
+            raise ValueError(f"g1: width {tuple(g1.shape)} differs from {d1 * rank} for "
+                             f"dims {dims}")
+        rows = g1.reshape(g1.shape[0], d1, rank)
+        return torch.cat([
+            tt_bag(rows[:, lo:hi].reshape(g1.shape[0], (hi - lo) * rank).contiguous(), g2, g3,
+                   i1, i2, i3, dims=(hi - lo, d2, d3, rank))
+            for lo, hi in slices], dim=-1)
     b, k, dtype, d2s = check_cuda({"g1": g1, "g2": g2, "g3": g3},
                                   {"i1": i1, "i2": i2, "i3": i3}, dims)
     return run("tt_bag", LAUNCHES, (g1, g2, g3), None, (i1, i2, i3), None, dims, b, k, dtype,
                d2s)
+
+
+def d1_slices(dims: tuple[int, int, int, int]) -> list[tuple[int, int]]:
+    """The (lo, hi) ranges of G1's d1 rows ``tt_bag`` launches K5 on: one
+    range where the row fits ``MAX_DIM``, else the fewest ranges of as equal
+    a size as can be whose rows each fit."""
+    d1, d2, d3, _rank = (int(x) for x in dims)
+    per = MAX_DIM // max(d2 * d3, 1)
+    if d1 * d2 * d3 <= MAX_DIM or per == 0:
+        return [(0, d1)]                  # check_cuda takes it or names the limit
+    n = -(-d1 // per)
+    cuts = [d1 * i // n for i in range(n + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))

@@ -1,5 +1,12 @@
-"""DLRM training launcher: config -> params -> train loop, fault-tolerant (port
-of ``repro.launch.train`` for ``--arch dlrm-*``).
+"""Training launcher: config -> params -> train loop, fault-tolerant (port
+of ``repro.launch.train``).
+
+``--arch dlrm-*`` trains the paper's model; a dense transformer arch
+(qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b) trains the causal LM
+through the registry's ``init_fn``, ``train_loss_fn`` and
+``make_batch_fn`` on ``--batch`` sequences of ``--seq`` tokens, each layer
+recomputed in the backward as the config's ``remat`` says; ``--embedding``
+picks either's vocabulary or tables.
 
 * auto-resume from the newest atomic checkpoint (params, optimizer state and
   the data pipeline's cursor) under ``--ckpt-dir``;
@@ -7,10 +14,11 @@ of ``repro.launch.train`` for ``--arch dlrm-*``).
   step in flight and exit 0;
 * deterministic data: batch = f(seed, step), so a restart replays the same
   batches;
-* the embedding layer runs through ``EmbeddingEngine.inline_gnr`` (one
-  packed kernel launch a step, differentiable), and batches carry planted
-  CTR structure so the loss is learnable;
-* ``--mesh-shape`` trains sharded, ``repro``'s axis names (two dims or fewer
+* a DLRM's embedding layer runs through ``EmbeddingEngine.inline_gnr`` (one
+  packed kernel launch a step, differentiable), and its batches carry
+  planted CTR structure so the loss is learnable; an LM's batches are
+  uniform tokens, as ``repro``'s;
+* ``--mesh-shape`` trains a DLRM sharded, ``repro``'s axis names (two dims or fewer
   ``("data", "model")``, three ``("pod", "data", "model")``): the CLI process
   starts one process a rank (``launch.mesh.spawn``; nccl where every rank
   has a card, gloo where ranks share one or run on the CPU) and forwards
@@ -23,11 +31,13 @@ of ``repro.launch.train`` for ``--arch dlrm-*``).
   another mesh shape, on one card, or in ``repro`` (the elastic restart).
   Only the rank at coordinates 0 prints.
 
-Runs on the card unless ``--device cpu`` is given.  ``--seq`` and the LM
-archs wait for the port's LM side.
+Runs on the card unless ``--device cpu`` is given.  ``--mesh-shape`` takes
+the DLRM archs only: the meshed LM is ``ROADMAP.md`` §1 item 2.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-qr --smoke \\
         --steps 20 --batch 16 --device cpu --ckpt-dir <dir>
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
+        --steps 20 --batch 8 --seq 128 --device cpu --ckpt-dir <dir>
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-qr --smoke \\
         --device cpu --mesh-shape 2,2 --steps 4 --ckpt-dir <dir>
 """
@@ -54,6 +64,7 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as SH
 from repro_torch.engine import EngineSpec, engine_for
 from repro_torch.models import dlrm
+from repro_torch.models.transformer import MESHED_LM
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_step import make_dlrm_loss, make_train_step
 
@@ -65,6 +76,29 @@ def mesh_axes(shape: tuple[int, ...]) -> tuple[str, ...]:
     return ("data", "model")[:len(shape)] if len(shape) <= 2 else ("pod", "data", "model")
 
 
+def _opt_cfg(args) -> opt_mod.OptConfig:
+    return opt_mod.OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
+                             total_steps=args.steps)
+
+
+def build_lm(args, dev):
+    """-> (cfg, params, opt_state, step_fn, make_batch, None) for an LM
+    arch: the registry's bindings, batches of ``--seq`` tokens."""
+    binding = registry.get(args.arch)
+    cfg = binding.smoke if args.smoke else binding.config
+    if args.embedding:
+        cfg = cfg.replace(embedding_kind=args.embedding)
+    params, _axes = registry.init_fn(binding)(cfg, seed=args.seed, device=dev)
+    make = registry.make_batch_fn(binding, cfg)
+
+    def make_batch(batch, **kw):
+        return make(batch, args.seq, device=dev, **kw)
+
+    step_fn = make_train_step(registry.train_loss_fn(binding, cfg), _opt_cfg(args),
+                              microbatches=args.microbatches)
+    return cfg, params, opt_mod.init(params), step_fn, make_batch, None
+
+
 def build(args, dev, mesh=None):
     """-> (cfg, params, opt_state, step_fn, make_batch, state_specs).
 
@@ -72,8 +106,9 @@ def build(args, dev, mesh=None):
     and ``state_specs``, one spec per leaf of ``{"params", "opt"}`` (the
     checkpoint's); without, the whole state and None."""
     if not args.arch.startswith("dlrm"):
-        raise ValueError(f"--arch {args.arch}: the port trains dlrm-* only "
-                         "(the LM archs wait for its LM side)")
+        if mesh is not None:
+            raise NotImplementedError(f"--arch {args.arch} on a mesh: {MESHED_LM} brings it")
+        return build_lm(args, dev)
     cfg = registry.get_dlrm(f"{args.arch}-smoke" if args.smoke else args.arch)
     if args.embedding:
         cfg = dataclasses.replace(cfg, embedding_kind=args.embedding)
@@ -98,10 +133,8 @@ def build(args, dev, mesh=None):
     def make_batch(batch, **kw):
         return synthetic.dlrm_planted_batch(cfg, truth, batch, device=dev, **kw)
 
-    opt_cfg = opt_mod.OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
-                                total_steps=args.steps)
-    step_fn = make_train_step(make_dlrm_loss(cfg), opt_cfg, microbatches=args.microbatches,
-                              mesh=mesh, specs=specs)
+    step_fn = make_train_step(make_dlrm_loss(cfg), _opt_cfg(args),
+                              microbatches=args.microbatches, mesh=mesh, specs=specs)
     return cfg, params, opt_state, step_fn, make_batch, state_specs
 
 
@@ -182,12 +215,14 @@ def _rank(mesh, args) -> dict:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, help="dlrm-qr | dlrm-tt | dlrm-dense")
+    ap.add_argument("--arch", required=True,
+                    help="dlrm-qr | dlrm-tt | dlrm-dense, or a dense transformer arch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--embedding", default=None,
                     choices=[None, "dense", "hashed", "qr", "tt"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128, help="tokens a sequence (LM archs)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--microbatches", type=int, default=1)
@@ -210,6 +245,9 @@ def main(argv=None) -> int:
 
     from repro_torch.launch import mesh as mesh_mod
 
+    if not args.arch.startswith("dlrm"):
+        raise NotImplementedError(f"--arch {args.arch} --mesh-shape {args.mesh_shape}: "
+                                  f"{MESHED_LM} brings it")
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
     axes = mesh_axes(shape)
     world = math.prod(shape)

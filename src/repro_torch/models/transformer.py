@@ -7,10 +7,22 @@ and the paper's weight-sharing vocabulary (dense / hashed / qr) with the
 QR-factorized tied head.  The MoE layer comes with ``models/moe.py``.
 
 Layers are stacked, as ``repro``'s: every leaf of ``params["layers"]``
-holds all L layers along a leading axis, and layer i runs on the views
-``[i]`` (a Python loop where ``repro`` scans), so ``convert`` and
-checkpoints map the two packages' trees one to one.  ``forward_train``
-recomputes nothing (``remat`` comes with the training slice).
+holds all L layers along a leading axis, so ``convert`` and checkpoints map
+the two packages' trees one to one.  Each forward takes the L layers once
+with one ``torch.unbind`` a leaf (``layer_list``) and runs them in a Python
+loop where ``repro`` scans: under autograd the backward of an unbind is one
+stack of the L gradients, where L views ``[i]`` would each write a zero
+tensor of the whole stacked leaf (at qwen2-1.5b's width 28 x 5.2 GB).
+
+With ``cfg.remat`` and gradients enabled, ``forward_train`` runs each layer
+under ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as ``repro``
+wraps its scan body in ``jax.checkpoint``: ``remat_policy="full"`` saves
+only the layer's input and recomputes the layer in the backward;
+``"dots"`` saves the matrix products' outputs (``aten.mm``, ``addmm``,
+``bmm``, ``matmul``: ``checkpoint_dots``) and recomputes the rest.  The
+recompute runs K9 again, so under ``"full"`` a layer launches it twice a
+training step.  Under ``inference_mode`` or ``no_grad`` nothing is
+checkpointed.
 
 On the card, every layer's attention in ``forward_train`` and
 ``forward_prefill`` is the attention kernel K9, and a QR vocabulary's token
@@ -24,14 +36,17 @@ no counterpart on one card.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hashing, qr_embedding
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 MESHED_LM = "ROADMAP.md §1 item 2 (the meshed LM: token_embed_inline)"
 
@@ -140,9 +155,36 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return L.dense(params["head"], x, cfg.cdtype)
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's params: views ``[i]`` of the stacked leaves."""
-    return tree_map(lambda a: a[i], params["layers"])
+def layer_list(params: dict) -> list[dict]:
+    """The L layers' params, layer i's leaves the ``[i]`` rows of the
+    stacked leaves, taken with one ``torch.unbind`` a leaf."""
+    stacked = params["layers"]
+    rows = [torch.unbind(a) for a in leaves(stacked)]
+    return [unflatten(stacked, [r[i] for r in rows]) for i in range(len(rows[0]))]
+
+
+# ---------------------------------------------------------------------------
+# per-layer recompute (repro's remat)
+# ---------------------------------------------------------------------------
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.matmul.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: keep the products."""
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg: ModelConfig) -> dict:
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                _save_dots)}
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full | dots)")
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -166,10 +208,17 @@ def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=Non
 
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                   positions=None) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, vocab)."""
+    """tokens: (B, S) -> logits (B, S, vocab); each layer recomputed in the
+    backward with ``cfg.remat`` (the module's docstring)."""
     x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
-    for i in range(cfg.num_layers):
-        x, _ = layer_fwd(layer_params(params, i), x, cfg, positions=positions)
+
+    def body(p, y):
+        return layer_fwd(p, y, cfg, positions=positions)[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if remat else {}
+    for p in layer_list(params):
+        x = ckpt.checkpoint(body, p, x, use_reentrant=False, **kw) if remat else body(p, x)
     x = L.apply_norm(params["final_norm"], x)
     return lm_logits(params, x, cfg)
 
@@ -198,8 +247,8 @@ def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
-    for i in range(cfg.num_layers):
-        x, (k, v) = layer_fwd(layer_params(params, i), x, cfg)
+    for i, p in enumerate(layer_list(params)):
+        x, (k, v) = layer_fwd(p, x, cfg)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = L.apply_norm(params["final_norm"], x)
@@ -212,8 +261,7 @@ def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos: int,
     place at ``pos`` and returned; pos: the token's position."""
     pos = int(pos)
     x = embed_tokens(params, token, cfg).to(cfg.cdtype)
-    for i in range(cfg.num_layers):
-        x, _ = layer_fwd(layer_params(params, i), x, cfg,
-                         cache=(cache["k"][i], cache["v"][i]), pos=pos)
+    for i, p in enumerate(layer_list(params)):
+        x, _ = layer_fwd(p, x, cfg, cache=(cache["k"][i], cache["v"][i]), pos=pos)
     x = L.apply_norm(params["final_norm"], x)
     return lm_logits(params, x, cfg), cache

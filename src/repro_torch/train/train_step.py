@@ -1,13 +1,25 @@
 """The training step: loss -> grads -> AdamW, with microbatch gradient
-accumulation (port of ``repro.train.train_step``, DLRM part).
+accumulation (port of ``repro.train.train_step``).
 
-A model plugs in through ``loss_fn(params, batch) -> (loss, metrics)``;
+A model plugs in through ``loss_fn(params, batch) -> (loss, metrics)``:
+``make_lm_loss`` (a causal LM's ``next_token_loss``),
+``make_prefixed_lm_loss`` (a prefix model's) and ``make_dlrm_loss``.
 ``make_train_step`` differentiates it with ``torch.autograd`` in every leaf
 of the params' nesting, accumulates fp32 gradients over microbatches (the
 batch split along its first dim, each slice's gradient and loss divided by
-the count, as ``repro``'s scan does), then runs ``optimizer.update``.  PyTorch
-runs eagerly: there is no jit to wrap it in.  The LM losses wait for the LM
-side of the port.
+the count, as ``repro``'s scan does; the sum is taken in place, one fp32
+accumulator for the whole step), then runs ``optimizer.update``.  PyTorch
+runs eagerly: there is no jit to wrap it in.
+
+``next_token_loss`` is ``repro``'s fp32 math (``logsumexp`` minus the
+target logit over ``logits[:, :-1]``, averaged) taken over row chunks of
+at most ``LOSS_CHUNK_BYTES`` of fp32: it keeps the logits in their own
+dtype and widens one chunk at a time, forward and backward, where plain
+autograd of the fp32 cast would keep two fp32 copies of the (B, S, V)
+logits for the backward (at qwen2-1.5b's vocabulary and S 4,096, 2.5 GB a
+sequence each).  Every row's value is the plain one's; the backward
+writes ``(softmax - onehot) / N`` for each chunk, rounded once to the
+logits' dtype, as the plain cast's backward rounds it.
 
 On a mesh the step is one rank's (``repro``'s jitted step under
 ``use_rules``, written out): the loss runs under ``sharding.use_rules`` on
@@ -30,6 +42,81 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as SH
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.optimizer import OptConfig
+
+LOSS_CHUNK_BYTES = 1 << 28      # fp32 logits one chunk of the loss widens
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _loss_chunks(logits: torch.Tensor):
+    """(b, row slice) pairs over ``logits[:, :-1]``, each at most
+    ``LOSS_CHUNK_BYTES`` of fp32 rows."""
+    b, s, v = logits.shape
+    rows = max(1, LOSS_CHUNK_BYTES // (4 * v))
+    for i in range(b):
+        for lo in range(0, s - 1, rows):
+            yield i, slice(lo, min(lo + rows, s - 1))
+
+
+class _NextTokenLoss(torch.autograd.Function):
+    """Mean over (B, S - 1) of ``logsumexp(lg) - lg[target]`` in fp32, the
+    logits widened one chunk at a time; saves the logits and each row's
+    logsumexp (fp32, (B, S - 1)) for the backward."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        b, s, _ = logits.shape
+        lse = torch.empty((b, s - 1), dtype=torch.float32, device=logits.device)
+        nll = torch.empty_like(lse)
+        for i, rows in _loss_chunks(logits):
+            lg = logits[i, rows].float()
+            lse[i, rows] = torch.logsumexp(lg, dim=-1)
+            ll = torch.take_along_dim(lg, targets[i, rows, None], dim=-1)[:, 0]
+            nll[i, rows] = lse[i, rows] - ll
+        ctx.save_for_backward(logits, targets, lse)
+        return torch.mean(nll)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, lse = ctx.saved_tensors
+        grad = torch.zeros_like(logits)          # the last position has no target
+        scale = g.float() / lse.numel()
+        for i, rows in _loss_chunks(logits):
+            p = torch.exp(logits[i, rows].float() - lse[i, rows, None])
+            p.scatter_add_(-1, targets[i, rows, None],
+                           torch.full_like(p[:, :1], -1.0))
+            grad[i, rows] = (p * scale).to(grad.dtype)
+        return grad, None
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Causal LM loss: logits (B, S, V) vs shifted tokens (B, S); fp32 math."""
+    return _NextTokenLoss.apply(logits, tokens[:, 1:].long())
+
+
+def make_lm_loss(forward_fn: Callable, cfg) -> Callable:
+    """forward_fn(params, tokens, cfg) -> logits. batch = {"tokens": (B, S)}."""
+
+    def loss_fn(params, batch):
+        logits = forward_fn(params, batch["tokens"], cfg)
+        loss = next_token_loss(logits, batch["tokens"])
+        return loss, {"loss": loss}
+
+    return loss_fn
+
+
+def make_prefixed_lm_loss(forward_fn: Callable, cfg, prefix_key: str) -> Callable:
+    """forward_fn(params, prefix, tokens, cfg) -> logits, the prefix (whisper's
+    frames, pixtral's patches) under ``batch[prefix_key]``."""
+
+    def loss_fn(params, batch):
+        logits = forward_fn(params, batch[prefix_key], batch["tokens"], cfg)
+        loss = next_token_loss(logits, batch["tokens"])
+        return loss, {"loss": loss}
+
+    return loss_fn
 
 
 def make_dlrm_loss(cfg) -> Callable:
@@ -112,8 +199,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
             loss = None
             for mb in _split(batch, microbatches):
                 loss_i, _, g_i = value_and_grad(loss_fn, params, mb)
-                grads = tree.tree_map(lambda a, g: a + g.to(torch.float32) / microbatches,
-                                      grads, g_i)
+                for a, g in zip(tree.leaves(grads), tree.leaves(g_i)):
+                    a.add_(g.to(torch.float32) / microbatches)
+                del g_i
                 part = loss_i / microbatches
                 loss = part if loss is None else loss + part
             metrics = {"loss": loss}

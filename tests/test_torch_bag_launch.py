@@ -122,3 +122,35 @@ def test_tt_stage_width_is_the_widest_divisor_that_fits(d2, fit_up_to, expect):
     assert tg.stage_width(d2, fits) == expect
     assert all(d2 % w == 0 for w in tried)
     assert tried == sorted(tried, reverse=True)
+
+
+@pytest.mark.parametrize("dims,slices", [
+    ((12, 16, 8, 16), [(0, 6), (6, 12)]),     # qwen2-1.5b's TT vocabulary: 1,536 wide
+    ((32, 8, 8, 16), [(0, 16), (16, 32)]),
+    ((3, 1000, 1, 2), [(0, 1), (1, 2), (2, 3)]),
+    ((4, 8, 4, 16), [(0, 4)]),                 # fits one launch
+])
+def test_tt_bag_takes_a_wide_row_in_d1_slices(dims, slices, monkeypatch):
+    """K5's wrapper launches once per ``d1_slices`` range, on that range's G1
+    columns, and lays the outputs side by side: with the launch replaced by
+    the plain version, the row equals the plain version's whole row."""
+    assert tg.d1_slices(dims) == slices
+    d1, d2, d3, r = dims
+    calls = []
+    monkeypatch.setattr(tg.device_mod, "of", lambda *t: torch.device("cuda", 0))
+    monkeypatch.setattr(tg, "check_cuda", lambda cores, streams, dims: (
+        streams["i1"].shape[0], streams["i1"].shape[1], cores["g1"].dtype, dims[1]))
+
+    def launch(name, counts, cores, cache, streams, slot, dims, *rest):
+        calls.append(dims)
+        assert cores[0].is_contiguous() and cores[0].shape[1] == dims[0] * dims[3]
+        return ref.tt_bag_ref(*cores, *streams, dims=dims)
+
+    monkeypatch.setattr(tg, "run", launch)
+    g = torch.Generator().manual_seed(0)
+    cores = [torch.randn(n, w, generator=g) for n, w in ((5, d1 * r), (7, r * d2 * r), (6, r * d3))]
+    idx = [torch.randint(0, n, (9, 3), generator=g, dtype=torch.int32) for n in (5, 7, 6)]
+    got = tg.tt_bag(*cores, *idx, dims=dims)
+    assert calls == [(hi - lo, d2, d3, r) for lo, hi in slices]
+    torch.testing.assert_close(got, ref.tt_bag_ref(*cores, *idx, dims=dims), rtol=1e-6,
+                               atol=1e-6)

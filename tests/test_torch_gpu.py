@@ -1164,3 +1164,61 @@ def test_gpu_prefill_launches_k9_once_a_layer_and_decode_writes_in_place(cuda):
         assert out["k"][:, :, 20].abs().sum() > 0 and not out["k"][:, :, 21:].any()
         assert torch.cuda.memory_allocated(cuda) - before < cache["k"].numel()
         assert qg.LAUNCHES["qr_gather"] == 2 and fa.LAUNCHES["flash_fwd"] == cfg.num_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", ["dense", "qr"])
+def test_gpu_lm_train_step_agrees_with_the_cpu(cuda, vocab):
+    """One ``make_train_step`` step of qwen2-1.5b-smoke (fp32 compute, remat
+    ``full``, microbatches 2) on the card and on the CPU from the same
+    weights and tokens: the loss within 1e-5 relative, every updated leaf
+    and the batch's gradient within 1e-5 of its scale (AdamW's eps 1e-2
+    bounds the first update's change by the gradient's over eps, as
+    ``chip_smoke.LMT_REF_OPT`` says); K9 twice a layer a microbatch (the
+    forward and its recompute), K8 once a microbatch for a QR vocabulary."""
+    from repro_torch import tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    cfg, cpu_params, params = _lm("qwen2-1.5b", vocab, "float32", cuda)
+    binding = registry.get("qwen2-1.5b")
+    ocfg = opt.OptConfig(lr=1e-3, eps=1e-2, warmup_steps=1, total_steps=4)
+    loss_fn = registry.train_loss_fn(binding, cfg)
+    step = TS.make_train_step(loss_fn, ocfg, microbatches=2)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (4, 16))
+                            .astype(np.int32))
+    want, _, wm = step(cpu_params, opt.init(cpu_params), {"tokens": toks})
+    fa.reset_launches()
+    qg.reset_launches()
+    got, _, gm = step(params, opt.init(params), {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 2 * 2 * cfg.num_layers
+    assert qg.LAUNCHES["qr_gather"] == (2 if vocab == "qr" else 0)
+    assert abs(float(gm["loss"]) - float(wm["loss"])) <= 1e-5 * abs(float(wm["loss"]))
+    g_card = TS.value_and_grad(loss_fn, params, {"tokens": toks.to(cuda)})[2]
+    g_cpu = TS.value_and_grad(loss_fn, cpu_params, {"tokens": toks})[2]
+    for a_tree, b_tree in ((got, want), (g_card, g_cpu)):
+        for (path, a), b in zip(tree.leaves_with_paths(a_tree), tree.leaves(b_tree)):
+            scale = float(b.abs().max())
+            assert float((a.cpu() - b).abs().max()) <= 1e-5 * scale, path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_tt_bag_takes_a_wide_row_in_d1_slices(cuda, dtype):
+    """qwen2-1.5b's TT vocabulary (dims (12, 16, 8, 16), rows of 1,536):
+    K5 launches once per d1 slice, and the row agrees with the plain
+    version (fp32 and bf16 tolerances as above)."""
+    emb = registry.get("qwen2-1.5b").config.replace(embedding_kind="tt").emb_config
+    spec = emb.tt_spec
+    cores = tt_embedding.init(emb, generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+    cores = {k: v.to(dtype) for k, v in cores.items()}
+    idx = torch.randint(0, emb.vocab, (4096,), device=cuda, dtype=torch.int32)
+    i1, i2, i3 = (x.reshape(-1, 1) for x in tt_embedding.tt_decompose(idx, spec))
+    tg.reset_launches()
+    got = tg.tt_bag(cores["g1"], cores["g2"], cores["g3"], i1, i2, i3, dims=spec.dims)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["tt_bag"] == len(tg.d1_slices(spec.dims)) == 2
+    want = ref.tt_bag_ref(cores["g1"], cores["g2"], cores["g3"], i1, i2, i3, dims=spec.dims)
+    assert got.shape == (4096, 1536) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **PT_TOL[dtype])

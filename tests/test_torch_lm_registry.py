@@ -127,9 +127,22 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
 
 
 def test_waiting_entry_points_raise():
-    b = registry.get("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match=r"§1 item 1 \(LM training"):
-        registry.train_loss_fn(b, b.smoke)
+    """``train_loss_fn`` gives the causal LM loss for the dense transformers
+    and still raises for the other kinds, naming their ``ROADMAP.md`` item;
+    the dry run's entry points stay absent."""
+    import math
+
+    for arch in DENSE:
+        b = registry.get(arch)
+        params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
+        batch = registry.make_batch_fn(b, b.smoke)(2, 6, seed=1, step=0)
+        loss, metrics = registry.train_loss_fn(b, b.smoke)(params, batch)
+        assert loss.shape == () and metrics["loss"] is loss
+        assert abs(float(loss) - math.log(b.smoke.vocab)) < 2.0
+    for arch in sorted(set(registry.ARCHS) - set(DENSE)):
+        b = registry.get(arch)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [345]"):
+            registry.train_loss_fn(b, b.smoke)
     for name in ("batch_specs", "cache_specs", "abstract_params"):   # the dry run's
         assert not hasattr(registry, name)
 

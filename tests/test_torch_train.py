@@ -547,9 +547,14 @@ def test_cli_lowers_the_loss_and_resumes_where_it_stopped(tmp_path, capsys):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_cli_refuses_lm_archs():
-    with pytest.raises(ValueError, match="dlrm"):
-        t_train.main(["--arch", "qwen2-1.5b", "--device", "cpu"])
+def test_cli_refuses_lm_archs(capsys):
+    """The LM archs once raised here; the CLI now trains them: three steps of
+    qwen2-1.5b-smoke, one step line each, finite losses."""
+    assert t_train.main(["--arch", "qwen2-1.5b", "--smoke", "--device", "cpu", "--steps", "3",
+                         "--batch", "2", "--seq", "16", "--log-every", "1"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(x.split()[3]) for x in out.splitlines() if x.startswith("step")]
+    assert len(losses) == 3 and np.isfinite(losses).all() and "done" in out
 
 
 def test_cli_checkpoints_and_exits_on_sigterm(tmp_path):
