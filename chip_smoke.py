@@ -138,30 +138,29 @@ Phases, each one failing the script if it fails:
    params placed by their logical axes, the loss under ``use_rules``,
    ``inline_gnr`` -> ``forward_partial`` under grad, the data-axis gradient
    mean, AdamW on each rank's blocks with the mesh's global norm), batch
-   8,192, bf16: the single-card references first (step-1 gradients, three
+   8,192, bf16: the single-card references first (step-1 gradients, two
    steps' losses and norms, the lookup's backward at 4,096 bags); world 1
    over nccl in this process (mesh (1, 1), full-width dlrm-qr): the meshed
    step-1 gradients within ``GRAD_TOL`` of the single card's per leaf,
    bitwise or not recorded, loss and norm within ``MESH_LOSS_TOL``; four
    gloo ranks on the card, mesh (2, 2) (4,096 bags a ``data`` rank):
-   full-width dlrm-qr and dlrm-tt and dlrm-dense at 200,000 rows a table
-   (phase 7's cut), three steps each: the step-1 gradients, gathered to the
+   full-width dlrm-qr and dlrm-tt and dlrm-dense at 50,000 rows a table,
+   two steps each: the step-1 gradients, gathered to the
    logical shapes, within ``GRAD_TOL`` of the single card's per leaf, the
-   three losses and norms within ``MESH_LOSS_TOL``, one packed launch a
+   two losses and norms within ``MESH_LOSS_TOL``, one packed launch a
    rank a step, a step's collectives (one combine, one entry psum for QR and
    TT, one data mean, one norm); ms a step (host clock, max over ranks), one
    step split into forward, backward, gradient mean and update, bytes
    all-reduced a rank a step on each axis, peak memory a rank, a rank's
    local backward alone against the single card's at the same bags (the
    share of accesses routed to the zero row beside it), with the zero rows
-   left out of the recompute (what the step runs) and with every access in
-   (the full recompute), each traced by the profiler (top device
-   operations); the fp32 reading: the single card fed the mesh's fp32
+   left out of the recompute (what the step runs), traced by the profiler
+   (top device operations); the fp32 reading: the single card fed the mesh's fp32
    pooled values against the mesh's fp32 step-1 gradients, and the top
    MLP's ReLUs the pooled values flip (bf16 and fp32); then the CLI's
-   elastic drill (``launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 4
-   --ckpt-dir D``, then ``--mesh-shape 4,1 --steps 8``, batch 2,048, full
-   width): both exit 0, the second resumes at step 4, the checkpoint holds
+   elastic drill (``launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 2
+   --ckpt-dir D``, then ``--mesh-shape 4,1 --steps 4``, batch 2,048, full
+   width): both exit 0, the second resumes at step 2, the checkpoint holds
    the full logical arrays;
 11. the dense transformer served (``launch.serve``'s path:
    ``transformer.forward_prefill`` with K9 in every layer, K8 for a QR
@@ -220,13 +219,42 @@ Phases, each one failing the script if it fails:
    ``[resume] step 4``); minitron-4b, chatglm3-6b and granite-34b at full
    width, microbatch 1, S 4,096, at the depth whose step fits by the line
    through two depths' reserved memory: 3 steps on one batch, losses
-   finite and falling, tokens/s.
+   finite and falling, tokens/s;
+13. the dense transformer trained on a mesh (``launch.train --mesh-shape``'s
+   path: the params placed by ``sharding.lm_param_rules``, the loss under
+   ``use_rules``, the tokens through the two-level GnR
+   (``sharded_embedding.token_embed_inline``: K8 on each rank's routed Q
+   shard, one combine), every layer tensor-parallel over ``model`` with K9
+   on the rank's heads, the vocab-parallel loss, the data-axis gradient
+   mean, AdamW on each rank's blocks): world 1 over nccl in this process
+   (mesh (1, 1), qwen2-1.5b at full width cut to 2 layers, QR
+   ``twolevel``, S 4,096, batch 2) against phase 12's single-card step,
+   gradients, losses, norm and new params read for bitwise equality and
+   held to 1e-5 of scale; two gloo ranks on the card, mesh (1, 2), at full
+   width and depth with the QR vocabulary (collision 64, ``twolevel``,
+   remat ``full``, S 4,096), ``LMM_MICROBATCH`` sequences a rank (a
+   constant chosen for the script's time), two steps; four, mesh
+   (2, 2), with the dense vocabulary: the fp32 step-1 gradients at 2
+   layers, gathered, within 1e-5 of each leaf's scale of the single card's
+   on the same data partition (each data block's gradient, averaged),
+   the depth the ranks hold fitted from depths 1 and 2, the bf16 step-1
+   gradients there no more than ``LMM_BF16_FACTOR`` times as far from the
+   single card's fp32-compute gradients as the single card's bf16 ones,
+   two steps; per mesh ms a step (max over ranks), the split into forward,
+   backward, gradient mean and update, bytes all-reduced a rank a step by
+   axis, collectives a step, peak memory a rank, K9 and K8 ms a call and
+   launches, and on rank (0, 0)'s own calls K9 on layer 0's local q/k/v
+   within one rounding of its plain version and K8 bitwise the plain sum
+   on the routed streams; the CLI drill (``launch.train --arch qwen2-1.5b
+   --mesh-shape 1,2 --steps 2 --batch 2 --seq 512 --ckpt-dir D``, then one
+   card with ``--steps 4``, which prints ``[resume] step 2``).
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
-``{"lm_training": ...}`` line, one ``{"kernels": [...]}`` line, and last
+``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
+one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
@@ -2742,8 +2770,12 @@ def sharded_phase(dev, batch, by_name, mods) -> dict:
 # ---------------------------------------------------------------------------
 
 MESH_TRAIN_SHAPE = (2, 2)
-MESH_TRAIN_STEPS = 3
-# three steps' losses and gradient norms against the single card
+MESH_TRAIN_STEPS = 2
+# dlrm-dense's rows a table on the mesh (phase 7 trains 200,000 on one card):
+# the ranks gather its gradients twice and average 26 tables' gradients over
+# ``data`` through the host a step (2.2 s a step at 200,000 rows)
+MESH_DENSE_ROWS = 50_000
+# the steps' losses and gradient norms against the single card
 # (tests/test_torch_train.py::test_train_steps_match_repro's bound)
 MESH_LOSS_TOL = 2e-2
 MESH_OPT = dict(lr=3e-4, warmup_steps=MESH_TRAIN_STEPS, total_steps=MESH_TRAIN_STEPS)
@@ -2757,11 +2789,20 @@ MESH_TIMEOUT_S = 600
 # bf16 gradients are held per leaf to GRAD_TOL against the single card fed
 # the mesh's pooled values (a straight-through of the forward only), and
 # their distance from the single card's own is recorded beside it.
-# the CLI's elastic drill: full-width dlrm-qr, (2, 2) to step 4, then (4, 1)
+# the CLI's elastic drill: full-width dlrm-qr, (2, 2) to step 2, then (4, 1)
 # to step 8 from its checkpoint, which holds the full logical arrays (a Q
 # table of dlrm-qr: 31,360 padded rows of 128)
 MESH_CLI_BATCH = 2048
 MESH_CLI_Q_SHAPE = [31360, 128]
+
+
+def mesh_config(arch, registry):
+    """``train_config`` with dlrm-dense at ``MESH_DENSE_ROWS`` rows a table."""
+    cfg = train_config(arch, registry)
+    if cfg.embedding_kind == "dense":
+        cfg = cfg.replace(name=f"dlrm-dense-{MESH_DENSE_ROWS // 1000}k",
+                          vocab_per_table=MESH_DENSE_ROWS)
+    return cfg
 
 
 def mesh_batches(cfg, batch: int, dev, synthetic) -> list:
@@ -2805,7 +2846,7 @@ def mesh_train_reference(dev, arch, batch, registry, mods) -> dict:
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step
 
-    cfg = train_config(arch, registry)
+    cfg = mesh_config(arch, registry)
     params = dlrm.init_dlrm(cfg, seed=0, device=dev)
     batches = mesh_batches(cfg, batch, dev, synthetic)
     loss_fn = train_step.make_dlrm_loss(cfg)
@@ -3048,26 +3089,17 @@ def top_device_ops(run, n: int = 5) -> list:
     return [[k[:80], round(t, 3)] for k, t in top]
 
 
-def local_backward_alone(tables, idx, bags, plans, mesh, SE, *, full: bool) -> tuple:
-    """This rank's packed local partial's backward: CUDA-event ms of one
-    after a warm-up (each on its own forward), then the top device
-    operations of another under the profiler.  ``full`` strips the zero
-    rows' sinks from the packed entry, so the recompute runs over every
-    access, as before they were sinks."""
-    ops = SE.ops
-    entry = ops.packed_multi_pooled
-
+def local_backward_alone(tables, idx, bags, plans, mesh, SE) -> tuple:
+    """This rank's packed local partial's backward (the zero rows left out
+    of the recompute, as the step runs it): CUDA-event ms of one after a
+    warm-up (each on its own forward), then the top device operations of
+    another under the profiler."""
     def backward():
-        if full:
-            ops.packed_multi_pooled = lambda *a, sinks=None, **kw: entry(*a, **kw)
-        try:
-            leaves = [v.detach().requires_grad_(True) for t in tables for v in t.values()]
-            it = iter(leaves)
-            live = [{k: next(it) for k in t} for t in tables]
-            with torch.enable_grad():
-                parts = SE.packed_local_partial(live, idx, bags, plans, mesh=mesh)
-        finally:
-            ops.packed_multi_pooled = entry
+        leaves = [v.detach().requires_grad_(True) for t in tables for v in t.values()]
+        it = iter(leaves)
+        live = [{k: next(it) for k in t} for t in tables]
+        with torch.enable_grad():
+            parts = SE.packed_local_partial(live, idx, bags, plans, mesh=mesh)
         ct = torch.randn(parts.shape, generator=torch.Generator(parts.device).manual_seed(11),
                          device=parts.device).to(parts.dtype)
         torch.cuda.synchronize()
@@ -3115,7 +3147,7 @@ def mesh_train_rank(mesh, batch: int) -> dict:
     launches = lambda: sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values())
     res = {"coords": dict(mesh.coords), "configs": {}}
     for arch in ("dlrm-qr", "dlrm-tt", "dlrm-dense"):
-        cfg = train_config(arch, registry)
+        cfg = mesh_config(arch, registry)
         bags = dlrm.make_bags(cfg)
         params = dlrm.init_dlrm(cfg, seed=0, device=dev)
         specs = SH.tree_specs(params, dlrm.param_axes(cfg), mesh, SH.TRAIN_PARAM_RULES)
@@ -3195,12 +3227,9 @@ def mesh_train_rank(mesh, batch: int) -> dict:
         dist.barrier()
         if writer:
             plans = [SE.ShardPlan(bag.emb, mesh.shape["model"]) for bag in bags]
-            for name, full in (("sinks", False), ("full", True)):
-                ms, top = local_backward_alone(local["tables"], batches[0]["idx"], bags,
-                                               plans, mesh, SE, full=full)
-                rec[f"local_backward_alone_{name}_ms"] = ms
-                rec[f"local_backward_alone_{name}_top"] = top
-            rec["local_backward_alone_ms"] = rec["local_backward_alone_sinks_ms"]
+            ms, top = local_backward_alone(local["tables"], batches[0]["idx"], bags, plans,
+                                           mesh, SE)
+            rec["local_backward_alone_ms"], rec["local_backward_alone_top"] = ms, top
         dist.barrier()
         res["configs"][cfg.name] = rec
         del local, batches
@@ -3210,9 +3239,9 @@ def mesh_train_rank(mesh, batch: int) -> dict:
 
 def mesh_cli_drill() -> dict:
     """The training CLI's elastic drill on the card: ``python -m
-    repro_torch.launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 4
+    repro_torch.launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 2
     --ckpt-dir D`` (full width, batch ``MESH_CLI_BATCH``), then ``--mesh-shape
-    4,1 --steps 8``, which must resume from step 4; both exit 0, four gloo
+    4,1 --steps 4``, which must resume from step 2; both exit 0, four gloo
     ranks on the one card each."""
     from repro_torch.checkpoint import checkpointer as ckpt
 
@@ -3223,7 +3252,7 @@ def mesh_cli_drill() -> dict:
             "--ckpt-every", "1000", "--rank-timeout", str(MESH_TIMEOUT_S - 60)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     rec = {"batch": MESH_CLI_BATCH}
-    for name, mesh, steps in (("first", "2,2", 4), ("resumed", "4,1", 8)):
+    for name, mesh, steps in (("first", "2,2", 2), ("resumed", "4,1", 4)):
         t0 = time.perf_counter()
         run = subprocess.run(base + ["--mesh-shape", mesh, "--steps", str(steps)],
                              capture_output=True, text=True, env=env, timeout=MESH_TIMEOUT_S)
@@ -3240,16 +3269,16 @@ def mesh_cli_drill() -> dict:
         if latest != steps:
             raise AssertionError(f"train CLI --mesh-shape {mesh}: newest checkpoint {latest}")
     out = (run.stdout or "")
-    if "[resume] step 4" not in out or "step     5" not in out:
-        raise AssertionError(f"train CLI --mesh-shape 4,1 did not resume at step 4:\n{out}")
-    with open(d / "step_00000008" / "manifest.json") as f:
+    if "[resume] step 2" not in out or "step     3" not in out:
+        raise AssertionError(f"train CLI --mesh-shape 4,1 did not resume at step 2:\n{out}")
+    with open(d / "step_00000004" / "manifest.json") as f:
         manifest = json.load(f)
     shapes = {leaf["path"]: leaf["shape"] for leaf in manifest["leaves"]}
     rec["q_shape_on_disk"] = shapes["opt/mu/tables/0/q"]
     if shapes["opt/mu/tables/0/q"] != MESH_CLI_Q_SHAPE:
         raise AssertionError(f"checkpoint leaf shapes: {shapes['opt/mu/tables/0/q']}")
-    log(f"[mesh-cli] (2, 2) to step 4 in {rec['first']['s']:.1f} s, then (4, 1) resumed to "
-        f"step 8 in {rec['resumed']['s']:.1f} s; opt/mu/tables/0/q on disk "
+    log(f"[mesh-cli] (2, 2) to step 2 in {rec['first']['s']:.1f} s, then (4, 1) resumed to "
+        f"step 4 in {rec['resumed']['s']:.1f} s; opt/mu/tables/0/q on disk "
         f"{rec['q_shape_on_disk']} (the full logical array)")
     shutil.rmtree(d, ignore_errors=True)
     return rec
@@ -3261,7 +3290,7 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
     (``MESH_TRAIN_SHAPE``) train every config, held per leaf to
     ``GRAD_TOL`` at step 1 (fp32 compute against the single card, bf16
     against the single card fed the mesh's pooled values) and to
-    ``MESH_LOSS_TOL`` on three losses and norms, one packed launch a rank a
+    ``MESH_LOSS_TOL`` on the losses and norms, one packed launch a rank a
     forward, one combine, the entry psums, one data mean and one norm a
     step; then the CLI's elastic drill.  The ranks' launches add to the
     bf16 rows of K1 / K2 / K3.  Returns the ``{"mesh_training": ...}``
@@ -3302,7 +3331,7 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
     nsh = MESH_TRAIN_SHAPE[1]
     faults = []
     for arch in archs:
-        cfg = train_config(arch, registry)
+        cfg = mesh_config(arch, registry)
         kind = cfg.embedding_kind
         ref = refs[arch]
         rs = [r["configs"][cfg.name] for r in ranks]
@@ -3394,10 +3423,7 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
                "launches_per_rank_per_step": rs[0]["launches"] // MESH_TRAIN_STEPS,
                "peak_gib_max_over_ranks": max(r["peak_gib"] for r in rs),
                "local_backward_alone_ms": mine["local_backward_alone_ms"],
-               "local_backward_alone_full_recompute_ms": mine["local_backward_alone_full_ms"],
-               "local_backward_top_device_ops": {
-                   "sinks": mine["local_backward_alone_sinks_top"],
-                   "full": mine["local_backward_alone_full_top"]},
+               "local_backward_top_device_ops": {"sinks": mine["local_backward_alone_top"]},
                "single_card_backward_half_batch_ms": ref["backward_half_batch_ms"],
                "zero_row_share": [r["zero_row_share"] for r in rs],
                "local_batch": rs[0]["local_batch"]}
@@ -3417,8 +3443,7 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
             f"{rec['peak_gib_max_over_ranks']:.2f} GiB a rank; local backward alone "
             f"{rec['local_backward_alone_ms']:.1f} ms ({np.mean(rec['zero_row_share']):.3f} "
             f"of its big-subtable accesses and {(nsh - 1) / nsh if kind == 'qr' else 0:.2f} of "
-            f"its R accesses to the zero row, left out of the recompute; "
-            f"{rec['local_backward_alone_full_recompute_ms']:.1f} ms with them in) vs the "
+            f"its R accesses to the zero row, left out of the recompute) vs the "
             f"single card's {rec['single_card_backward_half_batch_ms']:.1f} ms at batch "
             f"{rec['local_batch']}")
         rec["local_backward_top_device_ops"]["single card"] = ref["backward_half_batch_top"]
@@ -4785,6 +4810,596 @@ def lm_train_phase(dev, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM trained on a mesh
+# ---------------------------------------------------------------------------
+
+LMM_TIMEOUT_S = 600
+LMM_WORLD1 = (2, 2)        # layers, sequences of the world-1 check (S 4,096)
+# (1, 2)'s microbatch, a constant chosen for the script's time, not fitted:
+# each sequence adds about six gloo all-reduces of a 12.6 MB bf16 activation
+# a layer through the host (~20 ms each, the combine rate phase 9 reads),
+# ~3.5 s a sequence a step at 28 layers.  Memory holds more (4 sequences
+# peaked at 23.6 GiB a rank on an H100 80GB); below 4 sequences a rank's
+# reserved memory reads flat (the layers' gradients set the peak), so a
+# line through two small microbatches bounds nothing, and one through
+# phase 12's ``LMT_FIT`` sizes would cost ~35 s of gloo to pick a size the
+# script could not take
+LMM_MICROBATCH = 2
+LMM_DEPTHS = (1, 2)        # depths whose reserved memory gives (2, 2)'s depth fit
+LMM_GRAD32_LAYERS = 2      # the (2, 2) fp32 step-1 gradient check's depth
+LMM_STEPS = 2
+LMM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=LMM_STEPS)
+# the fp32 meshed step-1 gradients against the single card's on the same
+# data partition (each data block's gradient, averaged), of each leaf's
+# scale: the tensor-parallel products sum their partials in another order
+# (tests/test_torch_lm_mesh_train.py's bound).  Against the single card in
+# one pass over the batch the token reductions run in another order too
+# and read 1.03e-05 at full width (NVIDIA H100 80GB HBM3, 700 W): recorded
+LMM_FP32_TOL = 1e-5
+# The bf16 meshed step-1 gradients at the cut are held against the exact
+# ones, the single card's in fp32 compute on the same params and tokens.
+# The mesh rounds where the single card does (every bf16 product, K9's
+# output, the norms' casts) and once more at each combine: a row-parallel
+# product (wo, w_down) rounds every rank's partial to bf16 before the
+# combine adds them, where the single card rounds the whole sum once; the
+# loss and every gradient reduction run in fp32.  So the mesh's bf16
+# gradients may stand up to twice as far from the exact ones as the single
+# card's bf16 gradients do (the worst leaf's share of its scale, both
+# measured in the same run); a dropped, doubled or misplaced partial reads
+# at the scale of the leaf, as the fp32 check at 2 layers shows to 1e-5.
+LMM_BF16_FACTOR = 2.0
+# the CLI drill: (1, 2) at full width and depth to step 2, then one card
+# resumes to step 4 from the checkpoint (the full logical arrays)
+LMM_CLI = ("--arch", "qwen2-1.5b", "--embedding", "qr", "--batch", "2", "--seq", "512",
+           "--log-every", "1", "--rank-timeout", "500")
+
+
+def lmm_tokens(cfg, batch: int, seq: int, dev, seed: int = 7) -> dict:
+    """The global batch of a phase 13 check (the same on every rank)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev,
+                                    dtype=torch.int32)}
+
+
+def lm_mesh_world1(dev, mods, totals) -> dict:
+    """World 1 over nccl in this process, mesh (1, 1): qwen2-1.5b at full
+    width cut to ``LMM_WORLD1`` layers (QR vocabulary, ``twolevel``, bf16,
+    remat ``full``), S 4,096: the meshed step (the two-level GnR, the
+    tensor-parallel layers, the vocab-parallel loss, every collective over a
+    group of one) against phase 12's single-card step from the same params
+    and tokens: step-1 gradients, loss, gradient norm and new params, each
+    read for bitwise equality and held to ``LMM_FP32_TOL`` of scale."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    depth, b = LMM_WORLD1
+    seq = lmt_shape().seq_len
+    binding = registry.get(LM_MAIN)
+    cfg = lm_config(LM_MAIN).replace(num_layers=depth, embedding_kind="qr",
+                                     embedding_exec="twolevel")
+    params, axes = T.init_lm(cfg, seed=0, device=dev)
+    batch = lmm_tokens(cfg, b, seq, dev)
+    loss_fn = registry.train_loss_fn(binding, cfg)
+    ocfg = opt.OptConfig(**LMM_OPT)
+    take_launches(mods, totals)
+    loss_s, _, g_single = TS.value_and_grad(loss_fn, params, batch)
+    new_s, _, m_s = TS.make_train_step(loss_fn, ocfg)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    single_launches = take_launches(mods, totals)
+    rdv = ROOT / "build" / "lm_mesh" / "rdv_world1"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    log("[mesh] 1 rank, mesh (1, 1) over ('data', 'model'), backend nccl, on 1 card "
+        "(in process)")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        specs = SH.tree_specs(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
+        local = SH.shard_tree(params, specs, mesh)
+
+        def meshed(p, bb):
+            with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                return loss_fn(p, bb)
+
+        collectives.reset_counts()
+        loss_m, _, g_mesh = TS.value_and_grad(meshed, local, batch)
+        g_mesh, loss_m = TS.data_mean(g_mesh, loss_m, mesh)
+        sites = {f"{k[0]}/{k[1]}": v[0] for k, v in collectives.SITES.items()}
+        new_m, _, m_m = TS.make_train_step(loss_fn, ocfg, mesh=mesh, specs=specs)(
+            local, opt.init(local), batch)
+        torch.cuda.synchronize()
+        n = take_launches(mods, totals)
+        got = [SH.gather(x, s, mesh) for x, s in zip(tree.leaves(g_mesh), specs)]
+        errs = leaf_errors(got, tree.leaves(g_single))
+        bitwise = {
+            "grads": all(torch.equal(a, w) for a, w in zip(got, tree.leaves(g_single))),
+            "params": all(torch.equal(SH.gather(a, s, mesh), w) for a, w, s in
+                          zip(tree.leaves(new_m), tree.leaves(new_s), specs)),
+            "loss": torch.equal(loss_m, loss_s), "step_loss": torch.equal(m_m["loss"], m_s["loss"]),
+            "grad_norm": torch.equal(m_m["grad_norm"], m_s["grad_norm"])}
+    finally:
+        dist.destroy_process_group()
+    want = {k: 2 * v for k, v in step_launches(cfg, 1).items()}
+    rec = {"mesh": [1, 1], "backend": "nccl", "layers": depth, "batch": b, "seq": seq,
+           "vocab": "qr", "embedding_exec": "twolevel",
+           "step1_grad_rel_err_max": max(errs), "bitwise": bitwise,
+           "loss": float(loss_m), "loss_single_card": float(loss_s),
+           "grad_norm": float(m_m["grad_norm"]), "grad_norm_single_card": float(m_s["grad_norm"]),
+           "collectives_of_the_gradient": sites, "launches": n,
+           "launches_single_card": single_launches}
+    log(f"[lm-mesh] world 1 nccl {cfg.name} at {depth} layers, {b} x {seq}, QR twolevel bf16: "
+        f"step-1 gradients vs the single card {max(errs):.3g} of scale; bitwise {bitwise}; "
+        f"loss {rec['loss']:.6f} vs {rec['loss_single_card']:.6f}, grad norm "
+        f"{rec['grad_norm']:.6f} vs {rec['grad_norm_single_card']:.6f}; collectives {sites}; "
+        f"launches {n} (single card {single_launches})")
+    if not max(errs) <= LMM_FP32_TOL or n != want or single_launches != want:
+        raise AssertionError(f"[lm-mesh] world 1 nccl: {rec}")
+    del params, local, g_single, g_mesh, got, new_s, new_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lmm_place(cfg, mesh, dev):
+    """``cfg``'s params (seed 0) placed on ``mesh``: (this rank's blocks,
+    their specs, the logical axes); the full tree is freed."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+
+    params, axes = T.init_lm(cfg, seed=0, device=dev)
+    specs = SH.tree_specs(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
+    local = SH.shard_tree(params, specs, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return local, specs, axes
+
+
+def lmm_min(value: int, dev) -> int:
+    """The least ``value`` over every rank (a MIN all-reduce)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
+
+
+def lmm_fit(run, sizes, mesh, cap: int) -> dict:
+    """The largest size whose reserved memory fits this rank's share of the
+    card: ``run(size)`` at the two ``sizes`` gives a line, fixed + slope x
+    size; after a barrier the free memory is split evenly over the ranks
+    sharing the card, less ``LM_HEADROOM`` split the same way; the size is
+    the least fit over the ranks, at most ``cap``."""
+    import torch.distributed as dist
+
+    dev = mesh.device
+    reserved = {s: reserved_growth(lambda: run(s), dev) for s in sizes}
+    lo, hi = sizes
+    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+    fixed = max(reserved[lo] - lo * slope, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    sharing = mesh.size // max(torch.cuda.device_count(), 1)
+    free = torch.cuda.mem_get_info(dev)[0]
+    fit = (free // sharing - LM_HEADROOM // sharing - fixed) // slope
+    return {"size": lmm_min(max(1, min(cap, fit)), dev), "fit": int(fit), "slope": slope,
+            "fixed": fixed, "reserved": reserved, "free": free, "ranks_on_card": sharing}
+
+
+def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
+    """``LMM_STEPS`` meshed steps on this rank's ``batch`` block, each split
+    into forward, backward, gradient mean and update (``_split_step``):
+    host ms of each step and split, losses and norms, K9 and K8 ms a call
+    (CUDA events around each ``ops`` entry) and launches, collectives and
+    bytes all-reduced a step by site and axis, peak memory; the first
+    step's layer-0 K9 q/k/v and K8 calls held against their plain versions
+    (``hold_kept``), K8 also for bitwise equality with the plain sum in the
+    tables' dtype."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    dev = mesh.device
+    loss_fn = registry.train_loss_fn(registry.get(LM_MAIN), cfg)
+    ocfg = opt.OptConfig(**LMM_OPT)
+    state = opt.init(local)
+    rec = {"step_ms": [], "losses": [], "norms": [], "split_host_ms": [], "split_event_ms": []}
+    kept = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    collectives.reset_counts()
+    reset_all(mods)
+    with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks:
+        for i in range(LMM_STEPS):
+            ctx = kept_model_path(ops, kept) if i == 0 else contextlib.nullcontext()
+            t = time.perf_counter()
+            with ctx:
+                local, state, m, grads, host, event = _split_step(
+                    local, state, batch, loss_fn, ocfg, mesh, specs, opt, TS, tree, SH)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["losses"].append(float(m["loss"]))
+            rec["norms"].append(float(m["grad_norm"]))
+            rec["split_host_ms"].append(host)
+            rec["split_event_ms"].append(event)
+            del grads
+        torch.cuda.synchronize()
+        rec["k9_ms_a_call"] = event_ms(marks["flash_attention_fused"]) / max(
+            len(marks["flash_attention_fused"]), 1)
+        rec["k8_ms_a_call"] = (event_ms(marks["qr_lookup"]) / len(marks["qr_lookup"])
+                               if marks["qr_lookup"] else None)
+    rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
+    rec["sites"] = {f"{k[0]}/{k[1]}": [v[0] // LMM_STEPS, v[1] // LMM_STEPS]
+                    for k, v in collectives.SITES.items()}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec["held"] = hold_kept(kept, f"{cfg.name} mesh {tuple(mesh.shape.values())} rank "
+                                  f"{tuple(mesh.coords.values())}")
+    if "k8" in rec["held"] and not rec["held"]["k8"]["all_bitwise"]:
+        raise AssertionError(f"[lm-mesh] K8 on the routed streams is not bitwise the plain "
+                             f"sum: {rec['held']['k8']}")
+    del kept, state, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_mesh_rank(mesh, what: str) -> dict:
+    """Phase 13 on one rank of a gloo mesh on the card.  ``what`` "tp": the
+    (1, 2) run, qwen2-1.5b at full width and depth, QR vocabulary
+    ``twolevel``, remat ``full``, S 4,096, ``LMM_MICROBATCH`` sequences a
+    ``data`` rank, one untimed forward and backward, then ``lmm_steps``
+    with the kernels held.  "dp": the (2, 2) run with the
+    dense vocabulary: the fp32 step-1 gradients at ``LMM_GRAD32_LAYERS``
+    layers (one sequence a ``data`` rank), the depth fitted from
+    ``LMM_DEPTHS`` (``lmm_fit``), the bf16 step-1 gradients at that depth,
+    then ``lmm_steps``.  Gradients come back gathered to the logical shapes
+    on the writer (rank (0, 0)) alone, on the host."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qr_gather as qg
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = (fa, qg)
+    dev = mesh.device
+    writer = not any(mesh.coords.values())
+    seq = lmt_shape().seq_len
+    full = lm_config(LM_MAIN)
+    binding = registry.get(LM_MAIN)
+    data = mesh.shape["data"]
+    res = {"coords": dict(mesh.coords)}
+
+    def grads_of(cfg, local, specs, batch) -> tuple:
+        fn = registry.train_loss_fn(binding, cfg)
+
+        def meshed(p, bb):
+            with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                return fn(p, bb)
+
+        loss, _, g = TS.value_and_grad(meshed, local, batch)
+        g, loss = TS.data_mean(g, loss, mesh)
+        out = [] if writer else None
+        for x, s in zip(tree.leaves(g), specs):
+            leaf = SH.gather(x, s, mesh)
+            if writer:
+                out.append(leaf.cpu())
+            del leaf
+        del g
+        return out, float(loss)
+
+    if what == "tp":
+        cfg = full.replace(embedding_kind="qr", embedding_exec="twolevel")
+        local, specs, _ = lmm_place(cfg, mesh, dev)
+        batch = synthetic.data_block(lmm_tokens(cfg, LMM_MICROBATCH * data, seq, dev), mesh)
+        # one untimed forward and backward first: a fresh rank's first pass
+        # (allocator growth, gloo's buffers, first calls) took 18.0 s where
+        # the next step took 6.8 s (H100 80GB HBM3), and would be averaged in
+        fn = registry.train_loss_fn(binding, cfg)
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(local)]
+        with torch.enable_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+            loss, _ = fn(tree.unflatten(local, leaves), batch)
+        torch.autograd.grad(loss, leaves)
+        del leaves, loss
+        res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
+        res["layers"], res["microbatch"], res["fit"] = cfg.num_layers, LMM_MICROBATCH, None
+        return res
+
+    # "dp": the dense vocabulary on (2, 2)
+    cfg32 = full.replace(num_layers=LMM_GRAD32_LAYERS, embedding_kind="dense",
+                         compute_dtype="float32")
+    local, specs, _ = lmm_place(cfg32, mesh, dev)
+    res["paths"] = [p for p, _ in tree.leaves_with_paths(local)]
+    batch = synthetic.data_block(lmm_tokens(cfg32, data, seq, dev), mesh)
+    res["grads32"], res["loss32"] = grads_of(cfg32, local, specs, batch)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dense = full.replace(embedding_kind="dense")
+    ocfg = opt.OptConfig(**LMM_OPT)
+
+    def one(depth):
+        cfg = dense.replace(num_layers=depth)
+        local, specs, _ = lmm_place(cfg, mesh, dev)
+        b = synthetic.data_block(lmm_tokens(cfg, data, seq, dev), mesh)
+        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg, mesh=mesh,
+                                  specs=specs)
+        step(local, opt.init(local), b)
+
+    fit = lmm_fit(one, LMM_DEPTHS, mesh, cap=full.num_layers)
+    res["fit"] = fit
+    cfg = dense.replace(num_layers=fit["size"])
+    local, specs, _ = lmm_place(cfg, mesh, dev)
+    batch = synthetic.data_block(lmm_tokens(cfg, data, seq, dev), mesh)
+    res["grads"], res["loss"] = grads_of(cfg, local, specs, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
+    res["layers"], res["microbatch"] = cfg.num_layers, 1
+    return res
+
+
+def lmm_single_grads(cfg, batch, dev, blocks: int = 1) -> tuple[list, float]:
+    """The single card's step-1 gradients of ``cfg`` (params seed 0) on
+    ``batch``, on the host, and the loss.  With ``blocks``, the batch's
+    ``data`` partition: each block's gradient (one sequence each here) in
+    turn, summed in fp32 and divided by the count, as the mesh's data mean
+    and ``make_train_step``'s microbatches average them."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    fn = registry.train_loss_fn(registry.get(LM_MAIN), cfg)
+    toks = batch["tokens"]
+    per = toks.shape[0] // blocks
+    acc, loss = None, 0.0
+    for i in range(blocks):
+        lb, _, g = TS.value_and_grad(fn, params, {"tokens": toks[i * per:(i + 1) * per]})
+        leaves = [x.float() for x in tree.leaves(g)]
+        acc = leaves if acc is None else [a.add_(b) for a, b in zip(acc, leaves)]
+        loss += float(lb) / blocks
+        del g, leaves
+    out = [a.div_(blocks).cpu() for a in acc]
+    del params, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, loss
+
+
+def lmm_record(ranks, shape, vocab: str) -> dict:
+    """One mesh's record from its ranks' ``lmm_steps``: ms a step (max over
+    ranks, mean of the steps), the split (max over ranks), bytes all-reduced
+    a rank a step by axis, collectives a step, peak memory, K9 and K8."""
+    st = [r["steps"] for r in ranks]
+    per_axis = {}
+    for site_axis, (_calls, nbytes) in st[0]["sites"].items():
+        axis = site_axis.split("/")[1]
+        per_axis[axis] = per_axis.get(axis, 0) + nbytes
+    split = {k: max(float(np.mean([s[k] for s in r["split_host_ms"]])) for r in st)
+             for k in st[0]["split_host_ms"][0]}
+    launches = {}
+    for r in st:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"mesh": list(shape), "backend": "gloo", "vocab": vocab,
+            "layers": ranks[0]["layers"], "microbatch_a_data_rank": ranks[0]["microbatch"],
+            "seq": lmt_shape().seq_len, "fit": ranks[0]["fit"],
+            "losses": st[0]["losses"], "grad_norms": st[0]["norms"],
+            "ms_per_step_max_over_ranks": max(float(np.mean(r["step_ms"])) for r in st),
+            "step_ms_rank0": st[0]["step_ms"], "split_host_ms_max_over_ranks": split,
+            "bytes_all_reduced_per_rank_per_step": per_axis,
+            "collectives_per_step": {k: v[0] for k, v in st[0]["sites"].items()},
+            "peak_gib_max_over_ranks": max(r["peak_gib"] for r in st),
+            "k9_ms_a_call": max(r["k9_ms_a_call"] for r in st),
+            "k8_ms_a_call": (max(r["k8_ms_a_call"] for r in st)
+                             if st[0]["k8_ms_a_call"] is not None else None),
+            "launches_all_ranks": launches, "held": st[0]["held"]}
+
+
+def lmm_log(rec: dict) -> None:
+    split = rec["split_host_ms_max_over_ranks"]
+    fit = rec["fit"]
+    how = ("microbatch a constant chosen for the script's time, not fitted" if fit is None
+           else f"depth {fit['size']}: fit {fit['fit']}, {fit['slope'] / 2**30:.2f} GiB "
+           f"reserved a layer + {fit['fixed'] / 2**30:.2f} GiB, {fit['free'] / 2**30:.2f} GiB "
+           f"free over {fit['ranks_on_card']} ranks")
+    log(f"[lm-mesh] qwen2-1.5b mesh {tuple(rec['mesh'])} gloo, {rec['vocab']} vocab, "
+        f"{rec['layers']} layers, {rec['microbatch_a_data_rank']} x {rec['seq']} a data rank "
+        f"({how}): losses "
+        f"{', '.join(f'{x:.4f}' for x in rec['losses'])}; "
+        f"{rec['ms_per_step_max_over_ranks']:.1f} ms a step (max over ranks; forward "
+        f"{split['forward']:.1f}, backward {split['backward']:.1f}, gradient mean "
+        f"{split['grad_reduce']:.1f}, update {split['update']:.1f} ms); all-reduced a rank a "
+        f"step {rec['bytes_all_reduced_per_rank_per_step']} B; collectives a step "
+        f"{rec['collectives_per_step']}; peak {rec['peak_gib_max_over_ranks']:.2f} GiB a rank; "
+        f"K9 {rec['k9_ms_a_call']:.2f} ms a call"
+        + (f", K8 {rec['k8_ms_a_call']:.3f} ms a call" if rec["k8_ms_a_call"] else "")
+        + f"; launches (all ranks) {rec['launches_all_ranks']}; gloo through the host: "
+        f"each layer combines and enters (B, 4,096, 1,536) bf16 partials about six times a "
+        f"microbatch")
+    log(f"[lm-mesh] mesh {tuple(rec['mesh'])} kernels vs plain on rank (0, 0)'s own calls: "
+        + held_text(rec["held"]))
+
+
+def lm_mesh_cli(mods, totals) -> dict:
+    """The CLI drill: ``python -m repro_torch.launch.train`` with ``LMM_CLI``
+    and ``--mesh-shape 1,2 --steps 2`` (two gloo ranks on the card, full
+    width and depth), then the same without ``--mesh-shape`` and with
+    ``--steps 4`` in this process, which must print ``[resume] step 2`` (the
+    meshed checkpoint's full logical arrays restored on one card)."""
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    ckdir = ROOT / "build" / "lm_mesh_cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = [*LMM_CLI, "--ckpt-dir", str(ckdir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec = {"argv": argv}
+    try:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv,
+                              "--mesh-shape", "1,2", "--steps", "2"], capture_output=True,
+                             text=True, env=env, timeout=LMM_TIMEOUT_S)
+        rec["mesh"] = {"exit": run.returncode, "s": time.perf_counter() - t0}
+        for line in (run.stderr + run.stdout).splitlines():
+            if line.startswith(("[mesh]", "step", "done")):
+                log(f"[lm-mesh-cli] {line}")
+        if run.returncode != 0:
+            raise AssertionError(f"[lm-mesh-cli] --mesh-shape 1,2: exit {run.returncode}\n"
+                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+        take_launches(mods, totals)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main([*argv, "--steps", "4"])
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        rec["one_card"] = {"exit": rc, "s": time.perf_counter() - t0,
+                           "launches": take_launches(mods, totals)}
+        for line in text.splitlines():
+            if line.startswith(("[resume]", "step", "done")):
+                log(f"[lm-mesh-cli] {line}")
+        if rc != 0 or "[resume] step 2" not in text:
+            raise AssertionError(f"[lm-mesh-cli] one card did not resume at step 2:\n{text}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[lm-mesh-cli] (1, 2) to step 2 in {rec['mesh']['s']:.1f} s, then one card resumed "
+        f"to step 4 in {rec['one_card']['s']:.1f} s (set-up and checkpoints included); "
+        f"launches of the one-card run {rec['one_card']['launches']}")
+    return rec
+
+
+def lm_mesh_phase(dev, by_name, mods) -> dict:
+    """Phase 13: the LM trained on a mesh.  World 1 over nccl in this
+    process; two gloo ranks on the card, mesh (1, 2), at full width and
+    depth with the QR vocabulary; four, mesh (2, 2), with the dense
+    vocabulary at the depth they hold, their fp32 (2 layers) and bf16 (the
+    cut) step-1 gradients held against the single card's; the CLI drill.
+    The phase's K9 and K8 launches (this process's and the ranks') add to
+    the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
+    ``{"lm_mesh_training": ...}`` record."""
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    totals = {}
+    reset_all(mods)
+    record = {"world1": lm_mesh_world1(dev, mods, totals), "meshes": []}
+    log(f"[lm-mesh] world 1 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = LMT_ALLOCATOR
+    try:
+        for shape, what, vocab in (((1, 2), "tp", "qr"), ((2, 2), "dp", "dense")):
+            t1 = time.perf_counter()
+            ranks = M.spawn(lm_mesh_rank, shape, args=(what,), device="cuda", backend="gloo",
+                            init_file=ROOT / "build" / "lm_mesh" / "rdv",
+                            timeout_s=LMM_TIMEOUT_S)
+            rec = lmm_record(ranks, shape, vocab)
+            rec["spawn_s"] = time.perf_counter() - t1
+            log(f"[lm-mesh] mesh {shape}: the ranks took {rec['spawn_s']:.1f} s")
+            for k, v in rec["launches_all_ranks"].items():
+                totals[k] = totals.get(k, 0) + v
+            lmm_log(rec)
+            if what == "dp":
+                mine = next(r for r in ranks if not any(r["coords"].values()))
+                seq = lmt_shape().seq_len
+                full = lm_config(LM_MAIN).replace(embedding_kind="dense")
+                cfg32 = full.replace(num_layers=LMM_GRAD32_LAYERS, compute_dtype="float32")
+                got = mine.pop("grads32")
+                toks32 = lmm_tokens(cfg32, shape[0], seq, dev)
+                want, loss = lmm_single_grads(cfg32, toks32, dev, blocks=shape[0])
+                e32 = leaf_errors(got, want)
+                one_pass, _ = lmm_single_grads(cfg32, toks32, dev)
+                e_one = leaf_errors(got, one_pass)
+                checks = {"fp32": {"layers": LMM_GRAD32_LAYERS, "rel_err_max": max(e32),
+                                   "leaf": mine["paths"][int(np.argmax(e32))],
+                                   "tolerance": LMM_FP32_TOL, "loss": mine["loss32"],
+                                   "loss_single_card": loss,
+                                   "vs_one_pass": (max(e_one),
+                                                   mine["paths"][int(np.argmax(e_one))])}}
+                del got, want, one_pass
+                # the cut in bf16: the mesh and the single card against the
+                # single card in fp32 compute (the exact gradients)
+                cut = full.replace(num_layers=rec["layers"])
+                toks = lmm_tokens(cut, shape[0], seq, dev)
+                exact, loss32 = lmm_single_grads(cut.replace(compute_dtype="float32"), toks, dev,
+                                                 blocks=shape[0])
+                single, loss16 = lmm_single_grads(cut, toks, dev, blocks=shape[0])
+                got = mine.pop("grads")
+                e_single, e_mesh = leaf_errors(single, exact), leaf_errors(got, exact)
+                e_between = leaf_errors(got, single)
+                del exact, single, got
+                bound = LMM_BF16_FACTOR * max(e_single)
+                worst = lambda e: (max(e), mine["paths"][int(np.argmax(e))])
+                checks["bf16"] = {
+                    "layers": cut.num_layers, "mesh_vs_exact": worst(e_mesh),
+                    "single_card_vs_exact": worst(e_single), "mesh_vs_single_card":
+                    worst(e_between), "bound": bound, "loss": mine["loss"],
+                    "loss_single_card": loss16, "loss_single_card_fp32": loss32}
+                rec["step1_grads"] = checks
+                c32, c16 = checks["fp32"], checks["bf16"]
+                log(f"[lm-mesh] (2, 2) fp32 step-1 gradients at {LMM_GRAD32_LAYERS} layers, "
+                    f"gathered, vs the single card on the same data partition: "
+                    f"{c32['rel_err_max']:.3g} of scale (worst {c32['leaf']}; held to "
+                    f"{LMM_FP32_TOL}); vs the single card in one pass "
+                    f"{c32['vs_one_pass'][0]:.3g} ({c32['vs_one_pass'][1]}); loss "
+                    f"{c32['loss']:.6f} vs {c32['loss_single_card']:.6f}")
+                log(f"[lm-mesh] (2, 2) bf16 step-1 gradients at {cut.num_layers} layers against "
+                    f"the single card's in fp32 compute, worst leaf's share of its scale: the "
+                    f"mesh {c16['mesh_vs_exact'][0]:.3g} ({c16['mesh_vs_exact'][1]}; held to "
+                    f"{LMM_BF16_FACTOR:g} x the single card's = {bound:.3g}), the single card in "
+                    f"bf16 {c16['single_card_vs_exact'][0]:.3g} "
+                    f"({c16['single_card_vs_exact'][1]}); the mesh vs the single card in bf16 "
+                    f"{c16['mesh_vs_single_card'][0]:.3g} ({c16['mesh_vs_single_card'][1]}); "
+                    f"losses {c16['loss']:.6f} / {loss16:.6f} / fp32 {loss32:.6f}")
+                if not (c32["rel_err_max"] <= LMM_FP32_TOL and max(e_mesh) <= bound):
+                    raise AssertionError(f"[lm-mesh] (2, 2) step-1 gradients: {checks}")
+                rec["step1_grads"] = checks
+            record["meshes"].append(rec)
+            del ranks
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    t1 = time.perf_counter()
+    record["cli"] = lm_mesh_cli(mods, totals)
+    log(f"[lm-mesh] the CLI drill took {time.perf_counter() - t1:.1f} s")
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[lm-mesh] phase {record['phase_s']:.1f} s; launches {totals}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4913,6 +5528,9 @@ def main() -> int:
     # phase 12: the dense transformer trained (K9 twice a layer a microbatch,
     # K8 for QR tokens, K5 for TT tokens and the tied head)
     lm_training = lm_train_phase(dev, by_name, mods)
+    # phase 13: the LM trained on a mesh (K9 twice a layer a microbatch and K8
+    # for QR tokens on each rank's shards)
+    lm_mesh_training = lm_mesh_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -4926,6 +5544,7 @@ def main() -> int:
     print(json.dumps({"mesh_training": mesh_training}), flush=True)
     print(json.dumps({"lm_serving": lm_serving}), flush=True)
     print(json.dumps({"lm_training": lm_training}), flush=True)
+    print(json.dumps({"lm_mesh_training": lm_mesh_training}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

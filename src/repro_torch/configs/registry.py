@@ -146,7 +146,7 @@ def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
 
-    return TS.make_lm_loss(T.forward_train, cfg)
+    return TS.make_lm_loss(T.forward_train, cfg, vocab_range=T.vocab_range)
 
 
 def make_batch_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:

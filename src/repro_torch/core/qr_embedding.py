@@ -154,27 +154,78 @@ def materialize(params: dict, cfg: EmbeddingConfig) -> torch.Tensor:
     return lookup(params, _all_rows(cfg, device), cfg)
 
 
-def logits_head(params: dict, x: torch.Tensor, cfg: EmbeddingConfig) -> torch.Tensor:
+def logits_head(params: dict, x: torch.Tensor, cfg: EmbeddingConfig, *, lo: int = 0,
+                hi: int | None = None) -> torch.Tensor:
     """Tied-embedding LM head ``x @ E^T``.  For ``add`` reconstruction,
     ``logits[v] = x·Q[v//c] + x·R[v%c]``: the products run against the
     physical tables, and the expansion is one broadcast add of the (..., q,
     1) and (..., 1, c) products read out as (..., q·c), ``v = (v//c)·c +
     v%c`` (the values ``repro``'s two gathers and add give, bit for bit).
     Its backward sums the logits' gradient over each axis, where two
-    gathers would write two (..., vocab) copies forward and scatter back."""
+    gathers would write two (..., vocab) copies forward and scatter back.
+
+    ``[lo, hi)`` (default the whole vocabulary) gives that range's logits
+    from a dense table or a QR-add Q whose rows start at token ``lo`` (a
+    row shard on a mesh, ``logits_head_shard``)."""
     compute = cfg.compute_dtype
+    n = (cfg.vocab if hi is None else hi) - lo
     if cfg.kind == "dense":
-        return (x @ params["table"].to(compute).T)[..., : cfg.vocab]
+        return (x @ params["table"].to(compute).T)[..., :n]
+    factorized = cfg.kind == "qr" and cfg.reconstruction == "add" and cfg.head != "materialize"
+    if n != cfg.vocab and not factorized:
+        raise NotImplementedError(f"a vocabulary range of the {cfg.kind} head")
     if cfg.kind == "hashed":
         table = params["table"].to(compute)
         hs = hashing.k_ary_hash(_all_rows(cfg, x.device), cfg.physical_hashed_rows,
                                 cfg.hashed_k)                       # (vocab, k)
         small = x @ table.T                                         # (..., rows)
         return small[..., hs.long()].sum(dim=-1)
-    if cfg.kind == "tt" or cfg.reconstruction != "add" or cfg.head == "materialize":
+    if not factorized:
         return x @ materialize(params, cfg).T
-    q_rows, c = cfg.qr_spec.q_rows, cfg.collision
+    c = cfg.collision
+    rows = -(-n // c)                                               # the Q rows it covers
     xq = x @ params["q"].to(compute).T                              # (..., padded q rows)
     xr = x @ params["r"].to(compute).T                              # (..., c)
-    full = xq[..., :q_rows, None] + xr[..., None, :]                # (..., q_rows, c)
-    return full.reshape(*x.shape[:-1], q_rows * c)[..., : cfg.vocab]
+    full = xq[..., :rows, None] + xr[..., None, :]                  # (..., rows, c)
+    return full.reshape(*x.shape[:-1], rows * c)[..., :n]
+
+
+# ---------------------------------------------------------------------------
+# the tied head on a mesh (vocab-parallel)
+# ---------------------------------------------------------------------------
+
+def vocab_shard_range(cfg: EmbeddingConfig, nsh: int, shard: int) -> tuple[int, int]:
+    """The contiguous vocabulary ``[lo, hi)`` whose tied-head logits rank
+    ``shard`` of a row axis of ``nsh`` computes: the tokens of its row
+    shard of the padded table, QR's Q shard ``[shard·rps·c, (shard+1)·rps·c)``
+    (rps Q rows a shard, c the collision), a dense table's rows, each cut
+    at ``vocab`` (the padding never reaches the softmax).  Uneven: aligned
+    with the shards, not with ``vocab / nsh``."""
+    if cfg.kind == "qr":
+        rows, width = _pad_rows(cfg.qr_spec.q_rows), cfg.collision
+    elif cfg.kind == "dense":
+        rows, width = _pad_rows(cfg.vocab), 1
+    else:
+        raise NotImplementedError(f"the tied head of a {cfg.kind} vocabulary on a mesh")
+    per = rows // nsh * width
+    return min(cfg.vocab, shard * per), min(cfg.vocab, (shard + 1) * per)
+
+
+def logits_head_shard(params: dict, x: torch.Tensor, cfg: EmbeddingConfig, *, mesh,
+                      axis: str = "model") -> torch.Tensor:
+    """This rank's slice ``[lo, hi)`` (``vocab_shard_range``) of the tied
+    head's logits ``x @ E^T``: ``logits_head`` over that range on its row
+    shard of ``params`` (QR-add's Q shard beside the whole R, or a dense
+    table's rows).  Every rank's slice reads ``x`` (and R): both enter
+    through ``collectives.enter``, so their gradients are summed over
+    ``axis``."""
+    from repro_torch.distributed import collectives
+
+    lo, hi = vocab_shard_range(cfg, mesh.shape[axis], mesh.axis_index(axis))
+    if cfg.kind == "dense":
+        [x] = collectives.enter([x], mesh, axis)
+        return logits_head(params, x, cfg, lo=lo, hi=hi)
+    if cfg.reconstruction != "add" or cfg.head == "materialize":
+        raise NotImplementedError(f"the {cfg.head} QR-{cfg.reconstruction} head on a mesh")
+    x, r = collectives.enter([x, params["r"]], mesh, axis)
+    return logits_head({"q": params["q"], "r": r}, x, cfg, lo=lo, hi=hi)

@@ -492,3 +492,59 @@ def build_token_embed(mesh, cfg: EmbeddingConfig, *, batch_axis: str = "data",
         return collectives.psum(part, mesh, row_axis)
 
     return fn
+
+
+# what brings the vocabularies a meshed LM does not run yet
+MESHED_VOCAB_ITEM = "ROADMAP.md §1 item 8 (TT and hashed vocabularies on a mesh)"
+
+
+def token_embed_inline(params: dict, idx: torch.Tensor, cfg: EmbeddingConfig, *,
+                       mesh, row_axis: str = "model") -> torch.Tensor:
+    """Two-level GnR token embedding inside the model: (B_local, S) tokens ->
+    (B_local, S, dim) in the compute dtype, on this rank's Q shard (QR-add)
+    or row shard (dense) of ``params``.
+
+    ``mesh`` must have a ``row_axis``; off one the single card's lookup is
+    ``transformer.embed_tokens``'s, as ``repro``'s fallback.  Each rank
+    routes its token stream before one ``ops.qr_lookup`` launch (K8) on its
+    shard: a Q row it does not own goes to the zero row appended to its Q
+    shard, and on every rank but the axis's first each R index goes to the
+    zero row appended to R; then one ``collectives.combine`` over
+    ``row_axis`` sums the partials (the base-die level).  The backward is
+    K8's chunked recompute with the zero rows as sinks, and R's gradient,
+    which only the first rank's lookups give, is summed over the axis
+    (``collectives.enter``).  In fp32 every partial but the owner's and the
+    first rank's is an exact zero, so the result is bitwise the single
+    card's; in bf16 the combine adds the owner's Q row and the first rank's
+    R row in the compute dtype, as ``repro``'s psum does.
+
+    A dense vocabulary takes the owned-rows gather of its row shard and the
+    same combine (Megatron's vocab-parallel embedding).  TT and hashed
+    vocabularies, and QR with ``mul`` / ``concat``, raise."""
+    if row_axis not in mesh.shape:
+        raise ValueError(f"token_embed_inline needs a mesh with a {row_axis!r} axis, "
+                         f"not {dict(mesh.shape)}")
+    nsh, shard = mesh.shape[row_axis], mesh.axis_index(row_axis)
+    plan = ShardPlan(cfg, nsh)
+    if cfg.kind not in ("qr", "dense") or (cfg.kind == "qr" and cfg.reconstruction != "add"):
+        what = cfg.kind if cfg.kind != "qr" else f"QR-{cfg.reconstruction}"
+        raise NotImplementedError(f"a {what} vocabulary on a mesh: {MESHED_VOCAB_ITEM} "
+                                  f"brings it")
+    big = params["q" if cfg.kind == "qr" else "table"]
+    if plan.q_rows_padded % nsh or big.shape[0] != plan.rows_per_shard:
+        raise ValueError(f"a {row_axis} axis of {nsh} does not split the "
+                         f"{plan.q_rows_padded} padded rows; this rank holds {big.shape[0]}")
+    compute = cfg.compute_dtype
+    if cfg.kind == "dense":
+        part = _owned_rows_gather(big, idx, plan, mesh, row_axis, compute)
+        return collectives.combine(part, mesh, row_axis)
+    rps, c = plan.rows_per_shard, cfg.collision
+    q_idx, r_idx = hashing.qr_decompose(idx, c)
+    local = q_idx - shard * rps
+    q_stream = torch.where((local >= 0) & (local < rps), local, rps).to(torch.int32)
+    r_stream = (r_idx if shard == 0 else torch.full_like(r_idx, c)).to(torch.int32)
+    [r] = collectives.enter([params["r"]], mesh, row_axis)
+    part = ops.qr_lookup(_packed_rows([big], compute, zero_row=True),
+                         _packed_rows([r], compute, zero_row=True), q_stream, r_stream,
+                         sinks={"q_idx": rps, "r_idx": c})
+    return collectives.combine(part, mesh, row_axis)

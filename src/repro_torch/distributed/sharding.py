@@ -21,6 +21,7 @@ blocks (a checkpoint's logical array), ``full_shape`` gives its shape.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
 from typing import Mapping, Sequence
 
@@ -104,6 +105,71 @@ PARAM_RULES: dict[str, tuple[str, ...] | None] = {
 TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None,
                                                         "mlp": None}
 
+# The LM's at-rest layout in training: tensor parallelism over ``model`` for
+# ``heads``, ``kv_heads``, ``ffn``, ``vocab`` and ``qrow`` (the Q shard a
+# rank's token partial reads), ``rrow`` replicated, ``embed`` kept whole
+# (``repro``'s FSDP over ``data`` is a layout departure).  ``lm_param_rules``
+# narrows it to whole heads for one config and mesh.
+LM_TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """This rank's share of an attention block under tensor parallelism:
+    q heads ``[q0, q0 + q)``, and the kv heads ``[kv0, kv0 + kv)`` they
+    read.  ``kv_local`` says the kv projections are split over the axis
+    (this rank holds exactly its kv heads); otherwise they are whole on
+    every rank and the rank slices its heads out of them."""
+
+    q0: int
+    q: int
+    kv0: int
+    kv: int
+    kv_local: bool
+
+
+def head_split(cfg, mesh, axis: str = "model") -> HeadSplit | None:
+    """This rank's ``HeadSplit`` of ``cfg``'s attention over ``axis``, or
+    None where the block runs replicated (no such axis, or the q heads do
+    not divide it: ``repro``'s first-fit resolution keeps them whole).
+    Splits only at head granularity: the kv projections split where
+    ``kv_heads`` divides the axis, and stay whole where it does not, each
+    rank then reading the one kv head its q heads share.  Raises where a
+    rank's q heads would straddle two kv groups."""
+    if mesh is None or axis not in mesh.shape:
+        return None
+    m = mesh.shape[axis]
+    h, kh = cfg.num_heads, cfg.kv_heads
+    if h % m:
+        return None
+    hl, group, s = h // m, h // kh, mesh.axis_index(axis)
+    if kh % m == 0:
+        return HeadSplit(q0=s * hl, q=hl, kv0=s * (kh // m), kv=kh // m, kv_local=True)
+    if group % hl:
+        raise ValueError(
+            f"{cfg.name}: {h} q heads in {kh} kv groups of {group} over a {axis} axis of {m}: "
+            f"a rank's {hl} q heads would straddle two kv groups")
+    return HeadSplit(q0=s * hl, q=hl, kv0=s * hl // group, kv=1, kv_local=False)
+
+
+def ffn_split(cfg, mesh, axis: str = "model") -> bool:
+    """Whether ``cfg``'s MLP splits its ``d_ff`` over ``axis`` (else it runs
+    replicated, as ``resolve_spec`` leaves a dim the axis does not divide)."""
+    return mesh is not None and axis in mesh.shape and cfg.d_ff % mesh.shape[axis] == 0
+
+
+def lm_param_rules(cfg, mesh) -> dict:
+    """``LM_TRAIN_PARAM_RULES`` for ``cfg`` on ``mesh``: ``heads`` and
+    ``kv_heads`` replicated where ``head_split`` keeps them whole (the
+    flattened ``heads * head_dim`` dim may divide an axis the heads do not)."""
+    rules = dict(LM_TRAIN_PARAM_RULES)
+    split = head_split(cfg, mesh)
+    if split is None:
+        rules["heads"] = None
+    if split is None or not split.kv_local:
+        rules["kv_heads"] = None
+    return rules
+
 
 def multi_pod_param_rules(rules: Mapping | None = None) -> dict:
     """FSDP additionally over 'pod' for the 2-pod mesh."""
@@ -166,6 +232,13 @@ def use_rules(mesh, rules: Mapping[str, tuple[str, ...] | None] | None):
 def current_mesh():
     ctx = getattr(_state, "ctx", None)
     return ctx[0] if ctx else None
+
+
+def model_mesh(mesh=None):
+    """``mesh`` (default the active one) where it has a ``model`` axis, the
+    LM's tensor-parallel axis; else None."""
+    mesh = current_mesh() if mesh is None else mesh
+    return mesh if mesh is not None and "model" in mesh.shape else None
 
 
 def current_rules() -> dict | None:

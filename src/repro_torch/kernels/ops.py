@@ -106,12 +106,16 @@ def _recompute(plain, wide: list, streams: tuple, ct: torch.Tensor, need: list,
         cot = ct[lo:lo + chunk]
         if keep is not None:
             stream, row = keep
-            k = part[stream].shape[-1]
             kept = (part[stream] != row).reshape(-1).nonzero().squeeze(1)
             if kept.numel() == 0:
                 continue
-            part = [s.reshape(-1)[kept][:, None] for s in part]
-            cot = cot[kept // k]
+            if part[stream].dim() == 1:             # unpooled lookups: one row each
+                part = [s[kept] for s in part]
+                cot = cot[kept]
+            else:
+                k = part[stream].shape[-1]
+                part = [s.reshape(-1)[kept][:, None] for s in part]
+                cot = cot[kept // k]
         leaves = [w.detach().requires_grad_(i in need) for i, w in enumerate(wide)]
         with torch.enable_grad():
             out = plain(*leaves, *part)
@@ -154,11 +158,19 @@ def _check_dim_block(dim: int, dim_block: int | None) -> None:
 
 
 def qr_lookup(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
-              r_idx: torch.Tensor, *, dim_block: int | None = None) -> torch.Tensor:
-    """Unpooled QR rows for any index shape (...,) -> (..., dim): K8."""
+              r_idx: torch.Tensor, *, dim_block: int | None = None,
+              sinks: dict | None = None) -> torch.Tensor:
+    """Unpooled QR rows for any index shape (...,) -> (..., dim): K8.
+
+    ``sinks`` maps ``q_idx`` / ``r_idx`` to an all-zero row of its table
+    whose gradient the caller discards (a rank's zero rows,
+    ``sharded_embedding.token_embed_inline``): the backward leaves the
+    lookups routed there out of that table's recompute."""
     _check_dim_block(q_table.shape[1], dim_block)
+    groups = tuple((i, int(sinks[name]), (i,)) for i, name in enumerate(("q_idx", "r_idx"))
+                   if name in (sinks or {}))
     out = _diff(qr_gather.qr_gather, ref.qr_lookup_ref, (q_table, r_lut),
-                (q_idx.reshape(-1), r_idx.reshape(-1)), q_table.shape[1])
+                (q_idx.reshape(-1), r_idx.reshape(-1)), q_table.shape[1], sinks=groups)
     return out.reshape(*q_idx.shape, out.shape[-1])
 
 

@@ -18,21 +18,23 @@ picks either's vocabulary or tables.
   packed kernel launch a step, differentiable), and its batches carry
   planted CTR structure so the loss is learnable; an LM's batches are
   uniform tokens, as ``repro``'s;
-* ``--mesh-shape`` trains a DLRM sharded, ``repro``'s axis names (two dims or fewer
+* ``--mesh-shape`` trains sharded, ``repro``'s axis names (two dims or fewer
   ``("data", "model")``, three ``("pod", "data", "model")``): the CLI process
   starts one process a rank (``launch.mesh.spawn``; nccl where every rank
   has a card, gloo where ranks share one or run on the CPU) and forwards
   SIGTERM / SIGINT to them.  Each rank places the params by their logical
-  axes (``sharding.TRAIN_PARAM_RULES``: tables row-sharded over ``model``),
-  takes its ``data`` block of the global batch, runs the two-level GnR and
-  averages the gradients over ``data``.  The ranks agree on the stop flag
-  every step (a MAX all-reduce), so all of them checkpoint at the same
-  step.  Checkpoints hold the full logical arrays, so a run resumes on
-  another mesh shape, on one card, or in ``repro`` (the elastic restart).
-  Only the rank at coordinates 0 prints.
+  axes, takes its ``data`` block of the global batch and averages the
+  gradients over ``data``.  A DLRM (``sharding.TRAIN_PARAM_RULES``: tables
+  row-sharded over ``model``) runs the two-level GnR; an LM
+  (``sharding.lm_param_rules``: whole heads, ``d_ff`` and the vocabulary
+  split over ``model``) runs tensor-parallel, its tokens through the
+  two-level GnR and its loss vocab-parallel.  The ranks agree on the stop
+  flag every step (a MAX all-reduce), so all of them checkpoint at the
+  same step.  Checkpoints hold the full logical arrays, so a run resumes
+  on another mesh shape, on one card, or in ``repro`` (the elastic
+  restart).  Only the rank at coordinates 0 prints.
 
-Runs on the card unless ``--device cpu`` is given.  ``--mesh-shape`` takes
-the DLRM archs only: the meshed LM is ``ROADMAP.md`` §1 item 2.
+Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-qr --smoke \\
         --steps 20 --batch 16 --device cpu --ckpt-dir <dir>
@@ -40,6 +42,9 @@ the DLRM archs only: the meshed LM is ``ROADMAP.md`` §1 item 2.
         --steps 20 --batch 8 --seq 128 --device cpu --ckpt-dir <dir>
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-qr --smoke \\
         --device cpu --mesh-shape 2,2 --steps 4 --ckpt-dir <dir>
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
+        --device cpu --mesh-shape 2,2 --steps 4 --batch 8 --seq 32 --embedding qr \\
+        --ckpt-dir <dir>
 """
 
 from __future__ import annotations
@@ -64,7 +69,6 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as SH
 from repro_torch.engine import EngineSpec, engine_for
 from repro_torch.models import dlrm
-from repro_torch.models.transformer import MESHED_LM
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_step import make_dlrm_loss, make_train_step
 
@@ -81,22 +85,38 @@ def _opt_cfg(args) -> opt_mod.OptConfig:
                              total_steps=args.steps)
 
 
-def build_lm(args, dev):
-    """-> (cfg, params, opt_state, step_fn, make_batch, None) for an LM
-    arch: the registry's bindings, batches of ``--seq`` tokens."""
+def place(params, axes, mesh, rules):
+    """-> (this rank's blocks of ``params``, their specs, the specs of the
+    whole state ``{"params", "opt"}``), laid out on ``mesh`` under
+    ``rules``."""
+    specs = SH.tree_specs(params, axes, mesh, rules)
+    meta = tree.tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"), params)
+    state_specs = SH.tree_specs({"params": meta, "opt": opt_mod.init(meta)},
+                                {"params": axes, "opt": opt_mod.opt_axes(axes)}, mesh, rules)
+    return SH.shard_tree(params, specs, mesh), specs, state_specs
+
+
+def build_lm(args, dev, mesh=None):
+    """-> (cfg, params, opt_state, step_fn, make_batch, state_specs) for an
+    LM arch: the registry's bindings, batches of ``--seq`` tokens.  With
+    ``mesh``, the params laid out by ``sharding.lm_param_rules`` (tensor
+    parallel over ``model``, whole heads only)."""
     binding = registry.get(args.arch)
     cfg = binding.smoke if args.smoke else binding.config
     if args.embedding:
         cfg = cfg.replace(embedding_kind=args.embedding)
-    params, _axes = registry.init_fn(binding)(cfg, seed=args.seed, device=dev)
+    params, axes = registry.init_fn(binding)(cfg, seed=args.seed, device=dev)
+    specs = state_specs = None
+    if mesh is not None:
+        params, specs, state_specs = place(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
     make = registry.make_batch_fn(binding, cfg)
 
     def make_batch(batch, **kw):
         return make(batch, args.seq, device=dev, **kw)
 
     step_fn = make_train_step(registry.train_loss_fn(binding, cfg), _opt_cfg(args),
-                              microbatches=args.microbatches)
-    return cfg, params, opt_mod.init(params), step_fn, make_batch, None
+                              microbatches=args.microbatches, mesh=mesh, specs=specs)
+    return cfg, params, opt_mod.init(params), step_fn, make_batch, state_specs
 
 
 def build(args, dev, mesh=None):
@@ -106,24 +126,15 @@ def build(args, dev, mesh=None):
     and ``state_specs``, one spec per leaf of ``{"params", "opt"}`` (the
     checkpoint's); without, the whole state and None."""
     if not args.arch.startswith("dlrm"):
-        if mesh is not None:
-            raise NotImplementedError(f"--arch {args.arch} on a mesh: {MESHED_LM} brings it")
-        return build_lm(args, dev)
+        return build_lm(args, dev, mesh)
     cfg = registry.get_dlrm(f"{args.arch}-smoke" if args.smoke else args.arch)
     if args.embedding:
         cfg = dataclasses.replace(cfg, embedding_kind=args.embedding)
     params = dlrm.init_dlrm(cfg, seed=args.seed, device=dev)
     specs = state_specs = None
     if mesh is not None:
-        axes = dlrm.param_axes(cfg)
-        rules = SH.TRAIN_PARAM_RULES
-        specs = SH.tree_specs(params, axes, mesh, rules)
-        meta = tree.tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
-                             params)
-        state_specs = SH.tree_specs({"params": meta, "opt": opt_mod.init(meta)},
-                                    {"params": axes, "opt": opt_mod.opt_axes(axes)},
-                                    mesh, rules)
-        params = SH.shard_tree(params, specs, mesh)
+        params, specs, state_specs = place(params, dlrm.param_axes(cfg), mesh,
+                                           SH.TRAIN_PARAM_RULES)
     opt_state = opt_mod.init(params)
     eng = engine_for(EngineSpec.from_bags(dlrm.make_bags(cfg)))
     if ckpt.is_writer(mesh):
@@ -245,9 +256,6 @@ def main(argv=None) -> int:
 
     from repro_torch.launch import mesh as mesh_mod
 
-    if not args.arch.startswith("dlrm"):
-        raise NotImplementedError(f"--arch {args.arch} --mesh-shape {args.mesh_shape}: "
-                                  f"{MESHED_LM} brings it")
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
     axes = mesh_axes(shape)
     world = math.prod(shape)
@@ -256,7 +264,9 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         from repro_torch.kernels import build as kbuild
 
-        kbuild.build(["packed_gather", "tt_bag"])    # K1 / K3 and K2, here, not in the ranks
+        # here, not in the ranks: K1 / K3 and K2 for a DLRM, K9 and K8 for an LM
+        kbuild.build(["packed_gather", "tt_bag"] if args.arch.startswith("dlrm")
+                     else ["flash_attention", "qr_gather"])
     with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as tmp:
         results = mesh_mod.spawn(_rank, shape, axes=axes, args=(args,), device=dev.type,
                                  backend=backend, init_file=Path(tmp) / "rdv",

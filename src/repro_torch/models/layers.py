@@ -22,8 +22,11 @@ score matrix: a Python loop over query blocks runs a loop over key blocks
 with the online-softmax update, where ``repro`` scans.  The causal mask is
 top-left aligned (query i sees key j iff i >= j), as in the kernel.
 
-``repro``'s sharding constraints (``constrain``) have no counterpart on one
-card.
+``repro``'s sharding constraints (``constrain``) have no counterpart in
+the port: on a mesh (one process a rank) ``attention`` and ``mlp`` run
+tensor-parallel over ``model`` on this rank's blocks, their input entering
+through ``collectives.enter`` and their output combined by
+``collectives.combine``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -247,9 +253,22 @@ def init_attention(cfg, *, generator: torch.Generator, device, cross: bool = Fal
     return params, axes
 
 
+def _columns(p: dict, lo: int, hi: int) -> dict:
+    """A projection's output columns ``[lo, hi)`` (``w`` and ``b``)."""
+    return {k: w[..., lo:hi] for k, w in p.items()}
+
+
+def _enter(mesh, *trees) -> list:
+    """``trees`` with every leaf passed through ``collectives.enter`` over
+    ``model``, all in one call (one all-reduce of their gradients)."""
+    flat = [tree.leaves(t) for t in trees]
+    got = iter(collectives.enter([leaf for f in flat for leaf in f], mesh, "model"))
+    return [tree.unflatten(t, [next(got) for _ in f]) for t, f in zip(trees, flat)]
+
+
 def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: bool = True,
               positions: torch.Tensor | None = None, kv_src: torch.Tensor | None = None,
-              cache: tuple | None = None, pos: int | None = None):
+              cache: tuple | None = None, pos: int | None = None, mesh=None):
     """GQA attention.
 
     * train/prefill: ``cache is None`` -- full-sequence attention through
@@ -260,15 +279,39 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
       PLACE at ``pos`` (``repro`` returns new caches, which XLA updates in
       place by donation); returns (y, (k_cache, v_cache)).
     * cross-attention: ``kv_src`` supplies the encoder output (not causal).
+
+    On a ``mesh`` whose ``model`` axis splits the heads
+    (``sharding.head_split``), ``p`` holds this rank's blocks and the block
+    is tensor-parallel, Megatron's f/g pair: ``x`` enters through
+    ``collectives.enter`` (its cotangent summed over ``model``), the rank
+    computes q for its heads and k/v for the kv heads they read (sliced out
+    of whole kv projections, which then enter too, where ``kv_heads`` does
+    not divide the axis), K9 runs on those local heads, and ``wo`` is
+    row-parallel, its partial products summed by one
+    ``collectives.combine``.  Every rank issues the same collectives.
     """
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     cd = cfg.cdtype
+    split = SH.head_split(cfg, mesh)
+    wk, wv = p["wk"], p["wv"]
+    if split is not None:
+        if cache is not None or kv_src is not None:
+            raise NotImplementedError("tensor-parallel attention serves no cache and no "
+                                      "cross-attention")
+        norms = {k: p[k] for k in ("q_norm", "k_norm") if k in p}
+        kv = {} if split.kv_local else {"wk": wk, "wv": wv}
+        x, norms, kv = _enter(mesh, x, norms, kv)
+        p = {**p, **norms}
+        if kv:
+            lo, hi = split.kv0 * hd, (split.kv0 + split.kv) * hd
+            wk, wv = _columns(kv["wk"], lo, hi), _columns(kv["wv"], lo, hi)
+        h, kh = split.q, split.kv
 
     q = dense(p["wq"], x, cd).reshape(b, s, h, hd)
     src = x if kv_src is None else kv_src
-    k = dense(p["wk"], src, cd).reshape(b, src.shape[1], kh, hd)
-    v = dense(p["wv"], src, cd).reshape(b, src.shape[1], kh, hd)
+    k = dense(wk, src, cd).reshape(b, src.shape[1], kh, hd)
+    v = dense(wv, src, cd).reshape(b, src.shape[1], kh, hd)
 
     if cfg.qk_norm:
         q = rms_norm_headwise(q, p["q_norm"])
@@ -303,7 +346,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
     y = ops.flash_attention_fused(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                                   v.transpose(1, 2).contiguous(), causal=is_causal)
     y = y.transpose(1, 2).reshape(b, s, h * hd)
-    return dense(p["wo"], y, cd), (k, v)
+    out = dense(p["wo"], y, cd)
+    if split is not None:
+        out = collectives.combine(out, mesh, "model")
+    return out, (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +368,18 @@ def init_mlp(cfg, *, generator: torch.Generator, device, d_ff: int | None = None
     return params, axes
 
 
-def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg, *, mesh=None) -> torch.Tensor:
     """silu-gated (SwiGLU), relu2 (``relu(x)**2``) or gelu (tanh, as
-    ``jax.nn.gelu``'s default) MLP in the compute dtype."""
+    ``jax.nn.gelu``'s default) MLP in the compute dtype.  On a ``mesh``
+    whose ``model`` axis splits ``d_ff`` (``sharding.ffn_split``), ``p``
+    holds this rank's columns of ``w_up`` / ``w_gate`` and rows of
+    ``w_down``: ``x`` enters through ``collectives.enter`` and the
+    row-parallel ``w_down``'s partials are summed by one
+    ``collectives.combine``."""
     cd = cfg.cdtype
+    split = SH.ffn_split(cfg, mesh)
+    if split:
+        [x] = collectives.enter([x], mesh, "model")
     up = dense(p["w_up"], x, cd)
     if cfg.activation == "silu":
         hcat = F.silu(dense(p["w_gate"], x, cd)) * up
@@ -333,4 +387,5 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
         hcat = torch.square(torch.relu(up))
     else:
         hcat = F.gelu(up, approximate="tanh")
-    return dense(p["w_down"], hcat, cd)
+    out = dense(p["w_down"], hcat, cd)
+    return collectives.combine(out, mesh, "model") if split else out

@@ -32,6 +32,15 @@ MLP, the heads, the norms and the decode attention are plain torch.
 (``init_cache``) and ``forward_decode`` writes row ``pos`` of it in place,
 where ``repro`` returns new caches.  ``repro``'s sharding constraints have
 no counterpart on one card.
+
+On a mesh (``launch.train --mesh-shape``, one process a rank) the
+training forward runs under the mesh of ``sharding.use_rules``, on this
+rank's blocks (``sharding.lm_param_rules``) and batch block: the tokens
+through the two-level GnR (``sharded_embedding.token_embed_inline``: K8
+on the rank's routed Q shard, one combine over ``model``), every layer
+tensor-parallel over ``model`` (K9 on the rank's heads), and the head
+vocab-parallel: ``lm_logits`` gives this rank's vocabulary slice, which
+``train_step.next_token_loss`` reduces over ``model``.
 """
 
 from __future__ import annotations
@@ -44,12 +53,12 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hashing, qr_embedding
+from repro_torch.core import sharded_embedding as SE
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.tree import leaves, tree_map, unflatten
-
-MESHED_LM = "ROADMAP.md §1 item 2 (the meshed LM: token_embed_inline)"
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -132,16 +141,22 @@ def serving_params(params: dict, cfg: ModelConfig) -> dict:
 # embedding in/out (the paper's technique lives here)
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 mesh=None) -> torch.Tensor:
     """(B, S) tokens -> (B, S, d_model) in the compute dtype.  A QR
     vocabulary with ``add`` reconstruction goes through ``ops.qr_lookup`` on
     the compute-dtype casts of Q and R (K8 on the card): the value
-    ``qr_embedding.lookup`` gives, one rounding of an exact sum."""
-    if cfg.embedding_exec == "twolevel":
-        raise NotImplementedError(
-            f"embedding_exec='twolevel' (token_embed_inline) is the meshed LM path; "
-            f"{MESHED_LM} brings it")
+    ``qr_embedding.lookup`` gives, one rounding of an exact sum.
+
+    On a ``mesh`` with a ``model`` axis both ``embedding_exec`` values take
+    the two-level GnR, ``sharded_embedding.token_embed_inline``, on this
+    rank's row shard (``repro``'s ``gspmd`` lets XLA place the gather; the
+    values are the same); off a mesh ``twolevel`` is this single card's
+    lookup, as ``repro``'s ``token_embed_inline`` falls back to it."""
+    mesh = SH.model_mesh(mesh)
     emb = cfg.emb_config
+    if mesh is not None:
+        return SE.token_embed_inline(params["embed"], tokens, emb, mesh=mesh)
     if emb.kind == "qr" and emb.reconstruction == "add":
         q_idx, r_idx = hashing.qr_decompose(tokens, emb.collision)
         return ops.qr_lookup(params["embed"]["q"].to(emb.compute_dtype),
@@ -149,10 +164,37 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig) -> torch.
     return qr_embedding.lookup(params["embed"], tokens, emb)
 
 
-def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def vocab_range(cfg: ModelConfig, mesh) -> tuple[int, int]:
+    """The vocabulary ``[lo, hi)`` whose logits this rank's ``lm_logits``
+    gives on ``mesh`` (``sharding.model_mesh``): a tied head's row shard
+    (``qr_embedding.vocab_shard_range``), an untied head's block of
+    columns, or of ``ceil(vocab / model)`` where the axis does not divide
+    ``vocab`` (the head is then whole on every rank)."""
+    m, s = mesh.shape["model"], mesh.axis_index("model")
     if cfg.tie_embedding:
-        return qr_embedding.logits_head(params["embed"], x, cfg.emb_config)
-    return L.dense(params["head"], x, cfg.cdtype)
+        return qr_embedding.vocab_shard_range(cfg.emb_config, m, s)
+    per = -(-cfg.vocab // m)
+    return min(cfg.vocab, s * per), min(cfg.vocab, (s + 1) * per)
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> torch.Tensor:
+    """The logits (..., vocab); on a ``mesh`` with a ``model`` axis this
+    rank's slice ``vocab_range`` of them (vocab-parallel, ``x`` and what
+    every slice reads entering through ``collectives.enter``)."""
+    mesh = SH.model_mesh(mesh)
+    if mesh is None:
+        if cfg.tie_embedding:
+            return qr_embedding.logits_head(params["embed"], x, cfg.emb_config)
+        return L.dense(params["head"], x, cfg.cdtype)
+    if cfg.tie_embedding:
+        return qr_embedding.logits_head_shard(params["embed"], x, cfg.emb_config, mesh=mesh)
+    lo, hi = vocab_range(cfg, mesh)
+    head = params["head"]
+    if head["w"].shape[-1] != hi - lo:            # whole on every rank: slice it
+        x, w = collectives.enter([x, head["w"]], mesh, "model")
+        return L.dense({"w": w[:, lo:hi]}, x, cfg.cdtype)
+    [x] = collectives.enter([x], mesh, "model")
+    return L.dense(head, x, cfg.cdtype)
 
 
 def layer_list(params: dict) -> list[dict]:
@@ -192,13 +234,15 @@ def _remat_kwargs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None,
-              positions=None):
+              positions=None, mesh=None):
+    """One layer; on a ``mesh`` (``sharding.model_mesh``) its attention and
+    MLP run tensor-parallel on this rank's blocks of ``p``."""
     h = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = L.attention(p["attn"], h, cfg, causal=True, cache=cache, pos=pos,
-                                      positions=positions)
+                                      positions=positions, mesh=mesh)
     x = x + attn_out
     h = L.apply_norm(p["ln2"], x)
-    x = x + L.mlp(p["mlp"], h, cfg)
+    x = x + L.mlp(p["mlp"], h, cfg, mesh=mesh)
     return x, new_cache
 
 
@@ -209,18 +253,24 @@ def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=Non
 def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                   positions=None) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, vocab); each layer recomputed in the
-    backward with ``cfg.remat`` (the module's docstring)."""
-    x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    backward with ``cfg.remat`` (the module's docstring).  Under the active
+    mesh (``sharding.model_mesh``), ``params`` are this rank's blocks,
+    ``tokens`` its batch block, and the logits its vocabulary slice
+    (``vocab_range``); the mesh is taken once here, so the layers' recompute
+    in the backward, outside ``use_rules``, runs on it too and issues the
+    same collectives."""
+    mesh = SH.model_mesh()
+    x = embed_tokens(params, tokens, cfg, mesh=mesh).to(cfg.cdtype)
 
     def body(p, y):
-        return layer_fwd(p, y, cfg, positions=positions)[0]
+        return layer_fwd(p, y, cfg, positions=positions, mesh=mesh)[0]
 
     remat = cfg.remat and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if remat else {}
     for p in layer_list(params):
         x = ckpt.checkpoint(body, p, x, use_reentrant=False, **kw) if remat else body(p, x)
     x = L.apply_norm(params["final_norm"], x)
-    return lm_logits(params, x, cfg)
+    return lm_logits(params, x, cfg, mesh=mesh)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

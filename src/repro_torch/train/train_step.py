@@ -24,11 +24,13 @@ logits' dtype, as the plain cast's backward rounds it.
 On a mesh the step is one rank's (``repro``'s jitted step under
 ``use_rules``, written out): the loss runs under ``sharding.use_rules`` on
 the rank's block of the batch along the ``batch`` rule's axes (``data``)
-and its blocks of the params, so the DLRM forward takes the two-level GnR;
-the gradients and the loss are then averaged over the ranks that hold
-other batch blocks (one all-reduce of all of them together), never summed
-over the row axis (the GnR's own collectives carry that); and the update
-runs on the rank's blocks with the mesh's global norm.
+and its blocks of the params, so the DLRM forward takes the two-level GnR
+and the LM's runs tensor-parallel with the vocab-parallel loss
+(``next_token_loss(mesh=)``: one ``pmax`` and one ``psum`` over ``model`` a
+microbatch); the gradients and the loss are then averaged over the ranks
+that hold other batch blocks (one all-reduce of all of them together),
+never summed over the row axis (the model's own collectives carry that);
+and the update runs on the rank's blocks with the mesh's global norm.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def _loss_chunks(logits: torch.Tensor):
     """(b, row slice) pairs over ``logits[:, :-1]``, each at most
     ``LOSS_CHUNK_BYTES`` of fp32 rows."""
     b, s, v = logits.shape
-    rows = max(1, LOSS_CHUNK_BYTES // (4 * v))
+    rows = max(1, LOSS_CHUNK_BYTES // (4 * max(v, 1)))
     for i in range(b):
         for lo in range(0, s - 1, rows):
             yield i, slice(lo, min(lo + rows, s - 1))
@@ -91,17 +93,78 @@ class _NextTokenLoss(torch.autograd.Function):
         return grad, None
 
 
-def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Causal LM loss: logits (B, S, V) vs shifted tokens (B, S); fp32 math."""
-    return _NextTokenLoss.apply(logits, tokens[:, 1:].long())
+class _VocabParallelLoss(torch.autograd.Function):
+    """``_NextTokenLoss`` from this rank's vocabulary slice ``[start, start
+    + V_local)`` of the logits (Megatron's vocab-parallel cross-entropy):
+    each row's max and the sum of its exponentials below it are taken on
+    the slice, chunk by chunk in fp32, and so is the target logit where the
+    slice holds the target; then one ``pmax`` of the maxes and one ``psum``
+    of the rescaled sums and the target logits over ``axis`` give every
+    rank the whole rows' logsumexp and the loss.  The backward needs no
+    collective: the slice's gradient is ``(softmax - onehot) / N`` on its
+    own columns.  A rank with an empty slice takes part with zeros."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, mesh, axis):
+        b, s, v = logits.shape
+        mx = torch.full((b, s - 1), -torch.inf, dtype=torch.float32, device=logits.device)
+        se, ll = torch.zeros_like(mx), torch.zeros_like(mx)
+        local = targets - start
+        own = (local >= 0) & (local < v)
+        local = local.clamp(0, max(v - 1, 0))
+        if v:
+            for i, rows in _loss_chunks(logits):
+                lg = logits[i, rows].float()
+                m = lg.amax(dim=-1)
+                mx[i, rows] = m
+                se[i, rows] = torch.exp(lg - m[:, None]).sum(dim=-1)
+                ll[i, rows] = torch.take_along_dim(lg, local[i, rows, None], dim=-1)[:, 0]
+        m = collectives.pmax(mx, mesh, axis)
+        both = collectives.psum(torch.stack([se * torch.exp(mx - m), ll * own]), mesh, axis,
+                                site="loss")
+        lse = m + torch.log(both[0])
+        ctx.save_for_backward(logits, local, own, lse)
+        return torch.mean(lse - both[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, own, lse = ctx.saved_tensors
+        grad = torch.zeros_like(logits)          # the last position has no target
+        scale = g.float() / lse.numel()
+        if logits.shape[-1]:
+            for i, rows in _loss_chunks(logits):
+                p = torch.exp(logits[i, rows].float() - lse[i, rows, None])
+                p.scatter_add_(-1, local[i, rows, None], -own[i, rows, None].float())
+                grad[i, rows] = (p * scale).to(grad.dtype)
+        return grad, None, None, None, None
 
 
-def make_lm_loss(forward_fn: Callable, cfg) -> Callable:
-    """forward_fn(params, tokens, cfg) -> logits. batch = {"tokens": (B, S)}."""
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *, vocab_start: int = 0,
+                    mesh=None, axis: str = "model") -> torch.Tensor:
+    """Causal LM loss: logits (B, S, V) vs shifted tokens (B, S); fp32 math.
+    With a ``mesh``, ``logits`` are this rank's vocabulary slice from
+    ``vocab_start`` (``transformer.lm_logits`` on a mesh) and the loss is
+    reduced over ``axis`` (``_VocabParallelLoss``): the same value on every
+    rank, the single card's to fp32 rounding."""
+    if mesh is None:
+        return _NextTokenLoss.apply(logits, tokens[:, 1:].long())
+    return _VocabParallelLoss.apply(logits, tokens[:, 1:].long(), vocab_start, mesh, axis)
+
+
+def make_lm_loss(forward_fn: Callable, cfg, *, vocab_range: Callable | None = None
+                 ) -> Callable:
+    """forward_fn(params, tokens, cfg) -> logits. batch = {"tokens": (B, S)}.
+    Under a mesh with a ``model`` axis (``sharding.model_mesh``) the logits
+    are this rank's vocabulary slice ``vocab_range(cfg, mesh) -> [lo, hi)``
+    (``transformer.vocab_range``) and the loss is the vocab-parallel one."""
 
     def loss_fn(params, batch):
         logits = forward_fn(params, batch["tokens"], cfg)
-        loss = next_token_loss(logits, batch["tokens"])
+        mesh = SH.model_mesh()
+        if mesh is not None and vocab_range is None:
+            raise ValueError("make_lm_loss on a mesh needs the forward's vocab_range")
+        kw = {} if mesh is None else {"mesh": mesh, "vocab_start": vocab_range(cfg, mesh)[0]}
+        loss = next_token_loss(logits, batch["tokens"], **kw)
         return loss, {"loss": loss}
 
     return loss_fn

@@ -12,7 +12,9 @@ versions' recompute backward) and of ``flash_mha`` against plain autograd;
 serve the smoke configs there and run the two per-table examples; serve
 the dense transformers' smoke configs against the CPU (K9 once a layer a
 prefill, K8 once a QR token lookup, decode writing the prefill's cache in
-place); each decides inside the ``cuda`` fixture whether a card exists,
+place); hold K8 on a rank's routed token stream (zero rows) bitwise and
+the LM's meshed step over nccl at world 1 bitwise against the single
+card's; each decides inside the ``cuda`` fixture whether a card exists,
 and skips without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
 the machine with the card has none.
@@ -1222,3 +1224,70 @@ def test_gpu_tt_bag_takes_a_wide_row_in_d1_slices(cuda, dtype):
     want = ref.tt_bag_ref(cores["g1"], cores["g2"], cores["g3"], i1, i2, i3, dims=spec.dims)
     assert got.shape == (4096, 1536) and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **PT_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the LM trained on a mesh: K8 on a rank's routed token stream, world 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shard", [0, 1])
+def test_gpu_k8_on_routed_streams_with_zero_rows_is_bitwise(cuda, shard, dtype):
+    """A rank's token stream as ``token_embed_inline`` routes it on a model
+    axis of 4 at qwen2-1.5b's QR width (Q 2,432 x 1,536, its shard of 608
+    rows and a zero row; R 64 x 1,536 and a zero row): one K8 launch, bitwise
+    the plain sum in the tables' dtype, exact zeros where the rank owns no Q
+    row and is not the axis's first."""
+    from repro_torch.core import hashing
+
+    g = torch.Generator(cuda).manual_seed(4)
+    rps, c = 608, 64
+    q = torch.randn((4 * rps, 1536), generator=g, device=cuda)
+    r = torch.randn((c, 1536), generator=g, device=cuda)
+    toks = torch.randint(0, 151936, (2, 512), generator=g, device=cuda, dtype=torch.int32)
+    q_idx, r_idx = hashing.qr_decompose(toks.reshape(-1), c)
+    local = q_idx - shard * rps
+    owned = (local >= 0) & (local < rps)
+    q_stream = torch.where(owned, local, rps).to(torch.int32)
+    r_stream = (r_idx if shard == 0 else torch.full_like(r_idx, c)).to(torch.int32)
+    zero = torch.zeros((1, 1536), device=cuda)
+    q_buf = torch.cat([q[shard * rps:(shard + 1) * rps], zero]).to(dtype)
+    r_buf = torch.cat([r, zero]).to(dtype)
+    qg.reset_launches()
+    out = qg.qr_gather(q_buf, r_buf, q_stream, r_stream)
+    torch.cuda.synchronize()
+    assert qg.LAUNCHES["qr_gather"] == 1
+    assert torch.equal(out, ref.qr_lookup_ref(q_buf, r_buf, q_stream, r_stream))
+    assert 0 < int(owned.sum()) < owned.numel()
+    if shard:
+        assert not out[~owned].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dense", "qr-twolevel"])
+def test_gpu_world1_nccl_lm_step_is_bitwise_the_single_card_step(cuda, name, tmp_path):
+    """Mesh (1, 1) over nccl on the card, fp32 compute: the meshed LM step
+    (the two-level GnR with K8 on the rank's routed Q shard, tensor-parallel
+    layers with K9, the vocab-parallel loss, every collective over a group
+    of one) gives the single-card step's gradients, loss, norm and new
+    params bit for bit; K9 twice a layer a pass (forward and recompute), K8
+    once a pass for a QR vocabulary."""
+    import torch_lm_mesh_ranks as L
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    build.build(["flash_attention", "qr_gather"])     # before the rank: no build race
+    res = M.spawn(L.world1_step, (1, 1), args=(name,), device="cuda", backend="nccl",
+                  init_file=tmp_path / "rdv", timeout_s=300)[0]
+    cfg = L.config(name)
+    params, _ = T.init_lm(cfg, seed=0, device="cpu")
+    want = L.single_step(cfg, tree_map(lambda a: a.to(cuda), params), L.tokens(cfg).to(cuda))
+    per_pass = 2 * cfg.num_layers + (1 if cfg.embedding_kind == "qr" else 0)
+    assert res["launches"] == 2 * per_pass
+    for key in ("grads", "params"):
+        assert len(res[key]) == len(want[key])
+        for got, w in zip(res[key], want[key]):
+            np.testing.assert_array_equal(got, w)
+    for key in ("loss", "step_loss", "gnorm"):
+        assert res[key] == want[key], key

@@ -1,8 +1,8 @@
 """The LM side of ``repro_torch.launch.train`` on the CPU: train, checkpoint
 and resume (``tests/test_launch.py``'s counterpart), SIGTERM, LM
 checkpoints across the two packages (bitwise, both ways), the quickstart's
-section 4, and the refusals (``--mesh-shape`` with an LM arch, no card
-without ``--device cpu``)."""
+section 4, an LM on a mesh, and the refusal of a missing card without
+``--device cpu``."""
 
 import os
 import signal
@@ -130,11 +130,16 @@ def test_quickstart_trains_the_qr_lm():
     assert losses[-1] < losses[0] - 1.0, losses
 
 
-def test_cli_refuses_an_lm_on_a_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 2"):
-        t_train.main([*LM, "--device", "cpu", "--mesh-shape", "2,2"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 2"):
-        t_train.build(t_train.parser().parse_args([*LM]), torch.device("cpu"), mesh=object())
+def test_cli_refuses_an_lm_on_a_mesh_and_a_missing_card(monkeypatch, tmp_path, capfd):
+    """An LM on a mesh trains (it was refused before the meshed LM): two
+    steps on (2, 2) checkpoint the full logical arrays; without a card and
+    without ``--device cpu`` the CLI still refuses."""
+    assert t_train.main([*LM, "--device", "cpu", "--mesh-shape", "2,2", "--steps", "2",
+                         "--ckpt-dir", str(tmp_path), "--log-every", "1"]) == 0
+    lines = [x for x in capfd.readouterr().out.splitlines() if x.startswith("step")]
+    assert [x.split()[1] for x in lines] == ["1", "2"]      # rank (0, 0) alone prints
+    state, _ = t_ckpt.restore(str(tmp_path), 2, _like())
+    assert int(state["opt"]["step"]) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_train.main([*LM, "--steps", "1"])

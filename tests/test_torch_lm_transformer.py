@@ -119,9 +119,13 @@ def test_serving_params_give_the_same_logits_bitwise(vocab):
 
 
 def test_unported_execution_knobs_raise():
+    """``flash_block_dtype="bf16"`` raises; ``embedding_exec="twolevel"``
+    off a mesh is the plain lookup, as ``repro``'s ``token_embed_inline``
+    falls back to it: the logits are the ``gspmd`` path's, bit for bit."""
     _, tcfg, _, tp = lm_pair("qwen2-1.5b", "qr")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
+    toks = torch.from_numpy(tokens(tcfg, 2, 8))
     with pytest.raises(NotImplementedError, match="flash_block_dtype"):
         T.forward_train(tp, toks, tcfg.replace(flash_block_dtype="bf16"))
-    with pytest.raises(NotImplementedError, match="twolevel"):
-        T.forward_train(tp, toks, tcfg.replace(embedding_exec="twolevel"))
+    with torch.inference_mode():
+        assert torch.equal(T.forward_train(tp, toks, tcfg.replace(embedding_exec="twolevel")),
+                           T.forward_train(tp, toks, tcfg))
