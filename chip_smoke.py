@@ -75,8 +75,9 @@ Phases, each one failing the script if it fails:
    cache_plan: K4b once per batch);
 6. attention: ``ops.flash_attention_fused`` (K9) causal at qwen2-1.5b's width
    (batch 4, 12 query / 2 kv heads, D 128, seq 4,096), granite-34b's (batch
-   1, 48 query heads on one kv head, seq 4,096) and a 1,024-query block over
-   a 4,096 cache, each in fp32 and bf16, then one backward (blockwise
+   1, 48 query heads on one kv head, seq 4,096), a 1,024-query block over
+   a 4,096 cache and granite-moe-3b-a800m's (batch 4, 24 query / 8 kv heads
+   of D 64, seq 4,096), each in fp32 and bf16, then one backward (blockwise
    recompute) against plain autograd; every output held against K9's plain
    version (bf16 by the one-rounding rule of phase 3) and timed beside its
    bound, ``scaled_dot_product_attention`` and the earlier body's time, each
@@ -200,11 +201,11 @@ Phases, each one failing the script if it fails:
    1e-5 relative, updated params and the batch's gradients within 1e-5 of
    each leaf's scale, bf16 loss within 2e-2, each step's launches counted;
    qwen2-1.5b at full width and depth, S 4,096 (train_4k), with the QR
-   (collision 64) and the dense vocabulary under remat ``full`` and the QR
-   one under ``dots``: the microbatch that fits by the line through two
+   (collision 64) and the dense vocabulary under remat ``full``: the
+   microbatch that fits by the line through two
    microbatches' reserved memory (the allocator's expandable segments on
    for the phase), one microbatch's backward traced by the profiler (top
-   device operations), then one step of 2 microbatches (train_4k's 256
+   device operations; the QR config only), then one step of 2 microbatches (train_4k's 256
    cut): ms a step and tokens/s, the split into forward, backward and
    update (CUDA events), K9's ms in the forwards and in the recompute,
    the blockwise attention backward's ms, peak memory, the model-FLOP
@@ -213,13 +214,11 @@ Phases, each one failing the script if it fails:
    vocabulary (K5's launches and ms, its first two calls held to 1e-4
    against the plain version); the step-1 gradients of a 2-layer cut at
    full width, each vocabulary, within 2^-6 of each leaf's scale of the
-   same step through the kernels' plain versions on the card;
-   ``launch.train --arch qwen2-1.5b --embedding qr --seq 4096 --batch 2
-   --microbatches 2 --steps 4 --ckpt-dir`` twice (the second prints
-   ``[resume] step 4``); minitron-4b, chatglm3-6b and granite-34b at full
-   width, microbatch 1, S 4,096, at the depth whose step fits by the line
-   through two depths' reserved memory: 3 steps on one batch, losses
-   finite and falling, tokens/s;
+   same step through the kernels' plain versions on the card; remat
+   ``dots`` at that cut against ``full`` (read for bitwise equality, held
+   to 2^-6); ``launch.train --arch qwen2-1.5b --embedding qr --seq 4096
+   --batch 2 --microbatches 2 --steps 2 --ckpt-dir`` twice (the second
+   prints ``[resume] step 2``); each section's seconds;
 13. the dense transformer trained on a mesh (``launch.train --mesh-shape``'s
    path: the params placed by ``sharding.lm_param_rules``, the loss under
    ``use_rules``, the tokens through the two-level GnR
@@ -247,14 +246,52 @@ Phases, each one failing the script if it fails:
    within one rounding of its plain version and K8 bitwise the plain sum
    on the routed streams; the CLI drill (``launch.train --arch qwen2-1.5b
    --mesh-shape 1,2 --steps 2 --batch 2 --seq 512 --ckpt-dir D``, then one
-   card with ``--steps 4``, which prints ``[resume] step 2``).
+   card with ``--steps 4``, which prints ``[resume] step 2``);
+14. the MoE transformers (``models/moe.py``: the fp32 router's top-k,
+   capacity-bounded dispatch, the experts' SwiGLU products, the combine
+   added over k in order, no atomics; K9 in every layer at D 64, K8 for a
+   QR vocabulary): ``[moe-ref]`` granite-moe-3b-a800m-smoke and
+   qwen3-moe-235b-a22b-smoke with a dense and a QR (collision 8)
+   vocabulary on the card and on the CPU, same weights and tokens, fp32:
+   the routing of every layer call equal (the smallest top-k margin
+   printed), ``forward_train``, prefill and decode logits within 1e-4, the
+   greedy tokens equal, one step of 2 microbatches (loss to 1e-5
+   relative, updated params and gradients to 1e-5 of each leaf's scale);
+   granite-moe-3b-a800m at full width and depth (32 layers, 40 experts
+   top 8) with the dense and the QR (collision 64) vocabulary:
+   ``repro``'s decode-vs-train consistency in fp32 at batch 2, sequence
+   256 at capacity factor 5.0 (no drops; at 1.25 a decode step drops by
+   design), K9 on layer 0's own q/k/v (fp32 1e-4, bf16 one rounding),
+   layer 0's MoE on its own input (1 x 4,096, fp32, factor 5.0) within
+   1e-4 of scale of the per-token mixture over the 40 experts on the
+   card's routing (dense vocabulary), ``prefill_32k`` and ``decode_32k``
+   as phase 11 runs them, with the MoE layers' ms and share (events
+   around each call) and the share of assignments dropped, the FLOP bound
+   on the active weights; ``launch.serve --arch granite-moe-3b-a800m
+   --batch 8 --prompt-len 512 --max-new 32`` with each vocabulary;
+   qwen3-moe-235b-a22b at full width and the depth whose fp32 params fit
+   (consistency at batch 1, sequence 128, factor 16.0; one
+   ``greedy_generate``); training on one card (the allocator's expandable
+   segments): granite-moe, QR, S 4,096, remat ``full``, batch 1, at the
+   depth the line through depths 1 and 2 fits, 3 steps (losses finite,
+   ms a step, tokens/s, the forward / backward / update split, K9's and
+   the MoE layers' ms, peak), the step-1 gradients of a 2-layer cut
+   against the kernels' plain versions within 2^-6 (the plain path on
+   the kernel path's routing; the tokens its own top-k would route
+   otherwise counted); world 1 over nccl (2 layers, QR
+   ``twolevel``, S 4,096, batch 2) against the single card, read for
+   bitwise equality; two gloo ranks on the card, mesh (1, 2), 4 layers,
+   20 experts and 12 q / 4 kv heads a rank, one sequence: the fp32 step-1
+   gradients at factor 5.0, gathered, within 1e-5 of each leaf's scale of
+   the single card's, two bf16 steps whose losses hold the single card's
+   to 2e-2, ms a step, bytes combined a rank, collectives a step.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
 ``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
-one ``{"kernels": [...]}`` line, and last
+one ``{"moe": ...}`` line, one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
@@ -1452,11 +1489,14 @@ def examples_run(mods, quickstart, cache_plan) -> dict:
 # (name, batch, query heads, kv heads, Sq, Skv, D): qwen2-1.5b's attention
 # (configs/qwen2_1_5b.py) at the train_4k sequence, batch cut from 256 to 4;
 # granite-34b's multi-query attention (48 heads on one kv head, the widest
-# group in the repo), batch 1; and a query block of 1,024 over a 4,096 cache
+# group in the repo), batch 1; a query block of 1,024 over a 4,096 cache;
+# and granite-moe-3b-a800m's (24 query heads over 8 kv heads of 64: the
+# D 64 bucket), batch 4
 FLASH_CASES = [
     ("qwen2-1.5b", 4, 12, 2, 4096, 4096, 128),
     ("granite-34b", 1, 48, 1, 4096, 4096, 128),
     ("qwen2-1.5b Sq 1024 / Skv 4096", 4, 12, 2, 1024, 4096, 128),
+    ("granite-moe-3b-a800m", 4, 24, 8, 4096, 4096, 64),
 ]
 SDPA_CALL = "scaled_dot_product_attention(is_causal=True, enable_gqa=True), top-left causal"
 
@@ -3724,10 +3764,61 @@ def lm_k9_check(params, cfg, dev) -> dict:
     return rec
 
 
-def layer_weights(cfg) -> int:
-    """One layer's projection weights (q, k, v, o and the MLP's)."""
+def layer_weights(cfg, *, total: bool = False) -> int:
+    """One layer's projection weights (q, k, v, o and the MLP's); of an MoE
+    layer the router and the ``top_k`` experts a token runs through (the
+    active weights), or with ``total`` all ``num_experts``."""
     d, hd, h, kh, f = cfg.d_model, cfg.head_dim_, cfg.num_heads, cfg.kv_heads, cfg.d_ff
-    return d * (h + 2 * kh) * hd + h * hd * d + (3 if cfg.activation == "silu" else 2) * d * f
+    attn = d * (h + 2 * kh) * hd + h * hd * d
+    if cfg.num_experts:
+        return attn + d * cfg.num_experts + (
+            cfg.num_experts if total else cfg.top_k) * 3 * d * f
+    return attn + (3 if cfg.activation == "silu" else 2) * d * f
+
+
+@contextlib.contextmanager
+def moe_watch(cfg):
+    """While open, for an MoE ``cfg``: a pair of CUDA events around every
+    ``moe.apply_moe`` call (``rec["marks"]``), and each layer call's dropped
+    assignments (the slots routed to the trash row, device counts summed
+    by ``moe_drops``) beside its assignments; for a dense ``cfg`` nothing."""
+    from repro_torch.models import moe as moe_mod
+
+    rec = {"marks": [], "dropped": [], "assignments": 0}
+    if not cfg.num_experts:
+        yield rec
+        return
+    saved = moe_mod.apply_moe, moe_mod.slots
+
+    def apply(*a, **kw):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = saved[0](*a, **kw)
+        e[1].record()
+        rec["marks"].append(e)
+        return out
+
+    def slots(ids, e_start, e_loc, capacity):
+        out = saved[1](ids, e_start, e_loc, capacity)
+        rec["dropped"].append((out == e_loc * capacity).sum())
+        rec["assignments"] += ids.numel()
+        return out
+
+    moe_mod.apply_moe, moe_mod.slots = apply, slots
+    try:
+        yield rec
+    finally:
+        moe_mod.apply_moe, moe_mod.slots = saved
+
+
+def moe_drops(watch: dict) -> dict:
+    """``moe_watch``'s record summed: MoE ms, dropped assignments and their
+    share (a single card's: every expert is local, so the trash row holds
+    the drops alone)."""
+    dropped = int(sum(int(t) for t in watch["dropped"]))
+    return {"moe_ms": event_ms(watch["marks"]), "moe_calls": len(watch["marks"]),
+            "dropped": dropped, "assignments": watch["assignments"],
+            "dropped_share": dropped / max(watch["assignments"], 1)}
 
 
 def prefill_flops(cfg, batch: int, seq: int) -> int:
@@ -3849,7 +3940,7 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     kept = {}
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
-            kept_model_path(ops, kept):
+            kept_model_path(ops, kept), moe_watch(cfg) as watch:
         with torch.inference_mode():
             start.record()
             logits, cache = T.forward_prefill(params, toks, cfg, seq)
@@ -3880,6 +3971,9 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
            "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
            "flops": flops, "bound_ms": flops / BF16_FLOP_S * 1e3, "launches": n,
            "held": held, "top_ops_batch1": top}
+    if cfg.num_experts:
+        rec["moe"] = moe_drops(watch)
+        rec["moe"]["moe_share"] = rec["moe"]["moe_ms"] / ms
     rec["k9_vs_sdpa"] = k9_against_sdpa(cfg, batch, seq, dev)
     reset_all(mods)                 # the yardstick's launches are not the path's
     return rec
@@ -3917,7 +4011,7 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         kept = {}
-        with kept_model_path(ops, kept):
+        with kept_model_path(ops, kept), moe_watch(cfg) as watch:
             start.record()
             for _ in range(LM_DECODE_REPS):
                 logits, out = T.forward_decode(params, tok, cache, depth - 1, cfg)
@@ -3936,13 +4030,15 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
            "tokens_per_s": batch / ms * 1e3,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top}
+    if cfg.num_experts:
+        rec["moe"] = moe_drops(watch)
     del cache, logits, out, kept
     torch.cuda.empty_cache()
     return rec
 
 
-def lm_cli_run(vocab: str, mods, totals) -> dict:
-    """``python -m repro_torch.launch.serve --arch qwen2-1.5b`` with
+def lm_cli_run(vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-cli]") -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch>`` with
     ``LM_CLI`` (its ``main``, in this process): exit 0, a tokens/s line, K9
     once a layer for its prefill, K8 once a QR lookup."""
     import io
@@ -3953,40 +4049,47 @@ def lm_cli_run(vocab: str, mods, totals) -> dict:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--arch", LM_MAIN, "--embedding", vocab, *LM_CLI])
+        rc = serve.main(["--arch", arch, "--embedding", vocab, *LM_CLI])
     secs = time.perf_counter() - t0
     n = take_launches(mods, totals)
     text = buf.getvalue()
-    layers_n = lm_config(LM_MAIN).num_layers
+    layers_n = lm_config(arch).num_layers
     new = int(LM_CLI[LM_CLI.index("--max-new") + 1])
     want = {"flash_fwd": layers_n, **({"qr_gather": 1 + new} if vocab == "qr" else {})}
     if rc != 0 or "tok/s" not in text or n != want:
-        raise AssertionError(f"[lm] serve CLI --embedding {vocab}: exit {rc}, launches {n}, "
-                             f"output {text[-500:]}")
+        raise AssertionError(f"{tag} serve CLI --arch {arch} --embedding {vocab}: exit {rc}, "
+                             f"launches {n}, output {text[-500:]}")
     line = next(x for x in text.splitlines() if "tok/s" in x)
-    log(f"[lm-cli] --embedding {vocab} {' '.join(LM_CLI)}: {line} (call {secs:.1f} s, set-up "
-        f"included; launches {n})")
-    return {"embedding": vocab, "exit": rc, "line": line, "s": secs, "launches": n,
+    log(f"{tag} --arch {arch} --embedding {vocab} {' '.join(LM_CLI)}: {line} (call "
+        f"{secs:.1f} s, set-up included; launches {n})")
+    return {"arch": arch, "embedding": vocab, "exit": rc, "line": line, "s": secs, "launches": n,
             "tokens_per_s": float(re.search(r"([0-9.]+) tok/s", line).group(1))}
 
 
-def lm_main_run(dev, vocab: str, mods, totals) -> dict:
-    """qwen2-1.5b at full width and depth with a ``vocab`` vocabulary (QR at
-    the config's collision): the fp32 consistency check, K9 on the model
-    path in fp32 and bf16, then ``prefill_32k`` and ``decode_32k`` on the
-    weights cast once for serving (``ServeFamily.prepare``)."""
+def lm_main_run(dev, vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm]",
+                oracle: bool = False) -> dict:
+    """``arch`` (qwen2-1.5b) at full width and depth with a ``vocab``
+    vocabulary (QR at the config's collision): the fp32 consistency check
+    (an MoE arch at the capacity factor ``moe_ample`` gives it, where
+    nothing drops), K9 on the model path in fp32 and bf16, with ``oracle``
+    the first MoE layer against its per-token oracle (``moe_oracle``), then
+    ``prefill_32k`` and ``decode_32k`` on the weights cast once for serving
+    (``ServeFamily.prepare``); an MoE arch's MoE ms and dropped share."""
     from repro_torch import tree
     from repro_torch.models import transformer as T
     from repro_torch.train import serve_step as S
 
-    cfg = lm_config(LM_MAIN).replace(embedding_kind=vocab)
+    cfg = lm_config(arch).replace(embedding_kind=vocab)
     params, _ = T.init_lm(cfg, seed=0, device=dev)
     c32 = cfg.replace(compute_dtype="float32")
     rec = {"arch": cfg.name, "vocab": vocab, "collision": cfg.qr_collision,
            "layers": cfg.num_layers,
            "param_bytes_fp32": sum(a.numel() * 4 for a in tree.leaves(params))}
-    rec["consistency_fp32"] = lm_consistency(params, c32, *LM_CONSIST_MAIN, dev)
+    rec["consistency_fp32"] = lm_consistency(params, c32.replace(
+        capacity_factor=moe_ample(cfg)), *LM_CONSIST_MAIN, dev)
     rec["k9_model_path"] = {"float32": lm_k9_check(params, c32, dev)}
+    if oracle:
+        rec["oracle"] = moe_oracle(params, c32.replace(capacity_factor=moe_ample(cfg)), dev)
     take_launches(mods, totals)
     params = S.serve_family("transformer").prepare(params, cfg)
     gc.collect()
@@ -3996,13 +4099,27 @@ def lm_main_run(dev, vocab: str, mods, totals) -> dict:
     rec["prefill_32k"] = lm_prefill_run(params, cfg, dev, mods, totals)
     rec["decode_32k"] = lm_decode_run(params, cfg, dev, mods, totals)
     k9, p, d = rec["k9_model_path"], rec["prefill_32k"], rec["decode_32k"]
-    log(f"[lm] {cfg.name} {vocab} vocab, {cfg.num_layers} layers: fp32 consistency "
-        f"(batch {LM_CONSIST_MAIN[0]}, seq {LM_CONSIST_MAIN[1]}) prefill "
+    ample = (f", capacity factor {moe_ample(cfg):g}: no drops" if cfg.num_experts else "")
+    log(f"{tag} {cfg.name} {vocab} vocab, {cfg.num_layers} layers: fp32 consistency "
+        f"(batch {LM_CONSIST_MAIN[0]}, seq {LM_CONSIST_MAIN[1]}{ample}) prefill "
         f"{rec['consistency_fp32']['prefill']:.2e} decode {rec['consistency_fp32']['decode']:.2e} "
         f"(held to {LM_CONSIST_TOL}, logits up to {rec['consistency_fp32']['logit_scale']:.2f}); "
         f"K9 on layer 0's q/k/v {k9['float32']['shape']}: fp32 {fmt_err(k9['float32'])}, bf16 "
         f"{fmt_err(k9['bfloat16'])}")
-    log(f"[lm] {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; fit "
+    if oracle:
+        o = rec["oracle"]
+        log(f"{tag} {cfg.name} layer 0's MoE on its own input (1 x {o['tokens']}, fp32, "
+            f"capacity factor {o['capacity_factor']:g}, {o['dropped']} dropped) vs the per-token "
+            f"mixture over the {cfg.num_experts} experts on the card's routing: "
+            f"{o['rel_err']:.3g} of scale (held to {MOE_ORACLE_TOL}); smallest top-"
+            f"{cfg.top_k} margin {o['margin']:.3g}")
+    moe_p = (f"; MoE layers {p['moe']['moe_ms']:.1f} ms ({100 * p['moe']['moe_share']:.1f}%), "
+             f"dropped {p['moe']['dropped']} of {p['moe']['assignments']} assignments "
+             f"({100 * p['moe']['dropped_share']:.2f}%)" if "moe" in p else "")
+    moe_d = (f"; dropped {d['moe']['dropped']} of {d['moe']['assignments']} assignments "
+             f"({100 * d['moe']['dropped_share']:.2f}%) over {LM_DECODE_REPS} steps, MoE layers "
+             f"{d['moe']['moe_ms'] / LM_DECODE_REPS:.2f} ms a step" if "moe" in d else "")
+    log(f"{tag} {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; fit "
         f"{p['fit']}: {p['reserved_a_sequence'] / 2**30:.2f} GiB reserved a sequence + "
         f"{p['reserved_fixed'] / 2**30:.2f} GiB, from batches {LM_FIT_BATCHES}, in "
         f"{p['free_bytes'] / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}) x {p['seq']}: "
@@ -4013,18 +4130,18 @@ def lm_main_run(dev, vocab: str, mods, totals) -> dict:
         f"{p['bound_ms']:.1f} ms ({p['flops']:.3e} flop at the bf16 peak); K8 {p['k8_ms']:.2f} "
         f"ms; launches {p['launches']}; one layer's attention at these shapes: K9 "
         f"{p['k9_vs_sdpa']['k9_ms']:.1f} ms, SDPA (flash backend) "
-        f"{p['k9_vs_sdpa']['sdpa_ms']:.1f} ms")
-    log(f"[lm] {cfg.name} {vocab} prefill_32k kernels vs plain on the main path: "
+        f"{p['k9_vs_sdpa']['sdpa_ms']:.1f} ms" + moe_p)
+    log(f"{tag} {cfg.name} {vocab} prefill_32k kernels vs plain on the main path: "
         + held_text(p["held"]))
-    log(f"[lm] {cfg.name} {vocab} prefill at batch 1, top device operations: "
+    log(f"{tag} {cfg.name} {vocab} prefill at batch 1, top device operations: "
         + ", ".join(f"{k} {t:.1f} ms" for k, t in p["top_ops_batch1"]))
-    log(f"[lm] {cfg.name} {vocab} decode_32k: batch {d['batch']} (cell {d['cell_batch']}; cache "
+    log(f"{tag} {cfg.name} {vocab} decode_32k: batch {d['batch']} (cell {d['cell_batch']}; cache "
         f"{d['cache_bytes'] / 2**30:.2f} GiB) against {d['depth']} positions: {d['ms']:.2f} ms a "
         f"step, {d['tokens_per_s']:.0f} tokens/s, peak {d['peak_gib']:.2f} GiB, bound "
         f"{d['bound_ms']:.2f} ms ({d['weight_bytes'] / 1e9:.2f} GB of weights + the cache at "
         f"{BW_BYTES_S / 1e12:.2f} TB/s); launches {d['launches']}"
-        + (f"; K8 vs plain: {held_text(d['held'])}" if d["held"] else ""))
-    log(f"[lm] {cfg.name} {vocab} decode step, top device operations: "
+        + (f"; K8 vs plain: {held_text(d['held'])}" if d["held"] else "") + moe_d)
+    log(f"{tag} {cfg.name} {vocab} decode step, top device operations: "
         + ", ".join(f"{k} {t:.2f} ms" for k, t in d["top_ops"]))
     del params
     gc.collect()
@@ -4032,12 +4149,14 @@ def lm_main_run(dev, vocab: str, mods, totals) -> dict:
     return rec
 
 
-def lm_other_run(dev, arch: str, mods, totals) -> dict:
-    """One of the other dense archs at full width (granite-34b at the depth
-    whose fp32 params fit the free memory less ``LM_HEADROOM``): the fp32
-    consistency check at ``LM_CONSIST_OTHER``, then one ``greedy_generate``
-    at ``LM_GEN`` in bf16 compute on the fp32 params (each weight cast per
-    call, as ``repro`` does), host clock."""
+def lm_other_run(dev, arch: str, mods, totals, tag: str = "[lm]") -> dict:
+    """One of the other archs at full width (granite-34b and
+    qwen3-moe-235b-a22b at the depth whose fp32 params fit the free memory
+    less ``LM_HEADROOM``): the fp32 consistency check at
+    ``LM_CONSIST_OTHER`` (an MoE arch at ``moe_ample``'s capacity factor,
+    where nothing drops), then one ``greedy_generate`` at ``LM_GEN`` in
+    bf16 compute on the fp32 params (each weight cast per call, as
+    ``repro`` does), host clock."""
     from repro_torch import tree
     from repro_torch.models import transformer as T
     from repro_torch.train import serve_step as S
@@ -4045,17 +4164,20 @@ def lm_other_run(dev, arch: str, mods, totals) -> dict:
     cfg = lm_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
-    layer_bytes = layer_weights(cfg) * 4
+    layer_bytes = layer_weights(cfg, total=True) * 4
     embed_bytes = cfg.vocab * cfg.d_model * 4 * (1 if cfg.tie_embedding else 2)
-    fit = (torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM - embed_bytes) // max(layer_bytes, 1)
+    # ``init_lm`` holds one layer's draws beside the stacked layers
+    fit = (torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM - embed_bytes) // max(
+        layer_bytes, 1) - 1
     depth = int(min(cfg.num_layers, fit))
     if depth < cfg.num_layers:
         cfg = cfg.replace(num_layers=depth)
     params, _ = T.init_lm(cfg, seed=0, device=dev)
     rec = {"arch": arch, "layers": cfg.num_layers, "full_layers": lm_config(arch).num_layers,
            "param_bytes_fp32": sum(a.numel() * 4 for a in tree.leaves(params))}
-    rec["consistency_fp32"] = lm_consistency(params, cfg.replace(compute_dtype="float32"),
-                                             *LM_CONSIST_OTHER, dev)
+    rec["consistency_fp32"] = lm_consistency(
+        params, cfg.replace(compute_dtype="float32", capacity_factor=moe_ample(cfg)),
+        *LM_CONSIST_OTHER, dev)
     take_launches(mods, totals)
     b, prompt, new = LM_GEN
     fam = S.serve_family("transformer")
@@ -4070,13 +4192,15 @@ def lm_other_run(dev, arch: str, mods, totals) -> dict:
     n = take_launches(mods, totals)
     if tuple(out.shape) != (b, new) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab or (
             n.get("flash_fwd") != cfg.num_layers):
-        raise AssertionError(f"[lm] {arch} greedy_generate: {tuple(out.shape)}, launches {n}")
+        raise AssertionError(f"{tag} {arch} greedy_generate: {tuple(out.shape)}, launches {n}")
     rec.update(generate_s=secs, tokens_per_s=b * new / secs, launches=n,
                first_tokens=out[0].tolist())
-    log(f"[lm] {arch} ({cfg.num_layers} of {rec['full_layers']} layers, "
+    experts = (f", {cfg.num_experts} experts top {cfg.top_k} (consistency at capacity factor "
+               f"{moe_ample(cfg):g})" if cfg.num_experts else "")
+    log(f"{tag} {arch} ({cfg.num_layers} of {rec['full_layers']} layers, "
         f"{rec['param_bytes_fp32'] / 1e9:.1f} GB fp32; {cfg.norm} norm, {cfg.activation}, "
         f"{cfg.num_heads}/{cfg.kv_heads} heads, rotary {cfg.partial_rotary}, "
-        f"{'tied' if cfg.tie_embedding else 'untied'} head): fp32 consistency prefill "
+        f"{'tied' if cfg.tie_embedding else 'untied'} head{experts}): fp32 consistency prefill "
         f"{rec['consistency_fp32']['prefill']:.2e} decode {rec['consistency_fp32']['decode']:.2e}; "
         f"greedy_generate batch {b}, prompt {prompt}, {new} new in {secs:.2f} s "
         f"({rec['tokens_per_s']:.1f} tokens/s, prefill + decode, host clock); launches {n}")
@@ -4131,8 +4255,11 @@ LMT_BF16_TOL = 2e-2       # card vs CPU in bf16 compute: the loss, relative
 # at eps 1e-4 and 1.0e-5 at 1e-3; eps 1e-2 bounds du by ~2e-6 for a leaf
 # whose gradient scale is below 1e-2
 LMT_REF_OPT = dict(lr=1e-3, eps=1e-2, warmup_steps=1, total_steps=4)
-# qwen2-1.5b at full width: (vocabulary, remat policy) of each timed config
-LMT_MAIN = (("qr", "full"), ("dense", "full"), ("qr", "dots"))
+# qwen2-1.5b at full width: (vocabulary, remat policy) of each timed config.
+# The QR ``dots`` step at full depth (6 sequences a microbatch: no faster a
+# sequence than ``full``, PERF.md) left the list to make room for phase 14;
+# ``lm_train_dots_check`` runs ``dots`` at the gradient check's cut
+LMT_MAIN = (("qr", "full"), ("dense", "full"))
 LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fitted one
 # the microbatch sizes whose reserved memory gives the fit's line (the last
 # two).  One microbatch's forward and backward at full width reserved, for
@@ -4144,12 +4271,12 @@ LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fit
 LMT_FIT = (4, 6)
 LMT_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=1)
 LMT_GRAD = (2, 2)         # layers, sequences of the step-1 gradient check
-LMT_CLI = ("--batch", "2", "--microbatches", "2", "--steps", "4")
-LMT_OTHER_STEPS = 3
+LMT_CLI = ("--batch", "2", "--microbatches", "2", "--steps", "2")
+LMT_FIT_STEPS = 3         # steps of a depth-fitted run (``lm_train_fitted``), on one batch
 # AdamW's first steps move every weight by ~lr: at lr 1e-3 chatglm3-6b's
 # third loss rose above its first (11.57, 11.51, 11.91; granite-34b fell)
-LMT_OTHER_OPT = dict(lr=1e-4, warmup_steps=1, schedule="constant")
-LMT_DEPTHS = (1, 2)       # depths whose reserved memory gives the other archs' depth fit
+LMT_FIT_OPT = dict(lr=1e-4, warmup_steps=1, schedule="constant")
+LMT_DEPTHS = (1, 2)       # depths whose reserved memory gives a depth fit
 # a step at full width holds (microbatch, 4,096, 151,936) bf16 tensors of
 # ~1.2 GiB a sequence (the logits, their gradient): in the default
 # allocator's fixed segments the steps left 14-32 GiB reserved but
@@ -4302,7 +4429,7 @@ def event_ms(pairs) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs)
 
 
-def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
+def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = True) -> dict:
     """qwen2-1.5b at full width and depth, ``vocab`` vocabulary (QR at the
     config's collision), ``remat_policy=policy``, S 4,096 (train_4k).  The
     microbatch is the largest that fits: the device memory one microbatch's
@@ -4311,9 +4438,10 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
     fixed + slope x sequences; the microbatch is the largest whose line fits
     the free memory less ``LM_HEADROOM``.  The global batch is
     ``LMT_MICRO`` microbatches (train_4k's 256 cut).  First one
-    microbatch's forward and backward at that size, its backward traced by
-    the profiler (top device operations; it also warms the allocator and
-    the libraries at the step's shapes), then one step of
+    microbatch's forward and backward at that size, with ``profile`` its
+    backward traced by the profiler (top device operations; it also warms
+    the allocator and the libraries at the step's shapes; phase 12 traces
+    the first config only), then one step of
     ``make_train_step``, timed (host clock) and split by CUDA events: the
     forwards (around each microbatch's loss), the update (around
     ``optimizer.update``), the backward the rest; K9's ms in the forwards
@@ -4396,7 +4524,7 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
         for marks_list in (fwd, upd, k9_at, k9_marks, attn_bwd):
             marks_list.clear()
         try:
-            top = backward_ops()
+            top = backward_ops() if profile else []
             take_launches(mods, totals)
             batch = toks(mb * LMT_MICRO)
             torch.cuda.synchronize()
@@ -4568,6 +4696,30 @@ def lm_train_tt(dev, mods, totals) -> dict:
 
 
 @contextlib.contextmanager
+def replayed_routing(moe_mod, routes: tuple):
+    """While open, the n-th ``moe.route`` call returns ``routes[0][n]``'s
+    ids (another run's, in call order) with the weights renormalized from
+    this call's own router probabilities at those ids (differentiable as
+    ever), and appends the ids its own top-k picks to ``routes[1]``."""
+    saved = moe_mod.route
+    replay = iter(routes[0])
+
+    def route(router, x, cfg):
+        own, _ = saved(router, x, cfg)
+        routes[1].append(own)
+        ids = next(replay)
+        probs = torch.softmax(x.float().reshape(-1, x.shape[-1]) @ router.float(), dim=-1)
+        wts = torch.gather(probs, 1, ids.long())
+        return ids, wts / torch.clamp(wts.sum(dim=-1, keepdim=True), min=1e-9)
+
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = saved
+
+
+@contextlib.contextmanager
 def plain_lm_path(fa, qg, tg, ref):
     """While open, each kernel the model's entries launch is its plain
     version on the card: K9's forward ``ref.flash_fwd_ref`` (fp32 softmax,
@@ -4587,14 +4739,20 @@ def plain_lm_path(fa, qg, tg, ref):
             setattr(mod, name, f)
 
 
-def lm_train_grad_check(dev, mods, totals) -> dict:
-    """Step-1 gradients of qwen2-1.5b at full width cut to ``LMT_GRAD``
-    layers (bf16 compute, remat ``full``) on ``LMT_GRAD`` sequences of
-    4,096, through the kernels (K9, K8 for QR, K5 for TT) against the same
-    step through their plain versions on the card (``plain_lm_path``): each
-    leaf within ``GRAD_TOL`` of its scale (phase 7's bound).  Only the
-    kernels' forwards differ between the two, each within one rounding of
-    the other's."""
+def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCABS,
+                        tag: str = "[lm-train]") -> dict:
+    """Step-1 gradients of ``arch`` (qwen2-1.5b) at full width cut to
+    ``LMT_GRAD`` layers (bf16 compute, remat ``full``) on ``LMT_GRAD``
+    sequences of 4,096, through the kernels (K9, K8 for QR, K5 for TT)
+    against the same step through their plain versions on the card
+    (``plain_lm_path``): each leaf within ``GRAD_TOL`` of its scale (phase
+    7's bound).  Only the kernels' forwards differ between the two, each
+    within one rounding of the other's.  An MoE layer would route the
+    tokens whose top-k margin lies below that rounding either way, and
+    each such flip moves the drop boundary of two experts' queues: so the
+    plain path takes the kernel path's routing (``replayed_routing``: its
+    ids, the weights from the plain path's own probabilities), and the
+    tokens its own top-k would have routed otherwise are counted."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import qr_gather as qg
@@ -4603,35 +4761,48 @@ def lm_train_grad_check(dev, mods, totals) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
 
+    from repro_torch.models import moe as moe_mod
+
     depth, b = LMT_GRAD
     seq = lmt_shape().seq_len
     out = {}
-    for vocab in LMT_VOCABS:
-        cfg = lm_config(LM_MAIN).replace(num_layers=depth, embedding_kind=vocab,
-                                         tt_exec="pallas")
+    for vocab in vocabs:
+        cfg = lm_config(arch).replace(num_layers=depth, embedding_kind=vocab,
+                                      tt_exec="pallas")
         params, _ = T.init_lm(cfg, seed=0, device=dev)
-        loss_fn = registry.train_loss_fn(registry.get(LM_MAIN), cfg)
+        loss_fn = registry.train_loss_fn(registry.get(arch), cfg)
         g = torch.Generator(device=dev).manual_seed(9)
         batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
                                          dtype=torch.int32)}
         take_launches(mods, totals)
-        loss_k, _, g_kernel = TS.value_and_grad(loss_fn, params, batch)
+        routes = ([], [])
+        with kept_calls(moe_mod, "route", lambda a, o: routes[0].append(o[0])):
+            loss_k, _, g_kernel = TS.value_and_grad(loss_fn, params, batch)
         torch.cuda.synchronize()
         n = take_launches(mods, totals)
-        with plain_lm_path(fa, qg, tg, ref):
+        with plain_lm_path(fa, qg, tg, ref), replayed_routing(moe_mod, routes):
             loss_p, _, g_plain = TS.value_and_grad(loss_fn, params, batch)
         torch.cuda.synchronize()
         if take_launches(mods, totals) or n != step_launches(cfg, 1):
-            raise AssertionError(f"[lm-train] grad check {vocab}: launches {n}")
+            raise AssertionError(f"{tag} grad check {vocab}: launches {n}")
         worst, where = leaf_scale_errors(g_kernel, g_plain)
         out[vocab] = {"layers": depth, "batch": b, "seq": seq, "rel_err": worst, "leaf": where,
                       "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "launches": n}
+        flips = ""
+        if cfg.num_experts:
+            out[vocab]["routing_differs"] = sum(int((x != y).any(-1).sum())
+                                                for x, y in zip(*routes))
+            out[vocab]["routed_tokens"] = sum(x.shape[0] for x in routes[0])
+            flips = (f"; the plain path on the kernel path's routing (its own top-k differs "
+                     f"for {out[vocab]['routing_differs']} of {out[vocab]['routed_tokens']} "
+                     f"token-layer calls, recompute included)")
         if not worst <= GRAD_TOL:
-            raise AssertionError(f"[lm-train] step-1 gradient {vocab} {where}: kernel vs "
-                                 f"plain {worst}")
-        log(f"[lm-train] {cfg.name} {vocab} vocab at {depth} layers, {b} x {seq}: step-1 "
+            raise AssertionError(f"{tag} step-1 gradient {vocab} {where}: kernel vs "
+                                 f"plain {worst}{flips}")
+        log(f"{tag} {cfg.name} {vocab} vocab at {depth} layers, {b} x {seq}: step-1 "
             f"gradients kernels vs plain on the card {worst:.2e} of scale (worst {where}; held "
-            f"to {GRAD_TOL}), loss {float(loss_k):.6f} / {float(loss_p):.6f}; launches {n}")
+            f"to {GRAD_TOL}), loss {float(loss_k):.6f} / {float(loss_p):.6f}; launches {n}"
+            + flips)
         del params, g_kernel, g_plain
         gc.collect()
         torch.cuda.empty_cache()
@@ -4643,7 +4814,7 @@ def lm_train_cli(mods, totals) -> dict:
     qr --seq 4096`` with ``LMT_CLI`` and a checkpoint directory under
     ``build/`` (its ``main``, in this process), twice: the first trains
     (exit 0, a step line a step, ``step_launches`` a step), the second
-    prints ``[resume] step 4`` and launches nothing."""
+    prints ``[resume] step 2`` and launches nothing."""
     import io
 
     from repro_torch.launch import train as train_cli
@@ -4686,27 +4857,31 @@ def lm_train_cli(mods, totals) -> dict:
     return {"argv": argv, "runs": runs}
 
 
-def lm_train_other(dev, arch: str, mods, totals) -> dict:
-    """One of the other dense archs at full width and S 4,096, microbatch 1,
-    at the depth that fits: a full step's reserved memory at ``LMT_DEPTHS``
-    layers gives a line, fixed + slope x layers (params, gradient, AdamW
-    state, the functional update's new copies and the activations); the
-    depth is the largest whose line fits the free memory less
-    ``LM_HEADROOM`` (the first step confirms it, as in ``lm_train_main``).
-    ``LMT_OTHER_STEPS`` steps on one batch: losses finite
-    and falling; tokens/s of the steps after the first (host clock)."""
+def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-train]") -> dict:
+    """``arch`` at full width with a ``vocab`` vocabulary, S 4,096,
+    microbatch 1, at the depth that fits: a full step's reserved memory at ``LMT_DEPTHS`` layers
+    gives a line, fixed + slope x layers (params, gradient, AdamW state,
+    the functional update's new copies and the activations); the depth is
+    the largest whose line fits the free memory less ``LM_HEADROOM``
+    (where the first step runs out of memory, an eighth fewer layers).
+    ``LMT_FIT_STEPS`` steps on one batch: losses finite; ms a step and
+    tokens/s of the steps after the first (host clock); the last step
+    split by CUDA events into the forward (around the loss), the update
+    (around ``optimizer.update``) and the backward (the rest), K9's ms and
+    an MoE config's MoE ms (forward and recompute) in it, peak memory."""
     from repro_torch.configs import registry
+    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as TS
 
     seq = lmt_shape().seq_len
     binding = registry.get(arch)
-    full = lm_config(arch)
+    full = lm_config(arch).replace(embedding_kind=vocab)
     g = torch.Generator(device=dev).manual_seed(10)
     batch = {"tokens": torch.randint(0, full.vocab, (1, seq), generator=g, device=dev,
                                      dtype=torch.int32)}
-    ocfg = opt.OptConfig(**LMT_OTHER_OPT)
+    ocfg = opt.OptConfig(**LMT_FIT_OPT)
 
     def one(depth: int):
         cfg = full.replace(num_layers=depth)
@@ -4722,50 +4897,145 @@ def lm_train_other(dev, arch: str, mods, totals) -> dict:
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info(dev)[0]
     depth = int(max(1, min(full.num_layers, (free - LM_HEADROOM - fixed) // slope)))
+    fwd, upd = [], []
+    saved_update = TS.opt_mod.update
+
+    def timed_update(*a, **kw):
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = saved_update(*a, **kw)
+        e[1].record()
+        upd.append(e)
+        return out
+
     too_big = []
     while True:         # the first step confirms the fit, as in ``lm_train_main``
         cfg = full.replace(num_layers=depth)
         take_launches(mods, totals)
         params, _ = T.init_lm(cfg, seed=0, device=dev)
         state = opt.init(params)
-        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
+        loss_fn = registry.train_loss_fn(binding, cfg)
+
+        def timed_loss(p, b):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = loss_fn(p, b)
+            e[1].record()
+            fwd.append(e)
+            return out
+
+        step = TS.make_train_step(timed_loss, ocfg)
         losses, secs = [], []
         torch.cuda.reset_peak_memory_stats(dev)
         try:
-            for _ in range(LMT_OTHER_STEPS):
-                t0 = time.perf_counter()
-                params, state, m = step(params, state, batch)
-                losses.append(float(m["loss"]))
-                torch.cuda.synchronize()
-                secs.append(time.perf_counter() - t0)
+            for i in range(LMT_FIT_STEPS):
+                last = i == LMT_FIT_STEPS - 1
+                fwd.clear()
+                upd.clear()
+                TS.opt_mod.update = timed_update
+                with timed_entries(ops, ("flash_attention_fused",)) as marks, \
+                        (moe_watch(cfg) if last else contextlib.nullcontext()) as watch:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t0 = time.perf_counter()
+                    params, state, m = step(params, state, batch)
+                    losses.append(float(m["loss"]))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
             break
         except torch.OutOfMemoryError:
             if depth == 1 or secs:
                 raise
             too_big.append(depth)
+        finally:
+            TS.opt_mod.update = saved_update
         del params, state
         gc.collect()
         torch.cuda.empty_cache()
         depth -= max(1, depth // 8)
     n = take_launches(mods, totals)
-    want = {k: v * LMT_OTHER_STEPS for k, v in step_launches(cfg, 1).items()}
-    if n != want or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise AssertionError(f"[lm-train] {arch}: launches {n}, losses {losses}")
+    want = {k: v * LMT_FIT_STEPS for k, v in step_launches(cfg, 1).items()}
+    if n != want or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag} {full.name}: launches {n}, losses {losses}")
     later = secs[1:]
-    rec = {"arch": arch, "layers": depth, "full_layers": full.num_layers, "seq": seq,
-           "batch": 1, "out_of_memory_at": too_big, "reserved_by_depth": reserved,
-           "reserved_a_layer": slope,
+    total = start.elapsed_time(upd[-1][1])
+    forward, update = event_ms(fwd), event_ms(upd)
+    rec = {"arch": full.name, "vocab": full.embedding_kind, "layers": depth,
+           "full_layers": full.num_layers, "seq": seq, "batch": 1, "out_of_memory_at": too_big,
+           "reserved_by_depth": reserved, "reserved_a_layer": slope,
            "reserved_fixed": fixed, "free_bytes": free, "losses": losses,
-           "step_s": secs, "tokens_per_s": seq * len(later) / sum(later),
+           "step_s": secs, "ms_per_step": 1e3 * sum(later) / len(later),
+           "tokens_per_s": seq * len(later) / sum(later), "event_ms": total,
+           "forward_ms": forward, "backward_ms": total - forward - update, "update_ms": update,
+           "k9_ms": event_ms(marks["flash_attention_fused"]),
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "launches": n}
-    log(f"[lm-train] {arch} ({depth} of {full.num_layers} layers: {slope / 2**30:.2f} GiB "
-        f"reserved a layer + {fixed / 2**30:.2f} GiB, from depths {LMT_DEPTHS}, in "
-        f"{free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of memory at "
-        f"{too_big or 'none'}), 1 x {seq}, "
-        f"{LMT_OTHER_STEPS} steps on one batch: losses {', '.join(f'{x:.4f}' for x in losses)}; "
-        f"{rec['tokens_per_s']:.0f} tokens/s after the first step; peak {rec['peak_gib']:.2f} "
-        f"GiB; launches {n}")
+    moe = ""
+    if cfg.num_experts:
+        rec["moe"] = moe_drops(watch)
+        moe = (f", MoE layers {rec['moe']['moe_ms']:.1f} ms in forward and recompute, "
+               f"{100 * rec['moe']['dropped_share']:.2f}% of assignments dropped")
+    log(f"{tag} {full.name} {full.embedding_kind} vocab ({depth} of {full.num_layers} layers: "
+        f"{slope / 2**30:.2f} GiB reserved a layer + {fixed / 2**30:.2f} GiB, from depths "
+        f"{LMT_DEPTHS}, in {free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of "
+        f"memory at {too_big or 'none'}), 1 x {seq}, {LMT_FIT_STEPS} steps on one batch: "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; {rec['ms_per_step']:.1f} ms a step, "
+        f"{rec['tokens_per_s']:.0f} tokens/s after the first; the last step (events) forward "
+        f"{forward:.1f} ms, backward {rec['backward_ms']:.1f} ms, update {update:.1f} ms, K9 "
+        f"{rec['k9_ms']:.1f} ms{moe}; peak {rec['peak_gib']:.2f} GiB; launches {n}")
     del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_dots_check(dev, mods, totals) -> dict:
+    """Remat ``dots`` at the gradient check's cut (``LMT_GRAD``, QR
+    vocabulary, bf16): the step-1 gradients against remat ``full``'s on the
+    same params and tokens, read for bitwise equality (``dots`` keeps the
+    products ``full`` recomputes with the same kernels) and held to
+    ``GRAD_TOL`` of each leaf's scale; each policy's forward + backward ms
+    (events) and peak."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+
+    depth, b = LMT_GRAD
+    seq = lmt_shape().seq_len
+    base = lm_config(LM_MAIN).replace(num_layers=depth, embedding_kind="qr")
+    params, _ = T.init_lm(base, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    batch = {"tokens": torch.randint(0, base.vocab, (b, seq), generator=g, device=dev,
+                                     dtype=torch.int32)}
+    grads, rec = {}, {"layers": depth, "batch": b, "seq": seq}
+    for policy in ("full", "dots"):
+        cfg = base.replace(remat_policy=policy)
+        take_launches(mods, totals)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        _, _, grads[policy] = TS.value_and_grad(registry.train_loss_fn(registry.get(LM_MAIN),
+                                                                       cfg), params, batch)
+        e[1].record()
+        torch.cuda.synchronize()
+        n = take_launches(mods, totals)
+        if n != step_launches(cfg, 1):
+            raise AssertionError(f"[lm-train] dots check {policy}: launches {n}")
+        rec[policy] = {"ms": e[0].elapsed_time(e[1]),
+                       "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    worst, where = leaf_scale_errors(grads["dots"], grads["full"])
+    rec.update(rel_err=worst, leaf=where, bitwise=all(
+        torch.equal(x, y) for x, y in zip(tree.leaves(grads["dots"]),
+                                          tree.leaves(grads["full"]))))
+    log(f"[lm-train] {base.name} qr vocab at {depth} layers, {b} x {seq}: remat dots vs full "
+        f"step-1 gradients {worst:.2e} of scale (worst {where or 'none'}; held to {GRAD_TOL}), "
+        f"bitwise {rec['bitwise']}; forward + backward {rec['dots']['ms']:.1f} / "
+        f"{rec['full']['ms']:.1f} ms, peak {rec['dots']['peak_gib']:.2f} / "
+        f"{rec['full']['peak_gib']:.2f} GiB")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"[lm-train] dots vs full: {rec}")
+    del params, grads
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -4774,10 +5044,10 @@ def lm_train_other(dev, arch: str, mods, totals) -> dict:
 def lm_train_phase(dev, by_name, mods) -> dict:
     """Phase 12: the dense transformer trained on one card.  ``[lm-train-ref]``
     on the smoke configs; qwen2-1.5b at full width and depth, S 4,096, with
-    the QR and the dense vocabulary under remat ``full`` and the QR one
-    under ``dots``; one TT step; the step-1 gradient check at 2 layers; the
-    training CLI twice (the second resumes); the other three dense archs at
-    the depth that fits.  The phase's launches add to the ``flash_fwd``,
+    the QR and the dense vocabulary under remat ``full``; one TT step; the
+    step-1 gradient check at 2 layers; remat ``dots`` against ``full`` at
+    that cut; the training CLI twice (the second resumes); each section's
+    seconds logged.  The phase's launches add to the ``flash_fwd``,
     ``qr_gather`` and ``tt_bag`` rows.  Returns the ``{"lm_training": ...}``
     record."""
     t0 = time.perf_counter()
@@ -4789,15 +5059,21 @@ def lm_train_phase(dev, by_name, mods) -> dict:
     totals = {}
     reset_all(mods)
     torch.cuda.memory._set_allocator_settings(LMT_ALLOCATOR)
+    record = {"allocator": LMT_ALLOCATOR, "section_s": {}}
     try:
-        record = {"allocator": LMT_ALLOCATOR, "ref": lm_train_ref(dev, mods, totals)}
-        record["main"] = [lm_train_main(dev, vocab, policy, mods, totals)
-                          for vocab, policy in LMT_MAIN]
-        record["tt"] = lm_train_tt(dev, mods, totals)
-        record["grad_check"] = lm_train_grad_check(dev, mods, totals)
-        record["cli"] = lm_train_cli(mods, totals)
-        record["others"] = [lm_train_other(dev, arch, mods, totals)
-                            for arch in LM_ARCHS if arch != LM_MAIN]
+        for key, run in (
+                ("ref", lambda: lm_train_ref(dev, mods, totals)),
+                ("main", lambda: [lm_train_main(dev, vocab, policy, mods, totals,
+                                                profile=i == 0)
+                                  for i, (vocab, policy) in enumerate(LMT_MAIN)]),
+                ("tt", lambda: lm_train_tt(dev, mods, totals)),
+                ("grad_check", lambda: lm_train_grad_check(dev, mods, totals)),
+                ("dots", lambda: lm_train_dots_check(dev, mods, totals)),
+                ("cli", lambda: lm_train_cli(mods, totals))):
+            t1 = time.perf_counter()
+            record[key] = run()
+            record["section_s"][key] = time.perf_counter() - t1
+            log(f"[lm-train] section {key}: {record['section_s'][key]:.1f} s")
     finally:
         gc.collect()
         torch.cuda.empty_cache()
@@ -4862,9 +5138,9 @@ def lmm_tokens(cfg, batch: int, seq: int, dev, seed: int = 7) -> dict:
                                     dtype=torch.int32)}
 
 
-def lm_mesh_world1(dev, mods, totals) -> dict:
-    """World 1 over nccl in this process, mesh (1, 1): qwen2-1.5b at full
-    width cut to ``LMM_WORLD1`` layers (QR vocabulary, ``twolevel``, bf16,
+def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]") -> dict:
+    """World 1 over nccl in this process, mesh (1, 1): ``arch`` (qwen2-1.5b)
+    at full width cut to ``LMM_WORLD1`` layers (QR vocabulary, ``twolevel``, bf16,
     remat ``full``), S 4,096: the meshed step (the two-level GnR, the
     tensor-parallel layers, the vocab-parallel loss, every collective over a
     group of one) against phase 12's single-card step from the same params
@@ -4885,9 +5161,9 @@ def lm_mesh_world1(dev, mods, totals) -> dict:
 
     depth, b = LMM_WORLD1
     seq = lmt_shape().seq_len
-    binding = registry.get(LM_MAIN)
-    cfg = lm_config(LM_MAIN).replace(num_layers=depth, embedding_kind="qr",
-                                     embedding_exec="twolevel")
+    binding = registry.get(arch)
+    cfg = lm_config(arch).replace(num_layers=depth, embedding_kind="qr",
+                                  embedding_exec="twolevel")
     params, axes = T.init_lm(cfg, seed=0, device=dev)
     batch = lmm_tokens(cfg, b, seq, dev)
     loss_fn = registry.train_loss_fn(binding, cfg)
@@ -4932,20 +5208,20 @@ def lm_mesh_world1(dev, mods, totals) -> dict:
     finally:
         dist.destroy_process_group()
     want = {k: 2 * v for k, v in step_launches(cfg, 1).items()}
-    rec = {"mesh": [1, 1], "backend": "nccl", "layers": depth, "batch": b, "seq": seq,
-           "vocab": "qr", "embedding_exec": "twolevel",
+    rec = {"mesh": [1, 1], "backend": "nccl", "arch": cfg.name, "layers": depth, "batch": b,
+           "seq": seq, "vocab": "qr", "embedding_exec": "twolevel",
            "step1_grad_rel_err_max": max(errs), "bitwise": bitwise,
            "loss": float(loss_m), "loss_single_card": float(loss_s),
            "grad_norm": float(m_m["grad_norm"]), "grad_norm_single_card": float(m_s["grad_norm"]),
            "collectives_of_the_gradient": sites, "launches": n,
            "launches_single_card": single_launches}
-    log(f"[lm-mesh] world 1 nccl {cfg.name} at {depth} layers, {b} x {seq}, QR twolevel bf16: "
+    log(f"{tag} world 1 nccl {cfg.name} at {depth} layers, {b} x {seq}, QR twolevel bf16: "
         f"step-1 gradients vs the single card {max(errs):.3g} of scale; bitwise {bitwise}; "
         f"loss {rec['loss']:.6f} vs {rec['loss_single_card']:.6f}, grad norm "
         f"{rec['grad_norm']:.6f} vs {rec['grad_norm_single_card']:.6f}; collectives {sites}; "
         f"launches {n} (single card {single_launches})")
     if not max(errs) <= LMM_FP32_TOL or n != want or single_launches != want:
-        raise AssertionError(f"[lm-mesh] world 1 nccl: {rec}")
+        raise AssertionError(f"{tag} world 1 nccl: {rec}")
     del params, local, g_single, g_mesh, got, new_s, new_m
     gc.collect()
     torch.cuda.empty_cache()
@@ -5226,7 +5502,7 @@ def lmm_log(rec: dict) -> None:
            else f"depth {fit['size']}: fit {fit['fit']}, {fit['slope'] / 2**30:.2f} GiB "
            f"reserved a layer + {fit['fixed'] / 2**30:.2f} GiB, {fit['free'] / 2**30:.2f} GiB "
            f"free over {fit['ranks_on_card']} ranks")
-    log(f"[lm-mesh] qwen2-1.5b mesh {tuple(rec['mesh'])} gloo, {rec['vocab']} vocab, "
+    log(f"[lm-mesh] {rec.get('arch', LM_MAIN)} mesh {tuple(rec['mesh'])} gloo, {rec['vocab']} vocab, "
         f"{rec['layers']} layers, {rec['microbatch_a_data_rank']} x {rec['seq']} a data rank "
         f"({how}): losses "
         f"{', '.join(f'{x:.4f}' for x in rec['losses'])}; "
@@ -5400,6 +5676,369 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE transformers served and trained
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+MOE_MAIN = "granite-moe-3b-a800m"
+MOE_ORACLE_TOL = 1e-4     # the MoE layer vs its per-token mixture, of the output's scale
+MOE_ORACLE_SEQ = 4096
+# the (1, 2) EP check: granite-moe at full width cut to 4 layers (20 experts,
+# 12 q / 4 kv heads a rank), one sequence of 4,096, two steps
+MOE_EP_SHAPE = (1, 2)
+MOE_EP_LAYERS = 4
+MOE_EP_STEPS = LMM_STEPS  # ``lmm_steps`` runs the meshed steps
+MOE_EP_OPT = LMM_OPT
+MOE_LOSS_TOL = 2e-2       # the meshed bf16 steps' losses vs the single card's, relative
+MOE_TIMEOUT_S = 600
+
+
+def moe_ample(cfg) -> float:
+    """A capacity factor at which no expert drops (``num_experts / top_k``:
+    the capacity then holds every token), for checks that compare calls
+    with different token counts; ``cfg``'s own for a dense config."""
+    return cfg.num_experts / cfg.top_k if cfg.num_experts else cfg.capacity_factor
+
+
+def routing_margin(router, x, k: int) -> float:
+    """The smallest gap between a token's k-th and (k + 1)-th router
+    probability: how far a top-k choice is from a tie."""
+    probs = torch.softmax(x.float().reshape(-1, x.shape[-1]) @ router.float(), dim=-1)
+    top = torch.topk(probs, k + 1, dim=-1).values
+    return float((top[:, k - 1] - top[:, k]).min())
+
+
+def moe_oracle(params, cfg, dev) -> dict:
+    """Layer 0's MoE on its own input (a prefill of one sequence of
+    ``MOE_ORACLE_SEQ`` tokens; ``cfg`` fp32 at an ample capacity) against
+    the dense per-token mixture sum_k w_k FFN_{e_k}(x) of
+    ``tests/test_moe.py``, a loop over the experts on the card's own ids
+    and weights: within ``MOE_ORACLE_TOL`` of the output's scale."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    seen = []
+    g = torch.Generator(device=dev).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (1, MOE_ORACLE_SEQ), generator=g, device=dev,
+                         dtype=torch.int32)
+    with kept_calls(moe_mod, "apply_moe", lambda a, out: seen or seen.append(
+            (a[0], a[1].detach().clone(), out.detach().clone()))):
+        with torch.inference_mode():
+            T.forward_prefill(params, toks, cfg, MOE_ORACLE_SEQ)
+    p, x, out = seen[0]
+    d = cfg.d_model
+    with torch.inference_mode():
+        ids, wts = moe_mod.route(p["router"], x, cfg)
+        xs = x.reshape(-1, d).float()
+        want = torch.zeros_like(xs)
+        for e in range(cfg.num_experts):
+            y = (torch.nn.functional.silu(xs @ p["w_gate"][e].float())
+                 * (xs @ p["w_up"][e].float())) @ p["w_down"][e].float()
+            want += ((ids == e) * wts).sum(-1, keepdim=True) * y
+        err = float((out.reshape(-1, d).float() - want).abs().max())
+        scale = float(want.abs().max())
+    rec = {"tokens": MOE_ORACLE_SEQ, "capacity_factor": cfg.capacity_factor,
+           "dropped": moe_mod.dropped(ids, cfg), "rel_err": err / scale, "scale": scale,
+           "margin": routing_margin(p["router"], x, cfg.top_k), "tolerance": MOE_ORACLE_TOL}
+    if not (rec["rel_err"] <= MOE_ORACLE_TOL and rec["dropped"] == 0):
+        raise AssertionError(f"[moe] {cfg.name} oracle: {rec}")
+    return rec
+
+
+def moe_ref_phase(dev, mods, totals) -> dict:
+    """``[moe-ref]``: granite-moe-smoke and qwen3-moe-smoke, each with a
+    dense and a QR (collision 8) vocabulary, on the card and on the CPU
+    with the same weights (built on the CPU and copied) and tokens, fp32
+    compute: first every MoE layer call's routing (ids) card vs CPU, with
+    the smallest top-k margin; then ``forward_train``, prefill and decode
+    logits within ``LM_REF_TOL``, the greedy tokens equal, K9 once a layer
+    a forward and K8 once a QR lookup; one step of 2 microbatches
+    (``make_train_step``): the loss within ``LMT_REF_TOL`` relative, the
+    updated params and the batch's gradients within ``LMT_REF_TOL`` of each
+    leaf's scale (phase 12's rules)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import serve_step as S
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_map
+
+    fam = S.serve_family("transformer")
+    ocfg = opt.OptConfig(**LMT_REF_OPT)
+    out = {}
+    for arch in MOE_ARCHS:
+        binding = registry.get(arch)
+        for vocab in ("dense", "qr"):
+            cfg = binding.smoke.replace(embedding_kind=vocab, qr_collision=8,
+                                        compute_dtype="float32")
+            cpu, _ = T.init_lm(cfg, seed=0, device="cpu")
+            card = tree_map(lambda a: a.to(dev), cpu)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                                    .astype(np.int32))
+            errs = {}
+            routes = ([], [])
+            with torch.inference_mode():
+                reset_all(mods)
+                with kept_calls(moe_mod, "route", lambda a, o: routes[0].append((a, o[0]))):
+                    got = T.forward_train(card, toks.to(dev), cfg)
+                torch.cuda.synchronize()
+                n = take_launches(mods, totals)
+                want_n = {"flash_fwd": cfg.num_layers, **({"qr_gather": 1} if vocab == "qr"
+                                                          else {})}
+                with kept_calls(moe_mod, "route", lambda a, o: routes[1].append((a, o[0]))):
+                    want = T.forward_train(cpu, toks, cfg)
+                margin = min(routing_margin(*a[:2], cfg.top_k) for a, _ in routes[1])
+                same = all(torch.equal(x.cpu(), y) for (_, x), (_, y) in zip(*routes))
+                if not same or n != want_n:
+                    raise AssertionError(f"[moe-ref] {arch} {vocab}: routing equal {same} "
+                                         f"(smallest top-k margin {margin:.3g}), launches {n}")
+                pairs = [("train", got, want)]
+                lg, cache = T.forward_prefill(card, toks[:, :11].to(dev), cfg, 16)
+                clg, ccache = T.forward_prefill(cpu, toks[:, :11], cfg, 16)
+                pairs.append(("prefill", lg, clg))
+                lg2, _ = T.forward_decode(card, toks[:, 11:].to(dev), cache, 11, cfg)
+                clg2, _ = T.forward_decode(cpu, toks[:, 11:], ccache, 11, cfg)
+                pairs.append(("decode", lg2, clg2))
+                for name, a, b in pairs:
+                    dd = (a.cpu().float() - b.float()).abs()
+                    errs[name] = float(dd.max())
+                    if not bool((dd <= LM_REF_TOL + LM_REF_TOL * b.float().abs()).all()):
+                        raise AssertionError(f"[moe-ref] {arch} {vocab} {name}: card vs CPU "
+                                             f"{errs[name]}")
+            tok_card = S.greedy_generate(fam, card, {"tokens": toks[:, :8].to(dev)}, cfg,
+                                         max_new=4, max_len=12).cpu()
+            tok_cpu = S.greedy_generate(fam, cpu, {"tokens": toks[:, :8]}, cfg, max_new=4,
+                                        max_len=12)
+            if not torch.equal(tok_card, tok_cpu):
+                raise AssertionError(f"[moe-ref] {arch} {vocab}: greedy tokens {tok_card} vs "
+                                     f"{tok_cpu}")
+            btoks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, LMT_REF_SHAPE)
+                                     .astype(np.int32))
+            loss_fn = registry.train_loss_fn(binding, cfg)
+            step = TS.make_train_step(loss_fn, ocfg, microbatches=2)
+            new_cpu, _, m_cpu = step(cpu, opt.init(cpu), {"tokens": btoks})
+            take_launches(mods, totals)
+            new_card, _, m_card = step(card, opt.init(card), {"tokens": btoks.to(dev)})
+            g_card = TS.value_and_grad(loss_fn, card, {"tokens": btoks.to(dev)})[2]
+            g_cpu = TS.value_and_grad(loss_fn, cpu, {"tokens": btoks})[2]
+            take_launches(mods, totals)
+            loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
+                float(m_cpu["loss"]))
+            p_rel, p_leaf = leaf_scale_errors(new_card, new_cpu)
+            g_rel, g_leaf = leaf_scale_errors(g_card, g_cpu)
+            errs.update(margin=margin, step_loss_rel=loss_rel, param_rel=p_rel, grad_rel=g_rel)
+            if not (loss_rel <= LMT_REF_TOL and max(p_rel, g_rel) <= LMT_REF_TOL):
+                raise AssertionError(f"[moe-ref] {arch} {vocab} step: loss {loss_rel}, params "
+                                     f"{p_rel} ({p_leaf}), gradients {g_rel} ({g_leaf})")
+            out[f"{arch}/{vocab}"] = errs
+            log(f"[moe-ref] {cfg.name} {vocab} vocab, card vs CPU (fp32): routing equal in "
+                f"{len(routes[0])} layer calls (smallest top-{cfg.top_k} margin {margin:.3g}); "
+                f"max |diff| train {errs['train']:.2e}, prefill {errs['prefill']:.2e}, decode "
+                f"{errs['decode']:.2e}; greedy tokens equal; one step of 2 microbatches: loss "
+                f"{loss_rel:.1e} rel, updated params {p_rel:.1e} of scale, gradients "
+                f"{g_rel:.1e} (worst {g_leaf}); launches a forward {n}")
+    return out
+
+
+def moe_mesh_rank(mesh) -> dict:
+    """Phase 14's EP check on one rank of a gloo mesh on the card:
+    granite-moe at full width cut to ``MOE_EP_LAYERS`` layers, QR
+    ``twolevel``, one sequence of 4,096.  The fp32 step-1 gradients at an
+    ample capacity (``moe_ample``), gathered to the logical shapes on the
+    writer (rank (0, 0)); then ``MOE_EP_STEPS`` bf16 steps at the config's
+    capacity (``lmm_steps``: ms, split, collectives, K9 and K8 held on the
+    rank's own calls)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qr_gather as qg
+    from repro_torch.train import train_step as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    writer = not any(mesh.coords.values())
+    seq = lmt_shape().seq_len
+    cfg = lm_config(MOE_MAIN).replace(num_layers=MOE_EP_LAYERS, embedding_kind="qr",
+                                      embedding_exec="twolevel")
+    cfg32 = cfg.replace(compute_dtype="float32", capacity_factor=moe_ample(cfg))
+    res = {"coords": dict(mesh.coords)}
+    local, specs, _ = lmm_place(cfg32, mesh, dev)
+    res["paths"] = [p for p, _ in tree.leaves_with_paths(local)]
+    res["specs"] = {p: tuple(sp) for p, sp in zip(res["paths"], specs) if "/moe/" in p}
+    res["local_experts"] = int(local["layers"]["moe"]["w_up"].shape[1])
+    batch = synthetic.data_block(lmm_tokens(cfg32, 1, seq, dev), mesh)
+    fn = registry.train_loss_fn(registry.get(MOE_MAIN), cfg32)
+
+    def meshed(p, bb):
+        with SH.use_rules(mesh, SH.DEFAULT_RULES):
+            return fn(p, bb)
+
+    loss, _, g = TS.value_and_grad(meshed, local, batch)
+    g, loss = TS.data_mean(g, loss, mesh)
+    res["loss32"] = float(loss)
+    grads = []
+    for x, sp in zip(tree.leaves(g), specs):
+        leaf = SH.gather(x, sp, mesh)
+        if writer:
+            grads.append(leaf.cpu())
+        del leaf
+    res["grads32"] = grads if writer else None
+    del local, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    local, specs, _ = lmm_place(cfg, mesh, dev)
+    batch = synthetic.data_block(lmm_tokens(cfg, 1, seq, dev), mesh)
+    res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, (fa, qg))
+    res["layers"], res["microbatch"], res["fit"] = cfg.num_layers, 1, None
+    return res
+
+
+def moe_single_steps(cfg, batch, dev) -> dict:
+    """The single card's ``MOE_EP_STEPS`` steps of ``cfg`` (params seed 0)
+    on ``batch``: losses and norms."""
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    state = opt.init(params)
+    step = TS.make_train_step(registry.train_loss_fn(registry.get(MOE_MAIN), cfg),
+                              opt.OptConfig(**MOE_EP_OPT))
+    losses, norms = [], []
+    for _ in range(MOE_EP_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms}
+
+
+def moe_ep_run(dev, mods, totals) -> dict:
+    """Two gloo ranks on the card, mesh ``MOE_EP_SHAPE`` (``moe_mesh_rank``):
+    the fp32 step-1 gradients, gathered, within ``LMM_FP32_TOL`` of each
+    leaf's scale of the single card's (``lmm_single_grads``, the same params
+    and tokens), the stacks split by ``experts`` and the router whole; the
+    bf16 steps' losses within ``MOE_LOSS_TOL`` of the single card's; ms a
+    step, bytes combined a rank, collectives a step."""
+    from repro_torch.launch import mesh as M
+
+    seq = lmt_shape().seq_len
+    rdv = ROOT / "build" / "moe_mesh" / "rdv"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = M.spawn(moe_mesh_rank, MOE_EP_SHAPE, device="cuda", backend="gloo",
+                    init_file=rdv, timeout_s=MOE_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    rec = lmm_record(ranks, MOE_EP_SHAPE, "qr")
+    for k, v in rec["launches_all_ranks"].items():
+        totals[k] = totals.get(k, 0) + v
+    mine = next(r for r in ranks if not any(r["coords"].values()))
+    cfg = lm_config(MOE_MAIN).replace(num_layers=MOE_EP_LAYERS, embedding_kind="qr",
+                                      embedding_exec="twolevel")
+    cfg32 = cfg.replace(compute_dtype="float32", capacity_factor=moe_ample(cfg))
+    want, loss32 = lmm_single_grads(cfg32, lmm_tokens(cfg32, 1, seq, dev), dev)
+    got = mine.pop("grads32")
+    errs = leaf_errors(got, want)
+    del got, want
+    single = moe_single_steps(cfg, lmm_tokens(cfg, 1, seq, dev), dev)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], single["losses"]))
+    split = "model"
+    specs_ok = (mine["specs"]["layers/moe/router"] == (None, None, None) and all(
+        mine["specs"][f"layers/moe/{k}"] == (None, split, None, None)
+        for k in ("w_up", "w_gate", "w_down")))
+    rec.update(arch=cfg.name, spawn_s=spawn_s, local_experts=mine["local_experts"],
+               step1_grad_rel_err_max=max(errs), step1_grad_leaf=mine["paths"][int(np.argmax(errs))],
+               loss32=mine["loss32"], loss32_single_card=loss32,
+               single_card=single, loss_rel_max=loss_rel, specs=mine["specs"])
+    combine = {k: v for k, v in mine["steps"]["sites"].items() if k.startswith("combine")}
+    rec["combined_a_rank_a_step"] = combine
+    log(f"[moe-ep] {cfg.name} mesh {MOE_EP_SHAPE} gloo on the card, {MOE_EP_LAYERS} layers, "
+        f"{mine['local_experts']} experts a rank, QR twolevel, 1 x {seq}: fp32 step-1 "
+        f"gradients (capacity factor {moe_ample(cfg):g}) vs the single card "
+        f"{max(errs):.3g} of scale (worst {rec['step1_grad_leaf']}; held to {LMM_FP32_TOL}), "
+        f"loss {mine['loss32']:.6f} vs {loss32:.6f}; bf16 losses "
+        f"{', '.join(f'{x:.4f}' for x in rec['losses'])} vs the single card's "
+        f"{', '.join(f'{x:.4f}' for x in single['losses'])} ({loss_rel:.2e} rel, held to "
+        f"{MOE_LOSS_TOL}); specs router whole, stacks by experts: {specs_ok}; the ranks took "
+        f"{spawn_s:.1f} s")
+    lmm_log(rec)
+    log(f"[moe-ep] combines a step, [calls, bytes a rank]: {combine}")
+    if not (max(errs) <= LMM_FP32_TOL and loss_rel <= MOE_LOSS_TOL and specs_ok):
+        raise AssertionError(f"[moe-ep] mesh {MOE_EP_SHAPE}: {rec}")
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_phase(dev, by_name, mods) -> dict:
+    """Phase 14: the MoE transformers served and trained.  ``[moe-ref]`` on
+    the two smoke configs; granite-moe-3b-a800m at full width and depth
+    with the dense and the QR (collision 64) vocabulary (consistency where
+    nothing drops, K9 on the model path at D 64, layer 0's MoE against its
+    per-token oracle, ``prefill_32k`` and ``decode_32k`` with the MoE
+    layers' ms and the dropped share, the serve CLI); qwen3-moe-235b-a22b at
+    full width and the depth whose fp32 params fit; training on one card
+    (granite-moe, QR, at the depth that fits; the step-1 gradient check at
+    2 layers); world 1 over nccl and EP on (1, 2) gloo ranks.  The phase's
+    launches add to the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
+    ``{"moe": ...}`` record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] before the phase: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free")
+    totals = {}
+    reset_all(mods)
+    record = {"section_s": {}}
+
+    def section(key, run):
+        t1 = time.perf_counter()
+        record[key] = run()
+        record["section_s"][key] = time.perf_counter() - t1
+        log(f"[moe] section {key}: {record['section_s'][key]:.1f} s")
+
+    section("ref", lambda: moe_ref_phase(dev, mods, totals))
+    section("main", lambda: [lm_main_run(dev, vocab, mods, totals, arch=MOE_MAIN, tag="[moe]",
+                                         oracle=vocab == "dense")
+                             for vocab in ("dense", "qr")])
+    section("cli", lambda: [lm_cli_run(vocab, mods, totals, arch=MOE_MAIN, tag="[moe-cli]")
+                            for vocab in ("dense", "qr")])
+    section("other", lambda: lm_other_run(dev, MOE_ARCHS[1], mods, totals, tag="[moe]"))
+    torch.cuda.memory._set_allocator_settings(LMT_ALLOCATOR)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = LMT_ALLOCATOR
+    try:
+        section("train", lambda: lm_train_fitted(dev, MOE_MAIN, "qr", mods, totals,
+                                                 tag="[moe-train]"))
+        section("grad_check", lambda: lm_train_grad_check(
+            dev, mods, totals, arch=MOE_MAIN, vocabs=("qr",), tag="[moe-train]"))
+        section("world1", lambda: lm_mesh_world1(dev, mods, totals, arch=MOE_MAIN,
+                                                 tag="[moe-ep]"))
+        section("ep", lambda: moe_ep_run(dev, mods, totals))
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[moe] phase {record['phase_s']:.1f} s; launches {totals}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5531,6 +6170,9 @@ def main() -> int:
     # phase 13: the LM trained on a mesh (K9 twice a layer a microbatch and K8
     # for QR tokens on each rank's shards)
     lm_mesh_training = lm_mesh_phase(dev, by_name, mods)
+    # phase 14: the MoE transformers served and trained (K9 a layer a
+    # forward at D 64, K8 for QR tokens, on one card and on the EP ranks)
+    moe = moe_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -5545,6 +6187,7 @@ def main() -> int:
     print(json.dumps({"lm_serving": lm_serving}), flush=True)
     print(json.dumps({"lm_training": lm_training}), flush=True)
     print(json.dumps({"lm_mesh_training": lm_mesh_training}), flush=True)
+    print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

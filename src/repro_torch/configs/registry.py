@@ -3,10 +3,12 @@ ids -> configs, model bindings and the shape grid; ``--config`` ids -> the
 DLRM configs.
 
 The ten assigned LM architectures are all listed, with ``repro``'s
-bindings, shape grid and skip rules.  The dense transformers (qwen2-1.5b,
-granite-34b, chatglm3-6b, minitron-4b) have a model in the port; for every
-other arch ``init_fn``, ``train_loss_fn`` and ``make_batch_fn`` raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+bindings, shape grid and skip rules.  The transformer family has a model
+in the port: the dense transformers (qwen2-1.5b, granite-34b, chatglm3-6b,
+minitron-4b) and the MoE ones (granite-moe-3b-a800m, qwen3-moe-235b-a22b);
+for every other arch ``init_fn``, ``train_loss_fn`` and ``make_batch_fn``
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
+it.
 ``batch_specs``, ``cache_specs`` and
 ``abstract_params`` are not ported: they come with the dry run.
 """
@@ -56,7 +58,6 @@ ARCHS: dict[str, ArchBinding] = {
 
 # what brings each family the port does not run yet (ROADMAP.md §1)
 NOT_PORTED = {
-    "moe": "ROADMAP.md §1 item 3 (MoE: models/moe.py)",
     "zamba2": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
     "xlstm": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
     "whisper": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
@@ -71,17 +72,17 @@ def get(arch_id: str) -> ArchBinding:
 
 
 def ported(binding: ArchBinding) -> bool:
-    """Whether the port has a model for ``binding`` (the dense transformers)."""
-    return binding.kind == "transformer" and binding.config.num_experts == 0
+    """Whether the port has a model for ``binding`` (the transformers, dense
+    and MoE)."""
+    return binding.kind == "transformer"
 
 
 def _require_ported(binding: ArchBinding, what: str) -> None:
     if ported(binding):
         return
-    family = "moe" if binding.kind == "transformer" else binding.kind
     raise NotImplementedError(
-        f"{binding.arch_id}: {what} of the {family} family is not ported yet; "
-        f"{NOT_PORTED[family]} brings it")
+        f"{binding.arch_id}: {what} of the {binding.kind} family is not ported yet; "
+        f"{NOT_PORTED[binding.kind]} brings it")
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,11 @@ PARAM_RULES: dict[str, tuple[str, ...] | None] = {
 }
 
 
+# A rules entry of the port's: logical-axes suffixes whose tensors stay
+# whole whatever their dims' rules say (``lm_param_rules``: the MoE router).
+WHOLE = "whole"
+
+
 # The port's at-rest layout of a training run: ``PARAM_RULES`` with ``embed``
 # and ``mlp`` kept whole.  ``repro`` stores those dims split (FSDP over
 # ``data``, the MLPs over ``model``) and XLA gathers them before every use;
@@ -152,6 +157,15 @@ def head_split(cfg, mesh, axis: str = "model") -> HeadSplit | None:
     return HeadSplit(q0=s * hl, q=hl, kv0=s * hl // group, kv=1, kv_local=False)
 
 
+def expert_split(cfg, mesh, axis: str = "model") -> bool:
+    """Whether ``cfg``'s expert stacks split over ``axis`` (``lm_param_rules``
+    places ``experts`` there where the axis divides ``num_experts``; else
+    the stacks are whole on every rank and each takes its block of the
+    padded stack in the call, ``moe.apply_moe``)."""
+    return (mesh is not None and axis in mesh.shape
+            and cfg.num_experts % mesh.shape[axis] == 0)
+
+
 def ffn_split(cfg, mesh, axis: str = "model") -> bool:
     """Whether ``cfg``'s MLP splits its ``d_ff`` over ``axis`` (else it runs
     replicated, as ``resolve_spec`` leaves a dim the axis does not divide)."""
@@ -161,8 +175,14 @@ def ffn_split(cfg, mesh, axis: str = "model") -> bool:
 def lm_param_rules(cfg, mesh) -> dict:
     """``LM_TRAIN_PARAM_RULES`` for ``cfg`` on ``mesh``: ``heads`` and
     ``kv_heads`` replicated where ``head_split`` keeps them whole (the
-    flattened ``heads * head_dim`` dim may divide an axis the heads do not)."""
-    rules = dict(LM_TRAIN_PARAM_RULES)
+    flattened ``heads * head_dim`` dim may divide an axis the heads do not);
+    an MoE's stacks split over ``model`` by ``experts`` only (never by
+    ``expert_ffn``: whole where the axis does not divide the experts,
+    ``expert_split``), and its router whole on every rank (``WHOLE``: each
+    rank routes its tokens over all experts; ``repro`` stores it split and
+    XLA gathers it before use)."""
+    rules = dict(LM_TRAIN_PARAM_RULES, expert_ffn=None)
+    rules[WHOLE] = (("embed", "experts"),)
     split = head_split(cfg, mesh)
     if split is None:
         rules["heads"] = None
@@ -191,8 +211,12 @@ def resolve_spec(
     For each tensor dim, the rule's mesh axes are applied only if (a) the axis
     is not already used by an earlier dim of the same tensor and (b) the dim
     size is divisible by the product of the accepted axes.  ``mesh`` is
-    anything with a ``shape`` mapping of axis name -> size.
+    anything with a ``shape`` mapping of axis name -> size.  A tensor whose
+    logical axes end with one of the ``rules[WHOLE]`` tuples is replicated.
     """
+    if any(len(w) <= len(logical_axes) and tuple(logical_axes[len(logical_axes) - len(w):])
+           == tuple(w) for w in rules.get(WHOLE, ())):
+        return P(*([None] * len(shape)))
     used: set[str] = set()
     parts: list = []
     for dim, ax in zip(shape, logical_axes):

@@ -1,8 +1,9 @@
 """Training launcher: config -> params -> train loop, fault-tolerant (port
 of ``repro.launch.train``).
 
-``--arch dlrm-*`` trains the paper's model; a dense transformer arch
-(qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b) trains the causal LM
+``--arch dlrm-*`` trains the paper's model; a transformer arch (the dense
+qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b and the MoE
+granite-moe-3b-a800m, qwen3-moe-235b-a22b) trains the causal LM
 through the registry's ``init_fn``, ``train_loss_fn`` and
 ``make_batch_fn`` on ``--batch`` sequences of ``--seq`` tokens, each layer
 recomputed in the backward as the config's ``remat`` says; ``--embedding``
@@ -27,8 +28,9 @@ picks either's vocabulary or tables.
   gradients over ``data``.  A DLRM (``sharding.TRAIN_PARAM_RULES``: tables
   row-sharded over ``model``) runs the two-level GnR; an LM
   (``sharding.lm_param_rules``: whole heads, ``d_ff`` and the vocabulary
-  split over ``model``) runs tensor-parallel, its tokens through the
-  two-level GnR and its loss vocab-parallel.  The ranks agree on the stop
+  split over ``model``; an MoE's experts too) runs tensor-parallel (its
+  MoE layers expert-parallel), its tokens through the two-level GnR and
+  its loss vocab-parallel.  The ranks agree on the stop
   flag every step (a MAX all-reduce), so all of them checkpoint at the
   same step.  Checkpoints hold the full logical arrays, so a run resumes
   on another mesh shape, on one card, or in ``repro`` (the elastic
@@ -227,7 +229,7 @@ def _rank(mesh, args) -> dict:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dlrm-qr | dlrm-tt | dlrm-dense, or a dense transformer arch")
+                    help="dlrm-qr | dlrm-tt | dlrm-dense, or a transformer arch (dense or MoE)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--embedding", default=None,
                     choices=[None, "dense", "hashed", "qr", "tt"])

@@ -1,10 +1,12 @@
 """Decoder-only LM (port of ``repro.models.transformer``): the dense
-transformers qwen2-1.5b, granite-34b, chatglm3-6b and minitron-4b.
+transformers qwen2-1.5b, granite-34b, chatglm3-6b and minitron-4b, and the
+MoE transformers granite-moe-3b-a800m and qwen3-moe-235b-a22b.
 
 GQA (and MQA) attention with an explicit head_dim, RoPE (full or partial),
-qkv bias, q/k norm, SwiGLU / GeLU / ReLU² MLP, tied or untied vocab head,
-and the paper's weight-sharing vocabulary (dense / hashed / qr) with the
-QR-factorized tied head.  The MoE layer comes with ``models/moe.py``.
+qkv bias, q/k norm, SwiGLU / GeLU / ReLU² MLP or the capacity-based top-k
+MoE (``models/moe.py``, where ``num_experts > 0``), tied or untied vocab
+head, and the paper's weight-sharing vocabulary (dense / hashed / qr) with
+the QR-factorized tied head.
 
 Layers are stacked, as ``repro``'s: every leaf of ``params["layers"]``
 holds all L layers along a leading axis, so ``convert`` and checkpoints map
@@ -27,7 +29,9 @@ checkpointed.
 On the card, every layer's attention in ``forward_train`` and
 ``forward_prefill`` is the attention kernel K9, and a QR vocabulary's token
 lookup (``add`` reconstruction) is the QR gather K8; the projections, the
-MLP, the heads, the norms and the decode attention are plain torch.
+MLP, the MoE's routing, dispatch and expert products, the heads, the norms
+and the decode attention are plain torch (``repro`` computes them outside
+Pallas too).
 ``forward_prefill`` writes each layer's k and v into a cache allocated once
 (``init_cache``) and ``forward_decode`` writes row ``pos`` of it in place,
 where ``repro`` returns new caches.  ``repro``'s sharding constraints have
@@ -38,7 +42,8 @@ training forward runs under the mesh of ``sharding.use_rules``, on this
 rank's blocks (``sharding.lm_param_rules``) and batch block: the tokens
 through the two-level GnR (``sharded_embedding.token_embed_inline``: K8
 on the rank's routed Q shard, one combine over ``model``), every layer
-tensor-parallel over ``model`` (K9 on the rank's heads), and the head
+tensor-parallel over ``model`` (K9 on the rank's heads; an MoE layer
+expert-parallel, each rank running its block of the experts), and the head
 vocab-parallel: ``lm_logits`` gives this rank's vocabulary slice, which
 ``train_step.next_token_loss`` reduces over ``model``.
 """
@@ -58,6 +63,7 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.tree import leaves, tree_map, unflatten
 
 # ---------------------------------------------------------------------------
@@ -65,14 +71,13 @@ from repro_torch.tree import leaves, tree_map, unflatten
 # ---------------------------------------------------------------------------
 
 def init_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE layer is not ported yet; ROADMAP.md §1 item 3 (MoE) "
-            f"brings it")
     kw = dict(generator=generator, device=device)
     params, axes = {}, {}
     params["attn"], axes["attn"] = L.init_attention(cfg, **kw)
-    params["mlp"], axes["mlp"] = L.init_mlp(cfg, **kw)
+    if cfg.num_experts > 0:
+        params["moe"], axes["moe"] = moe_mod.init_moe(cfg, **kw)
+    else:
+        params["mlp"], axes["mlp"] = L.init_mlp(cfg, **kw)
     params["ln1"], axes["ln1"] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
     params["ln2"], axes["ln2"] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
     return params, axes
@@ -81,14 +86,17 @@ def init_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
 def _stack_layers(cfg: ModelConfig, init_fn, *, generator: torch.Generator, device):
     """``cfg.num_layers`` layers of ``init_fn`` stacked along a leading L
     axis: the stacked leaves are allocated once and each layer's draws are
-    copied into row i (no stack of L separate trees)."""
-    first, axes = init_fn(cfg, generator=generator, device=device)
+    copied into row i and freed (no stack of L separate trees: at most one
+    layer's draws beside the stack)."""
+    layer, axes = init_fn(cfg, generator=generator, device=device)
     stacked = tree_map(
         lambda a: torch.empty((cfg.num_layers, *a.shape), dtype=a.dtype, device=a.device),
-        first)
+        layer)
     for i in range(cfg.num_layers):
-        layer = first if i == 0 else init_fn(cfg, generator=generator, device=device)[0]
+        if i:
+            layer = init_fn(cfg, generator=generator, device=device)[0]
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        del layer
     return stacked, _prefix_axes(axes)
 
 
@@ -119,17 +127,21 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
     return params, axes
 
 
+_SERVING_CAST = ("w", "b", *moe_mod.STACKS)
+
+
 def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """``params`` with the vocabulary's tables and every projection's ``w``
-    and ``b`` (the head's too) cast once to the compute dtype.  The lookup,
-    ``dense`` and the heads cast those to it on every call, so serving from
-    this tree gives the same logits bit for bit and reads half the weight
-    bytes a decode step.  The norms keep their dtype (``apply_norm`` widens
-    them to fp32)."""
+    """``params`` with the vocabulary's tables, every projection's ``w`` and
+    ``b`` (the head's too) and the MoE's expert stacks cast once to the
+    compute dtype.  The lookup, ``dense``, the heads and ``apply_moe`` cast
+    those to it on every call, so serving from this tree gives the same
+    logits bit for bit and reads half the weight bytes a decode step.  The
+    norms keep their dtype (``apply_norm`` widens them to fp32), and so does
+    the MoE's router (it runs in fp32)."""
     cd = cfg.cdtype
 
     def cast(tree: dict) -> dict:
-        return {k: cast(v) if isinstance(v, dict) else (v.to(cd) if k in ("w", "b") else v)
+        return {k: cast(v) if isinstance(v, dict) else (v.to(cd) if k in _SERVING_CAST else v)
                 for k, v in tree.items()}
 
     out = cast(params)
@@ -236,13 +248,17 @@ def _remat_kwargs(cfg: ModelConfig) -> dict:
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None,
               positions=None, mesh=None):
     """One layer; on a ``mesh`` (``sharding.model_mesh``) its attention and
-    MLP run tensor-parallel on this rank's blocks of ``p``."""
+    MLP run tensor-parallel on this rank's blocks of ``p``, its MoE
+    expert-parallel."""
     h = L.apply_norm(p["ln1"], x)
     attn_out, new_cache = L.attention(p["attn"], h, cfg, causal=True, cache=cache, pos=pos,
                                       positions=positions, mesh=mesh)
     x = x + attn_out
     h = L.apply_norm(p["ln2"], x)
-    x = x + L.mlp(p["mlp"], h, cfg, mesh=mesh)
+    if cfg.num_experts > 0:
+        x = x + moe_mod.apply_moe(p["moe"], h, cfg, mesh=mesh)
+    else:
+        x = x + L.mlp(p["mlp"], h, cfg, mesh=mesh)
     return x, new_cache
 
 

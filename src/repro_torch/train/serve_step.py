@@ -35,7 +35,8 @@ class ServeFamily:
 
 
 # ---------------------------------------------------------------------------
-# decoder-only transformers (qwen2, granite, chatglm3, minitron)
+# decoder-only transformers (qwen2, granite, chatglm3, minitron; the MoE
+# ones granite-moe and qwen3-moe)
 # ---------------------------------------------------------------------------
 
 def _tf_family() -> ServeFamily:

@@ -14,7 +14,9 @@ the dense transformers' smoke configs against the CPU (K9 once a layer a
 prefill, K8 once a QR token lookup, decode writing the prefill's cache in
 place); hold K8 on a rank's routed token stream (zero rows) bitwise and
 the LM's meshed step over nccl at world 1 bitwise against the single
-card's; each decides inside the ``cuda`` fixture whether a card exists,
+card's; hold K9 at granite-moe-3b-a800m's heads (D 64, 24 over 8), the MoE
+layer against its per-token oracle, and two MoE serving calls (and two
+backward passes) bitwise equal; each decides inside the ``cuda`` fixture whether a card exists,
 and skips without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
 the machine with the card has none.
@@ -1291,3 +1293,82 @@ def test_gpu_world1_nccl_lm_step_is_bitwise_the_single_card_step(cuda, name, tmp
             np.testing.assert_array_equal(got, w)
     for key in ("loss", "step_loss", "gnorm"):
         assert res[key] == want[key], key
+
+
+# ---------------------------------------------------------------------------
+# the MoE transformers on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_at_granite_moe_heads(cuda, dtype):
+    """K9 at granite-moe-3b-a800m's attention (24 q heads over 8 kv heads
+    of 64: the D 64 bucket), causal, S 2,048: fp32 to ``FLASH_TOL``, bf16
+    within one rounding of the plain version in fp32."""
+    q, k, v = _qkv(cuda, 1, 24, 8, 2048, 2048, 64, dtype, seed=11)
+    fa.reset_launches()
+    got = fa.flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == 1 and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref.flash_fwd_ref(q, k, v, causal=True),
+                                   **FLASH_TOL[dtype])
+    else:
+        _hold(got, lambda *a: ref.flash_fwd_ref(*a, causal=True), (q, k, v), "granite-moe")
+
+
+def _moe_smoke(cuda, **kw):
+    from repro_torch.models import moe
+
+    cfg = registry.get("granite-moe-3b-a800m").smoke.replace(compute_dtype="float32", **kw)
+    p, _ = moe.init_moe(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    x = torch.randn((2, 64, cfg.d_model), generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    return moe, cfg, p, x
+
+
+@pytest.mark.gpu
+def test_gpu_moe_layer_matches_the_per_token_oracle(cuda):
+    """The MoE layer on the card at an ample capacity (``num_experts /
+    top_k``: nothing drops) against the dense per-token mixture
+    sum_k w_k FFN_{e_k}(x) on the card's own routing, a loop over the
+    experts; fp32 to 1e-4 of the output's scale."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe, cfg, p, x = _moe_smoke(cuda, capacity_factor=4.0)
+    with torch.inference_mode():
+        out = moe.apply_moe(p, x, cfg).reshape(-1, cfg.d_model)
+        ids, wts = moe.route(p["router"], x, cfg)
+        xs = x.reshape(-1, cfg.d_model)
+        want = torch.zeros_like(xs)
+        for e in range(cfg.num_experts):
+            y = (torch.nn.functional.silu(xs @ p["w_gate"][e]) * (xs @ p["w_up"][e])) \
+                @ p["w_down"][e]
+            want += ((ids == e) * wts).sum(-1, keepdim=True) * y
+    assert moe.dropped(ids, cfg) == 0
+    assert float((out - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_moe_serving_and_training_are_bitwise_repeatable(cuda):
+    """No atomics in the dispatch or the combine: two bf16 prefills of the
+    MoE smoke transformer give the same logits and cache bit for bit, and
+    two fp32 backward passes through a dropping layer the same gradients."""
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get("granite-moe-3b-a800m").smoke.replace(embedding_kind="qr",
+                                                             qr_collision=8)
+    params, _ = T.init_lm(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (4, 96), generator=torch.Generator(cuda).manual_seed(2),
+                         device=cuda, dtype=torch.int32)
+    with torch.inference_mode():
+        a, ca = T.forward_prefill(params, toks, cfg, 128)
+        b, cb = T.forward_prefill(params, toks, cfg, 128)
+    assert torch.equal(a, b) and torch.equal(ca["k"], cb["k"])
+    moe, mcfg, p, x = _moe_smoke(cuda, capacity_factor=0.5)
+    grads = []
+    for _ in range(2):
+        live = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xl = x.clone().requires_grad_(True)
+        (moe.apply_moe(live, xl, mcfg) ** 2).sum().backward()
+        grads.append([xl.grad] + [live[k].grad for k in sorted(live)])
+    assert all(torch.equal(u, w) for u, w in zip(*grads))

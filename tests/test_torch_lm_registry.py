@@ -5,7 +5,8 @@ loose names ported with them: ``configs.base.MeshConfig``,
 
 Every ``CONFIG`` and ``SMOKE`` of the ten arch modules equals ``repro``'s
 field by field (dtypes by name).  Archs the port has no model for raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them;
+the transformers, dense and MoE, have a model.
 The TT entries are held to ``repro``'s: fp32 to 1e-5 (two fp32 contraction
 orders).
 """
@@ -33,6 +34,8 @@ from repro_torch.train import serve_step  # noqa: E402
 from torch_tt_inputs import tt_args, tt_inputs  # noqa: E402
 
 DENSE = ("qwen2-1.5b", "granite-34b", "chatglm3-6b", "minitron-4b")
+MOE = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
+PORTED = DENSE + MOE
 
 
 def test_ten_archs_present():
@@ -112,14 +115,20 @@ def test_configs_equal_repro_field_by_field(arch, which):
 @pytest.mark.parametrize("arch", sorted(registry.ARCHS))
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
     b = registry.get(arch)
-    assert registry.ported(b) == (arch in DENSE)
-    if arch in DENSE:
+    assert registry.ported(b) == (arch in PORTED)
+    if arch in PORTED:
         assert registry.init_fn(b) is not None
         batch = registry.make_batch_fn(b, b.smoke)(2, 5, seed=1, step=2)
         assert batch["tokens"].shape == (2, 5)
+        if arch in MOE:              # an MoE layer where the dense ones have an MLP
+            params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
+            assert "mlp" not in params["layers"]
+            assert params["layers"]["moe"]["w_up"].shape[:2] == (b.smoke.num_layers,
+                                                                  b.smoke.num_experts)
+            assert serve_step.serve_family(b.kind) is not None
         return
     for fn in (registry.init_fn, lambda b: registry.make_batch_fn(b, b.smoke)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [345]"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
             fn(b)
     if b.kind != "transformer":
         with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
@@ -127,21 +136,21 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
 
 
 def test_waiting_entry_points_raise():
-    """``train_loss_fn`` gives the causal LM loss for the dense transformers
-    and still raises for the other kinds, naming their ``ROADMAP.md`` item;
-    the dry run's entry points stay absent."""
+    """``train_loss_fn`` gives the causal LM loss for the transformers,
+    dense and MoE, and still raises for the other kinds, naming their
+    ``ROADMAP.md`` item; the dry run's entry points stay absent."""
     import math
 
-    for arch in DENSE:
+    for arch in PORTED:
         b = registry.get(arch)
         params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
         batch = registry.make_batch_fn(b, b.smoke)(2, 6, seed=1, step=0)
         loss, metrics = registry.train_loss_fn(b, b.smoke)(params, batch)
         assert loss.shape == () and metrics["loss"] is loss
         assert abs(float(loss) - math.log(b.smoke.vocab)) < 2.0
-    for arch in sorted(set(registry.ARCHS) - set(DENSE)):
+    for arch in sorted(set(registry.ARCHS) - set(PORTED)):
         b = registry.get(arch)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [345]"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
             registry.train_loss_fn(b, b.smoke)
     for name in ("batch_specs", "cache_specs", "abstract_params"):   # the dry run's
         assert not hasattr(registry, name)
