@@ -76,8 +76,10 @@ Phases, each one failing the script if it fails:
 6. attention: ``ops.flash_attention_fused`` (K9) causal at qwen2-1.5b's width
    (batch 4, 12 query / 2 kv heads, D 128, seq 4,096), granite-34b's (batch
    1, 48 query heads on one kv head, seq 4,096), a 1,024-query block over
-   a 4,096 cache and granite-moe-3b-a800m's (batch 4, 24 query / 8 kv heads
-   of D 64, seq 4,096), each in fp32 and bf16, then one backward (blockwise
+   a 4,096 cache, granite-moe-3b-a800m's (batch 4, 24 query / 8 kv heads
+   of D 64, seq 4,096) and zamba2-7b's shared block (batch 2, 32 query
+   heads over 32 kv heads of D 112: the 128 bucket, zero fill past column
+   112), each in fp32 and bf16, then one backward (blockwise
    recompute) against plain autograd; every output held against K9's plain
    version (bf16 by the one-rounding rule of phase 3) and timed beside its
    bound, ``scaled_dot_product_attention`` and the earlier body's time, each
@@ -201,11 +203,11 @@ Phases, each one failing the script if it fails:
    1e-5 relative, updated params and the batch's gradients within 1e-5 of
    each leaf's scale, bf16 loss within 2e-2, each step's launches counted;
    qwen2-1.5b at full width and depth, S 4,096 (train_4k), with the QR
-   (collision 64) and the dense vocabulary under remat ``full``: the
-   microbatch that fits by the line through two
+   (collision 64) vocabulary under remat ``full`` (the dense vocabulary's
+   step, the CLI and the profiled backward left the phase to make room
+   for phase 15): the microbatch that fits by the line through two
    microbatches' reserved memory (the allocator's expandable segments on
-   for the phase), one microbatch's backward traced by the profiler (top
-   device operations; the QR config only), then one step of 2 microbatches (train_4k's 256
+   for the phase), then one step of 2 microbatches (train_4k's 256
    cut): ms a step and tokens/s, the split into forward, backward and
    update (CUDA events), K9's ms in the forwards and in the recompute,
    the blockwise attention backward's ms, peak memory, the model-FLOP
@@ -216,9 +218,7 @@ Phases, each one failing the script if it fails:
    full width, each vocabulary, within 2^-6 of each leaf's scale of the
    same step through the kernels' plain versions on the card; remat
    ``dots`` at that cut against ``full`` (read for bitwise equality, held
-   to 2^-6); ``launch.train --arch qwen2-1.5b --embedding qr --seq 4096
-   --batch 2 --microbatches 2 --steps 2 --ckpt-dir`` twice (the second
-   prints ``[resume] step 2``); each section's seconds;
+   to 2^-6); each section's seconds;
 13. the dense transformer trained on a mesh (``launch.train --mesh-shape``'s
    path: the params placed by ``sharding.lm_param_rules``, the loss under
    ``use_rules``, the tokens through the two-level GnR
@@ -236,7 +236,8 @@ Phases, each one failing the script if it fails:
    (2, 2), with the dense vocabulary: the fp32 step-1 gradients at 2
    layers, gathered, within 1e-5 of each leaf's scale of the single card's
    on the same data partition (each data block's gradient, averaged),
-   the depth the ranks hold fitted from depths 1 and 2, the bf16 step-1
+   at 10 layers (``LMM_DENSE_LAYERS``, what the line through depths 1 and
+   2 fitted in every run until PR 25 cut the probes), the bf16 step-1
    gradients there no more than ``LMM_BF16_FACTOR`` times as far from the
    single card's fp32-compute gradients as the single card's bf16 ones,
    two steps; per mesh ms a step (max over ranks), the split into forward,
@@ -284,14 +285,57 @@ Phases, each one failing the script if it fails:
    20 experts and 12 q / 4 kv heads a rank, one sequence: the fp32 step-1
    gradients at factor 5.0, gathered, within 1e-5 of each leaf's scale of
    the single card's, two bf16 steps whose losses hold the single card's
-   to 2e-2, ms a step, bytes combined a rank, collectives a step.
+   to 2e-2, ms a step, bytes combined a rank, collectives a step;
+15. the sub-quadratic models (``models/mamba2.py``, ``zamba2.py``,
+   ``xlstm.py``: the SSD chunk scan, the mLSTM chunk loop and the sLSTM
+   time loop in plain torch, the sLSTM's forward and written-out backward
+   in blocks of steps replayed as CUDA graphs; K9 at each zamba2
+   shared-attention site at D 112,
+   K8 for a QR vocabulary): ``[ssm-ref]`` zamba2-7b-smoke and
+   xlstm-125m-smoke with a dense and a QR (collision 8) vocabulary on the
+   card and on the CPU, same weights and tokens, fp32: the train logits,
+   the serve family's prefill (logits and every cache or state leaf) and
+   decode within 1e-4, the greedy tokens equal, K9 once a site and K8 once
+   a QR lookup, one step of 2 microbatches (loss to 1e-5 relative,
+   gradients to 1e-5 of each leaf's scale, or to twice fp32's own distance
+   from fp64 where that is larger, the updated params read); the sLSTM
+   scan at xlstm's width graphed against eager, served and trained,
+   bitwise; zamba2-7b at full width and depth (81 layers, 13 sites) and
+   xlstm-125m (12 layers, 3 sLSTM), each with the dense and the QR
+   (collision 64) vocabulary, the body weights shared: ``repro``'s
+   decode-vs-train consistency (zamba2 in fp32, batch 2, 255 + 1 tokens,
+   1e-4; xlstm 9 steps, 2e-4, held in fp64 compute and read in fp32,
+   whose rounding alone is further than that at full width), zamba2's K9
+   on site 0's own q/k/v (bf16, one rounding), the fp32 params dropped
+   after the bf16 cast, ``prefill_32k`` at the batch the dense run fits
+   (zamba2 by the line through batches 1 and 2, xlstm from one probe at
+   batch 1 and 4,096 tokens: one point), with K9's, the mamba layers' or the
+   sLSTM / mLSTM blocks' ms and share (events around each call), peak,
+   the flop bound, K9 on site 0's q/k/v and K8 on its lookups held to
+   their plain versions, zamba2's K9 against SDPA; ``decode_32k`` at the
+   largest batch whose cache fits (xlstm 128), ``long_500k`` (one step at
+   position 524,287, batch 1; zamba2 at the depth whose cache fits) with
+   the QR vocabulary; ``launch.serve --arch zamba2-7b --batch 4
+   --prompt-len 512 --max-new 16`` with each vocabulary, ``--arch
+   xlstm-125m`` (QR) and ``examples.serve_lm`` with its defaults; training
+   on one card (the allocator's expandable segments), QR, S 4,096:
+   xlstm-125m at full depth, one step of 2 microbatches of 2 sequences,
+   zamba2-7b at the depth the line through depths 1 and 2 fits, 2 steps
+   (ms a step, the forward / backward / update split, K9's ms, peak); the
+   step-1 gradients of a cut (zamba2 one 6-layer segment and its site, in
+   fp32, and read in bf16, where its all but vanished hidden state makes
+   them ill-conditioned; xlstm its first 4 layers) within 2^-6 of each
+   leaf's scale of the kernels' plain versions on the card;
+   ``launch.train --arch xlstm-125m --embedding qr --seq 512 --batch 4
+   --steps 2``, then ``--steps 4``, which prints ``[resume] step 2``.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
 ``{"control_plane": ...}`` line, one ``{"sharded": ...}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
 ``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
-one ``{"moe": ...}`` line, one ``{"kernels": [...]}`` line, and last
+one ``{"moe": ...}`` line, one ``{"sub_quadratic": ...}`` line, one
+``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
@@ -1497,6 +1541,7 @@ FLASH_CASES = [
     ("granite-34b", 1, 48, 1, 4096, 4096, 128),
     ("qwen2-1.5b Sq 1024 / Skv 4096", 4, 12, 2, 1024, 4096, 128),
     ("granite-moe-3b-a800m", 4, 24, 8, 4096, 4096, 64),
+    ("zamba2-7b", 2, 32, 32, 4096, 4096, 112),
 ]
 SDPA_CALL = "scaled_dot_product_attention(is_causal=True, enable_gqa=True), top-left causal"
 
@@ -3744,11 +3789,12 @@ def held_text(held: dict) -> str:
     return "; ".join(parts)
 
 
-def lm_k9_check(params, cfg, dev) -> dict:
-    """Layer 0's attention of a batch-1 prefill at ``LM_K9_SEQ`` tokens:
-    K9's output on the model's own q/k/v by ``hold_attention``."""
+def lm_k9_check(params, cfg, dev, kind: str = "transformer") -> dict:
+    """Layer 0's (a zamba2 hybrid's site 0's) attention of a batch-1
+    prefill at ``LM_K9_SEQ`` tokens through ``kind``'s serve family: K9's
+    output on the model's own q/k/v by ``hold_attention``."""
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
 
     seen = []
     g = torch.Generator(device=dev).manual_seed(2)
@@ -3757,7 +3803,7 @@ def lm_k9_check(params, cfg, dev) -> dict:
     with kept_calls(ops, "flash_attention_fused",
                     lambda a, out: seen or seen.append((*a[:3], out))):
         with torch.inference_mode():
-            T.forward_prefill(params, toks, cfg, LM_K9_SEQ)
+            S.serve_family(kind).prefill(params, {"tokens": toks}, cfg, LM_K9_SEQ)
     rec = hold_attention(*seen[0])
     if not rec["ok"]:
         raise AssertionError(f"[lm] {cfg.name} K9 on the model path: {rec}")
@@ -4037,30 +4083,33 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
     return rec
 
 
-def lm_cli_run(vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-cli]") -> dict:
-    """``python -m repro_torch.launch.serve --arch <arch>`` with
-    ``LM_CLI`` (its ``main``, in this process): exit 0, a tokens/s line, K9
-    once a layer for its prefill, K8 once a QR lookup."""
+def lm_cli_run(vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-cli]",
+               cli=None) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch>`` with ``cli``
+    (``LM_CLI``; its ``main``, in this process): exit 0, a tokens/s line,
+    K9 once a layer (a site) for its prefill, K8 once a QR lookup."""
     import io
 
     from repro_torch.launch import serve
 
+    cli = cli or LM_CLI
     reset_all(mods)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--arch", arch, "--embedding", vocab, *LM_CLI])
+        rc = serve.main(["--arch", arch, "--embedding", vocab, *cli])
     secs = time.perf_counter() - t0
     n = take_launches(mods, totals)
     text = buf.getvalue()
-    layers_n = lm_config(arch).num_layers
-    new = int(LM_CLI[LM_CLI.index("--max-new") + 1])
-    want = {"flash_fwd": layers_n, **({"qr_gather": 1 + new} if vocab == "qr" else {})}
+    sites = k9_calls(lm_config(arch))
+    new = int(cli[cli.index("--max-new") + 1])
+    want = {**({"flash_fwd": sites} if sites else {}),
+            **({"qr_gather": 1 + new} if vocab == "qr" else {})}
     if rc != 0 or "tok/s" not in text or n != want:
         raise AssertionError(f"{tag} serve CLI --arch {arch} --embedding {vocab}: exit {rc}, "
                              f"launches {n}, output {text[-500:]}")
     line = next(x for x in text.splitlines() if "tok/s" in x)
-    log(f"{tag} --arch {arch} --embedding {vocab} {' '.join(LM_CLI)}: {line} (call "
+    log(f"{tag} --arch {arch} --embedding {vocab} {' '.join(cli)}: {line} (call "
         f"{secs:.1f} s, set-up included; launches {n})")
     return {"arch": arch, "embedding": vocab, "exit": rc, "line": line, "s": secs, "launches": n,
             "tokens_per_s": float(re.search(r"([0-9.]+) tok/s", line).group(1))}
@@ -4257,9 +4306,11 @@ LMT_BF16_TOL = 2e-2       # card vs CPU in bf16 compute: the loss, relative
 LMT_REF_OPT = dict(lr=1e-3, eps=1e-2, warmup_steps=1, total_steps=4)
 # qwen2-1.5b at full width: (vocabulary, remat policy) of each timed config.
 # The QR ``dots`` step at full depth (6 sequences a microbatch: no faster a
-# sequence than ``full``, PERF.md) left the list to make room for phase 14;
-# ``lm_train_dots_check`` runs ``dots`` at the gradient check's cut
-LMT_MAIN = (("qr", "full"), ("dense", "full"))
+# sequence than ``full``, PERF.md) left the list to make room for phase 14,
+# the dense ``full`` step (within 3% of QR's a step, PERF.md) for phase 15;
+# ``lm_train_dots_check`` runs ``dots`` at the gradient check's cut, and the
+# gradient check and phase 11 / 13 run the dense vocabulary
+LMT_MAIN = (("qr", "full"),)
 LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fitted one
 # the microbatch sizes whose reserved memory gives the fit's line (the last
 # two).  One microbatch's forward and backward at full width reserved, for
@@ -4271,7 +4322,6 @@ LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fit
 LMT_FIT = (4, 6)
 LMT_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=1)
 LMT_GRAD = (2, 2)         # layers, sequences of the step-1 gradient check
-LMT_CLI = ("--batch", "2", "--microbatches", "2", "--steps", "2")
 LMT_FIT_STEPS = 3         # steps of a depth-fitted run (``lm_train_fitted``), on one batch
 # AdamW's first steps move every weight by ~lr: at lr 1e-3 chatglm3-6b's
 # third loss rose above its first (11.57, 11.51, 11.91; granite-34b fell)
@@ -4291,13 +4341,26 @@ def lmt_shape():
     return next(s for s in LM_SHAPES if s.name == "train_4k")
 
 
+def k9_calls(cfg) -> int:
+    """K9 launches of one forward: one a layer (the transformers), one a
+    shared-attention site (the zamba2 hybrid), none (xlstm)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
 def step_launches(cfg, microbatches: int) -> dict:
     """The kernels a training step launches: per microbatch K9 once a layer
-    in the forward and once more in the backward's recompute (``remat``), K8
-    once for a QR vocabulary's tokens, K5 once for a TT vocabulary's tokens
-    (``tt_exec="pallas"``) and once more for a tied head's ``materialize``,
-    each K5 call one launch per ``d1_slices`` range of the row."""
-    n = {"flash_fwd": cfg.num_layers * (2 if cfg.remat else 1) * microbatches}
+    in the forward and once more in the backward's recompute (``remat``; a
+    zamba2 hybrid once a site, its shared block not recomputed; xlstm
+    never), K8 once for a QR vocabulary's tokens, K5 once for a TT
+    vocabulary's tokens (``tt_exec="pallas"``) and once more for a tied
+    head's ``materialize``, each K5 call one launch per ``d1_slices`` range
+    of the row."""
+    again = 2 if cfg.remat and cfg.family not in ("hybrid", "ssm") else 1
+    n = {"flash_fwd": k9_calls(cfg) * again * microbatches}
+    if not n["flash_fwd"]:
+        del n["flash_fwd"]
     if cfg.embedding_kind == "qr":
         n["qr_gather"] = microbatches
     if cfg.embedding_kind == "tt" and cfg.tt_exec == "pallas":
@@ -4429,7 +4492,7 @@ def event_ms(pairs) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs)
 
 
-def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = True) -> dict:
+def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
     """qwen2-1.5b at full width and depth, ``vocab`` vocabulary (QR at the
     config's collision), ``remat_policy=policy``, S 4,096 (train_4k).  The
     microbatch is the largest that fits: the device memory one microbatch's
@@ -4437,11 +4500,7 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = Tr
     the AdamW state and a step's fp32 accumulator in place, gives a line
     fixed + slope x sequences; the microbatch is the largest whose line fits
     the free memory less ``LM_HEADROOM``.  The global batch is
-    ``LMT_MICRO`` microbatches (train_4k's 256 cut).  First one
-    microbatch's forward and backward at that size, with ``profile`` its
-    backward traced by the profiler (top device operations; it also warms
-    the allocator and the libraries at the step's shapes; phase 12 traces
-    the first config only), then one step of
+    ``LMT_MICRO`` microbatches (train_4k's 256 cut).  Then one step of
     ``make_train_step``, timed (host clock) and split by CUDA events: the
     forwards (around each microbatch's loss), the update (around
     ``optimizer.update``), the backward the rest; K9's ms in the forwards
@@ -4488,13 +4547,6 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = Tr
     mb = int(max(1, min(cell.global_batch // LMT_MICRO, fit)))
     take_launches(mods, totals)
 
-    def backward_ops() -> list:
-        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
-        live = tree.unflatten(params, leaves)
-        with torch.enable_grad():
-            loss, _ = loss_fn(live, toks(mb))
-            return top_device_ops(lambda: torch.autograd.grad(loss, leaves), 8)
-
     fwd, upd, k9_at, k9_marks, attn_bwd = [], [], [], [], []
 
     def timed_loss(p, b):
@@ -4524,7 +4576,6 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = Tr
         for marks_list in (fwd, upd, k9_at, k9_marks, attn_bwd):
             marks_list.clear()
         try:
-            top = backward_ops() if profile else []
             take_launches(mods, totals)
             batch = toks(mb * LMT_MICRO)
             torch.cuda.synchronize()
@@ -4585,7 +4636,7 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = Tr
            "attention_backward_ms": event_ms(attn_bwd), "k8_ms": event_ms(marks["qr_lookup"]),
            "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
            "flops": flops, "bound_ms": bound, "bound_share": bound / (wall * 1e3),
-           "launches": n, "held": held, "top_backward_ops": top}
+           "launches": n, "held": held}
     shown = {b: round(r / 2**30, 2) for b, r in reserved.items()}
     log(f"[lm-train] {cfg.name} {vocab} vocab, remat {policy}, {cfg.num_layers} layers, S {seq}: "
         f"microbatch {mb} (fit {fit}: {slope / 2**30:.2f} GiB reserved a sequence + "
@@ -4602,8 +4653,6 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals, profile: bool = Tr
         f"gradient norm {norm:.3f}; launches {n}")
     log(f"[lm-train] {cfg.name} {vocab} {policy} train step kernels vs plain on the main path: "
         + held_text(held))
-    log(f"[lm-train] {cfg.name} {vocab} {policy} one microbatch's backward ({mb} x {seq}), top "
-        f"device operations: " + ", ".join(f"{k} {t:.1f} ms" for k, t in top))
     return rec
 
 
@@ -4740,14 +4789,16 @@ def plain_lm_path(fa, qg, tg, ref):
 
 
 def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCABS,
-                        tag: str = "[lm-train]") -> dict:
+                        tag: str = "[lm-train]", depth: int = LMT_GRAD[0],
+                        compute: str = "bfloat16", hold: bool = True) -> dict:
     """Step-1 gradients of ``arch`` (qwen2-1.5b) at full width cut to
-    ``LMT_GRAD`` layers (bf16 compute, remat ``full``) on ``LMT_GRAD``
-    sequences of 4,096, through the kernels (K9, K8 for QR, K5 for TT)
-    against the same step through their plain versions on the card
+    ``depth`` layers (``LMT_GRAD``; ``compute`` bf16, remat ``full``) on
+    ``LMT_GRAD`` sequences of 4,096, through the kernels (K9, K8 for QR, K5
+    for TT) against the same step through their plain versions on the card
     (``plain_lm_path``): each leaf within ``GRAD_TOL`` of its scale (phase
-    7's bound).  Only the kernels' forwards differ between the two, each
-    within one rounding of the other's.  An MoE layer would route the
+    7's bound; without ``hold`` read, not held).  Only the kernels'
+    forwards differ between the two, each within one rounding of the
+    other's.  An MoE layer would route the
     tokens whose top-k margin lies below that rounding either way, and
     each such flip moves the drop boundary of two experts' queues: so the
     plain path takes the kernel path's routing (``replayed_routing``: its
@@ -4758,18 +4809,17 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
     from repro_torch.kernels import qr_gather as qg
     from repro_torch.kernels import ref
     from repro_torch.kernels import tt_gather as tg
-    from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
 
     from repro_torch.models import moe as moe_mod
 
-    depth, b = LMT_GRAD
+    b = LMT_GRAD[1]
     seq = lmt_shape().seq_len
     out = {}
     for vocab in vocabs:
         cfg = lm_config(arch).replace(num_layers=depth, embedding_kind=vocab,
-                                      tt_exec="pallas")
-        params, _ = T.init_lm(cfg, seed=0, device=dev)
+                                      tt_exec="pallas", compute_dtype=compute)
+        params, _ = registry.init_fn(registry.get(arch))(cfg, seed=0, device=dev)
         loss_fn = registry.train_loss_fn(registry.get(arch), cfg)
         g = torch.Generator(device=dev).manual_seed(9)
         batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
@@ -4786,8 +4836,9 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
         if take_launches(mods, totals) or n != step_launches(cfg, 1):
             raise AssertionError(f"{tag} grad check {vocab}: launches {n}")
         worst, where = leaf_scale_errors(g_kernel, g_plain)
-        out[vocab] = {"layers": depth, "batch": b, "seq": seq, "rel_err": worst, "leaf": where,
-                      "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "launches": n}
+        out[vocab] = {"layers": depth, "batch": b, "seq": seq, "compute": compute, "held": hold,
+                      "rel_err": worst, "leaf": where, "loss_kernel": float(loss_k),
+                      "loss_plain": float(loss_p), "launches": n}
         flips = ""
         if cfg.num_experts:
             out[vocab]["routing_differs"] = sum(int((x != y).any(-1).sum())
@@ -4796,107 +4847,66 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
             flips = (f"; the plain path on the kernel path's routing (its own top-k differs "
                      f"for {out[vocab]['routing_differs']} of {out[vocab]['routed_tokens']} "
                      f"token-layer calls, recompute included)")
-        if not worst <= GRAD_TOL:
+        if hold and not worst <= GRAD_TOL:
             raise AssertionError(f"{tag} step-1 gradient {vocab} {where}: kernel vs "
                                  f"plain {worst}{flips}")
-        log(f"{tag} {cfg.name} {vocab} vocab at {depth} layers, {b} x {seq}: step-1 "
-            f"gradients kernels vs plain on the card {worst:.2e} of scale (worst {where}; held "
-            f"to {GRAD_TOL}), loss {float(loss_k):.6f} / {float(loss_p):.6f}; launches {n}"
-            + flips)
+        log(f"{tag} {cfg.name} {vocab} vocab at {depth} layers, {b} x {seq}, "
+            f"{ {'float32': 'fp32', 'bfloat16': 'bf16'}[compute]}: step-1 gradients "
+            f"kernels vs plain on the card {worst:.2e} of scale (worst {where}; "
+            f"{'held to' if hold else 'read, not held; bound'} {GRAD_TOL}), loss "
+            f"{float(loss_k):.6f} / {float(loss_p):.6f}; launches {n}" + flips)
         del params, g_kernel, g_plain
         gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def lm_train_cli(mods, totals) -> dict:
-    """``python -m repro_torch.launch.train --arch qwen2-1.5b --embedding
-    qr --seq 4096`` with ``LMT_CLI`` and a checkpoint directory under
-    ``build/`` (its ``main``, in this process), twice: the first trains
-    (exit 0, a step line a step, ``step_launches`` a step), the second
-    prints ``[resume] step 2`` and launches nothing."""
-    import io
-
-    from repro_torch.launch import train as train_cli
-
-    seq = lmt_shape().seq_len
-    ckdir = ROOT / "build" / "lm_train_cli"
-    shutil.rmtree(ckdir, ignore_errors=True)
-    argv = ["--arch", LM_MAIN, "--embedding", "qr", "--seq", str(seq), *LMT_CLI,
-            "--ckpt-dir", str(ckdir), "--log-every", "1"]
-    steps = int(LMT_CLI[LMT_CLI.index("--steps") + 1])
-    micro = int(LMT_CLI[LMT_CLI.index("--microbatches") + 1])
-    cfg = lm_config(LM_MAIN).replace(embedding_kind="qr")
-    want = {k: v * steps for k, v in step_launches(cfg, micro).items()}
-    runs = []
-    try:
-        for i in range(2):
-            take_launches(mods, totals)
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = train_cli.main(argv)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            n = take_launches(mods, totals)
-            text = buf.getvalue()
-            lines = [x for x in text.splitlines() if x.startswith("step")]
-            ok = rc == 0 and (n == want and len(lines) == steps if i == 0
-                              else not n and f"[resume] step {steps}" in text)
-            if not ok:
-                raise AssertionError(f"[lm-train-cli] run {i + 1}: exit {rc}, launches {n}, "
-                                     f"output {text[-800:]}")
-            runs.append({"exit": rc, "s": secs, "launches": n, "lines": lines or [
-                x for x in text.splitlines() if x.startswith("[resume]")]})
-            log(f"[lm-train-cli] run {i + 1}: {' '.join(argv[:argv.index('--ckpt-dir')])}: "
-                f"exit {rc} in {secs:.1f} s "
-                f"(set-up and checkpoint included), launches {n}; "
-                + " | ".join(runs[-1]["lines"]))
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    return {"argv": argv, "runs": runs}
-
-
-def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-train]") -> dict:
+def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-train]",
+                    steps: int = LMT_FIT_STEPS, depth: int | None = None, batch_size: int = 1,
+                    microbatches: int = 1) -> dict:
     """``arch`` at full width with a ``vocab`` vocabulary, S 4,096,
-    microbatch 1, at the depth that fits: a full step's reserved memory at ``LMT_DEPTHS`` layers
-    gives a line, fixed + slope x layers (params, gradient, AdamW state,
-    the functional update's new copies and the activations); the depth is
-    the largest whose line fits the free memory less ``LM_HEADROOM``
-    (where the first step runs out of memory, an eighth fewer layers).
-    ``LMT_FIT_STEPS`` steps on one batch: losses finite; ms a step and
-    tokens/s of the steps after the first (host clock); the last step
-    split by CUDA events into the forward (around the loss), the update
-    (around ``optimizer.update``) and the backward (the rest), K9's ms and
-    an MoE config's MoE ms (forward and recompute) in it, peak memory."""
+    ``batch_size`` sequences (1) in ``microbatches`` (1), at ``depth`` or,
+    without one, at the depth that fits: a full step's reserved memory at
+    ``LMT_DEPTHS`` layers gives a line, fixed + slope x layers (params,
+    gradient, AdamW state, the functional update's new copies and the
+    activations); the depth is the largest whose line fits the free memory
+    less ``LM_HEADROOM`` (where the first step runs out of memory, an
+    eighth fewer layers).  ``steps`` steps (``LMT_FIT_STEPS``) on one
+    batch: losses finite; ms a step and tokens/s of the steps after the
+    first (host clock); the last step split by CUDA events into the forward
+    (around the loss), the update (around ``optimizer.update``) and the
+    backward (the rest), K9's ms and an MoE config's MoE ms (forward and
+    recompute) in it, peak memory."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as TS
 
     seq = lmt_shape().seq_len
     binding = registry.get(arch)
+    init = registry.init_fn(binding)
     full = lm_config(arch).replace(embedding_kind=vocab)
     g = torch.Generator(device=dev).manual_seed(10)
-    batch = {"tokens": torch.randint(0, full.vocab, (1, seq), generator=g, device=dev,
+    batch = {"tokens": torch.randint(0, full.vocab, (batch_size, seq), generator=g, device=dev,
                                      dtype=torch.int32)}
     ocfg = opt.OptConfig(**LMT_FIT_OPT)
 
-    def one(depth: int):
-        cfg = full.replace(num_layers=depth)
-        params, _ = T.init_lm(cfg, seed=0, device=dev)
+    def one(layers: int):
+        cfg = full.replace(num_layers=layers)
+        params, _ = init(cfg, seed=0, device=dev)
         step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
         step(params, opt.init(params), batch)
 
-    reserved = {d: reserved_growth(lambda: one(d), dev) for d in LMT_DEPTHS}
-    lo, hi = LMT_DEPTHS
-    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-    fixed = max(reserved[lo] - lo * slope, 0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info(dev)[0]
-    depth = int(max(1, min(full.num_layers, (free - LM_HEADROOM - fixed) // slope)))
+    reserved, slope, fixed, free = {}, 0, 0, torch.cuda.mem_get_info(dev)[0]
+    if depth is None:
+        reserved = {d: reserved_growth(lambda: one(d), dev) for d in LMT_DEPTHS}
+        lo, hi = LMT_DEPTHS
+        slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+        fixed = max(reserved[lo] - lo * slope, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        depth = int(max(1, min(full.num_layers, (free - LM_HEADROOM - fixed) // slope)))
     fwd, upd = [], []
     saved_update = TS.opt_mod.update
 
@@ -4912,7 +4922,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     while True:         # the first step confirms the fit, as in ``lm_train_main``
         cfg = full.replace(num_layers=depth)
         take_launches(mods, totals)
-        params, _ = T.init_lm(cfg, seed=0, device=dev)
+        params, _ = init(cfg, seed=0, device=dev)
         state = opt.init(params)
         loss_fn = registry.train_loss_fn(binding, cfg)
 
@@ -4924,12 +4934,12 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
             fwd.append(e)
             return out
 
-        step = TS.make_train_step(timed_loss, ocfg)
+        step = TS.make_train_step(timed_loss, ocfg, microbatches=microbatches)
         losses, secs = [], []
         torch.cuda.reset_peak_memory_stats(dev)
         try:
-            for i in range(LMT_FIT_STEPS):
-                last = i == LMT_FIT_STEPS - 1
+            for i in range(steps):
+                last = i == steps - 1
                 fwd.clear()
                 upd.clear()
                 TS.opt_mod.update = timed_update
@@ -4944,7 +4954,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
                     secs.append(time.perf_counter() - t0)
             break
         except torch.OutOfMemoryError:
-            if depth == 1 or secs:
+            if depth == 1 or secs or reserved == {}:
                 raise
             too_big.append(depth)
         finally:
@@ -4954,18 +4964,19 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
         torch.cuda.empty_cache()
         depth -= max(1, depth // 8)
     n = take_launches(mods, totals)
-    want = {k: v * LMT_FIT_STEPS for k, v in step_launches(cfg, 1).items()}
+    want = {k: v * steps for k, v in step_launches(cfg, microbatches).items()}
     if n != want or not np.isfinite(losses).all():
         raise AssertionError(f"{tag} {full.name}: launches {n}, losses {losses}")
-    later = secs[1:]
+    later = secs[1:] or secs
     total = start.elapsed_time(upd[-1][1])
     forward, update = event_ms(fwd), event_ms(upd)
     rec = {"arch": full.name, "vocab": full.embedding_kind, "layers": depth,
-           "full_layers": full.num_layers, "seq": seq, "batch": 1, "out_of_memory_at": too_big,
+           "full_layers": full.num_layers, "seq": seq, "batch": batch_size,
+           "microbatches": microbatches, "out_of_memory_at": too_big,
            "reserved_by_depth": reserved, "reserved_a_layer": slope,
            "reserved_fixed": fixed, "free_bytes": free, "losses": losses,
            "step_s": secs, "ms_per_step": 1e3 * sum(later) / len(later),
-           "tokens_per_s": seq * len(later) / sum(later), "event_ms": total,
+           "tokens_per_s": batch_size * seq * len(later) / sum(later), "event_ms": total,
            "forward_ms": forward, "backward_ms": total - forward - update, "update_ms": update,
            "k9_ms": event_ms(marks["flash_attention_fused"]),
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "launches": n}
@@ -4974,12 +4985,14 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
         rec["moe"] = moe_drops(watch)
         moe = (f", MoE layers {rec['moe']['moe_ms']:.1f} ms in forward and recompute, "
                f"{100 * rec['moe']['dropped_share']:.2f}% of assignments dropped")
+    fitted = (f"{slope / 2**30:.2f} GiB reserved a layer + {fixed / 2**30:.2f} GiB, from depths "
+              f"{LMT_DEPTHS}, in {free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out "
+              f"of memory at {too_big or 'none'}" if reserved else "a depth given")
     log(f"{tag} {full.name} {full.embedding_kind} vocab ({depth} of {full.num_layers} layers: "
-        f"{slope / 2**30:.2f} GiB reserved a layer + {fixed / 2**30:.2f} GiB, from depths "
-        f"{LMT_DEPTHS}, in {free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of "
-        f"memory at {too_big or 'none'}), 1 x {seq}, {LMT_FIT_STEPS} steps on one batch: "
-        f"losses {', '.join(f'{x:.4f}' for x in losses)}; {rec['ms_per_step']:.1f} ms a step, "
-        f"{rec['tokens_per_s']:.0f} tokens/s after the first; the last step (events) forward "
+        f"{fitted}), {batch_size} x {seq} in {microbatches} microbatch(es), {steps} steps on "
+        f"one batch: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"{rec['ms_per_step']:.1f} ms a step, {rec['tokens_per_s']:.0f} tokens/s"
+        f"{' after the first' if len(secs) > 1 else ''}; the last step (events) forward "
         f"{forward:.1f} ms, backward {rec['backward_ms']:.1f} ms, update {update:.1f} ms, K9 "
         f"{rec['k9_ms']:.1f} ms{moe}; peak {rec['peak_gib']:.2f} GiB; launches {n}")
     del params, state
@@ -5044,10 +5057,9 @@ def lm_train_dots_check(dev, mods, totals) -> dict:
 def lm_train_phase(dev, by_name, mods) -> dict:
     """Phase 12: the dense transformer trained on one card.  ``[lm-train-ref]``
     on the smoke configs; qwen2-1.5b at full width and depth, S 4,096, with
-    the QR and the dense vocabulary under remat ``full``; one TT step; the
-    step-1 gradient check at 2 layers; remat ``dots`` against ``full`` at
-    that cut; the training CLI twice (the second resumes); each section's
-    seconds logged.  The phase's launches add to the ``flash_fwd``,
+    the QR vocabulary under remat ``full``; one TT step; the step-1
+    gradient check at 2 layers; remat ``dots`` against ``full`` at that
+    cut; each section's seconds logged.  The phase's launches add to the ``flash_fwd``,
     ``qr_gather`` and ``tt_bag`` rows.  Returns the ``{"lm_training": ...}``
     record."""
     t0 = time.perf_counter()
@@ -5063,13 +5075,11 @@ def lm_train_phase(dev, by_name, mods) -> dict:
     try:
         for key, run in (
                 ("ref", lambda: lm_train_ref(dev, mods, totals)),
-                ("main", lambda: [lm_train_main(dev, vocab, policy, mods, totals,
-                                                profile=i == 0)
-                                  for i, (vocab, policy) in enumerate(LMT_MAIN)]),
+                ("main", lambda: [lm_train_main(dev, vocab, policy, mods, totals)
+                                  for vocab, policy in LMT_MAIN]),
                 ("tt", lambda: lm_train_tt(dev, mods, totals)),
                 ("grad_check", lambda: lm_train_grad_check(dev, mods, totals)),
-                ("dots", lambda: lm_train_dots_check(dev, mods, totals)),
-                ("cli", lambda: lm_train_cli(mods, totals))):
+                ("dots", lambda: lm_train_dots_check(dev, mods, totals))):
             t1 = time.perf_counter()
             record[key] = run()
             record["section_s"][key] = time.perf_counter() - t1
@@ -5102,7 +5112,10 @@ LMM_WORLD1 = (2, 2)        # layers, sequences of the world-1 check (S 4,096)
 # phase 12's ``LMT_FIT`` sizes would cost ~35 s of gloo to pick a size the
 # script could not take
 LMM_MICROBATCH = 2
-LMM_DEPTHS = (1, 2)        # depths whose reserved memory gives (2, 2)'s depth fit
+# the (2, 2) run's depth, a constant for the script's time: the line through
+# depths 1 and 2 (four ranks' reserved memory) fitted 10-11 of 28 layers in
+# every run of PR 23-25 (NVIDIA H100 80GB HBM3) and cost ~15 s of probes
+LMM_DENSE_LAYERS = 10
 LMM_GRAD32_LAYERS = 2      # the (2, 2) fp32 step-1 gradient check's depth
 LMM_STEPS = 2
 LMM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=LMM_STEPS)
@@ -5243,38 +5256,6 @@ def lmm_place(cfg, mesh, dev):
     return local, specs, axes
 
 
-def lmm_min(value: int, dev) -> int:
-    """The least ``value`` over every rank (a MIN all-reduce)."""
-    import torch.distributed as dist
-
-    t = torch.tensor([int(value)], dtype=torch.int64, device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MIN)
-    return int(t.item())
-
-
-def lmm_fit(run, sizes, mesh, cap: int) -> dict:
-    """The largest size whose reserved memory fits this rank's share of the
-    card: ``run(size)`` at the two ``sizes`` gives a line, fixed + slope x
-    size; after a barrier the free memory is split evenly over the ranks
-    sharing the card, less ``LM_HEADROOM`` split the same way; the size is
-    the least fit over the ranks, at most ``cap``."""
-    import torch.distributed as dist
-
-    dev = mesh.device
-    reserved = {s: reserved_growth(lambda: run(s), dev) for s in sizes}
-    lo, hi = sizes
-    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-    fixed = max(reserved[lo] - lo * slope, 0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dist.barrier()
-    sharing = mesh.size // max(torch.cuda.device_count(), 1)
-    free = torch.cuda.mem_get_info(dev)[0]
-    fit = (free // sharing - LM_HEADROOM // sharing - fixed) // slope
-    return {"size": lmm_min(max(1, min(cap, fit)), dev), "fit": int(fit), "slope": slope,
-            "fixed": fixed, "reserved": reserved, "free": free, "ranks_on_card": sharing}
-
-
 def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
     """``LMM_STEPS`` meshed steps on this rank's ``batch`` block, each split
     into forward, backward, gradient mean and update (``_split_step``):
@@ -5343,9 +5324,8 @@ def lm_mesh_rank(mesh, what: str) -> dict:
     ``data`` rank, one untimed forward and backward, then ``lmm_steps``
     with the kernels held.  "dp": the (2, 2) run with the
     dense vocabulary: the fp32 step-1 gradients at ``LMM_GRAD32_LAYERS``
-    layers (one sequence a ``data`` rank), the depth fitted from
-    ``LMM_DEPTHS`` (``lmm_fit``), the bf16 step-1 gradients at that depth,
-    then ``lmm_steps``.  Gradients come back gathered to the logical shapes
+    layers (one sequence a ``data`` rank), the bf16 step-1 gradients at
+    ``LMM_DENSE_LAYERS``, then ``lmm_steps``.  Gradients come back gathered to the logical shapes
     on the writer (rank (0, 0)) alone, on the host."""
     from repro_torch import tree
     from repro_torch.configs import registry
@@ -5353,7 +5333,6 @@ def lm_mesh_rank(mesh, what: str) -> dict:
     from repro_torch.distributed import sharding as SH
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import qr_gather as qg
-    from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as TS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5398,7 +5377,7 @@ def lm_mesh_rank(mesh, what: str) -> dict:
         torch.autograd.grad(loss, leaves)
         del leaves, loss
         res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
-        res["layers"], res["microbatch"], res["fit"] = cfg.num_layers, LMM_MICROBATCH, None
+        res["layers"], res["microbatch"] = cfg.num_layers, LMM_MICROBATCH
         return res
 
     # "dp": the dense vocabulary on (2, 2)
@@ -5412,20 +5391,7 @@ def lm_mesh_rank(mesh, what: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    dense = full.replace(embedding_kind="dense")
-    ocfg = opt.OptConfig(**LMM_OPT)
-
-    def one(depth):
-        cfg = dense.replace(num_layers=depth)
-        local, specs, _ = lmm_place(cfg, mesh, dev)
-        b = synthetic.data_block(lmm_tokens(cfg, data, seq, dev), mesh)
-        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg, mesh=mesh,
-                                  specs=specs)
-        step(local, opt.init(local), b)
-
-    fit = lmm_fit(one, LMM_DEPTHS, mesh, cap=full.num_layers)
-    res["fit"] = fit
-    cfg = dense.replace(num_layers=fit["size"])
+    cfg = full.replace(embedding_kind="dense", num_layers=LMM_DENSE_LAYERS)
     local, specs, _ = lmm_place(cfg, mesh, dev)
     batch = synthetic.data_block(lmm_tokens(cfg, data, seq, dev), mesh)
     res["grads"], res["loss"] = grads_of(cfg, local, specs, batch)
@@ -5482,7 +5448,7 @@ def lmm_record(ranks, shape, vocab: str) -> dict:
             launches[k] = launches.get(k, 0) + v
     return {"mesh": list(shape), "backend": "gloo", "vocab": vocab,
             "layers": ranks[0]["layers"], "microbatch_a_data_rank": ranks[0]["microbatch"],
-            "seq": lmt_shape().seq_len, "fit": ranks[0]["fit"],
+            "seq": lmt_shape().seq_len,
             "losses": st[0]["losses"], "grad_norms": st[0]["norms"],
             "ms_per_step_max_over_ranks": max(float(np.mean(r["step_ms"])) for r in st),
             "step_ms_rank0": st[0]["step_ms"], "split_host_ms_max_over_ranks": split,
@@ -5497,11 +5463,7 @@ def lmm_record(ranks, shape, vocab: str) -> dict:
 
 def lmm_log(rec: dict) -> None:
     split = rec["split_host_ms_max_over_ranks"]
-    fit = rec["fit"]
-    how = ("microbatch a constant chosen for the script's time, not fitted" if fit is None
-           else f"depth {fit['size']}: fit {fit['fit']}, {fit['slope'] / 2**30:.2f} GiB "
-           f"reserved a layer + {fit['fixed'] / 2**30:.2f} GiB, {fit['free'] / 2**30:.2f} GiB "
-           f"free over {fit['ranks_on_card']} ranks")
+    how = "microbatch and depth constants chosen for the script's time, not fitted"
     log(f"[lm-mesh] {rec.get('arch', LM_MAIN)} mesh {tuple(rec['mesh'])} gloo, {rec['vocab']} vocab, "
         f"{rec['layers']} layers, {rec['microbatch_a_data_rank']} x {rec['seq']} a data rank "
         f"({how}): losses "
@@ -5893,7 +5855,7 @@ def moe_mesh_rank(mesh) -> dict:
     local, specs, _ = lmm_place(cfg, mesh, dev)
     batch = synthetic.data_block(lmm_tokens(cfg, 1, seq, dev), mesh)
     res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, (fa, qg))
-    res["layers"], res["microbatch"], res["fit"] = cfg.num_layers, 1, None
+    res["layers"], res["microbatch"] = cfg.num_layers, 1
     return res
 
 
@@ -6039,6 +6001,766 @@ def moe_phase(dev, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sub-quadratic models (the zamba2 hybrid, xLSTM) served and
+# trained on one card
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("zamba2-7b", "xlstm-125m")
+# repro's decode-vs-train checks (tests/test_models_consistency.py): batch,
+# sequence and bound; zamba2 prefills all but the last token, xlstm steps
+SSM_CONSIST = {"zamba2-7b": (2, 256, 1e-4), "xlstm-125m": (2, 9, 2e-4)}
+SSM_FIT_BATCHES = (1, 2)  # zamba2 prefill_32k: the batches whose reserved memory gives the line
+SSM_PROBE_CUT = 8         # xlstm's one probe runs 32,768 / 8 tokens (its memory scales by 8)
+SSM_ZAMBA_CLI = ("--batch", "4", "--prompt-len", "512", "--max-new", "16")
+# xlstm-125m's full-depth training step: sequences, microbatches (a constant
+# for the script's time: its sLSTM time loop, not memory, sets the pace)
+SSM_XLSTM_TRAIN = (4, 2)
+SSM_GRAD_DEPTH = {"zamba2-7b": 6, "xlstm-125m": 4}   # one segment and its site; 1st sLSTM
+SSM_TRAIN_STEPS = 2
+SSM_TRAIN_CLI = ("--arch", "xlstm-125m", "--embedding", "qr", "--seq", "512", "--batch", "4")
+SSM_EXAMPLE_ARGS = ()     # examples.serve_lm with its defaults
+SSM_GRAPH_CHECK = (8, 1000)   # batch, steps of the sLSTM scan held graphed vs eager
+
+
+def ssm_forward(kind: str):
+    """The train forward of ``kind``: ``(params, tokens, cfg) -> logits``."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models import zamba2 as Z
+
+    fwd = Z.forward_zamba2 if kind == "zamba2" else X.forward_xlstm
+    return lambda p, toks, cfg: fwd(p, toks, cfg)[0]
+
+
+def card_vs_cpu(name: str, a, b, errs: dict, tag: str) -> None:
+    """``a`` (the card's) within ``LM_REF_TOL`` + ``LM_REF_TOL`` |b| of
+    ``b`` (the CPU's); the worst |a - b| under ``errs[name]``."""
+    d = (a.cpu().float() - b.float()).abs()
+    errs[name] = max(errs.get(name, 0.0), float(d.max()))
+    if not bool((d <= LM_REF_TOL + LM_REF_TOL * b.float().abs()).all()):
+        raise AssertionError(f"{tag} {name}: card vs CPU {float(d.max())}")
+
+
+def fp32_floor(binding, cfg, params, batch: dict) -> dict:
+    """Each leaf's distance of the batch's fp32 gradient on the CPU from the
+    same gradient in fp64 there (params and compute widened), of the fp64
+    gradient's scale: how far fp32's rounding alone moves that leaf."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.train import train_step as TS
+
+    c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+    p64 = tree.tree_map(lambda a: a.double(), params)
+    g32 = TS.value_and_grad(registry.train_loss_fn(binding, cfg), params, batch)[2]
+    g64 = TS.value_and_grad(registry.train_loss_fn(binding, c64), p64, batch)[2]
+    return {path: float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+            for (path, a), b in zip(tree.leaves_with_paths(g32), tree.leaves(g64))}
+
+
+def ssm_ref_phase(dev, mods, totals) -> dict:
+    """``[ssm-ref]``: zamba2-7b-smoke and xlstm-125m-smoke, each with a
+    dense and a QR (collision 8) vocabulary, on the card and on the CPU with
+    the same weights (built on the CPU and copied) and tokens, fp32
+    compute: the train logits, the serve family's prefill (its last-row
+    logits and every cache or state leaf) and one decode step within
+    ``LM_REF_TOL``, the greedy tokens equal, K9 once a site a forward and
+    K8 once a QR lookup; one step of 2 microbatches: the loss within
+    ``LMT_REF_TOL`` relative and the batch's gradients within
+    ``LMT_REF_TOL`` of each leaf's scale, or, where fp32 itself lies
+    further than that from the fp64 gradients on the CPU (``fp32_floor``,
+    the worst leaf: 1.18e-05 for zamba2-smoke's QR config, ``A_log``;
+    6e-06–1.1e-05 for many xlstm-smoke leaves), within twice that
+    distance (two fp32 sums, each that far from the exact one); the
+    updated params' distance is
+    read, not held (AdamW's first step moves a leaf whose gradients sit
+    near ``eps`` by up to |dg| / eps of lr: 1.3e-05 of ``conv_b``'s scale
+    for gradients within 8.6e-06, NVIDIA H100 80GB HBM3)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import serve_step as S
+    from repro_torch.train import train_step as TS
+
+    ocfg = opt.OptConfig(**LMT_REF_OPT)
+    out = {}
+    for arch in SSM_ARCHS:
+        binding = registry.get(arch)
+        fam, fwd = S.serve_family(binding.kind), ssm_forward(binding.kind)
+        for vocab in ("dense", "qr"):
+            tag = f"[ssm-ref] {arch} {vocab}"
+            cfg = binding.smoke.replace(embedding_kind=vocab, qr_collision=8,
+                                        compute_dtype="float32")
+            cpu, _ = registry.init_fn(binding)(cfg, seed=0, device="cpu")
+            card = tree.tree_map(lambda a: a.to(dev), cpu)
+            toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                                    .astype(np.int32))
+            errs = {}
+            with torch.inference_mode():
+                reset_all(mods)
+                got = fwd(card, toks.to(dev), cfg)
+                torch.cuda.synchronize()
+                n = take_launches(mods, totals)
+                want_n = {**({"flash_fwd": k9_calls(cfg)} if k9_calls(cfg) else {}),
+                          **({"qr_gather": 1} if vocab == "qr" else {})}
+                if n != want_n:
+                    raise AssertionError(f"{tag}: launches {n}, not {want_n}")
+                card_vs_cpu("train", got, fwd(cpu, toks, cfg), errs, tag)
+                lg, cache = fam.prefill(card, {"tokens": toks[:, :8].to(dev)}, cfg, 12)
+                clg, ccache = fam.prefill(cpu, {"tokens": toks[:, :8]}, cfg, 12)
+                card_vs_cpu("prefill", lg, clg, errs, tag)
+                for a, b in zip(tree.leaves(cache), tree.leaves(ccache)):
+                    card_vs_cpu("state", a, b, errs, tag)
+                lg2, _ = fam.decode(card, cache, toks[:, 8:9].to(dev), 8, cfg)
+                clg2, _ = fam.decode(cpu, ccache, toks[:, 8:9], 8, cfg)
+                card_vs_cpu("decode", lg2, clg2, errs, tag)
+            tok_card = S.greedy_generate(fam, card, {"tokens": toks[:, :8].to(dev)}, cfg,
+                                         max_new=4, max_len=12).cpu()
+            tok_cpu = S.greedy_generate(fam, cpu, {"tokens": toks[:, :8]}, cfg, max_new=4,
+                                        max_len=12)
+            if not torch.equal(tok_card, tok_cpu):
+                raise AssertionError(f"{tag}: greedy tokens {tok_card} vs {tok_cpu}")
+            btoks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, LMT_REF_SHAPE)
+                                     .astype(np.int32))
+            loss_fn = registry.train_loss_fn(binding, cfg)
+            step = TS.make_train_step(loss_fn, ocfg, microbatches=2)
+            new_cpu, _, m_cpu = step(cpu, opt.init(cpu), {"tokens": btoks})
+            take_launches(mods, totals)
+            new_card, _, m_card = step(card, opt.init(card), {"tokens": btoks.to(dev)})
+            torch.cuda.synchronize()
+            n_step = take_launches(mods, totals)
+            g_card = TS.value_and_grad(loss_fn, card, {"tokens": btoks.to(dev)})[2]
+            g_cpu = TS.value_and_grad(loss_fn, cpu, {"tokens": btoks})[2]
+            take_launches(mods, totals)
+            loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(
+                float(m_cpu["loss"]))
+            p_rel, p_leaf = leaf_scale_errors(new_card, new_cpu)
+            g_rel, g_leaf = leaf_scale_errors(g_card, g_cpu)
+            errs.update(step_loss_rel=loss_rel, param_rel=p_rel, grad_rel=g_rel)
+            over = {path: leaf_scale_errors(a, b)[0] for (path, a), b in
+                    zip(tree.leaves_with_paths(g_card), tree.leaves(g_cpu))}
+            over = {k: v for k, v in over.items() if v > LMT_REF_TOL}
+            if over:                 # held to twice fp32's own distance from fp64
+                floor = fp32_floor(binding, cfg, cpu, {"tokens": btoks})
+                worst = max(floor, key=floor.get)
+                errs["fp32_floor"] = {worst: floor[worst]}
+                over = {k: v for k, v in over.items() if v > 2 * floor[worst]}
+            if not (loss_rel <= LMT_REF_TOL and not over and n_step == step_launches(cfg, 2)):
+                raise AssertionError(f"{tag} step: loss {loss_rel}, params {p_rel} ({p_leaf}), "
+                                     f"gradients {g_rel} ({g_leaf}; beyond the bounds {over}), "
+                                     f"launches {n_step}")
+            out[f"{arch}/{vocab}"] = errs
+            log(f"{tag} vocab, card vs CPU (fp32): max |diff| train {errs['train']:.2e}, prefill "
+                f"{errs['prefill']:.2e}, cache / states {errs['state']:.2e}, decode "
+                f"{errs['decode']:.2e}; greedy tokens equal; one step of 2 microbatches: loss "
+                f"{loss_rel:.1e} rel, updated params {p_rel:.1e} of scale, gradients {g_rel:.1e} "
+                f"(worst {g_leaf}"
+                + (f"; fp32's own worst distance from fp64 {errs['fp32_floor']}"
+                   if "fp32_floor" in errs else "")
+                + f"); launches a forward {n}, a step {n_step}")
+    return out
+
+
+def ssm_consistency(params, cfg, kind: str, dev, hold: bool = True) -> dict:
+    """``repro``'s decode-vs-train check on the card at ``SSM_CONSIST``
+    (``hold``: held to its bound, else read): zamba2 prefills all but the
+    last token into a cache and decodes it (the prefill's last row and the
+    decode step against the train forward's last two rows); xlstm decodes
+    every token from ``init_xlstm_state`` (each step against its row)."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models import zamba2 as Z
+
+    batch, seq, tol = SSM_CONSIST[cfg.name]
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        full = ssm_forward(kind)(params, toks, cfg)
+        if kind == "zamba2":
+            cache = Z.init_zamba2_cache(cfg, batch, seq, dtype=torch.float32, device=dev)
+            lg, cache = Z.forward_zamba2(params, toks[:, :seq - 1], cfg, cache=cache, pos=0,
+                                         last=True)
+            lg2, _ = Z.forward_zamba2(params, toks[:, seq - 1:], cfg, cache=cache, pos=seq - 1,
+                                      decode=True)
+            pairs = (("prefill", lg[:, 0], full[:, seq - 2]), ("decode", lg2[:, 0], full[:, -1]))
+            del cache
+        else:
+            st, rows = X.init_xlstm_state(cfg, batch, device=dev), []
+            for t in range(seq):
+                lg, st = X.forward_xlstm(params, toks[:, t:t + 1], cfg, states=st, decode=True)
+                rows.append(lg[:, 0])
+            pairs = (("decode", torch.stack(rows, dim=1), full),)
+        out = {"batch": batch, "seq": seq, "tolerance": tol}
+        for name, a, b in pairs:
+            d = (a - b).abs()
+            out[name] = float(d.max())
+            out[f"{name}_within"] = bool((d <= tol + tol * b.abs()).all())
+            if hold and not out[f"{name}_within"]:
+                raise AssertionError(f"[ssm] {cfg.name} consistency {name}: {out[name]}")
+        out["logit_scale"] = float(full.abs().max())
+    del full
+    return out
+
+
+@contextlib.contextmanager
+def ssm_watch(kind: str):
+    """While open, a pair of CUDA events around every mamba layer call
+    (zamba2) or every sLSTM and mLSTM block call (xlstm): ``{part:
+    [(start, end), ...]}``."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import xlstm as X
+
+    names = ((M, "mamba2_fwd", "mamba"),) if kind == "zamba2" else (
+        (X, "slstm_block_fwd", "slstm"), (X, "mlstm_block_fwd", "mlstm"))
+    marks = {part: [] for _, _, part in names}
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in names]
+
+    def wrap(fn, part):
+        def call(*a, **kw):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = fn(*a, **kw)
+            e[1].record()
+            marks[part].append(e)
+            return out
+        return call
+
+    for (mod, name, part), (_, _, fn) in zip(names, saved):
+        setattr(mod, name, wrap(fn, part))
+    try:
+        yield marks
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def ssm_prefill_flops(cfg, batch: int, seq: int) -> int:
+    """A prefill's flops as the code computes them: the projections (2 x
+    weights a token), a mamba layer's conv and SSD terms (the C·Bᵀ scores,
+    the decay product and the product with x over every (query, key) pair
+    of a chunk, the chunk states and the cross-chunk term), an mLSTM
+    chunk's two products over its pairs and its two state products, the
+    sLSTM's recurrent product, the shared sites' causal attention (4 D a
+    visible pair and head), and the head on the last token."""
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import xlstm as X
+
+    d = cfg.d_model
+    if cfg.family == "hybrid":
+        di, g, n, h, p = (M.d_inner(cfg), cfg.ssm_groups, cfg.ssm_state, M.num_ssm_heads(cfg),
+                          cfg.ssm_head_dim)
+        chunk = min(M.CHUNK, seq)
+        conv = di + 2 * g * n
+        layer = (2 * d * (2 * di + 2 * g * n + h) + 2 * di * d + 2 * M.CONV_WIDTH * conv
+                 + 2 * g * chunk * n + h * chunk + 2 * h * chunk * p + 4 * h * p * n)
+        sites = cfg.num_layers // cfg.attn_every
+        attn = (2 * (2 * d * cfg.num_heads * cfg.head_dim_ + 2 * d * cfg.kv_heads * cfg.head_dim_)
+                + 4 * d * cfg.d_ff + 4 * cfg.head_dim_ * cfg.num_heads * (seq + 1) // 2)
+        body = cfg.num_layers * layer + sites * attn
+    else:
+        di, h = X.MLSTM_PF * d, cfg.num_heads
+        hd, chunk, f = di // h, min(X.MLSTM_CHUNK, seq), int(X.SLSTM_PF * d)
+        mlstm = (2 * d * 2 * di + 3 * 2 * di * di + 2 * 2 * di * h + 2 * di * d
+                 + 4 * h * chunk * hd + 4 * h * hd * hd)
+        slstm = 2 * d * 4 * d + 2 * h * (d // h) * 4 * (d // h) + 2 * d * 2 * f + 2 * f * d
+        n_s = sum(X.is_slstm_layer(cfg, i) for i in range(cfg.num_layers))
+        body = n_s * slstm + (cfg.num_layers - n_s) * mlstm
+    return batch * (seq * body + 2 * d * cfg.vocab)
+
+
+def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None = None) -> dict:
+    """``prefill_32k`` through ``kind``'s serve family (the head on the last
+    row): one prefill of 32,768 tokens at ``batch`` or, without one, at the
+    largest batch that fits, cut to the cell's 32.  zamba2 fits as phase 11
+    does (the reserved memory of prefills at ``SSM_FIT_BATCHES`` gives a
+    line, fixed + slope x batch); xlstm from one probe at batch 1 and
+    1 / ``SSM_PROBE_CUT`` of the sequence (its sLSTM time loop takes
+    seconds a prefill at any batch: slope = the probe's reserved memory
+    scaled to the sequence, fixed 0).  Timed by CUDA events: the call, K9
+    and K8 around every call, the mamba layers (zamba2) or the sLSTM and
+    mLSTM blocks (xlstm) around every call; site 0's K9 q/k/v and output and
+    every K8 call kept and held against their plain versions after it; peak
+    memory; the flop bound (``ssm_prefill_flops``); zamba2's K9 against
+    SDPA at the prefill's attention shapes."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family(kind)
+    cell = next(s for s in LM_SHAPES if s.name == "prefill_32k")
+    seq = cell.seq_len
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def prefill(b: int, s: int):
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev, dtype=torch.int32)
+        with kept_model_path(ops, {}), torch.inference_mode():
+            fam.prefill(params, {"tokens": toks}, cfg, s)
+
+    fit = {}
+    if batch is None:
+        sizes = SSM_FIT_BATCHES if kind == "zamba2" else SSM_FIT_BATCHES[:1]
+        probe_seq = seq if kind == "zamba2" else seq // SSM_PROBE_CUT
+        reserved = {b: reserved_growth(lambda: prefill(b, probe_seq), dev) for b in sizes}
+        if len(sizes) == 2:
+            lo, hi = sizes
+            slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+            fixed = max(reserved[lo] - lo * slope, 0)
+        else:               # one point: the probe's memory, scaled to the sequence
+            slope, fixed = max(reserved[sizes[0]] * (seq // probe_seq) // sizes[0], 1), 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        lines = (free - LM_HEADROOM - fixed) // slope
+        batch = int(max(1, min(cell.global_batch, lines)))
+        fit = {"reserved_by_batch": reserved, "reserved_a_sequence": slope,
+               "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
+               "fit": int(lines), "points": len(sizes), "probe_seq": probe_seq}
+    reset_all(mods)
+    toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kept = {}
+    with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
+            kept_model_path(ops, kept), ssm_watch(kind) as parts:
+        with torch.inference_mode():
+            start.record()
+            t0 = time.perf_counter()
+            logits, cache = fam.prefill(params, {"tokens": toks}, cfg, seq)
+            end.record()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {**({"flash_fwd": k9_calls(cfg)} if k9_calls(cfg) else {}),
+            **({"qr_gather": 1} if cfg.embedding_kind == "qr" else {})}
+    if n != want or tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[ssm] {cfg.name} prefill_32k: launches {n}, logits "
+                             f"{tuple(logits.shape)}")
+    del logits, cache, toks
+    torch.cuda.empty_cache()
+    held = hold_kept(kept, f"{cfg.name} prefill_32k")
+    del kept
+    flops = ssm_prefill_flops(cfg, batch, seq)
+    k9_ms = event_ms(marks["flash_attention_fused"])
+    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch, **fit, "ms": ms,
+           "host_s": host_s, "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms,
+           "k9_share": k9_ms / ms, "k8_ms": event_ms(marks["qr_lookup"]),
+           "parts_ms": {k: event_ms(v) for k, v in parts.items()},
+           "parts_calls": {k: len(v) for k, v in parts.items()},
+           "peak_gib": peak / 2**30, "flops": flops, "bound_ms": flops / BF16_FLOP_S * 1e3,
+           "launches": n, "held": held}
+    rec["parts_share"] = {k: v / ms for k, v in rec["parts_ms"].items()}
+    if k9_calls(cfg):
+        rec["k9_ms_a_call"] = k9_ms / k9_calls(cfg)
+        rec["k9_vs_sdpa"] = k9_against_sdpa(cfg, batch, seq, dev)
+    reset_all(mods)                 # the yardstick's launches are not the path's
+    return rec
+
+
+def ssm_decode_run(params, cfg, kind: str, dev, mods, totals, cell_name: str,
+                   batch: int | None = None) -> dict:
+    """One decode step of ``cell_name`` (``decode_32k``, ``long_500k``) at
+    position seq - 1: zamba2 against a cache ``seq`` deep (k and v random,
+    every position attended) at the largest batch whose cache fits the free
+    memory less ``LM_HEADROOM`` (or ``batch``), xlstm from its recurrent
+    states at the cell's batch (they do not grow); ms a step by CUDA events
+    over ``LM_DECODE_REPS`` steps beside the bytes bound (every weight read
+    once, the k / v caches read, the recurrent states read and written, at
+    the HBM rate); each step's K8 call held against the plain sum."""
+    from repro_torch import tree
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family(kind)
+    cell = next(s for s in LM_SHAPES if s.name == cell_name)
+    depth = cell.seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    if batch is None:
+        one = fam.make_cache(cfg, 1, depth, device=dev)
+        per_seq = sum(a.numel() * a.element_size() for a in tree.leaves(one))
+        del one
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        batch = int(max(1, min(cell.global_batch, (free - LM_HEADROOM) // per_seq)))
+    cache = fam.make_cache(cfg, batch, depth, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    if kind == "zamba2":
+        for key in ("k", "v"):
+            cache[key].normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
+    reset_all(mods)
+    with torch.inference_mode():
+        top = top_device_ops(lambda: fam.decode(params, cache, tok, depth - 1, cfg), 6)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kept = {}
+        with kept_model_path(ops, kept):
+            start.record()
+            for _ in range(LM_DECODE_REPS):
+                logits, out = fam.decode(params, cache, tok, depth - 1, cfg)
+            end.record()
+            torch.cuda.synchronize()
+    n = take_launches(mods, totals)
+    if tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[ssm] {cfg.name} {cell_name}: logits {tuple(logits.shape)}")
+    held = hold_kept(kept, f"{cfg.name} {cell_name}")
+    ms = start.elapsed_time(end) / LM_DECODE_REPS
+    weight_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(params))
+    kv = {k: v for k, v in cache.items() if k in ("k", "v")} if kind == "zamba2" else {}
+    kv_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(kv))
+    state_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(cache)) - kv_bytes
+    nbytes = weight_bytes + kv_bytes + 2 * state_bytes
+    rec = {"cell": cell_name, "position": depth - 1, "batch": batch,
+           "cell_batch": cell.global_batch, "layers": cfg.num_layers, "kv_bytes": kv_bytes,
+           "state_bytes": state_bytes, "weight_bytes": weight_bytes, "ms": ms,
+           "tokens_per_s": batch / ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top}
+    del cache, logits, out, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_long_depth(params, cfg, dev) -> int:
+    """The zamba2 depth whose ``long_500k`` cache (one sequence: 524,288
+    positions a site, a layer's SSM and conv states) and mamba layers fit
+    the free memory less ``LM_HEADROOM``, counting the mamba stack
+    ``params`` holds now as free (``ssm_cut`` replaces it)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import zamba2 as Z
+
+    positions = next(s for s in LM_SHAPES if s.name == "long_500k").seq_len
+    stack = sum(a.numel() * a.element_size() for a in tree.leaves(params["mamba"]))
+    one = Z.init_zamba2_cache(cfg.replace(num_layers=1, attn_every=1), 1, 1, device=dev)
+    state = sum(one[k].numel() * one[k].element_size() for k in ("ssm", "conv"))
+    del one
+    layer = stack // cfg.num_layers + state
+    elem = torch.empty((), dtype=cfg.cdtype).element_size()
+    site = 2 * positions * cfg.kv_heads * cfg.head_dim_ * elem
+    free = torch.cuda.mem_get_info(dev)[0] + stack - LM_HEADROOM
+    depth = cfg.num_layers
+    while depth > cfg.attn_every and depth * layer + (depth // cfg.attn_every) * site > free:
+        depth -= 1
+    return depth
+
+
+def ssm_cut(params, depth: int) -> dict:
+    """zamba2 params cut to the first ``depth`` mamba layers (copies: the
+    full stack can then be freed)."""
+    return {**params, "mamba": {k: v[:depth].clone() for k, v in params["mamba"].items()}}
+
+
+def ssm_embed(cfg, vocab: str, dev) -> dict:
+    """A ``vocab`` vocabulary's tables for ``cfg`` (QR at the config's
+    collision), drawn from seed 1 and cast to the compute dtype: the
+    other vocabulary's run shares the body weights."""
+    from repro_torch.core import qr_embedding
+
+    c = cfg.replace(embedding_kind=vocab)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tables = qr_embedding.init(c.emb_config, generator=g, device=dev)
+    return c, {k: v.to(c.cdtype) for k, v in tables.items()}
+
+
+def ssm_serve_run(dev, arch: str, mods, totals) -> dict:
+    """``arch`` at full width and depth, dense vocabulary first: the
+    consistency (``ssm_consistency``); the weights cast once for serving
+    (``prepare``) and the fp32 ones dropped; zamba2's K9 on site 0's own
+    q/k/v (bf16; phase 6 holds D 112 in fp32); ``prefill_32k`` at the
+    batch that fits, then with the QR vocabulary (collision 64; its tables
+    drawn, the body shared) at the same batch; ``decode_32k`` with each;
+    ``long_500k`` with the QR vocabulary (zamba2 at ``ssm_long_depth``)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.train import serve_step as S
+
+    binding = registry.get(arch)
+    kind = binding.kind
+    cfg = lm_config(arch).replace(embedding_kind="dense")
+    t0 = time.perf_counter()
+    params, _ = registry.init_fn(binding)(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rec = {"arch": arch, "layers": cfg.num_layers, "init_s": time.perf_counter() - t0,
+           "param_bytes_fp32": sum(a.numel() * 4 for a in tree.leaves(params))}
+    c32 = cfg.replace(compute_dtype="float32")
+    if kind == "xlstm":
+        # fp32 at full width lies 2.5e-4 (chunked) and 4.1e-4 (stepped) from
+        # the fp64 logits on the CPU, past repro's 2e-4: the check is held in
+        # fp64 compute (the cells fp32, as repro casts them) and fp32 read
+        c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+        p64 = tree.tree_map(lambda a: a.double(), params)
+        rec["consistency_fp64"] = ssm_consistency(p64, c64, kind, dev)
+        del p64
+    rec["consistency_fp32"] = ssm_consistency(params, c32, kind, dev, hold=kind != "xlstm")
+    take_launches(mods, totals)
+    params = S.serve_family(kind).prepare(params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if kind == "zamba2":
+        rec["k9_model_path"] = lm_k9_check(params, cfg, dev, kind)
+        take_launches(mods, totals)
+    def consistency(dtype):
+        c = rec[f"consistency_{dtype}"]
+        held = "held to" if dtype == "fp64" or kind != "xlstm" else "read; repro's bound"
+        return (f"{dtype} consistency (batch {c['batch']}, seq {c['seq']}) "
+                + ", ".join(f"{k} {c[k]:.2e}" for k in ("prefill", "decode") if k in c)
+                + f" ({held} {c['tolerance']}, logits up to {c['logit_scale']:.3g})")
+
+    k9 = rec.get("k9_model_path")
+    log(f"[ssm] {arch} {cfg.num_layers} layers ({rec['param_bytes_fp32'] / 1e9:.2f} GB fp32, "
+        f"drawn in {rec['init_s']:.1f} s): "
+        + "; ".join(consistency(t) for t in ("fp64", "fp32") if f"consistency_{t}" in rec)
+        + (f"; K9 on site 0's q/k/v {k9['shape']} (bf16) {fmt_err(k9)}" if k9 else ""))
+    rec["prefill_32k"], rec["decode_32k"] = {}, {}
+    vocab_cfgs = {"dense": (cfg, params["embed"])}
+    vocab_cfgs["qr"] = ssm_embed(cfg, "qr", dev)
+    batch = None
+    for vocab, (vc, embed) in vocab_cfgs.items():
+        p = {**params, "embed": embed}
+        r = rec["prefill_32k"][vocab] = ssm_prefill_run(p, vc, kind, dev, mods, totals, batch)
+        batch = r["batch"]
+        fit = (f"fit {r['fit']} from {r['points']} point(s) at {r['probe_seq']} tokens: "
+               f"{r['reserved_a_sequence'] / 2**30:.2f} GiB reserved a sequence + "
+               f"{r['reserved_fixed'] / 2**30:.2f} GiB in {r['free_bytes'] / 2**30:.2f} GiB free "
+               f"less {LM_HEADROOM / 2**30:.0f}" if "fit" in r else "the dense run's batch")
+        parts = ", ".join(f"{k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
+                          f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
+        sdpa = (f"; one site's attention at these shapes: K9 {r['k9_vs_sdpa']['k9_ms']:.1f} ms, "
+                f"SDPA (flash backend) {r['k9_vs_sdpa']['sdpa_ms']:.1f} ms"
+                if "k9_vs_sdpa" in r else "")
+        log(f"[ssm] {arch} {vocab} prefill_32k: batch {r['batch']} (cell {r['cell_batch']}; "
+            f"{fit}) x {r['seq']}: {r['ms']:.1f} ms ({r['host_s']:.2f} s host clock), "
+            f"{r['tokens_per_s']:.0f} tokens/s, K9 {r['k9_ms']:.1f} ms "
+            f"({100 * r['k9_share']:.1f}%), {parts}, K8 {r['k8_ms']:.2f} ms; peak "
+            f"{r['peak_gib']:.2f} GiB; bound {r['bound_ms']:.1f} ms ({r['flops']:.3e} flop at the "
+            f"bf16 peak); launches {r['launches']}{sdpa}")
+        if r["held"]:
+            log(f"[ssm] {arch} {vocab} prefill_32k kernels vs plain on the main path: "
+                + held_text(r["held"]).replace("layer 0", "site 0"))
+        d = rec["decode_32k"][vocab] = ssm_decode_run(p, vc, kind, dev, mods, totals,
+                                                      "decode_32k")
+        log(f"[ssm] {arch} {vocab} decode_32k: batch {d['batch']} (cell {d['cell_batch']}; k/v "
+            f"{d['kv_bytes'] / 2**30:.2f} GiB, states {d['state_bytes'] / 2**30:.3f} GiB) at "
+            f"position {d['position']}: {d['ms']:.2f} ms a step, "
+            f"{d['tokens_per_s']:.0f} tokens/s, "
+            f"peak {d['peak_gib']:.2f} GiB, bound {d['bound_ms']:.2f} ms; launches "
+            f"{d['launches']}" + (f"; K8 vs plain: {held_text(d['held'])}" if d["held"] else "")
+            + "; top device operations: "
+            + ", ".join(f"{k} {t:.2f} ms" for k, t in d["top_ops"]))
+    vc, embed = vocab_cfgs["qr"]
+    p = {**params, "embed": embed}
+    if kind == "zamba2":
+        del vocab_cfgs, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        depth = ssm_long_depth(p, vc, dev)
+        p = ssm_cut(p, depth)
+        vc = vc.replace(num_layers=depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+    r = rec["long_500k"] = ssm_decode_run(p, vc, kind, dev, mods, totals, "long_500k", batch=1)
+    r["full_layers"] = cfg.num_layers
+    sites = f", {k9_calls(vc)} sites" if kind == "zamba2" else ""
+    log(f"[ssm] {arch} qr long_500k ({vc.num_layers} of {cfg.num_layers} layers{sites}) one "
+        f"step at position {r['position']}, batch 1 (k/v "
+        f"{r['kv_bytes'] / 2**30:.2f} GiB, states {r['state_bytes'] / 2**30:.3f} GiB): "
+        f"{r['ms']:.2f} ms, bound {r['bound_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB; "
+        f"launches {r['launches']}")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_example_run(mods, totals) -> dict:
+    """``python -m repro_torch.examples.serve_lm`` with its defaults (its
+    ``main``, in this process): ``repro``'s default arch, xlstm-125m-smoke,
+    with the QR vocabulary on the card; K8 once a lookup."""
+    import io
+
+    from repro_torch.examples import serve_lm
+
+    reset_all(mods)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_lm.main(list(SSM_EXAMPLE_ARGS))
+    secs = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    text = buf.getvalue()
+    if not text.startswith("xlstm-125m (qr embedding): generated") or not n.get("qr_gather"):
+        raise AssertionError(f"[ssm-cli] examples.serve_lm: launches {n}, output {text[-500:]}")
+    log(f"[ssm-cli] examples.serve_lm (defaults): " + " | ".join(text.splitlines())
+        + f" (call {secs:.1f} s; launches {n})")
+    return {"s": secs, "launches": n, "lines": text.splitlines()}
+
+
+def ssm_graph_check(dev) -> dict:
+    """The sLSTM scan at xlstm-125m's width (4 heads of 192, bf16 input
+    gates) on ``SSM_GRAPH_CHECK`` sequences and steps, eager and replayed
+    as CUDA graphs of ``GRAPH_STEPS`` steps (``slstm_scan(graphs=)``), as
+    served (no autograd) and as trained (``_SLSTMScan``: the forward and
+    the written-out backward of a weighted sum): outputs, final states and
+    gradients bitwise equal; each run's ms (CUDA events, the graphed ones'
+    capture included) and ms a step."""
+    from repro_torch.models import xlstm as X
+
+    cfg = lm_config("xlstm-125m")
+    h, d = cfg.num_heads, cfg.d_model // cfg.num_heads
+    b, steps = SSM_GRAPH_CHECK
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((b, steps, h, 4, d), generator=g, device=dev).to(cfg.cdtype)
+    r = torch.randn((h, 4, d, d), generator=g, device=dev) / d ** 0.5
+    w = torch.randn((b, steps, h, d), generator=g, device=dev)
+    out, ms = {}, {}
+    for graphs in (False, True):
+        for train in (False, True):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            xx, rr = x.clone().requires_grad_(train), r.clone().requires_grad_(train)
+            e[0].record()
+            with torch.inference_mode(not train):
+                hs, st = X.slstm_scan(xx, rr, graphs=graphs)
+                if train:
+                    (hs * w).sum().backward()
+            e[1].record()
+            torch.cuda.synchronize()
+            ms[graphs, train] = e[0].elapsed_time(e[1])
+            out[graphs, train] = [hs, *st] + ([xx.grad, rr.grad] if train else [])
+    same = {train: all(torch.equal(a, c) for a, c in zip(out[True, train], out[False, train]))
+            for train in (False, True)}
+    rec = {"batch": b, "steps": steps, "graph_steps": X.GRAPH_STEPS, "bitwise": same[False],
+           "bitwise_train": same[True],
+           **{f"{'graphed' if gr else 'eager'}_{'train' if tr else 'serve'}_ms": v
+              for (gr, tr), v in ms.items()}}
+    log(f"[ssm] sLSTM scan {b} x {steps} steps (4 heads of {d}), graphed ({X.GRAPH_STEPS} steps "
+        f"a CUDA graph) vs eager: served bitwise {same[False]}, eager {ms[False, False]:.1f} ms "
+        f"({1e3 * ms[False, False] / steps:.1f} us a step), graphed {ms[True, False]:.1f} ms "
+        f"({1e3 * ms[True, False] / steps:.1f} us a step, capture included); trained (forward "
+        f"and the written-out backward) bitwise {same[True]}, eager {ms[False, True]:.1f} ms, "
+        f"graphed {ms[True, True]:.1f} ms ({1e3 * ms[True, True] / steps:.1f} us a step)")
+    if not (same[False] and same[True]):
+        raise AssertionError(f"[ssm] sLSTM scan graphed vs eager: {rec}")
+    return rec
+
+
+def ssm_train_cli(mods, totals) -> dict:
+    """``python -m repro_torch.launch.train`` with ``SSM_TRAIN_CLI`` and a
+    checkpoint directory under ``build/`` (its ``main``, in this process):
+    ``--steps 2``, then ``--steps 4``, which prints ``[resume] step 2`` and
+    trains steps 3 and 4."""
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    ckdir = ROOT / "build" / "ssm_train_cli"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    runs = []
+    try:
+        for steps in (2, 4):
+            argv = [*SSM_TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", str(ckdir),
+                    "--log-every", "1"]
+            take_launches(mods, totals)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_cli.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = take_launches(mods, totals)
+            text = buf.getvalue()
+            lines = [x for x in text.splitlines() if x.startswith(("step", "[resume]"))]
+            ok = rc == 0 and n == {"qr_gather": 2} and (
+                steps == 2 or "[resume] step 2" in text)
+            if not ok:
+                raise AssertionError(f"[ssm-train-cli] --steps {steps}: exit {rc}, launches {n}, "
+                                     f"output {text[-800:]}")
+            runs.append({"steps": steps, "exit": rc, "s": secs, "launches": n, "lines": lines})
+            log(f"[ssm-train-cli] {' '.join(argv[:argv.index('--ckpt-dir')])}: exit {rc} in "
+                f"{secs:.1f} s (set-up and checkpoint included), launches {n}; "
+                + " | ".join(lines))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return {"runs": runs}
+
+
+def ssm_phase(dev, by_name, mods) -> dict:
+    """Phase 15: the sub-quadratic models served and trained on one card.
+    ``[ssm-ref]`` on the two smoke configs; zamba2-7b and xlstm-125m at full
+    width and depth (``ssm_serve_run``: consistency, zamba2's K9 on the
+    model path at D 112, ``prefill_32k``, ``decode_32k``, ``long_500k``);
+    the serve CLI (zamba2 with each vocabulary, xlstm with QR) and the
+    serve-LM example; training on one card (the allocator's expandable
+    segments): xlstm at full depth, one step of 2 microbatches, zamba2 at
+    the depth the line through depths 1 and 2 fits, 2 steps, each QR at
+    S 4,096; the step-1 gradients of a cut (``SSM_GRAD_DEPTH``) against the
+    kernels' plain versions; the training CLI twice (the second resumes).
+    The phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.
+    Returns the ``{"sub_quadratic": ...}`` record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm] before the phase: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free")
+    totals = {}
+    reset_all(mods)
+    record = {"section_s": {}}
+
+    def section(key, run):
+        t1 = time.perf_counter()
+        record[key] = run()
+        record["section_s"][key] = time.perf_counter() - t1
+        log(f"[ssm] section {key}: {record['section_s'][key]:.1f} s")
+
+    section("ref", lambda: ssm_ref_phase(dev, mods, totals))
+    if dev.type == "cuda":
+        section("slstm_graphs", lambda: ssm_graph_check(dev))
+    for arch in SSM_ARCHS:
+        section(arch, lambda: ssm_serve_run(dev, arch, mods, totals))
+    section("cli", lambda: [lm_cli_run(v, mods, totals, arch="zamba2-7b", tag="[ssm-cli]",
+                                       cli=SSM_ZAMBA_CLI) for v in ("dense", "qr")]
+            + [lm_cli_run("qr", mods, totals, arch="xlstm-125m", tag="[ssm-cli]"),
+               ssm_example_run(mods, totals)])
+    torch.cuda.memory._set_allocator_settings(LMT_ALLOCATOR)
+    try:
+        batch, micro = SSM_XLSTM_TRAIN
+        section("train_xlstm", lambda: lm_train_fitted(
+            dev, "xlstm-125m", "qr", mods, totals, tag="[ssm-train]", steps=1,
+            depth=lm_config("xlstm-125m").num_layers, batch_size=batch, microbatches=micro))
+        section("train_zamba2", lambda: lm_train_fitted(
+            dev, "zamba2-7b", "qr", mods, totals, tag="[ssm-train]", steps=SSM_TRAIN_STEPS))
+        # zamba2's cut is held in fp32 and read in bf16: its hidden state has
+        # all but collapsed by layer 6 (no residual, ROADMAP.md §3), where a
+        # bf16 rounding of K9's output moves the step-1 gradients through
+        # the gated norms' eps by up to 0.68 of a leaf's scale
+        section("grad_check", lambda: {
+            "xlstm-125m": lm_train_grad_check(
+                dev, mods, totals, arch="xlstm-125m", vocabs=("qr",), tag="[ssm-train]",
+                depth=SSM_GRAD_DEPTH["xlstm-125m"]),
+            "zamba2-7b": lm_train_grad_check(
+                dev, mods, totals, arch="zamba2-7b", vocabs=("qr",), tag="[ssm-train]",
+                depth=SSM_GRAD_DEPTH["zamba2-7b"], compute="float32"),
+            "zamba2-7b bf16": lm_train_grad_check(
+                dev, mods, totals, arch="zamba2-7b", vocabs=("qr",), tag="[ssm-train]",
+                depth=SSM_GRAD_DEPTH["zamba2-7b"], hold=False)})
+        section("train_cli", lambda: ssm_train_cli(mods, totals))
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[ssm] phase {record['phase_s']:.1f} s; launches {totals}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -6173,6 +6895,9 @@ def main() -> int:
     # phase 14: the MoE transformers served and trained (K9 a layer a
     # forward at D 64, K8 for QR tokens, on one card and on the EP ranks)
     moe = moe_phase(dev, by_name, mods)
+    # phase 15: the sub-quadratic models served and trained (K9 a zamba2
+    # site a forward at D 112, K8 for QR tokens)
+    sub_quadratic = ssm_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -6188,6 +6913,7 @@ def main() -> int:
     print(json.dumps({"lm_training": lm_training}), flush=True)
     print(json.dumps({"lm_mesh_training": lm_mesh_training}), flush=True)
     print(json.dumps({"moe": moe}), flush=True)
+    print(json.dumps({"sub_quadratic": sub_quadratic}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,10 @@ from typing import Literal
 
 import torch
 
+# float64 is the port's own: a reference of how far fp32's rounding alone
+# moves a value (chip_smoke.py's phase 15)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16}
+          "float16": torch.float16, "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,12 +3,13 @@ ids -> configs, model bindings and the shape grid; ``--config`` ids -> the
 DLRM configs.
 
 The ten assigned LM architectures are all listed, with ``repro``'s
-bindings, shape grid and skip rules.  The transformer family has a model
-in the port: the dense transformers (qwen2-1.5b, granite-34b, chatglm3-6b,
-minitron-4b) and the MoE ones (granite-moe-3b-a800m, qwen3-moe-235b-a22b);
-for every other arch ``init_fn``, ``train_loss_fn`` and ``make_batch_fn``
+bindings, shape grid and skip rules.  Three kinds have a model in the
+port: the transformers (the dense qwen2-1.5b, granite-34b, chatglm3-6b,
+minitron-4b and the MoE granite-moe-3b-a800m, qwen3-moe-235b-a22b), the
+zamba2 hybrid (zamba2-7b) and xlstm (xlstm-125m); for the prefix models
+(whisper, pixtral) ``init_fn``, ``train_loss_fn`` and ``make_batch_fn``
 raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
-it.
+them.
 ``batch_specs``, ``cache_specs`` and
 ``abstract_params`` are not ported: they come with the dry run.
 """
@@ -58,8 +59,6 @@ ARCHS: dict[str, ArchBinding] = {
 
 # what brings each family the port does not run yet (ROADMAP.md §1)
 NOT_PORTED = {
-    "zamba2": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
-    "xlstm": "ROADMAP.md §1 item 4 (sub-quadratic models: mamba2, zamba2, xlstm)",
     "whisper": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
     "pixtral": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
 }
@@ -73,8 +72,8 @@ def get(arch_id: str) -> ArchBinding:
 
 def ported(binding: ArchBinding) -> bool:
     """Whether the port has a model for ``binding`` (the transformers, dense
-    and MoE)."""
-    return binding.kind == "transformer"
+    and MoE, zamba2 and xlstm)."""
+    return binding.kind not in NOT_PORTED
 
 
 def _require_ported(binding: ArchBinding, what: str) -> None:
@@ -133,8 +132,16 @@ def cells(include_skipped: bool = False):
 # ---------------------------------------------------------------------------
 
 def init_fn(binding: ArchBinding) -> Callable:
-    """``(cfg, *, generator, device) -> params`` for this family."""
+    """``(cfg, *, seed, device) -> (params, axes)`` for this family."""
     _require_ported(binding, "the model")
+    if binding.kind == "zamba2":
+        from repro_torch.models import zamba2 as Z
+
+        return Z.init_zamba2
+    if binding.kind == "xlstm":
+        from repro_torch.models import xlstm as X
+
+        return X.init_xlstm
     from repro_torch.models import transformer as T
 
     return T.init_lm
@@ -142,10 +149,21 @@ def init_fn(binding: ArchBinding) -> Callable:
 
 def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` for this family: the
-    causal LM loss on ``transformer.forward_train``."""
+    causal LM loss on ``transformer.forward_train``, or on the logits of
+    ``forward_zamba2`` / ``forward_xlstm`` without a cache (these run on one
+    card only: no vocabulary range)."""
     _require_ported(binding, "the training loss")
-    from repro_torch.models import transformer as T
     from repro_torch.train import train_step as TS
+
+    if binding.kind == "zamba2":
+        from repro_torch.models import zamba2 as Z
+
+        return TS.make_lm_loss(lambda p, t, c: Z.forward_zamba2(p, t, c)[0], cfg)
+    if binding.kind == "xlstm":
+        from repro_torch.models import xlstm as X
+
+        return TS.make_lm_loss(lambda p, t, c: X.forward_xlstm(p, t, c)[0], cfg)
+    from repro_torch.models import transformer as T
 
     return TS.make_lm_loss(T.forward_train, cfg, vocab_range=T.vocab_range)
 

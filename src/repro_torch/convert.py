@@ -10,9 +10,11 @@ for a list of single tables (``embedding_bag.init_tables``'s output), and
 state (``mu`` and ``nu`` shaped like the params, ``step``), and
 ``hot_tiers_from_numpy(tiers, device)`` for ``repro``'s hot-tier dicts
 (``{"hot_table", "hot_slot"}`` per table, the slot maps int32), and
-``lm_params_from_numpy(tree, device)`` for ``repro.models.transformer``'s
-``init_lm`` tree (``embed``, the stacked ``layers``, ``final_norm``,
-optional ``head``; nested dicts kept as they are).  Both packages then
+``lm_params_from_numpy(tree, device)`` for an LM's tree
+(``repro.models.transformer``'s ``init_lm``: ``embed``, the stacked
+``layers``, ``final_norm``, optional ``head``; ``zamba2``'s and ``xlstm``'s,
+whose ``blocks`` is a list; and a cache or a list of recurrent states:
+dicts, lists and tuples kept as they are).  Both packages then
 compute on the same weights and resume from the same optimizer state.
 """
 
@@ -54,14 +56,17 @@ def hot_tiers_from_numpy(tiers, device=None) -> list[dict]:
              "hot_slot": _tensor(t["hot_slot"], dev).to(torch.int32)} for t in tiers]
 
 
-def lm_params_from_numpy(tree: dict, device=None) -> dict:
-    """``repro``'s LM params (nested dicts of numpy leaves, bf16 included)
-    as the port's: the same nesting, tensors on ``device``."""
+def lm_params_from_numpy(tree, device=None):
+    """``repro``'s LM params, caches or states (dicts, lists and tuples of
+    numpy leaves, bf16 included) as the port's: the same nesting, tensors
+    on ``device``."""
     dev = device_mod.resolve(device)
 
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
         return _tensor(node, dev)
 
     return walk(tree)

@@ -2,12 +2,11 @@
 ``examples/serve_lm.py``): prefill a prompt batch, decode greedily, report
 tokens/s, then the steady decode rate.
 
-Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch qwen2-1.5b] [--device cpu]
+Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch xlstm-125m] [--device cpu]
 
-``repro``'s default arch is xlstm-125m, which the port does not run yet
-(``ROADMAP.md`` §1 item 4); until it does, the default is qwen2-1.5b and
-``--arch`` offers the archs the port runs.  The smoke config is served, as
-in ``repro``, with the QR vocabulary at collision 8 by default.
+The default arch is ``repro``'s, xlstm-125m; ``--arch`` offers every arch
+the port runs.  The smoke config is served, as in ``repro``, with the QR
+vocabulary at collision 8 by default.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from repro_torch.train.serve_step import greedy_generate, serve_family
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b",
+    ap.add_argument("--arch", default="xlstm-125m",
                     choices=sorted(a for a, b in registry.ARCHS.items() if registry.ported(b)))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)

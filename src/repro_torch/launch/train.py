@@ -1,13 +1,14 @@
 """Training launcher: config -> params -> train loop, fault-tolerant (port
 of ``repro.launch.train``).
 
-``--arch dlrm-*`` trains the paper's model; a transformer arch (the dense
-qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b and the MoE
-granite-moe-3b-a800m, qwen3-moe-235b-a22b) trains the causal LM
-through the registry's ``init_fn``, ``train_loss_fn`` and
-``make_batch_fn`` on ``--batch`` sequences of ``--seq`` tokens, each layer
-recomputed in the backward as the config's ``remat`` says; ``--embedding``
-picks either's vocabulary or tables.
+``--arch dlrm-*`` trains the paper's model; an LM arch (the dense
+transformers qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b, the MoE
+granite-moe-3b-a800m, qwen3-moe-235b-a22b, the hybrid zamba2-7b and
+xlstm-125m) trains the causal LM through the registry's ``init_fn``,
+``train_loss_fn`` and ``make_batch_fn`` on ``--batch`` sequences of
+``--seq`` tokens, each layer (each mamba layer of zamba2; xlstm has no
+recompute, as ``repro``'s) recomputed in the backward as the config's
+``remat`` says; ``--embedding`` picks either's vocabulary or tables.
 
 * auto-resume from the newest atomic checkpoint (params, optimizer state and
   the data pipeline's cursor) under ``--ckpt-dir``;
@@ -32,9 +33,11 @@ picks either's vocabulary or tables.
   MoE layers expert-parallel), its tokens through the two-level GnR and
   its loss vocab-parallel.  The ranks agree on the stop
   flag every step (a MAX all-reduce), so all of them checkpoint at the
-  same step.  Checkpoints hold the full logical arrays, so a run resumes
-  on another mesh shape, on one card, or in ``repro`` (the elastic
-  restart).  Only the rank at coordinates 0 prints.
+  same step.  zamba2-7b and xlstm-125m train on one card only: with
+  ``--mesh-shape`` they raise ``NotImplementedError`` (``MESH_WAITS``).
+  Checkpoints hold the full logical arrays, so a run resumes on another
+  mesh shape, on one card, or in ``repro`` (the elastic restart).  Only
+  the rank at coordinates 0 prints.
 
 Runs on the card unless ``--device cpu`` is given.
 
@@ -98,11 +101,29 @@ def place(params, axes, mesh, rules):
     return SH.shard_tree(params, specs, mesh), specs, state_specs
 
 
+# the LM kinds that train on one card only, and what brings their mesh
+MESH_WAITS = {kind: "ROADMAP.md §1 item 10 (the sub-quadratic models on a mesh)"
+              for kind in ("zamba2", "xlstm")}
+
+
+def refuse_mesh(arch: str) -> None:
+    """Raise ``NotImplementedError`` for an arch whose kind has no meshed
+    forward yet (``MESH_WAITS``)."""
+    if arch.startswith("dlrm"):
+        return
+    kind = registry.get(arch).kind
+    if kind in MESH_WAITS:
+        raise NotImplementedError(f"--mesh-shape with {arch}: the {kind} models train on one "
+                                  f"card only; {MESH_WAITS[kind]} brings the mesh")
+
+
 def build_lm(args, dev, mesh=None):
     """-> (cfg, params, opt_state, step_fn, make_batch, state_specs) for an
     LM arch: the registry's bindings, batches of ``--seq`` tokens.  With
     ``mesh``, the params laid out by ``sharding.lm_param_rules`` (tensor
     parallel over ``model``, whole heads only)."""
+    if mesh is not None:
+        refuse_mesh(args.arch)
     binding = registry.get(args.arch)
     cfg = binding.smoke if args.smoke else binding.config
     if args.embedding:
@@ -229,7 +250,7 @@ def _rank(mesh, args) -> dict:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="dlrm-qr | dlrm-tt | dlrm-dense, or a transformer arch (dense or MoE)")
+                    help="dlrm-qr | dlrm-tt | dlrm-dense, or an LM arch")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--embedding", default=None,
                     choices=[None, "dense", "hashed", "qr", "tt"])
@@ -258,6 +279,7 @@ def main(argv=None) -> int:
 
     from repro_torch.launch import mesh as mesh_mod
 
+    refuse_mesh(args.arch)
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
     axes = mesh_axes(shape)
     world = math.prod(shape)

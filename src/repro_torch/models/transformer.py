@@ -130,23 +130,33 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
 _SERVING_CAST = ("w", "b", *moe_mod.STACKS)
 
 
-def serving_params(params: dict, cfg: ModelConfig) -> dict:
-    """``params`` with the vocabulary's tables, every projection's ``w`` and
-    ``b`` (the head's too) and the MoE's expert stacks cast once to the
-    compute dtype.  The lookup, ``dense``, the heads and ``apply_moe`` cast
-    those to it on every call, so serving from this tree gives the same
-    logits bit for bit and reads half the weight bytes a decode step.  The
-    norms keep their dtype (``apply_norm`` widens them to fp32), and so does
-    the MoE's router (it runs in fp32)."""
+def cast_for_serving(params: dict, cfg: ModelConfig, keys) -> dict:
+    """``params`` with the vocabulary's tables and every leaf stored under
+    one of ``keys`` (in dicts, or lists of dicts) cast once to the compute
+    dtype; the other leaves as they are."""
     cd = cfg.cdtype
 
-    def cast(tree: dict) -> dict:
-        return {k: cast(v) if isinstance(v, dict) else (v.to(cd) if k in _SERVING_CAST else v)
-                for k, v in tree.items()}
+    def cast(node, key=None):
+        if isinstance(node, dict):
+            return {k: cast(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(v) for v in node]
+        return node.to(cd) if key in keys else node
 
     out = cast(params)
     out["embed"] = {k: v.to(cd) for k, v in params["embed"].items()}
     return out
+
+
+def serving_params(params: dict, cfg: ModelConfig) -> dict:
+    """``params`` with the vocabulary's tables, every projection's ``w`` and
+    ``b`` (the head's too) and the MoE's expert stacks cast once to the
+    compute dtype (``cast_for_serving``).  The lookup, ``dense``, the heads
+    and ``apply_moe`` cast those to it on every call, so serving from this
+    tree gives the same logits bit for bit and reads half the weight bytes
+    a decode step.  The norms keep their dtype (``apply_norm`` widens them
+    to fp32), and so does the MoE's router (it runs in fp32)."""
+    return cast_for_serving(params, cfg, _SERVING_CAST)
 
 
 # ---------------------------------------------------------------------------

@@ -6,12 +6,13 @@ family (port of ``repro.train.serve_step``).
     decode(params, cache, token, pos, cfg) -> (logits, cache)
     prepare(params, cfg)                   -> the params a server holds
 
-The transformer family is ported; the other families raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
-``greedy_generate`` runs under ``torch.inference_mode`` with no compile
-step (``repro`` jits the prefill and the decode step).  Its decode writes
-the cache in place (``models/transformer.py``), so the cache handed back
-is the one prefill allocated.
+The transformer, zamba2 and xlstm families are ported; the prefix
+families (whisper, pixtral) raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them.  ``greedy_generate`` runs under
+``torch.inference_mode`` with no compile step (``repro`` jits the prefill
+and the decode step).  The transformer's and zamba2's decode write the
+cache in place, so the cache handed back is the one prefill allocated;
+xlstm's decode returns new states.
 """
 
 from __future__ import annotations
@@ -51,8 +52,56 @@ def _tf_family() -> ServeFamily:
     )
 
 
+# ---------------------------------------------------------------------------
+# the sub-quadratic models: the zamba2 hybrid (a KV cache a site beside each
+# layer's SSM state) and xLSTM (recurrent states only).  Their prefills give
+# ``repro``'s last-row logits but head the last row alone, where ``repro``
+# heads every row and slices: at prefill_32k xlstm-125m's whole logits would
+# be 32 x 32,768 x 50,304 bf16, 105 GB
+# ---------------------------------------------------------------------------
+
+def _zamba_family() -> ServeFamily:
+    from repro_torch.models import zamba2 as Z
+
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None: Z.init_zamba2_cache(cfg, b, m, device=device),
+        cache_axes=Z.zamba2_cache_axes,
+        prefill=_zamba_prefill,
+        decode=lambda p, c, tok, pos, cfg: Z.forward_zamba2(p, tok, cfg, cache=c, pos=pos,
+                                                            decode=True),
+        prepare=Z.serving_params,
+    )
+
+
+def _zamba_prefill(params, batch: dict, cfg: ModelConfig, max_len: int):
+    from repro_torch.models import zamba2 as Z
+
+    tokens = batch["tokens"]
+    cache = Z.init_zamba2_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return Z.forward_zamba2(params, tokens, cfg, cache=cache, pos=0, last=True)
+
+
+def _xlstm_family() -> ServeFamily:
+    from repro_torch.models import xlstm as X
+
+    def prefill(params, batch, cfg, max_len):
+        tokens = batch["tokens"]
+        states = X.init_xlstm_state(cfg, tokens.shape[0], device=tokens.device)
+        return X.forward_xlstm(params, tokens, cfg, states=states, last=True)
+
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None: X.init_xlstm_state(cfg, b, device=device),
+        cache_axes=lambda: None,     # recurrent states: replicated over model
+        prefill=prefill,
+        decode=lambda p, c, tok, pos, cfg: X.forward_xlstm(p, tok, cfg, states=c, decode=True),
+        prepare=X.serving_params,
+    )
+
+
 _FAMILIES: dict[str, Callable[[], ServeFamily]] = {
     "transformer": _tf_family,
+    "zamba2": _zamba_family,
+    "xlstm": _xlstm_family,
 }
 
 

@@ -16,7 +16,9 @@ place); hold K8 on a rank's routed token stream (zero rows) bitwise and
 the LM's meshed step over nccl at world 1 bitwise against the single
 card's; hold K9 at granite-moe-3b-a800m's heads (D 64, 24 over 8), the MoE
 layer against its per-token oracle, and two MoE serving calls (and two
-backward passes) bitwise equal; each decides inside the ``cuda`` fixture whether a card exists,
+backward passes) bitwise equal; hold K9 at zamba2-7b's heads (D 112, 32
+over 32) and serve zamba2-7b-smoke and xlstm-125m-smoke against the CPU;
+each decides inside the ``cuda`` fixture whether a card exists,
 and skips without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
 the machine with the card has none.
@@ -1372,3 +1374,107 @@ def test_gpu_moe_serving_and_training_are_bitwise_repeatable(cuda):
         (moe.apply_moe(live, xl, mcfg) ** 2).sum().backward()
         grads.append([xl.grad] + [live[k].grad for k in sorted(live)])
     assert all(torch.equal(u, w) for u, w in zip(*grads))
+
+
+# ---------------------------------------------------------------------------
+# the sub-quadratic models on the card (zamba2: K9 at each shared-attention
+# site, head dim 112 at full width; K8 for a QR vocabulary's tokens)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_at_zamba2_heads(cuda, dtype):
+    """K9 at zamba2-7b's shared block: 32 query heads over 32 kv heads of D
+    112 (the 128 bucket, zero fill past column 112), ragged and full
+    lengths, causal: fp32 within 1e-4 of the plain version, bf16 within one
+    rounding of it in fp32."""
+    fa.reset_launches()
+    n = 0
+    for sq in (1, 127, 1000):
+        q, k, v = _qkv(cuda, 2, 32, 32, sq, sq, 112, dtype, seed=sq)
+        got = fa.flash_fwd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        n += 1
+        _hold(got, lambda *a: ref.flash_fwd_ref(*a, causal=True), (q, k, v), f"D 112 Sq {sq}")
+    assert fa.LAUNCHES["flash_fwd"] == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", ["dense", "qr"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
+def test_gpu_sub_quadratic_smoke_agrees_with_the_cpu(cuda, arch, vocab):
+    """fp32 compute (TF32 off): the card's train, prefill and decode logits
+    (the serve family's) within 1e-4 of the CPU's on the same weights, the
+    greedy tokens equal; K9 once a site a forward (zamba2), K8 once a QR
+    ``embed_tokens``."""
+    from repro_torch.train import serve_step as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    binding = registry.get(arch)
+    kw = dict(embedding_kind=vocab, compute_dtype="float32", qr_collision=8)
+    cfg = binding.smoke.replace(**kw)
+    cpu_params, _ = registry.init_fn(binding)(cfg, seed=0, device="cpu")
+    params = tree_map(lambda a: a.to(cuda), cpu_params)
+    fam = S.serve_family(binding.kind)
+    loss_fn = registry.train_loss_fn(binding, cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 12))
+                            .astype(np.int32))
+    sites = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+    with torch.inference_mode():
+        fa.reset_launches()
+        qg.reset_launches()
+        got, _ = loss_fn(params, {"tokens": toks.to(cuda)})
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_fwd"] == sites
+        assert qg.LAUNCHES["qr_gather"] == (1 if vocab == "qr" else 0)
+        want, _ = loss_fn(cpu_params, {"tokens": toks})
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+        lg, cache = fam.prefill(params, {"tokens": toks[:, :8].to(cuda)}, cfg, 12)
+        clg, ccache = fam.prefill(cpu_params, {"tokens": toks[:, :8]}, cfg, 12)
+        torch.testing.assert_close(lg.cpu(), clg, rtol=1e-4, atol=1e-4)
+        lg2, _ = fam.decode(params, cache, toks[:, 8:9].to(cuda), 8, cfg)
+        clg2, _ = fam.decode(cpu_params, ccache, toks[:, 8:9], 8, cfg)
+        torch.testing.assert_close(lg2.cpu(), clg2, rtol=1e-4, atol=1e-4)
+    out = S.greedy_generate(fam, params, {"tokens": toks[:, :8].to(cuda)}, cfg, max_new=4,
+                            max_len=12)
+    assert torch.equal(out.cpu(), S.greedy_generate(fam, cpu_params, {"tokens": toks[:, :8]},
+                                                    cfg, max_new=4, max_len=12))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [64, 200])
+def test_gpu_slstm_scan_graphed_is_the_eager_loop_bitwise(cuda, steps):
+    """The sLSTM scan replayed as CUDA graphs of ``GRAPH_STEPS`` steps (a
+    first block eagerly, whole blocks by replay, the rest eagerly) gives
+    the eager loop's outputs and final state bit for bit, from zero and
+    from a given state; autograd takes the eager loop."""
+    from repro_torch.models import xlstm as X
+
+    g = torch.Generator(device=cuda).manual_seed(steps)
+    x = torch.randn((3, steps, 2, 4, 16), generator=g, device=cuda).to(torch.bfloat16)
+    r = torch.randn((2, 4, 16, 16), generator=g, device=cuda) / 4
+    st = tuple(torch.rand((3, 2, 16), generator=g, device=cuda) + 0.5 for _ in range(4))
+    with torch.inference_mode():
+        for state in (None, st):
+            a, sa = X.slstm_scan(x, r, state=state, graphs=True)
+            b, sb = X.slstm_scan(x, r, state=state, graphs=False)
+            assert torch.equal(a, b) and all(torch.equal(u, w) for u, w in zip(sa, sb))
+
+
+@pytest.mark.gpu
+def test_gpu_slstm_backward_graphed_is_the_eager_loop_bitwise(cuda):
+    """``_SLSTMScan``'s forward and written-out backward replayed as CUDA
+    graphs give the eager loops' outputs and gradients bit for bit."""
+    from repro_torch.models import xlstm as X
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 150, 2, 4, 16), generator=g, device=cuda)
+    r = torch.randn((2, 4, 16, 16), generator=g, device=cuda) / 4
+    w = torch.randn((2, 150, 2, 16), generator=g, device=cuda)
+    got = []
+    for graphs in (True, False):
+        xx, rr = x.clone().requires_grad_(True), r.clone().requires_grad_(True)
+        hs, _ = X.slstm_scan(xx, rr, graphs=graphs)
+        (hs * w).sum().backward()
+        got.append((hs, xx.grad, rr.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*got))

@@ -5,8 +5,9 @@ loose names ported with them: ``configs.base.MeshConfig``,
 
 Every ``CONFIG`` and ``SMOKE`` of the ten arch modules equals ``repro``'s
 field by field (dtypes by name).  Archs the port has no model for raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them;
-the transformers, dense and MoE, have a model.
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them
+(the prefix models, item 5); the transformers, dense and MoE, zamba2 and
+xlstm have a model.
 The TT entries are held to ``repro``'s: fp32 to 1e-5 (two fp32 contraction
 orders).
 """
@@ -35,7 +36,8 @@ from torch_tt_inputs import tt_args, tt_inputs  # noqa: E402
 
 DENSE = ("qwen2-1.5b", "granite-34b", "chatglm3-6b", "minitron-4b")
 MOE = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
-PORTED = DENSE + MOE
+SUB_QUADRATIC = ("zamba2-7b", "xlstm-125m")
+PORTED = DENSE + MOE + SUB_QUADRATIC
 
 
 def test_ten_archs_present():
@@ -126,19 +128,27 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
             assert params["layers"]["moe"]["w_up"].shape[:2] == (b.smoke.num_layers,
                                                                   b.smoke.num_experts)
             assert serve_step.serve_family(b.kind) is not None
+        if arch in SUB_QUADRATIC:        # their own model, cache and serve family
+            params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
+            assert ("mamba" in params) == (arch == "zamba2-7b")
+            assert ("blocks" in params) == (arch == "xlstm-125m")
+            fam = serve_step.serve_family(b.kind)
+            assert fam.make_cache(b.smoke, 2, 8, device="cpu") is not None
+            assert fam.prefill is not None and fam.decode is not None
         return
     for fn in (registry.init_fn, lambda b: registry.make_batch_fn(b, b.smoke)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
             fn(b)
     if b.kind != "transformer":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
             serve_step.serve_family(b.kind)
 
 
 def test_waiting_entry_points_raise():
     """``train_loss_fn`` gives the causal LM loss for the transformers,
-    dense and MoE, and still raises for the other kinds, naming their
-    ``ROADMAP.md`` item; the dry run's entry points stay absent."""
+    dense and MoE, zamba2 and xlstm, and still raises for the prefix
+    models, naming their ``ROADMAP.md`` item; the dry run's entry points
+    stay absent."""
     import math
 
     for arch in PORTED:
@@ -150,7 +160,7 @@ def test_waiting_entry_points_raise():
         assert abs(float(loss) - math.log(b.smoke.vocab)) < 2.0
     for arch in sorted(set(registry.ARCHS) - set(PORTED)):
         b = registry.get(arch)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item [45]"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
             registry.train_loss_fn(b, b.smoke)
     for name in ("batch_specs", "cache_specs", "abstract_params"):   # the dry run's
         assert not hasattr(registry, name)

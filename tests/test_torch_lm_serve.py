@@ -49,13 +49,13 @@ def test_serve_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 def test_serve_cli_refuses_an_unported_arch():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "xlstm-125m", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "whisper-large-v3", "--smoke", "--device", "cpu"])
 
 
 def test_serve_lm_example_runs_on_the_cpu(capsys):
     serve_lm.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--max-new", "4"])
     out = capsys.readouterr().out
-    assert "qwen2-1.5b (qr embedding): generated (2, 4)" in out
+    assert "xlstm-125m (qr embedding): generated (2, 4)" in out
     assert "steady-state decode:" in out
 
 
@@ -64,6 +64,8 @@ def test_lm_modules_import_no_jax():
         "import sys\n"
         "import repro_torch.configs.registry, repro_torch.configs.base\n"
         "import repro_torch.models.transformer, repro_torch.models.layers\n"
+        "import repro_torch.models.mamba2, repro_torch.models.zamba2\n"
+        "import repro_torch.models.xlstm, repro_torch.launch.train\n"
         "import repro_torch.train.serve_step, repro_torch.launch.serve\n"
         "import repro_torch.examples.serve_lm, repro_torch.data.synthetic\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
