@@ -77,9 +77,11 @@ Phases, each one failing the script if it fails:
    (batch 4, 12 query / 2 kv heads, D 128, seq 4,096), granite-34b's (batch
    1, 48 query heads on one kv head, seq 4,096), a 1,024-query block over
    a 4,096 cache, granite-moe-3b-a800m's (batch 4, 24 query / 8 kv heads
-   of D 64, seq 4,096) and zamba2-7b's shared block (batch 2, 32 query
+   of D 64, seq 4,096), zamba2-7b's shared block (batch 2, 32 query
    heads over 32 kv heads of D 112: the 128 bucket, zero fill past column
-   112), each in fp32 and bf16, then one backward (blockwise
+   112) and whisper-large-v3's non-causal encoder (batch 4, 20 / 20 heads
+   of D 64, 1,536 x 1,536) and cross-attention (4,096 queries over 1,536
+   keys), each in fp32 and bf16, then one backward (blockwise
    recompute) against plain autograd; every output held against K9's plain
    version (bf16 by the one-rounding rule of phase 3) and timed beside its
    bound, ``scaled_dot_product_attention`` and the earlier body's time, each
@@ -236,8 +238,8 @@ Phases, each one failing the script if it fails:
    (2, 2), with the dense vocabulary: the fp32 step-1 gradients at 2
    layers, gathered, within 1e-5 of each leaf's scale of the single card's
    on the same data partition (each data block's gradient, averaged),
-   at 10 layers (``LMM_DENSE_LAYERS``, what the line through depths 1 and
-   2 fitted in every run until PR 25 cut the probes), the bf16 step-1
+   at 6 layers (``LMM_DENSE_LAYERS``, a constant for the script's time
+   below the 10-11 the line through depths 1 and 2 fitted), the bf16 step-1
    gradients there no more than ``LMM_BF16_FACTOR`` times as far from the
    single card's fp32-compute gradients as the single card's bf16 ones,
    two steps; per mesh ms a step (max over ranks), the split into forward,
@@ -246,7 +248,7 @@ Phases, each one failing the script if it fails:
    launches, and on rank (0, 0)'s own calls K9 on layer 0's local q/k/v
    within one rounding of its plain version and K8 bitwise the plain sum
    on the routed streams; the CLI drill (``launch.train --arch qwen2-1.5b
-   --mesh-shape 1,2 --steps 2 --batch 2 --seq 512 --ckpt-dir D``, then one
+   --smoke --mesh-shape 1,2 --steps 2 --batch 2 --seq 512 --ckpt-dir D``, then one
    card with ``--steps 4``, which prints ``[resume] step 2``);
 14. the MoE transformers (``models/moe.py``: the fp32 router's top-k,
    capacity-bounded dispatch, the experts' SwiGLU products, the combine
@@ -327,7 +329,33 @@ Phases, each one failing the script if it fails:
    them ill-conditioned; xlstm its first 4 layers) within 2^-6 of each
    leaf's scale of the kernels' plain versions on the card;
    ``launch.train --arch xlstm-125m --embedding qr --seq 512 --batch 4
-   --steps 2``, then ``--steps 4``, which prints ``[resume] step 2``.
+   --steps 2``, then ``--steps 4``, which prints ``[resume] step 2``;
+16. the prefix models (``models/whisper.py``: the encoder over 1,536
+   frames with K9 non-causal, the decoder's causal self-attention and its
+   cross-attention to the encoder states through K9, the cross k / v
+   frozen in the cache; ``models/pixtral.py``: 256 patches in front of the
+   tokens, K9 causal over both; K8 for a QR vocabulary):
+   ``[prefix-ref]`` whisper-large-v3-smoke and pixtral-12b-smoke with a
+   dense and a QR (collision 8) vocabulary on the card and on the CPU, the
+   weights carried by ``convert``, the same frames / patches and tokens,
+   fp32: train logits, prefill (logits and every cache leaf) and decode
+   within 1e-4, greedy tokens equal, K9 once an attention, ``repro``'s
+   decode-vs-train consistency (5e-5 / 1e-4); whisper-large-v3 at full
+   width and depth (32 + 32 layers) with the dense and the QR vocabulary
+   (the body shared), pixtral-12b at full width and depth (40 layers)
+   with the QR vocabulary, each drawn in fp32 and cast once to bf16, the
+   fp32 tree freed and the peak recorded: ``prefill_32k`` at the batch the
+   line through batches 1 and 2 fits (ms, tokens/s, the FLOP bound, K9's
+   share, whisper's encoder and decoder ms), K9 on the call's own q/k/v
+   at each kind of site (non-causal, causal, cross) within one rounding,
+   K8 bitwise the bf16 sum, K9 against SDPA at the decoder's and the
+   cross shapes; ``decode_32k`` at the batch whose cache fits (ms a step,
+   the bytes bound, the device's busy time); ``launch.serve --smoke`` and
+   ``launch.train --smoke`` for each; training on one card, QR, S 4,096,
+   remat ``full``: whisper at full depth, 4 sequences in 2 microbatches,
+   pixtral at the depth the line through depths 1 and 2 fits, batch 1,
+   2 steps each (ms a step, the split, K9's ms, peak); the step-1
+   gradients of a 2-layer cut within 2^-6 of the kernels' plain versions.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
@@ -335,7 +363,7 @@ line per served config, one ``{"training": [...]}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
 ``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
 one ``{"moe": ...}`` line, one ``{"sub_quadratic": ...}`` line, one
-``{"kernels": [...]}`` line, and last
+``{"prefix": ...}`` line, one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
@@ -1536,14 +1564,20 @@ def examples_run(mods, quickstart, cache_plan) -> dict:
 # group in the repo), batch 1; a query block of 1,024 over a 4,096 cache;
 # and granite-moe-3b-a800m's (24 query heads over 8 kv heads of 64: the
 # D 64 bucket), batch 4
+# name, B, H, KH, Sq, Skv, D, causal
 FLASH_CASES = [
-    ("qwen2-1.5b", 4, 12, 2, 4096, 4096, 128),
-    ("granite-34b", 1, 48, 1, 4096, 4096, 128),
-    ("qwen2-1.5b Sq 1024 / Skv 4096", 4, 12, 2, 1024, 4096, 128),
-    ("granite-moe-3b-a800m", 4, 24, 8, 4096, 4096, 64),
-    ("zamba2-7b", 2, 32, 32, 4096, 4096, 112),
+    ("qwen2-1.5b", 4, 12, 2, 4096, 4096, 128, True),
+    ("granite-34b", 1, 48, 1, 4096, 4096, 128, True),
+    ("qwen2-1.5b Sq 1024 / Skv 4096", 4, 12, 2, 1024, 4096, 128, True),
+    ("granite-moe-3b-a800m", 4, 24, 8, 4096, 4096, 64, True),
+    ("zamba2-7b", 2, 32, 32, 4096, 4096, 112, True),
+    # whisper-large-v3: the encoder over its 1,536 frames, and a decoder's
+    # cross-attention from 4,096 tokens to them, both non-causal
+    ("whisper-large-v3 encoder", 4, 20, 20, 1536, 1536, 64, False),
+    ("whisper-large-v3 cross Sq 4096 / Skv 1536", 4, 20, 20, 4096, 1536, 64, False),
 ]
-SDPA_CALL = "scaled_dot_product_attention(is_causal=True, enable_gqa=True), top-left causal"
+SDPA_CALL = ("scaled_dot_product_attention(is_causal=causal, enable_gqa=True), top-left "
+             "causal")
 
 
 def flash_flops(b, h, sq, skv, d, causal=True) -> int:
@@ -1566,13 +1600,13 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
     g.manual_seed(8)
     fa.reset_launches()
     runs = []
-    for name, b, h, kh, sq, skv, d in FLASH_CASES:
+    for name, b, h, kh, sq, skv, d, causal in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
             k = torch.randn((b, kh, skv, d), generator=g, device=dev).to(dtype)
             v = torch.randn((b, kh, skv, d), generator=g, device=dev).to(dtype)
-            runs.append((name, dtype, (q, k, v), ops.flash_attention_fused(q, k, v,
-                                                                           causal=True)))
+            runs.append((name, dtype, causal, (q, k, v),
+                         ops.flash_attention_fused(q, k, v, causal=causal)))
     # one backward at qwen2's width, batch 1, seq 1,024: the recompute through
     # the blockwise plain attention against plain autograd of K9's plain version
     q, k, v = (torch.randn(s, generator=g, device=dev)
@@ -1596,29 +1630,31 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
     del lhs, rhs, q, k, v, w
 
     cases = []
-    for name, dtype, (q, k, v), out in runs:
+    for name, dtype, causal, (q, k, v), out in runs:
         b, h, sq, d = q.shape
         skv = k.shape[2]
         if out.dtype != dtype:
             raise AssertionError(f"flash {name}: {out.dtype} out of {dtype} inputs")
         checked = hold(f"flash {name} {dtype}", out,
-                       lambda *a: ref.flash_fwd_ref(*a, causal=True), (q, k, v))
-        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                       lambda *a: ref.flash_fwd_ref(*a, causal=causal), (q, k, v))
+        library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                          enable_gqa=True)
         lib_err = float((library().float() - out.float()).abs().max())
-        flops = flash_flops(b, h, sq, skv, d)
+        flops = flash_flops(b, h, sq, skv, d, causal)
         nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
         peak = FP32_FLOP_S if dtype == torch.float32 else BF16_FLOP_S
         t_ops, t_bytes = flops / peak, nbytes / BW_BYTES_S
         c = {"case": name, "dtype": str(dtype).replace("torch.", ""), "body": fa.BODY[dtype][1],
              "shape": {"B": b, "H": h, "KH": k.shape[1], "Sq": sq, "Skv": skv, "D": d},
-             **checked, "ms": timed(lambda: fa.flash_fwd(q, k, v, causal=True), 5),
-             "plain_ms": timed(lambda: ref.flash_fwd_ref(q, k, v, causal=True), 2, warm=1),
+             "causal": causal,
+             **checked, "ms": timed(lambda: fa.flash_fwd(q, k, v, causal=causal), 5),
+             "plain_ms": timed(lambda: ref.flash_fwd_ref(q, k, v, causal=causal), 2, warm=1),
              "bound_ms": max(t_ops, t_bytes) * 1e3,
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "library_ms": timed(library, 5), "library_max_abs_diff": lib_err,
              "flops": flops, "bytes": nbytes}
-        log(f"[flash] {name} {c['dtype']} ({c['body']}): {fmt_err(checked)}, kernel "
+        log(f"[flash] {name} {c['dtype']} ({c['body']}{'' if causal else ', non-causal'}): "
+            f"{fmt_err(checked)}, kernel "
             f"{c['ms']:.4f} ms (earlier {fmt_range(EARLIER_MS['flash_fwd'][c['dtype']])} ms at "
             f"qwen2-1.5b width), plain "
             f"{c['plain_ms']:.4f} ms, SDPA {c['library_ms']:.4f} ms (|SDPA - kernel| "
@@ -3674,14 +3710,14 @@ def lm_consistency(params, cfg, batch: int, seq: int, dev) -> dict:
     return out
 
 
-def hold_attention(q, k, v, out) -> dict:
+def hold_attention(q, k, v, out, causal: bool = True) -> dict:
     """K9's ``out`` on (q, k, v) against the plain blockwise
-    ``layers.flash_attention`` on their fp32 widening (causal): fp32 to
+    ``layers.flash_attention`` on their fp32 widening (``causal``): fp32 to
     ``ERR_TOL``, bf16 per element within one rounding (phase 6's rule)."""
     from repro_torch.models import layers
 
     with torch.inference_mode():
-        plain = layers.flash_attention(q.float(), k.float(), v.float(), causal=True)
+        plain = layers.flash_attention(q.float(), k.float(), v.float(), causal=causal)
     if out.dtype == torch.float32:
         err = float((out - plain).abs().max())
         rec = {"max_abs_err": err, "tolerance": ERR_TOL}
@@ -3902,29 +3938,35 @@ def timed_entries(ops, names):
             setattr(ops, n, saved[n])
 
 
-def k9_against_sdpa(cfg, batch: int, seq: int, dev) -> dict:
-    """One layer's attention at the prefill's shapes on random bf16 q/k/v:
-    K9 (``fa.flash_fwd``) and ``scaled_dot_product_attention`` (the flash
-    backend, causal, k and v repeated to the query heads beforehand), CUDA
-    events, mean of 2 calls after one."""
+def k9_against_sdpa(cfg, batch: int, seq: int, dev, skv: int | None = None,
+                    causal: bool = True) -> dict:
+    """One layer's attention at the prefill's shapes (``seq`` queries over
+    ``skv`` keys, ``seq`` without) on random bf16 q/k/v: K9
+    (``fa.flash_fwd``) and ``scaled_dot_product_attention`` (the flash
+    backend, k and v repeated to the query heads beforehand), CUDA events,
+    mean of 2 calls after one."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import flash_attention as fa
 
+    skv = seq if skv is None else skv
     g = torch.Generator(device=dev).manual_seed(6)
     h, kh, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
     q = torch.randn((batch, h, seq, d), generator=g, device=dev, dtype=torch.bfloat16)
-    k, v = (torch.randn((batch, kh, seq, d), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((batch, kh, skv, d), generator=g, device=dev, dtype=torch.bfloat16)
             for _ in range(2))
-    k9 = timed(lambda: fa.flash_fwd(q, k, v, causal=True), 2, warm=1)
+    k9 = timed(lambda: fa.flash_fwd(q, k, v, causal=causal), 2, warm=1)
     kk, vv = (t.repeat_interleave(h // kh, dim=1) for t in (k, v))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-        sdpa = timed(lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=True), 2,
+        sdpa = timed(lambda: F.scaled_dot_product_attention(q, kk, vv, is_causal=causal), 2,
                      warm=1)
     del q, k, v, kk, vv
     torch.cuda.empty_cache()
-    return {"k9_ms": k9, "sdpa_ms": sdpa, "shape": [batch, h, kh, seq, d]}
+    rec = {"k9_ms": k9, "sdpa_ms": sdpa, "shape": [batch, h, kh, seq, d]}
+    if skv != seq or not causal:
+        rec.update(skv=skv, causal=causal)
+    return rec
 
 
 def reserved_growth(run, dev) -> int:
@@ -4090,6 +4132,7 @@ def lm_cli_run(vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-cl
     K9 once a layer (a site) for its prefill, K8 once a QR lookup."""
     import io
 
+    from repro_torch.configs import registry
     from repro_torch.launch import serve
 
     cli = cli or LM_CLI
@@ -4101,7 +4144,7 @@ def lm_cli_run(vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-cl
     secs = time.perf_counter() - t0
     n = take_launches(mods, totals)
     text = buf.getvalue()
-    sites = k9_calls(lm_config(arch))
+    sites = k9_calls(registry.get(arch).smoke if "--smoke" in cli else lm_config(arch))
     new = int(cli[cli.index("--max-new") + 1])
     want = {**({"flash_fwd": sites} if sites else {}),
             **({"qr_gather": 1 + new} if vocab == "qr" else {})}
@@ -4342,11 +4385,44 @@ def lmt_shape():
 
 
 def k9_calls(cfg) -> int:
-    """K9 launches of one forward: one a layer (the transformers), one a
-    shared-attention site (the zamba2 hybrid), none (xlstm)."""
+    """K9 launches of one forward: one a layer (the transformers, pixtral),
+    one a shared-attention site (the zamba2 hybrid), none (xlstm), one an
+    encoder layer and two a decoder layer, self and cross (whisper)."""
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_every
+    if cfg.is_encoder_decoder:
+        return cfg.enc_layers + 2 * cfg.dec_layers
     return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def depth_of(cfg) -> int:
+    """The depth ``with_depth`` cuts: the layers, an encoder-decoder's
+    encoder (and decoder) layers."""
+    return cfg.enc_layers if cfg.is_encoder_decoder else cfg.num_layers
+
+
+def with_depth(cfg, depth: int):
+    """``cfg`` cut to ``depth`` layers; an encoder-decoder (whisper) to
+    ``depth`` encoder and ``depth`` decoder layers."""
+    if cfg.is_encoder_decoder:
+        return cfg.replace(enc_layers=depth, dec_layers=depth, num_layers=2 * depth)
+    return cfg.replace(num_layers=depth)
+
+
+def lm_batch_for(cfg, batch: int, seq: int, g: torch.Generator, dev) -> dict:
+    """``batch`` sequences of ``seq`` tokens drawn from ``g``, then a prefix
+    model's standard normal rows: whisper's ``N_AUDIO`` frames, pixtral's
+    ``num_patches`` patches."""
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev,
+                                   dtype=torch.int32)}
+    if cfg.is_encoder_decoder:
+        from repro_torch.models.whisper import N_AUDIO
+
+        out["frames"] = torch.randn((batch, N_AUDIO, cfg.d_model), generator=g, device=dev)
+    elif cfg.num_patches:
+        out["patches"] = torch.randn((batch, cfg.num_patches, cfg.d_model), generator=g,
+                                     device=dev)
+    return out
 
 
 def step_launches(cfg, microbatches: int) -> dict:
@@ -4371,17 +4447,30 @@ def step_launches(cfg, microbatches: int) -> dict:
     return n
 
 
-def leaf_scale_errors(got, want) -> tuple[float, str]:
-    """The worst leaf's max |got - want| over its max |want|, and its path."""
+def leaf_scale_errors(got, want, scale_of=None) -> tuple[float, str]:
+    """The worst leaf's max |got - want| over its max |want| (over the max
+    |want| of the leaf at ``scale_of(path)``, where given), and its path."""
     from repro_torch import tree
 
+    pairs = [(path, a, b.to(a.device).float())
+             for (path, a), b in zip(tree.leaves_with_paths(got), tree.leaves(want))]
+    scale = {path: float(b.abs().max()) for path, _, b in pairs}
     worst, where = 0.0, ""
-    for (path, a), b in zip(tree.leaves_with_paths(got), tree.leaves(want)):
-        b = b.to(a.device).float()
-        rel = float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    for path, a, b in pairs:
+        ref = scale[scale_of(path)] if scale_of else scale[path]
+        rel = float((a.float() - b).abs().max()) / max(ref, 1e-30)
         if rel > worst:
             worst, where = rel, path
     return worst, where
+
+
+def key_bias_scale(path: str) -> str:
+    """The leaf whose scale a gradient is held to in a model whose attention
+    has no RoPE (whisper): a key projection's bias is held to its weight's.
+    A softmax does not move when all of a query's scores move together, so
+    that bias's gradient is zero but for rounding, on both paths (RoPE
+    turns it by each key's own angle, and it is not zero there)."""
+    return path[:-1] + "w" if path.endswith("wk/b") else path
 
 
 def lm_train_ref(dev, mods, totals) -> dict:
@@ -4796,7 +4885,8 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
     ``LMT_GRAD`` sequences of 4,096, through the kernels (K9, K8 for QR, K5
     for TT) against the same step through their plain versions on the card
     (``plain_lm_path``): each leaf within ``GRAD_TOL`` of its scale (phase
-    7's bound; without ``hold`` read, not held).  Only the kernels'
+    7's bound; without ``hold`` read, not held; whisper's key biases of
+    their weights', ``key_bias_scale``).  Only the kernels'
     forwards differ between the two, each within one rounding of the
     other's.  An MoE layer would route the
     tokens whose top-k margin lies below that rounding either way, and
@@ -4817,13 +4907,12 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
     seq = lmt_shape().seq_len
     out = {}
     for vocab in vocabs:
-        cfg = lm_config(arch).replace(num_layers=depth, embedding_kind=vocab,
-                                      tt_exec="pallas", compute_dtype=compute)
+        cfg = with_depth(lm_config(arch), depth).replace(embedding_kind=vocab, tt_exec="pallas",
+                                                         compute_dtype=compute)
         params, _ = registry.init_fn(registry.get(arch))(cfg, seed=0, device=dev)
         loss_fn = registry.train_loss_fn(registry.get(arch), cfg)
         g = torch.Generator(device=dev).manual_seed(9)
-        batch = {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
-                                         dtype=torch.int32)}
+        batch = lm_batch_for(cfg, b, seq, g, dev)
         take_launches(mods, totals)
         routes = ([], [])
         with kept_calls(moe_mod, "route", lambda a, o: routes[0].append(o[0])):
@@ -4835,7 +4924,8 @@ def lm_train_grad_check(dev, mods, totals, arch: str = LM_MAIN, vocabs=LMT_VOCAB
         torch.cuda.synchronize()
         if take_launches(mods, totals) or n != step_launches(cfg, 1):
             raise AssertionError(f"{tag} grad check {vocab}: launches {n}")
-        worst, where = leaf_scale_errors(g_kernel, g_plain)
+        worst, where = leaf_scale_errors(
+            g_kernel, g_plain, key_bias_scale if cfg.is_encoder_decoder else None)
         out[vocab] = {"layers": depth, "batch": b, "seq": seq, "compute": compute, "held": hold,
                       "rel_err": worst, "leaf": where, "loss_kernel": float(loss_k),
                       "loss_plain": float(loss_p), "launches": n}
@@ -4887,12 +4977,11 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     init = registry.init_fn(binding)
     full = lm_config(arch).replace(embedding_kind=vocab)
     g = torch.Generator(device=dev).manual_seed(10)
-    batch = {"tokens": torch.randint(0, full.vocab, (batch_size, seq), generator=g, device=dev,
-                                     dtype=torch.int32)}
+    batch = lm_batch_for(full, batch_size, seq, g, dev)
     ocfg = opt.OptConfig(**LMT_FIT_OPT)
 
     def one(layers: int):
-        cfg = full.replace(num_layers=layers)
+        cfg = with_depth(full, layers)
         params, _ = init(cfg, seed=0, device=dev)
         step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
         step(params, opt.init(params), batch)
@@ -4906,7 +4995,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
         gc.collect()
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info(dev)[0]
-        depth = int(max(1, min(full.num_layers, (free - LM_HEADROOM - fixed) // slope)))
+        depth = int(max(1, min(depth_of(full), (free - LM_HEADROOM - fixed) // slope)))
     fwd, upd = [], []
     saved_update = TS.opt_mod.update
 
@@ -4920,7 +5009,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
 
     too_big = []
     while True:         # the first step confirms the fit, as in ``lm_train_main``
-        cfg = full.replace(num_layers=depth)
+        cfg = with_depth(full, depth)
         take_launches(mods, totals)
         params, _ = init(cfg, seed=0, device=dev)
         state = opt.init(params)
@@ -4971,7 +5060,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     total = start.elapsed_time(upd[-1][1])
     forward, update = event_ms(fwd), event_ms(upd)
     rec = {"arch": full.name, "vocab": full.embedding_kind, "layers": depth,
-           "full_layers": full.num_layers, "seq": seq, "batch": batch_size,
+           "full_layers": depth_of(full), "seq": seq, "batch": batch_size,
            "microbatches": microbatches, "out_of_memory_at": too_big,
            "reserved_by_depth": reserved, "reserved_a_layer": slope,
            "reserved_fixed": fixed, "free_bytes": free, "losses": losses,
@@ -4988,7 +5077,8 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     fitted = (f"{slope / 2**30:.2f} GiB reserved a layer + {fixed / 2**30:.2f} GiB, from depths "
               f"{LMT_DEPTHS}, in {free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out "
               f"of memory at {too_big or 'none'}" if reserved else "a depth given")
-    log(f"{tag} {full.name} {full.embedding_kind} vocab ({depth} of {full.num_layers} layers: "
+    log(f"{tag} {full.name} {full.embedding_kind} vocab ({depth} of {depth_of(full)} "
+        f"{'encoder + decoder ' if full.is_encoder_decoder else ''}layers: "
         f"{fitted}), {batch_size} x {seq} in {microbatches} microbatch(es), {steps} steps on "
         f"one batch: losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"{rec['ms_per_step']:.1f} ms a step, {rec['tokens_per_s']:.0f} tokens/s"
@@ -5111,11 +5201,12 @@ LMM_WORLD1 = (2, 2)        # layers, sequences of the world-1 check (S 4,096)
 # line through two small microbatches bounds nothing, and one through
 # phase 12's ``LMT_FIT`` sizes would cost ~35 s of gloo to pick a size the
 # script could not take
-LMM_MICROBATCH = 2
+LMM_MICROBATCH = 1
 # the (2, 2) run's depth, a constant for the script's time: the line through
 # depths 1 and 2 (four ranks' reserved memory) fitted 10-11 of 28 layers in
-# every run of PR 23-25 (NVIDIA H100 80GB HBM3) and cost ~15 s of probes
-LMM_DENSE_LAYERS = 10
+# every run where it ran (NVIDIA H100 80GB HBM3) and cost ~15 s of probes;
+# the steps and the single-card bf16 gradient references scale with it
+LMM_DENSE_LAYERS = 6
 LMM_GRAD32_LAYERS = 2      # the (2, 2) fp32 step-1 gradient check's depth
 LMM_STEPS = 2
 LMM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=LMM_STEPS)
@@ -5138,10 +5229,13 @@ LMM_FP32_TOL = 1e-5
 # measured in the same run); a dropped, doubled or misplaced partial reads
 # at the scale of the leaf, as the fp32 check at 2 layers shows to 1e-5.
 LMM_BF16_FACTOR = 2.0
-# the CLI drill: (1, 2) at full width and depth to step 2, then one card
-# resumes to step 4 from the checkpoint (the full logical arrays)
-LMM_CLI = ("--arch", "qwen2-1.5b", "--embedding", "qr", "--batch", "2", "--seq", "512",
-           "--log-every", "1", "--rank-timeout", "500")
+# the CLI drill: (1, 2) to step 2, then one card resumes to step 4 from the
+# checkpoint (the full logical arrays), on the smoke config: at full width
+# the ranks' set-up and the 18 GB checkpoint took 113 of the phase's 223 s
+# (NVIDIA H100 80GB HBM3, 700 W), and the (1, 2) run above holds the full
+# width and depth
+LMM_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--embedding", "qr", "--batch", "2", "--seq",
+           "512", "--log-every", "1", "--rank-timeout", "500")
 
 
 def lmm_tokens(cfg, batch: int, seq: int, dev, seed: int = 7) -> dict:
@@ -5484,8 +5578,8 @@ def lmm_log(rec: dict) -> None:
 
 def lm_mesh_cli(mods, totals) -> dict:
     """The CLI drill: ``python -m repro_torch.launch.train`` with ``LMM_CLI``
-    and ``--mesh-shape 1,2 --steps 2`` (two gloo ranks on the card, full
-    width and depth), then the same without ``--mesh-shape`` and with
+    and ``--mesh-shape 1,2 --steps 2`` (two gloo ranks on the card, the
+    smoke config), then the same without ``--mesh-shape`` and with
     ``--steps 4`` in this process, which must print ``[resume] step 2`` (the
     meshed checkpoint's full logical arrays restored on one card)."""
     import io
@@ -6761,6 +6855,569 @@ def ssm_phase(dev, by_name, mods) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the prefix models (whisper's encoder-decoder, pixtral's patch
+# prefix) served and trained on one card
+# ---------------------------------------------------------------------------
+
+PREFIX_ARCHS = ("whisper-large-v3", "pixtral-12b")
+# repro's decode-vs-train bounds (tests/test_models_consistency.py): the
+# prefill's last row, the decode step
+PREFIX_CONSIST_TOL = (5e-5, 1e-4)
+PREFIX_FIT_BATCHES = (1, 2)   # prefill_32k: the batches whose reserved memory gives the line
+# whisper-large-v3's full-depth training step: sequences, microbatches (train_4k's
+# 256 cut for the script's time, as xlstm-125m's)
+PREFIX_WHISPER_TRAIN = (4, 2)
+PREFIX_TRAIN_STEPS = 2
+PREFIX_GRAD_DEPTH = 2         # a 2-layer cut (whisper: 2 encoder + 2 decoder layers)
+PREFIX_CLI = ("--smoke", "--batch", "2", "--prompt-len", "16", "--max-new", "4")
+PREFIX_TRAIN_CLI = ("--smoke", "--embedding", "qr", "--batch", "2", "--seq", "32", "--steps",
+                    "2", "--log-every", "1")
+
+
+def prefix_key(cfg) -> str:
+    """The batch key of a prefix model's rows: whisper's frames, pixtral's
+    patches."""
+    return "frames" if cfg.is_encoder_decoder else "patches"
+
+
+def prefix_forward(cfg):
+    """The train forward of a prefix model: ``(params, prefix, tokens, cfg)
+    -> logits``."""
+    from repro_torch.models import pixtral as P
+    from repro_torch.models import whisper as W
+
+    return W.forward_train if cfg.is_encoder_decoder else P.forward_train
+
+
+def prefix_consistency(params, cfg, batch: dict, fam) -> dict:
+    """``repro``'s decode-vs-train check on the port (fp32): the serve
+    family's prefill of all but the last token and one decode step (at the
+    position after the patches, for pixtral) against ``forward_train``'s
+    last two rows, within ``PREFIX_CONSIST_TOL``."""
+    toks = batch["tokens"]
+    s = toks.shape[1]
+    with torch.inference_mode():
+        full = prefix_forward(cfg)(params, batch[prefix_key(cfg)], toks, cfg)
+        lg, cache = fam.prefill(params, {**batch, "tokens": toks[:, :s - 1]}, cfg, s)
+        lg2, _ = fam.decode(params, cache, toks[:, s - 1:], s - 1 + cfg.num_patches, cfg)
+    out = {}
+    for (name, a, b), tol in zip((("prefill", lg[:, 0], full[:, s - 2]),
+                                  ("decode", lg2[:, 0], full[:, s - 1])), PREFIX_CONSIST_TOL):
+        d = (a - b).abs()
+        out[name] = float(d.max())
+        if not bool((d <= tol + tol * b.abs()).all()):
+            raise AssertionError(f"[prefix-ref] {cfg.name} consistency {name}: {out[name]}")
+    return out
+
+
+def prefix_ref_phase(dev, mods, totals) -> dict:
+    """``[prefix-ref]``: whisper-large-v3-smoke and pixtral-12b-smoke, each
+    with a dense and a QR (collision 8) vocabulary, fp32 compute, the same
+    weights carried from the CPU onto the card by
+    ``convert.lm_params_from_numpy`` and the same batch (frames or patches
+    and 12 tokens): ``forward_train``'s logits, the serve family's prefill
+    (its last logits and every cache leaf: whisper's self and cross k / v)
+    and one decode step within ``LM_REF_TOL``, the greedy tokens equal, K9
+    once an attention a forward and K8 once a QR lookup; ``repro``'s
+    decode-vs-train consistency on the card (``prefix_consistency``)."""
+    from repro_torch import convert, tree
+    from repro_torch.configs import registry
+    from repro_torch.train import serve_step as S
+
+    out = {}
+    for arch in PREFIX_ARCHS:
+        binding = registry.get(arch)
+        fam = S.serve_family(binding.kind)
+        for vocab in ("dense", "qr"):
+            tag = f"[prefix-ref] {arch} {vocab}"
+            cfg = binding.smoke.replace(embedding_kind=vocab, qr_collision=8,
+                                        compute_dtype="float32")
+            key, fwd = prefix_key(cfg), prefix_forward(cfg)
+            cpu, _ = registry.init_fn(binding)(cfg, seed=0, device="cpu")
+            card = convert.lm_params_from_numpy(tree.tree_map(lambda a: a.numpy(), cpu), dev)
+            batch = registry.make_batch_fn(binding, cfg)(2, 12, seed=1, step=0)
+            on = {k: v.to(dev) for k, v in batch.items()}
+            prompt = {**batch, "tokens": batch["tokens"][:, :8]}
+            on_prompt = {**on, "tokens": on["tokens"][:, :8]}
+            pos = 8 + cfg.num_patches
+            errs = {}
+            with torch.inference_mode():
+                reset_all(mods)
+                got = fwd(card, on[key], on["tokens"], cfg)
+                torch.cuda.synchronize()
+                n = take_launches(mods, totals)
+                want_n = {"flash_fwd": k9_calls(cfg), **({"qr_gather": 1} if vocab == "qr"
+                                                          else {})}
+                if n != want_n:
+                    raise AssertionError(f"{tag}: launches {n}, not {want_n}")
+                card_vs_cpu("train", got, fwd(cpu, batch[key], batch["tokens"], cfg), errs, tag)
+                lg, cache = fam.prefill(card, on_prompt, cfg, 12)
+                clg, ccache = fam.prefill(cpu, prompt, cfg, 12)
+                card_vs_cpu("prefill", lg, clg, errs, tag)
+                for a, b in zip(tree.leaves(cache), tree.leaves(ccache)):
+                    card_vs_cpu("cache", a, b, errs, tag)
+                lg2, _ = fam.decode(card, cache, on["tokens"][:, 8:9], pos, cfg)
+                clg2, _ = fam.decode(cpu, ccache, batch["tokens"][:, 8:9], pos, cfg)
+                card_vs_cpu("decode", lg2, clg2, errs, tag)
+            tok_card = S.greedy_generate(fam, card, on_prompt, cfg, max_new=4, max_len=12).cpu()
+            tok_cpu = S.greedy_generate(fam, cpu, prompt, cfg, max_new=4, max_len=12)
+            if not torch.equal(tok_card, tok_cpu):
+                raise AssertionError(f"{tag}: greedy tokens {tok_card} vs {tok_cpu}")
+            errs["consistency"] = prefix_consistency(card, cfg, on, fam)
+            take_launches(mods, totals)
+            out[f"{arch}/{vocab}"] = errs
+            c = errs["consistency"]
+            log(f"{tag} vocab, card vs CPU (fp32): max |diff| train {errs['train']:.2e}, prefill "
+                f"{errs['prefill']:.2e}, cache {errs['cache']:.2e}, decode {errs['decode']:.2e} "
+                f"(held to {LM_REF_TOL}); greedy tokens equal; repro's consistency on the card: "
+                f"prefill {c['prefill']:.2e}, decode {c['decode']:.2e} (held to "
+                f"{PREFIX_CONSIST_TOL}); launches a forward {n}")
+    return out
+
+
+@contextlib.contextmanager
+def kept_attention_sites(ops, kept: dict):
+    """While open: the first K9 call of each kind of site, its q/k/v and
+    output (the last batch row, copied) under ``kept["k9"][site]`` with
+    ``site`` ``causal`` (a decoder's self-attention, pixtral's),
+    ``non-causal`` (whisper's encoder) or ``cross`` (Sq != Skv), and every K8
+    call's inputs and output in the list ``kept["k8"]``."""
+    saved = ops.flash_attention_fused
+
+    def k9(q, k, v, *, causal=True):
+        out = saved(q, k, v, causal=causal)
+        site = "causal" if causal else ("cross" if q.shape[2] != k.shape[2] else "non-causal")
+        sites = kept.setdefault("k9", {})
+        if site not in sites:
+            sites[site] = tuple(t[-1:].detach().clone() for t in (q, k, v, out))
+        return out
+
+    def k8(a, out):
+        kept.setdefault("k8", []).append(tuple(t.detach() for t in (*a[:4], out)))
+
+    ops.flash_attention_fused = k9
+    try:
+        with kept_calls(ops, "qr_lookup", k8):
+            yield kept
+    finally:
+        ops.flash_attention_fused = saved
+
+
+def hold_sites(kept: dict, where: str) -> dict:
+    """``kept_attention_sites``' captures held against their plain versions:
+    each site's K9 by ``hold_attention`` (its own causality), the K8 calls
+    as ``hold_kept`` holds them."""
+    rec = {f"k9 {site}": hold_attention(*args, causal=site == "causal")
+           for site, args in kept.get("k9", {}).items()}
+    bad = {k: v for k, v in rec.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"[prefix] {where}: K9 vs plain on the main path {bad}")
+    if "k8" in kept:
+        rec.update(hold_kept({"k8": kept["k8"]}, where))
+    return rec
+
+
+def sites_text(held: dict) -> str:
+    """``hold_sites``' record as one line."""
+    parts = [f"K9 {k[3:]} {v['shape']} {fmt_err(v)}" for k, v in held.items()
+             if k.startswith("k9 ")]
+    if "k8" in held:
+        parts.append(held_text({"k8": held["k8"]}))
+    return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def prefix_watch(cfg):
+    """While open, for whisper: a pair of CUDA events around the encoder
+    (``whisper.encode``) and around every decoder layer
+    (``whisper._dec_layer_fwd``): ``{part: [(start, end), ...]}``; for
+    pixtral nothing."""
+    from repro_torch.models import whisper as W
+
+    marks = {}
+    if not cfg.is_encoder_decoder:
+        yield marks
+        return
+    names = (("encode", "encoder"), ("_dec_layer_fwd", "decoder"))
+    saved = {name: getattr(W, name) for name, _ in names}
+
+    def wrap(fn, part):
+        def call(*a, **kw):
+            e = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            e[0].record()
+            out = fn(*a, **kw)
+            e[1].record()
+            marks[part].append(e)
+            return out
+        return call
+
+    for name, part in names:
+        marks[part] = []
+        setattr(W, name, wrap(saved[name], part))
+    try:
+        yield marks
+    finally:
+        for name, fn in saved.items():
+            setattr(W, name, fn)
+
+
+def prefix_prefill_flops(cfg, batch: int, seq: int) -> int:
+    """A prefill's matrix-product and attention flops: pixtral's as a
+    decoder's over its patches and tokens (``prefill_flops``); whisper's
+    encoder over ``N_AUDIO`` frames (2 x its layers' weights a frame, 4 D a
+    (query, key) pair and head), its decoder over ``seq`` tokens (2 x the
+    self-attention's, q and o of the cross-attention's and the MLP's
+    weights a token, causal self-attention, the cross-attention's 4 D a
+    (token, frame) pair and head), the cross k and v over the frames, and
+    the head on the last token."""
+    from repro_torch.models.whisper import N_AUDIO
+
+    if not cfg.is_encoder_decoder:
+        return prefill_flops(cfg, batch, seq + cfg.num_patches)
+    d, hd, h = cfg.d_model, cfg.head_dim_, cfg.num_heads
+    attn_w = 4 * d * h * hd
+    mlp_w = 2 * d * cfg.d_ff
+    pair = 4 * hd * h
+    enc = cfg.enc_layers * (2 * (attn_w + mlp_w) * N_AUDIO + pair * N_AUDIO * N_AUDIO)
+    dec = cfg.dec_layers * (2 * (attn_w + 2 * d * h * hd + mlp_w) * seq
+                            + pair * seq * (seq + 1) // 2 + pair * seq * N_AUDIO
+                            + 2 * 2 * d * h * hd * N_AUDIO)
+    return batch * (enc + dec + 2 * d * cfg.vocab)
+
+
+def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None) -> dict:
+    """``prefill_32k`` through the serve family: one prefill of 32,768
+    tokens (pixtral's behind its 256 patches) at ``batch`` or, without one,
+    at the largest batch that fits, cut to the cell's 32: the reserved
+    memory of prefills at ``PREFIX_FIT_BATCHES`` gives a line, fixed +
+    slope x batch.  Timed by CUDA events: the call, K9 and K8 around every
+    call, whisper's encoder and decoder layers around each call
+    (``prefix_watch``); the first K9 call of each kind of site and every K8
+    call kept and held against their plain versions after it
+    (``hold_sites``); peak memory; the flop bound
+    (``prefix_prefill_flops``); K9 against SDPA at the decoder's causal
+    shapes, and whisper's at its cross shapes."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.models.whisper import N_AUDIO
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family("whisper" if cfg.is_encoder_decoder else "pixtral")
+    cell = next(s for s in LM_SHAPES if s.name == "prefill_32k")
+    seq = cell.seq_len
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def prefill(b: int):
+        inputs = lm_batch_for(cfg, b, seq, g, dev)
+        with kept_attention_sites(ops, {}), torch.inference_mode():
+            fam.prefill(params, inputs, cfg, seq)
+
+    fit = {}
+    if batch is None:
+        reserved = {b: reserved_growth(lambda: prefill(b), dev) for b in PREFIX_FIT_BATCHES}
+        lo, hi = PREFIX_FIT_BATCHES
+        slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
+        fixed = max(reserved[lo] - lo * slope, 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        lines = (free - LM_HEADROOM - fixed) // slope
+        batch = int(max(1, min(cell.global_batch, lines)))
+        fit = {"reserved_by_batch": reserved, "reserved_a_sequence": slope,
+               "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
+               "fit": int(lines)}
+    reset_all(mods)
+    inputs = lm_batch_for(cfg, batch, seq, g, dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kept = {}
+    with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
+            kept_attention_sites(ops, kept), prefix_watch(cfg) as parts:
+        with torch.inference_mode():
+            start.record()
+            t0 = time.perf_counter()
+            logits, cache = fam.prefill(params, inputs, cfg, seq)
+            end.record()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {"flash_fwd": k9_calls(cfg), **({"qr_gather": 1} if cfg.embedding_kind == "qr"
+                                            else {})}
+    if n != want or tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"[prefix] {cfg.name} prefill_32k: launches {n}, logits "
+                             f"{tuple(logits.shape)}")
+    cache_bytes = sum(a.numel() * a.element_size() for a in cache.values())
+    del logits, cache, inputs
+    torch.cuda.empty_cache()
+    held = hold_sites(kept, f"{cfg.name} prefill_32k")
+    del kept
+    flops = prefix_prefill_flops(cfg, batch, seq)
+    k9_ms = event_ms(marks["flash_attention_fused"])
+    rec = {"seq": seq, "prefix_rows": N_AUDIO if cfg.is_encoder_decoder else cfg.num_patches,
+           "batch": batch, "cell_batch": cell.global_batch, **fit, "ms": ms, "host_s": host_s,
+           "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms, "k9_share": k9_ms / ms,
+           "k9_calls": len(marks["flash_attention_fused"]),
+           "k8_ms": event_ms(marks["qr_lookup"]),
+           "parts_ms": {k: event_ms(v) for k, v in parts.items()},
+           "parts_calls": {k: len(v) for k, v in parts.items()}, "cache_bytes": cache_bytes,
+           "peak_gib": peak / 2**30, "flops": flops, "bound_ms": flops / BF16_FLOP_S * 1e3,
+           "launches": n, "held": held}
+    rec["parts_share"] = {k: v / ms for k, v in rec["parts_ms"].items()}
+    rec["k9_vs_sdpa"] = [k9_against_sdpa(cfg, batch, seq + cfg.num_patches, dev)]
+    if cfg.is_encoder_decoder:
+        rec["k9_vs_sdpa"].append(k9_against_sdpa(cfg, batch, seq, dev, skv=N_AUDIO,
+                                                 causal=False))
+    reset_all(mods)                 # the yardstick's launches are not the path's
+    return rec
+
+
+def prefix_decode_run(params, cfg, dev, mods, totals, batch: int | None = None) -> dict:
+    """``decode_32k``: one decode step at the cache's last position (32,767,
+    pixtral's 256 + 32,767) against a cache 32,768 text positions deep
+    (every leaf random: whisper's self and cross k / v, pixtral's k / v over
+    its patches and the text) at ``batch`` or the largest batch whose cache
+    fits the free memory less ``LM_HEADROOM``; ms a step by CUDA events
+    over ``LM_DECODE_REPS`` steps beside the bytes bound (every weight and
+    the whole cache read once, at the HBM rate); each step's K8 call held
+    against the plain sum; no K9 (a decode step's attention is plain)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family("whisper" if cfg.is_encoder_decoder else "pixtral")
+    cell = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    depth = cell.seq_len
+    gc.collect()
+    torch.cuda.empty_cache()
+    if batch is None:
+        one = fam.make_cache(cfg, 1, depth, device=dev)
+        per_seq = sum(a.numel() * a.element_size() for a in one.values())
+        del one
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        batch = int(max(1, min(cell.global_batch, (free - LM_HEADROOM) // per_seq)))
+    cache = fam.make_cache(cfg, batch, depth, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for leaf in cache.values():
+        leaf.normal_(generator=g)
+    pos = cache["k"].shape[2] - 1
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
+    reset_all(mods)
+    with torch.inference_mode():
+        top = top_device_ops(lambda: fam.decode(params, cache, tok, pos, cfg), 6)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kept = {}
+        with kept_model_path(ops, kept):
+            start.record()
+            for _ in range(LM_DECODE_REPS):
+                logits, out = fam.decode(params, cache, tok, pos, cfg)
+            end.record()
+            torch.cuda.synchronize()
+    n = take_launches(mods, totals)
+    if out is not cache or n.get("flash_fwd") or tuple(logits.shape) != (
+            batch, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[prefix] {cfg.name} decode_32k: launches {n}, logits "
+                             f"{tuple(logits.shape)}")
+    held = hold_kept(kept, f"{cfg.name} decode_32k")
+    ms = start.elapsed_time(end) / LM_DECODE_REPS
+    weight_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(params))
+    cache_bytes = sum(a.numel() * a.element_size() for a in cache.values())
+    rec = {"depth": depth, "position": pos, "batch": batch, "cell_batch": cell.global_batch,
+           "cache_bytes": cache_bytes, "weight_bytes": weight_bytes, "ms": ms,
+           "tokens_per_s": batch / ms * 1e3,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "bound_ms": (weight_bytes + cache_bytes) / BW_BYTES_S * 1e3, "launches": n,
+           "held": held, "top_ops": top}
+    del cache, logits, out, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def prefix_serve_run(dev, arch: str, mods, totals) -> dict:
+    """``arch`` at full width and depth: the fp32 params drawn and cast once
+    for serving (``prepare``), the fp32 tree freed, the peak of the two
+    recorded; whisper with the dense then the QR vocabulary (collision 64;
+    its tables drawn, the body shared), pixtral with the QR vocabulary
+    only: ``prefill_32k`` at the batch the first run fits (``PREFIX_FIT_
+    BATCHES``) and ``decode_32k`` at the batch whose cache fits."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.train import serve_step as S
+
+    binding = registry.get(arch)
+    fam = S.serve_family(binding.kind)
+    vocabs = ("dense", "qr") if binding.kind == "whisper" else ("qr",)
+    cfg = lm_config(arch).replace(embedding_kind=vocabs[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params, _ = registry.init_fn(binding)(cfg, seed=0, device=dev)
+    fp32_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(params))
+    params = fam.prepare(params, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev) - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"arch": arch, "layers": cfg.num_layers, "init_s": init_s,
+           "param_bytes_fp32": fp32_bytes,
+           "serving_bytes": sum(a.numel() * a.element_size() for a in tree.leaves(params)),
+           "init_peak_gib": init_peak / 2**30,
+           "after_init_gib": (torch.cuda.memory_allocated(dev) - base) / 2**30}
+    depth = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers"
+             if cfg.is_encoder_decoder else f"{cfg.num_layers} layers")
+    log(f"[prefix] {arch} ({depth}): {fp32_bytes / 1e9:.2f} GB of fp32 params drawn and cast "
+        f"once to bf16 ({rec['serving_bytes'] / 1e9:.2f} GB) in {init_s:.1f} s; peak "
+        f"{rec['init_peak_gib']:.2f} GiB allocated at initialisation, "
+        f"{rec['after_init_gib']:.2f} GiB held after the fp32 tree was freed")
+    vocab_cfgs = {vocabs[0]: (cfg, params["embed"])}
+    if len(vocabs) > 1:
+        vocab_cfgs["qr"] = ssm_embed(cfg, "qr", dev)
+    rec["prefill_32k"], rec["decode_32k"] = {}, {}
+    batch = None
+    for vocab, (vc, embed) in vocab_cfgs.items():
+        p = {**params, "embed": embed}
+        r = rec["prefill_32k"][vocab] = prefix_prefill_run(p, vc, dev, mods, totals, batch)
+        batch = r["batch"]
+        fit = (f"fit {r['fit']}: {r['reserved_a_sequence'] / 2**30:.2f} GiB reserved a "
+               f"sequence + {r['reserved_fixed'] / 2**30:.2f} GiB, from batches "
+               f"{PREFIX_FIT_BATCHES}, in {r['free_bytes'] / 2**30:.2f} GiB free less "
+               f"{LM_HEADROOM / 2**30:.0f}" if "fit" in r else "the first run's batch")
+        parts = "".join(f", {k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
+                        f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
+        sdpa = "; ".join(
+            f"{'causal' if x.get('causal', True) else 'cross'} {x['shape']}"
+            f"{' over ' + str(x['skv']) if 'skv' in x else ''}: K9 {x['k9_ms']:.1f} ms, SDPA "
+            f"(flash backend) {x['sdpa_ms']:.1f} ms" for x in r["k9_vs_sdpa"])
+        log(f"[prefix] {arch} {vocab} prefill_32k: batch {r['batch']} (cell {r['cell_batch']}; "
+            f"{fit}) x ({r['prefix_rows']} prefix rows + {r['seq']} tokens): {r['ms']:.1f} ms "
+            f"({r['host_s']:.2f} s host clock), {r['tokens_per_s']:.0f} tokens/s, K9 "
+            f"{r['k9_ms']:.1f} ms ({100 * r['k9_share']:.1f}%, {r['k9_calls']} calls){parts}, K8 "
+            f"{r['k8_ms']:.2f} ms; cache {r['cache_bytes'] / 2**30:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB; bound {r['bound_ms']:.1f} ms ({r['flops']:.3e} flop at "
+            f"the bf16 peak); launches {r['launches']}; one layer's attention at these shapes: "
+            + sdpa)
+        log(f"[prefix] {arch} {vocab} prefill_32k kernels vs plain on the main path: "
+            + sites_text(r["held"]))
+        d = rec["decode_32k"][vocab] = prefix_decode_run(p, vc, dev, mods, totals)
+        log(f"[prefix] {arch} {vocab} decode_32k: batch {d['batch']} (cell {d['cell_batch']}; "
+            f"cache {d['cache_bytes'] / 2**30:.2f} GiB) at position {d['position']}: "
+            f"{d['ms']:.2f} ms a step, {d['tokens_per_s']:.0f} tokens/s, peak "
+            f"{d['peak_gib']:.2f} GiB, bound {d['bound_ms']:.2f} ms "
+            f"({d['weight_bytes'] / 1e9:.2f} GB of weights + the cache at "
+            f"{BW_BYTES_S / 1e12:.2f} TB/s); launches {d['launches']}"
+            + (f"; K8 vs plain: {held_text(d['held'])}" if d["held"] else "")
+            + "; top device operations: "
+            + ", ".join(f"{k} {t:.2f} ms" for k, t in d["top_ops"]))
+    del params, vocab_cfgs, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def prefix_train_cli(arch: str, mods, totals) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch>`` with
+    ``PREFIX_TRAIN_CLI`` on the smoke config (its ``main``, in this
+    process): exit 0, two finite losses, the launches of two steps."""
+    import io
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as train_cli
+
+    argv = ["--arch", arch, *PREFIX_TRAIN_CLI]
+    take_launches(mods, totals)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = take_launches(mods, totals)
+    text = buf.getvalue()
+    lines = [x for x in text.splitlines() if x.startswith("step")]
+    cfg = registry.get(arch).smoke.replace(embedding_kind="qr")
+    want = {k: 2 * v for k, v in step_launches(cfg, 1).items()}
+    losses = [float(x.split()[3]) for x in lines]
+    if rc != 0 or n != want or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"[prefix-cli] train {arch}: exit {rc}, launches {n} (not {want}), "
+                             f"output {text[-800:]}")
+    log(f"[prefix-cli] launch.train {' '.join(argv)}: exit {rc} in {secs:.1f} s (set-up "
+        f"included), launches {n}; " + " | ".join(lines))
+    return {"arch": arch, "exit": rc, "s": secs, "launches": n, "losses": losses}
+
+
+def prefix_phase(dev, by_name, mods) -> dict:
+    """Phase 16: the prefix models served and trained on one card.
+    ``[prefix-ref]`` on the two smoke configs; whisper-large-v3 (dense and
+    QR vocabularies) and pixtral-12b (QR) at full width and depth
+    (``prefix_serve_run``: ``prefill_32k``, ``decode_32k``, K9 held at each
+    kind of site, K8 bitwise); the serve CLI and the train CLI with each
+    arch's smoke config; training on one card (the allocator's expandable
+    segments), QR, S 4,096, remat ``full``: whisper at full depth,
+    ``PREFIX_WHISPER_TRAIN`` sequences and microbatches, pixtral at the
+    depth the line through depths 1 and 2 fits, batch 1, each
+    ``PREFIX_TRAIN_STEPS`` steps; the step-1 gradients of a
+    ``PREFIX_GRAD_DEPTH``-layer cut against the kernels' plain versions.
+    The phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.
+    Returns the ``{"prefix": ...}`` record."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[prefix] before the phase: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"allocated, {torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free")
+    totals = {}
+    reset_all(mods)
+    record = {"section_s": {}}
+
+    def section(key, run):
+        t1 = time.perf_counter()
+        record[key] = run()
+        record["section_s"][key] = time.perf_counter() - t1
+        log(f"[prefix] section {key}: {record['section_s'][key]:.1f} s")
+
+    section("ref", lambda: prefix_ref_phase(dev, mods, totals))
+    for arch in PREFIX_ARCHS:
+        section(arch, lambda: prefix_serve_run(dev, arch, mods, totals))
+    section("cli", lambda: [lm_cli_run("qr", mods, totals, arch=arch, tag="[prefix-cli]",
+                                       cli=PREFIX_CLI) for arch in PREFIX_ARCHS]
+            + [prefix_train_cli(arch, mods, totals) for arch in PREFIX_ARCHS])
+    torch.cuda.memory._set_allocator_settings(LMT_ALLOCATOR)
+    try:
+        batch, micro = PREFIX_WHISPER_TRAIN
+        whisper = lm_config("whisper-large-v3")
+        section("train_whisper", lambda: lm_train_fitted(
+            dev, "whisper-large-v3", "qr", mods, totals, tag="[prefix-train]",
+            steps=PREFIX_TRAIN_STEPS, depth=whisper.enc_layers, batch_size=batch,
+            microbatches=micro))
+        section("train_pixtral", lambda: lm_train_fitted(
+            dev, "pixtral-12b", "qr", mods, totals, tag="[prefix-train]",
+            steps=PREFIX_TRAIN_STEPS))
+        section("grad_check", lambda: {arch: lm_train_grad_check(
+            dev, mods, totals, arch=arch, vocabs=("qr",), tag="[prefix-train]",
+            depth=PREFIX_GRAD_DEPTH) for arch in PREFIX_ARCHS})
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    record["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    record["phase_s"] = time.perf_counter() - t0
+    log(f"[prefix] phase {record['phase_s']:.1f} s; launches {totals}")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -6898,6 +7555,10 @@ def main() -> int:
     # phase 15: the sub-quadratic models served and trained (K9 a zamba2
     # site a forward at D 112, K8 for QR tokens)
     sub_quadratic = ssm_phase(dev, by_name, mods)
+    # phase 16: the prefix models served and trained (K9 non-causal over
+    # whisper's frames and across to them, causal over pixtral's patches and
+    # tokens; K8 for QR tokens)
+    prefix = prefix_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -6914,6 +7575,7 @@ def main() -> int:
     print(json.dumps({"lm_mesh_training": lm_mesh_training}), flush=True)
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"sub_quadratic": sub_quadratic}), flush=True)
+    print(json.dumps({"prefix": prefix}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,12 @@ ids -> configs, model bindings and the shape grid; ``--config`` ids -> the
 DLRM configs.
 
 The ten assigned LM architectures are all listed, with ``repro``'s
-bindings, shape grid and skip rules.  Three kinds have a model in the
+bindings, shape grid and skip rules, and every kind has a model in the
 port: the transformers (the dense qwen2-1.5b, granite-34b, chatglm3-6b,
 minitron-4b and the MoE granite-moe-3b-a800m, qwen3-moe-235b-a22b), the
-zamba2 hybrid (zamba2-7b) and xlstm (xlstm-125m); for the prefix models
-(whisper, pixtral) ``init_fn``, ``train_loss_fn`` and ``make_batch_fn``
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
-them.
+zamba2 hybrid (zamba2-7b), xlstm (xlstm-125m) and the prefix models,
+whisper (whisper-large-v3: its batches carry the frames) and pixtral
+(pixtral-12b: the patches).
 ``batch_specs``, ``cache_specs`` and
 ``abstract_params`` are not ported: they come with the dry run.
 """
@@ -57,31 +56,11 @@ ARCHS: dict[str, ArchBinding] = {
     ]
 }
 
-# what brings each family the port does not run yet (ROADMAP.md §1)
-NOT_PORTED = {
-    "whisper": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
-    "pixtral": "ROADMAP.md §1 item 5 (prefix models: whisper, pixtral)",
-}
-
 
 def get(arch_id: str) -> ArchBinding:
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; choose from {sorted(ARCHS)}")
     return ARCHS[arch_id]
-
-
-def ported(binding: ArchBinding) -> bool:
-    """Whether the port has a model for ``binding`` (the transformers, dense
-    and MoE, zamba2 and xlstm)."""
-    return binding.kind not in NOT_PORTED
-
-
-def _require_ported(binding: ArchBinding, what: str) -> None:
-    if ported(binding):
-        return
-    raise NotImplementedError(
-        f"{binding.arch_id}: {what} of the {binding.kind} family is not ported yet; "
-        f"{NOT_PORTED[binding.kind]} brings it")
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +112,6 @@ def cells(include_skipped: bool = False):
 
 def init_fn(binding: ArchBinding) -> Callable:
     """``(cfg, *, seed, device) -> (params, axes)`` for this family."""
-    _require_ported(binding, "the model")
     if binding.kind == "zamba2":
         from repro_torch.models import zamba2 as Z
 
@@ -142,17 +120,22 @@ def init_fn(binding: ArchBinding) -> Callable:
         from repro_torch.models import xlstm as X
 
         return X.init_xlstm
+    if binding.kind == "whisper":
+        from repro_torch.models import whisper as W
+
+        return W.init_whisper
     from repro_torch.models import transformer as T
 
-    return T.init_lm
+    return T.init_lm             # the transformers' and pixtral's tree
 
 
 def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` for this family: the
     causal LM loss on ``transformer.forward_train``, or on the logits of
-    ``forward_zamba2`` / ``forward_xlstm`` without a cache (these run on one
-    card only: no vocabulary range)."""
-    _require_ported(binding, "the training loss")
+    ``forward_zamba2`` / ``forward_xlstm`` without a cache, or the prefix
+    models' (``make_prefixed_lm_loss`` on whisper's or pixtral's
+    ``forward_train``, the batch's ``"frames"`` / ``"patches"`` in front);
+    all but the transformers' run on one card only (no vocabulary range)."""
     from repro_torch.train import train_step as TS
 
     if binding.kind == "zamba2":
@@ -163,15 +146,27 @@ def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
         from repro_torch.models import xlstm as X
 
         return TS.make_lm_loss(lambda p, t, c: X.forward_xlstm(p, t, c)[0], cfg)
+    if binding.kind == "whisper":
+        from repro_torch.models import whisper as W
+
+        return TS.make_prefixed_lm_loss(W.forward_train, cfg, "frames")
+    if binding.kind == "pixtral":
+        from repro_torch.models import pixtral as P
+
+        return TS.make_prefixed_lm_loss(P.forward_train, cfg, "patches")
     from repro_torch.models import transformer as T
 
     return TS.make_lm_loss(T.forward_train, cfg, vocab_range=T.vocab_range)
 
 
 def make_batch_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
-    """``(batch, seq, seed=, step=, device=) -> {"tokens"}`` for this family."""
-    _require_ported(binding, "the batch maker")
+    """``(batch, seq, seed=, step=, device=) -> {"tokens"}`` for this family,
+    with whisper's ``"frames"`` or pixtral's ``"patches"``."""
     from repro_torch.data import synthetic as syn
 
+    if binding.kind == "whisper":
+        return lambda b, s, **kw: syn.whisper_batch(cfg, b, s, **kw)
+    if binding.kind == "pixtral":
+        return lambda b, s, **kw: syn.pixtral_batch(cfg, b, s, **kw)
     return lambda b, s, **kw: syn.lm_batch(cfg, b, s, **kw)
 

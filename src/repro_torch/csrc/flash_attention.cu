@@ -59,12 +59,20 @@
 //   -inf, expf, l summed from the fp32 p.  Tiles wholly inside Skv and below
 //   every row's causal diagonal skip the mask and fold the scale into the
 //   exponent's fma; the accumulator is rescaled only when a row's max moved.
-// * O += P . V by wgmma.m64nDk16 with A in registers: P split, P_hi =
-//   bf16(p), P_lo = bf16(p - P_hi), two products into the same fp32
-//   accumulator; B is the V tile as v lies in memory (64 keys x d, d
-//   contiguous: N-major), read through wgmma's transpose bit.  Rounding p to
-//   bf16 alone would cost ~49x one rounding of the output; the split brings
-//   the error to fp32's order.
+// * O += P . V by wgmma.m64nNk16 with A in registers: P split, P_hi =
+//   bf16(p), P_lo = bf16(p - P_hi), two products into one fp32 register
+//   tile; B is the V tile as v lies in memory (64 keys x d, d contiguous:
+//   N-major), read through wgmma's transpose bit.  Rounding p to bf16 alone
+//   would cost ~49x one rounding of the output; the split brings the error
+//   to fp32's order.
+// * Promotion: the tensor cores' accumulate aligns its addends to the
+//   largest and drops the bits below ~25 of it toward zero, a bias that
+//   each k16 step adds.  Summed into o over a whole row it piled up: at
+//   whisper's decoder (32,768 keys, near-flat weights, outputs ~1/1,600 of
+//   the sum of |p v|) to 1.44 of one bf16 rounding.  So each kv tile's
+//   products accumulate from zero in a register tile of N = D columns (64
+//   at a time in the D 256 bucket), which then joins o by fp32 adds on the
+//   CUDA cores, rounded to nearest.
 // * Tiles live in shared memory in 128-byte-swizzled atoms of 64-value rows
 //   (the layout wgmma's descriptors and TMA's SWIZZLE_128B share); the K and
 //   V tiles have one layout.  They come, 64 keys at a time, by TMA into a
@@ -553,6 +561,9 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using Tl = TcTile<kD>;
   constexpr int kNS = kTcBK / 8;    // score n8 chunks a thread holds
   constexpr int kNO = kD / 8;       // output n8 chunks a thread holds
+  // output columns a P.V register tile covers (the D 256 bucket in four, to
+  // keep o and the tile in registers)
+  constexpr int kPN = kD <= 128 ? kD : 64;
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem4) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -717,22 +728,35 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // O += (P_hi + P_lo) . V: the score chunks of keys 16kk..16kk+15 are the
-    // register A operand of that k16 step; B is the V tile's two 8-key groups
-    // (1024 bytes each) of those keys, its d atoms kTcBK * 128 bytes apart
-    wgmma_fence();
+    // O += (P_hi + P_lo) . V, promoted: this tile's products accumulate from
+    // zero in a register tile t of kPN output columns (the tensor cores'
+    // accumulation truncates, so it stays within one tile), then t joins o
+    // by fp32 adds on the CUDA cores.  The score chunks of keys
+    // 16kk..16kk+15 are the register A operand of that k16 step; B is the V
+    // tile's two 8-key groups (1024 bytes each) of those keys and the
+    // chunk's columns, its d atoms kTcBK * 128 bytes apart
 #pragma unroll
-    for (int kk = 0; kk < kTcBK / 16; ++kk) {
-      unsigned ph[4], pl[4];
-      split2(s[8 * kk + 0], s[8 * kk + 1], ph[0], pl[0]);
-      split2(s[8 * kk + 2], s[8 * kk + 3], ph[1], pl[1]);
-      split2(s[8 * kk + 4], s[8 * kk + 5], ph[2], pl[2]);
-      split2(s[8 * kk + 6], s[8 * kk + 7], ph[3], pl[3]);
-      const uint64_t db = desc(v_addr + kk * 2048, kTcBK * 128);
-      wgmma_rs<kD>(o, ph, db);
-      wgmma_rs<kD>(o, pl, db);
+    for (int c = 0; c < kD / kPN; ++c) {
+      float t[kPN / 2];
+#pragma unroll
+      for (int j = 0; j < kPN / 2; ++j) t[j] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcBK / 16; ++kk) {
+        unsigned ph[4], pl[4];
+        split2(s[8 * kk + 0], s[8 * kk + 1], ph[0], pl[0]);
+        split2(s[8 * kk + 2], s[8 * kk + 3], ph[1], pl[1]);
+        split2(s[8 * kk + 4], s[8 * kk + 5], ph[2], pl[2]);
+        split2(s[8 * kk + 6], s[8 * kk + 7], ph[3], pl[3]);
+        const uint64_t db =
+            desc(v_addr + kk * 2048 + c * (kPN / kAtom) * kTcBK * 128, kTcBK * 128);
+        wgmma_rs<kPN>(t, ph, db);
+        wgmma_rs<kPN>(t, pl, db);
+      }
+      wgmma_commit_wait();
+#pragma unroll
+      for (int j = 0; j < kPN / 2; ++j) o[c * (kPN / 2) + j] += t[j];
     }
-    wgmma_commit_wait();
   }
 
 #pragma unroll

@@ -1,7 +1,7 @@
 """LM token batches, criteo-like long-tail traces, DLRM request and
-training batches, and the restart-safe batch pipeline (port of
-``repro.data.synthetic``; ``whisper_batch`` and ``pixtral_batch`` come with
-their models).
+training batches, the prefix models' batches (whisper's frames, pixtral's
+patches) and the restart-safe batch pipeline (port of
+``repro.data.synthetic``).
 
 On a mesh every rank makes the global batch of (seed, step) and keeps its
 block along the batch axes (``data_block``), as ``repro``'s meshed launcher
@@ -67,6 +67,32 @@ def lm_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=generator(seed, step, 0, device),
                            device=device, dtype=torch.int32)
     return {"tokens": tokens}
+
+
+def _prefixed_batch(cfg: ModelConfig, key: str, rows: int, batch: int, seq: int, *,
+                    seed: int, step: int, device) -> dict:
+    """``lm_batch``'s tokens and, under ``key``, (batch, rows, d_model) fp32
+    standard normal rows drawn with ``repro``'s tag 1: a pure function of
+    ``(seed, step)``."""
+    prefix = torch.randn((batch, rows, cfg.d_model), generator=generator(seed, step, 1, device),
+                         device=device, dtype=torch.float32)
+    return {key: prefix, **lm_batch(cfg, batch, seq, seed=seed, step=step, device=device)}
+
+
+def whisper_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int = 0,
+                  device="cpu") -> dict:
+    """``{"frames": (batch, N_AUDIO, d_model) fp32, "tokens": (batch, seq)}``."""
+    from repro_torch.models.whisper import N_AUDIO
+
+    return _prefixed_batch(cfg, "frames", N_AUDIO, batch, seq, seed=seed, step=step,
+                           device=device)
+
+
+def pixtral_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0, step: int = 0,
+                  device="cpu") -> dict:
+    """``{"patches": (batch, num_patches, d_model) fp32, "tokens": (batch, seq)}``."""
+    return _prefixed_batch(cfg, "patches", cfg.num_patches, batch, seq, seed=seed, step=step,
+                           device=device)
 
 
 def zipf_from_uniform(u: torch.Tensor, vocab: int, alpha: float = 1.05) -> torch.Tensor:

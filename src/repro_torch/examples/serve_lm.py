@@ -5,8 +5,11 @@ tokens/s, then the steady decode rate.
 Run:  PYTHONPATH=src python -m repro_torch.examples.serve_lm [--arch xlstm-125m] [--device cpu]
 
 The default arch is ``repro``'s, xlstm-125m; ``--arch`` offers every arch
-the port runs.  The smoke config is served, as in ``repro``, with the QR
-vocabulary at collision 8 by default.
+of the registry (whisper-large-v3's and pixtral-12b's batches carry their
+frames or patches).  The smoke config is served, as in ``repro``, with the
+QR vocabulary at collision 8 by default.  The steady decode steps run at
+the positions after the prompt (pixtral's counted from the start of its
+patches, as ``greedy_generate`` counts them).
 """
 
 from __future__ import annotations
@@ -23,8 +26,7 @@ from repro_torch.train.serve_step import greedy_generate, serve_family
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="xlstm-125m",
-                    choices=sorted(a for a, b in registry.ARCHS.items() if registry.ported(b)))
+    ap.add_argument("--arch", default="xlstm-125m", choices=sorted(registry.ARCHS))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=32)
@@ -54,12 +56,13 @@ def main(argv=None) -> None:
     with torch.inference_mode():
         logits, cache = fam.prefill(params, batch, cfg, max_len)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
-        _, cache = fam.decode(params, cache, tok, args.prompt_len, cfg)      # warm
+        pos0 = args.prompt_len + (batch["patches"].shape[1] if "patches" in batch else 0)
+        _, cache = fam.decode(params, cache, tok, pos0, cfg)      # warm
         iters = min(20, args.max_new)
         device_mod.synchronize(dev)
         t0 = time.perf_counter()
         for i in range(iters):
-            logits, cache = fam.decode(params, cache, tok, args.prompt_len + i, cfg)
+            logits, cache = fam.decode(params, cache, tok, pos0 + i, cfg)
         device_mod.synchronize(dev)
         dt = time.perf_counter() - t0
     print(f"steady-state decode: {args.batch * iters / dt:.1f} tok/s "

@@ -5,7 +5,10 @@ K9 in ``csrc/flash_attention.cu`` (port of ``repro.kernels.flash_attention``).
   flash_fwd`` (body ``_kernel``): ``softmax(q·kᵀ·D^-½ [+ causal mask])·v``
   per (batch, query head), kv head ``h // (H/KH)``, in fp32, written in q's
   dtype.  float32 runs on the CUDA cores, bfloat16 on the tensor cores
-  (``BODY``: wgmma, K and V tiles read in place by TMA).
+  (``BODY``: wgmma, K and V tiles read in place by TMA; each kv tile's
+  P·V summed in the tensor cores from zero, then added to the output
+  accumulator in fp32: their accumulate truncates, and over a long row
+  that bias would pass one rounding).
 * ``flash_mha`` is its differentiable form, as ``repro``'s ``custom_vjp``:
   the forward is K9, the backward recomputes through the blockwise
   ``models.layers.flash_attention`` and differentiates that (no backward
@@ -45,7 +48,8 @@ SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the body each type runs: its kernel function in csrc/flash_attention.cu
 BODY = {torch.float32: ("flash_kernel", "fp32 CUDA cores"),
         torch.bfloat16: ("flash_tc_kernel",
-                         "tensor cores wgmma m64nNk16 bf16, P split hi + lo")}
+                         "tensor cores wgmma m64nNk16 bf16, P split hi + lo, P.V promoted "
+                         "per kv tile")}
 MAX_HEAD_DIM = 256
 
 _P = ctypes.c_void_p

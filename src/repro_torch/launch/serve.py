@@ -5,6 +5,11 @@ first sequence.
 Usage (CPU smoke; without ``--device cpu`` it needs a CUDA card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
         --device cpu --batch 4 --prompt-len 32 --max-new 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke \
+        --device cpu --batch 2 --prompt-len 8 --max-new 4
+
+Every arch of the registry serves; the prefix models' batches carry
+whisper's frames or pixtral's patches (``registry.make_batch_fn``).
 
 ``repro``'s tokens/s includes its compile time.  The port has no compile
 step: its time is the host clock from the prefill's start to the last

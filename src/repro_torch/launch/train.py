@@ -3,10 +3,12 @@ of ``repro.launch.train``).
 
 ``--arch dlrm-*`` trains the paper's model; an LM arch (the dense
 transformers qwen2-1.5b, granite-34b, chatglm3-6b, minitron-4b, the MoE
-granite-moe-3b-a800m, qwen3-moe-235b-a22b, the hybrid zamba2-7b and
-xlstm-125m) trains the causal LM through the registry's ``init_fn``,
-``train_loss_fn`` and ``make_batch_fn`` on ``--batch`` sequences of
-``--seq`` tokens, each layer (each mamba layer of zamba2; xlstm has no
+granite-moe-3b-a800m, qwen3-moe-235b-a22b, the hybrid zamba2-7b,
+xlstm-125m and the prefix models whisper-large-v3 and pixtral-12b) trains
+the causal LM through the registry's ``init_fn``, ``train_loss_fn`` and
+``make_batch_fn`` on ``--batch`` sequences of ``--seq`` tokens (whisper's
+behind its frames, pixtral's behind its patches), each layer (each mamba
+layer of zamba2; each encoder and decoder layer of whisper; xlstm has no
 recompute, as ``repro``'s) recomputed in the backward as the config's
 ``remat`` says; ``--embedding`` picks either's vocabulary or tables.
 
@@ -33,8 +35,9 @@ recompute, as ``repro``'s) recomputed in the backward as the config's
   MoE layers expert-parallel), its tokens through the two-level GnR and
   its loss vocab-parallel.  The ranks agree on the stop
   flag every step (a MAX all-reduce), so all of them checkpoint at the
-  same step.  zamba2-7b and xlstm-125m train on one card only: with
-  ``--mesh-shape`` they raise ``NotImplementedError`` (``MESH_WAITS``).
+  same step.  zamba2-7b, xlstm-125m, whisper-large-v3 and pixtral-12b
+  train on one card only: with ``--mesh-shape`` they raise
+  ``NotImplementedError`` (``MESH_WAITS``).
   Checkpoints hold the full logical arrays, so a run resumes on another
   mesh shape, on one card, or in ``repro`` (the elastic restart).  Only
   the rank at coordinates 0 prints.
@@ -102,8 +105,12 @@ def place(params, axes, mesh, rules):
 
 
 # the LM kinds that train on one card only, and what brings their mesh
-MESH_WAITS = {kind: "ROADMAP.md §1 item 10 (the sub-quadratic models on a mesh)"
-              for kind in ("zamba2", "xlstm")}
+MESH_WAITS = {
+    **{kind: "ROADMAP.md §1 item 10 (the sub-quadratic models on a mesh)"
+       for kind in ("zamba2", "xlstm")},
+    **{kind: "ROADMAP.md §1 item 11 (the prefix models on a mesh)"
+       for kind in ("whisper", "pixtral")},
+}
 
 
 def refuse_mesh(arch: str) -> None:

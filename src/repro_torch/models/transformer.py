@@ -83,16 +83,17 @@ def init_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
     return params, axes
 
 
-def _stack_layers(cfg: ModelConfig, init_fn, *, generator: torch.Generator, device):
-    """``cfg.num_layers`` layers of ``init_fn`` stacked along a leading L
-    axis: the stacked leaves are allocated once and each layer's draws are
-    copied into row i and freed (no stack of L separate trees: at most one
-    layer's draws beside the stack)."""
+def _stack_layers(cfg: ModelConfig, init_fn, *, generator: torch.Generator, device,
+                  count: int | None = None):
+    """``count`` (``cfg.num_layers``) layers of ``init_fn`` stacked along a
+    leading L axis: the stacked leaves are allocated once and each layer's
+    draws are copied into row i and freed (no stack of L separate trees: at
+    most one layer's draws beside the stack)."""
+    count = cfg.num_layers if count is None else count
     layer, axes = init_fn(cfg, generator=generator, device=device)
     stacked = tree_map(
-        lambda a: torch.empty((cfg.num_layers, *a.shape), dtype=a.dtype, device=a.device),
-        layer)
-    for i in range(cfg.num_layers):
+        lambda a: torch.empty((count, *a.shape), dtype=a.dtype, device=a.device), layer)
+    for i in range(count):
         if i:
             layer = init_fn(cfg, generator=generator, device=device)[0]
         tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
@@ -219,10 +220,11 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> 
     return L.dense(head, x, cfg.cdtype)
 
 
-def layer_list(params: dict) -> list[dict]:
-    """The L layers' params, layer i's leaves the ``[i]`` rows of the
-    stacked leaves, taken with one ``torch.unbind`` a leaf."""
-    stacked = params["layers"]
+def layer_list(params: dict, stack: str = "layers") -> list[dict]:
+    """The L layers' params of the stack ``params[stack]`` (``"layers"``;
+    whisper's ``"enc"`` and ``"dec"``), layer i's leaves the ``[i]`` rows of
+    the stacked leaves, taken with one ``torch.unbind`` a leaf."""
+    stacked = params[stack]
     rows = [torch.unbind(a) for a in leaves(stacked)]
     return [unflatten(stacked, [r[i] for r in rows]) for i in range(len(rows[0]))]
 
@@ -287,16 +289,33 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     same collectives."""
     mesh = SH.model_mesh()
     x = embed_tokens(params, tokens, cfg, mesh=mesh).to(cfg.cdtype)
+    x = run_layers(params, x, cfg, positions=positions, mesh=mesh)
+    return lm_logits(params, x, cfg, mesh=mesh)
+
+
+def remat_layers(layers: list, x: torch.Tensor, cfg: ModelConfig, body, *extra) -> torch.Tensor:
+    """``x`` through ``body(p, x, *extra)`` for each layer's params ``p`` in
+    turn, each call recomputed in the backward with ``cfg.remat`` while
+    gradients are enabled (the module's docstring)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if remat else {}
+    for p in layers:
+        x = (ckpt.checkpoint(body, p, x, *extra, use_reentrant=False, **kw) if remat
+             else body(p, x, *extra))
+    return x
+
+
+def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions=None,
+               mesh=None) -> torch.Tensor:
+    """Input rows (B, S, d) through every layer (``remat_layers``) and the
+    final norm: the body of ``forward_train``, and of pixtral's, whose rows
+    start with its patches."""
 
     def body(p, y):
         return layer_fwd(p, y, cfg, positions=positions, mesh=mesh)[0]
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    kw = _remat_kwargs(cfg) if remat else {}
-    for p in layer_list(params):
-        x = ckpt.checkpoint(body, p, x, use_reentrant=False, **kw) if remat else body(p, x)
-    x = L.apply_norm(params["final_norm"], x)
-    return lm_logits(params, x, cfg, mesh=mesh)
+    x = remat_layers(layer_list(params), x, cfg, body)
+    return L.apply_norm(params["final_norm"], x)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
@@ -320,9 +339,17 @@ def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                     max_len: int) -> tuple[torch.Tensor, dict]:
     """Prefill: (last-token logits (B, 1, vocab), the cache of length
     ``max_len`` with positions [0, S) filled)."""
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
-    x = embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    return prefill_rows(params, embed_tokens(params, tokens, cfg).to(cfg.cdtype), cfg, max_len)
+
+
+def prefill_rows(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 max_len: int) -> tuple[torch.Tensor, dict]:
+    """``forward_prefill`` from given input rows ``x`` (B, S, d) in the
+    compute dtype (the embedded tokens; pixtral's patches followed by
+    them): the last row's logits and a cache of ``max_len`` >= S positions,
+    [0, S) filled."""
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, max_len, device=x.device)
     for i, p in enumerate(layer_list(params)):
         x, (k, v) = layer_fwd(p, x, cfg)
         cache["k"][i, :, :s] = k

@@ -1,0 +1,258 @@
+"""Whisper-large-v3 backbone, an encoder–decoder transformer (port of
+``repro.models.whisper``).
+
+The conv / mel frontend is a stub, as in ``repro``: the batch carries the
+frame embeddings (B, ``N_AUDIO``, d_model), the conv output of the real
+model.  The backbone is ``repro``'s: pre-LayerNorm, GELU MLPs, MHA
+(kv_heads == num_heads), sinusoidal positions on the encoder and on the
+decoder (``repro``'s two formulas, fp32: the table of ``sinusoid_positions``
+for a prefill, ``_sinusoid_at``'s one row for a decode step), the tied
+vocabulary head, cross-attention into the encoder's output.
+
+Both stacks are stacked, as ``repro``'s ``vmap`` draws them: every leaf of
+``params["enc"]`` and ``params["dec"]`` holds its layers along a leading
+axis, taken once a forward with one ``torch.unbind`` a leaf
+(``transformer.layer_list``).  With ``cfg.remat`` and gradients enabled
+``forward_train`` recomputes each encoder and each decoder layer in the
+backward (``transformer.remat_layers``), ``repro``'s ``jax.checkpoint``
+over its two scan bodies.
+
+On the card every attention of the train and prefill forwards is the
+attention kernel K9 (``layers.attention``): the encoder's self-attention
+non-causal over the ``N_AUDIO`` frames, the decoder's causal over its
+tokens, and its cross-attention non-causal, S queries over the
+``N_AUDIO`` encoder states.  A QR vocabulary's token lookup is the QR
+gather K8 (``transformer.embed_tokens``, the value ``repro``'s
+``qr_embedding.lookup`` gives).  The norms, projections, MLPs, the head and
+the decode attention are plain torch.
+
+Serving: the prefill runs the encoder once and writes every decoder layer's
+self k / v into rows [0, S) and its cross k / v (``ck`` / ``cv``) into a
+cache allocated once (``init_cache``); a decode step writes the self cache
+in place at ``pos`` and reads the frozen cross k / v over all ``N_AUDIO``
+positions.  ``repro`` returns new caches, and computes the cross k / v
+twice in its prefill (inside ``attention(kv_src=)`` and again for the
+cache, from the same weights and encoder states): the port takes the cache's
+from the attention call, the same values computed once.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import qr_embedding
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+# whisper's 30 s audio context after the conv frontend (stubbed), 1,500
+# frames padded to 1,536 as in ``repro``
+N_AUDIO = 1536
+
+
+def _freqs(dim: int, device) -> torch.Tensor:
+    half = dim // 2
+    return torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
+                     / max(half - 1, 1))
+
+
+def sinusoid_positions(n: int, dim: int, dtype=torch.float32, *, device=None) -> torch.Tensor:
+    """(n, dim) table: sin then cos of each position times the frequencies,
+    in fp32, cast to ``dtype``."""
+    ang = torch.arange(n, dtype=torch.float32, device=device)[:, None] * _freqs(dim, device)[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _sinusoid_at(pos: int, dim: int, dtype, *, device=None) -> torch.Tensor:
+    """The row of one position, (1, 1, dim): ``pos`` times the frequencies in
+    fp32, as ``repro`` computes a decode step's row."""
+    ang = torch.tensor(float(pos), dtype=torch.float32, device=device) * _freqs(dim, device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(dtype)[None, None, :]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_enc_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
+    kw = dict(generator=generator, device=device)
+    params, axes = {}, {}
+    params["attn"], axes["attn"] = L.init_attention(cfg, **kw)
+    params["mlp"], axes["mlp"] = L.init_mlp(cfg, **kw)
+    for name in ("ln1", "ln2"):
+        params[name], axes[name] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
+    return params, axes
+
+
+def _init_dec_layer(cfg: ModelConfig, *, generator: torch.Generator, device):
+    kw = dict(generator=generator, device=device)
+    params, axes = {}, {}
+    params["attn"], axes["attn"] = L.init_attention(cfg, **kw)
+    params["xattn"], axes["xattn"] = L.init_attention(cfg, cross=True, **kw)
+    params["mlp"], axes["mlp"] = L.init_mlp(cfg, **kw)
+    for name in ("ln1", "lnx", "ln2"):
+        params[name], axes[name] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=device)
+    return params, axes
+
+
+def init_whisper(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """Random params and their logical axes, ``(params, axes)``: ``embed``,
+    ``enc`` and ``dec`` (stacked), ``enc_norm``, ``dec_norm``; drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the target device (the card
+    unless ``device="cpu"``)."""
+    dev = device_mod.resolve(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    kw = dict(generator=g, device=dev)
+    params, axes = {}, {}
+    params["embed"] = qr_embedding.init(cfg.emb_config, **kw)
+    axes["embed"] = qr_embedding.param_axes(cfg.emb_config)
+    params["enc"], axes["enc"] = T._stack_layers(cfg, _init_enc_layer, count=cfg.enc_layers, **kw)
+    params["dec"], axes["dec"] = T._stack_layers(cfg, _init_dec_layer, count=cfg.dec_layers, **kw)
+    for name in ("enc_norm", "dec_norm"):
+        params[name], axes[name] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=dev)
+    return params, axes
+
+
+# the vocabulary's tables and every projection's ``w`` and ``b`` cast once
+# to the compute dtype (the same logits bit for bit); the layer norms keep
+# theirs
+serving_params = T.serving_params
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def _enc_layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = L.apply_norm(p["ln1"], x)
+    attn, _ = L.attention(p["attn"], h, cfg, causal=False, use_rope=False)
+    y = x + attn
+    return y + L.mlp(p["mlp"], L.apply_norm(p["ln2"], y), cfg)
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, N_AUDIO, d_model), the stub conv output -> the encoder's
+    states, each layer's attention K9 non-causal on the card."""
+    cd = cfg.cdtype
+    x = frames.to(cd) + sinusoid_positions(frames.shape[1], cfg.d_model, cd,
+                                           device=frames.device)[None]
+    x = T.remat_layers(T.layer_list(params, "enc"), x, cfg,
+                       lambda p, y: _enc_layer_fwd(p, y, cfg))
+    return L.apply_norm(params["enc_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+def _dec_layer_fwd(p: dict, x: torch.Tensor, enc_out, cfg: ModelConfig, *, cache=None,
+                   pos=None, cross_kv=None):
+    """One decoder layer -> (x, self k / v, cross k / v).  Train / prefill
+    (``cache`` None): causal self-attention, then cross-attention on
+    ``enc_out``, each through K9; the pairs are (B, S, KH, D) and
+    (B, N_AUDIO, KH, D).  Decode: ``cache`` the layer's self k / v, written
+    in place at ``pos``, and ``cross_kv`` its frozen ``ck`` / ``cv``, read
+    over every position (``decode_attention`` at ``N_AUDIO - 1``)."""
+    h = L.apply_norm(p["ln1"], x)
+    attn, self_kv = L.attention(p["attn"], h, cfg, causal=True, use_rope=False, cache=cache,
+                                pos=pos)
+    x = x + attn
+    h = L.apply_norm(p["lnx"], x)
+    if cross_kv is not None:
+        xk, xv = cross_kv
+        b, s, _ = h.shape
+        hd = cfg.head_dim_
+        q = L.dense(p["xattn"]["wq"], h, cfg.cdtype).reshape(b, s, cfg.num_heads, hd)
+        y = L.decode_attention(q.transpose(1, 2), xk.transpose(1, 2).to(cfg.cdtype),
+                               xv.transpose(1, 2).to(cfg.cdtype), xk.shape[1] - 1)
+        xattn = L.dense(p["xattn"]["wo"], y.transpose(1, 2).reshape(b, s, -1), cfg.cdtype)
+    else:
+        xattn, cross_kv = L.attention(p["xattn"], h, cfg, causal=False, use_rope=False,
+                                      kv_src=enc_out)
+    x = x + xattn
+    x = x + L.mlp(p["mlp"], L.apply_norm(p["ln2"], x), cfg)
+    return x, self_kv, cross_kv
+
+
+def _embed_dec(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+               pos: int | None = None) -> torch.Tensor:
+    """The tokens' rows (``transformer.embed_tokens``: K8 for a QR vocabulary
+    on the card) plus their positions: [0, S) from the table, or the one
+    row of the decode position ``pos``."""
+    cd = cfg.cdtype
+    x = T.embed_tokens(params, tokens, cfg).to(cd)
+    if pos is None:
+        return x + sinusoid_positions(tokens.shape[1], cfg.d_model, cd, device=x.device)[None]
+    return x + _sinusoid_at(pos, cfg.d_model, cd, device=x.device)
+
+
+def forward_train(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, N_AUDIO, d); tokens: (B, S) -> logits (B, S, vocab)."""
+    enc_out = encode(params, frames, cfg)
+    x = _embed_dec(params, tokens, cfg)
+    x = T.remat_layers(T.layer_list(params, "dec"), x, cfg,
+                       lambda p, y, e: _dec_layer_fwd(p, y, e, cfg)[0], enc_out)
+    x = L.apply_norm(params["dec_norm"], x)
+    return T.lm_logits(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# serving: the prefill builds the self cache and the frozen cross k / v; a
+# decode step is one token
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *, device=None) -> dict:
+    """``{"k", "v"}`` (dec_layers, B, max_len, KH, D) and ``{"ck", "cv"}``
+    (dec_layers, B, N_AUDIO, KH, D), zeros."""
+    dtype = dtype or cfg.cdtype
+    dev = device_mod.resolve(device)
+    kv = (cfg.kv_heads, cfg.head_dim_)
+    shapes = {"k": max_len, "v": max_len, "ck": N_AUDIO, "cv": N_AUDIO}
+    return {k: torch.zeros((cfg.dec_layers, batch, n, *kv), dtype=dtype, device=dev)
+            for k, n in shapes.items()}
+
+
+def cache_axes() -> dict:
+    return {
+        "k": ("layers", "batch", "kvseq", "kv_heads", "head_dim"),
+        "v": ("layers", "batch", "kvseq", "kv_heads", "head_dim"),
+        "ck": ("layers", "batch", None, "kv_heads", "head_dim"),
+        "cv": ("layers", "batch", None, "kv_heads", "head_dim"),
+    }
+
+
+def forward_prefill(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
+                    cfg: ModelConfig, max_len: int) -> tuple[torch.Tensor, dict]:
+    """The encoder once, then the prompt through the decoder: (the last
+    token's logits (B, 1, vocab), the cache with self k / v rows [0, S) and
+    the cross k / v filled)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    enc_out = encode(params, frames, cfg)
+    x = _embed_dec(params, tokens, cfg)
+    for i, p in enumerate(T.layer_list(params, "dec")):
+        x, (k, v), (ck, cv) = _dec_layer_fwd(p, x, enc_out, cfg)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+        cache["ck"][i] = ck
+        cache["cv"][i] = cv
+    x = L.apply_norm(params["dec_norm"], x[:, -1:, :])
+    return T.lm_logits(params, x, cfg), cache
+
+
+def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos: int,
+                   cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step.  token: (B, 1); the cache of ``forward_prefill``,
+    its self k / v written in place at ``pos`` and returned."""
+    pos = int(pos)
+    x = _embed_dec(params, token, cfg, pos=pos)
+    for i, p in enumerate(T.layer_list(params, "dec")):
+        x, _, _ = _dec_layer_fwd(p, x, None, cfg, cache=(cache["k"][i], cache["v"][i]), pos=pos,
+                                 cross_kv=(cache["ck"][i], cache["cv"][i]))
+    x = L.apply_norm(params["dec_norm"], x)
+    return T.lm_logits(params, x, cfg), cache

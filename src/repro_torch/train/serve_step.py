@@ -6,13 +6,13 @@ family (port of ``repro.train.serve_step``).
     decode(params, cache, token, pos, cfg) -> (logits, cache)
     prepare(params, cfg)                   -> the params a server holds
 
-The transformer, zamba2 and xlstm families are ported; the prefix
-families (whisper, pixtral) raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.  ``greedy_generate`` runs under
-``torch.inference_mode`` with no compile step (``repro`` jits the prefill
-and the decode step).  The transformer's and zamba2's decode write the
-cache in place, so the cache handed back is the one prefill allocated;
-xlstm's decode returns new states.
+Every family of ``repro`` is ported: the transformers, zamba2, xlstm and
+the prefix models whisper (its batch carries ``"frames"``) and pixtral
+(``"patches"``).  ``greedy_generate`` runs under ``torch.inference_mode``
+with no compile step (``repro`` jits the prefill and the decode step).  The
+transformer's, zamba2's, whisper's and pixtral's decode write the cache in
+place, so the cache handed back is the one prefill allocated; xlstm's
+decode returns new states.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.registry import NOT_PORTED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,17 +97,50 @@ def _xlstm_family() -> ServeFamily:
     )
 
 
+# ---------------------------------------------------------------------------
+# the prefix models: whisper (encoder-decoder; the cache holds the frozen
+# cross k / v beside the self k / v) and pixtral (the patches occupy the
+# cache's first ``num_patches`` positions, so its cache and prefill take
+# ``max_len + num_patches`` of them)
+# ---------------------------------------------------------------------------
+
+def _whisper_family() -> ServeFamily:
+    from repro_torch.models import whisper as W
+
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None: W.init_cache(cfg, b, m, device=device),
+        cache_axes=W.cache_axes,
+        prefill=lambda p, batch, cfg, m: W.forward_prefill(p, batch["frames"], batch["tokens"],
+                                                           cfg, m),
+        decode=lambda p, c, tok, pos, cfg: W.forward_decode(p, tok, c, pos, cfg),
+        prepare=W.serving_params,
+    )
+
+
+def _pixtral_family() -> ServeFamily:
+    from repro_torch.models import pixtral as P
+
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None: P.init_cache(cfg, b, m + cfg.num_patches,
+                                                               device=device),
+        cache_axes=P.cache_axes,
+        prefill=lambda p, batch, cfg, m: P.forward_prefill(
+            p, batch["patches"], batch["tokens"], cfg, m + cfg.num_patches),
+        decode=lambda p, c, tok, pos, cfg: P.forward_decode(p, tok, c, pos, cfg),
+        prepare=P.serving_params,
+    )
+
+
 _FAMILIES: dict[str, Callable[[], ServeFamily]] = {
     "transformer": _tf_family,
     "zamba2": _zamba_family,
     "xlstm": _xlstm_family,
+    "whisper": _whisper_family,
+    "pixtral": _pixtral_family,
 }
 
 
 def serve_family(kind: str) -> ServeFamily:
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {kind} serve family is not ported yet; {NOT_PORTED[kind]} brings it")
     return _FAMILIES[kind]()
 
 

@@ -18,6 +18,9 @@ card's; hold K9 at granite-moe-3b-a800m's heads (D 64, 24 over 8), the MoE
 layer against its per-token oracle, and two MoE serving calls (and two
 backward passes) bitwise equal; hold K9 at zamba2-7b's heads (D 112, 32
 over 32) and serve zamba2-7b-smoke and xlstm-125m-smoke against the CPU;
+hold K9 at whisper-large-v3's heads (D 64, 20 over 20, non-causal
+1,536 x 1,536 and 4,096 x 1,536) and serve whisper-large-v3-smoke and
+pixtral-12b-smoke against the CPU;
 each decides inside the ``cuda`` fixture whether a card exists,
 and skips without one.  Run them on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``.  This file imports no jax:
@@ -1439,6 +1442,78 @@ def test_gpu_sub_quadratic_smoke_agrees_with_the_cpu(cuda, arch, vocab):
                             max_len=12)
     assert torch.equal(out.cpu(), S.greedy_generate(fam, cpu_params, {"tokens": toks[:, :8]},
                                                     cfg, max_new=4, max_len=12))
+
+
+# ---------------------------------------------------------------------------
+# the prefix models (K9 non-causal over whisper's 1,536 frames and across
+# to them from the decoder, causal over pixtral's patches and tokens; K8
+# for a QR vocabulary's tokens)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_at_whisper_heads(cuda, dtype):
+    """K9 at whisper-large-v3's heads, 20 query heads over 20 kv heads of D
+    64, non-causal: the encoder's 1,536 x 1,536 and the decoder's
+    cross-attention, 4,096 queries over the 1,536 encoder states; fp32
+    within 1e-4 of the plain version, bf16 within one rounding of it in
+    fp32."""
+    fa.reset_launches()
+    n = 0
+    for b, sq, skv in ((2, 1536, 1536), (1, 4096, 1536)):
+        q, k, v = _qkv(cuda, b, 20, 20, sq, skv, 64, dtype, seed=sq)
+        got = fa.flash_fwd(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        n += 1
+        assert got.shape == q.shape
+        _hold(got, lambda *a: ref.flash_fwd_ref(*a, causal=False), (q, k, v),
+              f"D 64 {sq} x {skv}")
+    assert fa.LAUNCHES["flash_fwd"] == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("vocab", ["dense", "qr"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_gpu_prefix_smoke_agrees_with_the_cpu(cuda, arch, vocab):
+    """fp32 compute (TF32 off): the card's loss and its serve family's
+    prefill and decode logits within 1e-5 / 1e-4 of the CPU's on the same
+    weights and batch, the greedy tokens equal; K9 for every attention of a
+    forward (whisper: each encoder layer, each decoder layer's self and
+    cross), K8 once a QR ``embed_tokens``."""
+    from repro_torch.train import serve_step as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    binding = registry.get(arch)
+    cfg = binding.smoke.replace(embedding_kind=vocab, compute_dtype="float32", qr_collision=8)
+    cpu_params, _ = registry.init_fn(binding)(cfg, seed=0, device="cpu")
+    params = tree_map(lambda a: a.to(cuda), cpu_params)
+    fam = S.serve_family(binding.kind)
+    loss_fn = registry.train_loss_fn(binding, cfg)
+    batch = registry.make_batch_fn(binding, cfg)(2, 12, seed=1, step=0)
+    card = {k: v.to(cuda) for k, v in batch.items()}
+    prompt = {k: v[:, :8] if k == "tokens" else v for k, v in batch.items()}
+    card_prompt = {k: v.to(cuda) for k, v in prompt.items()}
+    k9 = cfg.enc_layers + 2 * cfg.dec_layers if binding.kind == "whisper" else cfg.num_layers
+    pos = 8 + cfg.num_patches
+    with torch.inference_mode():
+        fa.reset_launches()
+        qg.reset_launches()
+        got, _ = loss_fn(params, card)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_fwd"] == k9
+        assert qg.LAUNCHES["qr_gather"] == (1 if vocab == "qr" else 0)
+        want, _ = loss_fn(cpu_params, batch)
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+        lg, cache = fam.prefill(params, card_prompt, cfg, 12)
+        clg, ccache = fam.prefill(cpu_params, prompt, cfg, 12)
+        torch.testing.assert_close(lg.cpu(), clg, rtol=1e-4, atol=1e-4)
+        tok = batch["tokens"][:, 8:9]
+        lg2, _ = fam.decode(params, cache, tok.to(cuda), pos, cfg)
+        clg2, _ = fam.decode(cpu_params, ccache, tok, pos, cfg)
+        torch.testing.assert_close(lg2.cpu(), clg2, rtol=1e-4, atol=1e-4)
+    out = S.greedy_generate(fam, params, card_prompt, cfg, max_new=4, max_len=12)
+    assert torch.equal(out.cpu(), S.greedy_generate(fam, cpu_params, prompt, cfg, max_new=4,
+                                                    max_len=12))
 
 
 @pytest.mark.gpu

@@ -4,10 +4,9 @@ loose names ported with them: ``configs.base.MeshConfig``,
 ``kernels.ops.tt_pooled`` and ``kernels.ref.tt_row_ref``.
 
 Every ``CONFIG`` and ``SMOKE`` of the ten arch modules equals ``repro``'s
-field by field (dtypes by name).  Archs the port has no model for raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them
-(the prefix models, item 5); the transformers, dense and MoE, zamba2 and
-xlstm have a model.
+field by field (dtypes by name).  Every arch has a model: the
+transformers, dense and MoE, zamba2, xlstm and the prefix models (whisper,
+pixtral), whose bindings (init, loss, batch and serve family) work here.
 The TT entries are held to ``repro``'s: fp32 to 1e-5 (two fp32 contraction
 orders).
 """
@@ -37,7 +36,8 @@ from torch_tt_inputs import tt_args, tt_inputs  # noqa: E402
 DENSE = ("qwen2-1.5b", "granite-34b", "chatglm3-6b", "minitron-4b")
 MOE = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b")
 SUB_QUADRATIC = ("zamba2-7b", "xlstm-125m")
-PORTED = DENSE + MOE + SUB_QUADRATIC
+PREFIX = ("whisper-large-v3", "pixtral-12b")
+PORTED = DENSE + MOE + SUB_QUADRATIC + PREFIX
 
 
 def test_ten_archs_present():
@@ -116,38 +116,42 @@ def test_configs_equal_repro_field_by_field(arch, which):
 
 @pytest.mark.parametrize("arch", sorted(registry.ARCHS))
 def test_unported_archs_raise_naming_their_roadmap_item(arch):
+    """No arch is refused any more: every binding (init, batch, serve
+    family, its cache) works, and nothing of the port's registry or serve
+    step names a ``ROADMAP.md`` item that brings a model."""
+    import inspect
+
     b = registry.get(arch)
-    assert registry.ported(b) == (arch in PORTED)
-    if arch in PORTED:
-        assert registry.init_fn(b) is not None
-        batch = registry.make_batch_fn(b, b.smoke)(2, 5, seed=1, step=2)
-        assert batch["tokens"].shape == (2, 5)
-        if arch in MOE:              # an MoE layer where the dense ones have an MLP
-            params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
-            assert "mlp" not in params["layers"]
-            assert params["layers"]["moe"]["w_up"].shape[:2] == (b.smoke.num_layers,
-                                                                  b.smoke.num_experts)
-            assert serve_step.serve_family(b.kind) is not None
-        if arch in SUB_QUADRATIC:        # their own model, cache and serve family
-            params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
-            assert ("mamba" in params) == (arch == "zamba2-7b")
-            assert ("blocks" in params) == (arch == "xlstm-125m")
-            fam = serve_step.serve_family(b.kind)
-            assert fam.make_cache(b.smoke, 2, 8, device="cpu") is not None
-            assert fam.prefill is not None and fam.decode is not None
-        return
-    for fn in (registry.init_fn, lambda b: registry.make_batch_fn(b, b.smoke)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
-            fn(b)
-    if b.kind != "transformer":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
-            serve_step.serve_family(b.kind)
+    assert arch in PORTED
+    for mod in (registry, serve_step):
+        assert "item 5" not in inspect.getsource(mod)
+    assert not hasattr(registry, "NOT_PORTED") and not hasattr(registry, "ported")
+    params, _ = registry.init_fn(b)(b.smoke, seed=0, device="cpu")
+    batch = registry.make_batch_fn(b, b.smoke)(2, 5, seed=1, step=2)
+    assert batch["tokens"].shape == (2, 5)
+    fam = serve_step.serve_family(b.kind)
+    assert fam.prefill is not None and fam.decode is not None
+    assert fam.make_cache(b.smoke, 2, 8, device="cpu") is not None
+    if arch in MOE:              # an MoE layer where the dense ones have an MLP
+        assert "mlp" not in params["layers"]
+        assert params["layers"]["moe"]["w_up"].shape[:2] == (b.smoke.num_layers,
+                                                              b.smoke.num_experts)
+    if arch in SUB_QUADRATIC:        # their own model, cache and serve family
+        assert ("mamba" in params) == (arch == "zamba2-7b")
+        assert ("blocks" in params) == (arch == "xlstm-125m")
+    if arch in PREFIX:               # the prefix rides in the batch
+        key = "frames" if b.kind == "whisper" else "patches"
+        assert set(batch) == {key, "tokens"} and batch[key].dtype == torch.float32
+        assert ("enc" in params) == (b.kind == "whisper")
+        with torch.inference_mode():
+            lg, cache = fam.prefill(params, batch, b.smoke, 8)
+        assert lg.shape == (2, 1, b.smoke.vocab)
+        assert cache["k"].shape[2] == 8 + b.smoke.num_patches
 
 
 def test_waiting_entry_points_raise():
-    """``train_loss_fn`` gives the causal LM loss for the transformers,
-    dense and MoE, zamba2 and xlstm, and still raises for the prefix
-    models, naming their ``ROADMAP.md`` item; the dry run's entry points
+    """``train_loss_fn`` gives the causal LM loss for every arch (the prefix
+    models' behind their frames or patches); the dry run's entry points
     stay absent."""
     import math
 
@@ -158,10 +162,7 @@ def test_waiting_entry_points_raise():
         loss, metrics = registry.train_loss_fn(b, b.smoke)(params, batch)
         assert loss.shape == () and metrics["loss"] is loss
         assert abs(float(loss) - math.log(b.smoke.vocab)) < 2.0
-    for arch in sorted(set(registry.ARCHS) - set(PORTED)):
-        b = registry.get(arch)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5"):
-            registry.train_loss_fn(b, b.smoke)
+    assert set(PORTED) == set(registry.ARCHS)
     for name in ("batch_specs", "cache_specs", "abstract_params"):   # the dry run's
         assert not hasattr(registry, name)
 

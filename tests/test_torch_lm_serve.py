@@ -47,15 +47,32 @@ def test_serve_cli_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         serve.main(["--arch", "qwen2-1.5b", "--smoke"])
 
 
-def test_serve_cli_refuses_an_unported_arch():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "whisper-large-v3", "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_serve_cli_refuses_an_unported_arch(arch, capsys):
+    """No arch of the registry is refused: the prefix models serve on the
+    CPU, their batches carrying the frames or the patches; an arch outside
+    the registry is refused by name."""
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "4", "--max-new", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "generated (2, 2) in" in out and "tok/s on cpu" in out
+    with pytest.raises(KeyError, match="unknown arch"):
+        serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu"])
 
 
 def test_serve_lm_example_runs_on_the_cpu(capsys):
     serve_lm.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8", "--max-new", "4"])
     out = capsys.readouterr().out
     assert "xlstm-125m (qr embedding): generated (2, 4)" in out
+    assert "steady-state decode:" in out
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "pixtral-12b"])
+def test_serve_lm_example_runs_the_prefix_models(arch, capsys):
+    serve_lm.main(["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "4",
+                   "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert f"{arch} (qr embedding): generated (2, 3)" in out
     assert "steady-state decode:" in out
 
 
@@ -66,6 +83,7 @@ def test_lm_modules_import_no_jax():
         "import repro_torch.models.transformer, repro_torch.models.layers\n"
         "import repro_torch.models.mamba2, repro_torch.models.zamba2\n"
         "import repro_torch.models.xlstm, repro_torch.launch.train\n"
+        "import repro_torch.models.whisper, repro_torch.models.pixtral\n"
         "import repro_torch.train.serve_step, repro_torch.launch.serve\n"
         "import repro_torch.examples.serve_lm, repro_torch.data.synthetic\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"

@@ -7,7 +7,12 @@ Each emulation does in fp32 what the card's bf16 body does, tile by tile:
   bf16 values with fp32 accumulation (products of two bf16 values are exact
   in fp32), the d^-½ scale on the fp32 scores, the online softmax over kv
   tiles of 64 keys, and O += P_hi·V + P_lo·V with P_hi = bf16(p), P_lo =
-  bf16(p - P_hi); out = acc / max(l, 1e-30) rounded once to bf16.
+  bf16(p - P_hi); out = acc / max(l, 1e-30) rounded once to bf16.  With
+  ``tc=True`` each k16 step of P·V adds as the tensor cores do, modelled
+  (``tc_mma``: the addends aligned to the largest and cut toward zero
+  ``TC_BITS`` bits below it), and ``promote`` gives the body's promotion:
+  each kv tile's products accumulate from zero, then join the output
+  accumulator by an fp32 add.
 * K2/K5 (``csrc/tt_bag.cu``): the elements ordered by middle-core source
   (``tt_gather.element_order``), walked in windows and runs of equal source
   as pass 1 does; t = A·M from bf16 values with fp32 accumulation (the
@@ -59,11 +64,35 @@ def bf16(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 KV_TILE = 64
+# bits a tensor-core accumulate keeps below its largest addend, a model:
+# with 25, the unpromoted body's error on the two worst rows of
+# whisper-large-v3's decoder self-attention (32,768 keys; NVIDIA H100 80GB
+# HBM3) reads 114% and 133% of the card's, with the card's sign
+TC_BITS = 25
 
 
-def flash_tc_emulated(q, k, v, *, causal: bool, split: bool = True) -> torch.Tensor:
+def tc_mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One k16 step c + a·b on the tensor cores, modelled: c (..., M, N)
+    fp32, a (..., M, 16), b (..., 16, N); the 17 addends of an output (c and
+    the 16 exact products) aligned to the largest and cut toward zero
+    ``TC_BITS`` bits below it, summed exactly, the sum cut toward zero to
+    fp32."""
+    prods = a.double().unsqueeze(-1) * b.double().unsqueeze(-3)
+    add = torch.cat([c.double().unsqueeze(-2), prods], dim=-2)
+    _, e = torch.frexp(add.abs().amax(dim=-2, keepdim=True))
+    ulp = torch.ldexp(torch.ones_like(add[..., :1, :]), e - TC_BITS)
+    total = (torch.trunc(add / ulp) * ulp).sum(dim=-2)
+    _, e = torch.frexp(total)
+    ulp = torch.ldexp(torch.ones_like(total), e - 24)
+    return (torch.trunc(total / ulp) * ulp).float()
+
+
+def flash_tc_emulated(q, k, v, *, causal: bool, split: bool = True, tc: bool = False,
+                      promote: bool = True) -> torch.Tensor:
     """K9's bf16 tensor-core body on the CPU (see the module docstring);
-    ``split=False`` rounds p to bf16 once instead of splitting it."""
+    ``split=False`` rounds p to bf16 once instead of splitting it; ``tc``
+    adds P·V as the tensor cores do (``tc_mma``), into a tile promoted to
+    the output accumulator (``promote``) or straight into it."""
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     grp = h // kh
@@ -89,7 +118,14 @@ def flash_tc_emulated(q, k, v, *, causal: bool, split: bool = True) -> torch.Ten
         p = torch.exp(s - m_new)
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr
-        if split:
+        if tc:
+            hi = bf16(p)
+            tile = torch.zeros_like(acc) if promote else acc
+            for kk in range(0, KV_TILE, 16):
+                for part in (hi, bf16(p - hi)):
+                    tile = tc_mma(tile, part[..., kk:kk + 16], vt[..., kk:kk + 16, :])
+            acc = acc + tile if promote else tile
+        elif split:
             hi = bf16(p)
             acc = acc + torch.matmul(hi, vt) + torch.matmul(bf16(p - hi), vt)
         else:
@@ -130,6 +166,37 @@ def test_flash_unsplit_p_breaks_one_rounding(causal):
     plain = ref.flash_fwd_ref(q.float(), k.float(), v.float(), causal=causal)
     assert rounding_ratio(flash_tc_emulated(q, k, v, causal=causal), plain) <= 1.0
     assert rounding_ratio(flash_tc_emulated(q, k, v, causal=causal, split=False), plain) > 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_promoted_tensor_core_accumulate_holds_one_rounding(causal, shape):
+    q, k, v = _qkv(*shape, seed=5)
+    got = flash_tc_emulated(q, k, v, causal=causal, tc=True)
+    plain = ref.flash_fwd_ref(q.float(), k.float(), v.float(), causal=causal)
+    assert rounding_ratio(got, plain) <= 1.0
+
+
+@pytest.mark.parametrize("keys", [4096, 8192])
+def test_flash_unpromoted_accumulate_breaks_one_rounding_on_long_rows(keys):
+    """Why the body promotes: rows of thousands of keys whose outputs are a
+    small remainder of the sum of |p v| (here values that climb for half
+    the keys and fall for the other half), as whisper's decoder gives at
+    32,768 keys.  Accumulated straight into one register tile, the
+    tensor cores' cut-toward-zero bias adds up over every k16 step, far
+    past one rounding; promoted per kv tile it stays at the plain
+    version's own rounding."""
+    g = torch.Generator().manual_seed(0)
+    sign = torch.ones(keys)
+    sign[keys // 2:] = -1
+    v = (sign[:, None] * (1 + 0.05 * torch.randn(keys, 16, generator=g)))[None, None]
+    q = 0.3 * torch.randn((1, 1, 4, 16), generator=g)
+    k = torch.randn((1, 1, keys, 16), generator=g)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    plain = ref.flash_fwd_ref(q.float(), k.float(), v.float(), causal=False)
+    assert rounding_ratio(flash_tc_emulated(q, k, v, causal=False, tc=True), plain) <= 1.0
+    assert rounding_ratio(flash_tc_emulated(q, k, v, causal=False, tc=True, promote=False),
+                          plain) > 4.0
 
 
 def test_flash_emulation_is_the_plain_version_in_fp32():
