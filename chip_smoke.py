@@ -180,8 +180,9 @@ Phases, each one failing the script if it fails:
    decode-vs-train consistency in fp32 at batch 2, sequence 256 (5e-5), K9
    on layer 0's own q/k/v at 4,096 tokens against the plain blockwise
    attention (fp32 1e-4, bf16 one rounding), ``prefill_32k`` at the largest
-   batch that fits by the line through two smaller prefills' reserved
-   memory (ms, tokens/s, K9's ms and share by CUDA events around every
+   batch that fits by the dry run (``launch.dryrun.fit``: the prefill
+   traced on meta at batches 1 and 2, a third trace confirming; ms,
+   tokens/s, K9's ms and share by CUDA events around every
    attention call, peak memory, the FLOP bound; K9 on the call's own
    layer-0 q/k/v and K8 on its lookups held against their plain versions)
    and ``decode_32k`` (one step against 32,768 positions at the largest
@@ -207,9 +208,9 @@ Phases, each one failing the script if it fails:
    qwen2-1.5b at full width and depth, S 4,096 (train_4k), with the QR
    (collision 64) vocabulary under remat ``full`` (the dense vocabulary's
    step, the CLI and the profiled backward left the phase to make room
-   for phase 15): the microbatch that fits by the line through two
-   microbatches' reserved memory (the allocator's expandable segments on
-   for the phase), then one step of 2 microbatches (train_4k's 256
+   for phase 15): the microbatch that fits by the dry run's traces of
+   the step (the allocator's expandable segments on for the phase), then
+   one step of 2 microbatches (train_4k's 256
    cut): ms a step and tokens/s, the split into forward, backward and
    update (CUDA events), K9's ms in the forwards and in the recompute,
    the blockwise attention backward's ms, peak memory, the model-FLOP
@@ -276,7 +277,7 @@ Phases, each one failing the script if it fails:
    (consistency at batch 1, sequence 128, factor 16.0; one
    ``greedy_generate``); training on one card (the allocator's expandable
    segments): granite-moe, QR, S 4,096, remat ``full``, batch 1, at the
-   depth the line through depths 1 and 2 fits, 3 steps (losses finite,
+   depth the dry run fits, 3 steps (losses finite,
    ms a step, tokens/s, the forward / backward / update split, K9's and
    the MoE layers' ms, peak), the step-1 gradients of a 2-layer cut
    against the kernels' plain versions within 2^-6 (the plain path on
@@ -309,9 +310,9 @@ Phases, each one failing the script if it fails:
    1e-4; xlstm 9 steps, 2e-4, held in fp64 compute and read in fp32,
    whose rounding alone is further than that at full width), zamba2's K9
    on site 0's own q/k/v (bf16, one rounding), the fp32 params dropped
-   after the bf16 cast, ``prefill_32k`` at the batch the dense run fits
-   (zamba2 by the line through batches 1 and 2, xlstm from one probe at
-   batch 1 and 4,096 tokens: one point), with K9's, the mamba layers' or the
+   after the bf16 cast, ``prefill_32k`` at the batch the dry run fits
+   for the dense run (on meta the sLSTM's loop runs one step), with K9's,
+   the mamba layers' or the
    sLSTM / mLSTM blocks' ms and share (events around each call), peak,
    the flop bound, K9 on site 0's q/k/v and K8 on its lookups held to
    their plain versions, zamba2's K9 against SDPA; ``decode_32k`` at the
@@ -322,7 +323,7 @@ Phases, each one failing the script if it fails:
    xlstm-125m`` (QR) and ``examples.serve_lm`` with its defaults; training
    on one card (the allocator's expandable segments), QR, S 4,096:
    xlstm-125m at full depth, one step of 2 microbatches of 2 sequences,
-   zamba2-7b at the depth the line through depths 1 and 2 fits, 2 steps
+   zamba2-7b at the depth the dry run fits, 2 steps
    (ms a step, the forward / backward / update split, K9's ms, peak); the
    step-1 gradients of a cut (zamba2 one 6-layer segment and its site, in
    fp32, and read in bf16, where its all but vanished hidden state makes
@@ -330,6 +331,12 @@ Phases, each one failing the script if it fails:
    leaf's scale of the kernels' plain versions on the card;
    ``launch.train --arch xlstm-125m --embedding qr --seq 512 --batch 4
    --steps 2``, then ``--steps 4``, which prints ``[resume] step 2``;
+   Every full-width LM cell of phases 11, 12, 14, 15 and 16 (prefill,
+   decode, ``long_500k``, a training step) holds its measured peak
+   (``torch.cuda.max_memory_allocated`` above the call's baseline) within
+   10% of the dry run's prediction of the same call, kept tensors
+   included; each reading is logged and a miss fails the script at its
+   end;
 16. the prefix models (``models/whisper.py``: the encoder over 1,536
    frames with K9 non-causal, the decoder's causal self-attention and its
    cross-attention to the encoder states through K9, the cross k / v
@@ -345,7 +352,7 @@ Phases, each one failing the script if it fails:
    (the body shared), pixtral-12b at full width and depth (40 layers)
    with the QR vocabulary, each drawn in fp32 and cast once to bf16, the
    fp32 tree freed and the peak recorded: ``prefill_32k`` at the batch the
-   line through batches 1 and 2 fits (ms, tokens/s, the FLOP bound, K9's
+   dry run fits (ms, tokens/s, the FLOP bound, K9's
    share, whisper's encoder and decoder ms), K9 on the call's own q/k/v
    at each kind of site (non-causal, causal, cross) within one rounding,
    K8 bitwise the bf16 sum, K9 against SDPA at the decoder's and the
@@ -353,7 +360,7 @@ Phases, each one failing the script if it fails:
    the bytes bound, the device's busy time); ``launch.serve --smoke`` and
    ``launch.train --smoke`` for each; training on one card, QR, S 4,096,
    remat ``full``: whisper at full depth, 4 sequences in 2 microbatches,
-   pixtral at the depth the line through depths 1 and 2 fits, batch 1,
+   pixtral at the depth the dry run fits, batch 1,
    2 steps each (ms a step, the split, K9's ms, peak); the step-1
    gradients of a 2-layer cut within 2^-6 of the kernels' plain versions.
 
@@ -363,7 +370,8 @@ line per served config, one ``{"training": [...]}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
 ``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
 one ``{"moe": ...}`` line, one ``{"sub_quadratic": ...}`` line, one
-``{"prefix": ...}`` line, one ``{"kernels": [...]}`` line, and last
+``{"prefix": ...}`` line, one ``{"dryrun": ...}`` line (the traces'
+seconds, every cell's peak hold), one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
 
@@ -391,6 +399,9 @@ from repro_torch.launch.mesh import (  # noqa: E402
     DISPATCH_OVERHEAD_S, HBM_BW as BW_BYTES_S, PEAK_FLOPS_BF16 as BF16_FLOP_S,
     PEAK_FLOPS_FP32 as FP32_FLOP_S,
 )
+# the kernels' work (the bound column's formulas), one definition for the
+# dry run (``launch.dryrun``, on meta) and this script
+from repro_torch.kernels.bounds import flash_flops, tt_flops  # noqa: E402
 ERR_TOL = 1e-4
 BF16_TOL = 1e-2      # card and CPU each round an fp32 sum to bf16 once
 # the previous bodies' times on an NVIDIA H100 80GB HBM3 at 700 W, ranges
@@ -783,9 +794,7 @@ def tt_bound(spec, streams, i1, i2_miss, hit_slots, i3, out_rows: int, *, elem: 
     """Bound of a TT bag: 20,480 flops per dlrm-tt lookup (two products of
     FMAs), bytes of the streams, the unique G2 / cache, G1 and G3 rows this
     run touches, and the output, ``elem`` bytes a value."""
-    d1, d2, d3, r = spec.dims
-    lookups = i1.numel()
-    flops = 2 * lookups * (d1 * r * d2 * r + d1 * d2 * r * d3)
+    flops = tt_flops(i1.numel(), spec.dims)
     read = ((unique(i2_miss) + unique(hit_slots)) * spec.g2_width
             + unique(i1) * spec.g1_width + unique(i3) * spec.g3_width) * elem
     return bound(streams, read, out_rows * spec.dim * elem, flops, flop_s=flop_s)
@@ -1578,13 +1587,6 @@ FLASH_CASES = [
 ]
 SDPA_CALL = ("scaled_dot_product_attention(is_causal=causal, enable_gqa=True), top-left "
              "causal")
-
-
-def flash_flops(b, h, sq, skv, d, causal=True) -> int:
-    """4*D flops for each visible (query, key) pair: causal, query i sees
-    keys 0..i (top-left), which is S(S+1)/2 pairs for Sq == Skv."""
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    return 4 * b * h * d * pairs
 
 
 def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
@@ -3593,11 +3595,14 @@ LM_CONSIST_MAIN = (2, 256)                 # batch, sequence at qwen2-1.5b's ful
 LM_CONSIST_OTHER = (1, 128)
 LM_K9_SEQ = 4096          # one layer's attention on the model's own q/k/v
 LM_HEADROOM = 6 << 30     # device bytes left free when a batch or a depth is sized
+# the dry run predicts the bytes allocated; the caching allocator reserves
+# more around them.  At the peak of a full-width prefill in its default
+# segments the reserved bytes were 1.16-1.20 x the allocated at batch 2 and
+# 1.23 x when a batch sized on allocated bytes alone ran out of memory
+# (NVIDIA H100 80GB HBM3, 700 W; the second with 13.27 GiB reserved but
+# unallocated): a call is sized to the free memory less LM_HEADROOM over this
+LM_RESERVE = 1.3
 LM_K8_CHUNK = 1 << 16     # lookups held against the plain sum at a time
-# the prefill batches whose reserved memory gives the fit's line: from
-# batches 1 and 2 the slope read 3.36 and 3.83 GiB a sequence in two runs
-# (NVIDIA H100 80GB HBM3, 700 W) where batches 18-20 reserved ~3.6
-LM_FIT_BATCHES = (2, 4)
 LM_CLI = ("--batch", "8", "--prompt-len", "512", "--max-new", "32")
 LM_GEN = (4, 512, 16)                      # batch, prompt, new tokens (the other archs)
 LM_DECODE_REPS = 3
@@ -3969,35 +3974,120 @@ def k9_against_sdpa(cfg, batch: int, seq: int, dev, skv: int | None = None,
     return rec
 
 
-def reserved_growth(run, dev) -> int:
-    """The device memory ``run()`` reserves beyond what was reserved before
-    it (the allocator's cache emptied first): the tensors it allocates and
-    the blocks reserved but unallocated around them."""
+# the measured peak of a full-width LM cell (``torch.cuda.max_memory_allocated``
+# above the baseline before its call) against the dry run's prediction of it
+PEAK_TOL = 0.10
+DRYRUN = {"s": 0.0, "traces": 0}     # the dry run's traces in this run, on the CPU
+PEAK_HOLDS: list = []                 # every cell's hold; a miss fails the script at its end
+
+
+def dry(fn, keep=None, *, inference: bool = True) -> int:
+    """The dry run's transient peak of ``fn()`` (bytes allocated beyond its
+    arguments, ``launch.dryrun.measure``), ``fn`` called on meta tensors,
+    under ``keep()`` where the card's call keeps tensors for its kernel
+    holds (``kept_model_path``: the kept tensors' bytes then count in the
+    prediction)."""
+    from repro_torch.launch import dryrun
+
+    with keep() if keep else contextlib.nullcontext():
+        rec = dryrun.measure(fn, inference=inference)
+    DRYRUN["s"] += rec["seconds"]
+    DRYRUN["traces"] += 1
+    return rec["transient_peak"]
+
+
+def dry_fit(predict, budget: int, cap: int, sizes=(1, 2)) -> dict:
+    """``launch.dryrun.fit``: the largest size up to ``cap`` whose
+    predicted peak ``predict(size)`` fits ``budget`` bytes, from traces at
+    ``sizes`` and the confirming trace of the size chosen."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    got = dryrun.fit(predict, budget, sizes, cap=cap)
+    got["budget"] = budget
+    got["s"] = time.perf_counter() - t0
+    return got
+
+
+def fmt_fit(f: dict) -> str:
+    return (f"dry-run fit {f['size']}: {f['slope'] / 2**30:.2f} GiB a unit + "
+            f"{f['fixed'] / 2**30:.2f} GiB from traces at {list(f['traced'])}, in "
+            f"{f['budget'] / 2**30:.2f} GiB (free less {LM_HEADROOM / 2**30:.0f}, over "
+            f"{LM_RESERVE}), "
+            f"{f['s']:.1f} s")
+
+
+def free_budget(dev) -> int:
+    """The bytes a call may allocate: the free memory less ``LM_HEADROOM``,
+    over ``LM_RESERVE`` (the allocator's blocks reserved around them)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int((torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM) / LM_RESERVE)
+
+
+def peak_base(dev) -> int:
+    """The allocated bytes before a held call, the peak reset."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    before = torch.cuda.memory_reserved(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    run()
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_reserved(dev) - before
+    return torch.cuda.memory_allocated(dev)
+
+
+def hold_peak(tag: str, want: int, base: int, dev) -> dict:
+    """The cell's measured peak, ``torch.cuda.max_memory_allocated`` above
+    ``base`` (the allocated bytes before its call; a decode cell's before
+    its cache, whose bytes ``want`` then holds too: a decode step's own
+    bytes are a few MB, the scale of the card's library allocations that a
+    trace does not see), beside the dry run's prediction ``want``, held to
+    ``PEAK_TOL``; with the reserved/allocated ratio of the peaks.  A miss
+    is logged and recorded, and fails the script at its end."""
+    measured = torch.cuda.max_memory_allocated(dev) - base
+    ratio = measured / max(want, 1)
+    res = torch.cuda.max_memory_reserved(dev) / max(torch.cuda.max_memory_allocated(dev), 1)
+    rec = {"cell": tag, "measured": measured, "predicted": want, "ratio": ratio,
+           "reserved_over_allocated": res, "ok": abs(ratio - 1) <= PEAK_TOL}
+    PEAK_HOLDS.append(rec)
+    log(f"[dryrun] {tag}: peak {measured / 2**30:.3f} GiB allocated above the baseline, dry "
+        f"run {want / 2**30:.3f} GiB ({100 * (ratio - 1):+.2f}%, held to "
+        f"{100 * PEAK_TOL:.0f}%: {'ok' if rec['ok'] else 'MISS'}); reserved / allocated at "
+        f"the peak {res:.3f}")
+    return rec
+
+
+def decode_reps(decode, params, cache, tok, pos: int, cfg):
+    """``LM_DECODE_REPS`` decode steps at ``pos``; the last one's output."""
+    for _ in range(LM_DECODE_REPS):
+        out = decode(params, cache, tok, pos, cfg)
+    return out
+
+
+def meta_tokens(cfg, batch: int, seq: int) -> dict:
+    """A ``(batch, seq)`` token batch on meta, and a prefix model's
+    frames or patches (``lm_batch_for``'s shapes)."""
+    from repro_torch.configs import registry
+
+    kind = "whisper" if cfg.is_encoder_decoder else "pixtral" if cfg.num_patches else "x"
+    return registry.batch_specs(registry.ArchBinding("", "", kind, False), cfg, batch, seq)
 
 
 def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
     """``prefill_32k``: one prefill of ``seq`` tokens at the largest batch
     that fits, timed by CUDA events, K9's and K8's time by events around
-    every call.  The fit is measured: the device memory a prefill reserves
-    at the two ``LM_FIT_BATCHES`` gives a line, fixed + slope x batch, that
-    counts the allocator's blocks reserved but unallocated as well as the
-    tensors (a batch-1 prefill runs first under the profiler); the
-    batch is the largest whose line fits the free memory less
-    ``LM_HEADROOM``, cut to the cell's.  In the timed call
+    every call.  The fit is the dry run's (``dry_fit``): the prefill traced
+    on meta at batches 1 and 2 gives a line, fixed + slope x batch, of the
+    bytes it allocates; the batch is the largest whose line fits the free
+    memory less ``LM_HEADROOM`` (which covers the allocator's blocks
+    reserved around them), cut to the cell's, confirmed by a third trace.
+    A batch-1 prefill runs first under the profiler.  In the timed call
     ``kept_model_path`` keeps layer 0's K9 q/k/v and output and K8's inputs
-    and output, held against their plain versions after it (``hold_kept``);
-    the sizing runs keep the same, so the fit counts them.  Then K9 against
-    SDPA at the prefill's attention shapes."""
+    and output, held against their plain versions after it
+    (``hold_kept``); the traces keep the same, so the prediction counts
+    them.  Its measured peak is held to the dry run's (``hold_peak``).
+    Then K9 against SDPA at the prefill's attention shapes."""
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.models import transformer as T
 
     cell = next(s for s in LM_SHAPES if s.name == "prefill_32k")
@@ -4010,22 +4100,17 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
         with kept_model_path(ops, {}), torch.inference_mode():
             T.forward_prefill(params, toks, cfg, seq)
 
-    top = []
-    reserved = {1: reserved_growth(lambda: top.extend(top_device_ops(lambda: prefill(1), 8)),
-                                   dev)}
-    reserved.update((b, reserved_growth(lambda: prefill(b), dev)) for b in LM_FIT_BATCHES)
-    lo, hi = LM_FIT_BATCHES
-    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-    fixed = max(reserved[lo] - lo * slope, 0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info(dev)[0]
-    fit = (free - LM_HEADROOM - fixed) // slope
-    batch = max(1, min(cell.global_batch, fit))
+    top = top_device_ops(lambda: prefill(1), 8)
+    meta = dryrun.to_meta(params)
+    fit = dry_fit(lambda b: dry(lambda: T.forward_prefill(meta, meta_tokens(cfg, b, seq)["tokens"],
+                                                          cfg, seq),
+                                lambda: kept_model_path(ops, {})),
+                  free_budget(dev), cell.global_batch)
+    batch = fit["size"]
     reset_all(mods)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.reset_peak_memory_stats(dev)
+    base = peak_base(dev)
     kept = {}
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
             kept_model_path(ops, kept), moe_watch(cfg) as watch:
@@ -4034,6 +4119,8 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
             logits, cache = T.forward_prefill(params, toks, cfg, seq)
             end.record()
             torch.cuda.synchronize()
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} prefill_32k batch {batch}",
+                          fit["traced"][batch], base, dev)
     n = take_launches(mods, totals)
     ms = start.elapsed_time(end)
     peak, peak_reserved = (torch.cuda.max_memory_allocated(dev),
@@ -4051,10 +4138,8 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
     held = hold_kept(kept, f"{cfg.name} prefill_32k")
     del kept
     flops = prefill_flops(cfg, batch, seq)
-    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch,
-           "reserved_by_batch": reserved, "reserved_a_sequence": slope,
-           "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM, "fit": fit,
-           "ms": ms, "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms,
+    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch, "fit": fit,
+           "peak_hold": held_peak, "ms": ms, "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms,
            "k9_share": k9_ms / ms, "k9_ms_a_call": k9_ms / cfg.num_layers, "k8_ms": k8_ms,
            "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
            "flops": flops, "bound_ms": flops / BF16_FLOP_S * 1e3, "launches": n,
@@ -4078,6 +4163,7 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
     from repro_torch import tree
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.models import transformer as T
 
     cell = next(s for s in LM_SHAPES if s.name == "decode_32k")
@@ -4088,23 +4174,33 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info(dev)[0]
     batch = max(1, min(cell.global_batch, (free - LM_HEADROOM) // cache_seq))
+    base = peak_base(dev)               # the cell's baseline: before its cache
     cache = T.init_cache(cfg, batch, depth, device=dev)
     g = torch.Generator(device=dev).manual_seed(4)
     for key in ("k", "v"):
         cache[key].normal_(generator=g)
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
     reset_all(mods)
+
+    def steps(p, c, t):
+        for _ in range(LM_DECODE_REPS):
+            out = T.forward_decode(p, t, c, depth - 1, cfg)
+        return out
+
+    meta = dryrun.to_meta((params, cache, tok))
+    predicted = dryrun.storage_bytes(meta[1:]) + dry(lambda: steps(*meta),
+                                                     lambda: kept_model_path(ops, {}))
     with torch.inference_mode():
         top = top_device_ops(lambda: T.forward_decode(params, tok, cache, depth - 1, cfg), 8)
-        torch.cuda.reset_peak_memory_stats(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         kept = {}
         with kept_model_path(ops, kept), moe_watch(cfg) as watch:
             start.record()
-            for _ in range(LM_DECODE_REPS):
-                logits, out = T.forward_decode(params, tok, cache, depth - 1, cfg)
+            logits, out = steps(params, cache, tok)
             end.record()
             torch.cuda.synchronize()
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} decode_32k batch {batch}", predicted,
+                          base, dev)
     n = take_launches(mods, totals)
     if out is not cache or tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
@@ -4117,7 +4213,8 @@ def lm_decode_run(params, cfg, dev, mods, totals) -> dict:
            "cache_bytes": batch * cache_seq, "weight_bytes": weight_bytes, "ms": ms,
            "tokens_per_s": batch / ms * 1e3,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top}
+           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top,
+           "peak_hold": held_peak}
     if cfg.num_experts:
         rec["moe"] = moe_drops(watch)
     del cache, logits, out, kept
@@ -4211,11 +4308,8 @@ def lm_main_run(dev, vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "
     moe_d = (f"; dropped {d['moe']['dropped']} of {d['moe']['assignments']} assignments "
              f"({100 * d['moe']['dropped_share']:.2f}%) over {LM_DECODE_REPS} steps, MoE layers "
              f"{d['moe']['moe_ms'] / LM_DECODE_REPS:.2f} ms a step" if "moe" in d else "")
-    log(f"{tag} {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; fit "
-        f"{p['fit']}: {p['reserved_a_sequence'] / 2**30:.2f} GiB reserved a sequence + "
-        f"{p['reserved_fixed'] / 2**30:.2f} GiB, from batches {LM_FIT_BATCHES}, in "
-        f"{p['free_bytes'] / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}) x {p['seq']}: "
-        f"{p['ms']:.1f} ms, "
+    log(f"{tag} {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; "
+        f"{fmt_fit(p['fit'])}) x {p['seq']}: {p['ms']:.1f} ms, "
         f"{p['tokens_per_s']:.0f} tokens/s, K9 {p['k9_ms']:.1f} ms ({100 * p['k9_share']:.1f}%, "
         f"{p['k9_ms_a_call']:.2f} ms a layer), peak {p['peak_gib']:.2f} GiB allocated, "
         f"{p['peak_reserved_gib']:.2f} GiB reserved, bound "
@@ -4355,21 +4449,22 @@ LMT_REF_OPT = dict(lr=1e-3, eps=1e-2, warmup_steps=1, total_steps=4)
 # gradient check and phase 11 / 13 run the dense vocabulary
 LMT_MAIN = (("qr", "full"),)
 LMT_MICRO = 2             # microbatches a step: the global batch is 2 x the fitted one
-# the microbatch sizes whose reserved memory gives the fit's line (the last
-# two).  One microbatch's forward and backward at full width reserved, for
-# 1, 2, 3, 4 and 6 sequences, 12.09 / 12.67 / 12.45 / 16.63 / 24.95 GiB
-# (QR, remat full), 12.81 / 14.38 / 13.95 / 15.59 / 20.79 (dense) and
-# 13.30 / 18.05 / 27.08 / 36.10 / 54.14 (QR, dots) on an NVIDIA H100 80GB
-# HBM3: up to 3 sequences the layers' gradients and their stack set the
-# peak, from 4 the activations
-LMT_FIT = (4, 6)
+# the microbatch sizes whose traced peaks give the dry-run fit's line: up to
+# ~6 sequences the layers' gradients and their stack set a step's peak
+# (the dry run: 28.8 GiB at 4 and at 6, QR, remat full), beyond it the
+# activations (37.0 GiB at 11)
+LMT_FIT = (8, 12)
 LMT_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=1)
 LMT_GRAD = (2, 2)         # layers, sequences of the step-1 gradient check
 LMT_FIT_STEPS = 3         # steps of a depth-fitted run (``lm_train_fitted``), on one batch
 # AdamW's first steps move every weight by ~lr: at lr 1e-3 chatglm3-6b's
 # third loss rose above its first (11.57, 11.51, 11.91; granite-34b fell)
 LMT_FIT_OPT = dict(lr=1e-4, warmup_steps=1, schedule="constant")
-LMT_DEPTHS = (1, 2)       # depths whose reserved memory gives a depth fit
+# depths whose traced peaks give the dry run's depth fit: over its first
+# three layers a step's peak grows by less a layer than beyond them (the
+# traces of granite-moe and zamba2, QR), so a line through depths 1 and 2
+# falls short of the slope and its size needs more traces
+LMT_DEPTHS = (4, 8)
 # a step at full width holds (microbatch, 4,096, 151,936) bf16 tensors of
 # ~1.2 GiB a sequence (the logits, their gradient): in the default
 # allocator's fixed segments the steps left 14-32 GiB reserved but
@@ -4584,11 +4679,14 @@ def event_ms(pairs) -> float:
 def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
     """qwen2-1.5b at full width and depth, ``vocab`` vocabulary (QR at the
     config's collision), ``remat_policy=policy``, S 4,096 (train_4k).  The
-    microbatch is the largest that fits: the device memory one microbatch's
-    forward and backward reserves at ``LMT_FIT`` sizes, with the params,
-    the AdamW state and a step's fp32 accumulator in place, gives a line
-    fixed + slope x sequences; the microbatch is the largest whose line fits
-    the free memory less ``LM_HEADROOM``.  The global batch is
+    microbatch is the largest that fits: the step traced on meta by the
+    dry run (``dry_fit``) at ``LMT_FIT`` microbatch sizes, with the params
+    and the AdamW state in place, gives a line fixed + slope x sequences of
+    the bytes the step allocates (the fp32 accumulator, the activations,
+    the gradients, the update's new copies); the microbatch is the largest
+    whose line fits the free memory less ``LM_HEADROOM``, confirmed by a
+    third trace, and the step's measured peak is held to it
+    (``hold_peak``).  The global batch is
     ``LMT_MICRO`` microbatches (train_4k's 256 cut).  Then one step of
     ``make_train_step``, timed (host clock) and split by CUDA events: the
     forwards (around each microbatch's loss), the update (around
@@ -4599,11 +4697,11 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
     recorded).  In the step ``kept_model_path`` keeps layer 0's K9 q/k/v
     and output and every K8 call, held against their plain versions
     after it."""
-    from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
+    from repro_torch.launch import dryrun
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as TS
 
@@ -4622,18 +4720,15 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
         return {"tokens": torch.randint(0, cfg.vocab, (b, seq), generator=g, device=dev,
                                         dtype=torch.int32)}
 
-    acc = tree.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=dev), params)
-    reserved = {b: reserved_growth(lambda: TS.value_and_grad(loss_fn, params, toks(b)), dev)
-                for b in LMT_FIT}
-    lo, hi = LMT_FIT[-2:]
-    slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-    fixed = max(reserved[lo] - lo * slope, 0)
-    gc.collect()
-    torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info(dev)[0]
-    fit = (free - LM_HEADROOM - fixed) // slope
-    del acc
-    mb = int(max(1, min(cell.global_batch // LMT_MICRO, fit)))
+    meta_step = TS.make_train_step(loss_fn, opt.OptConfig(**LMT_OPT), microbatches=LMT_MICRO)
+    meta = dryrun.to_meta((params, state))
+
+    def predict(b: int) -> int:
+        return dry(lambda: meta_step(*meta, meta_tokens(cfg, b * LMT_MICRO, seq)),
+                   lambda: kept_model_path(ops, {}), inference=False)
+
+    fit = dry_fit(predict, free_budget(dev), cell.global_batch // LMT_MICRO, sizes=LMT_FIT)
+    mb = fit["size"]
     take_launches(mods, totals)
 
     fwd, upd, k9_at, k9_marks, attn_bwd = [], [], [], [], []
@@ -4667,8 +4762,7 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
         try:
             take_launches(mods, totals)
             batch = toks(mb * LMT_MICRO)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
+            base = peak_base(dev)
             TS.opt_mod.update = timed_update
             try:
                 with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
@@ -4691,6 +4785,8 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
         torch.cuda.empty_cache()
         mb -= max(1, mb // 8)
     batch_n = mb * LMT_MICRO
+    held_peak = hold_peak(f"{cfg.name} {vocab} train_4k {mb} x {LMT_MICRO}",
+                          fit["traced"].get(mb) or predict(mb), base, dev)
     loss, norm = float(m["loss"]), float(m["grad_norm"])
     n = take_launches(mods, totals)
     peak, peak_reserved = (torch.cuda.max_memory_allocated(dev),
@@ -4715,10 +4811,9 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
     bound = flops / BF16_FLOP_S * 1e3
     rec = {"arch": cfg.name, "vocab": vocab, "remat_policy": policy, "layers": cfg.num_layers,
            "seq": seq, "microbatch": mb, "microbatches": LMT_MICRO, "batch": batch_n,
-           "cell_batch": cell.global_batch, "fit": int(fit), "out_of_memory_at": too_big,
-           "reserved_by_microbatch": reserved, "reserved_a_sequence": slope,
-           "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
-           "loss": loss, "grad_norm": norm, "ms_per_step": wall * 1e3, "event_ms": total,
+           "cell_batch": cell.global_batch, "fit": fit, "out_of_memory_at": too_big,
+           "peak_hold": held_peak, "loss": loss, "grad_norm": norm, "ms_per_step": wall * 1e3,
+           "event_ms": total,
            "tokens_per_s": batch_n * seq / wall, "forward_ms": forward,
            "backward_ms": total - forward - update, "update_ms": update,
            "k9_forward_ms": k9_fwd, "k9_recompute_ms": k9_re,
@@ -4726,12 +4821,9 @@ def lm_train_main(dev, vocab: str, policy: str, mods, totals) -> dict:
            "peak_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
            "flops": flops, "bound_ms": bound, "bound_share": bound / (wall * 1e3),
            "launches": n, "held": held}
-    shown = {b: round(r / 2**30, 2) for b, r in reserved.items()}
     log(f"[lm-train] {cfg.name} {vocab} vocab, remat {policy}, {cfg.num_layers} layers, S {seq}: "
-        f"microbatch {mb} (fit {fit}: {slope / 2**30:.2f} GiB reserved a sequence + "
-        f"{fixed / 2**30:.2f} GiB, from microbatches {LMT_FIT[-2:]} of {shown} GiB, in "
-        f"{free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out of memory at "
-        f"{too_big or 'none'}) x {LMT_MICRO} = batch {batch_n} (cell {cell.global_batch}): "
+        f"microbatch {mb} ({fmt_fit(fit)}; out of memory at {too_big or 'none'}) x "
+        f"{LMT_MICRO} = batch {batch_n} (cell {cell.global_batch}): "
         f"{rec['ms_per_step']:.1f} ms a step, {rec['tokens_per_s']:.0f} tokens/s; forward "
         f"{forward:.1f} ms (K9 {k9_fwd:.1f}), backward {rec['backward_ms']:.1f} ms (K9 "
         f"recompute {k9_re:.1f}, blockwise attention backward "
@@ -4956,12 +5048,14 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
                     microbatches: int = 1) -> dict:
     """``arch`` at full width with a ``vocab`` vocabulary, S 4,096,
     ``batch_size`` sequences (1) in ``microbatches`` (1), at ``depth`` or,
-    without one, at the depth that fits: a full step's reserved memory at
-    ``LMT_DEPTHS`` layers gives a line, fixed + slope x layers (params,
-    gradient, AdamW state, the functional update's new copies and the
-    activations); the depth is the largest whose line fits the free memory
-    less ``LM_HEADROOM`` (where the first step runs out of memory, an
-    eighth fewer layers).  ``steps`` steps (``LMT_FIT_STEPS``) on one
+    without one, at the depth that fits: the dry run's traces of a step at
+    ``LMT_DEPTHS`` layers give a line, fixed + slope x layers, of the
+    params, the AdamW state and the bytes the step allocates (gradients,
+    the functional update's new copies, the activations); the depth is the
+    largest whose line fits the free memory less ``LM_HEADROOM``, confirmed
+    by a third trace (where the first step runs out of memory, an eighth
+    fewer layers, each recorded).  The steps' measured peak is held to the
+    traced step's (``hold_peak``).  ``steps`` steps (``LMT_FIT_STEPS``) on one
     batch: losses finite; ms a step and tokens/s of the steps after the
     first (host clock); the last step split by CUDA events into the forward
     (around the loss), the update (around ``optimizer.update``) and the
@@ -4969,6 +5063,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     recompute) in it, peak memory."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as TS
 
@@ -4980,22 +5075,25 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     batch = lm_batch_for(full, batch_size, seq, g, dev)
     ocfg = opt.OptConfig(**LMT_FIT_OPT)
 
-    def one(layers: int):
-        cfg = with_depth(full, layers)
-        params, _ = init(cfg, seed=0, device=dev)
-        step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg)
-        step(params, opt.init(params), batch)
+    mbatch = dryrun.to_meta(batch)
+    traced = {}
 
-    reserved, slope, fixed, free = {}, 0, 0, torch.cuda.mem_get_info(dev)[0]
+    def traced_step(layers: int) -> int:
+        """The step's transient peak at ``layers`` (the dry run), kept."""
+        if layers not in traced:
+            cfg = with_depth(full, layers)
+            params, _ = init(cfg, seed=0, device="meta")
+            state = opt.init(params)
+            step = TS.make_train_step(registry.train_loss_fn(binding, cfg), ocfg,
+                                      microbatches=microbatches)
+            traced[layers] = (dryrun.storage_bytes(params, state),
+                              dry(lambda: step(params, state, mbatch), inference=False))
+        return sum(traced[layers])
+
+    fit = {}
     if depth is None:
-        reserved = {d: reserved_growth(lambda: one(d), dev) for d in LMT_DEPTHS}
-        lo, hi = LMT_DEPTHS
-        slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-        fixed = max(reserved[lo] - lo * slope, 0)
-        gc.collect()
-        torch.cuda.empty_cache()
-        free = torch.cuda.mem_get_info(dev)[0]
-        depth = int(max(1, min(depth_of(full), (free - LM_HEADROOM - fixed) // slope)))
+        fit = dry_fit(traced_step, free_budget(dev), depth_of(full), sizes=LMT_DEPTHS)
+        depth = fit["size"]
     fwd, upd = [], []
     saved_update = TS.opt_mod.update
 
@@ -5025,7 +5123,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
 
         step = TS.make_train_step(timed_loss, ocfg, microbatches=microbatches)
         losses, secs = [], []
-        torch.cuda.reset_peak_memory_stats(dev)
+        base = peak_base(dev)
         try:
             for i in range(steps):
                 last = i == steps - 1
@@ -5043,7 +5141,7 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
                     secs.append(time.perf_counter() - t0)
             break
         except torch.OutOfMemoryError:
-            if depth == 1 or secs or reserved == {}:
+            if depth == 1 or secs or not fit:
                 raise
             too_big.append(depth)
         finally:
@@ -5052,6 +5150,9 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
         gc.collect()
         torch.cuda.empty_cache()
         depth -= max(1, depth // 8)
+    traced_step(depth)
+    held_peak = hold_peak(f"{full.name} {full.embedding_kind} train_4k {batch_size} x {seq} at "
+                          f"{depth} layers", traced[depth][1], base, dev)
     n = take_launches(mods, totals)
     want = {k: v * steps for k, v in step_launches(cfg, microbatches).items()}
     if n != want or not np.isfinite(losses).all():
@@ -5061,9 +5162,8 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
     forward, update = event_ms(fwd), event_ms(upd)
     rec = {"arch": full.name, "vocab": full.embedding_kind, "layers": depth,
            "full_layers": depth_of(full), "seq": seq, "batch": batch_size,
-           "microbatches": microbatches, "out_of_memory_at": too_big,
-           "reserved_by_depth": reserved, "reserved_a_layer": slope,
-           "reserved_fixed": fixed, "free_bytes": free, "losses": losses,
+           "microbatches": microbatches, "out_of_memory_at": too_big, "fit": fit,
+           "peak_hold": held_peak, "losses": losses,
            "step_s": secs, "ms_per_step": 1e3 * sum(later) / len(later),
            "tokens_per_s": batch_size * seq * len(later) / sum(later), "event_ms": total,
            "forward_ms": forward, "backward_ms": total - forward - update, "update_ms": update,
@@ -5074,9 +5174,8 @@ def lm_train_fitted(dev, arch: str, vocab: str, mods, totals, tag: str = "[lm-tr
         rec["moe"] = moe_drops(watch)
         moe = (f", MoE layers {rec['moe']['moe_ms']:.1f} ms in forward and recompute, "
                f"{100 * rec['moe']['dropped_share']:.2f}% of assignments dropped")
-    fitted = (f"{slope / 2**30:.2f} GiB reserved a layer + {fixed / 2**30:.2f} GiB, from depths "
-              f"{LMT_DEPTHS}, in {free / 2**30:.2f} GiB free less {LM_HEADROOM / 2**30:.0f}; out "
-              f"of memory at {too_big or 'none'}" if reserved else "a depth given")
+    fitted = (f"{fmt_fit(fit)}; out of memory at {too_big or 'none'}" if fit
+              else "a depth given")
     log(f"{tag} {full.name} {full.embedding_kind} vocab ({depth} of {depth_of(full)} "
         f"{'encoder + decoder ' if full.is_encoder_decoder else ''}layers: "
         f"{fitted}), {batch_size} x {seq} in {microbatches} microbatch(es), {steps} steps on "
@@ -6104,8 +6203,6 @@ SSM_ARCHS = ("zamba2-7b", "xlstm-125m")
 # repro's decode-vs-train checks (tests/test_models_consistency.py): batch,
 # sequence and bound; zamba2 prefills all but the last token, xlstm steps
 SSM_CONSIST = {"zamba2-7b": (2, 256, 1e-4), "xlstm-125m": (2, 9, 2e-4)}
-SSM_FIT_BATCHES = (1, 2)  # zamba2 prefill_32k: the batches whose reserved memory gives the line
-SSM_PROBE_CUT = 8         # xlstm's one probe runs 32,768 / 8 tokens (its memory scales by 8)
 SSM_ZAMBA_CLI = ("--batch", "4", "--prompt-len", "512", "--max-new", "16")
 # xlstm-125m's full-depth training step: sequences, microbatches (a constant
 # for the script's time: its sLSTM time loop, not memory, sets the pace)
@@ -6363,12 +6460,10 @@ def ssm_prefill_flops(cfg, batch: int, seq: int) -> int:
 def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None = None) -> dict:
     """``prefill_32k`` through ``kind``'s serve family (the head on the last
     row): one prefill of 32,768 tokens at ``batch`` or, without one, at the
-    largest batch that fits, cut to the cell's 32.  zamba2 fits as phase 11
-    does (the reserved memory of prefills at ``SSM_FIT_BATCHES`` gives a
-    line, fixed + slope x batch); xlstm from one probe at batch 1 and
-    1 / ``SSM_PROBE_CUT`` of the sequence (its sLSTM time loop takes
-    seconds a prefill at any batch: slope = the probe's reserved memory
-    scaled to the sequence, fixed 0).  Timed by CUDA events: the call, K9
+    largest batch that fits, cut to the cell's 32, by the dry run's fit as
+    phase 11's (``dry_fit``: on meta the sLSTM's time loop runs one step);
+    the measured peak held to the trace's (``hold_peak``).  Timed by CUDA
+    events: the call, K9
     and K8 around every call, the mamba layers (zamba2) or the sLSTM and
     mLSTM blocks (xlstm) around every call; site 0's K9 q/k/v and output and
     every K8 call kept and held against their plain versions after it; peak
@@ -6376,6 +6471,7 @@ def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None
     SDPA at the prefill's attention shapes."""
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.train import serve_step as S
 
     fam = S.serve_family(kind)
@@ -6383,36 +6479,20 @@ def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None
     seq = cell.seq_len
     g = torch.Generator(device=dev).manual_seed(3)
 
-    def prefill(b: int, s: int):
-        toks = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev, dtype=torch.int32)
-        with kept_model_path(ops, {}), torch.inference_mode():
-            fam.prefill(params, {"tokens": toks}, cfg, s)
+    meta = dryrun.to_meta(params)
+
+    def predict(b: int) -> int:
+        return dry(lambda: fam.prefill(meta, meta_tokens(cfg, b, seq), cfg, seq),
+                   lambda: kept_model_path(ops, {}))
 
     fit = {}
     if batch is None:
-        sizes = SSM_FIT_BATCHES if kind == "zamba2" else SSM_FIT_BATCHES[:1]
-        probe_seq = seq if kind == "zamba2" else seq // SSM_PROBE_CUT
-        reserved = {b: reserved_growth(lambda: prefill(b, probe_seq), dev) for b in sizes}
-        if len(sizes) == 2:
-            lo, hi = sizes
-            slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-            fixed = max(reserved[lo] - lo * slope, 0)
-        else:               # one point: the probe's memory, scaled to the sequence
-            slope, fixed = max(reserved[sizes[0]] * (seq // probe_seq) // sizes[0], 1), 0
-        gc.collect()
-        torch.cuda.empty_cache()
-        free = torch.cuda.mem_get_info(dev)[0]
-        lines = (free - LM_HEADROOM - fixed) // slope
-        batch = int(max(1, min(cell.global_batch, lines)))
-        fit = {"reserved_by_batch": reserved, "reserved_a_sequence": slope,
-               "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
-               "fit": int(lines), "points": len(sizes), "probe_seq": probe_seq}
+        fit = dry_fit(predict, free_budget(dev), cell.global_batch)
+        batch = fit["size"]
     reset_all(mods)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    base = peak_base(dev)
     kept = {}
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
             kept_model_path(ops, kept), ssm_watch(kind) as parts:
@@ -6423,6 +6503,8 @@ def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None
             end.record()
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} prefill_32k batch {batch}",
+                          fit["traced"][batch] if fit else predict(batch), base, dev)
     n = take_launches(mods, totals)
     ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -6438,7 +6520,8 @@ def ssm_prefill_run(params, cfg, kind: str, dev, mods, totals, batch: int | None
     del kept
     flops = ssm_prefill_flops(cfg, batch, seq)
     k9_ms = event_ms(marks["flash_attention_fused"])
-    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch, **fit, "ms": ms,
+    rec = {"seq": seq, "batch": batch, "cell_batch": cell.global_batch, "fit": fit,
+           "peak_hold": held_peak, "ms": ms,
            "host_s": host_s, "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms,
            "k9_share": k9_ms / ms, "k8_ms": event_ms(marks["qr_lookup"]),
            "parts_ms": {k: event_ms(v) for k, v in parts.items()},
@@ -6466,6 +6549,7 @@ def ssm_decode_run(params, cfg, kind: str, dev, mods, totals, cell_name: str,
     from repro_torch import tree
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.train import serve_step as S
 
     fam = S.serve_family(kind)
@@ -6480,6 +6564,7 @@ def ssm_decode_run(params, cfg, kind: str, dev, mods, totals, cell_name: str,
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info(dev)[0]
         batch = int(max(1, min(cell.global_batch, (free - LM_HEADROOM) // per_seq)))
+    base = peak_base(dev)               # the cell's baseline: before its cache
     cache = fam.make_cache(cfg, batch, depth, device=dev)
     g = torch.Generator(device=dev).manual_seed(4)
     if kind == "zamba2":
@@ -6487,17 +6572,20 @@ def ssm_decode_run(params, cfg, kind: str, dev, mods, totals, cell_name: str,
             cache[key].normal_(generator=g)
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
     reset_all(mods)
+    meta = dryrun.to_meta((params, cache, tok))
+    predicted = dryrun.storage_bytes(meta[1:]) + dry(
+        lambda: decode_reps(fam.decode, *meta, depth - 1, cfg), lambda: kept_model_path(ops, {}))
     with torch.inference_mode():
         top = top_device_ops(lambda: fam.decode(params, cache, tok, depth - 1, cfg), 6)
-        torch.cuda.reset_peak_memory_stats(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         kept = {}
         with kept_model_path(ops, kept):
             start.record()
-            for _ in range(LM_DECODE_REPS):
-                logits, out = fam.decode(params, cache, tok, depth - 1, cfg)
+            logits, out = decode_reps(fam.decode, params, cache, tok, depth - 1, cfg)
             end.record()
             torch.cuda.synchronize()
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} {cell_name} batch {batch}", predicted,
+                          base, dev)
     n = take_launches(mods, totals)
     if tuple(logits.shape) != (batch, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"[ssm] {cfg.name} {cell_name}: logits {tuple(logits.shape)}")
@@ -6513,7 +6601,8 @@ def ssm_decode_run(params, cfg, kind: str, dev, mods, totals, cell_name: str,
            "state_bytes": state_bytes, "weight_bytes": weight_bytes, "ms": ms,
            "tokens_per_s": batch / ms * 1e3,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top}
+           "bound_ms": nbytes / BW_BYTES_S * 1e3, "launches": n, "held": held, "top_ops": top,
+           "peak_hold": held_peak}
     del cache, logits, out, kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -6619,10 +6708,7 @@ def ssm_serve_run(dev, arch: str, mods, totals) -> dict:
         p = {**params, "embed": embed}
         r = rec["prefill_32k"][vocab] = ssm_prefill_run(p, vc, kind, dev, mods, totals, batch)
         batch = r["batch"]
-        fit = (f"fit {r['fit']} from {r['points']} point(s) at {r['probe_seq']} tokens: "
-               f"{r['reserved_a_sequence'] / 2**30:.2f} GiB reserved a sequence + "
-               f"{r['reserved_fixed'] / 2**30:.2f} GiB in {r['free_bytes'] / 2**30:.2f} GiB free "
-               f"less {LM_HEADROOM / 2**30:.0f}" if "fit" in r else "the dense run's batch")
+        fit = fmt_fit(r["fit"]) if r["fit"] else "the dense run's batch"
         parts = ", ".join(f"{k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
                           f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
         sdpa = (f"; one site's attention at these shapes: K9 {r['k9_vs_sdpa']['k9_ms']:.1f} ms, "
@@ -6791,7 +6877,7 @@ def ssm_phase(dev, by_name, mods) -> dict:
     the serve CLI (zamba2 with each vocabulary, xlstm with QR) and the
     serve-LM example; training on one card (the allocator's expandable
     segments): xlstm at full depth, one step of 2 microbatches, zamba2 at
-    the depth the line through depths 1 and 2 fits, 2 steps, each QR at
+    the depth the dry run fits, 2 steps, each QR at
     S 4,096; the step-1 gradients of a cut (``SSM_GRAD_DEPTH``) against the
     kernels' plain versions; the training CLI twice (the second resumes).
     The phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.
@@ -6864,7 +6950,6 @@ PREFIX_ARCHS = ("whisper-large-v3", "pixtral-12b")
 # repro's decode-vs-train bounds (tests/test_models_consistency.py): the
 # prefill's last row, the decode step
 PREFIX_CONSIST_TOL = (5e-5, 1e-4)
-PREFIX_FIT_BATCHES = (1, 2)   # prefill_32k: the batches whose reserved memory gives the line
 # whisper-large-v3's full-depth training step: sequences, microbatches (train_4k's
 # 256 cut for the script's time, as xlstm-125m's)
 PREFIX_WHISPER_TRAIN = (4, 2)
@@ -7089,9 +7174,9 @@ def prefix_prefill_flops(cfg, batch: int, seq: int) -> int:
 def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None) -> dict:
     """``prefill_32k`` through the serve family: one prefill of 32,768
     tokens (pixtral's behind its 256 patches) at ``batch`` or, without one,
-    at the largest batch that fits, cut to the cell's 32: the reserved
-    memory of prefills at ``PREFIX_FIT_BATCHES`` gives a line, fixed +
-    slope x batch.  Timed by CUDA events: the call, K9 and K8 around every
+    at the largest batch that fits, cut to the cell's 32, by the dry run's
+    fit as phase 11's (``dry_fit``); the measured peak held to the trace's
+    (``hold_peak``).  Timed by CUDA events: the call, K9 and K8 around every
     call, whisper's encoder and decoder layers around each call
     (``prefix_watch``); the first K9 call of each kind of site and every K8
     call kept and held against their plain versions after it
@@ -7101,6 +7186,7 @@ def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None)
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
     from repro_torch.models.whisper import N_AUDIO
+    from repro_torch.launch import dryrun
     from repro_torch.train import serve_step as S
 
     fam = S.serve_family("whisper" if cfg.is_encoder_decoder else "pixtral")
@@ -7108,31 +7194,20 @@ def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None)
     seq = cell.seq_len
     g = torch.Generator(device=dev).manual_seed(3)
 
-    def prefill(b: int):
-        inputs = lm_batch_for(cfg, b, seq, g, dev)
-        with kept_attention_sites(ops, {}), torch.inference_mode():
-            fam.prefill(params, inputs, cfg, seq)
+    meta = dryrun.to_meta(params)
+
+    def predict(b: int) -> int:
+        return dry(lambda: fam.prefill(meta, meta_tokens(cfg, b, seq), cfg, seq),
+                   lambda: kept_attention_sites(ops, {}))
 
     fit = {}
     if batch is None:
-        reserved = {b: reserved_growth(lambda: prefill(b), dev) for b in PREFIX_FIT_BATCHES}
-        lo, hi = PREFIX_FIT_BATCHES
-        slope = max((reserved[hi] - reserved[lo]) // (hi - lo), 1)
-        fixed = max(reserved[lo] - lo * slope, 0)
-        gc.collect()
-        torch.cuda.empty_cache()
-        free = torch.cuda.mem_get_info(dev)[0]
-        lines = (free - LM_HEADROOM - fixed) // slope
-        batch = int(max(1, min(cell.global_batch, lines)))
-        fit = {"reserved_by_batch": reserved, "reserved_a_sequence": slope,
-               "reserved_fixed": fixed, "free_bytes": free, "headroom": LM_HEADROOM,
-               "fit": int(lines)}
+        fit = dry_fit(predict, free_budget(dev), cell.global_batch)
+        batch = fit["size"]
     reset_all(mods)
     inputs = lm_batch_for(cfg, batch, seq, g, dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
+    base = peak_base(dev)
     kept = {}
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
             kept_attention_sites(ops, kept), prefix_watch(cfg) as parts:
@@ -7143,6 +7218,8 @@ def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None)
             end.record()
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} prefill_32k batch {batch}",
+                          fit["traced"][batch] if fit else predict(batch), base, dev)
     n = take_launches(mods, totals)
     ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -7160,7 +7237,8 @@ def prefix_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None)
     flops = prefix_prefill_flops(cfg, batch, seq)
     k9_ms = event_ms(marks["flash_attention_fused"])
     rec = {"seq": seq, "prefix_rows": N_AUDIO if cfg.is_encoder_decoder else cfg.num_patches,
-           "batch": batch, "cell_batch": cell.global_batch, **fit, "ms": ms, "host_s": host_s,
+           "batch": batch, "cell_batch": cell.global_batch, "fit": fit, "peak_hold": held_peak,
+           "ms": ms, "host_s": host_s,
            "tokens_per_s": batch * seq / ms * 1e3, "k9_ms": k9_ms, "k9_share": k9_ms / ms,
            "k9_calls": len(marks["flash_attention_fused"]),
            "k8_ms": event_ms(marks["qr_lookup"]),
@@ -7189,6 +7267,7 @@ def prefix_decode_run(params, cfg, dev, mods, totals, batch: int | None = None) 
     from repro_torch import tree
     from repro_torch.configs.base import LM_SHAPES
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.train import serve_step as S
 
     fam = S.serve_family("whisper" if cfg.is_encoder_decoder else "pixtral")
@@ -7203,6 +7282,7 @@ def prefix_decode_run(params, cfg, dev, mods, totals, batch: int | None = None) 
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info(dev)[0]
         batch = int(max(1, min(cell.global_batch, (free - LM_HEADROOM) // per_seq)))
+    base = peak_base(dev)               # the cell's baseline: before its cache
     cache = fam.make_cache(cfg, batch, depth, device=dev)
     g = torch.Generator(device=dev).manual_seed(4)
     for leaf in cache.values():
@@ -7210,17 +7290,20 @@ def prefix_decode_run(params, cfg, dev, mods, totals, batch: int | None = None) 
     pos = cache["k"].shape[2] - 1
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=dev, dtype=torch.int32)
     reset_all(mods)
+    meta = dryrun.to_meta((params, cache, tok))
+    predicted = dryrun.storage_bytes(meta[1:]) + dry(
+        lambda: decode_reps(fam.decode, *meta, pos, cfg), lambda: kept_model_path(ops, {}))
     with torch.inference_mode():
         top = top_device_ops(lambda: fam.decode(params, cache, tok, pos, cfg), 6)
-        torch.cuda.reset_peak_memory_stats(dev)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         kept = {}
         with kept_model_path(ops, kept):
             start.record()
-            for _ in range(LM_DECODE_REPS):
-                logits, out = fam.decode(params, cache, tok, pos, cfg)
+            logits, out = decode_reps(fam.decode, params, cache, tok, pos, cfg)
             end.record()
             torch.cuda.synchronize()
+    held_peak = hold_peak(f"{cfg.name} {cfg.embedding_kind} decode_32k batch {batch}", predicted,
+                          base, dev)
     n = take_launches(mods, totals)
     if out is not cache or n.get("flash_fwd") or tuple(logits.shape) != (
             batch, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
@@ -7235,7 +7318,7 @@ def prefix_decode_run(params, cfg, dev, mods, totals, batch: int | None = None) 
            "tokens_per_s": batch / ms * 1e3,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "bound_ms": (weight_bytes + cache_bytes) / BW_BYTES_S * 1e3, "launches": n,
-           "held": held, "top_ops": top}
+           "held": held, "top_ops": top, "peak_hold": held_peak}
     del cache, logits, out, kept
     gc.collect()
     torch.cuda.empty_cache()
@@ -7290,10 +7373,7 @@ def prefix_serve_run(dev, arch: str, mods, totals) -> dict:
         p = {**params, "embed": embed}
         r = rec["prefill_32k"][vocab] = prefix_prefill_run(p, vc, dev, mods, totals, batch)
         batch = r["batch"]
-        fit = (f"fit {r['fit']}: {r['reserved_a_sequence'] / 2**30:.2f} GiB reserved a "
-               f"sequence + {r['reserved_fixed'] / 2**30:.2f} GiB, from batches "
-               f"{PREFIX_FIT_BATCHES}, in {r['free_bytes'] / 2**30:.2f} GiB free less "
-               f"{LM_HEADROOM / 2**30:.0f}" if "fit" in r else "the first run's batch")
+        fit = fmt_fit(r["fit"]) if r["fit"] else "the first run's batch"
         parts = "".join(f", {k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
                         f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
         sdpa = "; ".join(
@@ -7366,7 +7446,7 @@ def prefix_phase(dev, by_name, mods) -> dict:
     arch's smoke config; training on one card (the allocator's expandable
     segments), QR, S 4,096, remat ``full``: whisper at full depth,
     ``PREFIX_WHISPER_TRAIN`` sequences and microbatches, pixtral at the
-    depth the line through depths 1 and 2 fits, batch 1, each
+    depth the dry run fits, batch 1, each
     ``PREFIX_TRAIN_STEPS`` steps; the step-1 gradients of a
     ``PREFIX_GRAD_DEPTH``-layer cut against the kernels' plain versions.
     The phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.
@@ -7562,6 +7642,14 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
+    dryrun_rec = {"traces": DRYRUN["traces"], "s": DRYRUN["s"], "holds": PEAK_HOLDS}
+    misses = [h["cell"] for h in PEAK_HOLDS if not h["ok"]]
+    log(f"[dryrun] {DRYRUN['traces']} traces on the CPU in {DRYRUN['s']:.1f} s; "
+        f"{len(PEAK_HOLDS)} cells' peaks held to {100 * PEAK_TOL:.0f}% of the prediction, "
+        f"missed: {misses or 'none'}")
+    if misses:
+        raise AssertionError(f"the dry run's peak missed the card's by more than "
+                             f"{100 * PEAK_TOL:.0f}%: {misses}")
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     for split in splits:
@@ -7576,6 +7664,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"sub_quadratic": sub_quadratic}), flush=True)
     print(json.dumps({"prefix": prefix}), flush=True)
+    print(json.dumps({"dryrun": dryrun_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,12 @@ minitron-4b and the MoE granite-moe-3b-a800m, qwen3-moe-235b-a22b), the
 zamba2 hybrid (zamba2-7b), xlstm (xlstm-125m) and the prefix models,
 whisper (whisper-large-v3: its batches carry the frames) and pixtral
 (pixtral-12b: the patches).
-``batch_specs``, ``cache_specs`` and
-``abstract_params`` are not ported: they come with the dry run.
+
+The dry run's abstract inputs (``batch_specs``, ``cache_specs``,
+``abstract_params``) are tensors on the ``meta`` device: shapes and dtypes,
+no data, nothing allocated.  ``repro``'s ``_axes_for`` (the axes from a
+reduced config, a jax workaround) has no counterpart: ``init_fn`` on meta
+gives the axes of the full config itself.
 """
 
 from __future__ import annotations
@@ -170,3 +174,38 @@ def make_batch_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
         return lambda b, s, **kw: syn.pixtral_batch(cfg, b, s, **kw)
     return lambda b, s, **kw: syn.lm_batch(cfg, b, s, **kw)
 
+
+# ---------------------------------------------------------------------------
+# abstract inputs (the dry run: meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def batch_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """The batch of a train or prefill step on meta: ``tokens`` (batch, seq)
+    int32, whisper's ``frames`` (batch, N_AUDIO, d_model) or pixtral's
+    ``patches`` (batch, num_patches, d_model) fp32."""
+    import torch
+
+    specs = {"tokens": torch.empty((batch, seq), dtype=torch.int32, device="meta")}
+    if binding.kind == "whisper":
+        from repro_torch.models.whisper import N_AUDIO
+
+        specs["frames"] = torch.empty((batch, N_AUDIO, cfg.d_model), dtype=torch.float32,
+                                      device="meta")
+    if binding.kind == "pixtral":
+        specs["patches"] = torch.empty((batch, cfg.num_patches, cfg.d_model),
+                                       dtype=torch.float32, device="meta")
+    return specs
+
+
+def cache_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, max_len: int):
+    """The decode cache (or recurrent states) of ``batch`` sequences and
+    ``max_len`` positions on meta: the family's ``make_cache``."""
+    from repro_torch.train.serve_step import serve_family
+
+    return serve_family(binding.kind).make_cache(cfg, batch, max_len, device="meta")
+
+
+def abstract_params(binding: ArchBinding, cfg: ModelConfig):
+    """``(params, axes)``: the family's ``init_fn`` at ``cfg``'s full width
+    on meta, and the logical axes of its leaves."""
+    return init_fn(binding)(cfg, seed=0, device="meta")

@@ -24,6 +24,11 @@ in ``repro`` (``check_vma=False``):
 checkpoint's full logical leaf).  ``any_rank`` agrees a flag across every
 rank (the trainer's stop flag).
 
+On meta tensors (the dry run on ``launch.mesh.abstract_mesh``) every
+collective counts its call and bytes in ``CALLS``, ``BYTES`` and ``SITES``
+exactly as on a process group and returns a tensor of the right shape; it
+calls nothing in ``torch.distributed``, and its mesh has no groups.
+
 ``compressed_psum`` agrees a shared scale first (a MAX of the local amax),
 then sums int8 payloads in int32 and dequantizes by the shared scale.
 ``ef_step`` adds error feedback: the quantization residual is carried to
@@ -60,7 +65,8 @@ def _count(op: str, site: str, axis, nbytes: int) -> None:
 def _all_reduce(x: torch.Tensor, mesh, axis: str, op, site: str = "psum") -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     _count("all_reduce", site, axis, out.numel() * out.element_size())
-    dist.all_reduce(out, op=op, group=mesh.group(axis))
+    if out.device.type != "meta":
+        dist.all_reduce(out, op=op, group=mesh.group(axis))
     return out
 
 
@@ -131,7 +137,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     x = x.contiguous()
     _count("all_gather", "all_gather", axis, x.numel() * x.element_size())
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x, group=mesh.group(axis))
+    if x.device.type != "meta":
+        dist.all_gather(parts, x, group=mesh.group(axis))
     return torch.cat(parts, dim=dim).to(home)
 
 
@@ -140,6 +147,8 @@ def any_rank(flag: bool, device) -> bool:
     ``flag`` (a MAX all-reduce over every rank)."""
     t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
     _count("all_reduce", "any_rank", None, t.numel() * t.element_size())
+    if t.device.type == "meta":
+        return bool(flag)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
 

@@ -12,9 +12,11 @@ do, on one table's buffers: ``repro``'s packed kernels call these two
 functions directly, so the port keeps one kernel per body.  Bound by bytes
 (one row read per bag element, one or two adds per value).  Dispatch is by
 the tensors' device alone: CUDA tensors launch the kernel, or raise if the
-kernel does not take them; CPU tensors take the plain versions in ``ref``.
-The kernels take float32 or bfloat16 tables and caches, contiguous int32
-(B, K) streams and any dim.  ``LAUNCHES`` counts kernel launches (the plain
+kernel does not take them; CPU tensors take the plain versions in ``ref``;
+meta tensors (the dry run) get the output as an empty meta tensor, counted
+in ``bounds.META`` (``packed_gather.meta_bag``).  The kernels take float32
+or bfloat16 tables and caches, contiguous int32 (B, K) streams and any
+dim.  ``LAUNCHES`` counts kernel launches (the plain
 versions do not count).
 """
 

@@ -21,13 +21,16 @@ is bound by operations (4·D flops per visible (query, key) pair).
 
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel, or
 raise if the kernel does not take them; CPU tensors take the plain version
-``ref.flash_fwd_ref``.  There is no fallback from the card to the plain
-version.  The kernel takes float32 or bfloat16 (one type for q, k, v),
-contiguous (B, H, Sq, D) / (B, KH, Skv, D) tensors with H % KH == 0, any
-Sq and Skv, D <= 256, B·KH <= 65,535, and buffers that start on 16 bytes;
-``repro``'s ``_fit_block`` divisibility is a TPU tiling rule and does not
-apply.  ``LAUNCHES`` counts kernel launches (the plain version does not
-count).
+``ref.flash_fwd_ref``; meta tensors (the dry run) pass the kernel's checks
+and get its output as an empty meta tensor, the call and its flops and
+bytes counted in ``bounds.META`` (never the plain version, whose (B, H, Sq,
+Skv) scores would overstate a 32k prefill's bytes many times over).  There
+is no fallback from the card to the plain version.  The kernel takes
+float32 or bfloat16 (one type for q, k, v), contiguous (B, H, Sq, D) /
+(B, KH, Skv, D) tensors with H % KH == 0, any Sq and Skv, D <= 256,
+B·KH <= 65,535, and buffers that start on 16 bytes; ``repro``'s
+``_fit_block`` divisibility is a TPU tiling rule and does not apply.
+``LAUNCHES`` counts kernel launches (the plain version does not count).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import functools
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.kernels import build
+from repro_torch.kernels import bounds, build
 from repro_torch.kernels.ref import flash_fwd_ref
 from repro_torch.models import layers
 
@@ -93,7 +96,7 @@ def check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"tensors, got {t.dtype} {tuple(t.shape)}")
         if t.dtype != q.dtype:
             raise ValueError(f"dtypes differ: {name} is {t.dtype}, q is {q.dtype}")
-        if t.data_ptr() % 16:
+        if t.device.type != "meta" and t.data_ptr() % 16:      # meta has no buffer
             raise ValueError(f"{name}: buffer is not 16-byte aligned")
     if q.shape[3] > MAX_HEAD_DIM:
         raise ValueError(f"head dim {q.shape[3]} exceeds the kernel's {MAX_HEAD_DIM}")
@@ -113,6 +116,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    if dev.type == "meta":
+        bounds.meta_call("flash_fwd", bounds.flash_flops(b, h, sq, skv, d, causal),
+                         bounds.nbytes(q, k, v, out))
+        return out
     with torch.cuda.device(dev):
         err = getattr(_lib(), f"flash_fwd_{SUFFIX[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

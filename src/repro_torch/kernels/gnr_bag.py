@@ -10,7 +10,9 @@ Both run the bag body of ``csrc/packed_gather.cu`` with no slot stream and
 no cache.  Bound by bytes (one row read per bag element, one or two adds
 per value).  Dispatch is by the tensors' device alone: CUDA tensors launch
 the kernel, or raise if the kernel does not take them; CPU tensors take the
-plain versions in ``ref``.  The kernels take float32 or bfloat16 tables,
+plain versions in ``ref``; meta tensors (the dry run) get the output as an
+empty meta tensor, counted in ``bounds.META`` (``packed_gather.meta_bag``).
+The kernels take float32 or bfloat16 tables,
 contiguous int32 (B, K) streams and any dim; the output is in the table
 dtype, summed in fp32.  ``LAUNCHES`` counts kernel launches (the plain
 versions do not count).
@@ -45,6 +47,8 @@ def gnr_bag(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
     (b, k), dim, dtype = packed_gather.check_cuda({"q_table": q_table, "r_lut": r_lut},
                                                   {"q_idx": q_idx, "r_idx": r_idx})
     out = torch.empty((b, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return packed_gather.meta_bag("gnr_bag", out, (q_idx, r_idx), (q_table, r_lut))
     with torch.cuda.device(dev):
         err = packed_gather.entry("gnr_bag", dtype)(
             q_table.data_ptr(), r_lut.data_ptr(), q_idx.data_ptr(), r_idx.data_ptr(),
@@ -67,6 +71,8 @@ def gnr_bag_dense(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return dense_bag_ref(table, idx)
     (b, k), dim, dtype = packed_gather.check_cuda({"table": table}, {"idx": idx})
     out = torch.empty((b, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return packed_gather.meta_bag("gnr_bag_dense", out, (idx,), (table,))
     with torch.cuda.device(dev):
         err = packed_gather.entry("gnr_bag_dense", dtype)(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), b, k, dim, table.shape[0],

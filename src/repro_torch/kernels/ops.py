@@ -30,6 +30,11 @@ gradient of the plain version, whatever ``RECOMPUTE_BYTES`` is.  This is
 tighter than ``repro``'s own bf16 vjp, whose index scatter accumulates in
 bf16.  Without the chunks the TT recompute at dlrm-tt's training batch
 (8,192 x 26 bags of 32) would gather one 8 KiB G2 row per element: ~56 GB.
+
+On meta tensors (the dry run) each entry's forward is its kernel's meta
+call (``bounds.META``), never the plain version, and the backward runs the
+chunked recompute as the card does, on meta; a recompute with sinks raises
+``ValueError``: which accesses it keeps depends on the index values.
 """
 
 from __future__ import annotations
@@ -106,6 +111,10 @@ def _recompute(plain, wide: list, streams: tuple, ct: torch.Tensor, need: list,
         cot = ct[lo:lo + chunk]
         if keep is not None:
             stream, row = keep
+            if part[stream].device.type == "meta":
+                raise ValueError("ops._recompute with sinks on meta tensors: the accesses "
+                                 "it keeps (those not routed to a sink row) depend on the "
+                                 "index values, which a meta trace does not have")
             kept = (part[stream] != row).reshape(-1).nonzero().squeeze(1)
             if kept.numel() == 0:
                 continue

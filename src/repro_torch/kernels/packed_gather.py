@@ -16,7 +16,10 @@ and ``gnr_bag`` (K6, K7).  K1 and K3 are bound by bytes (one row read per
 bag element, one add per value), K2 by operations (two small products per
 element; its launch math is ``tt_gather.run``).  Dispatch is by the
 tensors' device alone: CUDA tensors launch the kernel, or raise if the
-kernel does not take them; CPU tensors take the plain versions in ``ref``.  There is no fallback from the card to the plain
+kernel does not take them; CPU tensors take the plain versions in ``ref``;
+meta tensors (the dry run) pass the kernel's checks and get its output as
+an empty meta tensor, the call counted in ``bounds.META`` with its adds and
+bytes (``meta_bag``).  There is no fallback from the card to the plain
 version.
 
 The bag kernels and K2 take float32 or bfloat16 tables (one type per call;
@@ -39,7 +42,7 @@ import functools
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.kernels import build, tt_gather
+from repro_torch.kernels import bounds, build, tt_gather
 from repro_torch.kernels.ref import packed_bag_ref, packed_qr_bag_ref, packed_tt_bag_ref
 
 SOURCE = "packed_gather"
@@ -160,6 +163,19 @@ def check_cuda(buffers: dict, streams: dict, *, ndim: int = 2
     return tuple(shape), dim, dtype
 
 
+def meta_bag(name: str, out: torch.Tensor, streams: tuple, tables: tuple) -> torch.Tensor:
+    """A bag or gather kernel's call on meta tensors: ``out`` (allocated as
+    the kernel's) returned as it is, the call counted in ``bounds.META``:
+    one row of each of ``tables`` read and added per stream element, the
+    streams read and the output written once."""
+    elements = streams[0].numel()
+    dim = out.shape[-1]
+    bounds.meta_call(name, bounds.row_gather_flops(elements, dim, len(tables)),
+                     bounds.nbytes(*streams, out)
+                     + elements * dim * sum(t.element_size() for t in tables))
+    return out
+
+
 def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_idx,
                tables: int = 1) -> torch.Tensor:
     """Launch the cached QR bag (K1 on packed buffers, K4b on one table's)
@@ -168,6 +184,8 @@ def run_qr_bag(counts: dict, name: str, q_table, cache, r_lut, q_idx, slot, r_id
                                     {"q_idx": q_idx, "slot": slot, "r_idx": r_idx})
     dev = q_table.device
     out = torch.empty((g, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return meta_bag(name, out, (q_idx, slot, r_idx), (q_table, r_lut))
     with torch.cuda.device(dev):
         err = entry("packed_qr_bag", dtype)(
             q_table.data_ptr(), cache.data_ptr(), r_lut.data_ptr(),
@@ -188,6 +206,8 @@ def run_bag(counts: dict, name: str, table, cache, idx, slot, tables: int = 1
                                     {"idx": idx, "slot": slot})
     dev = table.device
     out = torch.empty((g, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return meta_bag(name, out, (idx, slot), (table,))
     with torch.cuda.device(dev):
         err = entry("packed_bag", dtype)(
             table.data_ptr(), cache.data_ptr(), idx.data_ptr(), slot.data_ptr(),

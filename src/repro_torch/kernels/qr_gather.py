@@ -8,7 +8,9 @@ kernel K8 in ``csrc/qr_gather.cu`` (port of ``repro.kernels.qr_gather``).
 Bound by bytes (one Q row and one R row read, one row written per lookup).
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel,
 or raise if the kernel does not take it; CPU tensors take the plain version
-``ref.qr_lookup_ref``.  The kernel takes float32 or bfloat16 tables,
+``ref.qr_lookup_ref``; meta tensors (the dry run) get the output as an
+empty meta tensor, the call counted in ``bounds.META``
+(``packed_gather.meta_bag``).  The kernel takes float32 or bfloat16 tables,
 contiguous int32 (N,) streams and any dim.  ``LAUNCHES`` counts kernel
 launches (the plain version does not count).
 """
@@ -59,6 +61,8 @@ def qr_gather(q_table: torch.Tensor, r_lut: torch.Tensor, q_idx: torch.Tensor,
     (n,), dim, dtype = packed_gather.check_cuda({"q_table": q_table, "r_lut": r_lut},
                                                 {"q_idx": q_idx, "r_idx": r_idx}, ndim=1)
     out = torch.empty((n, dim), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return packed_gather.meta_bag("qr_gather", out, (q_idx, r_idx), (q_table, r_lut))
     with torch.cuda.device(dev):
         err = getattr(_lib(), f"qr_gather_{packed_gather.SUFFIX[dtype]}")(
             q_table.data_ptr(), r_lut.data_ptr(), q_idx.data_ptr(), r_idx.data_ptr(),

@@ -16,7 +16,11 @@ so the output is bitwise the plain version's) and the in-order K sum.
 Both are bound by operations (two small products per element).
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel, or
 raise if the kernel does not take them; CPU tensors take the plain version
-``ref.tt_bag_ref``.  There is no fallback from the card to the plain version.
+``ref.tt_bag_ref``; meta tensors (the dry run) run the launch math (the
+element order's sort, the scratch) and get the output as an empty meta
+tensor, the call counted in ``bounds.META`` with its flops and bytes (the
+stage width, a shared-memory choice that needs the built library, is not
+taken there).  There is no fallback from the card to the plain version.
 
 The kernel takes float32 or bfloat16 cores (one type per call; the output
 is in that type, contracted and summed in fp32), contiguous int32 (B, K)
@@ -40,7 +44,7 @@ import functools
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.kernels import build
+from repro_torch.kernels import bounds, build
 from repro_torch.kernels.ref import tt_bag_ref
 
 SOURCE = "tt_bag"
@@ -138,7 +142,8 @@ def check_cuda(cores: dict, streams: dict, dims: tuple[int, int, int, int]
         shape = s.shape
     if shape[0] * shape[1] >= 2**36:
         raise ValueError(f"{shape[0]} x {shape[1]} elements exceed one launch's grid")
-    return shape[0], shape[1], dtype, staging(dims, dtype)
+    meta = next(iter(cores.values())).device.type == "meta"
+    return shape[0], shape[1], dtype, 0 if meta else staging(dims, dtype)
 
 
 def staging(dims: tuple[int, int, int, int], dtype: torch.dtype) -> int:
@@ -190,6 +195,15 @@ def run(name: str, counts: dict, cores: tuple, cache, streams: tuple, slot,
     if slot is not None:
         ptrs.append(slot.data_ptr())
     rows = [c.shape[0] for c in cores] + ([] if cache is None else [cache_rows])
+    if dev.type == "meta":
+        # the streams and the order read, the scratch written and read, the
+        # output written, and every element's G1, G2 and G3 rows
+        rows_read = g * k * sum(c.shape[1] for c in cores) * cores[0].element_size()
+        ins = [*streams] + ([] if slot is None else [slot])
+        bounds.meta_call(name, bounds.tt_flops(g * k, dims),
+                         bounds.nbytes(*ins, order, out) + 2 * bounds.nbytes(scratch)
+                         + rows_read)
+        return out
     with torch.cuda.device(dev):
         err = entry(name, dtype)(
             *ptrs, order.data_ptr(), scratch.data_ptr(), out.data_ptr(),

@@ -74,7 +74,8 @@ class Mesh:
     coordinate along each axis (``jax.lax.axis_index``); ``groups`` the
     process group of this rank's line along each axis (the ranks a ``psum``
     over that axis combines).  ``device`` is the rank's device, ``backend``
-    the process groups' (``gloo`` or ``nccl``).
+    the process groups' (``gloo`` or ``nccl``; ``meta`` for an
+    ``abstract_mesh``, which has no groups).
     """
 
     shape: dict
@@ -134,10 +135,30 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device=None) -> 
                 backend=dist.get_backend())
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
-    """``repro``'s production mesh shape, (16, 16) or (2, 16, 16)."""
+def abstract_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+                  coords: tuple[int, ...] | None = None) -> Mesh:
+    """One rank's ``Mesh`` with no process group: the rank at ``coords``
+    (default the first) of a ``shape`` mesh, on the ``meta`` device, with
+    backend ``"meta"``.  The dry run traces a rank's step on it: the
+    collectives count their calls on meta tensors and call nothing in
+    ``torch.distributed``."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} vs axes {axes}")
+    coords = tuple(0 for _ in shape) if coords is None else tuple(int(c) for c in coords)
+    if len(coords) != len(shape) or any(not 0 <= c < n for c, n in zip(coords, shape)):
+        raise ValueError(f"coordinates {coords} are not a rank of the mesh {shape}")
+    return Mesh(shape=dict(zip(axes, shape)), coords=dict(zip(axes, coords)), groups={},
+                device=torch.device("meta"), backend="meta")
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         coords: tuple[int, ...] | None = None) -> Mesh:
+    """``repro``'s production mesh shape, (16, 16) or (2, 16, 16); on
+    ``device="meta"`` the ``abstract_mesh`` of the rank at ``coords``."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if device is not None and torch.device(device).type == "meta":
+        return abstract_mesh(shape, axes, coords)
     return make_mesh(shape, axes, device=device)
 
 

@@ -81,7 +81,7 @@ def init_dlrm(cfg: DLRMConfig, *, seed: int = 0, device=None) -> dict:
     ``torch.Generator`` seeded with ``seed`` on the target device (the card
     unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
-    g = torch.Generator(device=dev)
+    g = device_mod.generator(dev)
     g.manual_seed(seed)
     top_in = cfg.bottom_mlp[-1] + num_interactions(cfg)
     return {

@@ -113,7 +113,7 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None):
     untied, ``head``; drawn from a ``torch.Generator`` seeded with ``seed``
     on the target device (the card unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
-    g = torch.Generator(device=dev)
+    g = device_mod.generator(dev)
     g.manual_seed(seed)
     params, axes = {}, {}
     params["embed"] = qr_embedding.init(cfg.emb_config, generator=g, device=dev)

@@ -104,7 +104,7 @@ def init_whisper(cfg: ModelConfig, *, seed: int = 0, device=None):
     ``torch.Generator`` seeded with ``seed`` on the target device (the card
     unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
-    g = torch.Generator(device=dev)
+    g = device_mod.generator(dev)
     g.manual_seed(seed)
     kw = dict(generator=g, device=dev)
     params, axes = {}, {}

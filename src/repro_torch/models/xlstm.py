@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qr_embedding
+from repro_torch.kernels import bounds
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import _normal, apply_norm, init_norm
 
@@ -77,8 +78,8 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, state=None, chunk: int = MLSTM_CHUNK
         C, n, m = state
 
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
-    outs = []
-    for ci in range(nc):
+
+    def one(ci, C, n, m):
         part = slice(ci * chunk, (ci + 1) * chunk)
         qt, kt, vt = q[:, :, part], k[:, :, part], v[:, :, part]
         lft, lit = logf[..., part], logi[..., part]
@@ -99,8 +100,7 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, state=None, chunk: int = MLSTM_CHUNK
         qf = qt.float() * scale
         num = num + inter_scale[..., None] * torch.matmul(qf, C)
         den = den + inter_scale * torch.matmul(qf, n[..., None])[..., 0]
-
-        outs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        out = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
 
         # the state to the end of the chunk
         bL = b[..., -1]                                              # (B,H)
@@ -111,7 +111,22 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, *, state=None, chunk: int = MLSTM_CHUNK
         kw = kt.float() * gw[..., None]
         C = C * carry[..., None, None] + torch.matmul(kw.transpose(-1, -2), vt.float())
         n = n * carry[..., None] + kw.sum(-2)
-        m = m_new
+        return out, C, n, m_new
+
+    if dev.type == "meta" and nc > 1 and not torch.is_grad_enabled():
+        # the dry run without autograd: the first chunk alone, the others'
+        # outputs allocated before it (the loop's peak is its last chunk's,
+        # over all the outputs before it) and their products counted as the
+        # first's.  Under autograd every chunk runs: each keeps its saved
+        # tensors for the backward
+        outs = [q.new_empty((bsz, h, chunk, d), dtype=torch.float32) for _ in range(nc - 1)]
+        out, C, n, m = bounds.meta_repeats("mlstm_chunks", nc - 1, lambda: one(0, C, n, m))
+        outs.append(out)
+    else:
+        outs = []
+        for ci in range(nc):
+            out, C, n, m = one(ci, C, n, m)
+            outs.append(out)
     h_out = torch.cat(outs, dim=2)
     return h_out.to(v.dtype), (C, n, m)
 
@@ -227,6 +242,21 @@ def _replayed(run_block, static_in: list, static_out: list, pieces, k: int):
             dst.copy_(src)
 
 
+def _meta_steps(pieces: list, seq: torch.Tensor, state_shape) -> list:
+    """``pieces`` (a scan's (inputs, outputs) blocks over ``seq``'s steps),
+    or on meta (the dry run) the first piece cut to one step: every step
+    allocates the same temporaries and writes into outputs allocated before
+    the loop, so one step gives the scan's peak; the products of the steps
+    it leaves out, one (H, B, D) x (D, 4D) a step, are counted under
+    ``slstm_steps`` in ``kernels.bounds.META``."""
+    if seq.device.type != "meta" or not pieces:
+        return pieces
+    h, b, d = state_shape
+    bounds.meta_call("slstm_steps", (seq.shape[0] - 1) * 2 * h * b * d * 4 * d, 0)
+    ins, outs = pieces[0]
+    return [([t[:1] for t in ins], [t[:1] for t in outs])]
+
+
 def _scan_forward(xg, rw, state: tuple, *, save: bool, graphs: bool):
     """The steps of ``xg`` (S, H, B, 4D) from ``state`` (c, n, h, m), each
     (H, B, D), without autograd.  -> (h (S, H, B, D), the final state,
@@ -253,6 +283,7 @@ def _scan_forward(xg, rw, state: tuple, *, save: bool, graphs: bool):
             dst.copy_(src)
 
     pieces = [([xg[lo:hi]], [hs[lo:hi]] + [b[lo:hi] for b in kept]) for lo, hi in _blocks(s, k)]
+    pieces = _meta_steps(pieces, xg, state[0].shape)
     if graphs:
         static_out = [hs[:k].clone()] + [b[:k].clone() for b in kept]
         _replayed(run_block, [xg[:k].clone()], static_out, pieces, k)
@@ -304,6 +335,7 @@ class _SLSTMScan(torch.autograd.Function):
         k = GRAPH_STEPS if ctx.graphs else max(s, 1)
         seqs = (pre, *prev, c, n, m, hs, dhs)
         pieces = [([t[lo:hi] for t in seqs], [dpre[lo:hi]]) for lo, hi in reversed(_blocks(s, k))]
+        pieces = _meta_steps(pieces, pre, c0.shape)
         if ctx.graphs:
             _replayed(run_block, [t[:k].clone() for t in seqs], [dpre[:k].clone()], pieces, k)
         else:
@@ -482,7 +514,7 @@ def init_xlstm(cfg: ModelConfig, *, seed: int = 0, device=None):
     ``final_norm``; drawn from a ``torch.Generator`` seeded with ``seed`` on
     the target device (the card unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
-    g = torch.Generator(device=dev)
+    g = device_mod.generator(dev)
     g.manual_seed(seed)
     kw = dict(generator=g, device=dev)
     params = {"embed": qr_embedding.init(cfg.emb_config, **kw)}

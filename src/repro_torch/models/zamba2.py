@@ -54,7 +54,7 @@ def init_zamba2(cfg: ModelConfig, *, seed: int = 0, device=None):
     ``shared_ln2``, ``final_norm``; drawn from a ``torch.Generator`` seeded
     with ``seed`` on the target device (the card unless ``device="cpu"``)."""
     dev = device_mod.resolve(device)
-    g = torch.Generator(device=dev)
+    g = device_mod.generator(dev)
     g.manual_seed(seed)
     kw = dict(generator=g, device=dev)
     params, axes = {}, {}

@@ -25,6 +25,7 @@ from repro.configs import base as jbase  # noqa: E402
 from repro.configs import registry as jregistry  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
@@ -152,7 +153,7 @@ def test_unported_archs_raise_naming_their_roadmap_item(arch):
 def test_waiting_entry_points_raise():
     """``train_loss_fn`` gives the causal LM loss for every arch (the prefix
     models' behind their frames or patches); the dry run's entry points
-    stay absent."""
+    give meta tensors, nothing allocated."""
     import math
 
     for arch in PORTED:
@@ -163,8 +164,12 @@ def test_waiting_entry_points_raise():
         assert loss.shape == () and metrics["loss"] is loss
         assert abs(float(loss) - math.log(b.smoke.vocab)) < 2.0
     assert set(PORTED) == set(registry.ARCHS)
-    for name in ("batch_specs", "cache_specs", "abstract_params"):   # the dry run's
-        assert not hasattr(registry, name)
+    b = registry.get("qwen2-1.5b")                                  # the dry run's
+    params, axes = registry.abstract_params(b, b.config)
+    leaves = tree.leaves(params) + tree.leaves(registry.batch_specs(b, b.config, 2, 6)) + \
+        tree.leaves(registry.cache_specs(b, b.config, 2, 6))
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    assert sorted(axes) == sorted(params)
 
 
 def test_lm_batch_is_a_pure_function_of_seed_and_step():
