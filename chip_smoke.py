@@ -3867,11 +3867,12 @@ def layer_weights(cfg, *, total: bool = False) -> int:
 def moe_watch(cfg):
     """While open, for an MoE ``cfg``: a pair of CUDA events around every
     ``moe.apply_moe`` call (``rec["marks"]``), and each layer call's dropped
-    assignments (the slots routed to the trash row, device counts summed
-    by ``moe_drops``) beside its assignments; for a dense ``cfg`` nothing."""
+    assignments (of the assignments to this rank's experts, those routed to
+    the trash row; device counts summed by ``moe_drops``) beside those
+    assignments; for a dense ``cfg`` nothing."""
     from repro_torch.models import moe as moe_mod
 
-    rec = {"marks": [], "dropped": [], "assignments": 0}
+    rec = {"marks": [], "dropped": [], "mine": []}
     if not cfg.num_experts:
         yield rec
         return
@@ -3887,8 +3888,9 @@ def moe_watch(cfg):
 
     def slots(ids, e_start, e_loc, capacity):
         out = saved[1](ids, e_start, e_loc, capacity)
-        rec["dropped"].append((out == e_loc * capacity).sum())
-        rec["assignments"] += ids.numel()
+        mine = ((ids >= e_start) & (ids < e_start + e_loc)).sum()
+        rec["dropped"].append((out == e_loc * capacity).sum() - (ids.numel() - mine))
+        rec["mine"].append(mine)
         return out
 
     moe_mod.apply_moe, moe_mod.slots = apply, slots
@@ -3900,12 +3902,11 @@ def moe_watch(cfg):
 
 def moe_drops(watch: dict) -> dict:
     """``moe_watch``'s record summed: MoE ms, dropped assignments and their
-    share (a single card's: every expert is local, so the trash row holds
-    the drops alone)."""
+    share of the assignments to this card's (this rank's) experts."""
     dropped = int(sum(int(t) for t in watch["dropped"]))
+    mine = int(sum(int(t) for t in watch["mine"]))
     return {"moe_ms": event_ms(watch["marks"]), "moe_calls": len(watch["marks"]),
-            "dropped": dropped, "assignments": watch["assignments"],
-            "dropped_share": dropped / max(watch["assignments"], 1)}
+            "dropped": dropped, "assignments": mine, "dropped_share": dropped / max(mine, 1)}
 
 
 def prefill_flops(cfg, batch: int, seq: int) -> int:
@@ -4043,8 +4044,15 @@ def hold_peak(tag: str, want: int, base: int, dev) -> dict:
     ``PEAK_TOL``; with the reserved/allocated ratio of the peaks.  A miss
     is logged and recorded, and fails the script at its end."""
     measured = torch.cuda.max_memory_allocated(dev) - base
-    ratio = measured / max(want, 1)
     res = torch.cuda.max_memory_reserved(dev) / max(torch.cuda.max_memory_allocated(dev), 1)
+    return record_peak(tag, measured, want, res)
+
+
+def record_peak(tag: str, measured: int, want: int, res: float) -> dict:
+    """``hold_peak``'s record of a peak ``measured`` here or on a rank
+    (``res`` its reserved / allocated ratio): logged, and a miss fails the
+    script at its end."""
+    ratio = measured / max(want, 1)
     rec = {"cell": tag, "measured": measured, "predicted": want, "ratio": ratio,
            "reserved_over_allocated": res, "ok": abs(ratio - 1) <= PEAK_TOL}
     PEAK_HOLDS.append(rec)
@@ -5411,6 +5419,10 @@ def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]
                           zip(tree.leaves(new_m), tree.leaves(new_s), specs)),
             "loss": torch.equal(loss_m, loss_s), "step_loss": torch.equal(m_m["loss"], m_s["loss"]),
             "grad_norm": torch.equal(m_m["grad_norm"], m_s["grad_norm"])}
+        del local, g_mesh, new_m
+        serving = lms_world1(cfg, params, axes, mesh, batch)
+        torch.cuda.synchronize()
+        serving["launches"] = take_launches(mods, totals)
     finally:
         dist.destroy_process_group()
     want = {k: 2 * v for k, v in step_launches(cfg, 1).items()}
@@ -5420,15 +5432,19 @@ def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]
            "loss": float(loss_m), "loss_single_card": float(loss_s),
            "grad_norm": float(m_m["grad_norm"]), "grad_norm_single_card": float(m_s["grad_norm"]),
            "collectives_of_the_gradient": sites, "launches": n,
-           "launches_single_card": single_launches}
+           "launches_single_card": single_launches, "serving": serving}
     log(f"{tag} world 1 nccl {cfg.name} at {depth} layers, {b} x {seq}, QR twolevel bf16: "
         f"step-1 gradients vs the single card {max(errs):.3g} of scale; bitwise {bitwise}; "
         f"loss {rec['loss']:.6f} vs {rec['loss_single_card']:.6f}, grad norm "
         f"{rec['grad_norm']:.6f} vs {rec['grad_norm_single_card']:.6f}; collectives {sites}; "
         f"launches {n} (single card {single_launches})")
-    if not max(errs) <= LMM_FP32_TOL or n != want or single_launches != want:
+    log(f"{tag} world 1 nccl served at {depth} layers, {b} x {seq} prompts + "
+        f"{serving['steps']} greedy steps, the mesh against the single card: bitwise "
+        f"{serving['bitwise']}; launches {serving['launches']}")
+    if (not max(errs) <= LMM_FP32_TOL or n != want or single_launches != want
+            or not all(serving["bitwise"].values())):
         raise AssertionError(f"{tag} world 1 nccl: {rec}")
-    del params, local, g_single, g_mesh, got, new_s, new_m
+    del params, g_single, got, new_s
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -5510,7 +5526,7 @@ def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
     return rec
 
 
-def lm_mesh_rank(mesh, what: str) -> dict:
+def lm_mesh_rank(mesh, what: str, serve: dict) -> dict:
     """Phase 13 on one rank of a gloo mesh on the card.  ``what`` "tp": the
     (1, 2) run, qwen2-1.5b at full width and depth, QR vocabulary
     ``twolevel``, remat ``full``, S 4,096, ``LMM_MICROBATCH`` sequences a
@@ -5519,7 +5535,9 @@ def lm_mesh_rank(mesh, what: str) -> dict:
     dense vocabulary: the fp32 step-1 gradients at ``LMM_GRAD32_LAYERS``
     layers (one sequence a ``data`` rank), the bf16 step-1 gradients at
     ``LMM_DENSE_LAYERS``, then ``lmm_steps``.  Gradients come back gathered to the logical shapes
-    on the writer (rank (0, 0)) alone, on the host."""
+    on the writer (rank (0, 0)) alone, on the host.  Then each serves
+    ``serve``'s prompts (``lms_rank``; the (1, 2) run with the dry run's
+    peak hold)."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.data import synthetic
@@ -5571,6 +5589,8 @@ def lm_mesh_rank(mesh, what: str) -> dict:
         del leaves, loss
         res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
         res["layers"], res["microbatch"] = cfg.num_layers, LMM_MICROBATCH
+        del local, batch
+        res["serve"] = lms_rank(mesh, cfg, serve, mods, dry_hold=True)
         return res
 
     # "dp": the dense vocabulary on (2, 2)
@@ -5592,6 +5612,8 @@ def lm_mesh_rank(mesh, what: str) -> dict:
     torch.cuda.empty_cache()
     res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
     res["layers"], res["microbatch"] = cfg.num_layers, 1
+    del local, batch
+    res["serve"] = lms_rank(mesh, cfg, serve, mods)
     return res
 
 
@@ -5724,14 +5746,363 @@ def lm_mesh_cli(mods, totals) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13 (and 14): the LM served on a mesh
+# ---------------------------------------------------------------------------
+
+# the (1, 2) run: sequences and prompt tokens (all on the one data rank),
+# greedy decode steps; gloo combines through the host (~20 ms for 12.6 MB,
+# phase 9's rate) put the prefill at ~2-3 s
+LMS_PROMPT = (2, 4096)
+LMS_STEPS = 16
+# the (2, 2) run at ``LMM_DENSE_LAYERS``: one sequence a data rank
+LMS_DP_STEPS = 8
+# world 1 over nccl (phase 13's two layers, its batch): decode steps held
+LMS_WORLD1_STEPS = 4
+# granite-moe on phase 14's EP ranks: sequences, prompt tokens, decode steps
+MOE_SERVE = (2, 1024, 8)
+# the CLI drill: the same first sequence on (1, 2) and on one card, fp32
+LMS_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--prompt-len", "32",
+           "--max-new", "8", "--compute-dtype", "float32")
+
+
+def lms_prompts(cfg, batch: int, seq: int, seed: int = 11) -> torch.Tensor:
+    """The prompts of a serving hold, on the host (the same on every rank)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (batch, seq), generator=g, dtype=torch.int32)
+
+
+@contextlib.contextmanager
+def timed_collectives(collectives):
+    """While open, the host ms of every all-reduce and all-gather the
+    ``collectives`` module issues (the card synchronised first, so the
+    time is the collective's own: gloo's copies through the host and its
+    wire), summed into the yielded ``{"ms", "calls"}``."""
+    rec = {"ms": 0.0, "calls": 0}
+    saved = collectives._all_reduce, collectives.all_gather
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["ms"] += (time.perf_counter() - t) * 1e3
+            rec["calls"] += 1
+            return out
+        return call
+
+    collectives._all_reduce, collectives.all_gather = (timed(f) for f in saved)
+    try:
+        yield rec
+    finally:
+        collectives._all_reduce, collectives.all_gather = saved
+
+
+def lms_steps(fam, params, cfg, logits, cache, pos0: int, steps: int, *, forced=None,
+              mesh=None) -> dict:
+    """``steps`` decode steps after a prefill whose last logits are
+    ``logits``: greedy (``forced`` None) or each step fed ``forced[:, i]``;
+    each step's last-row logits (fp32, on the host, (B, steps, V)), the
+    tokens fed, and each step's ms on the host clock (synchronised)."""
+    rows, fed, ms = [], [], []
+    with torch.inference_mode():
+        for i in range(steps):
+            tok = (torch.argmax(logits[:, -1, :], dim=-1) if forced is None
+                   else forced[:, i].to(logits.device))[:, None].to(torch.int32)
+            fed.append(tok[:, 0].cpu())
+            t = time.perf_counter()
+            logits, cache = fam.decode(params, cache, tok, pos0 + i, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            rows.append(logits[:, -1].float().cpu())
+    return {"logits": torch.stack(rows, 1), "tokens": torch.stack(fed, 1), "step_ms": ms}
+
+
+def lms_single(cfg, toks, steps: int, dev) -> dict:
+    """The single card's serving of ``cfg`` (params seed 0, cast once) on
+    the prompts ``toks``: greedy in the compute dtype (every step's logits,
+    the prefill's first, and the tokens; an MoE's dropped share in the
+    prefill), then in fp32 compute teacher-forced with those tokens; on the
+    host."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family("transformer")
+    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    toks = toks.to(dev)
+    out = {}
+    for key, c in (("bf16", cfg), ("fp32", cfg.replace(compute_dtype="float32"))):
+        p = fam.prepare(params, c)
+        with torch.inference_mode(), moe_watch(c) as watch:
+            logits, cache = fam.prefill(p, {"tokens": toks}, c, toks.shape[1] + steps)
+        if cfg.num_experts and key == "bf16":
+            out["dropped_share"] = moe_drops(watch)["dropped_share"]
+        run = lms_steps(fam, p, c, logits, cache, toks.shape[1], steps,
+                        forced=out.get("tokens"))
+        out[key] = torch.cat([logits[:, -1:].float().cpu(), run["logits"]], 1)
+        out.setdefault("tokens", run["tokens"])
+        del p, logits, cache
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
+    """A rank's serving on ``mesh``: ``cfg``'s params (seed 0) placed
+    (``lm_param_rules``) and cast once, its ``data`` block of
+    ``serve["prompts"]``; one timed prefill (its layer-0 K9 q/k/v and K8
+    calls kept and held against their plain versions, K8 bitwise; the
+    collectives by site; the MoE's dropped share on this rank), greedy
+    decode steps (ms each), then the same steps teacher-forced with
+    ``serve["forced"]`` over the same cache (the logits held in the
+    parent).  With ``dry_hold`` the prefill's peak above its baseline beside
+    the dry run's trace of this rank on its ``abstract_mesh``."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.train import serve_step as S
+
+    dev = mesh.device
+    fam = S.serve_family("transformer")
+    local, _specs, _ = lmm_place(cfg, mesh, dev)
+    local = fam.prepare(local, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = synthetic.data_block({"tokens": serve["prompts"].to(dev)}, mesh)["tokens"]
+    forced = synthetic.data_block({"tokens": serve["forced"]}, mesh)["tokens"]
+    b, seq = prompts.shape
+    steps = forced.shape[1]
+    max_len = seq + steps
+    rec = {"coords": dict(mesh.coords), "batch": b, "seq": seq, "steps": steps}
+    if dry_hold:
+        at = M.abstract_mesh(tuple(mesh.shape.values()), tuple(mesh.shape),
+                             tuple(mesh.coords.values()))
+        p_m, d_m, _ = dryrun.serve_inputs(registry.get(cfg.name.removesuffix("-smoke")), cfg,
+                                          "prefill", serve["prompts"].shape[0], seq, mesh=at)
+        t = time.perf_counter()
+        rec["dry"] = {"predicted": dry(lambda: fam.prefill(p_m, d_m, cfg, max_len, mesh=at),
+                                       lambda: kept_model_path(ops, {})),
+                      "s": time.perf_counter() - t}
+        del p_m, d_m
+    reset_all(mods)
+    kept = {}
+    base = peak_base(dev)
+    collectives.reset_counts()
+    with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
+            kept_model_path(ops, kept), moe_watch(cfg) as watch, torch.inference_mode(), \
+            timed_collectives(collectives) as wire:
+        t = time.perf_counter()
+        logits, cache = fam.prefill(local, {"tokens": prompts}, cfg, max_len, mesh=mesh)
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t) * 1e3
+    rec["prefill_collective_ms"] = wire["ms"]
+    rec["prefill_peak"] = torch.cuda.max_memory_allocated(dev) - base
+    rec["prefill_reserved_over_allocated"] = (torch.cuda.max_memory_reserved(dev)
+                                              / max(torch.cuda.max_memory_allocated(dev), 1))
+    rec["k9_ms"] = event_ms(marks["flash_attention_fused"])
+    rec["k8_ms"] = event_ms(marks["qr_lookup"])
+    if cfg.num_experts:
+        rec["moe"] = moe_drops(watch)
+    rec["prefill_sites"] = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
+    first = logits[:, -1].float().cpu()
+    collectives.reset_counts()
+    with timed_collectives(collectives) as wire:
+        greedy = lms_steps(fam, local, cfg, logits, cache, seq, steps, mesh=mesh)
+    rec["decode_collective_ms_a_step"] = wire["ms"] / steps
+    rec["decode_sites"] = {f"{k[0]}/{k[1]}": [v[0] / steps, v[1] / steps]
+                           for k, v in collectives.SITES.items()}
+    run = lms_steps(fam, local, cfg, logits, cache, seq, steps, forced=forced, mesh=mesh)
+    rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec["decode_ms_a_step"] = float(np.mean(greedy["step_ms"]))
+    rec["tokens_per_s"] = b * steps / (rec["prefill_ms"] + sum(greedy["step_ms"])) * 1e3
+    rec["greedy"] = greedy["tokens"]
+    rec["logits"] = torch.cat([first[:, None], run["logits"]], 1)
+    rec["held"] = hold_kept(kept, f"{cfg.name} served on mesh {tuple(mesh.shape.values())} "
+                                  f"rank {tuple(mesh.coords.values())}")
+    if "k8" in rec["held"] and not rec["held"]["k8"]["all_bitwise"]:
+        raise AssertionError(f"[lm-serve] K8 on the routed streams is not bitwise the plain "
+                             f"sum: {rec['held']['k8']}")
+    del kept, local, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
+    """The meshed serving's holds in the parent against the single card on
+    the same params and prompts: the ``data`` blocks of the logits (from
+    the ``model``-0 ranks: every rank holds them whole) against the single
+    card's fp32-compute logits, within ``LMM_BF16_FACTOR`` x the single
+    card's own bf16 distance (each a share of the fp32 logits' scale); the
+    greedy tokens that agree; the first token equal wherever the single
+    card's top-2 margin exceeds twice the mesh's distance from it on that
+    row.  Logs the record and raises on a failed hold."""
+    blocks = sorted((r for r in ranks if r["coords"]["model"] == 0),
+                    key=lambda r: r["coords"].get("data", 0))
+    logits = torch.cat([r["logits"] for r in blocks])
+    greedy = torch.cat([r["greedy"] for r in blocks])
+    want, bf16 = single["fp32"], single["bf16"]
+    scale = float(want.abs().max())
+    e_mesh = float((logits - want).abs().max()) / scale
+    e_single = float((bf16 - want).abs().max()) / scale
+    rms = lambda a: float(((a - want) ** 2).mean().sqrt()) / float((want ** 2).mean().sqrt())
+    top2 = torch.topk(bf16[:, 0], 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    dist = (logits[:, 0] - bf16[:, 0]).abs().amax(dim=-1)
+    sure = margin > 2 * dist
+    first_ok = bool((greedy[:, 0] == single["tokens"][:, 0])[sure].all())
+    agree = int((greedy == single["tokens"]).sum())
+    bound = LMM_BF16_FACTOR * e_single
+    r0 = next(r for r in ranks if not any(r["coords"].values()))
+    rec = {"mesh": list(shape), "arch": cfg.name, "layers": cfg.num_layers,
+           "vocab": cfg.embedding_kind, "batch": int(logits.shape[0]), "seq": r0["seq"],
+           "steps": r0["steps"], "logits_vs_fp32": e_mesh, "single_card_vs_fp32": e_single,
+           "bound": bound, "rms_vs_fp32": rms(logits), "single_card_rms_vs_fp32": rms(bf16),
+           "greedy_agree": agree, "greedy_total": int(greedy.numel()),
+           "first_token_held": int(sure.sum()), "first_token_ok": first_ok,
+           "prefill_ms_max_over_ranks": max(r["prefill_ms"] for r in ranks),
+           "prefill_collective_ms_rank0": r0["prefill_collective_ms"],
+           "decode_collective_ms_a_step_rank0": r0["decode_collective_ms_a_step"],
+           "decode_ms_a_step_max_over_ranks": max(r["decode_ms_a_step"] for r in ranks),
+           "tokens_per_s": min(r["tokens_per_s"] for r in ranks),
+           "k9_ms_rank0": r0["k9_ms"], "k8_ms_rank0": r0["k8_ms"],
+           "prefill_sites_rank0": r0["prefill_sites"], "decode_sites_a_step_rank0":
+           r0["decode_sites"], "peak_gib_max_over_ranks": max(r["peak_gib"] for r in ranks),
+           "held": r0["held"]}
+    if cfg.num_experts:
+        rec["dropped_share_by_rank"] = {str(tuple(r["coords"].values())):
+                                        r["moe"]["dropped_share"] for r in ranks}
+        rec["dropped_share_single_card"] = single["dropped_share"]
+    log(f"{tag} {cfg.name} served on mesh {tuple(shape)} gloo, {cfg.num_layers} layers, "
+        f"{cfg.embedding_kind} vocab, {rec['batch']} x {rec['seq']} prompts + {rec['steps']} "
+        f"decode steps: prefill {rec['prefill_ms_max_over_ranks']:.1f} ms (on rank (0, 0): "
+        f"K9 {rec['k9_ms_rank0']:.1f}, K8 {rec['k8_ms_rank0']:.2f}, the collectives "
+        f"{rec['prefill_collective_ms_rank0']:.1f} ms), decode "
+        f"{rec['decode_ms_a_step_max_over_ranks']:.1f} ms a step (the collectives "
+        f"{rec['decode_collective_ms_a_step_rank0']:.1f} on rank (0, 0)), "
+        f"{rec['tokens_per_s']:.1f} "
+        f"tokens/s (host clock, max over ranks); combined a rank in the prefill "
+        f"{rec['prefill_sites_rank0']} [calls, B], a decode step {rec['decode_sites_a_step_rank0']}"
+        f"; peak {rec['peak_gib_max_over_ranks']:.2f} GiB a rank"
+        + (f"; dropped share by rank {rec['dropped_share_by_rank']} (the single card "
+           f"{rec['dropped_share_single_card']:.4f})" if cfg.num_experts else ""))
+    log(f"{tag} mesh {tuple(shape)} logits (prefill + {rec['steps']} teacher-forced steps) vs "
+        f"the single card's in fp32 compute: {e_mesh:.4g} of scale (held to "
+        f"{LMM_BF16_FACTOR:g} x the single card's bf16 {e_single:.4g} = {bound:.4g}); rms "
+        f"{rec['rms_vs_fp32']:.4g} vs {rec['single_card_rms_vs_fp32']:.4g}; greedy tokens "
+        f"{agree} / {rec['greedy_total']} agree; first token equal on the {int(sure.sum())} "
+        f"sequence(s) whose margin exceeds twice the distance: {first_ok}")
+    log(f"{tag} mesh {tuple(shape)} kernels vs plain on rank (0, 0)'s own calls: "
+        + held_text(rec["held"]))
+    if not (e_mesh <= bound and first_ok):
+        raise AssertionError(f"{tag} mesh {tuple(shape)} serving: {rec}")
+    return rec
+
+
+def lms_peak_hold(ranks: list, cfg, shape) -> dict:
+    """The rank (0, 0)'s prefill peak above its baseline held to the dry
+    run's trace of the same rank (``record_peak``); the trace's seconds
+    count with the script's other traces."""
+    r0 = next(r for r in ranks if not any(r["coords"].values()))
+    DRYRUN["s"] += r0["dry"]["s"]
+    DRYRUN["traces"] += 1
+    return record_peak(f"{cfg.name} {cfg.embedding_kind} prefill {r0['batch']} x {r0['seq']} "
+                       f"on mesh {tuple(shape)} rank (0, 0)", r0["prefill_peak"],
+                       r0["dry"]["predicted"], r0["prefill_reserved_over_allocated"])
+
+
+def lms_world1(cfg, params, axes, mesh, batch) -> dict:
+    """World 1 (mesh (1, 1), nccl): ``params`` cast once for serving, the
+    prefill of ``batch`` and ``LMS_WORLD1_STEPS`` greedy steps on the single
+    card and on the mesh; the logits, the cache and the tokens read for
+    bitwise equality."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.train import serve_step as S
+
+    fam = S.serve_family("transformer")
+    p = fam.prepare(params, cfg)
+    local = SH.shard_tree(p, SH.tree_specs(p, axes, mesh, SH.lm_param_rules(cfg, mesh)), mesh)
+    toks = batch["tokens"]
+    runs = {}
+    for key, m, q in (("single", None, p), ("mesh", mesh, local)):
+        with torch.inference_mode():
+            logits, cache = fam.prefill(q, {"tokens": toks}, cfg,
+                                        toks.shape[1] + LMS_WORLD1_STEPS, mesh=m)
+        first = logits.clone()
+        run = lms_steps(fam, q, cfg, logits, cache, toks.shape[1], LMS_WORLD1_STEPS, mesh=m)
+        runs[key] = (first, cache, run)
+    (f1, c1, r1), (f2, c2, r2) = runs["single"], runs["mesh"]
+    bitwise = {"prefill_logits": torch.equal(f1, f2),
+               "cache": all(torch.equal(c1[k], c2[k]) for k in c1),
+               "decode_logits": torch.equal(r1["logits"], r2["logits"]),
+               "tokens": torch.equal(r1["tokens"], r2["tokens"])}
+    del p, local, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": LMS_WORLD1_STEPS, "bitwise": bitwise}
+
+
+def lms_cli(mods, totals) -> dict:
+    """The CLI drill: ``python -m repro_torch.launch.serve`` with
+    ``LMS_CLI`` and ``--mesh-shape 1,2`` (two gloo ranks on the card; the
+    ranks print, so the command runs in a child), and ``serve.main`` with
+    ``LMS_CLI`` in this process; both must print the same first sequence."""
+    import io
+
+    from repro_torch.launch import serve
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    rec, firsts = {"argv": list(LMS_CLI)}, []
+    for key in ("one_card", "mesh"):
+        t0 = time.perf_counter()
+        if key == "mesh":
+            run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LMS_CLI,
+                                  "--mesh-shape", "1,2"], capture_output=True, text=True,
+                                 env=env, timeout=LMM_TIMEOUT_S)
+            rc, text = run.returncode, run.stdout
+        else:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = serve.main(list(LMS_CLI))
+            torch.cuda.synchronize()
+            text = buf.getvalue()
+            rec["launches"] = take_launches(mods, totals)
+        rec[key] = {"exit": rc, "s": time.perf_counter() - t0}
+        lines = [x for x in text.splitlines() if x.startswith(("generated", "first"))]
+        for line in lines:
+            log(f"[lm-serve-cli] {key}: {line}")
+        if rc != 0:
+            raise AssertionError(f"[lm-serve-cli] {key}: exit {rc}\n{text[-3000:]}"
+                                 + (f"\n{run.stderr[-3000:]}" if key == "mesh" else ""))
+        firsts.append([x for x in lines if x.startswith("first")])
+    rec["same_first_sequence"] = len(firsts[0]) == 1 and firsts[0] == firsts[1]
+    log(f"[lm-serve-cli] one card {rec['one_card']['s']:.1f} s (in this process; launches "
+        f"{rec['launches']}), mesh (1, 2) {rec['mesh']['s']:.1f} s (a child, start-up "
+        f"included); the same first sequence: {rec['same_first_sequence']}")
+    if not rec["same_first_sequence"]:
+        raise AssertionError(f"[lm-serve-cli] the first sequences differ: {firsts}")
+    return rec
+
+
 def lm_mesh_phase(dev, by_name, mods) -> dict:
-    """Phase 13: the LM trained on a mesh.  World 1 over nccl in this
-    process; two gloo ranks on the card, mesh (1, 2), at full width and
-    depth with the QR vocabulary; four, mesh (2, 2), with the dense
-    vocabulary at the depth they hold, their fp32 (2 layers) and bf16 (the
-    cut) step-1 gradients held against the single card's; the CLI drill.
-    The phase's K9 and K8 launches (this process's and the ranks') add to
-    the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
+    """Phase 13: the LM trained and served on a mesh.  World 1 over nccl in
+    this process (training and serving against the single card, bitwise);
+    two gloo ranks on the card, mesh (1, 2), at full width and depth with
+    the QR vocabulary; four, mesh (2, 2), with the dense vocabulary at
+    ``LMM_DENSE_LAYERS``, their fp32 (2 layers) and bf16 (the cut) step-1
+    gradients held against the single card's; each mesh's ranks then serve
+    (``lms_rank``: a prefill and greedy steps, then the steps
+    teacher-forced with the single card's tokens; ``lms_hold`` against the
+    single card's fp32-compute logits, the (1, 2) prefill's peak against
+    the dry run's); the training and serving CLI drills.  The phase's K9
+    and K8 launches (this process's and the ranks') add to the
+    ``flash_fwd`` and ``qr_gather`` rows.  Returns the
     ``{"lm_mesh_training": ...}`` record."""
     from repro_torch.launch import mesh as M
 
@@ -5742,13 +6113,29 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
     log(f"[lm-mesh] world 1 in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    # the single card's serving on the prompts the meshes serve: its greedy
+    # tokens feed the meshes' teacher-forced steps
+    t1 = time.perf_counter()
+    full = lm_config(LM_MAIN)
+    serve_cfgs = {"tp": full.replace(embedding_kind="qr", embedding_exec="twolevel"),
+                  "dp": full.replace(embedding_kind="dense", num_layers=LMM_DENSE_LAYERS)}
+    serve_refs, serve_args = {}, {}
+    for what, (b, steps) in (("tp", (LMS_PROMPT[0], LMS_STEPS)), ("dp", (2, LMS_DP_STEPS))):
+        prompts = lms_prompts(serve_cfgs[what], b, LMS_PROMPT[1])
+        serve_refs[what] = lms_single(serve_cfgs[what], prompts, steps, dev)
+        serve_args[what] = {"prompts": prompts, "forced": serve_refs[what]["tokens"]}
+    torch.cuda.synchronize()
+    record["serve_single_card_launches"] = take_launches(mods, totals)
+    log(f"[lm-serve] the single card's references (greedy bf16, forced fp32) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    record["serving"] = []
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = LMT_ALLOCATOR
     try:
         for shape, what, vocab in (((1, 2), "tp", "qr"), ((2, 2), "dp", "dense")):
             t1 = time.perf_counter()
-            ranks = M.spawn(lm_mesh_rank, shape, args=(what,), device="cuda", backend="gloo",
-                            init_file=ROOT / "build" / "lm_mesh" / "rdv",
+            ranks = M.spawn(lm_mesh_rank, shape, args=(what, serve_args[what]), device="cuda",
+                            backend="gloo", init_file=ROOT / "build" / "lm_mesh" / "rdv",
                             timeout_s=LMM_TIMEOUT_S)
             rec = lmm_record(ranks, shape, vocab)
             rec["spawn_s"] = time.perf_counter() - t1
@@ -5756,6 +6143,14 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
             for k, v in rec["launches_all_ranks"].items():
                 totals[k] = totals.get(k, 0) + v
             lmm_log(rec)
+            served = [r.pop("serve") for r in ranks]
+            for r in served:
+                for k, v in r["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+            srec = lms_hold(served, serve_refs[what], shape, serve_cfgs[what], "[lm-serve]")
+            if what == "tp":
+                srec["peak_hold"] = lms_peak_hold(served, serve_cfgs[what], shape)
+            record["serving"].append(srec)
             if what == "dp":
                 mine = next(r for r in ranks if not any(r["coords"].values()))
                 seq = lmt_shape().seq_len
@@ -5823,6 +6218,9 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
     t1 = time.perf_counter()
     record["cli"] = lm_mesh_cli(mods, totals)
     log(f"[lm-mesh] the CLI drill took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    record["serve_cli"] = lms_cli(mods, totals)
+    log(f"[lm-serve] the CLI drill took {time.perf_counter() - t1:.1f} s")
     record["launches"] = totals
     for name in ("flash_fwd", "qr_gather"):
         by_name[name]["launches"] += totals.get(name, 0)
@@ -5997,14 +6395,15 @@ def moe_ref_phase(dev, mods, totals) -> dict:
     return out
 
 
-def moe_mesh_rank(mesh) -> dict:
+def moe_mesh_rank(mesh, serve: dict) -> dict:
     """Phase 14's EP check on one rank of a gloo mesh on the card:
     granite-moe at full width cut to ``MOE_EP_LAYERS`` layers, QR
     ``twolevel``, one sequence of 4,096.  The fp32 step-1 gradients at an
     ample capacity (``moe_ample``), gathered to the logical shapes on the
     writer (rank (0, 0)); then ``MOE_EP_STEPS`` bf16 steps at the config's
     capacity (``lmm_steps``: ms, split, collectives, K9 and K8 held on the
-    rank's own calls)."""
+    rank's own calls); then the same cut served on ``serve``'s prompts
+    (``lms_rank``: its dropped share, K9 and K8 held)."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.data import synthetic
@@ -6049,6 +6448,8 @@ def moe_mesh_rank(mesh) -> dict:
     batch = synthetic.data_block(lmm_tokens(cfg, 1, seq, dev), mesh)
     res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, (fa, qg))
     res["layers"], res["microbatch"] = cfg.num_layers, 1
+    del local, batch
+    res["serve"] = lms_rank(mesh, cfg, serve, (fa, qg))
     return res
 
 
@@ -6087,16 +6488,26 @@ def moe_ep_run(dev, mods, totals) -> dict:
     seq = lmt_shape().seq_len
     rdv = ROOT / "build" / "moe_mesh" / "rdv"
     rdv.parent.mkdir(parents=True, exist_ok=True)
+    cfg = lm_config(MOE_MAIN).replace(num_layers=MOE_EP_LAYERS, embedding_kind="qr",
+                                      embedding_exec="twolevel")
+    prompts = lms_prompts(cfg, MOE_SERVE[0], MOE_SERVE[1])
+    serve_ref = lms_single(cfg, prompts, MOE_SERVE[2], dev)
+    torch.cuda.synchronize()
+    take_launches(mods, totals)
     t0 = time.perf_counter()
-    ranks = M.spawn(moe_mesh_rank, MOE_EP_SHAPE, device="cuda", backend="gloo",
-                    init_file=rdv, timeout_s=MOE_TIMEOUT_S)
+    ranks = M.spawn(moe_mesh_rank, MOE_EP_SHAPE, args=({"prompts": prompts,
+                                                        "forced": serve_ref["tokens"]},),
+                    device="cuda", backend="gloo", init_file=rdv, timeout_s=MOE_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     rec = lmm_record(ranks, MOE_EP_SHAPE, "qr")
     for k, v in rec["launches_all_ranks"].items():
         totals[k] = totals.get(k, 0) + v
+    served = [r.pop("serve") for r in ranks]
+    for r in served:
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    rec["serving"] = lms_hold(served, serve_ref, MOE_EP_SHAPE, cfg, "[moe-serve]")
     mine = next(r for r in ranks if not any(r["coords"].values()))
-    cfg = lm_config(MOE_MAIN).replace(num_layers=MOE_EP_LAYERS, embedding_kind="qr",
-                                      embedding_exec="twolevel")
     cfg32 = cfg.replace(compute_dtype="float32", capacity_factor=moe_ample(cfg))
     want, loss32 = lmm_single_grads(cfg32, lmm_tokens(cfg32, 1, seq, dev), dev)
     got = mine.pop("grads32")
@@ -6142,7 +6553,8 @@ def moe_phase(dev, by_name, mods) -> dict:
     layers' ms and the dropped share, the serve CLI); qwen3-moe-235b-a22b at
     full width and the depth whose fp32 params fit; training on one card
     (granite-moe, QR, at the depth that fits; the step-1 gradient check at
-    2 layers); world 1 over nccl and EP on (1, 2) gloo ranks.  The phase's
+    2 layers); world 1 over nccl and EP on (1, 2) gloo ranks, which then
+    serve the cut (``lms_rank``, held by ``lms_hold``).  The phase's
     launches add to the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
     ``{"moe": ...}`` record."""
     t0 = time.perf_counter()
@@ -7626,8 +8038,9 @@ def main() -> int:
     # phase 12: the dense transformer trained (K9 twice a layer a microbatch,
     # K8 for QR tokens, K5 for TT tokens and the tied head)
     lm_training = lm_train_phase(dev, by_name, mods)
-    # phase 13: the LM trained on a mesh (K9 twice a layer a microbatch and K8
-    # for QR tokens on each rank's shards)
+    # phase 13: the LM trained and served on a mesh (K9 twice a layer a
+    # microbatch and once a layer a prefill, K8 for QR tokens on each rank's
+    # shards)
     lm_mesh_training = lm_mesh_phase(dev, by_name, mods)
     # phase 14: the MoE transformers served and trained (K9 a layer a
     # forward at D 64, K8 for QR tokens, on one card and on the EP ranks)

@@ -21,8 +21,10 @@ in ``repro`` (``check_vma=False``):
   broadcast.  Every operand goes in one all-reduce.
 
 ``all_gather`` rebuilds a tensor split along one dim over an axis (a
-checkpoint's full logical leaf).  ``any_rank`` agrees a flag across every
-rank (the trainer's stop flag).
+checkpoint's full logical leaf); ``gather_slices`` one split unevenly (the
+vocab-parallel head's logits, whole on every rank for the serving loop's
+``argmax``).  ``any_rank`` agrees a flag across every rank (the trainer's
+stop flag).
 
 On meta tensors (the dry run on ``launch.mesh.abstract_mesh``) every
 collective counts its call and bytes in ``CALLS``, ``BYTES`` and ``SITES``
@@ -43,7 +45,7 @@ import torch.distributed as dist
 CALLS = {"all_reduce": 0, "all_gather": 0}
 BYTES = {"all_reduce": 0, "all_gather": 0}
 # (site, axis) -> [calls, bytes]; sites: psum, pmax, combine, entry,
-# grad_mean, norm, all_gather, any_rank
+# grad_mean, norm, all_gather, logits, any_rank
 SITES: dict = {}
 
 
@@ -127,19 +129,39 @@ def enter(xs, mesh, axis: str) -> list:
     return list(_Enter.apply(mesh, axis, *xs))
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
+               site: str = "all_gather") -> torch.Tensor:
     """The blocks of ``x`` that the ranks along ``axis`` hold, concatenated
     along ``dim`` in the order of their coordinates, on ``x``'s device (gloo
-    gathers a card's tensor through host memory)."""
+    gathers a card's tensor through host memory).  ``site`` names the call
+    in ``SITES``."""
     home = x.device
     if mesh.backend == "gloo":
         x = x.cpu()
     x = x.contiguous()
-    _count("all_gather", "all_gather", axis, x.numel() * x.element_size())
+    _count("all_gather", site, axis, x.numel() * x.element_size())
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
     if x.device.type != "meta":
         dist.all_gather(parts, x, group=mesh.group(axis))
     return torch.cat(parts, dim=dim).to(home)
+
+
+def gather_slices(x: torch.Tensor, mesh, axis: str, widths, *, site: str) -> torch.Tensor:
+    """The whole tensor on every rank of ``axis`` from the ranks' slices of
+    its last dim, rank i's ``widths[i]`` wide (uneven, in coordinate
+    order; ``x`` this rank's): each slice padded to the widest, one
+    ``all_gather`` (counted under ``site``), each trimmed back and the
+    slices concatenated.  An axis of one rank returns ``x``."""
+    if mesh.shape[axis] == 1:
+        return x
+    if x.shape[-1] != widths[mesh.axis_index(axis)]:
+        raise ValueError(f"a slice of {x.shape[-1]} where rank "
+                         f"{mesh.axis_index(axis)} of {list(widths)} holds "
+                         f"{widths[mesh.axis_index(axis)]}")
+    wide = max(widths)
+    got = all_gather(torch.nn.functional.pad(x, (0, wide - x.shape[-1])), mesh, axis,
+                     dim=-1, site=site)
+    return torch.cat([got[..., i * wide:i * wide + w] for i, w in enumerate(widths)], dim=-1)
 
 
 def any_rank(flag: bool, device) -> bool:

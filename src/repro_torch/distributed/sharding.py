@@ -157,6 +157,32 @@ def head_split(cfg, mesh, axis: str = "model") -> HeadSplit | None:
     return HeadSplit(q0=s * hl, q=hl, kv0=s * hl // group, kv=1, kv_local=False)
 
 
+def cache_block(cfg, mesh, batch: int, max_len: int) -> tuple:
+    """The shape of this rank's block of the LM's KV cache of ``batch``
+    sequences (the global batch) and ``max_len`` positions on ``mesh``
+    (None: the whole cache), ``(L, B_local, max_len, kv_local, D)``:
+    ``B_local`` the rank's block of ``batch`` over ``batch_axes``,
+    ``kv_local`` the kv heads its q heads read (``head_split``: its block of
+    them, its one kv head where the kv projections stay whole, all of them
+    where the block runs replicated).  The positions stay whole on every
+    rank, where ``repro``'s at-rest layout splits ``kvseq`` over ``model``
+    (the same values, another placement)."""
+    data = 1
+    for ax in batch_axes(mesh) if mesh is not None else ():
+        data *= mesh.shape[ax]
+    if batch % data:
+        raise ValueError(f"a batch of {batch} does not split over {data} data ranks")
+    return cfg.num_layers, batch // data, max_len, cache_heads(cfg, mesh), cfg.head_dim_
+
+
+def cache_heads(cfg, mesh) -> int:
+    """The kv heads of this rank's cache block (``cache_block``): those
+    ``head_split`` gives it, or all of them where the block runs
+    replicated (no mesh, or heads the ``model`` axis does not split)."""
+    split = head_split(cfg, mesh)
+    return cfg.kv_heads if split is None else split.kv
+
+
 def expert_split(cfg, mesh, axis: str = "model") -> bool:
     """Whether ``cfg``'s expert stacks split over ``axis`` (``lm_param_rules``
     places ``experts`` there where the axis divides ``num_experts``; else

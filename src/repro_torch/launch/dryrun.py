@@ -31,10 +31,13 @@ Meshes: ``card`` is world 1, the one H100 every entry point of the port
 runs on by default; ``pod1`` / ``pod2`` are ``repro``'s (16, 16) and
 (2, 16, 16) production meshes, on which the rank at ``model`` coordinate 0
 and the last one (where the uneven vocabulary slices end) are traced and
-the larger peak is the cell's.  Only the kinds that train on a mesh (the
-dense and MoE transformers) run a train cell there; the others wait for
-``launch.train.MESH_WAITS``'s item, and prefill and decode on a mesh wait
-for ``SERVE_MESH_WAITS`` (the port serves on one card).
+the larger peak is the cell's.  Only the kinds that train and serve on a
+mesh (the dense and MoE transformers) run a train, prefill or decode cell
+there; the others wait for ``launch.train.MESH_WAITS``'s item.  A serve
+cell's rank holds its blocks of the params cast for serving, its ``data``
+block of the batch and its block of the cache (``sharding.cache_block``:
+the port's layout, whose positions stay whole where ``repro``'s split
+``kvseq`` over ``model``).
 
 ``fit`` sizes a batch, a microbatch or a depth against a byte budget from
 these traces (``chip_smoke.py`` sizes its LM cells with it).
@@ -81,8 +84,6 @@ from repro_torch.train.train_step import make_train_step
 SHAPES = {s.name: s for s in LM_SHAPES}
 MESHES = {"card": ((1, 1), ("data", "model")), "pod1": ((16, 16), ("data", "model")),
           "pod2": ((2, 16, 16), ("pod", "data", "model"))}
-# what brings the LM served on a mesh (the port's prefill and decode take none)
-SERVE_MESH_WAITS = "ROADMAP.md §1 item 12 (the LM served on a mesh)"
 
 
 def param_counts(params, cfg: ModelConfig) -> dict:
@@ -370,8 +371,6 @@ def mesh_status(binding, shape: ShapeConfig, mesh_name: str) -> str:
 
     if mesh_name == "card":
         return "run"
-    if shape.kind != "train":
-        return f"waits: {SERVE_MESH_WAITS}"
     if binding.kind in MESH_WAITS:
         return f"waits: {MESH_WAITS[binding.kind]}"
     return "run"
@@ -411,22 +410,39 @@ def trace_train(binding, cfg: ModelConfig, batch: int, seq: int, *, microbatches
     return rec
 
 
-def trace_serve(binding, cfg: ModelConfig, kind: str, batch: int, seq: int) -> dict:
-    """One prefill of ``batch`` x ``seq`` tokens (a cache of ``seq``
-    positions) or one decode step against a cache ``seq`` deep, on the
+def serve_inputs(binding, cfg: ModelConfig, kind: str, batch: int, seq: int, *,
+                 mesh=None) -> tuple:
+    """A serve cell's arguments on meta, ``(params, data, cache)``: the
     params cast once for serving (``ServeFamily.prepare``, as
-    ``launch.serve``), without gradients, on meta."""
+    ``launch.serve``), the prefill's ``batch`` x ``seq`` tokens (cache
+    None) or the decode step's token and its cache ``seq`` deep; on an
+    abstract ``mesh`` this rank's blocks of them (``lm_param_rules``, its
+    ``data`` block, ``sharding.cache_block``)."""
     fam = serve_family(binding.kind)
-    params, _ = registry.abstract_params(binding, cfg)
+    params, axes = registry.abstract_params(binding, cfg)
     params = fam.prepare(params, cfg)
+    if mesh is not None:
+        params = SH.shard_tree(params, SH.tree_specs(params, axes, mesh,
+                                                     SH.lm_param_rules(cfg, mesh)), mesh)
+    local = SH.cache_block(cfg, mesh, batch, seq)[1]            # the rank's batch block
     if kind == "prefill":
-        data = registry.batch_specs(binding, cfg, batch, seq)
-        cache = None
-        rec = measure(lambda: fam.prefill(params, data, cfg, seq), inference=True)
+        return params, registry.batch_specs(binding, cfg, local, seq), None
+    return (params, {"tokens": torch.empty((local, 1), dtype=torch.int32, device="meta")},
+            fam.make_cache(cfg, batch, seq, device="meta", mesh=mesh))
+
+
+def trace_serve(binding, cfg: ModelConfig, kind: str, batch: int, seq: int, *,
+                mesh=None) -> dict:
+    """One prefill of ``batch`` x ``seq`` tokens (a cache of ``seq``
+    positions) or one decode step against a cache ``seq`` deep, without
+    gradients, on meta (``serve_inputs``), on one card or on this rank of
+    an abstract ``mesh``."""
+    fam = serve_family(binding.kind)
+    params, data, cache = serve_inputs(binding, cfg, kind, batch, seq, mesh=mesh)
+    if kind == "prefill":
+        rec = measure(lambda: fam.prefill(params, data, cfg, seq, mesh=mesh), inference=True)
     else:
-        data = {"tokens": torch.empty((batch, 1), dtype=torch.int32, device="meta")}
-        cache = registry.cache_specs(binding, cfg, batch, seq)
-        rec = measure(lambda: fam.decode(params, cache, data["tokens"], seq - 1, cfg),
+        rec = measure(lambda: fam.decode(params, cache, data["tokens"], seq - 1, cfg, mesh=mesh),
                       inference=True)
     rec["arguments"] = {"params": storage_bytes(params), "opt": 0,
                         "batch": storage_bytes(data), "cache": storage_bytes(cache)}
@@ -437,8 +453,8 @@ def lower_cell(arch_id: str, shape_name: str, *, mesh: str = "card",
                embedding_kind: str | None = None, qr_collision: int | None = None,
                microbatches: int = 8, seq_parallel: bool = False, serve_params: bool = False,
                extra_cfg: dict | None = None, fit_card: bool = False) -> dict:
-    """One cell's record: the step the entry points run (``make_train_step``
-    on the mesh's rank, ``ServeFamily.prefill`` / ``decode`` on the card),
+    """One cell's record: the step the entry points run (``make_train_step``,
+    ``ServeFamily.prefill`` / ``decode``, on the card or the mesh's rank),
     traced once on meta on each rank ``lower_cell`` names (the module's
     docstring).  With ``fit_card`` a ``card`` cell's record also holds
     ``fit_cell``'s largest batch or depth that fits one H100."""
@@ -483,12 +499,13 @@ def lower_cell(arch_id: str, shape_name: str, *, mesh: str = "card",
     try:
         for at in coords:
             t0 = time.perf_counter()
+            m = None if at is None else mesh_mod.abstract_mesh(shape_axes, axis_names, at)
             if shape.kind == "train":
-                m = None if at is None else mesh_mod.abstract_mesh(shape_axes, axis_names, at)
                 got = trace_train(binding, cfg, shape.global_batch, shape.seq_len,
                                   microbatches=mb, mesh=m)
             else:
-                got = trace_serve(binding, cfg, shape.kind, shape.global_batch, shape.seq_len)
+                got = trace_serve(binding, cfg, shape.kind, shape.global_batch, shape.seq_len,
+                                  mesh=m)
             got.pop("out")
             got["coords"] = None if at is None else dict(zip(axis_names, at))
             got["wall_s"] = time.perf_counter() - t0

@@ -104,11 +104,12 @@ def place(params, axes, mesh, rules):
     return SH.shard_tree(params, specs, mesh), specs, state_specs
 
 
-# the LM kinds that train on one card only, and what brings their mesh
+# the LM kinds that train and serve on one card only, and what brings their
+# mesh (``refuse_mesh`` here, ``serve_step.refuse_mesh`` for serving)
 MESH_WAITS = {
-    **{kind: "ROADMAP.md §1 item 10 (the sub-quadratic models on a mesh)"
+    **{kind: "ROADMAP.md §1 item 10 (the sub-quadratic models served and trained on a mesh)"
        for kind in ("zamba2", "xlstm")},
-    **{kind: "ROADMAP.md §1 item 11 (the prefix models on a mesh)"
+    **{kind: "ROADMAP.md §1 item 11 (the prefix models served and trained on a mesh)"
        for kind in ("whisper", "pixtral")},
 }
 

@@ -288,7 +288,12 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
     of whole kv projections, which then enter too, where ``kv_heads`` does
     not divide the axis), K9 runs on those local heads, and ``wo`` is
     row-parallel, its partial products summed by one
-    ``collectives.combine``.  Every rank issues the same collectives.
+    ``collectives.combine``.  Every rank issues the same collectives.  The
+    prefill's (k, v) are then the rank's local kv heads, and a decode step's
+    ``cache`` is the rank's block of it (``sharding.cache_block``): row
+    ``pos`` is written there and ``decode_attention`` runs on the local q
+    heads against it.  Cross-attention (``kv_src``) under tensor
+    parallelism raises (ROADMAP.md §1 item 11).
     """
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
@@ -296,9 +301,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
     split = SH.head_split(cfg, mesh)
     wk, wv = p["wk"], p["wv"]
     if split is not None:
-        if cache is not None or kv_src is not None:
-            raise NotImplementedError("tensor-parallel attention serves no cache and no "
-                                      "cross-attention")
+        if kv_src is not None:
+            raise NotImplementedError("tensor-parallel cross-attention: ROADMAP.md §1 item 11 "
+                                      "(the prefix models served and trained on a mesh) "
+                                      "brings it")
         norms = {k: p[k] for k in ("q_norm", "k_norm") if k in p}
         kv = {} if split.kv_local else {"wk": wk, "wv": wv}
         x, norms, kv = _enter(mesh, x, norms, kv)
@@ -333,7 +339,10 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
         y = decode_attention(q.transpose(1, 2), k_cache.transpose(1, 2),
                              v_cache.transpose(1, 2), pos)
         y = y.transpose(1, 2).reshape(b, s, h * hd)
-        return dense(p["wo"], y, cd), (k_cache, v_cache)
+        out = dense(p["wo"], y, cd)
+        if split is not None:
+            out = collectives.combine(out, mesh, "model")
+        return out, (k_cache, v_cache)
 
     if cfg.flash_block_dtype == "bf16":
         raise NotImplementedError(

@@ -45,7 +45,13 @@ on the rank's routed Q shard, one combine over ``model``), every layer
 tensor-parallel over ``model`` (K9 on the rank's heads; an MoE layer
 expert-parallel, each rank running its block of the experts), and the head
 vocab-parallel: ``lm_logits`` gives this rank's vocabulary slice, which
-``train_step.next_token_loss`` reduces over ``model``.
+``train_step.next_token_loss`` reduces over ``model``.  Served on a mesh
+(``launch.serve --mesh-shape``), ``forward_prefill`` and ``forward_decode``
+run the same layers on the rank's batch block against its block of the
+cache (``sharding.cache_block``: its batch block and the kv heads its q
+heads read, every position), and ``whole_logits`` gathers the ranks'
+vocabulary slices so that every rank holds the whole logits, as ``repro``
+returns them replicated.
 """
 
 from __future__ import annotations
@@ -187,13 +193,15 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     return qr_embedding.lookup(params["embed"], tokens, emb)
 
 
-def vocab_range(cfg: ModelConfig, mesh) -> tuple[int, int]:
-    """The vocabulary ``[lo, hi)`` whose logits this rank's ``lm_logits``
-    gives on ``mesh`` (``sharding.model_mesh``): a tied head's row shard
+def vocab_range(cfg: ModelConfig, mesh, shard: int | None = None) -> tuple[int, int]:
+    """The vocabulary ``[lo, hi)`` whose logits this rank's (or the rank at
+    ``model`` coordinate ``shard``'s) ``lm_logits`` gives on ``mesh``
+    (``sharding.model_mesh``): a tied head's row shard
     (``qr_embedding.vocab_shard_range``), an untied head's block of
     columns, or of ``ceil(vocab / model)`` where the axis does not divide
     ``vocab`` (the head is then whole on every rank)."""
-    m, s = mesh.shape["model"], mesh.axis_index("model")
+    m = mesh.shape["model"]
+    s = mesh.axis_index("model") if shard is None else shard
     if cfg.tie_embedding:
         return qr_embedding.vocab_shard_range(cfg.emb_config, m, s)
     per = -(-cfg.vocab // m)
@@ -319,11 +327,13 @@ def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions=Non
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-               device=None) -> dict:
-    """Stacked KV cache, ``{"k", "v"}`` each (L, B, max_len, KH, D), zeros."""
+               device=None, mesh=None) -> dict:
+    """Stacked KV cache, ``{"k", "v"}`` each (L, B, max_len, KH, D), zeros;
+    on a ``mesh`` (default the active one) this rank's block of the cache of
+    ``batch`` (global) sequences, ``sharding.cache_block``."""
     dtype = dtype or cfg.cdtype
     dev = device_mod.resolve(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.kv_heads, cfg.head_dim_)
+    shape = SH.cache_block(cfg, SH.current_mesh() if mesh is None else mesh, batch, max_len)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -335,36 +345,61 @@ def cache_axes() -> dict:
     }
 
 
+def whole_logits(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> torch.Tensor:
+    """``lm_logits`` whole on every rank: on a ``mesh`` with a ``model``
+    axis the ranks' vocabulary slices (``vocab_range``, uneven) gathered
+    over it (``collectives.gather_slices``, site ``logits``), as ``repro``'s
+    serving steps return their logits replicated."""
+    mesh = SH.model_mesh(mesh)
+    logits = lm_logits(params, x, cfg, mesh=mesh)
+    if mesh is None:
+        return logits
+    widths = [hi - lo for lo, hi in (vocab_range(cfg, mesh, i)
+                                      for i in range(mesh.shape["model"]))]
+    return collectives.gather_slices(logits, mesh, "model", widths, site="logits")
+
+
 def forward_prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                    max_len: int) -> tuple[torch.Tensor, dict]:
+                    max_len: int, *, mesh=None) -> tuple[torch.Tensor, dict]:
     """Prefill: (last-token logits (B, 1, vocab), the cache of length
-    ``max_len`` with positions [0, S) filled)."""
-    return prefill_rows(params, embed_tokens(params, tokens, cfg).to(cfg.cdtype), cfg, max_len)
+    ``max_len`` with positions [0, S) filled).  On a ``mesh`` (default the
+    active one, ``sharding.model_mesh``) ``params`` are this rank's blocks
+    and ``tokens`` its batch block: the tokens through the two-level GnR,
+    every layer tensor-parallel, the cache this rank's block
+    (``init_cache``), the logits whole (``whole_logits``)."""
+    mesh = SH.model_mesh(mesh)
+    x = embed_tokens(params, tokens, cfg, mesh=mesh).to(cfg.cdtype)
+    return prefill_rows(params, x, cfg, max_len, mesh=mesh)
 
 
 def prefill_rows(params: dict, x: torch.Tensor, cfg: ModelConfig,
-                 max_len: int) -> tuple[torch.Tensor, dict]:
+                 max_len: int, *, mesh=None) -> tuple[torch.Tensor, dict]:
     """``forward_prefill`` from given input rows ``x`` (B, S, d) in the
     compute dtype (the embedded tokens; pixtral's patches followed by
     them): the last row's logits and a cache of ``max_len`` >= S positions,
     [0, S) filled."""
+    mesh = SH.model_mesh(mesh)
     b, s, _ = x.shape
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    shape = (cfg.num_layers, b, max_len, SH.cache_heads(cfg, mesh), cfg.head_dim_)
+    cache = {k: torch.zeros(shape, dtype=cfg.cdtype, device=x.device) for k in ("k", "v")}
     for i, p in enumerate(layer_list(params)):
-        x, (k, v) = layer_fwd(p, x, cfg)
+        x, (k, v) = layer_fwd(p, x, cfg, mesh=mesh)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = L.apply_norm(params["final_norm"], x)
-    return lm_logits(params, x[:, -1:, :], cfg), cache
+    return whole_logits(params, x[:, -1:, :], cfg, mesh=mesh), cache
 
 
 def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos: int,
-                   cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                   cfg: ModelConfig, *, mesh=None) -> tuple[torch.Tensor, dict]:
     """One decode step. token: (B, 1); cache: stacked (L, ...), updated in
-    place at ``pos`` and returned; pos: the token's position."""
+    place at ``pos`` and returned; pos: the token's position.  On a
+    ``mesh`` (default the active one) this rank's blocks, batch block and
+    cache block, as ``forward_prefill``; the logits whole."""
+    mesh = SH.model_mesh(mesh)
     pos = int(pos)
-    x = embed_tokens(params, token, cfg).to(cfg.cdtype)
+    x = embed_tokens(params, token, cfg, mesh=mesh).to(cfg.cdtype)
     for i, p in enumerate(layer_list(params)):
-        x, _ = layer_fwd(p, x, cfg, cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        x, _ = layer_fwd(p, x, cfg, cache=(cache["k"][i], cache["v"][i]), pos=pos, mesh=mesh)
     x = L.apply_norm(params["final_norm"], x)
-    return lm_logits(params, x, cfg), cache
+    return whole_logits(params, x, cfg, mesh=mesh), cache

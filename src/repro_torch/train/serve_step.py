@@ -1,10 +1,10 @@
 """Serving steps: prefill + one-token decode, one surface for every model
 family (port of ``repro.train.serve_step``).
 
-    make_cache(cfg, batch, max_len)        -> cache (+ axes via cache_axes)
-    prefill(params, batch, cfg, max_len)   -> (last logits, cache)
-    decode(params, cache, token, pos, cfg) -> (logits, cache)
-    prepare(params, cfg)                   -> the params a server holds
+    make_cache(cfg, batch, max_len, mesh=)        -> cache (+ axes via cache_axes)
+    prefill(params, batch, cfg, max_len, mesh=)   -> (last logits, cache)
+    decode(params, cache, token, pos, cfg, mesh=) -> (logits, cache)
+    prepare(params, cfg)                          -> the params a server holds
 
 Every family of ``repro`` is ported: the transformers, zamba2, xlstm and
 the prefix models whisper (its batch carries ``"frames"``) and pixtral
@@ -13,6 +13,13 @@ with no compile step (``repro`` jits the prefill and the decode step).  The
 transformer's, zamba2's, whisper's and pixtral's decode write the cache in
 place, so the cache handed back is the one prefill allocated; xlstm's
 decode returns new states.
+
+On a ``mesh`` (one process a rank, ``launch.serve --mesh-shape``) the
+transformers serve tensor-parallel: ``params`` are the rank's blocks
+(``sharding.lm_param_rules``), the batch its ``data`` block, the cache its
+block (``sharding.cache_block``) and the logits whole on every rank.  The
+other families raise ``NotImplementedError`` there, naming the ROADMAP
+item of ``launch.train.MESH_WAITS`` that brings their mesh.
 """
 
 from __future__ import annotations
@@ -27,11 +34,38 @@ from repro_torch.configs.base import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class ServeFamily:
-    make_cache: Callable          # (cfg, batch, max_len, device=) -> cache
+    make_cache: Callable          # (cfg, batch, max_len, device=, mesh=) -> cache
     cache_axes: Callable          # () -> logical-axes tree
-    prefill: Callable             # (params, batch, cfg, max_len) -> (logits, cache)
-    decode: Callable              # (params, cache, token, pos, cfg) -> (logits, cache)
+    prefill: Callable             # (params, batch, cfg, max_len, mesh=) -> (logits, cache)
+    decode: Callable              # (params, cache, token, pos, cfg, mesh=) -> (logits, cache)
     prepare: Callable             # (params, cfg) -> params cast once for serving
+
+
+def refuse_mesh(kind: str, mesh) -> None:
+    """Raise ``NotImplementedError`` where ``mesh`` is given for a family
+    that serves on one card only (``launch.train.MESH_WAITS``)."""
+    from repro_torch.launch.train import MESH_WAITS
+
+    if mesh is not None and kind in MESH_WAITS:
+        raise NotImplementedError(f"the {kind} models on a mesh: {MESH_WAITS[kind]} brings it")
+
+
+def _one_card(kind: str, make_cache, prefill, decode, **kw) -> ServeFamily:
+    """A family that serves on one card only: its three entries refuse a
+    ``mesh`` (``refuse_mesh``)."""
+    def cache(cfg, b, m, device=None, mesh=None):
+        refuse_mesh(kind, mesh)
+        return make_cache(cfg, b, m, device=device)
+
+    def pre(p, batch, cfg, m, mesh=None):
+        refuse_mesh(kind, mesh)
+        return prefill(p, batch, cfg, m)
+
+    def dec(p, c, tok, pos, cfg, mesh=None):
+        refuse_mesh(kind, mesh)
+        return decode(p, c, tok, pos, cfg)
+
+    return ServeFamily(make_cache=cache, prefill=pre, decode=dec, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +77,13 @@ def _tf_family() -> ServeFamily:
     from repro_torch.models import transformer as T
 
     return ServeFamily(
-        make_cache=lambda cfg, b, m, device=None: T.init_cache(cfg, b, m, device=device),
+        make_cache=lambda cfg, b, m, device=None, mesh=None: T.init_cache(
+            cfg, b, m, device=device, mesh=mesh),
         cache_axes=T.cache_axes,
-        prefill=lambda p, batch, cfg, m: T.forward_prefill(p, batch["tokens"], cfg, m),
-        decode=lambda p, c, tok, pos, cfg: T.forward_decode(p, tok, c, pos, cfg),
+        prefill=lambda p, batch, cfg, m, mesh=None: T.forward_prefill(
+            p, batch["tokens"], cfg, m, mesh=mesh),
+        decode=lambda p, c, tok, pos, cfg, mesh=None: T.forward_decode(
+            p, tok, c, pos, cfg, mesh=mesh),
         prepare=T.serving_params,
     )
 
@@ -62,7 +99,8 @@ def _tf_family() -> ServeFamily:
 def _zamba_family() -> ServeFamily:
     from repro_torch.models import zamba2 as Z
 
-    return ServeFamily(
+    return _one_card(
+        "zamba2",
         make_cache=lambda cfg, b, m, device=None: Z.init_zamba2_cache(cfg, b, m, device=device),
         cache_axes=Z.zamba2_cache_axes,
         prefill=_zamba_prefill,
@@ -88,7 +126,8 @@ def _xlstm_family() -> ServeFamily:
         states = X.init_xlstm_state(cfg, tokens.shape[0], device=tokens.device)
         return X.forward_xlstm(params, tokens, cfg, states=states, last=True)
 
-    return ServeFamily(
+    return _one_card(
+        "xlstm",
         make_cache=lambda cfg, b, m, device=None: X.init_xlstm_state(cfg, b, device=device),
         cache_axes=lambda: None,     # recurrent states: replicated over model
         prefill=prefill,
@@ -107,7 +146,8 @@ def _xlstm_family() -> ServeFamily:
 def _whisper_family() -> ServeFamily:
     from repro_torch.models import whisper as W
 
-    return ServeFamily(
+    return _one_card(
+        "whisper",
         make_cache=lambda cfg, b, m, device=None: W.init_cache(cfg, b, m, device=device),
         cache_axes=W.cache_axes,
         prefill=lambda p, batch, cfg, m: W.forward_prefill(p, batch["frames"], batch["tokens"],
@@ -120,7 +160,8 @@ def _whisper_family() -> ServeFamily:
 def _pixtral_family() -> ServeFamily:
     from repro_torch.models import pixtral as P
 
-    return ServeFamily(
+    return _one_card(
+        "pixtral",
         make_cache=lambda cfg, b, m, device=None: P.init_cache(cfg, b, m + cfg.num_patches,
                                                                device=device),
         cache_axes=P.cache_axes,
@@ -157,10 +198,13 @@ def greedy_generate(
     *,
     max_new: int,
     max_len: int,
+    mesh=None,
 ) -> torch.Tensor:
     """Prefill then greedy-decode ``max_new`` tokens.  Returns (B, max_new)
-    int32 on the batch's device."""
-    logits, cache = fam.prefill(params, batch, cfg, max_len)
+    int32 on the batch's device.  On a ``mesh`` the loop of one rank: its
+    blocks of ``params``, its ``data`` block of ``batch`` and of the tokens
+    returned; every rank takes the ``argmax`` of the same whole logits."""
+    logits, cache = fam.prefill(params, batch, cfg, max_len, mesh=mesh)
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     pos0 = batch["tokens"].shape[1]
     if "patches" in batch:
@@ -168,6 +212,6 @@ def greedy_generate(
     outs = []
     for i in range(max_new):
         outs.append(tok[:, 0])
-        logits, cache = fam.decode(params, cache, tok, pos0 + i, cfg)
+        logits, cache = fam.decode(params, cache, tok, pos0 + i, cfg, mesh=mesh)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     return torch.stack(outs, dim=1)

@@ -300,9 +300,17 @@ def test_lower_cell_on_the_card_and_the_pod():
     assert rec["model_flops"] == 2 * rec["params_active"] * 32 * 32768
     for arch, shape, item in (("zamba2-7b", "train_4k", "item 10"),
                               ("whisper-large-v3", "train_4k", "item 11"),
-                              ("qwen2-1.5b", "decode_32k", "item 12")):
+                              ("zamba2-7b", "prefill_32k", "item 10"),
+                              ("whisper-large-v3", "decode_32k", "item 11")):
         rec = t_dry.lower_cell(arch, shape, mesh="pod1")
         assert rec["status"].startswith(f"waits: ROADMAP.md §1 {item}"), rec["status"]
+    rec = t_dry.lower_cell("qwen2-1.5b", "decode_32k", mesh="pod1")
+    assert rec["status"] == "run" and rec["chips"] == 256
+    assert [r["coords"] for r in rec["ranks"]] == [{"data": 0, "model": 0},
+                                                   {"data": 0, "model": 15}]
+    m = rec["memory"]
+    assert m["peak_bytes"] == m["argument_bytes"] + m["transient_peak_bytes"] > m["cache_bytes"]
+    assert rec["collectives"]["logits/model"][0] == 1
     rec = t_dry.lower_cell("qwen2-1.5b", "prefill_32k", extra_cfg={"flash_block_dtype": "bf16"})
     assert rec["status"].startswith("refused: flash_block_dtype='bf16'")
 

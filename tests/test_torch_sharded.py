@@ -4,7 +4,9 @@ the port on 4 gloo ranks on the CPU (``launch.mesh.spawn``, rank bodies in
 ``tests/test_torch_sharded_ranks.py``).  Every sharded output is held to
 ``repro``'s own tolerances (fp32 compute: rtol 1e-4, atol 1e-5,
 ``tests/test_engine.py``) against ``repro``'s sharded output and the
-single-device oracle; the collectives the port called are counted."""
+single-device oracle; the collectives the port called are counted.
+``repro``'s references run in one child for the whole file, and the ranks
+of one mesh shape in one spawn (module fixtures)."""
 
 import os
 
@@ -28,7 +30,7 @@ from repro_torch.launch import mesh as M  # noqa: E402
 KINDS = [("dense", {}), ("qr", {"collision": 8}), ("tt", {"tt_rank": 4})]
 TOL = dict(rtol=1e-4, atol=1e-5)
 SPAWN_S = 240          # each spawn's own limit (4 ranks start in ~4 s here)
-CHILD_S = 300          # each repro child's limit
+CHILD_S = 600          # the repro child's limit (every reference of the file)
 
 _HEAD = r"""
 import numpy as np, jax, jax.numpy as jnp
@@ -50,6 +52,48 @@ def save_tables(tables, prefix="t"):
 def _spawn(tmp_path, fn, shape, *args, axes=("data", "model")):
     return M.spawn(fn, shape, axes=axes, args=args, device="cpu", backend="gloo",
                    init_file=tmp_path / "rdv", timeout_s=SPAWN_S)
+
+
+@pytest.fixture(scope="module")
+def refs(tmp_path_factory):
+    """Every ``repro`` reference of this file, from one child with four
+    host devices: name -> its .npz."""
+    from conftest import run_with_devices
+
+    tmp = tmp_path_factory.mktemp("repro")
+    paths = {name: str(tmp / f"{name}.npz")
+             for name in [k for k, _ in KINDS] + ["two_level", "hot", "compressed", "dup"]}
+    code = [_ENGINE.replace("__KIND__", repr(kind)).replace("__KW__", repr(kw))
+            .replace("__PATH__", repr(paths[kind])) for kind, kw in KINDS]
+    code += [snippet.replace("__PATH__", repr(paths[name])) for name, snippet in
+             (("two_level", _TWO_LEVEL), ("hot", _HOT), ("compressed", _COMPRESSED),
+              ("dup", _DUP))]
+    run_with_devices("".join(code), n_devices=4, timeout=CHILD_S)
+    return paths
+
+
+def _ranks(tmp_path_factory, shape, calls, **kw) -> list:
+    """The ranks of one ``shape`` spawn running each ``(fn, args)`` of
+    ``calls`` in turn (``R.several``): per call, its result on every rank."""
+    res = _spawn(tmp_path_factory.mktemp("rdv"), R.several, shape, calls, **kw)
+    return [[r[i] for r in res] for i in range(len(calls))]
+
+
+@pytest.fixture(scope="module")
+def engine_ranks(refs, tmp_path_factory):
+    """(2, 2): ``R.engine_parity`` of every kind."""
+    got = _ranks(tmp_path_factory, (2, 2),
+                 [("engine_parity", (refs[kind], kind, kw)) for kind, kw in KINDS])
+    return {kind: res for (kind, _), res in zip(KINDS, got)}
+
+
+@pytest.fixture(scope="module")
+def row_ranks(refs, tmp_path_factory):
+    """(1, 4): the two-level GnR, the hot tier and the adopted duplication
+    plan."""
+    names = (("two_level", "two_level"), ("hot_tier", "hot"), ("dup_gnr", "dup"))
+    got = _ranks(tmp_path_factory, (1, 4), [(fn, (refs[ref],)) for fn, ref in names])
+    return dict(zip([fn for fn, _ in names], got))
 
 
 def _gather(res, shape, key):
@@ -100,14 +144,10 @@ np.savez(__PATH__, **out)
 
 
 @pytest.mark.parametrize("kind,kw", KINDS)
-def test_engine_sharded_parity(kind, kw, mesh_runner, tmp_path):
-    path = str(tmp_path / "case.npz")
-    code = (_ENGINE.replace("__KIND__", repr(kind)).replace("__KW__", repr(kw))
-            .replace("__PATH__", repr(path)))
-    mesh_runner(code, n_devices=4, timeout=CHILD_S)
-    ref = np.load(path)
+def test_engine_sharded_parity(kind, kw, refs, engine_ranks):
+    ref = np.load(refs[kind])
     shape = (2, 2)
-    res = _spawn(tmp_path, R.engine_parity, shape, path, kind, kw)
+    res = engine_ranks[kind]
     names = ["packed", "pertable"] + ([] if kind == "tt" else ["baseline"])
     names += [f"dup{b}_{p}" for b in R.DUP_BUDGETS for p in ("auto", "off")]
     for name in names:
@@ -131,8 +171,11 @@ def test_engine_sharded_parity(kind, kw, mesh_runner, tmp_path):
 # test_engine.py::test_engine_gnr_dup_single_device: a (1, 1) mesh
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind,kw", KINDS)
-def test_engine_gnr_dup_single_device(kind, kw, tmp_path):
+@pytest.fixture(scope="module")
+def single_device(tmp_path_factory):
+    """kind -> ``repro``'s duplication engine on a (1, 1) host mesh (its
+    output, the oracle, the comm-free flags) and the port's (1, 1) rank on
+    the same tables and indices (one spawn for every kind)."""
     from repro import engine as JE
     from repro.core import embedding_bag as JEB
     from repro.core.embedding_bag import BagConfig
@@ -140,24 +183,34 @@ def test_engine_gnr_dup_single_device(kind, kw, tmp_path):
     from repro.engine import EngineSpec
     from repro.launch.mesh import make_mesh
 
+    tmp = tmp_path_factory.mktemp("single")
     mesh = make_mesh((1, 1), ("data", "model"))
-    emb = EmbeddingConfig(vocab=1024, dim=32, kind=kind, param_dtype=jnp.float32,
-                          compute_dtype=jnp.float32, **kw)
-    bags = [BagConfig(emb=emb, pooling=8) for _ in range(2)]
-    tables = JEB.init_tables(jax.random.PRNGKey(10), bags)
-    idx = jax.random.randint(jax.random.PRNGKey(11), (4, 2, 8), 0, 1024)
-    oracle = np.asarray(JEB.multi_bag_lookup(tables, idx, bags))
-    trace = [zipf_trace(1024, 4000, seed=t) for t in range(2)]
-    spec = EngineSpec.from_bags(bags, duplication=True, dup_budget_bytes=1 << 24)
-    eng = JE.compile(JE.plan(spec, mesh=mesh, trace=trace))
-    j_out = np.asarray(eng.gnr(mesh)(tables, idx, eng.hot_tiers(tables)))
+    refs, calls = {}, []
+    for kind, kw in KINDS:
+        emb = EmbeddingConfig(vocab=1024, dim=32, kind=kind, param_dtype=jnp.float32,
+                              compute_dtype=jnp.float32, **kw)
+        bags = [BagConfig(emb=emb, pooling=8) for _ in range(2)]
+        tables = JEB.init_tables(jax.random.PRNGKey(10), bags)
+        idx = jax.random.randint(jax.random.PRNGKey(11), (4, 2, 8), 0, 1024)
+        oracle = np.asarray(JEB.multi_bag_lookup(tables, idx, bags))
+        trace = [zipf_trace(1024, 4000, seed=t) for t in range(2)]
+        spec = EngineSpec.from_bags(bags, duplication=True, dup_budget_bytes=1 << 24)
+        eng = JE.compile(JE.plan(spec, mesh=mesh, trace=trace))
+        j_out = np.asarray(eng.gnr(mesh)(tables, idx, eng.hot_tiers(tables)))
+        out = {"idx": np.asarray(idx, np.int32)}
+        R.save_tables(out, tables)
+        path = str(tmp / f"{kind}.npz")
+        np.savez(path, **out)
+        refs[kind] = (j_out, oracle, list(eng.plan.comm_free))
+        calls.append(("dup_single", (path, kind, kw)))
+    got = _ranks(tmp_path_factory, (1, 1), calls)
+    return {kind: (refs[kind], res[0]) for (kind, _), res in zip(KINDS, got)}
 
-    out = {"idx": np.asarray(idx, np.int32)}
-    R.save_tables(out, tables)
-    path = str(tmp_path / "case.npz")
-    np.savez(path, **out)
-    res = _spawn(tmp_path, R.dup_single, (1, 1), path, kind, kw)[0]
-    assert res["comm_free"] == list(eng.plan.comm_free) == [True, True]
+
+@pytest.mark.parametrize("kind,kw", KINDS)
+def test_engine_gnr_dup_single_device(kind, kw, single_device):
+    (j_out, oracle, comm_free), res = single_device[kind]
+    assert res["comm_free"] == comm_free == [True, True]
     assert res["calls"] == 0
     np.testing.assert_allclose(res["out"], j_out, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(res["out"], oracle, rtol=1e-5, atol=1e-5)
@@ -185,12 +238,10 @@ np.savez(__PATH__, **out)
 """
 
 
-def test_two_level_gnr_matches_oracle(mesh_runner, tmp_path):
-    path = str(tmp_path / "case.npz")
-    mesh_runner(_TWO_LEVEL.replace("__PATH__", repr(path)), n_devices=4, timeout=CHILD_S)
-    ref = np.load(path)
+def test_two_level_gnr_matches_oracle(refs, row_ranks):
+    ref = np.load(refs["two_level"])
     shape = (1, 4)
-    res = _spawn(tmp_path, R.two_level, shape, path)
+    res = row_ranks["two_level"]
     gnr = _gather(res, shape, "gnr")
     np.testing.assert_allclose(gnr, ref["gnr"], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(gnr, ref["oracle"], rtol=1e-5, atol=1e-6)
@@ -228,12 +279,10 @@ np.savez(__PATH__, **out)
 """
 
 
-def test_hot_tier_gnr_matches_oracle(mesh_runner, tmp_path):
-    path = str(tmp_path / "case.npz")
-    mesh_runner(_HOT.replace("__PATH__", repr(path)), n_devices=4, timeout=CHILD_S)
-    ref = np.load(path)
+def test_hot_tier_gnr_matches_oracle(refs, row_ranks):
+    ref = np.load(refs["hot"])
     shape = (1, 4)
-    res = _spawn(tmp_path, R.hot_tier, shape, path)
+    res = row_ranks["hot_tier"]
     got = _gather(res, shape, "gnr")
     np.testing.assert_allclose(got, ref["gnr"], **TOL)
     np.testing.assert_allclose(got, ref["oracle"], **TOL)
@@ -263,11 +312,9 @@ np.savez(__PATH__, x=np.asarray(x), exact=np.asarray(exact), approx=np.asarray(a
 """
 
 
-def test_compressed_psum_close_to_exact(mesh_runner, tmp_path):
-    path = str(tmp_path / "case.npz")
-    mesh_runner(_COMPRESSED.replace("__PATH__", repr(path)), n_devices=4, timeout=CHILD_S)
-    ref = np.load(path)
-    res = _spawn(tmp_path, R.compressed, (4,), path, axes=("d",))
+def test_compressed_psum_close_to_exact(refs, tmp_path):
+    ref = np.load(refs["compressed"])
+    res = _spawn(tmp_path, R.compressed, (4,), refs["compressed"], axes=("d",))
     got = {k: np.concatenate([r[k] for r in res]) for k in ("exact", "approx", "ef")}
     exact = got["exact"]
     scale = np.abs(exact).max() + 1e-9
@@ -304,12 +351,10 @@ np.savez(__PATH__, **out)
 """
 
 
-def test_dup_gnr_matches_oracle(mesh_runner, tmp_path):
-    path = str(tmp_path / "case.npz")
-    mesh_runner(_DUP.replace("__PATH__", repr(path)), n_devices=4, timeout=CHILD_S)
-    ref = np.load(path)
+def test_dup_gnr_matches_oracle(refs, row_ranks):
+    ref = np.load(refs["dup"])
     shape = (1, 4)
-    res = _spawn(tmp_path, R.dup_gnr, shape, path)
+    res = row_ranks["dup_gnr"]
     for budget in R.DUP_BUDGETS:
         got = _gather(res, shape, budget)
         np.testing.assert_allclose(got, ref[f"dup{budget}"], rtol=1e-5, atol=1e-5)

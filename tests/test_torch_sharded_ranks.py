@@ -72,6 +72,12 @@ def _run(fn, *args):
             "bytes": collectives.BYTES["all_reduce"], "launches": _launches() - before}
 
 
+def several(mesh, calls) -> list:
+    """Each ``(name, args)`` of ``calls`` in turn, the function of this
+    module called as ``name(mesh, *args)``: one spawn for several checks."""
+    return [globals()[name](mesh, *args) for name, args in calls]
+
+
 def engine_parity(mesh, path: str, kind: str, kw: dict) -> dict:
     """``repro``'s ``test_engine_sharded_parity`` cases on this rank: packed,
     per-table, baseline (not TT, as ``repro``), duplication at both budgets
