@@ -180,7 +180,8 @@ Phases, each one failing the script if it fails:
    decode-vs-train consistency in fp32 at batch 2, sequence 256 (5e-5), K9
    on layer 0's own q/k/v at 4,096 tokens against the plain blockwise
    attention (fp32 1e-4, bf16 one rounding), ``prefill_32k`` at the largest
-   batch that fits by the dry run (``launch.dryrun.fit``: the prefill
+   batch that fits (the QR run at one sequence, ``QR_PREFILL_BATCH``) by the
+   dry run (``launch.dryrun.fit``: the prefill
    traced on meta at batches 1 and 2, a third trace confirming; ms,
    tokens/s, K9's ms and share by CUDA events around every
    attention call, peak memory, the FLOP bound; K9 on the call's own
@@ -248,9 +249,7 @@ Phases, each one failing the script if it fails:
    axis, collectives a step, peak memory a rank, K9 and K8 ms a call and
    launches, and on rank (0, 0)'s own calls K9 on layer 0's local q/k/v
    within one rounding of its plain version and K8 bitwise the plain sum
-   on the routed streams; the CLI drill (``launch.train --arch qwen2-1.5b
-   --smoke --mesh-shape 1,2 --steps 2 --batch 2 --seq 512 --ckpt-dir D``, then one
-   card with ``--steps 4``, which prints ``[resume] step 2``);
+   on the routed streams (its CLI drills now run in phase 15);
 14. the MoE transformers (``models/moe.py``: the fp32 router's top-k,
    capacity-bounded dispatch, the experts' SwiGLU products, the combine
    added over k in order, no atomics; K9 in every layer at D 64, K8 for a
@@ -311,7 +310,8 @@ Phases, each one failing the script if it fails:
    whose rounding alone is further than that at full width), zamba2's K9
    on site 0's own q/k/v (bf16, one rounding), the fp32 params dropped
    after the bf16 cast, ``prefill_32k`` at the batch the dry run fits
-   for the dense run (on meta the sLSTM's loop runs one step), with K9's,
+   for the dense run (on meta the sLSTM's loop runs one step) and at one
+   sequence for the QR run (``QR_PREFILL_BATCH``), with K9's,
    the mamba layers' or the
    sLSTM / mLSTM blocks' ms and share (events around each call), peak,
    the flop bound, K9 on site 0's q/k/v and K8 on its lookups held to
@@ -322,15 +322,33 @@ Phases, each one failing the script if it fails:
    --prompt-len 512 --max-new 16`` with each vocabulary, ``--arch
    xlstm-125m`` (QR) and ``examples.serve_lm`` with its defaults; training
    on one card (the allocator's expandable segments), QR, S 4,096:
-   xlstm-125m at full depth, one step of 2 microbatches of 2 sequences,
+   xlstm-125m at full depth, one step of 2 microbatches of 1 sequence,
    zamba2-7b at the depth the dry run fits, 2 steps
    (ms a step, the forward / backward / update split, K9's ms, peak); the
    step-1 gradients of a cut (zamba2 one 6-layer segment and its site, in
    fp32, and read in bf16, where its all but vanished hidden state makes
    them ill-conditioned; xlstm its first 4 layers) within 2^-6 of each
    leaf's scale of the kernels' plain versions on the card;
-   ``launch.train --arch xlstm-125m --embedding qr --seq 512 --batch 4
-   --steps 2``, then ``--steps 4``, which prints ``[resume] step 2``;
+   ``launch.train --arch xlstm-125m --smoke --embedding qr --seq 512 --batch 4
+   --steps 2 --mesh-shape 1,2``, then ``--steps 4`` on one card, which
+   prints ``[resume] step 2``; on a mesh (``ssm_mesh_section``): world 1
+   over nccl (zamba2 at 6 layers, xlstm at 4, QR, bf16: the prefill, the
+   cache or states, 4 greedy steps and the step-1 gradients bitwise the
+   single card's), then one spawn of (1, 2) gloo ranks on the card: one
+   full-width zamba2-7b mamba layer and the shared block on unit-scale
+   hidden states (2 x 1,024 + 4 decode steps), their outputs and gathered
+   states against one card's (fp32 within 1e-5 of scale, bf16 within 2x
+   the single card's own distance); zamba2-7b at 12 layers (2 x 1,024 + 8
+   steps) and xlstm-125m at full depth (2 x 4,096 + 16 steps), QR, served
+   (prefill and decode ms, the collectives by site, peak a rank), their
+   logits teacher-forced against the single card's fp32-compute logits
+   (within 2x its own bf16 distance), K9 and K8 held on rank (0, 0)'s own
+   calls, zamba2's prefill peak within 10% of the dry run's trace of that
+   rank; the step-1 gradients gathered (xlstm full depth bf16 within 2x the
+   single card's distance from fp32; zamba2 6 layers fp32 within 1e-5 of
+   scale, or twice fp32's own distance from fp64 where larger); then
+   ``launch.serve --arch zamba2-7b --smoke --mesh-shape 1,2`` in fp32
+   prints the one-card command's first sequence;
    Every full-width LM cell of phases 11, 12, 14, 15 and 16 (prefill,
    decode, ``long_500k``, a training step) holds its measured peak
    (``torch.cuda.max_memory_allocated`` above the call's baseline) within
@@ -352,7 +370,7 @@ Phases, each one failing the script if it fails:
    (the body shared), pixtral-12b at full width and depth (40 layers)
    with the QR vocabulary, each drawn in fp32 and cast once to bf16, the
    fp32 tree freed and the peak recorded: ``prefill_32k`` at the batch the
-   dry run fits (ms, tokens/s, the FLOP bound, K9's
+   dry run fits (whisper's QR run at one sequence; ms, tokens/s, the FLOP bound, K9's
    share, whisper's encoder and decoder ms), K9 on the call's own q/k/v
    at each kind of site (non-causal, causal, cross) within one rounding,
    K8 bitwise the bf16 sum, K9 against SDPA at the decoder's and the
@@ -3360,53 +3378,6 @@ def mesh_train_rank(mesh, batch: int) -> dict:
     return res
 
 
-def mesh_cli_drill() -> dict:
-    """The training CLI's elastic drill on the card: ``python -m
-    repro_torch.launch.train --arch dlrm-qr --mesh-shape 2,2 --steps 2
-    --ckpt-dir D`` (full width, batch ``MESH_CLI_BATCH``), then ``--mesh-shape
-    4,1 --steps 4``, which must resume from step 2; both exit 0, four gloo
-    ranks on the one card each."""
-    from repro_torch.checkpoint import checkpointer as ckpt
-
-    d = ROOT / "build" / "mesh_train" / "cli_ckpt"
-    shutil.rmtree(d, ignore_errors=True)
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-qr",
-            "--batch", str(MESH_CLI_BATCH), "--ckpt-dir", str(d), "--log-every", "1",
-            "--ckpt-every", "1000", "--rank-timeout", str(MESH_TIMEOUT_S - 60)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    rec = {"batch": MESH_CLI_BATCH}
-    for name, mesh, steps in (("first", "2,2", 2), ("resumed", "4,1", 4)):
-        t0 = time.perf_counter()
-        run = subprocess.run(base + ["--mesh-shape", mesh, "--steps", str(steps)],
-                             capture_output=True, text=True, env=env, timeout=MESH_TIMEOUT_S)
-        secs = time.perf_counter() - t0
-        for line in (run.stderr + run.stdout).splitlines():
-            if line.startswith(("[mesh]", "[resume]", "step", "done")):
-                log(f"[mesh-cli] {line}")
-        if run.returncode != 0:
-            raise AssertionError(f"train CLI --mesh-shape {mesh}: exit {run.returncode}\n"
-                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
-        latest = ckpt.latest_step(str(d))
-        rec[name] = {"mesh": mesh, "steps": steps, "exit": run.returncode, "s": secs,
-                     "latest_checkpoint": latest}
-        if latest != steps:
-            raise AssertionError(f"train CLI --mesh-shape {mesh}: newest checkpoint {latest}")
-    out = (run.stdout or "")
-    if "[resume] step 2" not in out or "step     3" not in out:
-        raise AssertionError(f"train CLI --mesh-shape 4,1 did not resume at step 2:\n{out}")
-    with open(d / "step_00000004" / "manifest.json") as f:
-        manifest = json.load(f)
-    shapes = {leaf["path"]: leaf["shape"] for leaf in manifest["leaves"]}
-    rec["q_shape_on_disk"] = shapes["opt/mu/tables/0/q"]
-    if shapes["opt/mu/tables/0/q"] != MESH_CLI_Q_SHAPE:
-        raise AssertionError(f"checkpoint leaf shapes: {shapes['opt/mu/tables/0/q']}")
-    log(f"[mesh-cli] (2, 2) to step 2 in {rec['first']['s']:.1f} s, then (4, 1) resumed to "
-        f"step 4 in {rec['resumed']['s']:.1f} s; opt/mu/tables/0/q on disk "
-        f"{rec['q_shape_on_disk']} (the full logical array)")
-    shutil.rmtree(d, ignore_errors=True)
-    return rec
-
-
 def mesh_train_phase(dev, batch, by_name, mods) -> dict:
     """Phase 10: DLRM training on a mesh.  The single-card references; world
     1 over nccl in this process; four gloo ranks on the card
@@ -3415,8 +3386,8 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
     against the single card fed the mesh's pooled values) and to
     ``MESH_LOSS_TOL`` on the losses and norms, one packed launch a rank a
     forward, one combine, the entry psums, one data mean and one norm a
-    step; then the CLI's elastic drill.  The ranks' launches add to the
-    bf16 rows of K1 / K2 / K3.  Returns the ``{"mesh_training": ...}``
+    step (the CLI's elastic drill runs in phase 17, ``cli_phase``).  The
+    ranks' launches add to the bf16 rows of K1 / K2 / K3.  Returns the ``{"mesh_training": ...}``
     record."""
     from repro_torch.configs import registry
     from repro_torch.launch import mesh as M
@@ -3576,7 +3547,6 @@ def mesh_train_phase(dev, batch, by_name, mods) -> dict:
     del ranks, refs
     if faults:
         raise AssertionError("; ".join(faults))
-    record["cli"] = mesh_cli_drill()
     record["phase_s"] = time.perf_counter() - t0
     log(f"[mesh-train] phase {record['phase_s']:.1f} s (ranks {record['spawn_s']:.1f} s)")
     return record
@@ -4010,6 +3980,12 @@ def dry_fit(predict, budget: int, cap: int, sizes=(1, 2)) -> dict:
     return got
 
 
+def fit_text(f: dict) -> str:
+    """``fmt_fit``, or where the size was given (``QR_PREFILL_BATCH``) not
+    fitted, that."""
+    return "a cut for the script's time" if f.get("given") else fmt_fit(f)
+
+
 def fmt_fit(f: dict) -> str:
     return (f"dry-run fit {f['size']}: {f['slope'] / 2**30:.2f} GiB a unit + "
             f"{f['fixed'] / 2**30:.2f} GiB from traces at {list(f['traced'])}, in "
@@ -4079,9 +4055,9 @@ def meta_tokens(cfg, batch: int, seq: int) -> dict:
     return registry.batch_specs(registry.ArchBinding("", "", kind, False), cfg, batch, seq)
 
 
-def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
-    """``prefill_32k``: one prefill of ``seq`` tokens at the largest batch
-    that fits, timed by CUDA events, K9's and K8's time by events around
+def lm_prefill_run(params, cfg, dev, mods, totals, batch: int | None = None) -> dict:
+    """``prefill_32k``: one prefill of ``seq`` tokens at ``batch`` or the
+    largest batch that fits, timed by CUDA events, K9's and K8's time by events around
     every call.  The fit is the dry run's (``dry_fit``): the prefill traced
     on meta at batches 1 and 2 gives a line, fixed + slope x batch, of the
     bytes it allocates; the batch is the largest whose line fits the free
@@ -4110,11 +4086,16 @@ def lm_prefill_run(params, cfg, dev, mods, totals) -> dict:
 
     top = top_device_ops(lambda: prefill(1), 8)
     meta = dryrun.to_meta(params)
-    fit = dry_fit(lambda b: dry(lambda: T.forward_prefill(meta, meta_tokens(cfg, b, seq)["tokens"],
-                                                          cfg, seq),
-                                lambda: kept_model_path(ops, {})),
-                  free_budget(dev), cell.global_batch)
-    batch = fit["size"]
+
+    def predict(b: int) -> int:
+        return dry(lambda: T.forward_prefill(meta, meta_tokens(cfg, b, seq)["tokens"], cfg, seq),
+                   lambda: kept_model_path(ops, {}))
+
+    if batch is None:
+        fit = dry_fit(predict, free_budget(dev), cell.global_batch)
+        batch = fit["size"]
+    else:
+        fit = {"size": batch, "traced": {batch: predict(batch)}, "given": True}
     reset_all(mods)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev, dtype=torch.int32)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4293,7 +4274,8 @@ def lm_main_run(dev, vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "
     torch.cuda.empty_cache()
     rec["k9_model_path"]["bfloat16"] = lm_k9_check(params, cfg, dev)
     take_launches(mods, totals)
-    rec["prefill_32k"] = lm_prefill_run(params, cfg, dev, mods, totals)
+    rec["prefill_32k"] = lm_prefill_run(params, cfg, dev, mods, totals,
+                                        QR_PREFILL_BATCH if vocab == "qr" else None)
     rec["decode_32k"] = lm_decode_run(params, cfg, dev, mods, totals)
     k9, p, d = rec["k9_model_path"], rec["prefill_32k"], rec["decode_32k"]
     ample = (f", capacity factor {moe_ample(cfg):g}: no drops" if cfg.num_experts else "")
@@ -4317,7 +4299,7 @@ def lm_main_run(dev, vocab: str, mods, totals, arch: str = LM_MAIN, tag: str = "
              f"({100 * d['moe']['dropped_share']:.2f}%) over {LM_DECODE_REPS} steps, MoE layers "
              f"{d['moe']['moe_ms'] / LM_DECODE_REPS:.2f} ms a step" if "moe" in d else "")
     log(f"{tag} {cfg.name} {vocab} prefill_32k: batch {p['batch']} (cell {p['cell_batch']}; "
-        f"{fmt_fit(p['fit'])}) x {p['seq']}: {p['ms']:.1f} ms, "
+        f"{fit_text(p['fit'])}) x {p['seq']}: {p['ms']:.1f} ms, "
         f"{p['tokens_per_s']:.0f} tokens/s, K9 {p['k9_ms']:.1f} ms ({100 * p['k9_share']:.1f}%, "
         f"{p['k9_ms_a_call']:.2f} ms a layer), peak {p['peak_gib']:.2f} GiB allocated, "
         f"{p['peak_reserved_gib']:.2f} GiB reserved, bound "
@@ -5336,13 +5318,19 @@ LMM_FP32_TOL = 1e-5
 # measured in the same run); a dropped, doubled or misplaced partial reads
 # at the scale of the leaf, as the fp32 check at 2 layers shows to 1e-5.
 LMM_BF16_FACTOR = 2.0
-# the CLI drill: (1, 2) to step 2, then one card resumes to step 4 from the
-# checkpoint (the full logical arrays), on the smoke config: at full width
-# the ranks' set-up and the 18 GB checkpoint took 113 of the phase's 223 s
-# (NVIDIA H100 80GB HBM3, 700 W), and the (1, 2) run above holds the full
-# width and depth
-LMM_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--embedding", "qr", "--batch", "2", "--seq",
-           "512", "--log-every", "1", "--rank-timeout", "500")
+def lm_binding(cfg):
+    """The registry's binding of ``cfg`` (a full-width config, cut or not,
+    or a smoke one)."""
+    from repro_torch.configs import registry
+
+    return registry.get(cfg.name.removesuffix("-smoke"))
+
+
+def lm_init(cfg, dev) -> tuple:
+    """``cfg``'s params (seed 0) and logical axes, its family's ``init_fn``."""
+    from repro_torch.configs import registry
+
+    return registry.init_fn(lm_binding(cfg))(cfg, seed=0, device=dev)
 
 
 def lmm_tokens(cfg, batch: int, seq: int, dev, seed: int = 7) -> dict:
@@ -5451,13 +5439,14 @@ def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]
 
 
 def lmm_place(cfg, mesh, dev):
-    """``cfg``'s params (seed 0) placed on ``mesh``: (this rank's blocks,
-    their specs, the logical axes); the full tree is freed."""
+    """``cfg``'s params (seed 0) placed on ``mesh`` (``registry.lm_specs``):
+    (this rank's blocks, their specs, the logical axes); the full tree is
+    freed."""
+    from repro_torch.configs import registry
     from repro_torch.distributed import sharding as SH
-    from repro_torch.models import transformer as T
 
-    params, axes = T.init_lm(cfg, seed=0, device=dev)
-    specs = SH.tree_specs(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
+    params, axes = lm_init(cfg, dev)
+    specs = registry.lm_specs(cfg, params, axes, mesh)
     local = SH.shard_tree(params, specs, mesh)
     del params
     gc.collect()
@@ -5697,55 +5686,6 @@ def lmm_log(rec: dict) -> None:
         + held_text(rec["held"]))
 
 
-def lm_mesh_cli(mods, totals) -> dict:
-    """The CLI drill: ``python -m repro_torch.launch.train`` with ``LMM_CLI``
-    and ``--mesh-shape 1,2 --steps 2`` (two gloo ranks on the card, the
-    smoke config), then the same without ``--mesh-shape`` and with
-    ``--steps 4`` in this process, which must print ``[resume] step 2`` (the
-    meshed checkpoint's full logical arrays restored on one card)."""
-    import io
-
-    from repro_torch.launch import train as train_cli
-
-    ckdir = ROOT / "build" / "lm_mesh_cli"
-    shutil.rmtree(ckdir, ignore_errors=True)
-    argv = [*LMM_CLI, "--ckpt-dir", str(ckdir)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    rec = {"argv": argv}
-    try:
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv,
-                              "--mesh-shape", "1,2", "--steps", "2"], capture_output=True,
-                             text=True, env=env, timeout=LMM_TIMEOUT_S)
-        rec["mesh"] = {"exit": run.returncode, "s": time.perf_counter() - t0}
-        for line in (run.stderr + run.stdout).splitlines():
-            if line.startswith(("[mesh]", "step", "done")):
-                log(f"[lm-mesh-cli] {line}")
-        if run.returncode != 0:
-            raise AssertionError(f"[lm-mesh-cli] --mesh-shape 1,2: exit {run.returncode}\n"
-                                 f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
-        take_launches(mods, totals)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = train_cli.main([*argv, "--steps", "4"])
-        torch.cuda.synchronize()
-        text = buf.getvalue()
-        rec["one_card"] = {"exit": rc, "s": time.perf_counter() - t0,
-                           "launches": take_launches(mods, totals)}
-        for line in text.splitlines():
-            if line.startswith(("[resume]", "step", "done")):
-                log(f"[lm-mesh-cli] {line}")
-        if rc != 0 or "[resume] step 2" not in text:
-            raise AssertionError(f"[lm-mesh-cli] one card did not resume at step 2:\n{text}")
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    log(f"[lm-mesh-cli] (1, 2) to step 2 in {rec['mesh']['s']:.1f} s, then one card resumed "
-        f"to step 4 in {rec['one_card']['s']:.1f} s (set-up and checkpoints included); "
-        f"launches of the one-card run {rec['one_card']['launches']}")
-    return rec
-
-
 # ---------------------------------------------------------------------------
 # phase 13 (and 14): the LM served on a mesh
 # ---------------------------------------------------------------------------
@@ -5754,16 +5694,13 @@ def lm_mesh_cli(mods, totals) -> dict:
 # greedy decode steps; gloo combines through the host (~20 ms for 12.6 MB,
 # phase 9's rate) put the prefill at ~2-3 s
 LMS_PROMPT = (2, 4096)
-LMS_STEPS = 16
+LMS_STEPS = 8
 # the (2, 2) run at ``LMM_DENSE_LAYERS``: one sequence a data rank
-LMS_DP_STEPS = 8
+LMS_DP_STEPS = 4
 # world 1 over nccl (phase 13's two layers, its batch): decode steps held
 LMS_WORLD1_STEPS = 4
 # granite-moe on phase 14's EP ranks: sequences, prompt tokens, decode steps
 MOE_SERVE = (2, 1024, 8)
-# the CLI drill: the same first sequence on (1, 2) and on one card, fp32
-LMS_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--prompt-len", "32",
-           "--max-new", "8", "--compute-dtype", "float32")
 
 
 def lms_prompts(cfg, batch: int, seq: int, seed: int = 11) -> torch.Tensor:
@@ -5819,27 +5756,35 @@ def lms_steps(fam, params, cfg, logits, cache, pos0: int, steps: int, *, forced=
     return {"logits": torch.stack(rows, 1), "tokens": torch.stack(fed, 1), "step_ms": ms}
 
 
-def lms_single(cfg, toks, steps: int, dev) -> dict:
+def lms_single(cfg, toks, steps: int, dev, fp64: bool = False) -> dict:
     """The single card's serving of ``cfg`` (params seed 0, cast once) on
     the prompts ``toks``: greedy in the compute dtype (every step's logits,
     the prefill's first, and the tokens; an MoE's dropped share in the
-    prefill), then in fp32 compute teacher-forced with those tokens; on the
-    host."""
-    from repro_torch.models import transformer as T
+    prefill), then in fp32 compute teacher-forced with those tokens, and
+    with ``fp64`` in fp64 (params and compute, the kernels' entries plain:
+    ``plain_entries``); on the host."""
+    from repro_torch import tree
+    from repro_torch.kernels import ops
     from repro_torch.train import serve_step as S
 
-    fam = S.serve_family("transformer")
-    params, _ = T.init_lm(cfg, seed=0, device=dev)
+    fam = S.serve_family(lm_binding(cfg).kind)
+    params, _ = lm_init(cfg, dev)
     toks = toks.to(dev)
     out = {}
-    for key, c in (("bf16", cfg), ("fp32", cfg.replace(compute_dtype="float32"))):
-        p = fam.prepare(params, c)
-        with torch.inference_mode(), moe_watch(c) as watch:
+    runs = [("bf16", cfg), ("fp32", cfg.replace(compute_dtype="float32"))]
+    if fp64:
+        runs.append(("fp64", cfg.replace(compute_dtype="float64", param_dtype="float64")))
+    for key, c in runs:
+        p = fam.prepare(params if key != "fp64" else tree.tree_map(lambda a: a.double(), params),
+                        c)
+        with torch.inference_mode(), moe_watch(c) as watch, \
+                (plain_entries(ops) if key == "fp64" else contextlib.nullcontext()):
             logits, cache = fam.prefill(p, {"tokens": toks}, c, toks.shape[1] + steps)
         if cfg.num_experts and key == "bf16":
             out["dropped_share"] = moe_drops(watch)["dropped_share"]
-        run = lms_steps(fam, p, c, logits, cache, toks.shape[1], steps,
-                        forced=out.get("tokens"))
+        with plain_entries(ops) if key == "fp64" else contextlib.nullcontext():
+            run = lms_steps(fam, p, c, logits, cache, toks.shape[1], steps,
+                            forced=out.get("tokens"))
         out[key] = torch.cat([logits[:, -1:].float().cpu(), run["logits"]], 1)
         out.setdefault("tokens", run["tokens"])
         del p, logits, cache
@@ -5849,7 +5794,8 @@ def lms_single(cfg, toks, steps: int, dev) -> dict:
     return out
 
 
-def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
+def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
+             fp32: bool = False) -> dict:
     """A rank's serving on ``mesh``: ``cfg``'s params (seed 0) placed
     (``lm_param_rules``) and cast once, its ``data`` block of
     ``serve["prompts"]``; one timed prefill (its layer-0 K9 q/k/v and K8
@@ -5857,9 +5803,12 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
     collectives by site; the MoE's dropped share on this rank), greedy
     decode steps (ms each), then the same steps teacher-forced with
     ``serve["forced"]`` over the same cache (the logits held in the
-    parent).  With ``dry_hold`` the prefill's peak above its baseline beside
-    the dry run's trace of this rank on its ``abstract_mesh``."""
-    from repro_torch.configs import registry
+    parent).  With ``fp32`` the prefill and the teacher-forced steps once
+    more in fp32 compute (``logits_fp32``, held in the parent to
+    ``LMM_FP32_TOL``).  With ``dry_hold`` the prefill's peak above its
+    baseline beside the dry run's trace of this rank on its
+    ``abstract_mesh``."""
+    from repro_torch import tree
     from repro_torch.data import synthetic
     from repro_torch.distributed import collectives
     from repro_torch.kernels import ops
@@ -5868,9 +5817,11 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
     from repro_torch.train import serve_step as S
 
     dev = mesh.device
-    fam = S.serve_family("transformer")
-    local, _specs, _ = lmm_place(cfg, mesh, dev)
-    local = fam.prepare(local, cfg)
+    fam = S.serve_family(lm_binding(cfg).kind)
+    placed, _specs, _ = lmm_place(cfg, mesh, dev)
+    local = fam.prepare(placed, cfg)
+    if not fp32:
+        del placed
     gc.collect()
     torch.cuda.empty_cache()
     prompts = synthetic.data_block({"tokens": serve["prompts"].to(dev)}, mesh)["tokens"]
@@ -5882,8 +5833,8 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
     if dry_hold:
         at = M.abstract_mesh(tuple(mesh.shape.values()), tuple(mesh.shape),
                              tuple(mesh.coords.values()))
-        p_m, d_m, _ = dryrun.serve_inputs(registry.get(cfg.name.removesuffix("-smoke")), cfg,
-                                          "prefill", serve["prompts"].shape[0], seq, mesh=at)
+        p_m, d_m, _ = dryrun.serve_inputs(lm_binding(cfg), cfg, "prefill",
+                                          serve["prompts"].shape[0], seq, mesh=at)
         t = time.perf_counter()
         rec["dry"] = {"predicted": dry(lambda: fam.prefill(p_m, d_m, cfg, max_len, mesh=at),
                                        lambda: kept_model_path(ops, {})),
@@ -5910,25 +5861,40 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False) -> dict:
         rec["moe"] = moe_drops(watch)
     rec["prefill_sites"] = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
     first = logits[:, -1].float().cpu()
+    # a recurrent family's decode advances its states in place: the forced
+    # steps start from the prefill's
+    start = (None if lm_binding(cfg).kind == "transformer"
+             else tree.tree_map(lambda t: t.clone(), cache))
     collectives.reset_counts()
     with timed_collectives(collectives) as wire:
         greedy = lms_steps(fam, local, cfg, logits, cache, seq, steps, mesh=mesh)
     rec["decode_collective_ms_a_step"] = wire["ms"] / steps
     rec["decode_sites"] = {f"{k[0]}/{k[1]}": [v[0] / steps, v[1] / steps]
                            for k, v in collectives.SITES.items()}
-    run = lms_steps(fam, local, cfg, logits, cache, seq, steps, forced=forced, mesh=mesh)
-    rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
+    run = lms_steps(fam, local, cfg, logits, cache if start is None else start, seq, steps,
+                    forced=forced, mesh=mesh)
     rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     rec["decode_ms_a_step"] = float(np.mean(greedy["step_ms"]))
     rec["tokens_per_s"] = b * steps / (rec["prefill_ms"] + sum(greedy["step_ms"])) * 1e3
     rec["greedy"] = greedy["tokens"]
     rec["logits"] = torch.cat([first[:, None], run["logits"]], 1)
+    if fp32:
+        del logits, cache, start
+        c32 = cfg.replace(compute_dtype="float32")
+        local = fam.prepare(placed, c32)
+        del placed
+        with torch.inference_mode():
+            logits, cache = fam.prefill(local, {"tokens": prompts}, c32, max_len, mesh=mesh)
+        run = lms_steps(fam, local, c32, logits, cache, seq, steps, forced=forced, mesh=mesh)
+        rec["logits_fp32"] = torch.cat([logits[:, -1:].float().cpu(), run["logits"]], 1)
+        start = None
+    rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
     rec["held"] = hold_kept(kept, f"{cfg.name} served on mesh {tuple(mesh.shape.values())} "
                                   f"rank {tuple(mesh.coords.values())}")
     if "k8" in rec["held"] and not rec["held"]["k8"]["all_bitwise"]:
         raise AssertionError(f"[lm-serve] K8 on the routed streams is not bitwise the plain "
                              f"sum: {rec['held']['k8']}")
-    del kept, local, cache, logits
+    del kept, local, cache, logits, start
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -5942,7 +5908,13 @@ def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
     card's own bf16 distance (each a share of the fp32 logits' scale); the
     greedy tokens that agree; the first token equal wherever the single
     card's top-2 margin exceeds twice the mesh's distance from it on that
-    row.  Logs the record and raises on a failed hold."""
+    row; where the ranks served in fp32 compute as well (``lms_rank``'s
+    ``fp32``), those logits against the single card's fp32 ones within
+    ``LMM_FP32_TOL`` of the scale or, where larger, twice the single card's
+    fp32 distance from its fp64 logits (``lms_single``'s ``fp64``): two fp32
+    sums, each that far from the exact one (the step-1 gradients' rule,
+    ``ssm_mesh_train``; a misplaced column reads at the scale).  Logs the
+    record and raises on a failed hold."""
     blocks = sorted((r for r in ranks if r["coords"]["model"] == 0),
                     key=lambda r: r["coords"].get("data", 0))
     logits = torch.cat([r["logits"] for r in blocks])
@@ -5959,10 +5931,17 @@ def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
     first_ok = bool((greedy[:, 0] == single["tokens"][:, 0])[sure].all())
     agree = int((greedy == single["tokens"]).sum())
     bound = LMM_BF16_FACTOR * e_single
+    e32 = None
+    if "logits_fp32" in blocks[0]:
+        got32, exact = torch.cat([r["logits_fp32"] for r in blocks]), single["fp64"]
+        e32 = float((got32 - want).abs().max()) / scale
+        floor32 = float((want - exact).abs().max()) / scale
+        bound32 = max(LMM_FP32_TOL, 2 * floor32)
     r0 = next(r for r in ranks if not any(r["coords"].values()))
     rec = {"mesh": list(shape), "arch": cfg.name, "layers": cfg.num_layers,
            "vocab": cfg.embedding_kind, "batch": int(logits.shape[0]), "seq": r0["seq"],
-           "steps": r0["steps"], "logits_vs_fp32": e_mesh, "single_card_vs_fp32": e_single,
+           "steps": r0["steps"], "fp32_logit_scale": scale,
+           "logits_vs_fp32": e_mesh, "single_card_vs_fp32": e_single,
            "bound": bound, "rms_vs_fp32": rms(logits), "single_card_rms_vs_fp32": rms(bf16),
            "greedy_agree": agree, "greedy_total": int(greedy.numel()),
            "first_token_held": int(sure.sum()), "first_token_ok": first_ok,
@@ -5975,6 +5954,11 @@ def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
            "prefill_sites_rank0": r0["prefill_sites"], "decode_sites_a_step_rank0":
            r0["decode_sites"], "peak_gib_max_over_ranks": max(r["peak_gib"] for r in ranks),
            "held": r0["held"]}
+    if e32 is not None:
+        rec["fp32_logits_vs_fp32"] = e32
+        rec["single_card_fp32_vs_fp64"] = floor32
+        rec["fp32_logits_vs_fp64"] = float((got32 - exact).abs().max()) / scale
+        rec["fp32_bound"] = bound32
     if cfg.num_experts:
         rec["dropped_share_by_rank"] = {str(tuple(r["coords"].values())):
                                         r["moe"]["dropped_share"] for r in ranks}
@@ -5993,14 +5977,20 @@ def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
         + (f"; dropped share by rank {rec['dropped_share_by_rank']} (the single card "
            f"{rec['dropped_share_single_card']:.4f})" if cfg.num_experts else ""))
     log(f"{tag} mesh {tuple(shape)} logits (prefill + {rec['steps']} teacher-forced steps) vs "
-        f"the single card's in fp32 compute: {e_mesh:.4g} of scale (held to "
+        f"the single card's in fp32 compute (scale {scale:.4g}): {e_mesh:.4g} of scale (held to "
         f"{LMM_BF16_FACTOR:g} x the single card's bf16 {e_single:.4g} = {bound:.4g}); rms "
         f"{rec['rms_vs_fp32']:.4g} vs {rec['single_card_rms_vs_fp32']:.4g}; greedy tokens "
         f"{agree} / {rec['greedy_total']} agree; first token equal on the {int(sure.sum())} "
         f"sequence(s) whose margin exceeds twice the distance: {first_ok}")
+    if e32 is not None:
+        log(f"{tag} mesh {tuple(shape)} logits in fp32 compute (prefill + {rec['steps']} "
+            f"teacher-forced steps) vs the single card's: {e32:.4g} of scale (held to "
+            f"{bound32:.4g}: {LMM_FP32_TOL:g}, or twice the single card's fp32 distance from "
+            f"its fp64 {floor32:.4g}); the mesh's fp32 from that fp64 "
+            f"{rec['fp32_logits_vs_fp64']:.4g}")
     log(f"{tag} mesh {tuple(shape)} kernels vs plain on rank (0, 0)'s own calls: "
         + held_text(rec["held"]))
-    if not (e_mesh <= bound and first_ok):
+    if not (e_mesh <= bound and first_ok and (e32 is None or e32 <= bound32)):
         raise AssertionError(f"{tag} mesh {tuple(shape)} serving: {rec}")
     return rec
 
@@ -6017,77 +6007,38 @@ def lms_peak_hold(ranks: list, cfg, shape) -> dict:
                        r0["dry"]["predicted"], r0["prefill_reserved_over_allocated"])
 
 
-def lms_world1(cfg, params, axes, mesh, batch) -> dict:
+def lms_world1(cfg, params, axes, mesh, batch, steps: int = LMS_WORLD1_STEPS) -> dict:
     """World 1 (mesh (1, 1), nccl): ``params`` cast once for serving, the
-    prefill of ``batch`` and ``LMS_WORLD1_STEPS`` greedy steps on the single
-    card and on the mesh; the logits, the cache and the tokens read for
-    bitwise equality."""
+    prefill of ``batch`` and ``steps`` greedy steps on the single card and
+    on the mesh; the logits, the cache and the tokens read for bitwise
+    equality."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
     from repro_torch.distributed import sharding as SH
     from repro_torch.train import serve_step as S
 
-    fam = S.serve_family("transformer")
+    fam = S.serve_family(lm_binding(cfg).kind)
     p = fam.prepare(params, cfg)
-    local = SH.shard_tree(p, SH.tree_specs(p, axes, mesh, SH.lm_param_rules(cfg, mesh)), mesh)
+    local = SH.shard_tree(p, registry.lm_specs(cfg, p, axes, mesh), mesh)
     toks = batch["tokens"]
     runs = {}
     for key, m, q in (("single", None, p), ("mesh", mesh, local)):
         with torch.inference_mode():
             logits, cache = fam.prefill(q, {"tokens": toks}, cfg,
-                                        toks.shape[1] + LMS_WORLD1_STEPS, mesh=m)
+                                        toks.shape[1] + steps, mesh=m)
         first = logits.clone()
-        run = lms_steps(fam, q, cfg, logits, cache, toks.shape[1], LMS_WORLD1_STEPS, mesh=m)
+        run = lms_steps(fam, q, cfg, logits, cache, toks.shape[1], steps, mesh=m)
         runs[key] = (first, cache, run)
     (f1, c1, r1), (f2, c2, r2) = runs["single"], runs["mesh"]
     bitwise = {"prefill_logits": torch.equal(f1, f2),
-               "cache": all(torch.equal(c1[k], c2[k]) for k in c1),
+               "cache": all(torch.equal(a, b) for a, b in zip(tree.leaves(c1),
+                                                              tree.leaves(c2))),
                "decode_logits": torch.equal(r1["logits"], r2["logits"]),
                "tokens": torch.equal(r1["tokens"], r2["tokens"])}
     del p, local, runs
     gc.collect()
     torch.cuda.empty_cache()
-    return {"steps": LMS_WORLD1_STEPS, "bitwise": bitwise}
-
-
-def lms_cli(mods, totals) -> dict:
-    """The CLI drill: ``python -m repro_torch.launch.serve`` with
-    ``LMS_CLI`` and ``--mesh-shape 1,2`` (two gloo ranks on the card; the
-    ranks print, so the command runs in a child), and ``serve.main`` with
-    ``LMS_CLI`` in this process; both must print the same first sequence."""
-    import io
-
-    from repro_torch.launch import serve
-
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    rec, firsts = {"argv": list(LMS_CLI)}, []
-    for key in ("one_card", "mesh"):
-        t0 = time.perf_counter()
-        if key == "mesh":
-            run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LMS_CLI,
-                                  "--mesh-shape", "1,2"], capture_output=True, text=True,
-                                 env=env, timeout=LMM_TIMEOUT_S)
-            rc, text = run.returncode, run.stdout
-        else:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                rc = serve.main(list(LMS_CLI))
-            torch.cuda.synchronize()
-            text = buf.getvalue()
-            rec["launches"] = take_launches(mods, totals)
-        rec[key] = {"exit": rc, "s": time.perf_counter() - t0}
-        lines = [x for x in text.splitlines() if x.startswith(("generated", "first"))]
-        for line in lines:
-            log(f"[lm-serve-cli] {key}: {line}")
-        if rc != 0:
-            raise AssertionError(f"[lm-serve-cli] {key}: exit {rc}\n{text[-3000:]}"
-                                 + (f"\n{run.stderr[-3000:]}" if key == "mesh" else ""))
-        firsts.append([x for x in lines if x.startswith("first")])
-    rec["same_first_sequence"] = len(firsts[0]) == 1 and firsts[0] == firsts[1]
-    log(f"[lm-serve-cli] one card {rec['one_card']['s']:.1f} s (in this process; launches "
-        f"{rec['launches']}), mesh (1, 2) {rec['mesh']['s']:.1f} s (a child, start-up "
-        f"included); the same first sequence: {rec['same_first_sequence']}")
-    if not rec["same_first_sequence"]:
-        raise AssertionError(f"[lm-serve-cli] the first sequences differ: {firsts}")
-    return rec
+    return {"steps": steps, "bitwise": bitwise}
 
 
 def lm_mesh_phase(dev, by_name, mods) -> dict:
@@ -6100,7 +6051,7 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
     (``lms_rank``: a prefill and greedy steps, then the steps
     teacher-forced with the single card's tokens; ``lms_hold`` against the
     single card's fp32-compute logits, the (1, 2) prefill's peak against
-    the dry run's); the training and serving CLI drills.  The phase's K9
+    the dry run's).  The phase's K9
     and K8 launches (this process's and the ranks') add to the
     ``flash_fwd`` and ``qr_gather`` rows.  Returns the
     ``{"lm_mesh_training": ...}`` record."""
@@ -6215,12 +6166,8 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    t1 = time.perf_counter()
-    record["cli"] = lm_mesh_cli(mods, totals)
-    log(f"[lm-mesh] the CLI drill took {time.perf_counter() - t1:.1f} s")
-    t1 = time.perf_counter()
-    record["serve_cli"] = lms_cli(mods, totals)
-    log(f"[lm-serve] the CLI drill took {time.perf_counter() - t1:.1f} s")
+    # this phase's CLI drills (``LMM_CLI``, ``LMS_CLI``) run in phase 17
+    # (``cli_phase``), beside the other phases' drills
     record["launches"] = totals
     for name in ("flash_fwd", "qr_gather"):
         by_name[name]["launches"] += totals.get(name, 0)
@@ -6617,13 +6564,23 @@ SSM_ARCHS = ("zamba2-7b", "xlstm-125m")
 SSM_CONSIST = {"zamba2-7b": (2, 256, 1e-4), "xlstm-125m": (2, 9, 2e-4)}
 SSM_ZAMBA_CLI = ("--batch", "4", "--prompt-len", "512", "--max-new", "16")
 # xlstm-125m's full-depth training step: sequences, microbatches (a constant
-# for the script's time: its sLSTM time loop, not memory, sets the pace)
-SSM_XLSTM_TRAIN = (4, 2)
+# for the script's time: its sLSTM time loop, not memory, sets the pace;
+# 2 sequences, cut from 4 for room)
+SSM_XLSTM_TRAIN = (2, 2)
 SSM_GRAD_DEPTH = {"zamba2-7b": 6, "xlstm-125m": 4}   # one segment and its site; 1st sLSTM
 SSM_TRAIN_STEPS = 2
+# the training drill (phase 17) at full width: one card, then (1, 2), then
+# one card, each resuming from the last one's checkpoint
 SSM_TRAIN_CLI = ("--arch", "xlstm-125m", "--embedding", "qr", "--seq", "512", "--batch", "4")
 SSM_EXAMPLE_ARGS = ()     # examples.serve_lm with its defaults
 SSM_GRAPH_CHECK = (8, 1000)   # batch, steps of the sLSTM scan held graphed vs eager
+# the QR vocabulary's ``prefill_32k`` (phases 11, 14, 15 and 16; the dense
+# run's cell beside it fits its batch): one sequence, a cut for the
+# script's time.  At the fitted batch (qwen2-1.5b 17,
+# granite-moe 7, zamba2 3, xlstm 32, whisper 7) the QR runs cost ~10, ~5,
+# 7.6, 7.6 and 4.5 s more in the whole script (NVIDIA H100
+# 80GB HBM3, 700 W); K8's hold and the dry run's peak hold need no more
+QR_PREFILL_BATCH = 1
 
 
 def ssm_forward(kind: str):
@@ -7069,7 +7026,7 @@ def ssm_serve_run(dev, arch: str, mods, totals) -> dict:
     (``prepare``) and the fp32 ones dropped; zamba2's K9 on site 0's own
     q/k/v (bf16; phase 6 holds D 112 in fp32); ``prefill_32k`` at the
     batch that fits, then with the QR vocabulary (collision 64; its tables
-    drawn, the body shared) at the same batch; ``decode_32k`` with each;
+    drawn, the body shared) at ``QR_PREFILL_BATCH``; ``decode_32k`` with each;
     ``long_500k`` with the QR vocabulary (zamba2 at ``ssm_long_depth``)."""
     from repro_torch import tree
     from repro_torch.configs import registry
@@ -7119,8 +7076,8 @@ def ssm_serve_run(dev, arch: str, mods, totals) -> dict:
     for vocab, (vc, embed) in vocab_cfgs.items():
         p = {**params, "embed": embed}
         r = rec["prefill_32k"][vocab] = ssm_prefill_run(p, vc, kind, dev, mods, totals, batch)
-        batch = r["batch"]
-        fit = fmt_fit(r["fit"]) if r["fit"] else "the dense run's batch"
+        batch = QR_PREFILL_BATCH
+        fit = fmt_fit(r["fit"]) if r["fit"] else "a cut for the script's time"
         parts = ", ".join(f"{k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
                           f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
         sdpa = (f"; one site's attention at these shapes: K9 {r['k9_vs_sdpa']['k9_ms']:.1f} ms, "
@@ -7241,48 +7198,485 @@ def ssm_graph_check(dev) -> dict:
     return rec
 
 
-def ssm_train_cli(mods, totals) -> dict:
-    """``python -m repro_torch.launch.train`` with ``SSM_TRAIN_CLI`` and a
-    checkpoint directory under ``build/`` (its ``main``, in this process):
-    ``--steps 2``, then ``--steps 4``, which prints ``[resume] step 2`` and
-    trains steps 3 and 4."""
-    import io
+# ---------------------------------------------------------------------------
+# phase 15's meshed section: zamba2 and xlstm served and trained on (1, 2)
+# gloo ranks sharing the card
+# ---------------------------------------------------------------------------
 
-    from repro_torch.launch import train as train_cli
+SSM_MESH_SHAPE = (1, 2)
+# the full-width layer hold (ROADMAP.md §3, to-check item 2): one zamba2-7b
+# mamba layer and the shared block fed unit-scale random hidden states, so
+# that a misplaced column reads at the output's scale (at full depth the
+# reference's hidden state collapses to zero): sequences, prompt tokens,
+# decode steps
+SSM_LAYER_HOLD = (2, 1024, 4)
+# zamba2-7b with the QR vocabulary at a depth that holds both sites of a cut
+# (two segments of six mamba layers, each followed by the shared block):
+# layers, sequences, prompt tokens, greedy decode steps
+SSM_MESH_ZAMBA = (12, 2, 1024, 8)
+# xlstm-125m with the QR vocabulary at full depth: sequences, prompt tokens,
+# greedy decode steps
+SSM_MESH_XLSTM = (2, 4096, 16)
+# the ranks' training step: sequences, tokens; xlstm at full depth in bf16,
+# zamba2 at SSM_GRAD_DEPTH in fp32 compute
+SSM_MESH_TRAIN = (2, 512)
+# world 1 over nccl: sequences, prompt tokens, decode steps (the depths are
+# SSM_GRAD_DEPTH's)
+SSM_WORLD1 = (2, 256, 4)
+# the serving drill: the same first sequence on (1, 2) and on one card, fp32
+SSM_SERVE_CLI = ("--arch", "zamba2-7b", "--smoke", "--batch", "2", "--prompt-len", "32",
+                 "--max-new", "8", "--compute-dtype", "float32")
 
-    ckdir = ROOT / "build" / "ssm_train_cli"
-    shutil.rmtree(ckdir, ignore_errors=True)
-    runs = []
+
+def ssm_mesh_cfg(arch: str, **kw):
+    """``arch`` at full width with the QR vocabulary (its config's
+    collision), cut and changed by ``kw``."""
+    return lm_config(arch).replace(embedding_kind="qr", **kw)
+
+
+def ssm_layer_parts(dev):
+    """One zamba2-7b mamba layer and the shared block (its attention, MLP
+    and two norms), drawn from a fixed seed on ``dev`` (every rank draws the
+    same), their logical axes, and the unit-scale hidden states of
+    ``SSM_LAYER_HOLD``'s prefill and decode steps."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+
+    cfg = lm_config("zamba2-7b")
+    b, s, steps = SSM_LAYER_HOLD
+    g = torch.Generator(device=dev).manual_seed(21)
+    kw = dict(generator=g, device=dev)
+    layer, _ = M.init_mamba2(cfg, **kw)
+    block, axes = {}, {}
+    block["shared_attn"], axes["shared_attn"] = L.init_attention(cfg, **kw)
+    block["shared_mlp"], axes["shared_mlp"] = L.init_mlp(cfg, **kw)
+    for name in ("shared_ln1", "shared_ln2"):
+        block[name], axes[name] = L.init_norm(cfg.norm, cfg.d_model, cfg.pdtype, device=dev)
+    x = torch.randn((b, s + steps, cfg.d_model), generator=g, device=dev)
+    return cfg, layer, block, axes, x
+
+
+def ssm_layer_run(layer, block, x, cfg, mesh=None) -> dict:
+    """The mamba layer then the shared block on ``x``: a prefill of all but
+    ``SSM_LAYER_HOLD``'s decode steps (the layer's states and the block's
+    k / v written), then each decode step; on ``mesh`` with the rank's
+    blocks.  -> the layer's and the block's outputs over every position,
+    the final SSM and conv states and the k / v (the rank's, on a mesh)."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import zamba2 as Z
+
+    b, s, steps = SSM_LAYER_HOLD
+    cd, dev = cfg.cdtype, x.device
+    xs = x.to(cd)
+    st, conv = M.init_ssm_state(cfg, b, device=dev, mesh=mesh)
+    kv = torch.zeros((2, b, s + steps, SH.cache_heads(cfg, mesh), cfg.head_dim_), dtype=cd,
+                     device=dev)
+    ys, zs = [], []
+    with torch.inference_mode():
+        y, (st, conv) = M.mamba2_fwd(layer, xs[:, :s], cfg, state=st, conv_state=conv,
+                                     mesh=mesh)
+        z, (k, v) = Z._shared_block(block, y, cfg, mesh=mesh)
+        kv[0, :, :s], kv[1, :, :s] = k, v
+        ys.append(y)
+        zs.append(z)
+        for i in range(steps):
+            y, (st, conv) = M.mamba2_fwd(layer, xs[:, s + i:s + i + 1], cfg, state=st,
+                                         conv_state=conv, decode=True, mesh=mesh)
+            z, _ = Z._shared_block(block, y, cfg, cache=(kv[0], kv[1]), pos=s + i, mesh=mesh)
+            ys.append(y)
+            zs.append(z)
+    return {"mamba_out": torch.cat(ys, 1), "block_out": torch.cat(zs, 1), "ssm_state": st,
+            "conv_state": conv, "kv": kv}
+
+
+def ssm_layer_hold(mesh) -> dict | None:
+    """The full-width layer hold on this rank (``SSM_LAYER_HOLD``): the
+    mamba layer and the shared block placed by ``mamba2.layout`` and
+    ``lm_param_rules``, run in fp32 and in bf16 compute on the ranks, the
+    states gathered whole (each rank's heads and conv columns, its kv
+    heads); then the rank at coordinates 0 runs both on one card, unplaced,
+    and holds: fp32 within ``LMM_FP32_TOL`` of each output's scale, bf16
+    within ``LMM_BF16_FACTOR`` x the single card's own bf16 distance from
+    its fp32, each of the scale of the single card's fp32 output.  Returns
+    the errors on that rank, None on the others."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import mamba2 as MB
+
+    dev = mesh.device
+    cfg, layer, block, axes, x = ssm_layer_parts(dev)
+    lay = MB.layout(cfg, mesh)
+    my_layer = {k: SH.local_shard(v, mesh, lay[k]) for k, v in layer.items()}
+    my_block = SH.shard_tree(block, SH.tree_specs(block, axes, mesh,
+                                                  SH.lm_param_rules(cfg, mesh)), mesh)
+    split = SH.head_split(cfg, mesh)
+    kv_spec = SH.P(None, None, None, "model") if split is not None and split.kv_local else SH.P()
+    specs = {"ssm_state": SH.P(None, "model") if MB.ssm_split(cfg, mesh) else SH.P(),
+             "conv_state": SH.P(None, None, *lay["conv_b"]), "kv": kv_spec}
+    writer = not any(mesh.coords.values())
+    got = {}
+    for key, c in (("fp32", cfg.replace(compute_dtype="float32")), ("bf16", cfg)):
+        t = time.perf_counter()
+        out = ssm_layer_run(my_layer, my_block, x, c, mesh)
+        got[key] = {k: SH.gather(v, specs[k], mesh) if k in specs else v for k, v in out.items()}
+        got[f"{key}_ms"] = (time.perf_counter() - t) * 1e3
+    if not writer:
+        return None
+    one = {key: ssm_layer_run(layer, block, x, c)
+           for key, c in (("fp32", cfg.replace(compute_dtype="float32")), ("bf16", cfg))}
+    rec = {"shape": list(x.shape), "fp32_ms": got["fp32_ms"], "bf16_ms": got["bf16_ms"],
+           "fp32": {}, "bf16": {}, "bf16_single_card": {}, "bf16_vs_single_card_bf16": {}}
+    for k, want in one["fp32"].items():
+        scale = max(float(want.float().abs().max()), 1e-30)
+        err = lambda a: float((a.float() - want.float()).abs().max()) / scale
+        rec["fp32"][k] = err(got["fp32"][k])
+        rec["bf16"][k] = err(got["bf16"][k])
+        rec["bf16_single_card"][k] = err(one["bf16"][k])
+        rec["bf16_vs_single_card_bf16"][k] = float(
+            (got["bf16"][k].float() - one["bf16"][k].float()).abs().max()) / scale
+    rec["ok"] = all(rec["fp32"][k] <= LMM_FP32_TOL
+                    and rec["bf16"][k] <= LMM_BF16_FACTOR * rec["bf16_single_card"][k]
+                    for k in rec["fp32"])
+    return rec
+
+
+@contextlib.contextmanager
+def plain_entries(ops):
+    """While open, the model's kernel entries are plain differentiable torch
+    in their inputs' dtype, so that an fp64 step stays fp64 on the card:
+    ``ops.flash_attention_fused`` a masked softmax product (the kernel's
+    top-left causal mask, GQA), ``ops.qr_lookup`` two gathers and an add."""
+    saved = ops.flash_attention_fused, ops.qr_lookup
+
+    def attention(q, k, v, *, causal=True):
+        g = q.shape[1] // k.shape[1]
+        kk, vv = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        s = torch.matmul(q * q.shape[-1] ** -0.5, kk.transpose(-1, -2))
+        if causal:
+            hidden = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).triu(1)
+            s = s.masked_fill(hidden, float("-inf"))
+        return torch.matmul(torch.softmax(s, dim=-1), vv)
+
+    ops.flash_attention_fused = attention
+    ops.qr_lookup = lambda q, r, qi, ri, **kw: q[qi.long()] + r[ri.long()]
     try:
-        for steps in (2, 4):
-            argv = [*SSM_TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", str(ckdir),
-                    "--log-every", "1"]
-            take_launches(mods, totals)
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = train_cli.main(argv)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            n = take_launches(mods, totals)
-            text = buf.getvalue()
-            lines = [x for x in text.splitlines() if x.startswith(("step", "[resume]"))]
-            ok = rc == 0 and n == {"qr_gather": 2} and (
-                steps == 2 or "[resume] step 2" in text)
-            if not ok:
-                raise AssertionError(f"[ssm-train-cli] --steps {steps}: exit {rc}, launches {n}, "
-                                     f"output {text[-800:]}")
-            runs.append({"steps": steps, "exit": rc, "s": secs, "launches": n, "lines": lines})
-            log(f"[ssm-train-cli] {' '.join(argv[:argv.index('--ckpt-dir')])}: exit {rc} in "
-                f"{secs:.1f} s (set-up and checkpoint included), launches {n}; "
-                + " | ".join(lines))
+        yield
     finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
-    return {"runs": runs}
+        ops.flash_attention_fused, ops.qr_lookup = saved
+
+
+def ssm_mesh_train(mesh, mods) -> dict | None:
+    """The ranks' training, each with the QR vocabulary on
+    ``SSM_MESH_TRAIN``'s batch (the same on every rank): xlstm-125m at full
+    depth in bf16 and in fp32 compute, zamba2-7b at ``SSM_GRAD_DEPTH`` in
+    fp32 compute.  Each run's step-1 loss and gradients of the meshed loss
+    (``make_train_step``'s, under the rules), gathered whole and timed
+    (host clock); then the rank at coordinates 0 takes the single card's
+    gradients from the same params and tokens, unplaced, in fp32 compute
+    (and in bf16 where the mesh ran it): each leaf's distance of its scale.
+    fp32 is held to ``LMM_FP32_TOL``, or for a leaf that fp32 itself moves
+    further from the fp64 gradient (``plain_entries``), to twice that
+    distance; xlstm's worst leaf to twice fp32's worst distance from fp64
+    over the leaves (its recurrences scatter one rounding to 1e-2 of a
+    leaf's scale, so one leaf's fp32 distance is one sample of it, and the
+    bound pools them as the bf16 rule does); bf16 to ``LMM_BF16_FACTOR`` x
+    the single card's own distance from its fp32.  Returns that rank's
+    records (keyed ``arch`` and ``arch fp32``), None on the others."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step as TS
+
+    dev = mesh.device
+    writer = not any(mesh.coords.values())
+    b, seq = SSM_MESH_TRAIN
+    out = {}
+    for arch, kw, computes in (
+            ("xlstm-125m", {}, ("bfloat16", "float32")),
+            ("zamba2-7b", dict(num_layers=SSM_GRAD_DEPTH["zamba2-7b"]), ("float32",))):
+        base = ssm_mesh_cfg(arch, **kw)
+        binding = lm_binding(base)
+        params, axes = lm_init(base, dev)
+        specs = registry.lm_specs(base, params, axes, mesh)
+        local = SH.shard_tree(params, specs, mesh)
+        if not writer:
+            del params
+        batch = lmm_tokens(base, b, seq, dev, seed=17)
+        single = {}
+        for compute in computes:
+            cfg = base.replace(compute_dtype=compute)
+            key = arch if compute == "bfloat16" else f"{arch} fp32"
+            fn = registry.train_loss_fn(binding, cfg)
+
+            def meshed(p, bb):
+                with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                    return fn(p, bb)
+
+            reset_all(mods)
+            collectives.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _, grads = TS.value_and_grad(meshed, local, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            sites = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
+            launches = {k: v for k, v in launches_now(mods).items() if v}
+            got = [SH.gather(g, sp, mesh) for g, sp in zip(tree.leaves(grads), specs)]
+            del grads
+            if not writer:
+                del got
+                out[key] = {"launches": launches}
+                continue
+            paths = [p for p, _ in tree.leaves_with_paths(params)]
+            for k in {compute, "float32"} - set(single):
+                l1, _, g1 = TS.value_and_grad(
+                    registry.train_loss_fn(binding, base.replace(compute_dtype=k)), params,
+                    batch)
+                single[k] = (float(l1), tree.leaves(g1))
+            e_mesh = leaf_errors(got, single["float32"][1])
+            e_single = leaf_errors(single[compute][1], single["float32"][1])
+            worst = lambda e: (max(e), paths[int(np.argmax(e))])
+            rec = {"layers": cfg.num_layers, "compute": compute, "batch": b, "seq": seq,
+                   "loss": float(loss), "loss_single_card": single[compute][0], "ms": ms,
+                   "sites": sites, "launches": launches, "mesh_vs_fp32": worst(e_mesh),
+                   "single_card_vs_fp32": worst(e_single)}
+            if compute == "float32":
+                # a leaf that fp32 itself moves further than LMM_FP32_TOL
+                # from the fp64 gradient (zamba2's A_log through the
+                # collapsed hidden state, ROADMAP.md §3) is held to twice
+                # that distance: two fp32 sums, each that far from the
+                # exact one (the ``[ssm-ref]`` rule, ``fp32_floor``)
+                c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+                p64 = tree.tree_map(lambda a: a.double(), params)
+                with plain_entries(ops):
+                    g64 = tree.leaves(TS.value_and_grad(registry.train_loss_fn(binding, c64),
+                                                        p64, batch)[2])
+                floor = leaf_errors(single["float32"][1], g64)
+                del p64, g64
+                pooled = [max(floor)] * len(floor) if arch == "xlstm-125m" else floor
+                bounds = [max(LMM_FP32_TOL, 2 * f) for f in pooled]
+                over = [e / t for e, t in zip(e_mesh, bounds)]
+                k = int(np.argmax(over))
+                rec["fp32_floor"] = worst(floor)
+                rec["tolerance"] = LMM_FP32_TOL
+                rec["worst_of_its_bound"] = (over[k], paths[k], bounds[k])
+                rec["floor_pooled"] = pooled is not floor
+                rec["ok"] = max(over) <= 1.0
+            else:
+                rec["tolerance"] = LMM_BF16_FACTOR * max(e_single)
+                rec["ok"] = max(e_mesh) <= rec["tolerance"]
+            out[key] = rec
+            del got
+        del local, single
+        if writer:
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_mesh_rank(mesh, serve: dict) -> dict:
+    """Phase 15's meshed section on one rank of the (1, 2) gloo mesh on the
+    card: the full-width layer hold (``ssm_layer_hold``); zamba2-7b at
+    ``SSM_MESH_ZAMBA``'s depth and xlstm-125m at full depth served
+    (``lms_rank``: a timed prefill with the kernels held on this rank's own
+    calls, greedy and teacher-forced decode steps; zamba2's prefill peak
+    beside the dry run's trace of this rank); the step-1 gradients
+    (``ssm_mesh_train``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qr_gather as qg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = (fa, qg)
+    res = {"coords": dict(mesh.coords)}
+    t = time.perf_counter()
+    res["layer_hold"] = ssm_layer_hold(mesh)
+    res["layer_hold_s"] = time.perf_counter() - t
+    for arch in SSM_ARCHS:
+        t = time.perf_counter()
+        res[arch] = lms_rank(mesh, serve[arch]["cfg"], serve[arch], mods,
+                             dry_hold=arch == "zamba2-7b", fp32=arch == "xlstm-125m")
+        res[f"{arch}_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["train"] = ssm_mesh_train(mesh, mods)
+    res["train_s"] = time.perf_counter() - t
+    return res
+
+
+def ssm_mesh_world1(dev, mods, totals) -> dict:
+    """World 1 over nccl in this process, mesh (1, 1): zamba2-7b and
+    xlstm-125m at ``SSM_GRAD_DEPTH`` with the QR vocabulary, bf16: the
+    meshed prefill of ``SSM_WORLD1``'s prompts, its cache or states and its
+    greedy decode steps (``lms_world1``), and the step-1 gradients, each
+    against the single card's from the same params and tokens, read for
+    bitwise equality."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.train import train_step as TS
+
+    b, seq, steps = SSM_WORLD1
+    rdv = ROOT / "build" / "ssm_mesh" / "rdv_world1"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    log("[mesh] 1 rank, mesh (1, 1) over ('data', 'model'), backend nccl, on 1 card "
+        "(in process)")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    rec = {}
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        for arch in SSM_ARCHS:
+            cfg = ssm_mesh_cfg(arch, num_layers=SSM_GRAD_DEPTH[arch])
+            params, axes = lm_init(cfg, dev)
+            batch = lmm_tokens(cfg, b, seq, dev, seed=19)
+            take_launches(mods, totals)
+            serving = lms_world1(cfg, params, axes, mesh, batch, steps)
+            fn = registry.train_loss_fn(lm_binding(cfg), cfg)
+            specs = registry.lm_specs(cfg, params, axes, mesh)
+            local = SH.shard_tree(params, specs, mesh)
+
+            def meshed(p, bb):
+                with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                    return fn(p, bb)
+
+            _, _, g_mesh = TS.value_and_grad(meshed, local, batch)
+            _, _, g_one = TS.value_and_grad(fn, params, batch)
+            torch.cuda.synchronize()
+            grads = all(torch.equal(SH.gather(a, s, mesh), w) for a, s, w in
+                        zip(tree.leaves(g_mesh), specs, tree.leaves(g_one)))
+            n = take_launches(mods, totals)
+            rec[arch] = {"layers": cfg.num_layers, "batch": b, "seq": seq, "steps": steps,
+                         "bitwise": {**serving["bitwise"], "step1_grads": grads},
+                         "launches": n}
+            log(f"[ssm-mesh] world 1 nccl {arch} at {cfg.num_layers} layers, QR, bf16, {b} x "
+                f"{seq} prompts + {steps} greedy steps and one step's gradients, the mesh "
+                f"against the single card: bitwise {rec[arch]['bitwise']}; launches {n}")
+            del params, local, g_mesh, g_one
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not all(all(r["bitwise"].values()) for r in rec.values()):
+        raise AssertionError(f"[ssm-mesh] world 1 nccl: {rec}")
+    return rec
+
+
+def ssm_mesh_section(dev, mods, totals) -> dict:
+    """Phase 15's meshed section: world 1 over nccl in this process
+    (``ssm_mesh_world1``); the single card's serving references (greedy
+    bf16, teacher-forced fp32) of zamba2-7b at ``SSM_MESH_ZAMBA``'s depth
+    and xlstm-125m at full depth, QR; one spawn of (1, 2) gloo ranks on the
+    card (``ssm_mesh_rank``), whose records are held here: the layer hold,
+    each arch's logits against the single card's (``lms_hold``), zamba2's
+    prefill peak against the dry run's, the step-1 gradients (the serving
+    CLI drill, ``SSM_SERVE_CLI``, runs in phase 17).  The ranks' K9 and K8
+    launches add to ``totals``."""
+    from repro_torch.launch import mesh as M
+
+    rec = {"section_s": {}}
+    t0 = time.perf_counter()
+    rec["world1"] = ssm_mesh_world1(dev, mods, totals)
+    rec["section_s"]["world1"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    layers, zb, zs, zsteps = SSM_MESH_ZAMBA
+    xb, xs, xsteps = SSM_MESH_XLSTM
+    cfgs = {"zamba2-7b": (ssm_mesh_cfg("zamba2-7b", num_layers=layers), zb, zs, zsteps),
+            "xlstm-125m": (ssm_mesh_cfg("xlstm-125m"), xb, xs, xsteps)}
+    serve, refs = {}, {}
+    for arch, (cfg, b, seq, steps) in cfgs.items():
+        prompts = lms_prompts(cfg, b, seq)
+        refs[arch] = lms_single(cfg, prompts, steps, dev, fp64=arch == "xlstm-125m")
+        serve[arch] = {"cfg": cfg, "prompts": prompts, "forced": refs[arch]["tokens"]}
+    torch.cuda.synchronize()
+    rec["single_card_launches"] = take_launches(mods, totals)
+    rec["section_s"]["single_card"] = time.perf_counter() - t1
+    log(f"[ssm-mesh] the single card's references (greedy bf16, forced fp32, xlstm's "
+        f"forced fp64) in "
+        f"{rec['section_s']['single_card']:.1f} s")
+    t1 = time.perf_counter()
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = LMT_ALLOCATOR
+    try:
+        ranks = M.spawn(ssm_mesh_rank, SSM_MESH_SHAPE, args=(serve,), device="cuda",
+                        backend="gloo", init_file=ROOT / "build" / "ssm_mesh" / "rdv",
+                        timeout_s=LMM_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    rec["section_s"]["ranks"] = time.perf_counter() - t1
+    r0 = next(r for r in ranks if not any(r["coords"].values()))
+    log(f"[ssm-mesh] mesh {SSM_MESH_SHAPE}: the ranks took {rec['section_s']['ranks']:.1f} s "
+        f"(on rank (0, 0): the layer hold {r0['layer_hold_s']:.1f} s, zamba2 "
+        f"{r0['zamba2-7b_s']:.1f} s, xlstm {r0['xlstm-125m_s']:.1f} s, training "
+        f"{r0['train_s']:.1f} s)")
+    for r in ranks:
+        for arch in SSM_ARCHS:
+            for k, v in r[arch]["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        for t in r["train"].values():
+            for k, v in t["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    lh = rec["layer_hold"] = r0["layer_hold"]
+    log(f"[ssm-mesh] full-width layer hold, zamba2-7b's mamba layer and shared block on mesh "
+        f"{SSM_MESH_SHAPE} against one card, {lh['shape'][0]} x {SSM_LAYER_HOLD[1]} unit-scale "
+        f"hidden states + {SSM_LAYER_HOLD[2]} decode steps (fp32 {lh['fp32_ms']:.0f} ms, bf16 "
+        f"{lh['bf16_ms']:.0f} ms on the ranks), each of its scale: "
+        + "; ".join(f"{k} fp32 {lh['fp32'][k]:.3g} (held to {LMM_FP32_TOL:g}), bf16 "
+                    f"{lh['bf16'][k]:.3g} (held to {LMM_BF16_FACTOR:g} x the single card's "
+                    f"{lh['bf16_single_card'][k]:.3g}; from the single card's bf16 "
+                    f"{lh['bf16_vs_single_card_bf16'][k]:.3g})" for k in lh["fp32"]))
+    # every reading is logged before a failed hold raises
+    faults = [] if lh["ok"] else [f"[ssm-mesh] the full-width layer hold: {lh}"]
+    rec["serving"] = {}
+    for arch in SSM_ARCHS:
+        cfg = cfgs[arch][0]
+        served = [r[arch] for r in ranks]
+        try:
+            srec = lms_hold(served, refs[arch], SSM_MESH_SHAPE, cfg, "[ssm-mesh]")
+        except AssertionError as e:
+            faults.append(str(e))
+            continue
+        if arch == "zamba2-7b":
+            srec["peak_hold"] = lms_peak_hold(served, cfg, SSM_MESH_SHAPE)
+            srec["collapse_note"] = ("the reference's hidden state collapses toward zero with "
+                                     "depth (ROADMAP.md §3): the layer hold is the one that "
+                                     "can fail")
+        rec["serving"][arch] = srec
+    rec["train"] = r0["train"]
+    for arch, t in rec["train"].items():
+        log(f"[ssm-mesh] {arch} mesh {SSM_MESH_SHAPE} step-1 gradients at {t['layers']} layers, "
+            f"{t['batch']} x {t['seq']}, {t['compute']}, gathered, vs the single card in fp32 "
+            f"compute: the mesh {t['mesh_vs_fp32'][0]:.3g} of scale (worst "
+            f"{t['mesh_vs_fp32'][1]}; held to {t['tolerance']:.3g}"
+            + (f", or twice fp32's own {'worst ' if t.get('floor_pooled') else ''}distance "
+               f"from fp64 where larger: worst "
+               f"{t['worst_of_its_bound'][0]:.3g} of its bound {t['worst_of_its_bound'][2]:.3g} "
+               f"({t['worst_of_its_bound'][1]}; fp32's own worst {t['fp32_floor'][0]:.3g}, "
+               f"{t['fp32_floor'][1]})" if "worst_of_its_bound" in t else "")
+            + f"), the single card in the same compute {t['single_card_vs_fp32'][0]:.3g} "
+            f"({t['single_card_vs_fp32'][1]}); "
+            f"loss {t['loss']:.6f} vs {t['loss_single_card']:.6f}; the meshed forward and "
+            f"backward {t['ms']:.1f} ms; collectives {t['sites']} [calls, B]")
+        if not t["ok"]:
+            faults.append(f"[ssm-mesh] {arch} step-1 gradients: {t}")
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return rec
 
 
 def ssm_phase(dev, by_name, mods) -> dict:
-    """Phase 15: the sub-quadratic models served and trained on one card.
+    """Phase 15: the sub-quadratic models served and trained, on one card
+    and on a mesh.
     ``[ssm-ref]`` on the two smoke configs; zamba2-7b and xlstm-125m at full
     width and depth (``ssm_serve_run``: consistency, zamba2's K9 on the
     model path at D 112, ``prefill_32k``, ``decode_32k``, ``long_500k``);
@@ -7291,9 +7685,12 @@ def ssm_phase(dev, by_name, mods) -> dict:
     segments): xlstm at full depth, one step of 2 microbatches, zamba2 at
     the depth the dry run fits, 2 steps, each QR at
     S 4,096; the step-1 gradients of a cut (``SSM_GRAD_DEPTH``) against the
-    kernels' plain versions; the training CLI twice (the second resumes).
-    The phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.
-    Returns the ``{"sub_quadratic": ...}`` record."""
+    kernels' plain versions; the meshed section (``ssm_mesh_section``:
+    world 1 over nccl, the full-width layer hold, both archs served and
+    their step-1 gradients on (1, 2) gloo ranks; the CLI drills on a mesh
+    run in phase 17).  The phase's launches add to the ``flash_fwd``
+    and ``qr_gather`` rows.  Returns the ``{"sub_quadratic": ...}``
+    record."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7340,11 +7737,11 @@ def ssm_phase(dev, by_name, mods) -> dict:
             "zamba2-7b bf16": lm_train_grad_check(
                 dev, mods, totals, arch="zamba2-7b", vocabs=("qr",), tag="[ssm-train]",
                 depth=SSM_GRAD_DEPTH["zamba2-7b"], hold=False)})
-        section("train_cli", lambda: ssm_train_cli(mods, totals))
     finally:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    section("mesh", lambda: ssm_mesh_section(dev, mods, totals))
     record["launches"] = totals
     for name in ("flash_fwd", "qr_gather"):
         by_name[name]["launches"] += totals.get(name, 0)
@@ -7743,7 +8140,8 @@ def prefix_serve_run(dev, arch: str, mods, totals) -> dict:
     recorded; whisper with the dense then the QR vocabulary (collision 64;
     its tables drawn, the body shared), pixtral with the QR vocabulary
     only: ``prefill_32k`` at the batch the first run fits (``PREFIX_FIT_
-    BATCHES``) and ``decode_32k`` at the batch whose cache fits."""
+    BATCHES``; whisper's QR run at ``QR_PREFILL_BATCH``) and ``decode_32k``
+    at the batch whose cache fits."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.train import serve_step as S
@@ -7784,8 +8182,8 @@ def prefix_serve_run(dev, arch: str, mods, totals) -> dict:
     for vocab, (vc, embed) in vocab_cfgs.items():
         p = {**params, "embed": embed}
         r = rec["prefill_32k"][vocab] = prefix_prefill_run(p, vc, dev, mods, totals, batch)
-        batch = r["batch"]
-        fit = fmt_fit(r["fit"]) if r["fit"] else "the first run's batch"
+        batch = QR_PREFILL_BATCH
+        fit = fmt_fit(r["fit"]) if r["fit"] else "a cut for the script's time"
         parts = "".join(f", {k} {v:.1f} ms ({100 * r['parts_share'][k]:.1f}%, "
                         f"{r['parts_calls'][k]} calls)" for k, v in r["parts_ms"].items())
         sdpa = "; ".join(
@@ -7908,6 +8306,232 @@ def prefix_phase(dev, by_name, mods) -> dict:
     record["phase_s"] = time.perf_counter() - t0
     log(f"[prefix] phase {record['phase_s']:.1f} s; launches {totals}")
     return record
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the launchers' drills on a mesh, their children side by side
+# ---------------------------------------------------------------------------
+
+# qwen2's training drill: (1, 2) to step 2, then one card resuming to step 4
+LMM_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--embedding", "qr", "--batch", "2", "--seq",
+           "512", "--log-every", "1", "--rank-timeout", "500")
+# qwen2's serving drill: the same first sequence on (1, 2) and on one card, fp32
+LMS_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--prompt-len", "32",
+           "--max-new", "8", "--compute-dtype", "float32")
+CLI_DIR = ROOT / "build" / "cli_drills"
+CLI_LINES = ("[mesh]", "[resume]", "step", "done", "generated", "first")
+
+
+def child_start(tag: str, module: str, argv, timeout_s: float) -> dict:
+    """``python -m module argv`` started in a child that leads a process
+    group of its own (the ranks it spawns join it), with the repo's ``src``
+    on its path; its output and errors go to files under ``CLI_DIR``, so
+    that children running side by side fill no pipe."""
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    out, err = (open(CLI_DIR / f"{tag}.{x}", "w+") for x in ("out", "err"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], stdout=out, stderr=err,
+                            env=env, start_new_session=True)
+    return {"tag": tag, "proc": proc, "files": (out, err), "t0": time.perf_counter(),
+            "timeout_s": timeout_s}
+
+
+def child_stop(c: dict) -> None:
+    """Kill ``c``'s process group, its ranks with it, if it still runs."""
+    import signal
+
+    if c["proc"].poll() is None:
+        try:
+            os.killpg(c["proc"].pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        c["proc"].wait()
+
+
+def child_wait(c: dict) -> dict:
+    """``c``'s exit code (124 where it outlived its time limit and was
+    killed), output, errors and seconds from its start."""
+    try:
+        rc = c["proc"].wait(timeout=max(c["timeout_s"] - (time.perf_counter() - c["t0"]), 1))
+    except subprocess.TimeoutExpired:
+        child_stop(c)
+        rc = 124
+    texts = []
+    for f in c["files"]:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return {"exit": rc, "out": texts[0], "err": texts[1], "s": time.perf_counter() - c["t0"]}
+
+
+def cli_main(main, argv, mods, totals) -> dict:
+    """A launcher's ``main(argv)`` in this process, its printed lines
+    caught: the exit code, the text, the seconds and the launches it
+    made (added to ``totals``)."""
+    import io
+
+    buf = io.StringIO()
+    reset_all(mods)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    torch.cuda.synchronize()
+    return {"exit": rc, "out": buf.getvalue(), "s": time.perf_counter() - t0,
+            "launches": take_launches(mods, totals)}
+
+
+def cli_phase(dev, by_name, mods) -> dict:
+    """Phase 17: the launchers' drills on a mesh.  Each meshed run is a
+    child (``python -m``; its ranks print), and the children run side by
+    side: a child's time is mostly its start-up (the interpreter, its
+    ranks' imports and CUDA contexts, gloo's rendezvous), and none of them
+    measures more than its own seconds.
+
+    - DLRM, full width (``MESH_CLI_BATCH``): ``launch.train --arch dlrm-qr
+      --mesh-shape 2,2 --steps 2``, then ``--mesh-shape 4,1 --steps 4``,
+      which resumes from step 2; the checkpoint holds the full logical
+      arrays (``MESH_CLI_Q_SHAPE``).
+    - qwen2-1.5b (``LMM_CLI``, smoke): ``--mesh-shape 1,2 --steps 2``, then
+      one card (``main``, in this process) ``--steps 4``, resuming from the
+      meshed checkpoint.
+    - xlstm-125m at full width (``SSM_TRAIN_CLI``): one card ``--steps 2``,
+      then ``--mesh-shape 1,2 --steps 4``, then one card ``--steps 6``, each
+      resuming from the last one's checkpoint, each one-card run two K8
+      launches.
+    - ``launch.serve`` with ``LMS_CLI`` (qwen2) and ``SSM_SERVE_CLI``
+      (zamba2), fp32: ``--mesh-shape 1,2`` prints the one-card run's first
+      sequence.
+
+    The in-process runs' launches add to the ``flash_fwd`` and
+    ``qr_gather`` rows.  Returns the ``{"cli_drills": ...}`` record."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
+
+    t0 = time.perf_counter()
+    totals, rec, kids = {}, {}, []
+    dirs = {k: ROOT / "build" / k for k in ("mesh_cli_ckpt", "lm_mesh_cli", "ssm_train_cli")}
+    dlrm = ["--arch", "dlrm-qr", "--batch", str(MESH_CLI_BATCH), "--ckpt-dir",
+            str(dirs["mesh_cli_ckpt"]), "--log-every", "1", "--ckpt-every", "1000",
+            "--rank-timeout", str(MESH_TIMEOUT_S - 60)]
+    lm = [*LMM_CLI, "--ckpt-dir", str(dirs["lm_mesh_cli"])]
+    xl = [*SSM_TRAIN_CLI, "--ckpt-dir", str(dirs["ssm_train_cli"]), "--log-every", "1"]
+    serves = {"qwen2-1.5b": ("[lm-serve-cli]", LMS_CLI),
+              "zamba2-7b": ("[ssm-mesh-cli]", SSM_SERVE_CLI)}
+
+    def start(tag, module, argv, timeout_s=LMM_TIMEOUT_S):
+        kids.append(child_start(tag, module, argv, timeout_s))
+        return kids[-1]
+
+    def done(c, tag, must=()) -> dict:
+        r = child_wait(c)
+        text = r["err"] + r["out"]
+        for line in text.splitlines():
+            if line.startswith(CLI_LINES):
+                log(f"{tag} {line}")
+        if r["exit"] != 0 or any(m not in text for m in must):
+            raise AssertionError(f"{tag} {c['tag']}: exit {r['exit']}, wanted {list(must)}\n"
+                                 f"{r['out'][-3000:]}\n{r['err'][-3000:]}")
+        return r
+
+    def here(tag, main, argv, must=(), launches=None) -> dict:
+        r = cli_main(main, argv, mods, totals)
+        for line in r["out"].splitlines():
+            if line.startswith(CLI_LINES):
+                log(f"{tag} {line}")
+        if (r["exit"] != 0 or any(m not in r["out"] for m in must)
+                or launches not in (None, r["launches"])):
+            raise AssertionError(f"{tag} {' '.join(argv)}: exit {r['exit']}, launches "
+                                 f"{r['launches']}, wanted {list(must)}\n{r['out'][-3000:]}")
+        return r
+
+    def firsts(text):
+        return [x for x in text.splitlines() if x.startswith("first")]
+
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        dlrm1 = start("dlrm_2x2", "repro_torch.launch.train",
+                      [*dlrm, "--mesh-shape", "2,2", "--steps", "2"], MESH_TIMEOUT_S)
+        lm1 = start("lm_train_1x2", "repro_torch.launch.train",
+                    [*lm, "--mesh-shape", "1,2", "--steps", "2"])
+        meshed = {a: start(f"serve_{a}_1x2", "repro_torch.launch.serve",
+                           [*cli, "--mesh-shape", "1,2"]) for a, (_, cli) in serves.items()}
+        # in this process while the children start
+        xl1 = here("[ssm-train-cli]", train_cli.main, [*xl, "--steps", "2"],
+                   launches={"qr_gather": 2})
+        xl2 = start("xlstm_train_1x2", "repro_torch.launch.train",
+                    [*xl, "--steps", "4", "--mesh-shape", "1,2", "--rank-timeout", "500"])
+        one = {a: here(tag, serve.main, cli) for a, (tag, cli) in serves.items()}
+
+        r = done(dlrm1, "[mesh-cli]", must=("done",))
+        if ckpt.latest_step(str(dirs["mesh_cli_ckpt"])) != 2:
+            raise AssertionError("[mesh-cli] (2, 2): no checkpoint of step 2")
+        rec["dlrm"] = {"batch": MESH_CLI_BATCH, "first": {"mesh": "2,2", "steps": 2,
+                                                          "exit": 0, "s": r["s"]}}
+        dlrm2 = start("dlrm_4x1", "repro_torch.launch.train",
+                      [*dlrm, "--mesh-shape", "4,1", "--steps", "4"], MESH_TIMEOUT_S)
+
+        r = done(lm1, "[lm-mesh-cli]", must=("done",))
+        r1 = here("[lm-mesh-cli]", train_cli.main, [*lm, "--steps", "4"],
+                  must=("[resume] step 2",))
+        rec["qwen2-1.5b train"] = {"argv": lm, "mesh": {"exit": 0, "s": r["s"]},
+                                   "one_card": {"exit": 0, "s": r1["s"],
+                                                "launches": r1["launches"]}}
+        log(f"[lm-mesh-cli] (1, 2) to step 2 in {r['s']:.1f} s, then one card resumed to "
+            f"step 4 in {r1['s']:.1f} s (set-up and checkpoints included); launches of the "
+            f"one-card run {r1['launches']}")
+
+        rec["serve"] = {}
+        for a, (tag, cli) in serves.items():
+            r = done(meshed[a], tag)
+            same = len(firsts(one[a]["out"])) == 1 and firsts(one[a]["out"]) == firsts(r["out"])
+            rec["serve"][a] = {"argv": list(cli), "one_card": {"s": one[a]["s"],
+                                                               "launches": one[a]["launches"]},
+                               "mesh": {"s": r["s"]}, "same_first_sequence": same}
+            log(f"{tag} one card {one[a]['s']:.1f} s (in this process; launches "
+                f"{one[a]['launches']}), mesh (1, 2) {r['s']:.1f} s (a child, start-up "
+                f"included); the same first sequence: {same}")
+            if not same:
+                raise AssertionError(f"{tag} the first sequences differ: "
+                                     f"{firsts(one[a]['out'])} vs {firsts(r['out'])}")
+
+        r = done(xl2, "[ssm-train-cli]", must=("[resume] step 2", "done"))
+        xl3 = here("[ssm-train-cli]", train_cli.main, [*xl, "--steps", "6"],
+                   must=("[resume] step 4",), launches={"qr_gather": 2})
+        rec["xlstm-125m train"] = {"argv": xl, "runs": [
+            {"steps": 2, "mesh": None, "s": xl1["s"], "launches": xl1["launches"]},
+            {"steps": 4, "mesh": [1, 2], "s": r["s"]},
+            {"steps": 6, "mesh": None, "s": xl3["s"], "launches": xl3["launches"]}]}
+        log(f"[ssm-train-cli] {' '.join(SSM_TRAIN_CLI)}: one card to step 2 in "
+            f"{xl1['s']:.1f} s, (1, 2) resumed to step 4 in {r['s']:.1f} s (a child), one "
+            f"card resumed to step 6 in {xl3['s']:.1f} s (set-up and checkpoints included); "
+            f"launches of each one-card run {xl3['launches']}")
+
+        r = done(dlrm2, "[mesh-cli]", must=("[resume] step 2", "step     3"))
+        if ckpt.latest_step(str(dirs["mesh_cli_ckpt"])) != 4:
+            raise AssertionError("[mesh-cli] (4, 1): no checkpoint of step 4")
+        with open(dirs["mesh_cli_ckpt"] / "step_00000004" / "manifest.json") as f:
+            shapes = {leaf["path"]: leaf["shape"] for leaf in json.load(f)["leaves"]}
+        rec["dlrm"]["resumed"] = {"mesh": "4,1", "steps": 4, "exit": 0, "s": r["s"]}
+        rec["dlrm"]["q_shape_on_disk"] = shapes["opt/mu/tables/0/q"]
+        if shapes["opt/mu/tables/0/q"] != MESH_CLI_Q_SHAPE:
+            raise AssertionError(f"[mesh-cli] checkpoint leaf shapes: "
+                                 f"{shapes['opt/mu/tables/0/q']}")
+        log(f"[mesh-cli] (2, 2) to step 2 in {rec['dlrm']['first']['s']:.1f} s, then (4, 1) "
+            f"resumed to step 4 in {r['s']:.1f} s; opt/mu/tables/0/q on disk "
+            f"{rec['dlrm']['q_shape_on_disk']} (the full logical array)")
+    finally:
+        for c in kids:
+            child_stop(c)
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+    rec["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"[cli] phase {rec['phase_s']:.1f} s; launches {totals}")
+    return rec
 
 
 def main() -> int:
@@ -8052,6 +8676,9 @@ def main() -> int:
     # whisper's frames and across to them, causal over pixtral's patches and
     # tokens; K8 for QR tokens)
     prefix = prefix_phase(dev, by_name, mods)
+    # phase 17: the launchers' drills on a mesh (K9 and K8 in the one-card
+    # runs in this process)
+    cli_drills = cli_phase(dev, by_name, mods)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -8077,6 +8704,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"sub_quadratic": sub_quadratic}), flush=True)
     print(json.dumps({"prefix": prefix}), flush=True)
+    print(json.dumps({"cli_drills": cli_drills}), flush=True)
     print(json.dumps({"dryrun": dryrun_rec}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""``chip_smoke.py``'s LM phases (11–16) alone, on the card, from the
-checkout at ``--root`` (this one by default): build the sources those phases
+"""``chip_smoke.py``'s LM phases (11–16) and its CLI drills (17) alone, on
+the card, from the checkout at ``--root`` (this one by default): build the
+sources those phases
 launch (``flash_attention``, ``qr_gather``, ``tt_bag``), run the phases in
 the script's order and print each phase's seconds and their sum as a
 ``{"lm_phases": ...}`` line (with the dry run's traces and peak holds
@@ -8,7 +9,7 @@ earlier one (``git archive`` unpacked under ``experiments/``) in one call
 to compare the phases' time on the same machine.
 
 Usage (from the repo root, on a machine with a CUDA card):
-    python3 scripts/torch_lm_phases.py [--root DIR] [--phases 11 12 13 14 15 16]
+    python3 scripts/torch_lm_phases.py [--root DIR] [--phases 11 12 13 14 15 16 17]
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import time
 from pathlib import Path
 
 PHASES = {11: "lm_serving_phase", 12: "lm_train_phase", 13: "lm_mesh_phase", 14: "moe_phase",
-          15: "ssm_phase", 16: "prefix_phase"}
+          15: "ssm_phase", 16: "prefix_phase", 17: "cli_phase"}
 
 
 def main() -> int:

@@ -136,20 +136,24 @@ def init_fn(binding: ArchBinding) -> Callable:
 def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` for this family: the
     causal LM loss on ``transformer.forward_train``, or on the logits of
-    ``forward_zamba2`` / ``forward_xlstm`` without a cache, or the prefix
-    models' (``make_prefixed_lm_loss`` on whisper's or pixtral's
-    ``forward_train``, the batch's ``"frames"`` / ``"patches"`` in front);
-    all but the transformers' run on one card only (no vocabulary range)."""
+    ``forward_zamba2`` / ``forward_xlstm`` without a cache (vocab-parallel
+    on a mesh, as the transformers'), or the prefix models'
+    (``make_prefixed_lm_loss`` on whisper's or pixtral's ``forward_train``,
+    the batch's ``"frames"`` / ``"patches"`` in front; one card only)."""
     from repro_torch.train import train_step as TS
+
+    from repro_torch.models import transformer as T
 
     if binding.kind == "zamba2":
         from repro_torch.models import zamba2 as Z
 
-        return TS.make_lm_loss(lambda p, t, c: Z.forward_zamba2(p, t, c)[0], cfg)
+        return TS.make_lm_loss(lambda p, t, c: Z.forward_zamba2(p, t, c)[0], cfg,
+                               vocab_range=T.vocab_range)
     if binding.kind == "xlstm":
         from repro_torch.models import xlstm as X
 
-        return TS.make_lm_loss(lambda p, t, c: X.forward_xlstm(p, t, c)[0], cfg)
+        return TS.make_lm_loss(lambda p, t, c: X.forward_xlstm(p, t, c)[0], cfg,
+                               vocab_range=T.vocab_range)
     if binding.kind == "whisper":
         from repro_torch.models import whisper as W
 
@@ -158,8 +162,6 @@ def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
         from repro_torch.models import pixtral as P
 
         return TS.make_prefixed_lm_loss(P.forward_train, cfg, "patches")
-    from repro_torch.models import transformer as T
-
     return TS.make_lm_loss(T.forward_train, cfg, vocab_range=T.vocab_range)
 
 
@@ -197,15 +199,53 @@ def batch_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, seq: int) ->
     return specs
 
 
-def cache_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, max_len: int):
+def cache_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, max_len: int, *,
+                mesh=None):
     """The decode cache (or recurrent states) of ``batch`` sequences and
-    ``max_len`` positions on meta: the family's ``make_cache``."""
+    ``max_len`` positions on meta: the family's ``make_cache``; on an
+    abstract ``mesh`` (``launch.mesh.abstract_mesh``) this rank's block of
+    it."""
     from repro_torch.train.serve_step import serve_family
 
-    return serve_family(binding.kind).make_cache(cfg, batch, max_len, device="meta")
+    return serve_family(binding.kind).make_cache(cfg, batch, max_len, device="meta", mesh=mesh)
 
 
-def abstract_params(binding: ArchBinding, cfg: ModelConfig):
+def abstract_params(binding: ArchBinding, cfg: ModelConfig, *, mesh=None):
     """``(params, axes)``: the family's ``init_fn`` at ``cfg``'s full width
-    on meta, and the logical axes of its leaves."""
-    return init_fn(binding)(cfg, seed=0, device="meta")
+    on meta, and the logical axes of its leaves; on an abstract ``mesh``
+    the params are this rank's blocks (``lm_specs``)."""
+    params, axes = init_fn(binding)(cfg, seed=0, device="meta")
+    if mesh is not None:
+        from repro_torch.distributed import sharding as SH
+
+        params = SH.shard_tree(params, lm_specs(cfg, params, axes, mesh), mesh)
+    return params, axes
+
+
+def lm_axes(cfg: ModelConfig, axes, mesh):
+    """The logical axes tree ``axes`` of an LM's params for
+    ``sharding.tree_specs`` on ``mesh``: the transformers' as they are;
+    zamba2's and xlstm's with the specs of their fused and head-split leaves
+    given outright by their model (``zamba2.mesh_axes``,
+    ``xlstm.mesh_axes``).  No ``model`` axis: as they are."""
+    from repro_torch.distributed import sharding as SH
+
+    mesh = SH.model_mesh(mesh)
+    if mesh is None or cfg.family not in ("hybrid", "ssm"):
+        return axes
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2 as Z
+
+        return Z.mesh_axes(cfg, axes, mesh)
+    from repro_torch.models import xlstm as X
+
+    return X.mesh_axes(cfg, axes, mesh)
+
+
+def lm_specs(cfg: ModelConfig, tree, axes, mesh) -> list:
+    """One spec per leaf of ``tree`` (an LM's params, or a tree such as the
+    training state whose leaves' axes are ``axes``): ``sharding.tree_specs``
+    of ``lm_axes`` under ``sharding.lm_param_rules``."""
+    from repro_torch.distributed import sharding as SH
+
+    return SH.tree_specs(tree, lm_axes(cfg, axes, mesh), mesh, SH.lm_param_rules(cfg, mesh))

@@ -163,11 +163,13 @@ def dlrm_planted_batch(
 
 def data_block(batch: dict, mesh) -> dict:
     """This rank's block of every tensor of the global ``batch`` along the
-    batch axes of ``mesh`` (``sharding.batch_axes``); raises if the batch
-    does not split evenly."""
+    batch axes of ``mesh`` that split its rows (``sharding.batch_split``):
+    a batch the data ranks do not divide stays whole on every rank, as
+    ``repro``'s ``resolve_spec`` leaves it."""
     from repro_torch.distributed import sharding as SH
 
-    axes = SH.batch_axes(mesh)
+    rows = next(iter(batch.values())).shape[0] if batch else 0
+    axes = SH.batch_split(rows, mesh)
     if not axes:
         return batch
     spec = SH.P(axes if len(axes) > 1 else axes[0])

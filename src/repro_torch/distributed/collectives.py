@@ -20,6 +20,9 @@ in ``repro`` (``check_vma=False``):
   gradients over the axis in the backward, the transpose of the implicit
   broadcast.  Every operand goes in one all-reduce.
 
+``norm_stat`` sums a norm's statistic over an axis whose ranks each hold a
+slice of the normed dim: a sum in the forward and in the backward.
+
 ``all_gather`` rebuilds a tensor split along one dim over an axis (a
 checkpoint's full logical leaf); ``gather_slices`` one split unevenly (the
 vocab-parallel head's logits, whole on every rank for the serving loop's
@@ -45,7 +48,7 @@ import torch.distributed as dist
 CALLS = {"all_reduce": 0, "all_gather": 0}
 BYTES = {"all_reduce": 0, "all_gather": 0}
 # (site, axis) -> [calls, bytes]; sites: psum, pmax, combine, entry,
-# grad_mean, norm, all_gather, logits, any_rank
+# grad_mean, norm, norm_stat, all_gather, logits, any_rank
 SITES: dict = {}
 
 
@@ -104,29 +107,69 @@ def combine(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 class _Enter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mesh, axis, *xs):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, mesh, axis, cols, *xs):
+        ctx.mesh, ctx.axis, ctx.cols = mesh, axis, cols
         return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *cts):
         dtype = torch.promote_types(cts[0].dtype, torch.float32)
-        flat = torch.cat([c.reshape(-1).to(dtype) for c in cts])
+        pieces = [c if ranges is None else c[..., lo:hi]
+                  for c, ranges in zip(cts, ctx.cols) for lo, hi in (ranges or ((0, 0),))]
+        flat = torch.cat([p.reshape(-1).to(dtype) for p in pieces])
         flat = _all_reduce(flat, ctx.mesh, ctx.axis, dist.ReduceOp.SUM, "entry")
         out, at = [], 0
-        for c in cts:
-            out.append(flat[at:at + c.numel()].view_as(c).to(c.dtype))
-            at += c.numel()
-        return (None, None, *out)
+        for c, ranges in zip(cts, ctx.cols):
+            if ranges is None:
+                out.append(flat[at:at + c.numel()].view_as(c).to(c.dtype))
+                at += c.numel()
+                continue
+            got = c.clone()
+            for lo, hi in ranges:
+                view = got[..., lo:hi]
+                view.copy_(flat[at:at + view.numel()].view(view.shape))
+                at += view.numel()
+            out.append(got)
+        return (None, None, None, *out)
 
 
-def enter(xs, mesh, axis: str) -> list:
+def enter(xs, mesh, axis: str, cols=None) -> list:
     """Replicated operands ``xs`` entering this rank's partial: the same
     tensors in the forward; in the backward the ranks' gradients of them are
     summed over ``axis`` (one all-reduce for all of them, in fp32 or
     wider), since each rank's partial uses its own share of every replica
-    (the R rows of its bag positions, the outer cores of its G2 rows)."""
-    return list(_Enter.apply(mesh, axis, *xs))
+    (the R rows of its bag positions, the outer cores of its G2 rows).
+    ``cols`` (one entry per operand) sums only the given column ranges of
+    an operand's gradient, ``((lo, hi), ...)`` of its last dim, and leaves
+    the rest as the rank's own (None: all of it): a fused weight whose
+    other columns are the rank's own block (the Mamba2 ``in_proj``'s B and
+    C, which every rank holds whole)."""
+    cols = tuple(None for _ in xs) if cols is None else tuple(cols)
+    if len(cols) != len(xs):
+        raise ValueError(f"{len(cols)} column ranges for {len(xs)} operands")
+    return list(_Enter.apply(mesh, axis, cols, *xs))
+
+
+class _NormStat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_reduce(x.float(), mesh, axis, dist.ReduceOp.SUM, "norm_stat")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.mesh, ctx.axis, dist.ReduceOp.SUM, "norm_stat"), None, None
+
+
+def norm_stat(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """A norm's statistic summed over ``axis`` in fp32 (each rank's ``x``
+    its partial sum over its slice of the normed dim: a gated RMS norm over
+    the whole ``d_inner`` whose columns the ranks split by head).  Every
+    rank scales its own slice by the summed statistic, so each rank's
+    cotangent of it differs: the backward is a sum over ``axis`` too
+    (``combine``'s identity would drop the other ranks' slices).  Counted
+    under the site ``norm_stat``, forward and backward."""
+    return _NormStat.apply(x, mesh, axis)
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,

@@ -16,12 +16,21 @@ spec per leaf in flatten order): ``shard_tree`` takes this rank's block of
 every leaf from the full logical tree (``repro``'s ``shardings_for_tree``
 plus ``device_put``), ``gather`` rebuilds one full leaf from the ranks'
 blocks (a checkpoint's logical array), ``full_shape`` gives its shape.
+
+A fused tensor, whose dim concatenates parts that split differently (the
+Mamba2 ``in_proj``: z, x, B, C and dt), takes a ``Parts`` entry in its spec:
+the rank's columns are the concatenation of its block of each split part and
+the whole of each part every head shares.  The sub-quadratic models lay
+their fused tensors out so themselves (``models.mamba2.layout``,
+``models.xlstm.block_layout``), and ``configs.registry.lm_axes`` puts their
+specs in place of those leaves' axes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 from typing import Mapping, Sequence
 
@@ -41,6 +50,26 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """A spec entry for a fused dim: ``parts`` are its consecutive pieces,
+    each ``(width, split)`` in the logical tensor; a split piece is split
+    over the mesh ``axis`` in equal contiguous blocks, a whole one is held
+    whole by every rank.  The rank's block of the dim is its block of each
+    split piece and each whole piece, concatenated in order."""
+
+    axis: str
+    parts: tuple
+
+    @property
+    def width(self) -> int:
+        return sum(w for w, _ in self.parts)
+
+    def local_widths(self, n: int) -> list[int]:
+        """Each piece's width on a rank of an axis of ``n``."""
+        return [w // n if split else w for w, split in self.parts]
 
 
 # Default production rules (single-pod).  "pod" is prepended to batch for the
@@ -167,12 +196,33 @@ def cache_block(cfg, mesh, batch: int, max_len: int) -> tuple:
     where the block runs replicated).  The positions stay whole on every
     rank, where ``repro``'s at-rest layout splits ``kvseq`` over ``model``
     (the same values, another placement)."""
-    data = 1
+    return cfg.num_layers, batch_rows(batch, mesh), max_len, cache_heads(cfg, mesh), cfg.head_dim_
+
+
+def data_ranks(mesh) -> int:
+    """The ranks over which ``mesh`` splits the batch (``batch_axes``); 1
+    without a mesh."""
+    return math.prod(mesh.shape[ax] for ax in batch_axes(mesh)) if mesh is not None else 1
+
+
+def batch_split(batch: int, mesh) -> tuple[str, ...]:
+    """The batch axes of ``mesh`` (``batch_axes``) that split a global
+    ``batch``: taken first-fit while their product divides it, as
+    ``resolve_spec`` resolves a dim, so that a batch the data ranks do not
+    divide (``long_500k``'s one sequence) stays whole on every rank of the
+    axes left out."""
+    axes, n = [], 1
     for ax in batch_axes(mesh) if mesh is not None else ():
-        data *= mesh.shape[ax]
-    if batch % data:
-        raise ValueError(f"a batch of {batch} does not split over {data} data ranks")
-    return cfg.num_layers, batch // data, max_len, cache_heads(cfg, mesh), cfg.head_dim_
+        if batch % (n * mesh.shape[ax]) == 0:
+            axes.append(ax)
+            n *= mesh.shape[ax]
+    return tuple(axes)
+
+
+def batch_rows(batch: int, mesh) -> int:
+    """This rank's rows of a global ``batch`` on ``mesh``: its block over
+    the axes that split it (``batch_split``)."""
+    return batch // math.prod(mesh.shape[ax] for ax in batch_split(batch, mesh))
 
 
 def cache_heads(cfg, mesh) -> int:
@@ -196,6 +246,31 @@ def ffn_split(cfg, mesh, axis: str = "model") -> bool:
     """Whether ``cfg``'s MLP splits its ``d_ff`` over ``axis`` (else it runs
     replicated, as ``resolve_spec`` leaves a dim the axis does not divide)."""
     return mesh is not None and axis in mesh.shape and cfg.d_ff % mesh.shape[axis] == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSplit:
+    """This rank's block ``[lo, lo + n)`` of a block's units (heads, or the
+    hidden units of an MLP) split over an axis in equal contiguous
+    blocks."""
+
+    lo: int
+    n: int
+
+
+def block_split(size: int, mesh, axis: str = "model") -> BlockSplit | None:
+    """This rank's ``BlockSplit`` of ``size`` units over ``axis``, or None
+    where the block runs replicated: no mesh or no such axis, an axis of one
+    rank (the whole block is the rank's: the single card's code path), or a
+    ``size`` the axis does not divide (``repro``'s first-fit resolution
+    keeps such a dim whole)."""
+    if mesh is None or axis not in mesh.shape or mesh.shape[axis] == 1:
+        return None
+    m = mesh.shape[axis]
+    if size % m:
+        return None
+    n = size // m
+    return BlockSplit(lo=mesh.axis_index(axis) * n, n=n)
 
 
 def lm_param_rules(cfg, mesh) -> dict:
@@ -348,6 +423,9 @@ def local_shard(t: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
     the global tensor; a replicated tensor comes back as it is."""
     out = t
     for d, entry in enumerate(spec):
+        if isinstance(entry, Parts):
+            out = _parts_block(out, d, entry, mesh)
+            continue
         axes = _axes(entry)
         if not axes:
             continue
@@ -366,6 +444,43 @@ def local_shard(t: torch.Tensor, mesh, spec: Sequence) -> torch.Tensor:
     return out if out is t else out.clone()
 
 
+def _parts_block(t: torch.Tensor, d: int, entry: Parts, mesh) -> torch.Tensor:
+    """This rank's block of dim ``d`` of ``t`` under the ``Parts`` entry."""
+    n = mesh.shape[entry.axis]
+    if t.shape[d] != entry.width:
+        raise ValueError(f"dim {d} of size {t.shape[d]} is not the {entry.width} of {entry}")
+    if n == 1:
+        return t
+    pos, at, pieces = mesh.axis_index(entry.axis), 0, []
+    for w, split in entry.parts:
+        if split and w % n:
+            raise ValueError(f"a part of {w} does not split over {entry.axis} ({n} blocks)")
+        pieces.append(t.narrow(d, at + pos * (w // n), w // n) if split else t.narrow(d, at, w))
+        at += w
+    return torch.cat(pieces, dim=d)
+
+
+def spec_pieces(local: torch.Tensor, spec: Sequence, mesh) -> list:
+    """``local`` (this rank's block under ``spec``) as ``(piece, axes)``
+    pairs: the mesh axes of size > 1 that split each piece, so that a sum
+    over the pieces' entries counts every logical entry once when each
+    piece's sum is psummed over its axes (the optimizer's global norm).  A
+    ``Parts`` dim gives one piece a part (its whole parts are not split by
+    its axis); any other leaf is one piece."""
+    named = [ax for e in spec if not isinstance(e, Parts) for ax in _axes(e)]
+    fused = [(d, e) for d, e in enumerate(spec) if isinstance(e, Parts)]
+    base = tuple(ax for ax in mesh.shape if ax in named and mesh.shape[ax] > 1)
+    if not fused:
+        return [(local, base)]
+    [(d, entry)] = fused
+    n = mesh.shape[entry.axis]
+    out = []
+    for piece, (_, split) in zip(torch.split(local, entry.local_widths(n), dim=d), entry.parts):
+        axes = set(base) | ({entry.axis} if split and n > 1 else set())
+        out.append((piece, tuple(ax for ax in mesh.shape if ax in axes)))
+    return out
+
+
 def batch_axes(mesh) -> tuple[str, ...]:
     """The mesh axes of size > 1 that split the batch under ``DEFAULT_RULES``
     (``data``; an axis the rule does not name, such as ``pod``, replicates
@@ -381,7 +496,8 @@ def _is_axes(a) -> bool:
 def tree_specs(tree, axes_tree, mesh, rules: Mapping) -> list[P]:
     """One spec per leaf of ``tree`` (flatten order): ``resolve_spec`` of
     the leaf's shape and its logical axes in ``axes_tree`` (a tree of the
-    same nesting whose leaves are tuples of axis names).  A leaf without
+    same nesting whose leaves are tuples of axis names, or a ``P``: that
+    spec outright).  A leaf without
     axes (``None``, an empty tuple, or a subtree ``axes_tree`` does not
     describe) is replicated."""
     out: list[P] = []
@@ -395,7 +511,9 @@ def tree_specs(tree, axes_tree, mesh, rules: Mapping) -> list[P]:
                 walk(x, a[i] if isinstance(a, (list, tuple)) and not _is_axes(a)
                      and i < len(a) else None)
         elif t is not None:
-            if _is_axes(a) and len(a) == t.dim():
+            if isinstance(a, P):            # a spec given outright (``registry.lm_axes``)
+                out.append(a)
+            elif _is_axes(a) and len(a) == t.dim():
                 out.append(resolve_spec(mesh, t.shape, a, rules))
             else:
                 out.append(P())
@@ -418,6 +536,9 @@ def full_shape(local: torch.Tensor, spec: Sequence, mesh) -> tuple[int, ...]:
     """The logical shape of the leaf whose block on this rank is ``local``."""
     shape = list(local.shape)
     for d, entry in enumerate(spec):
+        if isinstance(entry, Parts):
+            shape[d] = entry.width
+            continue
         for ax in _axes(entry):
             shape[d] *= mesh.shape[ax]
     return tuple(shape)
@@ -426,11 +547,22 @@ def full_shape(local: torch.Tensor, spec: Sequence, mesh) -> tuple[int, ...]:
 def gather(local: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """The full logical leaf from the ranks' blocks under ``spec`` (the
     inverse of ``local_shard``), on every rank: one ``all_gather`` a
-    sharded dim and mesh axis, the minor axis first."""
+    sharded dim and mesh axis, the minor axis first (a ``Parts`` dim:
+    each split part's blocks in order, each whole part rank 0's copy)."""
     from repro_torch.distributed import collectives
 
     out = local
     for d, entry in enumerate(spec):
+        if isinstance(entry, Parts):
+            n = mesh.shape[entry.axis]
+            if n > 1:
+                got = collectives.all_gather(out, mesh, entry.axis, dim=d)
+                ranks = [torch.split(r, entry.local_widths(n), dim=d)
+                         for r in torch.split(got, out.shape[d], dim=d)]
+                out = torch.cat([torch.cat([r[i] for r in ranks], dim=d) if split
+                                 else ranks[0][i] for i, (_, split) in enumerate(entry.parts)],
+                                dim=d)
+            continue
         for ax in reversed(_axes(entry)):
             if mesh.shape[ax] > 1:
                 out = collectives.all_gather(out, mesh, ax, dim=d)

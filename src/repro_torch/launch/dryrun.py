@@ -32,12 +32,16 @@ runs on by default; ``pod1`` / ``pod2`` are ``repro``'s (16, 16) and
 (2, 16, 16) production meshes, on which the rank at ``model`` coordinate 0
 and the last one (where the uneven vocabulary slices end) are traced and
 the larger peak is the cell's.  Only the kinds that train and serve on a
-mesh (the dense and MoE transformers) run a train, prefill or decode cell
-there; the others wait for ``launch.train.MESH_WAITS``'s item.  A serve
-cell's rank holds its blocks of the params cast for serving, its ``data``
+mesh (the dense and MoE transformers, zamba2 and xlstm) run a train,
+prefill or decode cell there; the prefix models wait for
+``launch.train.MESH_WAITS``'s item.  A rank holds its blocks of the params
+(``registry.lm_specs``; a serve cell's cast for serving), its ``data``
 block of the batch and its block of the cache (``sharding.cache_block``:
 the port's layout, whose positions stay whole where ``repro``'s split
-``kvseq`` over ``model``).
+``kvseq`` over ``model``; zamba2's SSM states and xlstm's mLSTM states by
+the heads the rank runs).  A serve cell whose batch the data ranks do not
+divide (``long_500k``'s one sequence) holds it whole on every rank
+(``sharding.batch_split``), as ``repro``'s ``resolve_spec`` leaves it.
 
 ``fit`` sizes a batch, a microbatch or a depth against a byte budget from
 these traces (``chip_smoke.py`` sizes its LM cells with it).
@@ -398,8 +402,9 @@ def trace_train(binding, cfg: ModelConfig, batch: int, seq: int, *, microbatches
     if mesh is not None:
         from repro_torch.launch.train import place
 
-        params, specs, _ = place(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
-        batch //= math.prod(mesh.shape[ax] for ax in SH.batch_axes(mesh))
+        params, specs, _ = place(params, registry.lm_axes(cfg, axes, mesh), mesh,
+                                 SH.lm_param_rules(cfg, mesh))
+        batch = SH.batch_rows(batch, mesh)
     opt_state = opt_mod.init(params)
     data = registry.batch_specs(binding, cfg, batch, seq)
     step = make_train_step(registry.train_loss_fn(binding, cfg), opt_mod.OptConfig(),
@@ -419,16 +424,12 @@ def serve_inputs(binding, cfg: ModelConfig, kind: str, batch: int, seq: int, *,
     abstract ``mesh`` this rank's blocks of them (``lm_param_rules``, its
     ``data`` block, ``sharding.cache_block``)."""
     fam = serve_family(binding.kind)
-    params, axes = registry.abstract_params(binding, cfg)
-    params = fam.prepare(params, cfg)
-    if mesh is not None:
-        params = SH.shard_tree(params, SH.tree_specs(params, axes, mesh,
-                                                     SH.lm_param_rules(cfg, mesh)), mesh)
-    local = SH.cache_block(cfg, mesh, batch, seq)[1]            # the rank's batch block
+    params = fam.prepare(registry.abstract_params(binding, cfg, mesh=mesh)[0], cfg)
+    local = SH.batch_rows(batch, mesh)                         # the rank's batch block
     if kind == "prefill":
         return params, registry.batch_specs(binding, cfg, local, seq), None
     return (params, {"tokens": torch.empty((local, 1), dtype=torch.int32, device="meta")},
-            fam.make_cache(cfg, batch, seq, device="meta", mesh=mesh))
+            registry.cache_specs(binding, cfg, batch, seq, mesh=mesh))
 
 
 def trace_serve(binding, cfg: ModelConfig, kind: str, batch: int, seq: int, *,
@@ -500,6 +501,10 @@ def lower_cell(arch_id: str, shape_name: str, *, mesh: str = "card",
         for at in coords:
             t0 = time.perf_counter()
             m = None if at is None else mesh_mod.abstract_mesh(shape_axes, axis_names, at)
+            if m is not None:
+                # a batch the data ranks do not divide (long_500k's one
+                # sequence) stays whole on every rank (sharding.batch_split)
+                rec["batch_split_over"] = list(SH.batch_split(shape.global_batch, m))
             if shape.kind == "train":
                 got = trace_train(binding, cfg, shape.global_batch, shape.seq_len,
                                   microbatches=mb, mesh=m)

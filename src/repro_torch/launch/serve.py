@@ -15,15 +15,19 @@ whisper's frames or pixtral's patches (``registry.make_batch_fn``).
 (``2,2`` for ``(data, model)``): one process a rank (``launch.mesh.spawn``;
 nccl where every rank has a card, gloo where ranks share one or run on the
 CPU).  Each rank draws the params from the seed, casts them once
-(``ServeFamily.prepare``) and keeps its blocks (``sharding.lm_param_rules``:
+(``ServeFamily.prepare``) and keeps its blocks (``registry.lm_specs``:
 whole heads, ``d_ff``, the vocabulary and an MoE's experts split over
-``model``), takes its ``data`` block of the batch and runs
+``model``; zamba2's mamba layers by SSM head, xlstm's blocks by head or
+FFN unit), takes its ``data`` block of the batch and runs
 ``greedy_generate`` on it; the rank at coordinates 0 prints the tokens of
-every ``data`` block, gathered.  The dense and MoE transformers serve on a
-mesh; the other kinds are refused before any rank starts
+every ``data`` block, gathered.  The transformers, zamba2 and xlstm serve
+on a mesh; the prefix models are refused before any rank starts
 (``launch.train.MESH_WAITS``).  ``--compute-dtype float32`` serves in fp32
 compute, where a mesh gives the one card's tokens:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
+        --device cpu --mesh-shape 1,2 --batch 2 --prompt-len 32 --max-new 8 \
+        --compute-dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
         --device cpu --mesh-shape 1,2 --batch 2 --prompt-len 32 --max-new 8 \
         --compute-dtype float32
 
@@ -97,8 +101,7 @@ def serve(args, dev, mesh=None) -> None:
     make_batch = registry.make_batch_fn(binding, cfg)
     batch = make_batch(args.batch, args.prompt_len, seed=args.seed, step=0, device=dev)
     if mesh is not None:
-        params = SH.shard_tree(params, SH.tree_specs(params, axes, mesh,
-                                                     SH.lm_param_rules(cfg, mesh)), mesh)
+        params = SH.shard_tree(params, registry.lm_specs(cfg, params, axes, mesh), mesh)
         batch = synthetic.data_block(batch, mesh)
     max_len = args.prompt_len + args.max_new
 
@@ -109,7 +112,7 @@ def serve(args, dev, mesh=None) -> None:
     dt = time.perf_counter() - t0
     where = dev.type
     if mesh is not None:
-        data = SH.batch_axes(mesh)
+        data = SH.batch_split(args.batch, mesh)
         out = SH.gather(out, SH.P(data if len(data) > 1 else data[0]) if data else SH.P(), mesh)
         where = f"{mesh.size} {dev.type} ranks, mesh {tuple(mesh.shape.values())}"
         if any(mesh.coords.values()):

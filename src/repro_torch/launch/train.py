@@ -31,13 +31,14 @@ recompute, as ``repro``'s) recomputed in the backward as the config's
   gradients over ``data``.  A DLRM (``sharding.TRAIN_PARAM_RULES``: tables
   row-sharded over ``model``) runs the two-level GnR; an LM
   (``sharding.lm_param_rules``: whole heads, ``d_ff`` and the vocabulary
-  split over ``model``; an MoE's experts too) runs tensor-parallel (its
-  MoE layers expert-parallel), its tokens through the two-level GnR and
-  its loss vocab-parallel.  The ranks agree on the stop
-  flag every step (a MAX all-reduce), so all of them checkpoint at the
-  same step.  zamba2-7b, xlstm-125m, whisper-large-v3 and pixtral-12b
-  train on one card only: with ``--mesh-shape`` they raise
-  ``NotImplementedError`` (``MESH_WAITS``).
+  split over ``model``; an MoE's experts too; zamba2's mamba layers by SSM
+  head and xlstm's blocks by head or FFN unit, ``registry.lm_axes``) runs
+  tensor-parallel (its MoE layers expert-parallel), its tokens through
+  the two-level GnR and its loss vocab-parallel.  The ranks agree on the
+  stop flag every step (a MAX all-reduce), so all of them checkpoint at
+  the same step.  whisper-large-v3 and pixtral-12b train on one card
+  only: with ``--mesh-shape`` they raise ``NotImplementedError``
+  (``MESH_WAITS``).
   Checkpoints hold the full logical arrays, so a run resumes on another
   mesh shape, on one card, or in ``repro`` (the elastic restart).  Only
   the rank at coordinates 0 prints.
@@ -53,6 +54,8 @@ Runs on the card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \\
         --device cpu --mesh-shape 2,2 --steps 4 --batch 8 --seq 32 --embedding qr \\
         --ckpt-dir <dir>
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --smoke \\
+        --device cpu --mesh-shape 1,2 --steps 2 --batch 4 --seq 32 --ckpt-dir <dir>
 """
 
 from __future__ import annotations
@@ -106,12 +109,8 @@ def place(params, axes, mesh, rules):
 
 # the LM kinds that train and serve on one card only, and what brings their
 # mesh (``refuse_mesh`` here, ``serve_step.refuse_mesh`` for serving)
-MESH_WAITS = {
-    **{kind: "ROADMAP.md §1 item 10 (the sub-quadratic models served and trained on a mesh)"
-       for kind in ("zamba2", "xlstm")},
-    **{kind: "ROADMAP.md §1 item 11 (the prefix models served and trained on a mesh)"
-       for kind in ("whisper", "pixtral")},
-}
+MESH_WAITS = {kind: "ROADMAP.md §1 item 11 (the prefix models served and trained on a mesh)"
+              for kind in ("whisper", "pixtral")}
 
 
 def refuse_mesh(arch: str) -> None:
@@ -129,7 +128,8 @@ def build_lm(args, dev, mesh=None):
     """-> (cfg, params, opt_state, step_fn, make_batch, state_specs) for an
     LM arch: the registry's bindings, batches of ``--seq`` tokens.  With
     ``mesh``, the params laid out by ``sharding.lm_param_rules`` (tensor
-    parallel over ``model``, whole heads only)."""
+    parallel over ``model``, whole heads only; the sub-quadratic models'
+    fused tensors by ``registry.lm_axes``)."""
     if mesh is not None:
         refuse_mesh(args.arch)
     binding = registry.get(args.arch)
@@ -139,7 +139,8 @@ def build_lm(args, dev, mesh=None):
     params, axes = registry.init_fn(binding)(cfg, seed=args.seed, device=dev)
     specs = state_specs = None
     if mesh is not None:
-        params, specs, state_specs = place(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
+        params, specs, state_specs = place(params, registry.lm_axes(cfg, axes, mesh), mesh,
+                                           SH.lm_param_rules(cfg, mesh))
     make = registry.make_batch_fn(binding, cfg)
 
     def make_batch(batch, **kw):

@@ -18,6 +18,10 @@ order: the C·Bᵀ scores of each group (B, C, G, L, S), times each head's
 decay, then the product with x.  The cross-chunk scan is a loop over the
 chunks.  A length the chunk does not divide is refused with a
 ``ValueError`` (``repro`` asserts); nothing is padded.
+
+On a mesh (``mamba2_fwd(mesh=)``) the layer is tensor-parallel over
+``model`` by SSM heads; B and C, which every head of a group reads, stay
+whole on every rank (``layout``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.layers import _normal
 
 CONV_WIDTH = 4
@@ -40,6 +46,35 @@ def d_inner(cfg: ModelConfig) -> int:
 
 def num_ssm_heads(cfg: ModelConfig) -> int:
     return d_inner(cfg) // cfg.ssm_head_dim
+
+
+def ssm_split(cfg: ModelConfig, mesh, axis: str = "model") -> SH.BlockSplit | None:
+    """This rank's SSM heads ``[lo, lo + n)`` of a layer of ``cfg``, or None
+    where the layer runs replicated (``sharding.block_split``).  B and C,
+    which every head of a group reads, stay whole on every rank
+    (``layout``)."""
+    return SH.block_split(num_ssm_heads(cfg), mesh, axis)
+
+
+def layout(cfg: ModelConfig, mesh, axis: str = "model") -> dict:
+    """The spec of each leaf of one layer on ``mesh`` (no layer dim): by the
+    rank's SSM heads (``ssm_split``) where they split, whole where they do
+    not.  ``in_proj``'s columns are the rank's block of z, then of x, then
+    B and C whole, then its block of dt; ``conv_w`` / ``conv_b`` its block
+    of x, then B and C whole; ``A_log``, ``D``, ``dt_bias`` its heads;
+    ``norm_scale`` and ``out_proj``'s rows, ordered by head already, its
+    contiguous block."""
+    names = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale", "out_proj")
+    if ssm_split(cfg, mesh, axis) is None:
+        return {k: SH.P() for k in names}
+    di, h = d_inner(cfg), num_ssm_heads(cfg)
+    gn = cfg.ssm_groups * cfg.ssm_state
+    conv = SH.Parts(axis, ((di, True), (gn, False), (gn, False)))
+    return {"in_proj": SH.P(None, SH.Parts(axis, ((di, True), (di, True), (gn, False),
+                                                  (gn, False), (h, True)))),
+            "conv_w": SH.P(None, conv), "conv_b": SH.P(conv), "A_log": SH.P(axis),
+            "D": SH.P(axis), "dt_bias": SH.P(axis), "norm_scale": SH.P(axis),
+            "out_proj": SH.P(axis, None)}
 
 
 def init_mamba2(cfg: ModelConfig, *, generator: torch.Generator, device):
@@ -181,15 +216,26 @@ def ssd_step(state, x, a, b, c):
     return y, new_state
 
 
-def _split_proj(z: torch.Tensor, cfg: ModelConfig):
-    di = d_inner(cfg)
-    g, n, h = cfg.ssm_groups, cfg.ssm_state, num_ssm_heads(cfg)
-    return torch.split(z, [di, di, g * n, g * n, h], dim=-1)
+def _split_proj(z: torch.Tensor, cfg: ModelConfig, heads: int | None = None):
+    """z, x, B, C and dt of ``in_proj``'s output, for ``heads`` heads (all
+    of them by default; a rank's on a mesh: its z, x and dt, B and C
+    whole)."""
+    h = num_ssm_heads(cfg) if heads is None else heads
+    di, gn = h * cfg.ssm_head_dim, cfg.ssm_groups * cfg.ssm_state
+    return torch.split(z, [di, di, gn, gn, h], dim=-1)
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, *, mesh=None,
+                width: int | None = None) -> torch.Tensor:
+    """The gated RMS norm over the last dim; on a ``mesh`` ``y`` and ``z``
+    are this rank's columns of a dim ``width`` wide, whose mean square is
+    the ranks' sums of squares summed over ``model``
+    (``collectives.norm_stat``) over ``width``."""
     yf = (y * F.silu(z.float()).to(y.dtype)).float()
-    var = (yf ** 2).mean(-1, keepdim=True)
+    if mesh is None:
+        var = (yf ** 2).mean(-1, keepdim=True)
+    else:
+        var = collectives.norm_stat((yf ** 2).sum(-1, keepdim=True), mesh, "model") / width
     return (yf * torch.rsqrt(var + 1e-6) * scale.float()).to(y.dtype)
 
 
@@ -199,21 +245,55 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def rank_groups(t: torch.Tensor, split, cfg: ModelConfig) -> torch.Tensor:
+    """B or C, ``(..., G, N)`` with every group (whole on every rank), cut
+    to the groups the rank's heads ``split`` read, in an order the SSD's
+    ``h // G`` heads a group reads right: whole groups where the rank's
+    heads are whole groups, the one group they share where they lie in one,
+    else one group a head."""
+    hpg = num_ssm_heads(cfg) // cfg.ssm_groups
+    lo, n, dim = split.lo, split.n, t.dim() - 2
+    if n % hpg == 0:
+        return t.narrow(dim, lo // hpg, n // hpg)
+    if hpg % n == 0:
+        return t.narrow(dim, lo // hpg, 1)
+    return t.index_select(dim, torch.arange(lo, lo + n, device=t.device) // hpg)
+
+
 def mamba2_fwd(p: dict, u: torch.Tensor, cfg: ModelConfig, *, state=None, conv_state=None,
-               decode: bool = False):
+               decode: bool = False, mesh=None):
     """u: (B, S, d_model). With ``decode``, S == 1 and (state, conv_state)
-    are required.  Returns (out, (state, conv_state))."""
+    are required.  Returns (out, (state, conv_state)).
+
+    On a ``mesh`` whose ``model`` axis splits the SSM heads
+    (``ssm_split``), ``p`` holds this rank's columns
+    (``layout``: its z, x and dt, B and C whole) and the layer
+    is tensor-parallel: ``u`` enters through ``collectives.enter`` with
+    the B and C columns of ``in_proj``, ``conv_w`` and ``conv_b`` (their
+    gradients are the ranks' heads' partials, summed over ``model``), the
+    SSD runs on the rank's heads against the groups they read
+    (``rank_groups``), the gated norm's statistic is summed over ``model``
+    and ``out_proj`` is row-parallel, its partials summed by one
+    ``collectives.combine``.  The states are the rank's heads' and its conv
+    columns."""
     cd = cfg.cdtype
     bsz, s, _ = u.shape
-    di = d_inner(cfg)
-    g, n, h = cfg.ssm_groups, cfg.ssm_state, num_ssm_heads(cfg)
+    split = ssm_split(cfg, mesh)
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    h = num_ssm_heads(cfg) if split is None else split.n
     pdim = cfg.ssm_head_dim
+    di, gn = h * pdim, g * n
+    w_in, w_conv, b_conv = p["in_proj"], p["conv_w"], p["conv_b"]
+    if split is not None:
+        bc_in, bc_conv = ((2 * di, 2 * di + 2 * gn),), ((di, di + 2 * gn),)
+        u, w_in, w_conv, b_conv = collectives.enter(
+            [u, w_in, w_conv, b_conv], mesh, "model", cols=(None, bc_in, bc_conv, bc_conv))
 
-    z = u.to(cd) @ p["in_proj"].to(cd)
-    zs, xs, bs, cs, dts = _split_proj(z, cfg)
+    z = u.to(cd) @ w_in.to(cd)
+    zs, xs, bs, cs, dts = _split_proj(z, cfg, h)
     conv_in = torch.cat([xs, bs, cs], dim=-1)                       # (B,S,conv_dim)
 
-    w = p["conv_w"].to(cd)                                          # (W, conv_dim)
+    w = w_conv.to(cd)                                               # (W, conv_dim)
     if decode:
         # conv_state: (B, W-1, conv_dim) holding the last W-1 inputs
         window = torch.cat([conv_state.to(cd), conv_in], dim=1)     # (B,W,conv)
@@ -223,12 +303,14 @@ def mamba2_fwd(p: dict, u: torch.Tensor, cfg: ModelConfig, *, state=None, conv_s
         pad = F.pad(conv_in, (0, 0, CONV_WIDTH - 1, 0))
         conv_out = sum(pad[:, i:i + s, :] * w[i][None, None, :] for i in range(CONV_WIDTH))
         new_conv_state = pad[:, pad.shape[1] - (CONV_WIDTH - 1):, :]
-    conv_out = F.silu(conv_out + p["conv_b"].to(cd))
+    conv_out = F.silu(conv_out + b_conv.to(cd))
 
-    xs, bs, cs = torch.split(conv_out, [di, g * n, g * n], dim=-1)
+    xs, bs, cs = torch.split(conv_out, [di, gn, gn], dim=-1)
     x4 = xs.reshape(bsz, s, h, pdim)
     b4 = bs.reshape(bsz, s, g, n)
     c4 = cs.reshape(bsz, s, g, n)
+    if split is not None:
+        b4, c4 = rank_groups(b4, split, cfg), rank_groups(c4, split, cfg)
 
     dt = _softplus(dts.float() + p["dt_bias"].float())
     a = (-torch.exp(p["A_log"].float()))[None, None, :] * dt        # (B,S,H)
@@ -242,18 +324,29 @@ def mamba2_fwd(p: dict, u: torch.Tensor, cfg: ModelConfig, *, state=None, conv_s
 
     y = y + x4 * p["D"].to(cd)[None, None, :, None]
     y = y.reshape(bsz, s, di)
-    y = _gated_norm(y, zs, p["norm_scale"])
+    y = _gated_norm(y, zs, p["norm_scale"], mesh=None if split is None else mesh,
+                    width=d_inner(cfg))
     out = y @ p["out_proj"].to(cd)
+    if split is not None:
+        out = collectives.combine(out, mesh, "model")
     return out, (new_state, new_conv_state)
 
 
-def init_ssm_state(cfg: ModelConfig, batch: int, dtype=None, *, device=None):
-    """Zero (state (B, H, P, N), conv_state (B, W-1, conv_dim))."""
+def ssm_state_shapes(cfg: ModelConfig, batch: int, mesh=None) -> tuple[tuple, tuple]:
+    """The shapes of (state, conv_state) for ``batch`` rows: (B, H, P, N)
+    and (B, W-1, conv_dim); on a ``mesh`` the rank's heads
+    (``ssm_split``) and its conv columns (its x, B and C whole)."""
+    split = ssm_split(cfg, mesh)
+    h = num_ssm_heads(cfg) if split is None else split.n
+    pdim, n = cfg.ssm_head_dim, cfg.ssm_state
+    return ((batch, h, pdim, n), (batch, CONV_WIDTH - 1, h * pdim + 2 * cfg.ssm_groups * n))
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype=None, *, device=None, mesh=None):
+    """Zero (state, conv_state) of ``ssm_state_shapes``."""
     from repro_torch import device as device_mod
 
     dtype = dtype or cfg.cdtype
     dev = device_mod.resolve(device)
-    h, pdim, n = num_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
-    conv_dim = d_inner(cfg) + 2 * cfg.ssm_groups * n
-    return (torch.zeros((batch, h, pdim, n), dtype=dtype, device=dev),
-            torch.zeros((batch, CONV_WIDTH - 1, conv_dim), dtype=dtype, device=dev))
+    return tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                 for shape in ssm_state_shapes(cfg, batch, mesh))

@@ -24,6 +24,10 @@ heterogeneous dicts, as ``repro``'s); every ``slstm_every``-th block is an
 sLSTM block.  The tokens go through ``transformer.embed_tokens`` (K8 for a
 QR vocabulary on the card) and the tied head through
 ``transformer.lm_logits``.
+
+On a mesh the mLSTM blocks run tensor-parallel by head and the sLSTM
+blocks' gated FFN by hidden unit (``block_layout``); the sLSTM's
+recurrence, and its CUDA graphs, run whole on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch.nn.functional as F
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qr_embedding
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import bounds
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import _normal, apply_norm, init_norm
@@ -413,14 +419,26 @@ def init_mlstm_block(cfg: ModelConfig, *, generator: torch.Generator, device):
 
 
 def mlstm_block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, state=None,
-                    decode: bool = False):
+                    decode: bool = False, mesh=None):
+    """On a ``mesh`` whose ``model`` axis splits the heads
+    (``mlstm_split``) ``p`` holds this rank's columns
+    (``block_layout``) and the block is tensor-parallel: the normed
+    input enters through ``collectives.enter`` with ``up``'s xm half (whole
+    on every rank; its gradient the ranks' heads' partials, summed), the
+    cell runs on the rank's heads and state, the output norm's statistic is
+    summed over ``model`` and ``down`` is row-parallel (one
+    ``collectives.combine``)."""
     cd = cfg.cdtype
     bsz, s, d = x.shape
     di = MLSTM_PF * d
-    h = cfg.num_heads
-    hd = di // h
+    hd = di // cfg.num_heads
+    split = mlstm_split(cfg, mesh)
+    h = cfg.num_heads if split is None else split.n
     xin = apply_norm(p["ln"], x)
-    up = xin.to(cd) @ p["up"].to(cd)
+    w_up = p["up"]
+    if split is not None:
+        xin, w_up = collectives.enter([xin, w_up], mesh, "model", cols=(None, ((0, di),)))
+    up = xin.to(cd) @ w_up.to(cd)
     xm, z = up[..., :di], up[..., di:]
 
     def heads(w):
@@ -437,13 +455,18 @@ def mlstm_block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, state=None,
     else:
         hout, new_state = mlstm_chunked(q, k, v, i_pre, f_pre, state=state)
 
-    hout = hout.transpose(1, 2).reshape(bsz, s, di)
+    hout = hout.transpose(1, 2).reshape(bsz, s, h * hd)
     # per-block norm, then the output gate
     hf = hout.float()
-    var = (hf ** 2).mean(-1, keepdim=True)
+    if split is None:
+        var = (hf ** 2).mean(-1, keepdim=True)
+    else:
+        var = collectives.norm_stat((hf ** 2).sum(-1, keepdim=True), mesh, "model") / di
     hout = (hf * torch.rsqrt(var + 1e-6) * p["out_norm"].float()).to(cd)
     hout = hout * F.silu(z)
     y = hout @ p["down"].to(cd)
+    if split is not None:
+        y = collectives.combine(y, mesh, "model")
     return x + y.to(x.dtype), new_state
 
 
@@ -451,7 +474,7 @@ def init_slstm_block(cfg: ModelConfig, *, generator: torch.Generator, device):
     d = cfg.d_model
     h = cfg.num_heads
     hd = d // h
-    f = int(SLSTM_PF * d)
+    f = slstm_ffn_width(cfg)
     pd = cfg.pdtype
     kw = dict(generator=generator, device=device)
     s_in = 1.0 / math.sqrt(d)
@@ -480,8 +503,13 @@ def init_slstm_block(cfg: ModelConfig, *, generator: torch.Generator, device):
 
 
 def slstm_block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, state=None,
-                    decode: bool = False):
-    """``decode`` changes nothing: a decode step is the scan over one token."""
+                    decode: bool = False, mesh=None):
+    """``decode`` changes nothing: a decode step is the scan over one token.
+    On a ``mesh`` whose ``model`` axis splits the FFN's hidden units
+    (``slstm_ffn_split``) the recurrence runs whole on every rank
+    and the gated FFN tensor-parallel: its normed input enters, ``ffn_up``
+    holds the rank's block of the gate half and of the up half, and
+    ``ffn_down`` is row-parallel (one ``collectives.combine``)."""
     cd = cfg.cdtype
     bsz, s, d = x.shape
     h = cfg.num_heads
@@ -492,16 +520,75 @@ def slstm_block_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig, *, state=None,
     hs, new_state = slstm_scan(gates, p["r_gates"], state=state)
     x = x + hs.reshape(bsz, s, d).to(cd).to(x.dtype)
     # gated FFN
+    split = slstm_ffn_split(cfg, mesh)
     xin2 = apply_norm(p["ln2"], x)
+    if split is not None:
+        [xin2] = collectives.enter([xin2], mesh, "model")
     up = xin2.to(cd) @ p["ffn_up"].to(cd)
     f = up.shape[-1] // 2
     y = F.silu(up[..., :f]) * up[..., f:]
     y = y @ p["ffn_down"].to(cd)
+    if split is not None:
+        y = collectives.combine(y, mesh, "model")
     return x + y.to(x.dtype), new_state
 
 
 def is_slstm_layer(cfg: ModelConfig, i: int) -> bool:
     return cfg.slstm_every > 0 and (i % cfg.slstm_every) == (cfg.slstm_every - 1)
+
+
+def slstm_ffn_width(cfg: ModelConfig) -> int:
+    """The hidden units of an sLSTM block's gated FFN."""
+    return int(SLSTM_PF * cfg.d_model)
+
+
+def mlstm_split(cfg: ModelConfig, mesh, axis: str = "model") -> SH.BlockSplit | None:
+    """This rank's heads of an mLSTM block (``cfg.num_heads``), or None
+    where the block runs replicated (``sharding.block_split``)."""
+    return SH.block_split(cfg.num_heads, mesh, axis)
+
+
+def slstm_ffn_split(cfg: ModelConfig, mesh, axis: str = "model") -> SH.BlockSplit | None:
+    """This rank's hidden units of an sLSTM block's gated FFN
+    (``slstm_ffn_width``), or None where the FFN runs replicated.  The
+    recurrence (``w_gates``, ``r_gates``, ``gate_bias``) is whole on every
+    rank, as in ``repro``, where ``embed`` is its only named dim."""
+    return SH.block_split(slstm_ffn_width(cfg), mesh, axis)
+
+
+def block_layout(cfg: ModelConfig, mesh, slstm: bool, axis: str = "model") -> dict:
+    """The spec of each split leaf of one block on ``mesh`` (the others
+    whole).  mLSTM by the rank's heads (``mlstm_split``): ``up``'s columns
+    its xm half whole, then its block of the z half; ``wq`` / ``wk`` /
+    ``wv`` / ``wi`` / ``wf``'s columns, ``f_bias`` and ``out_norm`` its
+    heads; ``down``'s rows the same block.  sLSTM (``slstm_ffn_split``):
+    ``ffn_up``'s columns its block of the gate half, then of the up half;
+    ``ffn_down``'s rows that block."""
+    if slstm:
+        if slstm_ffn_split(cfg, mesh, axis) is None:
+            return {"ffn_up": SH.P(), "ffn_down": SH.P()}
+        f = slstm_ffn_width(cfg)
+        return {"ffn_up": SH.P(None, SH.Parts(axis, ((f, True), (f, True)))),
+                "ffn_down": SH.P(axis, None)}
+    names = ("up", "wq", "wk", "wv", "wi", "wf", "f_bias", "out_norm", "down")
+    if mlstm_split(cfg, mesh, axis) is None:
+        return {k: SH.P() for k in names}
+    di = 2 * cfg.d_model
+    cols = SH.P(None, axis)
+    return {"up": SH.P(None, SH.Parts(axis, ((di, False), (di, True)))), "wq": cols,
+            "wk": cols, "wv": cols, "wi": cols, "wf": cols, "f_bias": SH.P(axis),
+            "out_norm": SH.P(axis), "down": SH.P(axis, None)}
+
+
+def mesh_axes(cfg: ModelConfig, axes: dict, mesh) -> dict:
+    """``init_xlstm``'s axes with each block's split leaves given their
+    specs on ``mesh`` outright (``block_layout``: a contiguous block of the
+    fused ``up`` or ``ffn_up`` is not the rank's columns)."""
+    blocks = []
+    for i, a in enumerate(axes["blocks"]):
+        lay = block_layout(cfg, mesh, is_slstm_layer(cfg, i))
+        blocks.append({k: lay.get(k, a[k]) for k in a})
+    return dict(axes, blocks=blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -544,39 +631,54 @@ def serving_params(params: dict, cfg: ModelConfig) -> dict:
     return T.cast_for_serving(params, cfg, _SERVING_CAST)
 
 
-def init_xlstm_state(cfg: ModelConfig, batch: int, *, device=None) -> list:
+def init_xlstm_state(cfg: ModelConfig, batch: int, *, device=None, mesh=None) -> list:
     """Each layer's recurrent state, fp32: an sLSTM block's (c, n, h, m),
-    each (B, H, D) with n at 1; an mLSTM block's (C, n, m), m at -1e30."""
+    each (B, H, D) with n at 1; an mLSTM block's (C, n, m), m at -1e30.  On
+    a ``mesh`` (default the active one) this rank's block of the states of
+    ``batch`` (global) sequences: its ``data`` block of them, an mLSTM
+    block's heads it runs (``mlstm_split``; ``repro`` keeps the
+    states replicated over ``model``), an sLSTM block's whole."""
     dev = device_mod.resolve(device)
+    mesh = SH.current_mesh() if mesh is None else mesh
+    rows = SH.batch_rows(batch, mesh)
     d, h = cfg.d_model, cfg.num_heads
+    split = mlstm_split(cfg, mesh)
+    hm = h if split is None else split.n
     kw = dict(dtype=torch.float32, device=dev)
     states = []
     for i in range(cfg.num_layers):
         if is_slstm_layer(cfg, i):
             hd = d // h
-            states.append((torch.zeros((batch, h, hd), **kw), torch.ones((batch, h, hd), **kw),
-                           torch.zeros((batch, h, hd), **kw), torch.zeros((batch, h, hd), **kw)))
+            states.append((torch.zeros((rows, h, hd), **kw), torch.ones((rows, h, hd), **kw),
+                           torch.zeros((rows, h, hd), **kw), torch.zeros((rows, h, hd), **kw)))
         else:
             hd = MLSTM_PF * d // h
-            states.append((torch.zeros((batch, h, hd, hd), **kw),
-                           torch.zeros((batch, h, hd), **kw),
-                           torch.full((batch, h), -1e30, **kw)))
+            states.append((torch.zeros((rows, hm, hd, hd), **kw),
+                           torch.zeros((rows, hm, hd), **kw),
+                           torch.full((rows, hm), -1e30, **kw)))
     return states
 
 
 def forward_xlstm(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, states=None,
-                  decode: bool = False, last: bool = False):
+                  decode: bool = False, last: bool = False, mesh=None):
     """tokens: (B, S) -> (logits, states): each block's new state, in a new
     list.  With ``last`` the head runs on the last row only (logits
-    (B, 1, vocab))."""
-    x = T.embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    (B, 1, vocab)).  On a ``mesh`` (default the active one,
+    ``sharding.model_mesh``) ``params`` are this rank's blocks, ``tokens``
+    its batch block and ``states`` its block: the tokens through the
+    two-level GnR, the mLSTM blocks tensor-parallel by head, the sLSTM
+    blocks' FFN by hidden unit; the logits are this rank's vocabulary slice
+    in training (no states) and whole when serving."""
+    mesh = SH.model_mesh(mesh)
+    x = T.embed_tokens(params, tokens, cfg, mesh=mesh).to(cfg.cdtype)
     new_states = []
     for i, bp in enumerate(params["blocks"]):
         st = None if states is None else states[i]
         fwd = slstm_block_fwd if is_slstm_layer(cfg, i) else mlstm_block_fwd
-        x, ns = fwd(bp, x, cfg, state=st, decode=decode)
+        x, ns = fwd(bp, x, cfg, state=st, decode=decode, mesh=mesh)
         new_states.append(ns)
     x = apply_norm(params["final_norm"], x)
     if last:
         x = x[:, -1:, :]
-    return T.lm_logits(params, x, cfg), new_states
+    head = T.lm_logits if states is None else T.whole_logits
+    return head(params, x, cfg, mesh=mesh), new_states

@@ -29,6 +29,11 @@ training forward recomputes each mamba layer in the backward
 (``torch.utils.checkpoint``, ``full`` or ``dots`` as
 ``transformer._remat_kwargs`` maps them), ``repro``'s ``jax.checkpoint``
 over its scan body; the shared block is not recomputed there either.
+
+On a mesh (``launch.serve`` / ``launch.train --mesh-shape``) every mamba
+layer runs tensor-parallel by SSM heads (``mamba2.mamba2_fwd(mesh=)``) and
+the shared block through the tensor-parallel ``layers.attention`` /
+``mlp``; the cache is the rank's block (``init_zamba2_cache(mesh=)``).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import qr_embedding
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import transformer as T
@@ -68,6 +74,15 @@ def init_zamba2(cfg: ModelConfig, *, seed: int = 0, device=None):
     return params, axes
 
 
+def mesh_axes(cfg: ModelConfig, axes: dict, mesh) -> dict:
+    """``init_zamba2``'s axes with the mamba layers' leaves given their
+    specs on ``mesh`` outright (``mamba2.layout`` behind the layer dim: a
+    contiguous block of the fused ``in_proj`` or ``conv_w`` is not the
+    rank's columns)."""
+    lay = M.layout(cfg, mesh)
+    return dict(axes, mamba={k: SH.P(None, *lay[k]) for k in axes["mamba"]})
+
+
 # the leaves the compute dtype reads: the projections (``w``, ``b``) and the
 # mamba weights ``mamba2_fwd`` casts to it (A_log, dt_bias and norm_scale
 # it reads in fp32)
@@ -83,32 +98,45 @@ def serving_params(params: dict, cfg: ModelConfig) -> dict:
     return T.cast_for_serving(params, cfg, _SERVING_CAST)
 
 
-def _shared_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None):
+def _shared_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None,
+                  mesh=None):
     h = L.apply_norm(params["shared_ln1"], x)
-    attn_out, new_cache = L.attention(params["shared_attn"], h, cfg, cache=cache, pos=pos)
+    attn_out, new_cache = L.attention(params["shared_attn"], h, cfg, cache=cache, pos=pos,
+                                      mesh=mesh)
     x = x + attn_out
     h = L.apply_norm(params["shared_ln2"], x)
-    x = x + L.mlp(params["shared_mlp"], h, cfg)
+    x = x + L.mlp(params["shared_mlp"], h, cfg, mesh=mesh)
     return x, new_cache
 
 
-def init_zamba2_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
-                      device=None) -> dict:
-    """Zeros: ``ssm`` (L, B, H, P, N), ``conv`` (L, B, W-1, conv_dim), and
-    each site's ``k`` / ``v`` (sites, B, max_len, KH, D)."""
-    dtype = dtype or cfg.cdtype
-    dev = device_mod.resolve(device)
-    sites = num_attn_sites(cfg)
-    h, pdim, n = M.num_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
-    conv_dim = M.d_inner(cfg) + 2 * cfg.ssm_groups * cfg.ssm_state
-    kv = (sites, batch, max_len, cfg.kv_heads, cfg.head_dim_)
+def _cache(cfg: ModelConfig, rows: int, max_len: int, dtype, dev, mesh) -> dict:
+    """Zeros for ``rows`` sequences: this rank's heads and conv columns
+    (``mamba2.ssm_state_shapes``) and kv heads (``sharding.cache_heads``) on
+    a ``mesh``."""
+    state, conv = M.ssm_state_shapes(cfg, rows, mesh)
+    kv = (num_attn_sites(cfg), rows, max_len, SH.cache_heads(cfg, mesh), cfg.head_dim_)
     return {
-        "ssm": torch.zeros((cfg.num_layers, batch, h, pdim, n), dtype=dtype, device=dev),
-        "conv": torch.zeros((cfg.num_layers, batch, M.CONV_WIDTH - 1, conv_dim), dtype=dtype,
-                            device=dev),
+        "ssm": torch.zeros((cfg.num_layers, *state), dtype=dtype, device=dev),
+        "conv": torch.zeros((cfg.num_layers, *conv), dtype=dtype, device=dev),
         "k": torch.zeros(kv, dtype=dtype, device=dev),
         "v": torch.zeros(kv, dtype=dtype, device=dev),
     }
+
+
+def init_zamba2_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+                      device=None, mesh=None) -> dict:
+    """Zeros: ``ssm`` (L, B, H, P, N), ``conv`` (L, B, W-1, conv_dim), and
+    each site's ``k`` / ``v`` (sites, B, max_len, KH, D).  On a ``mesh``
+    (default the active one) this rank's block of the cache of ``batch``
+    (global) sequences: its ``data`` block of them, its SSM heads and conv
+    columns (``mamba2.ssm_split``: its x, B and C whole) and the kv heads
+    of its attention heads (``sharding.cache_block`` with the sites in place
+    of the layers)."""
+    dtype = dtype or cfg.cdtype
+    dev = device_mod.resolve(device)
+    mesh = SH.current_mesh() if mesh is None else mesh
+    rows = SH.cache_block(cfg, mesh, batch, max_len)[1]
+    return _cache(cfg, rows, max_len, dtype, dev, mesh)
 
 
 def zamba2_cache_axes() -> dict:
@@ -133,19 +161,28 @@ def _segment_bounds(cfg: ModelConfig) -> list[tuple[int, int, bool]]:
 
 
 def forward_zamba2(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, cache=None,
-                   pos=None, decode: bool = False, last: bool = False):
+                   pos=None, decode: bool = False, last: bool = False, mesh=None):
     """tokens: (B, S) -> (logits, cache).  Train: ``cache=None`` (the cache
     returned is None).  Prefill: ``cache`` from ``init_zamba2_cache``,
     filled in place.  Decode: S == 1 at position ``pos``, the cache updated
     in place.  With ``last`` the head runs on the last row only (logits
-    (B, 1, vocab))."""
-    x = T.embed_tokens(params, tokens, cfg).to(cfg.cdtype)
+    (B, 1, vocab)).
+
+    On a ``mesh`` (default the active one, ``sharding.model_mesh``)
+    ``params`` are this rank's blocks (``registry.lm_axes``), ``tokens`` its
+    batch block and the cache its block: the tokens through the two-level
+    GnR, every mamba layer tensor-parallel by SSM heads, the shared block
+    through the tensor-parallel attention and MLP; the logits are this
+    rank's vocabulary slice in training (``transformer.lm_logits``) and
+    whole when serving (``transformer.whole_logits``)."""
+    mesh = SH.model_mesh(mesh)
+    x = T.embed_tokens(params, tokens, cfg, mesh=mesh).to(cfg.cdtype)
     layers = T.layer_list({"layers": params["mamba"]})
     segs = _segment_bounds(cfg)
 
     if cache is None:
         def body(lp, h):
-            return M.mamba2_fwd(lp, h, cfg)[0]
+            return M.mamba2_fwd(lp, h, cfg, mesh=mesh)[0]
 
         remat = cfg.remat and torch.is_grad_enabled()
         kw = T._remat_kwargs(cfg) if remat else {}
@@ -154,26 +191,28 @@ def forward_zamba2(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, cach
                 x = ckpt.checkpoint(body, lp, x, use_reentrant=False, **kw) if remat \
                     else body(lp, x)
             if attn:
-                x, _ = _shared_block(params, x, cfg)
+                x, _ = _shared_block(params, x, cfg, mesh=mesh)
     else:
         pos = None if pos is None else int(pos)
         s = tokens.shape[1]
         for g, (start, stop, attn) in enumerate(segs):
             for i in range(start, stop):
                 x, (ssm, conv) = M.mamba2_fwd(layers[i], x, cfg, state=cache["ssm"][i],
-                                              conv_state=cache["conv"][i], decode=decode)
+                                              conv_state=cache["conv"][i], decode=decode,
+                                              mesh=mesh)
                 cache["ssm"][i] = ssm
                 cache["conv"][i] = conv
             if not attn:
                 continue
             if decode:
                 x, _ = _shared_block(params, x, cfg, cache=(cache["k"][g], cache["v"][g]),
-                                     pos=pos)
+                                     pos=pos, mesh=mesh)
             else:        # prefill: full-sequence attention, then rows [0, S) of the slot
-                x, (k, v) = _shared_block(params, x, cfg)
+                x, (k, v) = _shared_block(params, x, cfg, mesh=mesh)
                 cache["k"][g, :, :s] = k
                 cache["v"][g, :, :s] = v
     x = L.apply_norm(params["final_norm"], x)
     if last:
         x = x[:, -1:, :]
-    return T.lm_logits(params, x, cfg), cache
+    head = T.lm_logits if cache is None else T.whole_logits
+    return head(params, x, cfg, mesh=mesh), cache

@@ -72,33 +72,28 @@ def learning_rate(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def _sharding_axes(spec, mesh) -> tuple[str, ...]:
-    """The mesh axes of size > 1 that split a leaf under ``spec``, in mesh
-    order."""
-    named = {ax for e in spec for ax in ((e,) if isinstance(e, str) else (e or ()))}
-    return tuple(ax for ax in mesh.shape if ax in named and mesh.shape[ax] > 1)
-
-
 def global_norm(grads, *, mesh=None, specs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squared fp32 entries, leaves summed
     in ``repro``'s order.  On a ``mesh``, ``grads`` are this rank's blocks
     under ``specs`` (one per leaf, ``sharding.tree_specs``): the squared
     sums of the leaves split over a set of axes are psummed over those
-    axes, so every block counts once, and the replicated leaves count as
-    they are; every rank gets the same norm."""
+    axes, so every block counts once, and the replicated leaves (and the
+    whole parts of a fused leaf, ``sharding.spec_pieces``) count as they
+    are; every rank gets the same norm."""
     leaves = tree.leaves(grads)
     if mesh is None:
         sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
         return torch.sqrt(sq)
     from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
 
     if specs is None or len(specs) != len(leaves):
         raise ValueError("global_norm on a mesh needs one spec per leaf")
     groups: dict = {}
     for g, spec in zip(leaves, specs):
-        key = _sharding_axes(spec, mesh)
-        part = torch.sum(torch.square(g.to(torch.float32)))
-        groups[key] = part if key not in groups else groups[key] + part
+        for piece, key in SH.spec_pieces(g, spec, mesh):
+            part = torch.sum(torch.square(piece.to(torch.float32)))
+            groups[key] = part if key not in groups else groups[key] + part
     total = groups.pop((), None)
     for axes, part in groups.items():
         for ax in axes:

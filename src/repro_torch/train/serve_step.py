@@ -15,11 +15,13 @@ place, so the cache handed back is the one prefill allocated; xlstm's
 decode returns new states.
 
 On a ``mesh`` (one process a rank, ``launch.serve --mesh-shape``) the
-transformers serve tensor-parallel: ``params`` are the rank's blocks
-(``sharding.lm_param_rules``), the batch its ``data`` block, the cache its
-block (``sharding.cache_block``) and the logits whole on every rank.  The
-other families raise ``NotImplementedError`` there, naming the ROADMAP
-item of ``launch.train.MESH_WAITS`` that brings their mesh.
+transformers, zamba2 and xlstm serve tensor-parallel: ``params`` are the
+rank's blocks (``registry.lm_specs``), the batch its ``data`` block, the
+cache or states its block (``sharding.cache_block``; zamba2's SSM states
+and xlstm's mLSTM states by the heads the rank runs) and the logits whole
+on every rank.  The prefix models raise ``NotImplementedError`` there,
+naming the ROADMAP item of ``launch.train.MESH_WAITS`` that brings their
+mesh.
 """
 
 from __future__ import annotations
@@ -99,39 +101,46 @@ def _tf_family() -> ServeFamily:
 def _zamba_family() -> ServeFamily:
     from repro_torch.models import zamba2 as Z
 
-    return _one_card(
-        "zamba2",
-        make_cache=lambda cfg, b, m, device=None: Z.init_zamba2_cache(cfg, b, m, device=device),
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None, mesh=None: Z.init_zamba2_cache(
+            cfg, b, m, device=device, mesh=mesh),
         cache_axes=Z.zamba2_cache_axes,
         prefill=_zamba_prefill,
-        decode=lambda p, c, tok, pos, cfg: Z.forward_zamba2(p, tok, cfg, cache=c, pos=pos,
-                                                            decode=True),
+        decode=lambda p, c, tok, pos, cfg, mesh=None: Z.forward_zamba2(
+            p, tok, cfg, cache=c, pos=pos, decode=True, mesh=mesh),
         prepare=Z.serving_params,
     )
 
 
-def _zamba_prefill(params, batch: dict, cfg: ModelConfig, max_len: int):
+def _zamba_prefill(params, batch: dict, cfg: ModelConfig, max_len: int, mesh=None):
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import zamba2 as Z
 
     tokens = batch["tokens"]
-    cache = Z.init_zamba2_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-    return Z.forward_zamba2(params, tokens, cfg, cache=cache, pos=0, last=True)
+    mesh = SH.model_mesh(mesh)
+    cache = Z.init_zamba2_cache(cfg, tokens.shape[0] * SH.data_ranks(mesh), max_len,
+                                device=tokens.device, mesh=mesh)
+    return Z.forward_zamba2(params, tokens, cfg, cache=cache, pos=0, last=True, mesh=mesh)
 
 
 def _xlstm_family() -> ServeFamily:
+    from repro_torch.distributed import sharding as SH
     from repro_torch.models import xlstm as X
 
-    def prefill(params, batch, cfg, max_len):
+    def prefill(params, batch, cfg, max_len, mesh=None):
         tokens = batch["tokens"]
-        states = X.init_xlstm_state(cfg, tokens.shape[0], device=tokens.device)
-        return X.forward_xlstm(params, tokens, cfg, states=states, last=True)
+        mesh = SH.model_mesh(mesh)
+        states = X.init_xlstm_state(cfg, tokens.shape[0] * SH.data_ranks(mesh),
+                                    device=tokens.device, mesh=mesh)
+        return X.forward_xlstm(params, tokens, cfg, states=states, last=True, mesh=mesh)
 
-    return _one_card(
-        "xlstm",
-        make_cache=lambda cfg, b, m, device=None: X.init_xlstm_state(cfg, b, device=device),
-        cache_axes=lambda: None,     # recurrent states: replicated over model
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None, mesh=None: X.init_xlstm_state(
+            cfg, b, device=device, mesh=mesh),
+        cache_axes=lambda: None,     # repro's: recurrent states replicated over model
         prefill=prefill,
-        decode=lambda p, c, tok, pos, cfg: X.forward_xlstm(p, tok, cfg, states=c, decode=True),
+        decode=lambda p, c, tok, pos, cfg, mesh=None: X.forward_xlstm(
+            p, tok, cfg, states=c, decode=True, mesh=mesh),
         prepare=X.serving_params,
     )
 

@@ -298,12 +298,15 @@ def test_lower_cell_on_the_card_and_the_pod():
     assert rec["kernels"]["flash_fwd"]["calls"] == 28
     assert rec["flops"]["counted"] == rec["flops"]["torch"] + rec["flops"]["kernels"]
     assert rec["model_flops"] == 2 * rec["params_active"] * 32 * 32768
-    for arch, shape, item in (("zamba2-7b", "train_4k", "item 10"),
+    for arch, shape, item in (("pixtral-12b", "train_4k", "item 11"),
                               ("whisper-large-v3", "train_4k", "item 11"),
-                              ("zamba2-7b", "prefill_32k", "item 10"),
+                              ("pixtral-12b", "prefill_32k", "item 11"),
                               ("whisper-large-v3", "decode_32k", "item 11")):
         rec = t_dry.lower_cell(arch, shape, mesh="pod1")
         assert rec["status"].startswith(f"waits: ROADMAP.md §1 {item}"), rec["status"]
+    rec = t_dry.lower_cell("zamba2-7b", "prefill_32k", mesh="pod1")
+    assert rec["status"] == "run" and len(rec["ranks"]) == 2
+    assert rec["collectives"]["norm_stat/model"][0] > 0
     rec = t_dry.lower_cell("qwen2-1.5b", "decode_32k", mesh="pod1")
     assert rec["status"] == "run" and rec["chips"] == 256
     assert [r["coords"] for r in rec["ranks"]] == [{"data": 0, "model": 0},

@@ -226,6 +226,12 @@ def test_decode_consistency_and_both_initial_m():
     torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-4, atol=2e-4)
 
 
+def j_prefill(fam, jp, prompt, jcfg, max_len: int = 13):
+    """``repro``'s family prefill, jitted as ``greedy_generate`` jits it
+    (eagerly, op by op, it takes twice the jitted call's compile)."""
+    return jax.jit(lambda p, t: fam.prefill(p, {"tokens": t}, jcfg, max_len))(jp, prompt)
+
+
 @pytest.mark.parametrize("vocab", ["dense", "qr"])
 def test_greedy_tokens_equal_repro(vocab):
     jcfg, tcfg, jp, tp = ssm_pair(ARCH, vocab)
@@ -236,7 +242,7 @@ def test_greedy_tokens_equal_repro(vocab):
     got = S.greedy_generate(fam, tp, {"tokens": torch.from_numpy(prompt)}, tcfg, max_new=5,
                             max_len=13)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    jlg, _ = j_S.serve_family("xlstm").prefill(jp, {"tokens": jnp.asarray(prompt)}, jcfg, 13)
+    jlg, _ = j_prefill(j_S.serve_family("xlstm"), jp, jnp.asarray(prompt), jcfg)
     with torch.inference_mode():
         tlg, _ = fam.prefill(tp, {"tokens": torch.from_numpy(prompt)}, tcfg, 13)
     assert tlg.shape == (2, 1, tcfg.vocab)
@@ -347,13 +353,21 @@ def test_serve_cli_and_the_example_default_to_xlstm_on_the_cpu(capsys):
     assert "steady-state decode" in out
 
 
-def test_train_cli_trains_xlstm_and_refuses_a_mesh(tmp_path, capsys):
+def test_train_cli_trains_xlstm_and_refuses_a_mesh(tmp_path, capfd):
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
             "--ckpt-dir", str(tmp_path), "--log-every", "1"]
     assert t_train.main([*argv, "--steps", "2"]) == 0
     assert t_train.main([*argv, "--steps", "3"]) == 0
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "[resume] step 2" in out
     assert [x.split()[1] for x in out.splitlines() if x.startswith("step")] == ["1", "2", "3"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
-        t_train.main([*argv, "--steps", "4", "--mesh-shape", "2,1"])
+    # a mesh takes the run on from one card's checkpoint, one card from the mesh's
+    assert t_train.main([*argv, "--steps", "4", "--mesh-shape", "1,2"]) == 0
+    out = capfd.readouterr().out
+    assert "[resume] step 3" in out and "done" in out
+    losses = [float(x.split()[3]) for x in out.splitlines() if x.startswith("step")]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert t_train.main([*argv, "--steps", "5"]) == 0
+    out = capfd.readouterr().out
+    assert "[resume] step 4" in out
+    assert [x.split()[1] for x in out.splitlines() if x.startswith("step")] == ["5"]

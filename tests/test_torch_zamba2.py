@@ -102,6 +102,12 @@ def test_decode_consistency():
     torch.testing.assert_close(lg2[:, 0], full[:, 7], rtol=1e-4, atol=1e-4)
 
 
+def j_prefill(fam, jp, prompt, jcfg, max_len: int = 13):
+    """``repro``'s family prefill, jitted as ``greedy_generate`` jits it
+    (eagerly, op by op, it takes twice the jitted call's compile)."""
+    return jax.jit(lambda p, t: fam.prefill(p, {"tokens": t}, jcfg, max_len))(jp, prompt)
+
+
 @pytest.mark.parametrize("vocab", ["dense", "qr"])
 def test_greedy_tokens_equal_repro(vocab):
     jcfg, tcfg, jp, tp = ssm_pair(ARCH, vocab)
@@ -113,7 +119,7 @@ def test_greedy_tokens_equal_repro(vocab):
                             max_len=13)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the family's prefill: repro's last-row logits, the head on that row alone
-    jlg, _ = j_S.serve_family("zamba2").prefill(jp, {"tokens": jnp.asarray(prompt)}, jcfg, 13)
+    jlg, _ = j_prefill(j_S.serve_family("zamba2"), jp, jnp.asarray(prompt), jcfg)
     with torch.inference_mode():
         tlg, cache = fam.prefill(tp, {"tokens": torch.from_numpy(prompt)}, tcfg, 13)
     close_fp32(tlg, jlg)
@@ -261,18 +267,26 @@ def test_serve_cli_runs_zamba2_on_the_cpu(capsys):
     assert "generated (2, 4) in" in out and "tok/s on cpu" in out
 
 
-def test_train_cli_trains_zamba2_checkpoints_resumes_and_refuses_a_mesh(tmp_path, capsys):
+def test_train_cli_trains_zamba2_checkpoints_resumes_and_refuses_a_mesh(tmp_path, capfd):
     argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
             "--embedding", "qr", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
             "--log-every", "1"]
     assert t_train.main([*argv, "--steps", "2"]) == 0
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     losses = [float(x.split()[3]) for x in out.splitlines() if x.startswith("step")]
     assert len(losses) == 2 and all(np.isfinite(losses)) and "done" in out
     assert t_ckpt.latest_step(str(tmp_path)) == 2
     assert t_train.main([*argv, "--steps", "3"]) == 0
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "[resume] step 2" in out
     assert [x.split()[1] for x in out.splitlines() if x.startswith("step")] == ["3"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
-        t_train.main([*argv, "--steps", "4", "--mesh-shape", "1,2"])
+    # a mesh takes the run on from one card's checkpoint, one card from the mesh's
+    assert t_train.main([*argv, "--steps", "4", "--mesh-shape", "1,2"]) == 0
+    out = capfd.readouterr().out
+    assert "[resume] step 3" in out and "done" in out
+    assert [x.split()[1] for x in out.splitlines() if x.startswith("step")] == ["4"]
+    assert t_ckpt.latest_step(str(tmp_path)) == 4
+    assert t_train.main([*argv, "--steps", "5"]) == 0
+    out = capfd.readouterr().out
+    assert "[resume] step 4" in out
+    assert [x.split()[1] for x in out.splitlines() if x.startswith("step")] == ["5"]
