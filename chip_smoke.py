@@ -331,8 +331,9 @@ Phases, each one failing the script if it fails:
    leaf's scale of the kernels' plain versions on the card;
    ``launch.train --arch xlstm-125m --smoke --embedding qr --seq 512 --batch 4
    --steps 2 --mesh-shape 1,2``, then ``--steps 4`` on one card, which
-   prints ``[resume] step 2``; on a mesh (``ssm_mesh_section``): world 1
-   over nccl (zamba2 at 6 layers, xlstm at 4, QR, bf16: the prefill, the
+   prints ``[resume] step 2``; on a mesh (``ssm_mesh_start`` /
+   ``ssm_mesh_finish``, started once phase 17's children have and held
+   after them): world 1 over nccl (zamba2 at 6 layers, xlstm at 4, QR, bf16: the prefill, the
    cache or states, 4 greedy steps and the step-1 gradients bitwise the
    single card's), then one spawn of (1, 2) gloo ranks on the card: one
    full-width zamba2-7b mamba layer and the shared block on unit-scale
@@ -346,9 +347,7 @@ Phases, each one failing the script if it fails:
    calls, zamba2's prefill peak within 10% of the dry run's trace of that
    rank; the step-1 gradients gathered (xlstm full depth bf16 within 2x the
    single card's distance from fp32; zamba2 6 layers fp32 within 1e-5 of
-   scale, or twice fp32's own distance from fp64 where larger); then
-   ``launch.serve --arch zamba2-7b --smoke --mesh-shape 1,2`` in fp32
-   prints the one-card command's first sequence;
+   scale, or twice fp32's own distance from fp64 where larger);
    Every full-width LM cell of phases 11, 12, 14, 15 and 16 (prefill,
    decode, ``long_500k``, a training step) holds its measured peak
    (``torch.cuda.max_memory_allocated`` above the call's baseline) within
@@ -380,7 +379,28 @@ Phases, each one failing the script if it fails:
    remat ``full``: whisper at full depth, 4 sequences in 2 microbatches,
    pixtral at the depth the dry run fits, batch 1,
    2 steps each (ms a step, the split, K9's ms, peak); the step-1
-   gradients of a 2-layer cut within 2^-6 of the kernels' plain versions.
+   gradients of a 2-layer cut within 2^-6 of the kernels' plain versions;
+   on a mesh (``prefix_mesh_start`` / ``prefix_mesh_finish``, started once
+   phase 17's children have and held after them): world 1 over nccl
+   (whisper at 2 + 2 layers, pixtral at 2, QR, bf16: the prefill, the
+   cache, 4 greedy steps and the step-1 gradients bitwise the single
+   card's), then one spawn of (1, 2) gloo ranks on the card: whisper at
+   full width and depth (2 x (1,536 frames + 1,024 tokens) + 8 steps) and
+   pixtral at 4 layers (2 x (256 patches + 1,024) + 8), QR, served
+   (prefill and decode ms, the collectives by site, peak a rank), their
+   logits teacher-forced against the single card's fp32-compute logits
+   (within 2x its own bf16 distance), K9 at each kind of site (the
+   cross-attention's local q/k/v among them) and K8 held on rank (0, 0)'s
+   own calls, whisper's prefill peak within 10% of the dry run's trace of
+   that rank; the step-1 gradients gathered (whisper 4 + 4 layers fp32
+   within 1e-5 of scale or twice fp32's own distance from fp64, whisper in
+   bf16 and pixtral 2 layers within 2x the single card's distance);
+17. the launchers' drills on a mesh, each meshed run a child and the
+   children side by side: DLRM (2, 2) then (4, 1) resuming; qwen2-1.5b and
+   whisper-large-v3 smoke trained on (1, 2), then one card resuming;
+   xlstm-125m at full width on one card, (1, 2), one card; ``launch.serve
+   --mesh-shape 1,2`` in fp32 for qwen2, zamba2, whisper and pixtral smoke
+   printing the one-card command's first sequence.
 
 It prints the card's name and power limit, one ``{"serve_split": ...}``
 line per served config, one ``{"training": [...]}`` line, one
@@ -388,7 +408,8 @@ line per served config, one ``{"training": [...]}`` line, one
 ``{"mesh_training": ...}`` line, one ``{"lm_serving": ...}`` line, one
 ``{"lm_training": ...}`` line, one ``{"lm_mesh_training": ...}`` line,
 one ``{"moe": ...}`` line, one ``{"sub_quadratic": ...}`` line, one
-``{"prefix": ...}`` line, one ``{"dryrun": ...}`` line (the traces'
+``{"prefix": ...}`` line, one ``{"cli_drills": ...}`` line, one
+``{"dryrun": ...}`` line (the traces'
 seconds, every cell's peak hold), one ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with code 2 and prints no result.
 """
@@ -2967,10 +2988,13 @@ def gathered_leaves(local, specs, mesh, keep: bool, tree, SH) -> list | None:
     return out
 
 
-def leaf_errors(got: list, want: list) -> list:
-    """max |got - want| over max |want|, per leaf (both on one device)."""
-    return [float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-12)
-            for a, b in zip(got, want)]
+def leaf_errors(got: list, want: list, scale_of: list | None = None) -> list:
+    """max |got - want| over max |want|, per leaf (both on one device); with
+    ``scale_of`` over max |want[scale_of[i]]| (``key_bias_scale``'s leaf)."""
+    scales = [max(float(b.abs().max()), 1e-12) for b in want]
+    return [float((a.float() - b.float()).abs().max()) / scales[i if scale_of is None
+                                                                else scale_of[i]]
+            for i, (a, b) in enumerate(zip(got, want))]
 
 
 def mesh_train_reference(dev, arch, batch, registry, mods) -> dict:
@@ -5703,10 +5727,26 @@ LMS_WORLD1_STEPS = 4
 MOE_SERVE = (2, 1024, 8)
 
 
-def lms_prompts(cfg, batch: int, seq: int, seed: int = 11) -> torch.Tensor:
-    """The prompts of a serving hold, on the host (the same on every rank)."""
+def lms_prompts(cfg, batch: int, seq: int, seed: int = 11):
+    """The prompts of a serving hold, on the host (the same on every rank):
+    the tokens, or for a prefix model the batch with its frames or patches
+    (``lm_batch_for``)."""
     g = torch.Generator().manual_seed(seed)
+    if cfg.is_encoder_decoder or cfg.num_patches:
+        return lm_batch_for(cfg, batch, seq, g, "cpu")
     return torch.randint(0, cfg.vocab, (batch, seq), generator=g, dtype=torch.int32)
+
+
+def serve_batch(prompts, dev=None) -> dict:
+    """``lms_prompts``' prompts as a serve family's batch (on ``dev``)."""
+    batch = dict(prompts) if isinstance(prompts, dict) else {"tokens": prompts}
+    return {k: v.to(dev) for k, v in batch.items()} if dev is not None else batch
+
+
+def first_pos(batch: dict) -> int:
+    """The position of the first decode step after a prefill of ``batch``:
+    its tokens, after pixtral's patches."""
+    return batch["tokens"].shape[1] + (batch["patches"].shape[1] if "patches" in batch else 0)
 
 
 @contextlib.contextmanager
@@ -5757,19 +5797,20 @@ def lms_steps(fam, params, cfg, logits, cache, pos0: int, steps: int, *, forced=
 
 
 def lms_single(cfg, toks, steps: int, dev, fp64: bool = False) -> dict:
-    """The single card's serving of ``cfg`` (params seed 0, cast once) on
-    the prompts ``toks``: greedy in the compute dtype (every step's logits,
-    the prefill's first, and the tokens; an MoE's dropped share in the
-    prefill), then in fp32 compute teacher-forced with those tokens, and
-    with ``fp64`` in fp64 (params and compute, the kernels' entries plain:
-    ``plain_entries``); on the host."""
+    """The single card's serving of ``cfg`` (params seed 0, cast once) on the
+    prompts ``toks`` (``lms_prompts``'): greedy in the compute dtype (every
+    step's logits, the prefill's first, and the tokens; an MoE's dropped
+    share in the prefill), then in fp32 compute teacher-forced with those
+    tokens, and with ``fp64`` in fp64 (params and compute, the kernels'
+    entries plain: ``plain_entries``); on the host."""
     from repro_torch import tree
     from repro_torch.kernels import ops
     from repro_torch.train import serve_step as S
 
     fam = S.serve_family(lm_binding(cfg).kind)
     params, _ = lm_init(cfg, dev)
-    toks = toks.to(dev)
+    batch = serve_batch(toks, dev)
+    seq, pos0 = batch["tokens"].shape[1], first_pos(batch)
     out = {}
     runs = [("bf16", cfg), ("fp32", cfg.replace(compute_dtype="float32"))]
     if fp64:
@@ -5779,12 +5820,11 @@ def lms_single(cfg, toks, steps: int, dev, fp64: bool = False) -> dict:
                         c)
         with torch.inference_mode(), moe_watch(c) as watch, \
                 (plain_entries(ops) if key == "fp64" else contextlib.nullcontext()):
-            logits, cache = fam.prefill(p, {"tokens": toks}, c, toks.shape[1] + steps)
+            logits, cache = fam.prefill(p, batch, c, seq + steps)
         if cfg.num_experts and key == "bf16":
             out["dropped_share"] = moe_drops(watch)["dropped_share"]
         with plain_entries(ops) if key == "fp64" else contextlib.nullcontext():
-            run = lms_steps(fam, p, c, logits, cache, toks.shape[1], steps,
-                            forced=out.get("tokens"))
+            run = lms_steps(fam, p, c, logits, cache, pos0, steps, forced=out.get("tokens"))
         out[key] = torch.cat([logits[:, -1:].float().cpu(), run["logits"]], 1)
         out.setdefault("tokens", run["tokens"])
         del p, logits, cache
@@ -5795,7 +5835,7 @@ def lms_single(cfg, toks, steps: int, dev, fp64: bool = False) -> dict:
 
 
 def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
-             fp32: bool = False) -> dict:
+             fp32: bool = False, sites: bool = False) -> dict:
     """A rank's serving on ``mesh``: ``cfg``'s params (seed 0) placed
     (``lm_param_rules``) and cast once, its ``data`` block of
     ``serve["prompts"]``; one timed prefill (its layer-0 K9 q/k/v and K8
@@ -5807,7 +5847,11 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
     more in fp32 compute (``logits_fp32``, held in the parent to
     ``LMM_FP32_TOL``).  With ``dry_hold`` the prefill's peak above its
     baseline beside the dry run's trace of this rank on its
-    ``abstract_mesh``."""
+    ``abstract_mesh``.  With ``sites`` K9 is kept and held at the first
+    call of each kind of site (``kept_attention_sites``: a prefix model's
+    encoder, decoder and cross-attention) in place of layer 0's; the
+    prompts may carry a prefix model's frames or patches
+    (``lms_prompts``)."""
     from repro_torch import tree
     from repro_torch.data import synthetic
     from repro_torch.distributed import collectives
@@ -5818,26 +5862,35 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
 
     dev = mesh.device
     fam = S.serve_family(lm_binding(cfg).kind)
-    placed, _specs, _ = lmm_place(cfg, mesh, dev)
-    local = fam.prepare(placed, cfg)
-    if not fp32:
-        del placed
-    gc.collect()
-    torch.cuda.empty_cache()
-    prompts = synthetic.data_block({"tokens": serve["prompts"].to(dev)}, mesh)["tokens"]
+    with card_turn(mesh):
+        placed, _specs, _ = lmm_place(cfg, mesh, dev)
+        local = fam.prepare(placed, cfg)
+        if not fp32:
+            del placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    whole = serve_batch(serve["prompts"], dev)
+    batch = synthetic.data_block(whole, mesh)
     forced = synthetic.data_block({"tokens": serve["forced"]}, mesh)["tokens"]
-    b, seq = prompts.shape
+    b, seq = batch["tokens"].shape
+    pos0 = first_pos(batch)
     steps = forced.shape[1]
     max_len = seq + steps
     rec = {"coords": dict(mesh.coords), "batch": b, "seq": seq, "steps": steps}
+    keep = kept_attention_sites if sites else kept_model_path
+    # cuBLAS allocates its workspace through the caching allocator at a
+    # process's first product: a rank whose first product is the held
+    # prefill's would count it above the baseline, where no trace does
+    torch.ones((8, 8), dtype=cfg.cdtype, device=dev).matmul(
+        torch.ones((8, 8), dtype=cfg.cdtype, device=dev))
     if dry_hold:
         at = M.abstract_mesh(tuple(mesh.shape.values()), tuple(mesh.shape),
                              tuple(mesh.coords.values()))
         p_m, d_m, _ = dryrun.serve_inputs(lm_binding(cfg), cfg, "prefill",
-                                          serve["prompts"].shape[0], seq, mesh=at)
+                                          whole["tokens"].shape[0], seq, mesh=at)
         t = time.perf_counter()
         rec["dry"] = {"predicted": dry(lambda: fam.prefill(p_m, d_m, cfg, max_len, mesh=at),
-                                       lambda: kept_model_path(ops, {})),
+                                       lambda: keep(ops, {})),
                       "s": time.perf_counter() - t}
         del p_m, d_m
     reset_all(mods)
@@ -5845,10 +5898,10 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
     base = peak_base(dev)
     collectives.reset_counts()
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks, \
-            kept_model_path(ops, kept), moe_watch(cfg) as watch, torch.inference_mode(), \
+            keep(ops, kept), moe_watch(cfg) as watch, torch.inference_mode(), \
             timed_collectives(collectives) as wire:
         t = time.perf_counter()
-        logits, cache = fam.prefill(local, {"tokens": prompts}, cfg, max_len, mesh=mesh)
+        logits, cache = fam.prefill(local, batch, cfg, max_len, mesh=mesh)
         torch.cuda.synchronize()
         rec["prefill_ms"] = (time.perf_counter() - t) * 1e3
     rec["prefill_collective_ms"] = wire["ms"]
@@ -5867,11 +5920,11 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
              else tree.tree_map(lambda t: t.clone(), cache))
     collectives.reset_counts()
     with timed_collectives(collectives) as wire:
-        greedy = lms_steps(fam, local, cfg, logits, cache, seq, steps, mesh=mesh)
+        greedy = lms_steps(fam, local, cfg, logits, cache, pos0, steps, mesh=mesh)
     rec["decode_collective_ms_a_step"] = wire["ms"] / steps
     rec["decode_sites"] = {f"{k[0]}/{k[1]}": [v[0] / steps, v[1] / steps]
                            for k, v in collectives.SITES.items()}
-    run = lms_steps(fam, local, cfg, logits, cache if start is None else start, seq, steps,
+    run = lms_steps(fam, local, cfg, logits, cache if start is None else start, pos0, steps,
                     forced=forced, mesh=mesh)
     rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     rec["decode_ms_a_step"] = float(np.mean(greedy["step_ms"]))
@@ -5884,17 +5937,18 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
         local = fam.prepare(placed, c32)
         del placed
         with torch.inference_mode():
-            logits, cache = fam.prefill(local, {"tokens": prompts}, c32, max_len, mesh=mesh)
-        run = lms_steps(fam, local, c32, logits, cache, seq, steps, forced=forced, mesh=mesh)
+            logits, cache = fam.prefill(local, batch, c32, max_len, mesh=mesh)
+        run = lms_steps(fam, local, c32, logits, cache, pos0, steps, forced=forced, mesh=mesh)
         rec["logits_fp32"] = torch.cat([logits[:, -1:].float().cpu(), run["logits"]], 1)
         start = None
     rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
-    rec["held"] = hold_kept(kept, f"{cfg.name} served on mesh {tuple(mesh.shape.values())} "
-                                  f"rank {tuple(mesh.coords.values())}")
+    hold = hold_sites if sites else hold_kept
+    rec["held"] = hold(kept, f"{cfg.name} served on mesh {tuple(mesh.shape.values())} "
+                             f"rank {tuple(mesh.coords.values())}")
     if "k8" in rec["held"] and not rec["held"]["k8"]["all_bitwise"]:
         raise AssertionError(f"[lm-serve] K8 on the routed streams is not bitwise the plain "
                              f"sum: {rec['held']['k8']}")
-    del kept, local, cache, logits, start
+    del kept, local, cache, logits, start, batch, whole
     gc.collect()
     torch.cuda.empty_cache()
     return rec
@@ -5989,7 +6043,8 @@ def lms_hold(ranks: list, single: dict, shape, cfg, tag: str) -> dict:
             f"its fp64 {floor32:.4g}); the mesh's fp32 from that fp64 "
             f"{rec['fp32_logits_vs_fp64']:.4g}")
     log(f"{tag} mesh {tuple(shape)} kernels vs plain on rank (0, 0)'s own calls: "
-        + held_text(rec["held"]))
+        + (sites_text if any(k.startswith("k9 ") for k in rec["held"]) else held_text)(
+            rec["held"]))
     if not (e_mesh <= bound and first_ok and (e32 is None or e32 <= bound32)):
         raise AssertionError(f"{tag} mesh {tuple(shape)} serving: {rec}")
     return rec
@@ -6020,14 +6075,13 @@ def lms_world1(cfg, params, axes, mesh, batch, steps: int = LMS_WORLD1_STEPS) ->
     fam = S.serve_family(lm_binding(cfg).kind)
     p = fam.prepare(params, cfg)
     local = SH.shard_tree(p, registry.lm_specs(cfg, p, axes, mesh), mesh)
-    toks = batch["tokens"]
+    seq = batch["tokens"].shape[1]
     runs = {}
     for key, m, q in (("single", None, p), ("mesh", mesh, local)):
         with torch.inference_mode():
-            logits, cache = fam.prefill(q, {"tokens": toks}, cfg,
-                                        toks.shape[1] + steps, mesh=m)
+            logits, cache = fam.prefill(q, batch, cfg, seq + steps, mesh=m)
         first = logits.clone()
-        run = lms_steps(fam, q, cfg, logits, cache, toks.shape[1], steps, mesh=m)
+        run = lms_steps(fam, q, cfg, logits, cache, first_pos(batch), steps, mesh=m)
         runs[key] = (first, cache, run)
     (f1, c1, r1), (f2, c2, r2) = runs["single"], runs["mesh"]
     bitwise = {"prefill_logits": torch.equal(f1, f2),
@@ -7366,22 +7420,75 @@ def plain_entries(ops):
 
 
 def ssm_mesh_train(mesh, mods) -> dict | None:
-    """The ranks' training, each with the QR vocabulary on
-    ``SSM_MESH_TRAIN``'s batch (the same on every rank): xlstm-125m at full
-    depth in bf16 and in fp32 compute, zamba2-7b at ``SSM_GRAD_DEPTH`` in
-    fp32 compute.  Each run's step-1 loss and gradients of the meshed loss
-    (``make_train_step``'s, under the rules), gathered whole and timed
-    (host clock); then the rank at coordinates 0 takes the single card's
-    gradients from the same params and tokens, unplaced, in fp32 compute
-    (and in bf16 where the mesh ran it): each leaf's distance of its scale.
-    fp32 is held to ``LMM_FP32_TOL``, or for a leaf that fp32 itself moves
-    further from the fp64 gradient (``plain_entries``), to twice that
-    distance; xlstm's worst leaf to twice fp32's worst distance from fp64
-    over the leaves (its recurrences scatter one rounding to 1e-2 of a
-    leaf's scale, so one leaf's fp32 distance is one sample of it, and the
-    bound pools them as the bf16 rule does); bf16 to ``LMM_BF16_FACTOR`` x
-    the single card's own distance from its fp32.  Returns that rank's
-    records (keyed ``arch`` and ``arch fp32``), None on the others."""
+    """``mesh_train_holds`` of the sub-quadratic models on ``SSM_MESH_TRAIN``'s
+    batch: xlstm-125m at full depth in bf16 and in fp32 compute, zamba2-7b
+    at ``SSM_GRAD_DEPTH`` in fp32 compute."""
+    return mesh_train_holds(mesh, mods, SSM_MESH_TRAIN, (
+        ("xlstm-125m", {}, ("bfloat16", "float32")),
+        ("zamba2-7b", dict(num_layers=SSM_GRAD_DEPTH["zamba2-7b"]), ("float32",))))
+
+
+# the lock that ``card_turn`` gives one holder at a time
+CARD_TURN = ROOT / "build" / "card_turn.lock"
+
+
+@contextlib.contextmanager
+def card_turn(mesh=None):
+    """While open, ``mesh``'s ranks (or, with no mesh, this process) hold
+    the card's turn for a stage that needs a large share of its memory: a
+    rank's draw of the whole fp32 tree (``lms_rank``), the full-width layer
+    hold, the step-1 gradients (``mesh_train_holds``: the rank at
+    coordinates 0 holds the whole tree several times over, its gradients
+    gathered, the single card's and the fp64 ones), the single card's
+    references in this process.  Phases 15's and 16's meshed sections run
+    beside each other and beside phase 17's children, some twenty
+    processes on one card, and two such stages at once do not fit it; with
+    the turn they run one after the other while the rest overlaps.  The
+    rank at coordinates 0 takes an exclusive lock on ``CARD_TURN`` and the
+    other ranks wait for it at a barrier: were every rank to take the lock,
+    each mesh could hold it on one rank and wait for it in a collective on
+    another.  Yields ``{"wait_s": ...}``."""
+    import fcntl
+
+    import torch.distributed as dist
+
+    t = time.perf_counter()
+    held = None
+    if mesh is None or not any(mesh.coords.values()):
+        CARD_TURN.parent.mkdir(parents=True, exist_ok=True)
+        held = open(CARD_TURN, "w")
+        fcntl.flock(held, fcntl.LOCK_EX)
+    try:
+        if mesh is not None:
+            dist.barrier()
+        yield {"wait_s": time.perf_counter() - t}
+    finally:
+        if held is not None:
+            held.close()
+
+
+def mesh_train_holds(mesh, mods, shape: tuple, runs) -> dict | None:
+    """The ranks' training, each with the QR vocabulary on ``shape``'s batch
+    (sequences, tokens; the same on every rank, a prefix model's frames or
+    patches with it, ``lm_batch_for``), for each ``(arch, cut, computes)``
+    of ``runs``: ``arch`` at full width, ``cut`` (a config's fields), in
+    each compute dtype of ``computes``. Each run's step-1 loss and gradients
+    of the meshed loss (``make_train_step``'s, under the rules), gathered
+    whole and timed (host clock); then the rank at coordinates 0 takes the
+    single card's gradients from the same params and tokens, unplaced, in
+    fp32 compute (and in bf16 where the mesh ran it): each leaf's distance
+    of its scale. fp32 is held to ``LMM_FP32_TOL``, or for a leaf that fp32
+    itself moves further from the fp64 gradient (``plain_entries``), to
+    twice that distance; xlstm's worst leaf to twice fp32's worst distance
+    from fp64 over the leaves (its recurrences scatter one rounding to 1e-2
+    of a leaf's scale, so one leaf's fp32 distance is one sample of it, and
+    the bound pools them as the bf16 rule does); bf16 to ``LMM_BF16_FACTOR``
+    x the single card's own distance from its fp32. Returns that rank's
+    records (keyed ``arch`` and ``arch fp32``, each with that rank's peak
+    and the seconds the ranks waited for the card), None on the others. A
+    whisper key projection's bias is held to its weight's scale
+    (``key_bias_scale``). The runs hold the card's training turn
+    (``card_turn``)."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.distributed import collectives
@@ -7391,89 +7498,93 @@ def ssm_mesh_train(mesh, mods) -> dict | None:
 
     dev = mesh.device
     writer = not any(mesh.coords.values())
-    b, seq = SSM_MESH_TRAIN
+    b, seq = shape
     out = {}
-    for arch, kw, computes in (
-            ("xlstm-125m", {}, ("bfloat16", "float32")),
-            ("zamba2-7b", dict(num_layers=SSM_GRAD_DEPTH["zamba2-7b"]), ("float32",))):
-        base = ssm_mesh_cfg(arch, **kw)
-        binding = lm_binding(base)
-        params, axes = lm_init(base, dev)
-        specs = registry.lm_specs(base, params, axes, mesh)
-        local = SH.shard_tree(params, specs, mesh)
-        if not writer:
-            del params
-        batch = lmm_tokens(base, b, seq, dev, seed=17)
-        single = {}
-        for compute in computes:
-            cfg = base.replace(compute_dtype=compute)
-            key = arch if compute == "bfloat16" else f"{arch} fp32"
-            fn = registry.train_loss_fn(binding, cfg)
-
-            def meshed(p, bb):
-                with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                    return fn(p, bb)
-
-            reset_all(mods)
-            collectives.reset_counts()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            loss, _, grads = TS.value_and_grad(meshed, local, batch)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t) * 1e3
-            sites = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
-            launches = {k: v for k, v in launches_now(mods).items() if v}
-            got = [SH.gather(g, sp, mesh) for g, sp in zip(tree.leaves(grads), specs)]
-            del grads
+    with card_turn(mesh) as turn:
+        for arch, kw, computes in runs:
+            base = ssm_mesh_cfg(arch, **kw)
+            binding = lm_binding(base)
+            params, axes = lm_init(base, dev)
+            specs = registry.lm_specs(base, params, axes, mesh)
+            local = SH.shard_tree(params, specs, mesh)
             if not writer:
+                del params
+            batch = lm_batch_for(base, b, seq, torch.Generator(device=dev).manual_seed(17), dev)
+            single = {}
+            for compute in computes:
+                cfg = base.replace(compute_dtype=compute)
+                key = arch if compute == "bfloat16" else f"{arch} fp32"
+                fn = registry.train_loss_fn(binding, cfg)
+
+                def meshed(p, bb):
+                    with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                        return fn(p, bb)
+
+                reset_all(mods)
+                collectives.reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t = time.perf_counter()
+                loss, _, grads = TS.value_and_grad(meshed, local, batch)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                sites = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
+                launches = {k: v for k, v in launches_now(mods).items() if v}
+                got = [SH.gather(g, sp, mesh) for g, sp in zip(tree.leaves(grads), specs)]
+                del grads
+                if not writer:
+                    del got
+                    out[key] = {"launches": launches}
+                    continue
+                paths = [p for p, _ in tree.leaves_with_paths(params)]
+                scale_of = ([paths.index(key_bias_scale(p)) for p in paths]
+                            if base.is_encoder_decoder else None)
+                for k in {compute, "float32"} - set(single):
+                    l1, _, g1 = TS.value_and_grad(
+                        registry.train_loss_fn(binding, base.replace(compute_dtype=k)), params,
+                        batch)
+                    single[k] = (float(l1), tree.leaves(g1))
+                e_mesh = leaf_errors(got, single["float32"][1], scale_of)
+                e_single = leaf_errors(single[compute][1], single["float32"][1], scale_of)
+                worst = lambda e: (max(e), paths[int(np.argmax(e))])
+                rec = {"layers": cfg.num_layers, "compute": compute, "batch": b, "seq": seq,
+                       "loss": float(loss), "loss_single_card": single[compute][0], "ms": ms,
+                       "sites": sites, "launches": launches, "mesh_vs_fp32": worst(e_mesh),
+                       "single_card_vs_fp32": worst(e_single)}
+                if compute == "float32":
+                    # a leaf that fp32 itself moves further than LMM_FP32_TOL
+                    # from the fp64 gradient (zamba2's A_log through the
+                    # collapsed hidden state, ROADMAP.md §3) is held to twice
+                    # that distance: two fp32 sums, each that far from the
+                    # exact one (the ``[ssm-ref]`` rule, ``fp32_floor``)
+                    c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+                    p64 = tree.tree_map(lambda a: a.double(), params)
+                    with plain_entries(ops):
+                        g64 = tree.leaves(TS.value_and_grad(registry.train_loss_fn(binding, c64),
+                                                            p64, batch)[2])
+                    floor = leaf_errors(single["float32"][1], g64, scale_of)
+                    del p64, g64
+                    pooled = [max(floor)] * len(floor) if arch == "xlstm-125m" else floor
+                    bounds = [max(LMM_FP32_TOL, 2 * f) for f in pooled]
+                    over = [e / t for e, t in zip(e_mesh, bounds)]
+                    k = int(np.argmax(over))
+                    rec["fp32_floor"] = worst(floor)
+                    rec["tolerance"] = LMM_FP32_TOL
+                    rec["worst_of_its_bound"] = (over[k], paths[k], bounds[k])
+                    rec["floor_pooled"] = pooled is not floor
+                    rec["ok"] = max(over) <= 1.0
+                else:
+                    rec["tolerance"] = LMM_BF16_FACTOR * max(e_single)
+                    rec["ok"] = max(e_mesh) <= rec["tolerance"]
+                rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+                rec["turn_wait_s"] = turn["wait_s"]
+                out[key] = rec
                 del got
-                out[key] = {"launches": launches}
-                continue
-            paths = [p for p, _ in tree.leaves_with_paths(params)]
-            for k in {compute, "float32"} - set(single):
-                l1, _, g1 = TS.value_and_grad(
-                    registry.train_loss_fn(binding, base.replace(compute_dtype=k)), params,
-                    batch)
-                single[k] = (float(l1), tree.leaves(g1))
-            e_mesh = leaf_errors(got, single["float32"][1])
-            e_single = leaf_errors(single[compute][1], single["float32"][1])
-            worst = lambda e: (max(e), paths[int(np.argmax(e))])
-            rec = {"layers": cfg.num_layers, "compute": compute, "batch": b, "seq": seq,
-                   "loss": float(loss), "loss_single_card": single[compute][0], "ms": ms,
-                   "sites": sites, "launches": launches, "mesh_vs_fp32": worst(e_mesh),
-                   "single_card_vs_fp32": worst(e_single)}
-            if compute == "float32":
-                # a leaf that fp32 itself moves further than LMM_FP32_TOL
-                # from the fp64 gradient (zamba2's A_log through the
-                # collapsed hidden state, ROADMAP.md §3) is held to twice
-                # that distance: two fp32 sums, each that far from the
-                # exact one (the ``[ssm-ref]`` rule, ``fp32_floor``)
-                c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
-                p64 = tree.tree_map(lambda a: a.double(), params)
-                with plain_entries(ops):
-                    g64 = tree.leaves(TS.value_and_grad(registry.train_loss_fn(binding, c64),
-                                                        p64, batch)[2])
-                floor = leaf_errors(single["float32"][1], g64)
-                del p64, g64
-                pooled = [max(floor)] * len(floor) if arch == "xlstm-125m" else floor
-                bounds = [max(LMM_FP32_TOL, 2 * f) for f in pooled]
-                over = [e / t for e, t in zip(e_mesh, bounds)]
-                k = int(np.argmax(over))
-                rec["fp32_floor"] = worst(floor)
-                rec["tolerance"] = LMM_FP32_TOL
-                rec["worst_of_its_bound"] = (over[k], paths[k], bounds[k])
-                rec["floor_pooled"] = pooled is not floor
-                rec["ok"] = max(over) <= 1.0
-            else:
-                rec["tolerance"] = LMM_BF16_FACTOR * max(e_single)
-                rec["ok"] = max(e_mesh) <= rec["tolerance"]
-            out[key] = rec
-            del got
-        del local, single
-        if writer:
-            del params
-        gc.collect()
-        torch.cuda.empty_cache()
+            del local, single
+            if writer:
+                del params
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -7492,7 +7603,8 @@ def ssm_mesh_rank(mesh, serve: dict) -> dict:
     mods = (fa, qg)
     res = {"coords": dict(mesh.coords)}
     t = time.perf_counter()
-    res["layer_hold"] = ssm_layer_hold(mesh)
+    with card_turn(mesh):
+        res["layer_hold"] = ssm_layer_hold(mesh)
     res["layer_hold_s"] = time.perf_counter() - t
     for arch in SSM_ARCHS:
         t = time.perf_counter()
@@ -7569,18 +7681,72 @@ def ssm_mesh_world1(dev, mods, totals) -> dict:
     return rec
 
 
-def ssm_mesh_section(dev, mods, totals) -> dict:
-    """Phase 15's meshed section: world 1 over nccl in this process
-    (``ssm_mesh_world1``); the single card's serving references (greedy
-    bf16, teacher-forced fp32) of zamba2-7b at ``SSM_MESH_ZAMBA``'s depth
-    and xlstm-125m at full depth, QR; one spawn of (1, 2) gloo ranks on the
-    card (``ssm_mesh_rank``), whose records are held here: the layer hold,
-    each arch's logits against the single card's (``lms_hold``), zamba2's
-    prefill peak against the dry run's, the step-1 gradients (the serving
-    CLI drill, ``SSM_SERVE_CLI``, runs in phase 17).  The ranks' K9 and K8
-    launches add to ``totals``."""
+def ranks_in_thread(fn, shape, args, init_file: Path, name: str, *, alloc=None) -> dict:
+    """``launch.mesh.spawn(fn, shape, args=args)`` of gloo ranks on the card
+    in a thread, so that this process goes on while they run (phase 17's
+    drills); ``join_ranks`` returns their records.  With ``alloc`` the ranks
+    start with it as their ``PYTORCH_CUDA_ALLOC_CONF``: set until their
+    rendezvous file appears (the ranks have started), then restored."""
+    import threading
+
     from repro_torch.launch import mesh as M
 
+    got = {"t0": time.perf_counter()}
+    init_file.parent.mkdir(parents=True, exist_ok=True)
+    init_file.unlink(missing_ok=True)
+
+    def run():
+        try:
+            got["ranks"] = M.spawn(fn, shape, args=args, device="cuda", backend="gloo",
+                                   init_file=init_file, timeout_s=LMM_TIMEOUT_S)
+        except BaseException as e:           # raised by ``join_ranks``
+            got["error"] = e
+        got["s"] = time.perf_counter() - got["t0"]
+
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if alloc is not None:
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    got["thread"] = threading.Thread(target=run, name=name)
+    got["thread"].start()
+    if alloc is not None:
+        deadline = time.perf_counter() + 120
+        while (not init_file.exists() and got["thread"].is_alive()
+               and time.perf_counter() < deadline):
+            time.sleep(0.2)
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    return got
+
+
+def join_ranks(got: dict) -> tuple[list, float]:
+    """The records of ``ranks_in_thread``'s ranks (a rank's error raised
+    here) and their seconds from the start."""
+    got["thread"].join()
+    if "error" in got:
+        raise got["error"]
+    return got["ranks"], got["s"]
+
+
+def ssm_mesh_section(dev, mods, totals) -> dict:
+    """Phase 15's meshed section in one go: ``ssm_mesh_start`` then
+    ``ssm_mesh_finish`` (the script runs the two halves around phase 17's
+    drills instead).  The launches add to ``totals``."""
+    return ssm_mesh_finish(ssm_mesh_start(dev, mods), totals)
+
+
+def ssm_mesh_start(dev, mods) -> dict:
+    """Phase 15's meshed section, its first half: world 1 over nccl in this
+    process (``ssm_mesh_world1``); the single card's serving references
+    (greedy bf16, teacher-forced fp32) of zamba2-7b at ``SSM_MESH_ZAMBA``'s
+    depth and xlstm-125m at full depth, QR; one spawn of (1, 2) gloo ranks
+    on the card (``ssm_mesh_rank``) started in a thread
+    (``ranks_in_thread``), held by ``ssm_mesh_finish`` (the serving CLI
+    drill, ``SSM_SERVE_CLI``, runs in phase 17).  Returns the pending
+    record."""
+    totals = {}
+    reset_all(mods)
     rec = {"section_s": {}}
     t0 = time.perf_counter()
     rec["world1"] = ssm_mesh_world1(dev, mods, totals)
@@ -7601,19 +7767,24 @@ def ssm_mesh_section(dev, mods, totals) -> dict:
     log(f"[ssm-mesh] the single card's references (greedy bf16, forced fp32, xlstm's "
         f"forced fp64) in "
         f"{rec['section_s']['single_card']:.1f} s")
-    t1 = time.perf_counter()
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = LMT_ALLOCATOR
-    try:
-        ranks = M.spawn(ssm_mesh_rank, SSM_MESH_SHAPE, args=(serve,), device="cuda",
-                        backend="gloo", init_file=ROOT / "build" / "ssm_mesh" / "rdv",
-                        timeout_s=LMM_TIMEOUT_S)
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    rec["section_s"]["ranks"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = ranks_in_thread(ssm_mesh_rank, SSM_MESH_SHAPE, (serve,),
+                          ROOT / "build" / "ssm_mesh" / "rdv", "ssm-mesh-ranks",
+                          alloc=LMT_ALLOCATOR)
+    return {"rec": rec, "totals": totals, "cfgs": cfgs, "refs": refs, "got": got, "t0": t0}
+
+
+def ssm_mesh_finish(pending: dict, totals) -> dict:
+    """Phase 15's meshed section, its second half: the ranks of
+    ``ssm_mesh_start`` joined and their records held: the layer hold, each
+    arch's logits against the single card's (``lms_hold``), zamba2's prefill
+    peak against the dry run's, the step-1 gradients.  The section's and the
+    ranks' K9 and K8 launches add to ``totals``."""
+    rec, cfgs, refs = pending["rec"], pending["cfgs"], pending["refs"]
+    for k, v in pending["totals"].items():
+        totals[k] = totals.get(k, 0) + v
+    ranks, rec["section_s"]["ranks"] = join_ranks(pending["got"])
     r0 = next(r for r in ranks if not any(r["coords"].values()))
     log(f"[ssm-mesh] mesh {SSM_MESH_SHAPE}: the ranks took {rec['section_s']['ranks']:.1f} s "
         f"(on rank (0, 0): the layer hold {r0['layer_hold_s']:.1f} s, zamba2 "
@@ -7666,15 +7837,18 @@ def ssm_mesh_section(dev, mods, totals) -> dict:
             + f"), the single card in the same compute {t['single_card_vs_fp32'][0]:.3g} "
             f"({t['single_card_vs_fp32'][1]}); "
             f"loss {t['loss']:.6f} vs {t['loss_single_card']:.6f}; the meshed forward and "
-            f"backward {t['ms']:.1f} ms; collectives {t['sites']} [calls, B]")
+            f"backward {t['ms']:.1f} ms; rank (0, 0)'s peak {t['peak_gib']:.2f} GiB, the "
+            f"ranks' wait for the card {t['turn_wait_s']:.1f} s; collectives {t['sites']} "
+            f"[calls, B]")
         if not t["ok"]:
             faults.append(f"[ssm-mesh] {arch} step-1 gradients: {t}")
     if faults:
         raise AssertionError("\n".join(faults))
+    rec["section_s"]["total"] = time.perf_counter() - pending["t0"]
     return rec
 
 
-def ssm_phase(dev, by_name, mods) -> dict:
+def ssm_phase(dev, by_name, mods, mesh: bool = True) -> dict:
     """Phase 15: the sub-quadratic models served and trained, on one card
     and on a mesh.
     ``[ssm-ref]`` on the two smoke configs; zamba2-7b and xlstm-125m at full
@@ -7688,8 +7862,9 @@ def ssm_phase(dev, by_name, mods) -> dict:
     kernels' plain versions; the meshed section (``ssm_mesh_section``:
     world 1 over nccl, the full-width layer hold, both archs served and
     their step-1 gradients on (1, 2) gloo ranks; the CLI drills on a mesh
-    run in phase 17).  The phase's launches add to the ``flash_fwd``
-    and ``qr_gather`` rows.  Returns the ``{"sub_quadratic": ...}``
+    run in phase 17; without ``mesh`` the script runs the section's two
+    halves around phase 17, ``ssm_mesh_start`` / ``ssm_mesh_finish``).  The
+    phase's launches add to the ``flash_fwd`` and ``qr_gather`` rows.  Returns the ``{"sub_quadratic": ...}``
     record."""
     t0 = time.perf_counter()
     gc.collect()
@@ -7741,7 +7916,8 @@ def ssm_phase(dev, by_name, mods) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.memory._set_allocator_settings("expandable_segments:False")
-    section("mesh", lambda: ssm_mesh_section(dev, mods, totals))
+    if mesh:
+        section("mesh", lambda: ssm_mesh_section(dev, mods, totals))
     record["launches"] = totals
     for name in ("flash_fwd", "qr_gather"):
         by_name[name]["launches"] += totals.get(name, 0)
@@ -8309,6 +8485,234 @@ def prefix_phase(dev, by_name, mods) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16's meshed section: whisper and pixtral served and trained on (1, 2)
+# gloo ranks sharing the card, beside phase 17's drills
+# ---------------------------------------------------------------------------
+
+PREFIX_MESH_SHAPE = (1, 2)
+# whisper-large-v3 with the QR vocabulary at full width and depth (32 + 32
+# layers), each sequence behind its 1,536 frames: sequences, prompt tokens,
+# greedy decode steps
+PREFIX_MESH_WHISPER = (2, 1024, 8)
+# pixtral-12b with the QR vocabulary at full width, at the depth two ranks'
+# draws fit on the one card beside phase 15's meshed ranks and phase 17's
+# children (each rank draws the whole fp32 tree, ~1.09 GB a layer and ~5.4 GB
+# for the vocabulary and the untied head, and keeps its blocks; at 8 layers
+# a rank ran out of memory there, NVIDIA H100 80GB HBM3): layers, sequences,
+# prompt tokens after the 256 patches, steps
+PREFIX_MESH_PIXTRAL = (4, 2, 1024, 8)
+# the ranks' step-1 gradients, 2 x 512 (``SSM_MESH_TRAIN``): whisper at
+# 4 + 4 layers in fp32 and bf16 compute, pixtral at 2 layers in bf16
+PREFIX_MESH_TRAIN = (("whisper-large-v3", dict(enc_layers=4, dec_layers=4, num_layers=8),
+                      ("float32", "bfloat16")),
+                     ("pixtral-12b", dict(num_layers=2), ("bfloat16",)))
+# world 1 over nccl: layers (whisper's a stack), sequences, prompt tokens,
+# decode steps
+PREFIX_WORLD1 = (2, 2, 256, 4)
+
+
+def prefix_mesh_world1(dev, mods, totals) -> dict:
+    """World 1 over nccl in this process, mesh (1, 1): whisper-large-v3 and
+    pixtral-12b at ``PREFIX_WORLD1``'s depth with the QR vocabulary, bf16:
+    the meshed prefill of its prompts (behind the frames or patches), its
+    cache and its greedy decode steps (``lms_world1``), and the step-1
+    gradients, each against the single card's from the same params and
+    batch, read for bitwise equality."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as M
+    from repro_torch.train import train_step as TS
+
+    depth, b, seq, steps = PREFIX_WORLD1
+    rdv = ROOT / "build" / "prefix_mesh" / "rdv_world1"
+    rdv.parent.mkdir(parents=True, exist_ok=True)
+    rdv.unlink(missing_ok=True)
+    log("[mesh] 1 rank, mesh (1, 1) over ('data', 'model'), backend nccl, on 1 card "
+        "(in process)")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    rec = {}
+    try:
+        mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
+        for arch in PREFIX_ARCHS:
+            cfg = with_depth(ssm_mesh_cfg(arch), depth)
+            params, axes = lm_init(cfg, dev)
+            batch = lm_batch_for(cfg, b, seq, torch.Generator(device=dev).manual_seed(19), dev)
+            take_launches(mods, totals)
+            serving = lms_world1(cfg, params, axes, mesh, batch, steps)
+            fn = registry.train_loss_fn(lm_binding(cfg), cfg)
+            specs = registry.lm_specs(cfg, params, axes, mesh)
+            local = SH.shard_tree(params, specs, mesh)
+
+            def meshed(p, bb):
+                with SH.use_rules(mesh, SH.DEFAULT_RULES):
+                    return fn(p, bb)
+
+            _, _, g_mesh = TS.value_and_grad(meshed, local, batch)
+            _, _, g_one = TS.value_and_grad(fn, params, batch)
+            torch.cuda.synchronize()
+            grads = all(torch.equal(SH.gather(a, s, mesh), w) for a, s, w in
+                        zip(tree.leaves(g_mesh), specs, tree.leaves(g_one)))
+            n = take_launches(mods, totals)
+            rec[arch] = {"layers": depth, "batch": b, "seq": seq, "steps": steps,
+                         "bitwise": {**serving["bitwise"], "step1_grads": grads},
+                         "launches": n}
+            stack = " a stack" if cfg.is_encoder_decoder else ""
+            log(f"[prefix-mesh] world 1 nccl {arch} at {depth} layers{stack}, QR, bf16, "
+                f"{b} x {seq} prompts + {steps} greedy steps and one step's gradients, the "
+                f"mesh against the single card: bitwise {rec[arch]['bitwise']}; launches {n}")
+            del params, local, g_mesh, g_one
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    if not all(all(r["bitwise"].values()) for r in rec.values()):
+        raise AssertionError(f"[prefix-mesh] world 1 nccl: {rec}")
+    return rec
+
+
+def prefix_mesh_rank(mesh, serve: dict) -> dict:
+    """Phase 16's meshed section on one rank of the (1, 2) gloo mesh on the
+    card: whisper-large-v3 at full depth and pixtral-12b at
+    ``PREFIX_MESH_PIXTRAL``'s depth served (``lms_rank``: a timed prefill
+    with K9 held at each kind of site on this rank's own calls, the cross
+    attention's local q/k/v among them, and K8 on its routed stream; greedy
+    and teacher-forced decode steps; whisper's prefill peak beside the dry
+    run's trace of this rank); the step-1 gradients (``mesh_train_holds``
+    of ``PREFIX_MESH_TRAIN``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qr_gather as qg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mods = (fa, qg)
+    res = {"coords": dict(mesh.coords)}
+    for arch in PREFIX_ARCHS:
+        t = time.perf_counter()
+        res[arch] = lms_rank(mesh, serve[arch]["cfg"], serve[arch], mods,
+                             dry_hold=arch == "whisper-large-v3", sites=True)
+        res[f"{arch}_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["train"] = mesh_train_holds(mesh, mods, SSM_MESH_TRAIN, PREFIX_MESH_TRAIN)
+    res["train_s"] = time.perf_counter() - t
+    return res
+
+
+def prefix_mesh_start(dev, mods) -> dict:
+    """Phase 16's meshed section, its first half: world 1 over nccl in this
+    process (``prefix_mesh_world1``); the single card's serving references
+    (greedy bf16, teacher-forced fp32) of whisper-large-v3 at full depth and
+    pixtral-12b at ``PREFIX_MESH_PIXTRAL``'s depth, QR; then one spawn of
+    (1, 2) gloo ranks on the card (``prefix_mesh_rank``) started in a thread
+    (``ranks_in_thread``), so that other work runs here while they do
+    (phase 17's drills: this half runs while its children start).  Returns
+    the pending record for ``prefix_mesh_finish``."""
+    t0 = time.perf_counter()
+    totals = {}
+    reset_all(mods)
+    rec = {"section_s": {}}
+    # phase 15's ranks may already run beside this process: the card's turn
+    with card_turn() as turn:
+        rec["world1"] = prefix_mesh_world1(dev, mods, totals)
+        rec["section_s"]["world1"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pl, pb, ps, psteps = PREFIX_MESH_PIXTRAL
+        cfgs = {"whisper-large-v3": (ssm_mesh_cfg("whisper-large-v3"), *PREFIX_MESH_WHISPER),
+                "pixtral-12b": (ssm_mesh_cfg("pixtral-12b", num_layers=pl), pb, ps, psteps)}
+        serve, refs = {}, {}
+        for arch, (cfg, b, seq, steps) in cfgs.items():
+            prompts = lms_prompts(cfg, b, seq)
+            refs[arch] = lms_single(cfg, prompts, steps, dev)
+            serve[arch] = {"cfg": cfg, "prompts": prompts, "forced": refs[arch]["tokens"]}
+        torch.cuda.synchronize()
+        rec["single_card_launches"] = take_launches(mods, totals)
+        rec["section_s"]["single_card"] = time.perf_counter() - t1
+        log(f"[prefix-mesh] the single card's references (greedy bf16, forced fp32) in "
+            f"{rec['section_s']['single_card']:.1f} s, after waiting {turn['wait_s']:.1f} s "
+            f"for the card")
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = ranks_in_thread(prefix_mesh_rank, PREFIX_MESH_SHAPE, (serve,),
+                          ROOT / "build" / "prefix_mesh" / "rdv", "prefix-mesh-ranks")
+    return {"rec": rec, "totals": totals, "cfgs": cfgs, "refs": refs, "got": got, "t0": t0}
+
+
+def prefix_mesh_finish(pending: dict, by_name) -> dict:
+    """Phase 16's meshed section, its second half: the ranks of
+    ``prefix_mesh_start`` joined and their records held: each arch's logits
+    against the single card's (``lms_hold``), whisper's prefill peak against
+    the dry run's, the step-1 gradients.  The section's and the ranks' K9
+    and K8 launches add to the ``flash_fwd`` and ``qr_gather`` rows.
+    Returns the section's record."""
+    rec, totals, cfgs, refs = (pending[k] for k in ("rec", "totals", "cfgs", "refs"))
+    ranks, rec["section_s"]["ranks"] = join_ranks(pending["got"])
+    r0 = next(r for r in ranks if not any(r["coords"].values()))
+    log(f"[prefix-mesh] mesh {PREFIX_MESH_SHAPE}: the ranks took "
+        f"{rec['section_s']['ranks']:.1f} s, started "
+        f"{rec['section_s']['world1'] + rec['section_s']['single_card']:.1f} s into the "
+        f"section (on rank (0, 0): whisper {r0['whisper-large-v3_s']:.1f} s, pixtral "
+        f"{r0['pixtral-12b_s']:.1f} s, training {r0['train_s']:.1f} s)")
+    for r in ranks:
+        for arch in PREFIX_ARCHS:
+            for k, v in r[arch]["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+        for t in r["train"].values():
+            for k, v in t["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    faults = []
+    rec["serving"] = {}
+    for arch in PREFIX_ARCHS:
+        cfg = cfgs[arch][0]
+        served = [r[arch] for r in ranks]
+        try:
+            srec = lms_hold(served, refs[arch], PREFIX_MESH_SHAPE, cfg, "[prefix-mesh]")
+        except AssertionError as e:
+            faults.append(str(e))
+            continue
+        if arch == "whisper-large-v3":
+            srec["peak_hold"] = lms_peak_hold(served, cfg, PREFIX_MESH_SHAPE)
+        rec["serving"][arch] = srec
+    rec["train"] = r0["train"]
+    for arch, t in rec["train"].items():
+        log(f"[prefix-mesh] {arch} mesh {PREFIX_MESH_SHAPE} step-1 gradients at {t['layers']} "
+            f"layers, {t['batch']} x {t['seq']}, {t['compute']}, gathered, vs the single card "
+            f"in fp32 compute: the mesh {t['mesh_vs_fp32'][0]:.3g} of scale (worst "
+            f"{t['mesh_vs_fp32'][1]}; held to {t['tolerance']:.3g}"
+            + (f", or twice fp32's own distance from fp64 where larger: worst "
+               f"{t['worst_of_its_bound'][0]:.3g} of its bound {t['worst_of_its_bound'][2]:.3g} "
+               f"({t['worst_of_its_bound'][1]}; fp32's own worst {t['fp32_floor'][0]:.3g}, "
+               f"{t['fp32_floor'][1]})" if "worst_of_its_bound" in t else "")
+            + f"), the single card in the same compute {t['single_card_vs_fp32'][0]:.3g} "
+            f"({t['single_card_vs_fp32'][1]}); loss {t['loss']:.6f} vs "
+            f"{t['loss_single_card']:.6f}; the meshed forward and backward {t['ms']:.1f} ms; "
+            f"rank (0, 0)'s peak {t['peak_gib']:.2f} GiB, the ranks' wait for the card "
+            f"{t['turn_wait_s']:.1f} s; "
+            f"collectives {t['sites']} [calls, B]")
+        if not t["ok"]:
+            faults.append(f"[prefix-mesh] {arch} step-1 gradients: {t}")
+    if faults:
+        raise AssertionError("\n".join(faults))
+    rec["launches"] = totals
+    for name in ("flash_fwd", "qr_gather"):
+        by_name[name]["launches"] += totals.get(name, 0)
+    rec["section_s"]["total"] = time.perf_counter() - pending["t0"]
+    log(f"[prefix-mesh] section {rec['section_s']['total']:.1f} s (world 1 "
+        f"{rec['section_s']['world1']:.1f}, the references {rec['section_s']['single_card']:.1f}, "
+        f"the ranks {rec['section_s']['ranks']:.1f}); launches {totals}")
+    return rec
+
+
+def prefix_mesh_phase(dev, by_name, mods) -> dict:
+    """Phase 16's meshed section alone: ``prefix_mesh_start`` then
+    ``prefix_mesh_finish``, nothing beside its ranks."""
+    return prefix_mesh_finish(prefix_mesh_start(dev, mods), by_name)
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the launchers' drills on a mesh, their children side by side
 # ---------------------------------------------------------------------------
 
@@ -8318,6 +8722,14 @@ LMM_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--embedding", "qr", "--batch", "2
 # qwen2's serving drill: the same first sequence on (1, 2) and on one card, fp32
 LMS_CLI = ("--arch", "qwen2-1.5b", "--smoke", "--batch", "2", "--prompt-len", "32",
            "--max-new", "8", "--compute-dtype", "float32")
+# the prefix models' serving drills: the same first sequence on (1, 2) and on
+# one card, fp32 (whisper's and pixtral's smoke configs, QR)
+PREFIX_SERVE_CLI = ("--smoke", "--embedding", "qr", "--batch", "2", "--prompt-len", "16",
+                    "--max-new", "8", "--compute-dtype", "float32")
+# whisper's training drill: (1, 2) to step 2, then one card resuming to step 4
+PREFIX_MESH_TRAIN_CLI = ("--arch", "whisper-large-v3", "--smoke", "--embedding", "qr",
+                         "--batch", "2", "--seq", "32", "--log-every", "1",
+                         "--rank-timeout", "500")
 CLI_DIR = ROOT / "build" / "cli_drills"
 CLI_LINES = ("[mesh]", "[resume]", "step", "done", "generated", "first")
 
@@ -8380,7 +8792,7 @@ def cli_main(main, argv, mods, totals) -> dict:
             "launches": take_launches(mods, totals)}
 
 
-def cli_phase(dev, by_name, mods) -> dict:
+def cli_phase(dev, by_name, mods, during=None) -> dict:
     """Phase 17: the launchers' drills on a mesh.  Each meshed run is a
     child (``python -m``; its ranks print), and the children run side by
     side: a child's time is mostly its start-up (the interpreter, its
@@ -8398,26 +8810,37 @@ def cli_phase(dev, by_name, mods) -> dict:
       then ``--mesh-shape 1,2 --steps 4``, then one card ``--steps 6``, each
       resuming from the last one's checkpoint, each one-card run two K8
       launches.
-    - ``launch.serve`` with ``LMS_CLI`` (qwen2) and ``SSM_SERVE_CLI``
-      (zamba2), fp32: ``--mesh-shape 1,2`` prints the one-card run's first
-      sequence.
+    - whisper-large-v3 (``PREFIX_MESH_TRAIN_CLI``, smoke): ``--mesh-shape
+      1,2 --steps 2``, then one card ``--steps 4``, resuming from the meshed
+      checkpoint.
+    - ``launch.serve`` with ``LMS_CLI`` (qwen2), ``SSM_SERVE_CLI`` (zamba2)
+      and ``PREFIX_SERVE_CLI`` (whisper and pixtral), fp32: ``--mesh-shape
+      1,2`` prints the one-card run's first sequence.
 
-    The in-process runs' launches add to the ``flash_fwd`` and
-    ``qr_gather`` rows.  Returns the ``{"cli_drills": ...}`` record."""
+    ``during()``, where given, runs here once the children have started,
+    before this process's own runs (phase 16's meshed section: its world 1,
+    its references and its ranks' start, ``prefix_mesh_start``), while the
+    children spend their first minute starting up.  The in-process runs'
+    launches add to the ``flash_fwd`` and ``qr_gather`` rows.  Returns the
+    ``{"cli_drills": ...}`` record."""
     from repro_torch.checkpoint import checkpointer as ckpt
     from repro_torch.launch import serve
     from repro_torch.launch import train as train_cli
 
     t0 = time.perf_counter()
     totals, rec, kids = {}, {}, []
-    dirs = {k: ROOT / "build" / k for k in ("mesh_cli_ckpt", "lm_mesh_cli", "ssm_train_cli")}
+    dirs = {k: ROOT / "build" / k for k in ("mesh_cli_ckpt", "lm_mesh_cli", "ssm_train_cli",
+                                            "prefix_mesh_cli")}
     dlrm = ["--arch", "dlrm-qr", "--batch", str(MESH_CLI_BATCH), "--ckpt-dir",
             str(dirs["mesh_cli_ckpt"]), "--log-every", "1", "--ckpt-every", "1000",
             "--rank-timeout", str(MESH_TIMEOUT_S - 60)]
     lm = [*LMM_CLI, "--ckpt-dir", str(dirs["lm_mesh_cli"])]
     xl = [*SSM_TRAIN_CLI, "--ckpt-dir", str(dirs["ssm_train_cli"]), "--log-every", "1"]
+    wh = [*PREFIX_MESH_TRAIN_CLI, "--ckpt-dir", str(dirs["prefix_mesh_cli"])]
     serves = {"qwen2-1.5b": ("[lm-serve-cli]", LMS_CLI),
-              "zamba2-7b": ("[ssm-mesh-cli]", SSM_SERVE_CLI)}
+              "zamba2-7b": ("[ssm-mesh-cli]", SSM_SERVE_CLI),
+              **{a: ("[prefix-mesh-cli]", ("--arch", a, *PREFIX_SERVE_CLI))
+                 for a in PREFIX_ARCHS}}
 
     def start(tag, module, argv, timeout_s=LMM_TIMEOUT_S):
         kids.append(child_start(tag, module, argv, timeout_s))
@@ -8455,8 +8878,14 @@ def cli_phase(dev, by_name, mods) -> dict:
                       [*dlrm, "--mesh-shape", "2,2", "--steps", "2"], MESH_TIMEOUT_S)
         lm1 = start("lm_train_1x2", "repro_torch.launch.train",
                     [*lm, "--mesh-shape", "1,2", "--steps", "2"])
+        wh1 = start("whisper_train_1x2", "repro_torch.launch.train",
+                    [*wh, "--mesh-shape", "1,2", "--steps", "2"])
         meshed = {a: start(f"serve_{a}_1x2", "repro_torch.launch.serve",
                            [*cli, "--mesh-shape", "1,2"]) for a, (_, cli) in serves.items()}
+        if during is not None:
+            t1 = time.perf_counter()
+            during()
+            rec["during_s"] = time.perf_counter() - t1
         # in this process while the children start
         xl1 = here("[ssm-train-cli]", train_cli.main, [*xl, "--steps", "2"],
                    launches={"qr_gather": 2})
@@ -8481,6 +8910,16 @@ def cli_phase(dev, by_name, mods) -> dict:
         log(f"[lm-mesh-cli] (1, 2) to step 2 in {r['s']:.1f} s, then one card resumed to "
             f"step 4 in {r1['s']:.1f} s (set-up and checkpoints included); launches of the "
             f"one-card run {r1['launches']}")
+
+        r = done(wh1, "[prefix-mesh-cli]", must=("done",))
+        r1 = here("[prefix-mesh-cli]", train_cli.main, [*wh, "--steps", "4"],
+                  must=("[resume] step 2",))
+        rec["whisper-large-v3 train"] = {"argv": wh, "mesh": {"exit": 0, "s": r["s"]},
+                                         "one_card": {"exit": 0, "s": r1["s"],
+                                                      "launches": r1["launches"]}}
+        log(f"[prefix-mesh-cli] whisper-large-v3 smoke (1, 2) to step 2 in {r['s']:.1f} s, "
+            f"then one card resumed to step 4 in {r1['s']:.1f} s (set-up and checkpoints "
+            f"included); launches of the one-card run {r1['launches']}")
 
         rec["serve"] = {}
         for a, (tag, cli) in serves.items():
@@ -8532,6 +8971,83 @@ def cli_phase(dev, by_name, mods) -> dict:
     rec["phase_s"] = time.perf_counter() - t0
     log(f"[cli] phase {rec['phase_s']:.1f} s; launches {totals}")
     return rec
+
+
+@contextlib.contextmanager
+def card_memory_watch(what: str, period_ms: int = 250):
+    """While open, ``nvidia-smi`` reads the card's memory in use by every
+    process each ``period_ms`` (its own loop, one child; no CUDA call in
+    this process, where a thread's call could meet a CUDA graph's capture)
+    and a thread keeps the peak; yields a record that holds, on exit, the
+    peak and the card's total in GiB, the peak's seconds from the start and
+    the readings' count, and logs them for ``what``, also where the block
+    raised."""
+    import threading
+
+    rec = {"peak_gib": 0.0, "at_s": 0.0, "readings": 0}
+    t0 = time.perf_counter()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                            "--format=csv,noheader,nounits", "-i", "0",
+                            f"--loop-ms={period_ms}"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def watch():
+        for line in smi.stdout:
+            try:
+                used, total = (float(x) / 1024 for x in line.split(","))
+            except ValueError:
+                continue
+            rec["readings"] += 1
+            rec["total_gib"] = total
+            if used > rec["peak_gib"]:
+                rec["peak_gib"], rec["at_s"] = used, time.perf_counter() - t0
+
+    th = threading.Thread(target=watch, name="card-memory-watch", daemon=True)
+    th.start()
+    try:
+        yield rec
+    finally:
+        smi.terminate()
+        try:
+            smi.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            smi.kill()
+            smi.wait()
+        th.join(timeout=10)
+        log(f"[cli] the card's memory in use, every process together, {what}: peak "
+            f"{rec['peak_gib']:.2f} of {rec.get('total_gib', 0):.2f} GiB, {rec['at_s']:.1f} s "
+            f"in ({rec['readings']} readings)")
+
+
+def cli_and_meshed_phase(dev, by_name, mods) -> tuple:
+    """Phase 17 with phases 15's and 16's meshed sections beside it: once
+    its children have started, each section's world 1, its references and
+    its ranks' start (``ssm_mesh_start``, ``prefix_mesh_start``); the ranks
+    run beside the drills and are held after them (``ssm_mesh_finish``,
+    ``prefix_mesh_finish``; the stages that need a large share of the
+    card's memory take turns, ``card_turn``).  The card's memory in use, all
+    processes together, is watched from the start to the last hold
+    (``card_memory_watch``).  Returns the drills' record (the peak in it),
+    the two sections' records and phase 15's section's launches (added to
+    the rows here)."""
+    pending = {}
+    log(f"[cli] before the phase, this process: "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved")
+
+    def during():
+        pending["ssm"] = ssm_mesh_start(dev, mods)
+        pending["prefix"] = prefix_mesh_start(dev, mods)
+
+    with card_memory_watch("from phase 17's start to the meshed sections' holds") as card:
+        cli_drills = cli_phase(dev, by_name, mods, during=during)
+        ssm_totals = {}
+        ssm = ssm_mesh_finish(pending["ssm"], ssm_totals)
+        for name, n in ssm_totals.items():
+            by_name[name]["launches"] += n
+        prefix = prefix_mesh_finish(pending["prefix"], by_name)
+    cli_drills["card_memory"] = card
+    return cli_drills, ssm, prefix, ssm_totals
 
 
 def main() -> int:
@@ -8670,15 +9186,22 @@ def main() -> int:
     # forward at D 64, K8 for QR tokens, on one card and on the EP ranks)
     moe = moe_phase(dev, by_name, mods)
     # phase 15: the sub-quadratic models served and trained (K9 a zamba2
-    # site a forward at D 112, K8 for QR tokens)
-    sub_quadratic = ssm_phase(dev, by_name, mods)
+    # site a forward at D 112, K8 for QR tokens); its meshed section runs
+    # around phase 17, below
+    sub_quadratic = ssm_phase(dev, by_name, mods, mesh=False)
     # phase 16: the prefix models served and trained (K9 non-causal over
     # whisper's frames and across to them, causal over pixtral's patches and
     # tokens; K8 for QR tokens)
     prefix = prefix_phase(dev, by_name, mods)
     # phase 17: the launchers' drills on a mesh (K9 and K8 in the one-card
-    # runs in this process)
-    cli_drills = cli_phase(dev, by_name, mods)
+    # runs in this process), their children side by side; once they have
+    # started, phases 15's and 16's meshed sections (K9 and K8 on each
+    # (1, 2) rank's heads and shard) start their world 1, their references
+    # and their ranks, which run beside the drills and are held after them
+    cli_drills, sub_quadratic["mesh"], prefix["mesh"], mesh_totals = cli_and_meshed_phase(
+        dev, by_name, mods)
+    for name, n in mesh_totals.items():
+        sub_quadratic["launches"][name] = sub_quadratic["launches"].get(name, 0) + n
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on its path")

@@ -136,10 +136,10 @@ def init_fn(binding: ArchBinding) -> Callable:
 def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     """``loss_fn(params, batch) -> (loss, metrics)`` for this family: the
     causal LM loss on ``transformer.forward_train``, or on the logits of
-    ``forward_zamba2`` / ``forward_xlstm`` without a cache (vocab-parallel
-    on a mesh, as the transformers'), or the prefix models'
-    (``make_prefixed_lm_loss`` on whisper's or pixtral's ``forward_train``,
-    the batch's ``"frames"`` / ``"patches"`` in front; one card only)."""
+    ``forward_zamba2`` / ``forward_xlstm`` without a cache, or the prefix
+    models' (``make_prefixed_lm_loss`` on whisper's or pixtral's
+    ``forward_train``, the batch's ``"frames"`` / ``"patches"`` in front);
+    every one vocab-parallel on a mesh (``transformer.vocab_range``)."""
     from repro_torch.train import train_step as TS
 
     from repro_torch.models import transformer as T
@@ -157,11 +157,13 @@ def train_loss_fn(binding: ArchBinding, cfg: ModelConfig) -> Callable:
     if binding.kind == "whisper":
         from repro_torch.models import whisper as W
 
-        return TS.make_prefixed_lm_loss(W.forward_train, cfg, "frames")
+        return TS.make_prefixed_lm_loss(W.forward_train, cfg, "frames",
+                                        vocab_range=T.vocab_range)
     if binding.kind == "pixtral":
         from repro_torch.models import pixtral as P
 
-        return TS.make_prefixed_lm_loss(P.forward_train, cfg, "patches")
+        return TS.make_prefixed_lm_loss(P.forward_train, cfg, "patches",
+                                        vocab_range=T.vocab_range)
     return TS.make_lm_loss(T.forward_train, cfg, vocab_range=T.vocab_range)
 
 
@@ -224,10 +226,13 @@ def abstract_params(binding: ArchBinding, cfg: ModelConfig, *, mesh=None):
 
 def lm_axes(cfg: ModelConfig, axes, mesh):
     """The logical axes tree ``axes`` of an LM's params for
-    ``sharding.tree_specs`` on ``mesh``: the transformers' as they are;
-    zamba2's and xlstm's with the specs of their fused and head-split leaves
-    given outright by their model (``zamba2.mesh_axes``,
-    ``xlstm.mesh_axes``).  No ``model`` axis: as they are."""
+    ``sharding.tree_specs`` on ``mesh``: the transformers' and the prefix
+    models' as they are (whisper's stacked ``enc`` / ``dec`` layers, its
+    cross-attention ``xattn`` among them, resolve by their logical axes as
+    a transformer layer does); zamba2's and xlstm's with the specs of their
+    fused and head-split leaves given outright by their model
+    (``zamba2.mesh_axes``, ``xlstm.mesh_axes``).  No ``model`` axis: as they
+    are."""
     from repro_torch.distributed import sharding as SH
 
     mesh = SH.model_mesh(mesh)

@@ -31,15 +31,14 @@ Meshes: ``card`` is world 1, the one H100 every entry point of the port
 runs on by default; ``pod1`` / ``pod2`` are ``repro``'s (16, 16) and
 (2, 16, 16) production meshes, on which the rank at ``model`` coordinate 0
 and the last one (where the uneven vocabulary slices end) are traced and
-the larger peak is the cell's.  Only the kinds that train and serve on a
-mesh (the dense and MoE transformers, zamba2 and xlstm) run a train,
-prefill or decode cell there; the prefix models wait for
-``launch.train.MESH_WAITS``'s item.  A rank holds its blocks of the params
+the larger peak is the cell's.  Every kind runs its train, prefill and
+decode cells there.  A rank holds its blocks of the params
 (``registry.lm_specs``; a serve cell's cast for serving), its ``data``
 block of the batch and its block of the cache (``sharding.cache_block``:
 the port's layout, whose positions stay whole where ``repro``'s split
 ``kvseq`` over ``model``; zamba2's SSM states and xlstm's mLSTM states by
-the heads the rank runs).  A serve cell whose batch the data ranks do not
+the heads the rank runs; whisper's self and cross k / v by the kv heads
+of its q heads).  A serve cell whose batch the data ranks do not
 divide (``long_500k``'s one sequence) holds it whole on every rank
 (``sharding.batch_split``), as ``repro``'s ``resolve_spec`` leaves it.
 
@@ -369,17 +368,6 @@ def cell_config(binding, *, embedding_kind=None, qr_collision=None, serve_params
     return cfg
 
 
-def mesh_status(binding, shape: ShapeConfig, mesh_name: str) -> str:
-    """``run``, or what the cell waits for on ``mesh_name``."""
-    from repro_torch.launch.train import MESH_WAITS
-
-    if mesh_name == "card":
-        return "run"
-    if binding.kind in MESH_WAITS:
-        return f"waits: {MESH_WAITS[binding.kind]}"
-    return "run"
-
-
 def _microbatches(global_batch: int, dp: int, microbatches: int) -> int:
     """``repro``'s: halve until the batch splits into whole microbatches
     that split over the data ranks."""
@@ -468,8 +456,6 @@ def lower_cell(arch_id: str, shape_name: str, *, mesh: str = "card",
            "embedding": cfg.embedding_kind,
            "variant": dict(extra_cfg or {}, serve_params=serve_params),
            "status": registry.shape_status(binding, shape)}
-    if rec["status"] == "run":
-        rec["status"] = mesh_status(binding, shape, mesh)
     if rec["status"] == "run" and seq_parallel and mesh != "card":
         rec["status"] = ("refused: --seq-parallel: the port's meshed layers split no "
                          "sequence over model")

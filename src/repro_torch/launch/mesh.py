@@ -180,15 +180,17 @@ def _result_path(init_file: str, rank: int) -> Path:
     return Path(f"{init_file}.rank{rank}.pt")
 
 
-def _rank_main(rank, fn, shape, axes, args, device_type, backend, init_file, timeout_s):
+def _rank_main(rank, fn, shape, axes, args, device_type, backend, init_file, timeout_s,
+               threads):
     world = math.prod(shape)
     if device_type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     else:
         dev = torch.device("cpu")
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        # the ranks share the parent's intra-op threads (the host's cores
+        # unless the caller asked for fewer)
+        torch.set_num_threads(max(1, threads // world))
     dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     try:
@@ -243,7 +245,7 @@ def spawn(fn: Callable, shape: tuple[int, ...], *, axes: tuple[str, ...] = ("dat
         path.unlink(missing_ok=True)
     ctx = mp.start_processes(
         _rank_main, args=(fn, tuple(shape), tuple(axes), tuple(args), dev_type, backend,
-                          init_file, timeout_s),
+                          init_file, timeout_s, torch.get_num_threads()),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout_s
 

@@ -18,18 +18,21 @@ CPU).  Each rank draws the params from the seed, casts them once
 (``ServeFamily.prepare``) and keeps its blocks (``registry.lm_specs``:
 whole heads, ``d_ff``, the vocabulary and an MoE's experts split over
 ``model``; zamba2's mamba layers by SSM head, xlstm's blocks by head or
-FFN unit), takes its ``data`` block of the batch and runs
-``greedy_generate`` on it; the rank at coordinates 0 prints the tokens of
-every ``data`` block, gathered.  The transformers, zamba2 and xlstm serve
-on a mesh; the prefix models are refused before any rank starts
-(``launch.train.MESH_WAITS``).  ``--compute-dtype float32`` serves in fp32
-compute, where a mesh gives the one card's tokens:
+FFN unit; whisper's encoder and decoder layers by head and ``d_ff``),
+takes its ``data`` block of the batch (whisper's frames, pixtral's patches
+with it) and runs ``greedy_generate`` on it; the rank at coordinates 0
+prints the tokens of every ``data`` block, gathered.  Every arch serves on
+a mesh.  ``--compute-dtype float32`` serves in fp32 compute, where a mesh
+gives the one card's tokens:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
         --device cpu --mesh-shape 1,2 --batch 2 --prompt-len 32 --max-new 8 \
         --compute-dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
         --device cpu --mesh-shape 1,2 --batch 2 --prompt-len 32 --max-new 8 \
         --compute-dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --smoke \
+        --device cpu --mesh-shape 1,2 --batch 2 --prompt-len 16 --max-new 8 \
+        --compute-dtype float32 --embedding qr
 
 ``repro``'s tokens/s includes its compile time.  The port has no compile
 step: its time is the host clock from the prefill's start to the last
@@ -52,7 +55,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs import registry
-from repro_torch.train.serve_step import greedy_generate, refuse_mesh, serve_family
+from repro_torch.train.serve_step import greedy_generate, serve_family
 
 
 # seconds a meshed run and each of its collectives may take
@@ -140,7 +143,6 @@ def main(argv=None) -> int:
     from repro_torch.launch.train import mesh_axes
 
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
-    refuse_mesh(registry.get(args.arch).kind, shape)           # before any rank starts
     world = math.prod(shape)
     cards = torch.cuda.device_count() if dev.type == "cuda" else 0
     backend = "nccl" if dev.type == "cuda" and world <= cards else "gloo"

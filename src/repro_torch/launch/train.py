@@ -32,16 +32,15 @@ recompute, as ``repro``'s) recomputed in the backward as the config's
   row-sharded over ``model``) runs the two-level GnR; an LM
   (``sharding.lm_param_rules``: whole heads, ``d_ff`` and the vocabulary
   split over ``model``; an MoE's experts too; zamba2's mamba layers by SSM
-  head and xlstm's blocks by head or FFN unit, ``registry.lm_axes``) runs
-  tensor-parallel (its MoE layers expert-parallel), its tokens through
-  the two-level GnR and its loss vocab-parallel.  The ranks agree on the
-  stop flag every step (a MAX all-reduce), so all of them checkpoint at
-  the same step.  whisper-large-v3 and pixtral-12b train on one card
-  only: with ``--mesh-shape`` they raise ``NotImplementedError``
-  (``MESH_WAITS``).
-  Checkpoints hold the full logical arrays, so a run resumes on another
-  mesh shape, on one card, or in ``repro`` (the elastic restart).  Only
-  the rank at coordinates 0 prints.
+  head and xlstm's blocks by head or FFN unit, ``registry.lm_axes``;
+  whisper's encoder and decoder layers, its cross-attention among them)
+  runs tensor-parallel (its MoE layers expert-parallel), its tokens through
+  the two-level GnR and its loss vocab-parallel; whisper's frames and
+  pixtral's patches split with the batch.  The ranks agree on the stop flag
+  every step (a MAX all-reduce), so all of them checkpoint at the same
+  step.  Checkpoints hold the full logical arrays, so a run resumes on
+  another mesh shape, on one card, or in ``repro`` (the elastic restart).
+  Only the rank at coordinates 0 prints.
 
 Runs on the card unless ``--device cpu`` is given.
 
@@ -56,6 +55,9 @@ Runs on the card unless ``--device cpu`` is given.
         --ckpt-dir <dir>
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --smoke \\
         --device cpu --mesh-shape 1,2 --steps 2 --batch 4 --seq 32 --ckpt-dir <dir>
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-large-v3 --smoke \\
+        --device cpu --mesh-shape 1,2 --steps 2 --batch 2 --seq 16 --embedding qr \\
+        --ckpt-dir <dir>
 """
 
 from __future__ import annotations
@@ -107,31 +109,12 @@ def place(params, axes, mesh, rules):
     return SH.shard_tree(params, specs, mesh), specs, state_specs
 
 
-# the LM kinds that train and serve on one card only, and what brings their
-# mesh (``refuse_mesh`` here, ``serve_step.refuse_mesh`` for serving)
-MESH_WAITS = {kind: "ROADMAP.md §1 item 11 (the prefix models served and trained on a mesh)"
-              for kind in ("whisper", "pixtral")}
-
-
-def refuse_mesh(arch: str) -> None:
-    """Raise ``NotImplementedError`` for an arch whose kind has no meshed
-    forward yet (``MESH_WAITS``)."""
-    if arch.startswith("dlrm"):
-        return
-    kind = registry.get(arch).kind
-    if kind in MESH_WAITS:
-        raise NotImplementedError(f"--mesh-shape with {arch}: the {kind} models train on one "
-                                  f"card only; {MESH_WAITS[kind]} brings the mesh")
-
-
 def build_lm(args, dev, mesh=None):
     """-> (cfg, params, opt_state, step_fn, make_batch, state_specs) for an
     LM arch: the registry's bindings, batches of ``--seq`` tokens.  With
     ``mesh``, the params laid out by ``sharding.lm_param_rules`` (tensor
     parallel over ``model``, whole heads only; the sub-quadratic models'
     fused tensors by ``registry.lm_axes``)."""
-    if mesh is not None:
-        refuse_mesh(args.arch)
     binding = registry.get(args.arch)
     cfg = binding.smoke if args.smoke else binding.config
     if args.embedding:
@@ -288,7 +271,6 @@ def main(argv=None) -> int:
 
     from repro_torch.launch import mesh as mesh_mod
 
-    refuse_mesh(args.arch)
     shape = tuple(int(x) for x in args.mesh_shape.split(","))
     axes = mesh_axes(shape)
     world = math.prod(shape)

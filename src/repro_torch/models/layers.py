@@ -292,8 +292,13 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
     prefill's (k, v) are then the rank's local kv heads, and a decode step's
     ``cache`` is the rank's block of it (``sharding.cache_block``): row
     ``pos`` is written there and ``decode_attention`` runs on the local q
-    heads against it.  Cross-attention (``kv_src``) under tensor
-    parallelism raises (ROADMAP.md §1 item 11).
+    heads against it.  Cross-attention under tensor parallelism projects
+    the k / v of the rank's kv heads from ``kv_src`` (whole on every rank)
+    and runs K9 non-causal on them; ``kv_src``'s cotangent is then the
+    rank's heads' partial, so it must have entered through
+    ``collectives.enter`` over ``model``: the caller's, once for every
+    layer that reads it (whisper's decoder enters its encoder states ahead
+    of the stack, ``whisper._cross_src``).
     """
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim_
@@ -301,10 +306,6 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
     split = SH.head_split(cfg, mesh)
     wk, wv = p["wk"], p["wv"]
     if split is not None:
-        if kv_src is not None:
-            raise NotImplementedError("tensor-parallel cross-attention: ROADMAP.md §1 item 11 "
-                                      "(the prefix models served and trained on a mesh) "
-                                      "brings it")
         norms = {k: p[k] for k in ("q_norm", "k_norm") if k in p}
         kv = {} if split.kv_local else {"wk": wk, "wv": wv}
         x, norms, kv = _enter(mesh, x, norms, kv)

@@ -14,14 +14,13 @@ transformer's, zamba2's, whisper's and pixtral's decode write the cache in
 place, so the cache handed back is the one prefill allocated; xlstm's
 decode returns new states.
 
-On a ``mesh`` (one process a rank, ``launch.serve --mesh-shape``) the
-transformers, zamba2 and xlstm serve tensor-parallel: ``params`` are the
-rank's blocks (``registry.lm_specs``), the batch its ``data`` block, the
-cache or states its block (``sharding.cache_block``; zamba2's SSM states
-and xlstm's mLSTM states by the heads the rank runs) and the logits whole
-on every rank.  The prefix models raise ``NotImplementedError`` there,
-naming the ROADMAP item of ``launch.train.MESH_WAITS`` that brings their
-mesh.
+On a ``mesh`` (one process a rank, ``launch.serve --mesh-shape``) every
+family serves tensor-parallel: ``params`` are the rank's blocks
+(``registry.lm_specs``), the batch its ``data`` block (whisper's frames
+and pixtral's patches too), the cache or states its block
+(``sharding.cache_block``; zamba2's SSM states and xlstm's mLSTM states by
+the heads the rank runs; whisper's self and cross k / v by its kv heads)
+and the logits whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,33 +40,6 @@ class ServeFamily:
     prefill: Callable             # (params, batch, cfg, max_len, mesh=) -> (logits, cache)
     decode: Callable              # (params, cache, token, pos, cfg, mesh=) -> (logits, cache)
     prepare: Callable             # (params, cfg) -> params cast once for serving
-
-
-def refuse_mesh(kind: str, mesh) -> None:
-    """Raise ``NotImplementedError`` where ``mesh`` is given for a family
-    that serves on one card only (``launch.train.MESH_WAITS``)."""
-    from repro_torch.launch.train import MESH_WAITS
-
-    if mesh is not None and kind in MESH_WAITS:
-        raise NotImplementedError(f"the {kind} models on a mesh: {MESH_WAITS[kind]} brings it")
-
-
-def _one_card(kind: str, make_cache, prefill, decode, **kw) -> ServeFamily:
-    """A family that serves on one card only: its three entries refuse a
-    ``mesh`` (``refuse_mesh``)."""
-    def cache(cfg, b, m, device=None, mesh=None):
-        refuse_mesh(kind, mesh)
-        return make_cache(cfg, b, m, device=device)
-
-    def pre(p, batch, cfg, m, mesh=None):
-        refuse_mesh(kind, mesh)
-        return prefill(p, batch, cfg, m)
-
-    def dec(p, c, tok, pos, cfg, mesh=None):
-        refuse_mesh(kind, mesh)
-        return decode(p, c, tok, pos, cfg)
-
-    return ServeFamily(make_cache=cache, prefill=pre, decode=dec, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -155,13 +127,14 @@ def _xlstm_family() -> ServeFamily:
 def _whisper_family() -> ServeFamily:
     from repro_torch.models import whisper as W
 
-    return _one_card(
-        "whisper",
-        make_cache=lambda cfg, b, m, device=None: W.init_cache(cfg, b, m, device=device),
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None, mesh=None: W.init_cache(
+            cfg, b, m, device=device, mesh=mesh),
         cache_axes=W.cache_axes,
-        prefill=lambda p, batch, cfg, m: W.forward_prefill(p, batch["frames"], batch["tokens"],
-                                                           cfg, m),
-        decode=lambda p, c, tok, pos, cfg: W.forward_decode(p, tok, c, pos, cfg),
+        prefill=lambda p, batch, cfg, m, mesh=None: W.forward_prefill(
+            p, batch["frames"], batch["tokens"], cfg, m, mesh=mesh),
+        decode=lambda p, c, tok, pos, cfg, mesh=None: W.forward_decode(
+            p, tok, c, pos, cfg, mesh=mesh),
         prepare=W.serving_params,
     )
 
@@ -169,14 +142,14 @@ def _whisper_family() -> ServeFamily:
 def _pixtral_family() -> ServeFamily:
     from repro_torch.models import pixtral as P
 
-    return _one_card(
-        "pixtral",
-        make_cache=lambda cfg, b, m, device=None: P.init_cache(cfg, b, m + cfg.num_patches,
-                                                               device=device),
+    return ServeFamily(
+        make_cache=lambda cfg, b, m, device=None, mesh=None: P.init_cache(
+            cfg, b, m + cfg.num_patches, device=device, mesh=mesh),
         cache_axes=P.cache_axes,
-        prefill=lambda p, batch, cfg, m: P.forward_prefill(
-            p, batch["patches"], batch["tokens"], cfg, m + cfg.num_patches),
-        decode=lambda p, c, tok, pos, cfg: P.forward_decode(p, tok, c, pos, cfg),
+        prefill=lambda p, batch, cfg, m, mesh=None: P.forward_prefill(
+            p, batch["patches"], batch["tokens"], cfg, m + cfg.num_patches, mesh=mesh),
+        decode=lambda p, c, tok, pos, cfg, mesh=None: P.forward_decode(
+            p, tok, c, pos, cfg, mesh=mesh),
         prepare=P.serving_params,
     )
 

@@ -151,32 +151,40 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor, *, vocab_start: 
     return _VocabParallelLoss.apply(logits, tokens[:, 1:].long(), vocab_start, mesh, axis)
 
 
+def _lm_loss(logits, tokens, cfg, vocab_range: Callable | None):
+    """``next_token_loss`` of ``logits``: under a mesh with a ``model`` axis
+    (``sharding.model_mesh``) the logits are this rank's vocabulary slice
+    ``vocab_range(cfg, mesh) -> [lo, hi)`` (``transformer.vocab_range``)
+    and the loss is the vocab-parallel one."""
+    mesh = SH.model_mesh()
+    if mesh is not None and vocab_range is None:
+        raise ValueError("an LM loss on a mesh needs the forward's vocab_range")
+    kw = {} if mesh is None else {"mesh": mesh, "vocab_start": vocab_range(cfg, mesh)[0]}
+    return next_token_loss(logits, tokens, **kw)
+
+
 def make_lm_loss(forward_fn: Callable, cfg, *, vocab_range: Callable | None = None
                  ) -> Callable:
-    """forward_fn(params, tokens, cfg) -> logits. batch = {"tokens": (B, S)}.
-    Under a mesh with a ``model`` axis (``sharding.model_mesh``) the logits
-    are this rank's vocabulary slice ``vocab_range(cfg, mesh) -> [lo, hi)``
-    (``transformer.vocab_range``) and the loss is the vocab-parallel one."""
+    """forward_fn(params, tokens, cfg) -> logits. batch = {"tokens": (B, S)};
+    vocab-parallel on a mesh (``_lm_loss``)."""
 
     def loss_fn(params, batch):
         logits = forward_fn(params, batch["tokens"], cfg)
-        mesh = SH.model_mesh()
-        if mesh is not None and vocab_range is None:
-            raise ValueError("make_lm_loss on a mesh needs the forward's vocab_range")
-        kw = {} if mesh is None else {"mesh": mesh, "vocab_start": vocab_range(cfg, mesh)[0]}
-        loss = next_token_loss(logits, batch["tokens"], **kw)
+        loss = _lm_loss(logits, batch["tokens"], cfg, vocab_range)
         return loss, {"loss": loss}
 
     return loss_fn
 
 
-def make_prefixed_lm_loss(forward_fn: Callable, cfg, prefix_key: str) -> Callable:
+def make_prefixed_lm_loss(forward_fn: Callable, cfg, prefix_key: str, *,
+                          vocab_range: Callable | None = None) -> Callable:
     """forward_fn(params, prefix, tokens, cfg) -> logits, the prefix (whisper's
-    frames, pixtral's patches) under ``batch[prefix_key]``."""
+    frames, pixtral's patches) under ``batch[prefix_key]``; vocab-parallel
+    on a mesh, as ``make_lm_loss``."""
 
     def loss_fn(params, batch):
         logits = forward_fn(params, batch[prefix_key], batch["tokens"], cfg)
-        loss = next_token_loss(logits, batch["tokens"])
+        loss = _lm_loss(logits, batch["tokens"], cfg, vocab_range)
         return loss, {"loss": loss}
 
     return loss_fn

@@ -7,6 +7,7 @@ choice of staging width.  The kernels themselves run only on the card
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import packed_gather as pg  # noqa: E402

@@ -41,6 +41,7 @@ import time
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 

@@ -10,6 +10,7 @@ plain versions on the card in ``test_torch_gpu.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")  # the machine with the card has no jax
 
 import jax.numpy as jnp  # noqa: E402

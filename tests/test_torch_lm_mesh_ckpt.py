@@ -9,6 +9,7 @@ not stop."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")  # the machine with the card has no jax
 
 import numpy as np  # noqa: E402

@@ -12,6 +12,7 @@ import subprocess
 import sys
 
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 from repro_torch import tree
 from repro_torch.checkpoint import checkpointer as ckpt
@@ -60,7 +61,8 @@ def test_cli_trains_on_2x2_resumes_on_1x2_then_on_one_rank(tmp_path, capfd):
 
 
 def test_sigterm_to_a_meshed_lm_run_checkpoints_every_rank_and_exits_0(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the child on one intra-op thread, as this module runs (torch_one_thread)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train",
          *_argv(tmp_path, 100000, "--ckpt-every", "100000", "--mesh-shape", "1,2")],

@@ -13,12 +13,14 @@ positions (``sharding.cache_block``) and the values agree all the same.
 
 Also: world 1 is bitwise the single card; the dry run's trace on
 ``abstract_mesh((1, 2))`` counts the collectives the gloo ranks issue; the
-CLI on (1, 2) prints the one card's first sequence in fp32 compute and
-refuses the one-card kinds (the prefix models)."""
+CLI on (1, 2) prints the one card's first sequence in fp32 compute, and on
+(2, 1) data ranks serves the prefix models (each rank its sequence and its
+frames or patches) with the one card's first sequence."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")  # the machine with the card has no jax
 
 import numpy as np  # noqa: E402
@@ -44,14 +46,37 @@ def _spawn(tmp_path, fn, shape, *args):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """``repro``'s .npz and the port's ranks on each mesh of ``SHAPES``."""
-    from conftest import run_with_devices
+    """``repro``'s results and the port's ranks on each mesh of ``SHAPES``,
+    from the same params and prompts (``R.write_inputs``): each mesh's
+    ``repro`` child runs in the background while the port's ranks run."""
+    import os
+    import subprocess
+    import sys
+
+    from conftest import ROOT
 
     tmp = tmp_path_factory.mktemp("serve")
-    path = R.repro_child(run_with_devices, tmp, SHAPES)
-    ranks = {shape: _spawn(tmp_path_factory.mktemp("rdv"), R.repro_cases, shape, path)
-             for shape in SHAPES}
-    return np.load(path), ranks
+    inputs = tmp / "inputs.npz"
+    R.write_inputs(str(inputs))
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    paths = {shape: tmp / f"repro_{shape[0]}x{shape[1]}.npz" for shape in SHAPES}
+    children = {shape: subprocess.Popen(
+        [sys.executable, "-c", R.repro_child_code(inputs, paths[shape], shape)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for shape in SHAPES}
+    try:
+        ranks = {shape: _spawn(tmp_path_factory.mktemp("rdv"), R.repro_cases, shape,
+                               str(inputs)) for shape in SHAPES}
+        for shape, child in children.items():
+            _out, err = child.communicate(timeout=300)
+            assert child.returncode == 0, f"repro's child on {shape} failed:\n{err[-4000:]}"
+    finally:
+        for child in children.values():
+            child.kill()
+    ref = {}
+    for path in paths.values():
+        ref.update(np.load(path))
+    return ref, ranks
 
 
 @pytest.mark.parametrize("name", list(R.CASES))
@@ -116,6 +141,16 @@ def test_serve_cli_on_a_mesh_prints_the_one_card_tokens(capfd):
 
 
 @pytest.mark.parametrize("arch,item", [("pixtral-12b", "item 11"), ("whisper-large-v3", "item 11")])
-def test_serve_cli_refuses_the_one_card_kinds_on_a_mesh(arch, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 {item}"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--mesh-shape", "1,2"])
+def test_serve_cli_refuses_the_one_card_kinds_on_a_mesh(arch, item, capfd):
+    # the name predates ROADMAP.md §1 ``item``, which brought these kinds'
+    # mesh: on (2, 1) each data rank serves its sequence and its frames or
+    # patches, the rank at coordinates 0 printing the gathered tokens
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+            "--max-new", "4", "--compute-dtype", "float32"]
+    firsts = []
+    for extra in ([], ["--mesh-shape", "2,1"]):
+        assert serve.main(argv + extra) == 0
+        out = capfd.readouterr().out
+        firsts.append([x for x in out.splitlines() if x.startswith("first sequence:")])
+    assert len(firsts[0]) == 1 and firsts[0] == firsts[1]
+    assert "generated (2, 4) in" in out and "2 cpu ranks, mesh (2, 1)" in out

@@ -7,6 +7,7 @@ slices."""
 
 import numpy as np
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import torch_lm_mesh_ranks as R
 from repro_torch.core import qr_embedding

@@ -12,6 +12,7 @@ straddle two kv groups; qwen2-1.5b's head split at full width."""
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import torch_lm_mesh_ranks as R
 from repro_torch.core import qr_embedding as QE

@@ -10,6 +10,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 from repro_torch.examples import serve_lm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402

@@ -14,6 +14,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 from repro.checkpoint import checkpointer as j_ckpt  # noqa: E402
 from repro.launch import train as j_train  # noqa: E402
@@ -71,7 +72,8 @@ def test_cli_trains_a_qr_vocabulary_and_lowers_the_loss(tmp_path, capsys):
 
 
 def test_cli_checkpoints_and_exits_on_sigterm(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the child on one intra-op thread, as this module runs (torch_one_thread)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", *LM, "--device", "cpu", "--steps",
          "100000", "--log-every", "1", "--ckpt-dir", str(tmp_path)],

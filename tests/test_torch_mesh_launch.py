@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import test_torch_mesh_ranks as R
 from repro_torch import tree
@@ -64,7 +65,8 @@ def test_one_ranks_stop_flag_stops_every_rank_at_the_same_step(tmp_path):
 
 
 def test_sigterm_to_the_launcher_checkpoints_every_rank_and_exits_0(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the child on one intra-op thread, as this module runs (torch_one_thread)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train",
          *_argv(tmp_path, 100000, "2,2", "--ckpt-every", "100000")],

@@ -17,6 +17,7 @@ kept accesses, in their order, as bags of one.  On every rank of a 2- and a
 
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import test_torch_sharded_ranks as R
 from repro_torch.core import sharded_embedding as SE

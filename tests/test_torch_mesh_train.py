@@ -11,6 +11,7 @@ tables, and the rest of ``repro``'s ``elastic`` module is ported verbatim."""
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import test_torch_mesh_ranks as R
 from repro_torch import engine as E

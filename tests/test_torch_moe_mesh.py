@@ -14,6 +14,7 @@ within ``repro``'s bounds."""
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import torch_moe_mesh_ranks as MR
 from repro_torch.configs.base import ModelConfig

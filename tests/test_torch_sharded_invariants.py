@@ -12,6 +12,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 import test_torch_sharded_ranks as R
 from repro_torch import engine as E

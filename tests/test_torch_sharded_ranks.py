@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 from repro_torch import convert
 from repro_torch import engine as E

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import tt_gather as tg  # noqa: E402

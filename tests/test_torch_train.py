@@ -27,6 +27,7 @@ import pytest
 
 jax = pytest.importorskip("jax")  # the machine with the card has no jax
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -558,7 +559,8 @@ def test_cli_refuses_lm_archs(capsys):
 
 
 def test_cli_checkpoints_and_exits_on_sigterm(tmp_path):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the child on one intra-op thread, as this module runs (torch_one_thread)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "dlrm-qr", "--smoke",
          "--device", "cpu", "--steps", "100000", "--batch", "8", "--log-every", "1",

@@ -15,6 +15,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 jax = pytest.importorskip("jax")  # the machine with the card has no jax
 
 import jax.numpy as jnp  # noqa: E402

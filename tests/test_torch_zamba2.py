@@ -16,6 +16,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+from torch_one_thread import one_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -65,9 +65,23 @@ def serve_greedy(fam, params, tokens, cfg, steps: int, mesh=None) -> dict:
             "generated": gen.numpy(), "cache": {k: v.float().numpy() for k, v in cache.items()}}
 
 
+def write_inputs(path: str) -> None:
+    """Every case's params (the port's draw, seed 0, fp32) and prompts (a
+    numpy draw) to an .npz, which ``repro``'s children and the ranks read."""
+    out = {}
+    for name in CASES:
+        cfg = config(name)
+        params, _ = registry.init_fn(registry.get(CASES[name][0]))(cfg, seed=0, device="cpu")
+        for i, leaf in enumerate(tree.leaves(params)):
+            out[f"{name}/param/{i}"] = leaf.numpy()
+        out[f"{name}/tokens"] = np.random.default_rng(1).integers(
+            0, cfg.vocab, (BATCH, SEQ)).astype(np.int32)
+    np.savez(path, **out)
+
+
 def _from_npz(arrs, name: str, cfg) -> tuple:
     binding = registry.get(CASES[name][0])
-    like, axes = registry.init_fn(binding)(cfg, seed=0, device="cpu")
+    like, axes = registry.init_fn(binding)(cfg, seed=0, device="meta")
     n = len(tree.leaves(like))
     params = tree.unflatten(like, [torch.from_numpy(np.array(arrs[f"{name}/param/{i}"]))
                                    for i in range(n)])
@@ -75,8 +89,8 @@ def _from_npz(arrs, name: str, cfg) -> tuple:
 
 
 def repro_cases(mesh, path: str) -> dict:
-    """Every case of ``CASES`` on this rank from ``repro``'s params and
-    prompts (the child's ``.npz``): ``serve_greedy`` on the mesh, with the
+    """Every case of ``CASES`` on this rank from the params and prompts of
+    ``write_inputs``'s ``.npz``: ``serve_greedy`` on the mesh, with the
     rank's coordinates and the kv heads of its cache block."""
     arrs = np.load(path)
     out = {"coords": dict(mesh.coords)}
@@ -145,7 +159,8 @@ def serve_sites(mesh, arch: str, batch: int, seq: int) -> dict:
 # lower_cell: params by PARAM_RULES, the prompts and token by ("batch", None),
 # the cache by the family's cache_axes under DEFAULT_RULES, the logits
 # replicated; prefill and decode jitted under use_rules), greedy, fp32
-# compute, on each mesh of SHAPES; params, prompts and results to an .npz
+# compute, on one mesh, from write_inputs's params and prompts; the results
+# to an .npz
 REPRO_CHILD = r"""
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
@@ -154,18 +169,18 @@ from repro.distributed import sharding as SH
 from repro.launch.mesh import make_mesh
 from repro.train.serve_step import serve_family
 
-PATH, CASES, SHAPES = __PATH__, __CASES__, __SHAPES__
+INPUTS, PATH, CASES, SHAPES = __INPUTS__, __PATH__, __CASES__, __SHAPES__
 B, S, STEPS = __BATCH__, __SEQ__, __STEPS__
+arrs = np.load(INPUTS)
 out = {}
 for name, (arch, over) in CASES.items():
     binding = registry.get(arch)
     cfg = binding.smoke.replace(vocab=__VOCAB__, compute_dtype="float32", **over)
     fam = serve_family(binding.kind)
-    params, axes = registry.init_fn(binding)(jax.random.PRNGKey(0), cfg)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    out[f"{name}/tokens"] = toks
-    for i, leaf in enumerate(jax.tree.leaves(params)):
-        out[f"{name}/param/{i}"] = np.asarray(leaf)
+    like, axes = registry.init_fn(binding)(jax.random.PRNGKey(0), cfg)
+    leaves = [jnp.asarray(arrs[f"{name}/param/{i}"]) for i in range(len(jax.tree.leaves(like)))]
+    params = jax.tree.unflatten(jax.tree.structure(like), leaves)
+    toks = arrs[f"{name}/tokens"]
     for shape in SHAPES:
         tag = f"{name}/{shape[0]}x{shape[1]}"
         mesh = make_mesh(shape, ("data", "model"))
@@ -204,15 +219,15 @@ np.savez(PATH, **out)
 """
 
 
-def repro_child(mesh_runner, tmp_path, shapes) -> str:
-    """``REPRO_CHILD`` for every case on every mesh of ``shapes`` in one
-    child with four host devices; the path of its .npz."""
-    path = str(tmp_path / "repro_serve.npz")
-    subs = {"__PATH__": repr(path), "__CASES__": repr(CASES), "__SHAPES__": repr(list(shapes)),
+def repro_child_code(inputs: str, path: str, shape) -> str:
+    """``REPRO_CHILD`` for every case on a ``shape`` host mesh (four host
+    devices or fewer), from ``write_inputs``'s ``inputs``, its results to
+    ``path``."""
+    subs = {"__INPUTS__": repr(str(inputs)), "__PATH__": repr(str(path)),
+            "__CASES__": repr(CASES), "__SHAPES__": repr([tuple(shape)]),
             "__BATCH__": str(BATCH), "__SEQ__": str(SEQ), "__STEPS__": str(STEPS),
             "__VOCAB__": str(VOCAB)}
     code = REPRO_CHILD
     for k, v in subs.items():
         code = code.replace(k, v)
-    mesh_runner(code, n_devices=4, timeout=300)
-    return path
+    return code
