@@ -86,6 +86,13 @@ Phases, each one failing the script if it fails:
    version (bf16 by the one-rounding rule of phase 3) and timed beside its
    bound, ``scaled_dot_product_attention`` and the earlier body's time, each
    case naming its body (fp32 on the CUDA cores, bf16 on the tensor cores);
+   then K9 with ``p_bf16`` (``repro``'s bf16 probability tile) at
+   qwen2-1.5b's shape in both bodies, held against its plain version
+   ``layers.flash_attention(p_dtype=torch.bfloat16)`` over kv blocks of the
+   body's tile (``P_TILE_RULES``: fp32 to the sums' order; bf16 within a
+   rounding of each probability and of the output, and nearer the rounded
+   plain version than the unrounded one; the default body on the same
+   inputs must fail the rule) and timed beside the default body;
 7. training: 4 steps each of dlrm-qr and dlrm-tt at full width and of
    dlrm-dense at 200,000 rows per table, batch 8,192 (train_8k), through
    ``train_step.make_train_step``: finite losses and gradient norms, one
@@ -1626,6 +1633,42 @@ FLASH_CASES = [
 ]
 SDPA_CALL = ("scaled_dot_product_attention(is_causal=causal, enable_gqa=True), top-left "
              "causal")
+# K9 with ``p_bf16`` (repro's flash_block_dtype="bf16"): qwen2-1.5b's shape,
+# each body against the blockwise plain version over kv blocks of the body's
+# own tile (32 keys fp32, 64 bf16), so that both take each probability
+# against the same running max and round it once to bf16
+P_TILE_CASE = ("qwen2-1.5b p_bf16", 4, 12, 2, 4096, 4096, 128, True)
+P_TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
+P_TILE_RULES = {
+    "float32": "|out - plain| <= 1e-5 max|plain|: the fp32 sums' order",
+    "bfloat16": "|out - plain| <= 2^-8 (|plain| + plain(|v|)) + 1e-5 max|plain|: a rounding "
+                "of the output and of each probability (plain(|v|): the same weights on |v|), "
+                "and mean |out - plain| under mean |out - plain without the rounding|"}
+
+
+def p_tile_hold(out: torch.Tensor, want: torch.Tensor, unrounded: torch.Tensor,
+                weight: torch.Tensor) -> tuple[float, float]:
+    """``out`` against ``want``, the plain version with each probability
+    rounded to bf16, by ``P_TILE_RULES``: (the worst ratio of |out - want|
+    to the body's bound, mean |out - unrounded| / mean |out - want|).  An
+    fp32 ``out`` is held to ``ROUND_ATOL max|want|``: the body rounds each
+    probability where ``want`` does, its fp32 sums run in another order.  A
+    bf16 body's q.k sums run in another order too, and a probability that
+    sits by a bf16 rounding boundary rounds to the next value, a bf16 step
+    (2^-7 of it) from ``want``'s, which one rounding of the output cannot
+    cover (10.5x it at S 4,096, NVIDIA H100 80GB HBM3): its per-element
+    bound is a rounding of the output and of each probability (``weight``:
+    ``want``'s weights on |v|), which covers one such probability among
+    others, and which the default body passes as well; the second number,
+    which the rounding of the output moves alike on both sides, says which
+    version ``out`` computes: above 1 with the probabilities rounded (the
+    rule holds it above 1), below 1 without (the default body)."""
+    d = (out.float() - want).abs()
+    near = float((out.float() - unrounded).abs().mean()) / max(float(d.mean()), 1e-30)
+    atol = ROUND_ATOL * float(want.abs().max())
+    if out.dtype == torch.float32:
+        return float(d.max()) / atol, near
+    return float((d / (BF16_ULP * (want.abs() + weight) + atol)).max()), near
 
 
 def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
@@ -1648,6 +1691,14 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
             v = torch.randn((b, kh, skv, d), generator=g, device=dev).to(dtype)
             runs.append((name, dtype, causal, (q, k, v),
                          ops.flash_attention_fused(q, k, v, causal=causal)))
+    name, b, h, kh, sq, skv, d, causal = P_TILE_CASE
+    tiles = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+        k = torch.randn((b, kh, skv, d), generator=g, device=dev).to(dtype)
+        v = torch.randn((b, kh, skv, d), generator=g, device=dev).to(dtype)
+        tiles.append((name, dtype, causal, (q, k, v),
+                      ops.flash_attention_fused(q, k, v, causal=causal, p_bf16=True)))
     # one backward at qwen2's width, batch 1, seq 1,024: the recompute through
     # the blockwise plain attention against plain autograd of K9's plain version
     q, k, v = (torch.randn(s, generator=g, device=dev)
@@ -1657,9 +1708,9 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
     (ops.flash_attention_fused(*lhs, causal=True) * w).sum().backward()
     torch.cuda.synchronize()
     launches = fa.LAUNCHES["flash_fwd"]
-    if launches != len(runs) + 1:
+    if launches != len(runs) + len(tiles) + 1:
         raise AssertionError(f"flash path launched flash_fwd {launches} times, "
-                             f"not {len(runs) + 1}")
+                             f"not {len(runs) + len(tiles) + 1}")
     rhs = [t.clone().requires_grad_(True) for t in (q, k, v)]
     (ref.flash_fwd_ref(*rhs, causal=True) * w).sum().backward()
     grad_err = max(float((a.grad - b.grad).abs().max()) for a, b in zip(lhs, rhs))
@@ -1704,6 +1755,9 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
         cases.append(c)
     del runs
     torch.cuda.empty_cache()
+    tile_cases = [p_tile_case(*t, fa) for t in tiles]
+    del tiles
+    torch.cuda.empty_cache()
     main_case = cases[0]                      # qwen2-1.5b, fp32 (the Pallas body's type)
     bf16_case = cases[1]                      # qwen2-1.5b, bf16: the tensor-core body
     row = {"name": "flash_fwd", "route": "cuda",
@@ -1719,7 +1773,7 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "shape")},
            "library_call": SDPA_CALL, "dtype": main_case["dtype"], "cases": cases,
-           "backward_max_abs_err": grad_err,
+           "backward_max_abs_err": grad_err, "p_bf16": tile_cases,
            "bodies": {str(t).replace("torch.", ""): b[1] for t, b in fa.BODY.items()},
            "sass": sass["flash_attention"],
            **{f"bf16_{k}": bf16_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -1727,6 +1781,55 @@ def flash_phase(dev, ops, fa, ref, sass: dict) -> dict:
     row["kernel_ms"] = row["ms"]
     return row
 
+
+def p_tile_case(name, dtype, causal, qkv, out, fa) -> dict:
+    """K9 with ``p_bf16`` held against ``layers.flash_attention(p_dtype=
+    torch.bfloat16)`` on the inputs widened to fp32, over kv blocks of the
+    body's tile, by its body's rule (``p_tile_hold``); the default body on
+    the same inputs must fail the rule, so the hold sees the rounding.
+    Timed beside the default body, the plain version and the bound (no
+    PyTorch call rounds the probabilities, so no library time)."""
+    q, k, v = qkv
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    wide = [t.float() for t in qkv]
+
+    def plain(vv=wide[2], p_dtype=torch.bfloat16):
+        return fa.layers.flash_attention(wide[0], wide[1], vv, causal=causal,
+                                         kv_block=P_TILE_KEYS[dtype], p_dtype=p_dtype)
+
+    want, unrounded, weight = plain(), plain(p_dtype=None), plain(wide[2].abs())
+    ratio, near = p_tile_hold(out, want, unrounded, weight)
+    default = p_tile_hold(fa.flash_fwd(q, k, v, causal=causal), want, unrounded, weight)
+    err = float((out.float() - want).abs().max())
+    rule = P_TILE_RULES[str(dtype).replace("torch.", "")]
+    passes = lambda r, n: r <= 1.0 and (dtype == torch.float32 or n > 1.0)
+    if out.dtype != dtype or not passes(ratio, near) or passes(*default):
+        raise AssertionError(f"flash {name} {dtype}: max |kernel - plain| {err}, {ratio} of "
+                             f"the bound, mean distances unrounded / rounded {near} ({rule}); "
+                             f"the default body {default}")
+    del want, unrounded, weight
+    flops = flash_flops(b, h, sq, skv, d, causal)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    peak = FP32_FLOP_S if dtype == torch.float32 else BF16_FLOP_S
+    t_ops, t_bytes = flops / peak, nbytes / BW_BYTES_S
+    c = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+         "body": fa.BODY[dtype][1] + ("" if dtype == torch.float32 else ", P_hi only") +
+         ", p rounded to bf16",
+         "shape": {"B": b, "H": h, "KH": k.shape[1], "Sq": sq, "Skv": skv, "D": d},
+         "causal": causal, "max_abs_err": err, "bound_ratio": ratio,
+         "mean_unrounded_over_rounded": near, "default_body": list(default), "tolerance": rule,
+         "ms": timed(lambda: fa.flash_fwd(q, k, v, causal=causal, p_bf16=True), 5),
+         "default_ms": timed(lambda: fa.flash_fwd(q, k, v, causal=causal), 5),
+         "plain_ms": timed(plain, 2, warm=1),
+         "bound_ms": max(t_ops, t_bytes) * 1e3,
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    log(f"[flash] {name} {c['dtype']} ({c['body']}): max |kernel - plain| {err:.3e}, "
+        f"{ratio:.3f} of the bound, mean distances from the unrounded / rounded plain "
+        f"{near:.3f} ({rule}); the default body {default[0]:.3f} of the bound, {default[1]:.3f}; "
+        f"kernel {c['ms']:.4f} ms (default body {c['default_ms']:.4f} ms), plain "
+        f"{c['plain_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms ({c['bound_by']})")
+    return c
 
 # ---------------------------------------------------------------------------
 # phase 7: DLRM training at full width
@@ -3143,15 +3246,9 @@ def mesh_train_world1(dev, batch, registry, mods, ref: dict) -> tuple[dict, dict
         local = SH.shard_tree(params, specs, mesh)
         b = mesh_batches(cfg, batch, dev, synthetic)[0]
         loss_fn = train_step.make_dlrm_loss(cfg)
-
-        def meshed_loss(p, bb):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return loss_fn(p, bb)
-
         reset_all(mods)
         collectives.reset_counts()
-        loss, _m, grads = train_step.value_and_grad(meshed_loss, local, b)
-        grads, loss = train_step.data_mean(grads, loss, mesh)
+        loss, _m, grads = train_step.meshed_grads(loss_fn, local, b, mesh, specs)
         torch.cuda.synchronize()
         got = [SH.gather(g, s, mesh) for g, s in zip(tree.leaves(grads), specs)]
         want = [g.to(dev) for g in ref["grads"]]
@@ -3189,13 +3286,14 @@ def mesh_train_world1(dev, batch, registry, mods, ref: dict) -> tuple[dict, dict
     return rec, launched
 
 
-def _split_step(local, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree, SH):
-    """One meshed step (``make_train_step(mesh=)``'s, written out) cut into
-    forward, backward (the entry ops' psum inside), the data-axis gradient
-    mean and the update (the norm's psum inside).  Returns the new params,
-    state and metrics, the data-averaged gradients, and host ms of each
-    part with the card synchronised between them (gloo crosses the host)
-    and CUDA-event ms of each."""
+def _split_step(local, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree):
+    """One meshed step (``make_train_step(mesh=)``'s: ``meshed_grads`` and
+    the update) cut into forward (``meshed_loss``), backward (the entry ops'
+    psum and FSDP's reduce-scatters inside), the data-axis gradient mean
+    (``data_mean``) and the update (the norm's psum inside).  Returns the
+    new params, state and metrics, the data-averaged gradients, and host ms
+    of each part with the card synchronised between them (gloo crosses the
+    host) and CUDA-event ms of each."""
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(local)]
     live = tree.unflatten(local, leaves)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
@@ -3203,8 +3301,8 @@ def _split_step(local, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step,
     torch.cuda.synchronize()
     host.append(time.perf_counter())
     ev[0].record()
-    with torch.enable_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
-        loss, _ = loss_fn(live, b)
+    with torch.enable_grad():
+        loss, _ = train_step.meshed_loss(loss_fn, mesh, specs)(live, b)
         ev[1].record()
         torch.cuda.synchronize()
         host.append(time.perf_counter())
@@ -3212,7 +3310,8 @@ def _split_step(local, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step,
     ev[2].record()
     torch.cuda.synchronize()
     host.append(time.perf_counter())
-    grads, _loss = train_step.data_mean(tree.unflatten(local, list(grads)), loss.detach(), mesh)
+    grads, _loss = train_step.data_mean(tree.unflatten(local, list(grads)), loss.detach(), mesh,
+                                        specs)
     ev[3].record()
     torch.cuda.synchronize()
     host.append(time.perf_counter())
@@ -3330,13 +3429,7 @@ def mesh_train_rank(mesh, batch: int) -> dict:
 
         # step-1 gradients in fp32 compute, data-averaged and gathered
         fn32 = train_step.make_dlrm_loss(cfg.replace(compute_dtype="float32"))
-
-        def meshed32(p, b):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return fn32(p, b)
-
-        loss, _m, grads = train_step.value_and_grad(meshed32, local, batches[0])
-        grads, _ = train_step.data_mean(grads, loss, mesh)
+        _loss, _m, grads = train_step.meshed_grads(fn32, local, batches[0], mesh, specs)
         rec["grads32"] = gathered_leaves(grads, specs, mesh, writer, tree, SH)
         del grads
         # the pooled values the bf16 and the fp32 step's heads see, this data
@@ -3364,7 +3457,7 @@ def mesh_train_rank(mesh, batch: int) -> dict:
             t = time.perf_counter()
             if i in (0, len(batches) - 1):
                 p, state, m, grads, host, event = _split_step(
-                    p, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree, SH)
+                    p, state, b, loss_fn, opt_cfg, mesh, specs, opt, train_step, tree)
             else:
                 p, state, m = step(p, state, b)
             torch.cuda.synchronize()
@@ -4972,7 +5065,9 @@ def plain_lm_path(fa, qg, tg, ref):
     blockwise recompute, the lookups' chunked fp32 recompute)."""
     saved = {(fa, "flash_fwd"): fa.flash_fwd, (qg, "qr_gather"): qg.qr_gather,
              (tg, "tt_bag"): tg.tt_bag}
-    fa.flash_fwd = lambda q, k, v, *, causal=True: ref.flash_fwd_ref(q, k, v, causal=causal)
+    fa.flash_fwd = lambda q, k, v, *, causal=True, p_bf16=False: (
+        fa.layers.flash_attention(q, k, v, causal=causal, p_dtype=torch.bfloat16).to(q.dtype)
+        if p_bf16 else ref.flash_fwd_ref(q, k, v, causal=causal))
     qg.qr_gather = lambda q, r, qi, ri, **kw: ref.qr_lookup_ref(q, r, qi, ri)
     tg.tt_bag = lambda g1, g2, g3, i1, i2, i3, *, dims: ref.tt_bag_ref(g1, g2, g3, i1, i2, i3,
                                                                        dims=dims)
@@ -5322,7 +5417,18 @@ LMM_MICROBATCH = 1
 LMM_DENSE_LAYERS = 6
 LMM_GRAD32_LAYERS = 2      # the (2, 2) fp32 step-1 gradient check's depth
 LMM_STEPS = 2
+# the (2, 2) run's split steps after its held FSDP step (``lmm_fsdp_step``,
+# itself a timed step): one, whose gradients the bf16 check reads, to keep
+# phase 13 in the time it took before FSDP's gathers through gloo
+LMM_DP_STEPS = 1
 LMM_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=LMM_STEPS)
+# an FSDP step's loss and gradient norm (``make_train_step``'s) against the
+# single card's in the same bf16 compute on the same params and tokens,
+# relative: phase 14's bound on the meshed MoE losses (``MOE_LOSS_TOL``).
+# The norm reads a gradient that is dropped, doubled or not reduced over
+# ``data`` at the scale of its leaf.  qwen2-1.5b's loss at the cut read
+# 2.9e-06 from the single card's (NVIDIA H100 80GB HBM3, 700 W)
+LMM_LOSS_TOL = 2e-2
 # the fp32 meshed step-1 gradients against the single card's on the same
 # data partition (each data block's gradient, averaged), of each leaf's
 # scale: the tensor-parallel products sum their partials in another order
@@ -5342,6 +5448,14 @@ LMM_FP32_TOL = 1e-5
 # measured in the same run); a dropped, doubled or misplaced partial reads
 # at the scale of the leaf, as the fp32 check at 2 layers shows to 1e-5.
 LMM_BF16_FACTOR = 2.0
+# the MoE step on the (2, 2) ranks after qwen2's: granite-moe-3b-a800m at
+# full width, 2 of 32 layers, one sequence of 1,024 tokens a data rank; its
+# 40 experts split 20 a rank over ``model`` and along ``embed`` over
+# ``data`` (FSDP).  Its vocabulary is the config's dense one, as the dry
+# run's ``train_4k`` cells trace it: a meta trace cannot run the QR
+# vocabulary's routed recompute (which accesses it keeps depends on the
+# index values, ``ops._recompute``), so a QR step's peak has no trace
+LMM_MOE = ("granite-moe-3b-a800m", 2, 1, 1024)
 def lm_binding(cfg):
     """The registry's binding of ``cfg`` (a full-width config, cut or not,
     or a smoke one)."""
@@ -5410,14 +5524,8 @@ def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]
         mesh = M.make_mesh((1, 1), ("data", "model"), device=dev)
         specs = SH.tree_specs(params, axes, mesh, SH.lm_param_rules(cfg, mesh))
         local = SH.shard_tree(params, specs, mesh)
-
-        def meshed(p, bb):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return loss_fn(p, bb)
-
         collectives.reset_counts()
-        loss_m, _, g_mesh = TS.value_and_grad(meshed, local, batch)
-        g_mesh, loss_m = TS.data_mean(g_mesh, loss_m, mesh)
+        loss_m, _, g_mesh = TS.meshed_grads(loss_fn, local, batch, mesh, specs)
         sites = {f"{k[0]}/{k[1]}": v[0] for k, v in collectives.SITES.items()}
         new_m, _, m_m = TS.make_train_step(loss_fn, ocfg, mesh=mesh, specs=specs)(
             local, opt.init(local), batch)
@@ -5462,15 +5570,16 @@ def lm_mesh_world1(dev, mods, totals, arch: str = LM_MAIN, tag: str = "[lm-mesh]
     return rec
 
 
-def lmm_place(cfg, mesh, dev):
-    """``cfg``'s params (seed 0) placed on ``mesh`` (``registry.lm_specs``):
-    (this rank's blocks, their specs, the logical axes); the full tree is
-    freed."""
+def lmm_place(cfg, mesh, dev, serve: bool = False):
+    """``cfg``'s params (seed 0) placed on ``mesh`` (``registry.lm_specs``:
+    the training layout, FSDP over ``data``; with ``serve`` the serving
+    one, ``embed`` whole): (this rank's blocks, their specs, the logical
+    axes); the full tree is freed."""
     from repro_torch.configs import registry
     from repro_torch.distributed import sharding as SH
 
     params, axes = lm_init(cfg, dev)
-    specs = registry.lm_specs(cfg, params, axes, mesh)
+    specs = registry.lm_specs(cfg, params, axes, mesh, serve=serve)
     local = SH.shard_tree(params, specs, mesh)
     del params
     gc.collect()
@@ -5478,15 +5587,18 @@ def lmm_place(cfg, mesh, dev):
     return local, specs, axes
 
 
-def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
-    """``LMM_STEPS`` meshed steps on this rank's ``batch`` block, each split
+def lmm_steps(local, specs, cfg, batch, mesh, mods, steps: int = LMM_STEPS,
+              keep_grads: bool = False) -> dict:
+    """``steps`` meshed steps on this rank's ``batch`` block, each split
     into forward, backward, gradient mean and update (``_split_step``):
     host ms of each step and split, losses and norms, K9 and K8 ms a call
     (CUDA events around each ``ops`` entry) and launches, collectives and
     bytes all-reduced a step by site and axis, peak memory; the first
     step's layer-0 K9 q/k/v and K8 calls held against their plain versions
     (``hold_kept``), K8 also for bitwise equality with the plain sum in the
-    tables' dtype."""
+    tables' dtype.  With ``keep_grads``, the first step's data-averaged
+    gradients (the step-1 gradients), gathered whole on the writer (rank
+    (0, 0)) alone, on the host, under "grads" (None elsewhere)."""
     from repro_torch import tree
     from repro_torch.configs import registry
     from repro_torch.distributed import collectives
@@ -5506,18 +5618,20 @@ def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
     collectives.reset_counts()
     reset_all(mods)
     with timed_entries(ops, ("flash_attention_fused", "qr_lookup")) as marks:
-        for i in range(LMM_STEPS):
+        for i in range(steps):
             ctx = kept_model_path(ops, kept) if i == 0 else contextlib.nullcontext()
             t = time.perf_counter()
             with ctx:
                 local, state, m, grads, host, event = _split_step(
-                    local, state, batch, loss_fn, ocfg, mesh, specs, opt, TS, tree, SH)
+                    local, state, batch, loss_fn, ocfg, mesh, specs, opt, TS, tree)
             torch.cuda.synchronize()
             rec["step_ms"].append((time.perf_counter() - t) * 1e3)
             rec["losses"].append(float(m["loss"]))
             rec["norms"].append(float(m["grad_norm"]))
             rec["split_host_ms"].append(host)
             rec["split_event_ms"].append(event)
+            if i == 0:
+                first = grads if keep_grads else None
             del grads
         torch.cuda.synchronize()
         rec["k9_ms_a_call"] = event_ms(marks["flash_attention_fused"]) / max(
@@ -5525,7 +5639,7 @@ def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
         rec["k8_ms_a_call"] = (event_ms(marks["qr_lookup"]) / len(marks["qr_lookup"])
                                if marks["qr_lookup"] else None)
     rec["launches"] = {k: v for k, v in launches_now(mods).items() if v}
-    rec["sites"] = {f"{k[0]}/{k[1]}": [v[0] // LMM_STEPS, v[1] // LMM_STEPS]
+    rec["sites"] = {f"{k[0]}/{k[1]}": [v[0] // steps, v[1] // steps]
                     for k, v in collectives.SITES.items()}
     rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     rec["held"] = hold_kept(kept, f"{cfg.name} mesh {tuple(mesh.shape.values())} rank "
@@ -5533,6 +5647,15 @@ def lmm_steps(local, specs, cfg, batch, mesh, mods) -> dict:
     if "k8" in rec["held"] and not rec["held"]["k8"]["all_bitwise"]:
         raise AssertionError(f"[lm-mesh] K8 on the routed streams is not bitwise the plain "
                              f"sum: {rec['held']['k8']}")
+    if keep_grads:
+        writer = not any(mesh.coords.values())
+        rec["grads"] = [] if writer else None
+        for x, sp in zip(tree.leaves(first), specs):
+            leaf = SH.gather(x, sp, mesh)
+            if writer:
+                rec["grads"].append(leaf.cpu())
+            del leaf
+        del first
     del kept, state, local
     gc.collect()
     torch.cuda.empty_cache()
@@ -5544,11 +5667,13 @@ def lm_mesh_rank(mesh, what: str, serve: dict) -> dict:
     (1, 2) run, qwen2-1.5b at full width and depth, QR vocabulary
     ``twolevel``, remat ``full``, S 4,096, ``LMM_MICROBATCH`` sequences a
     ``data`` rank, one untimed forward and backward, then ``lmm_steps``
-    with the kernels held.  "dp": the (2, 2) run with the
-    dense vocabulary: the fp32 step-1 gradients at ``LMM_GRAD32_LAYERS``
-    layers (one sequence a ``data`` rank), the bf16 step-1 gradients at
-    ``LMM_DENSE_LAYERS``, then ``lmm_steps``.  Gradients come back gathered to the logical shapes
-    on the writer (rank (0, 0)) alone, on the host.  Then each serves
+    with the kernels held.  "dp": the (2, 2) run with the dense vocabulary,
+    FSDP over ``data``: the fp32 step-1 gradients at ``LMM_GRAD32_LAYERS``
+    layers (one sequence a ``data`` rank); at ``LMM_DENSE_LAYERS`` the held
+    ``make_train_step`` step (``lmm_fsdp_step``), then ``lmm_steps``, whose
+    first step gives the bf16 step-1 gradients; granite-moe's held step.
+    Gradients come back gathered to the logical shapes on the writer (rank
+    (0, 0)) alone, on the host.  Then each serves
     ``serve``'s prompts (``lms_rank``; the (1, 2) run with the dry run's
     peak hold)."""
     from repro_torch import tree
@@ -5570,14 +5695,8 @@ def lm_mesh_rank(mesh, what: str, serve: dict) -> dict:
     res = {"coords": dict(mesh.coords)}
 
     def grads_of(cfg, local, specs, batch) -> tuple:
-        fn = registry.train_loss_fn(binding, cfg)
-
-        def meshed(p, bb):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return fn(p, bb)
-
-        loss, _, g = TS.value_and_grad(meshed, local, batch)
-        g, loss = TS.data_mean(g, loss, mesh)
+        loss, _, g = TS.meshed_grads(registry.train_loss_fn(binding, cfg), local, batch, mesh,
+                                     specs)
         out = [] if writer else None
         for x, s in zip(tree.leaves(g), specs):
             leaf = SH.gather(x, s, mesh)
@@ -5594,9 +5713,9 @@ def lm_mesh_rank(mesh, what: str, serve: dict) -> dict:
         # one untimed forward and backward first: a fresh rank's first pass
         # (allocator growth, gloo's buffers, first calls) took 18.0 s where
         # the next step took 6.8 s (H100 80GB HBM3), and would be averaged in
-        fn = registry.train_loss_fn(binding, cfg)
+        fn = TS.meshed_loss(registry.train_loss_fn(binding, cfg), mesh, specs)
         leaves = [p.detach().requires_grad_(True) for p in tree.leaves(local)]
-        with torch.enable_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+        with torch.enable_grad():
             loss, _ = fn(tree.unflatten(local, leaves), batch)
         torch.autograd.grad(loss, leaves)
         del leaves, loss
@@ -5620,14 +5739,161 @@ def lm_mesh_rank(mesh, what: str, serve: dict) -> dict:
     cfg = full.replace(embedding_kind="dense", num_layers=LMM_DENSE_LAYERS)
     local, specs, _ = lmm_place(cfg, mesh, dev)
     batch = synthetic.data_block(lmm_tokens(cfg, data, seq, dev), mesh)
-    res["grads"], res["loss"] = grads_of(cfg, local, specs, batch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods)
+    # the held FSDP step (the program's make_train_step; its update is
+    # dropped), then the split step from the same params, whose gradients
+    # are the bf16 step-1 gradients (``LMM_DP_STEPS``)
+    res["fsdp"] = lmm_fsdp_step(local, specs, cfg, batch, mesh, writer)
+    res["steps"] = lmm_steps(local, specs, cfg, batch, mesh, mods, steps=LMM_DP_STEPS,
+                             keep_grads=True)
+    res["grads"], res["loss"] = res["steps"].pop("grads"), res["steps"]["losses"][0]
     res["layers"], res["microbatch"] = cfg.num_layers, 1
     del local, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = lm_config(LMM_MOE[0]).replace(num_layers=LMM_MOE[1])
+    local, specs, _ = lmm_place(moe, mesh, dev)
+    batch = synthetic.data_block(lmm_tokens(moe, data * LMM_MOE[2], LMM_MOE[3], dev), mesh)
+    res["moe"] = lmm_fsdp_step(local, specs, moe, batch, mesh, writer)
+    del local, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     res["serve"] = lms_rank(mesh, cfg, serve, mods)
     return res
+
+
+def lmm_fsdp_hold(ranks, shape, refs: dict) -> dict:
+    """The (2, 2) ranks' FSDP steps (``lmm_fsdp_step``: qwen2-1.5b at the
+    cut, then granite-moe), logged and held: each rank's params + AdamW
+    bytes equal to the count of the layout FSDP should give
+    (``lmm_state_bytes``' "expected": every ``embed``-split leaf a data
+    rank's share), and to the FSDP layout's own count; the collectives a
+    step by site and axis; rank (0, 0)'s peak within ``PEAK_TOL`` of the dry
+    run's trace (``record_peak``: a miss fails the script at its end); each
+    rank's loss and gradient norm within ``LMM_LOSS_TOL`` of the single
+    card's on the same params and tokens (``refs``: (loss, norm) a key)."""
+    out = {}
+    for key in ("fsdp", "moe"):
+        got = [r.pop(key) for r in ranks]
+        mine = next(g for g, r in zip(got, ranks) if not any(r["coords"].values()))
+        tag = f"{mine['arch']} {tuple(shape)} rank (0, 0) FSDP step"
+        counts = mine["state_counts"]
+        bytes_ok = all(g["state_bytes"] == counts["expected"] == counts["fsdp"] for g in got)
+        losses, norms = [g["loss"] for g in got], [g["grad_norm"] for g in got]
+        ref_loss, ref_norm = refs[key]
+        near = lambda x, want: abs(x - want) <= LMM_LOSS_TOL * abs(want)
+        refs_ok = all(near(x, ref_loss) for x in losses) and all(near(x, ref_norm)
+                                                                 for x in norms)
+        sites = {k: v for k, v in sorted(mine["sites"].items())
+                 if k.split("/")[0] in ("fsdp_gather", "fsdp_scatter", "grad_mean")}
+        log(f"[lm-mesh] {tag}: params + AdamW {mine['state_bytes'] / 2**30:.3f} GiB a rank, "
+            f"{mine['state_bytes'] / counts['tp_only']:.3f}x the tensor-parallel layout's "
+            f"{counts['tp_only'] / 2**30:.3f} GiB (expected with every embed-split leaf a data "
+            f"rank's share {counts['expected'] / 2**30:.3f} GiB, "
+            f"{counts['expected'] / counts['tp_only']:.3f}x; the FSDP specs' count "
+            f"{counts['fsdp'] / 2**30:.3f} GiB); every rank at the expected count: {bytes_ok}")
+        log(f"[lm-mesh] {tag}: collectives a step by site and axis [calls, bytes a rank]: "
+            f"{sites}; all {len(mine['sites'])} sites {mine['sites']}")
+        peak = record_peak(tag, mine["peak"], mine["predicted"],
+                           mine["reserved_over_allocated"])
+        log(f"[lm-mesh] {tag}: {mine['layers']} layers, {mine['vocab']} vocabulary, "
+            f"{mine['tokens_a_data_rank']} tokens a data rank, make_train_step "
+            f"{mine['step_ms']:.1f} ms (the trace {mine['trace_s']:.1f} s); losses {losses}, "
+            f"gradient norms {norms}; the single card's {ref_loss:.6f}, {ref_norm:.6f} (held "
+            f"to {LMM_LOSS_TOL:g} relative): {refs_ok}")
+        if not (bytes_ok and refs_ok):
+            raise AssertionError(f"[lm-mesh] {tag}: state bytes "
+                                 f"{[g['state_bytes'] for g in got]} against {counts}, losses "
+                                 f"{losses}, norms {norms} against {refs[key]}")
+        out[key] = {**{k: mine[k] for k in ("arch", "layers", "vocab", "tokens_a_data_rank",
+                                             "state_bytes", "state_counts", "step_ms",
+                                             "sites")},
+                    "peak_hold": peak, "losses": losses, "grad_norms": norms,
+                    "single_card": {"loss": ref_loss, "grad_norm": ref_norm}}
+    return out
+
+
+def lmm_state_bytes(cfg, mesh) -> dict:
+    """A rank's params + AdamW state bytes on ``mesh`` (its blocks of the
+    params in their dtype, the fp32 moments of each, the int32 step count),
+    counted on meta: "fsdp", from the training layout's specs; "tp_only",
+    from the serving layout's (tensor parallel alone, ``embed`` whole); and
+    "expected", the tensor-parallel blocks with each leaf whose logical
+    axes name ``embed`` at a dim the data ranks divide a data rank's share,
+    the MoE router (axes ending ``embed``, ``experts``) whole: what FSDP
+    over ``data`` should store, found from the logical axes alone."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as SH
+
+    params, axes = registry.abstract_params(lm_binding(cfg), cfg)
+    data = mesh.shape[SH.FSDP_AXIS]
+    one = lambda x: x.numel() * (x.element_size() + 8)
+    count = lambda xs: sum(one(x) for x in xs) + 4
+    tp = SH.shard_tree(params, registry.lm_specs(cfg, params, axes, mesh, serve=True), mesh)
+    embed = SH.tree_specs(params, axes, mesh, {"embed": (SH.FSDP_AXIS,),
+                                               SH.WHOLE: (("embed", "experts"),)})
+    split = [SH.fsdp_dim(sp, mesh) is not None for sp in embed]
+    fsdp = SH.shard_tree(params, registry.lm_specs(cfg, params, axes, mesh), mesh)
+    return {"fsdp": count(tree.leaves(fsdp)), "tp_only": count(tree.leaves(tp)),
+            "expected": sum(one(x) // (data if s else 1)
+                            for x, s in zip(tree.leaves(tp), split)) + 4}
+
+
+def lmm_fsdp_step(local, specs, cfg, batch, mesh, writer: bool) -> dict:
+    """One training step of ``cfg`` on this rank's blocks under the FSDP
+    layout, the program's ``make_train_step(mesh=, specs=)`` at microbatch
+    1 and ``LMM_OPT``: the loss and gradient norm (every rank's the
+    global batch's), the collectives by site and axis, the rank's params +
+    AdamW bytes (its tensors' storage) beside ``lmm_state_bytes``' counts,
+    and on the writer the step's peak above its baseline beside the dry
+    run's trace of this rank on ``abstract_mesh``
+    (``launch.dryrun.trace_train``, the same step on meta)."""
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as TS
+
+    dev = mesh.device
+    binding = lm_binding(cfg)
+    state = opt.init(local)
+    held = sum(x.numel() * x.element_size() for x in tree.leaves(local) + tree.leaves(state))
+    rec = {"arch": cfg.name, "layers": cfg.num_layers, "vocab": cfg.embedding_kind,
+           "tokens_a_data_rank": list(batch["tokens"].shape),
+           "state_bytes": held, "state_counts": lmm_state_bytes(cfg, mesh)}
+    step = TS.make_train_step(registry.train_loss_fn(binding, cfg), opt.OptConfig(**LMM_OPT),
+                              mesh=mesh, specs=specs)
+    if writer:
+        at = M.abstract_mesh(tuple(mesh.shape.values()), tuple(mesh.shape),
+                             tuple(mesh.coords.values()))
+        t = time.perf_counter()
+        rec["predicted"] = dryrun.trace_train(
+            binding, cfg, batch["tokens"].shape[0] * SH.data_ranks(mesh),
+            batch["tokens"].shape[1], mesh=at)["transient_peak"]
+        rec["trace_s"] = time.perf_counter() - t
+    base = peak_base(dev)
+    collectives.reset_counts()
+    t = time.perf_counter()
+    new, state, m = step(local, state, batch)
+    torch.cuda.synchronize()
+    rec["step_ms"] = (time.perf_counter() - t) * 1e3
+    rec["peak"] = torch.cuda.max_memory_allocated(dev) - base
+    rec["reserved_over_allocated"] = (torch.cuda.max_memory_reserved(dev)
+                                      / max(torch.cuda.max_memory_allocated(dev), 1))
+    rec["sites"] = {f"{k[0]}/{k[1]}": list(v) for k, v in collectives.SITES.items()}
+    rec["loss"], rec["grad_norm"] = float(m["loss"]), float(m["grad_norm"])
+    del new, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def grad_norm(leaves) -> float:
+    """The global L2 norm of a list of gradient leaves, in fp64."""
+    return float(np.sqrt(sum(float(x.double().pow(2).sum()) for x in leaves)))
 
 
 def lmm_single_grads(cfg, batch, dev, blocks: int = 1) -> tuple[list, float]:
@@ -5863,7 +6129,7 @@ def lms_rank(mesh, cfg, serve: dict, mods, *, dry_hold: bool = False,
     dev = mesh.device
     fam = S.serve_family(lm_binding(cfg).kind)
     with card_turn(mesh):
-        placed, _specs, _ = lmm_place(cfg, mesh, dev)
+        placed, _specs, _ = lmm_place(cfg, mesh, dev, serve=True)
         local = fam.prepare(placed, cfg)
         if not fp32:
             del placed
@@ -6074,7 +6340,7 @@ def lms_world1(cfg, params, axes, mesh, batch, steps: int = LMS_WORLD1_STEPS) ->
 
     fam = S.serve_family(lm_binding(cfg).kind)
     p = fam.prepare(params, cfg)
-    local = SH.shard_tree(p, registry.lm_specs(cfg, p, axes, mesh), mesh)
+    local = SH.shard_tree(p, registry.lm_specs(cfg, p, axes, mesh, serve=True), mesh)
     seq = batch["tokens"].shape[1]
     runs = {}
     for key, m, q in (("single", None, p), ("mesh", mesh, local)):
@@ -6184,6 +6450,7 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
                 got = mine.pop("grads")
                 e_single, e_mesh = leaf_errors(single, exact), leaf_errors(got, exact)
                 e_between = leaf_errors(got, single)
+                refs = {"fsdp": (loss16, grad_norm(single))}
                 del exact, single, got
                 bound = LMM_BF16_FACTOR * max(e_single)
                 worst = lambda e: (max(e), mine["paths"][int(np.argmax(e))])
@@ -6211,6 +6478,15 @@ def lm_mesh_phase(dev, by_name, mods) -> dict:
                 if not (c32["rel_err_max"] <= LMM_FP32_TOL and max(e_mesh) <= bound):
                     raise AssertionError(f"[lm-mesh] (2, 2) step-1 gradients: {checks}")
                 rec["step1_grads"] = checks
+                # granite-moe's step on one card: the same params and tokens,
+                # each data block's gradient averaged
+                moe = lm_config(LMM_MOE[0]).replace(num_layers=LMM_MOE[1])
+                g_moe, loss_moe = lmm_single_grads(
+                    moe, lmm_tokens(moe, shape[0] * LMM_MOE[2], LMM_MOE[3], dev), dev,
+                    blocks=shape[0])
+                refs["moe"] = (loss_moe, grad_norm(g_moe))
+                del g_moe
+                rec["fsdp"] = lmm_fsdp_hold(ranks, shape, refs)
             record["meshes"].append(rec)
             del ranks
             gc.collect()
@@ -6427,13 +6703,7 @@ def moe_mesh_rank(mesh, serve: dict) -> dict:
     res["local_experts"] = int(local["layers"]["moe"]["w_up"].shape[1])
     batch = synthetic.data_block(lmm_tokens(cfg32, 1, seq, dev), mesh)
     fn = registry.train_loss_fn(registry.get(MOE_MAIN), cfg32)
-
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
-    loss, _, g = TS.value_and_grad(meshed, local, batch)
-    g, loss = TS.data_mean(g, loss, mesh)
+    loss, _, g = TS.meshed_grads(fn, local, batch, mesh, specs)
     res["loss32"] = float(loss)
     grads = []
     for x, sp in zip(tree.leaves(g), specs):
@@ -6516,9 +6786,12 @@ def moe_ep_run(dev, mods, totals) -> dict:
     del got, want
     single = moe_single_steps(cfg, lmm_tokens(cfg, 1, seq, dev), dev)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], single["losses"]))
+    # the training layout: the stacks by experts over ``model``, their
+    # ``embed`` dim named ``data`` (FSDP; whole on this mesh's one data rank)
     split = "model"
     specs_ok = (mine["specs"]["layers/moe/router"] == (None, None, None) and all(
-        mine["specs"][f"layers/moe/{k}"] == (None, split, None, None)
+        mine["specs"][f"layers/moe/{k}"] == ((None, split, None, "data") if k == "w_down"
+                                             else (None, split, "data", None))
         for k in ("w_up", "w_gate", "w_down")))
     rec.update(arch=cfg.name, spawn_s=spawn_s, local_experts=mine["local_experts"],
                step1_grad_rel_err_max=max(errs), step1_grad_leaf=mine["paths"][int(np.argmax(errs))],
@@ -7362,7 +7635,8 @@ def ssm_layer_hold(mesh) -> dict | None:
     lay = MB.layout(cfg, mesh)
     my_layer = {k: SH.local_shard(v, mesh, lay[k]) for k, v in layer.items()}
     my_block = SH.shard_tree(block, SH.tree_specs(block, axes, mesh,
-                                                  SH.lm_param_rules(cfg, mesh)), mesh)
+                                                  SH.lm_param_rules(cfg, mesh, serve=True)),
+                             mesh)
     split = SH.head_split(cfg, mesh)
     kv_spec = SH.P(None, None, None, "model") if split is not None and split.kv_local else SH.P()
     specs = {"ssm_state": SH.P(None, "model") if MB.ssm_split(cfg, mesh) else SH.P(),
@@ -7402,7 +7676,9 @@ def plain_entries(ops):
     top-left causal mask, GQA), ``ops.qr_lookup`` two gathers and an add."""
     saved = ops.flash_attention_fused, ops.qr_lookup
 
-    def attention(q, k, v, *, causal=True):
+    def attention(q, k, v, *, causal=True, p_bf16=False):
+        if p_bf16:
+            raise NotImplementedError("the plain fp64 entries keep fp32 probabilities")
         g = q.shape[1] // k.shape[1]
         kk, vv = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
         s = torch.matmul(q * q.shape[-1] ** -0.5, kk.transpose(-1, -2))
@@ -8055,8 +8331,8 @@ def kept_attention_sites(ops, kept: dict):
     call's inputs and output in the list ``kept["k8"]``."""
     saved = ops.flash_attention_fused
 
-    def k9(q, k, v, *, causal=True):
-        out = saved(q, k, v, causal=causal)
+    def k9(q, k, v, *, causal=True, p_bf16=False):
+        out = saved(q, k, v, causal=causal, p_bf16=p_bf16)
         site = "causal" if causal else ("cross" if q.shape[2] != k.shape[2] else "non-causal")
         sites = kept.setdefault("k9", {})
         if site not in sites:
@@ -8803,9 +9079,10 @@ def cli_phase(dev, by_name, mods, during=None) -> dict:
       --mesh-shape 2,2 --steps 2``, then ``--mesh-shape 4,1 --steps 4``,
       which resumes from step 2; the checkpoint holds the full logical
       arrays (``MESH_CLI_Q_SHAPE``).
-    - qwen2-1.5b (``LMM_CLI``, smoke): ``--mesh-shape 1,2 --steps 2``, then
-      one card (``main``, in this process) ``--steps 4``, resuming from the
-      meshed checkpoint.
+    - qwen2-1.5b (``LMM_CLI``, smoke): ``--mesh-shape 2,1 --steps 2`` (FSDP
+      over ``data``: the params and AdamW state stored split along
+      ``embed``), then one card (``main``, in this process) ``--steps 4``,
+      resuming from the meshed checkpoint.
     - xlstm-125m at full width (``SSM_TRAIN_CLI``): one card ``--steps 2``,
       then ``--mesh-shape 1,2 --steps 4``, then one card ``--steps 6``, each
       resuming from the last one's checkpoint, each one-card run two K8
@@ -8876,8 +9153,8 @@ def cli_phase(dev, by_name, mods, during=None) -> dict:
     try:
         dlrm1 = start("dlrm_2x2", "repro_torch.launch.train",
                       [*dlrm, "--mesh-shape", "2,2", "--steps", "2"], MESH_TIMEOUT_S)
-        lm1 = start("lm_train_1x2", "repro_torch.launch.train",
-                    [*lm, "--mesh-shape", "1,2", "--steps", "2"])
+        lm1 = start("lm_train_2x1", "repro_torch.launch.train",
+                    [*lm, "--mesh-shape", "2,1", "--steps", "2"])
         wh1 = start("whisper_train_1x2", "repro_torch.launch.train",
                     [*wh, "--mesh-shape", "1,2", "--steps", "2"])
         meshed = {a: start(f"serve_{a}_1x2", "repro_torch.launch.serve",
@@ -8904,11 +9181,11 @@ def cli_phase(dev, by_name, mods, during=None) -> dict:
         r = done(lm1, "[lm-mesh-cli]", must=("done",))
         r1 = here("[lm-mesh-cli]", train_cli.main, [*lm, "--steps", "4"],
                   must=("[resume] step 2",))
-        rec["qwen2-1.5b train"] = {"argv": lm, "mesh": {"exit": 0, "s": r["s"]},
+        rec["qwen2-1.5b train"] = {"argv": lm, "mesh": {"shape": "2,1", "exit": 0, "s": r["s"]},
                                    "one_card": {"exit": 0, "s": r1["s"],
                                                 "launches": r1["launches"]}}
-        log(f"[lm-mesh-cli] (1, 2) to step 2 in {r['s']:.1f} s, then one card resumed to "
-            f"step 4 in {r1['s']:.1f} s (set-up and checkpoints included); launches of the "
+        log(f"[lm-mesh-cli] (2, 1) FSDP to step 2 in {r['s']:.1f} s, then one card resumed "
+            f"to step 4 in {r1['s']:.1f} s (set-up and checkpoints included); launches of the "
             f"one-card run {r1['launches']}")
 
         r = done(wh1, "[prefix-mesh-cli]", must=("done",))

@@ -215,12 +215,13 @@ def cache_specs(binding: ArchBinding, cfg: ModelConfig, batch: int, max_len: int
 def abstract_params(binding: ArchBinding, cfg: ModelConfig, *, mesh=None):
     """``(params, axes)``: the family's ``init_fn`` at ``cfg``'s full width
     on meta, and the logical axes of its leaves; on an abstract ``mesh``
-    the params are this rank's blocks (``lm_specs``)."""
+    the params are this rank's blocks in the serving layout (``lm_specs(
+    serve=True)``: ``embed`` whole, tensor parallel over ``model``)."""
     params, axes = init_fn(binding)(cfg, seed=0, device="meta")
     if mesh is not None:
         from repro_torch.distributed import sharding as SH
 
-        params = SH.shard_tree(params, lm_specs(cfg, params, axes, mesh), mesh)
+        params = SH.shard_tree(params, lm_specs(cfg, params, axes, mesh, serve=True), mesh)
     return params, axes
 
 
@@ -231,8 +232,9 @@ def lm_axes(cfg: ModelConfig, axes, mesh):
     cross-attention ``xattn`` among them, resolve by their logical axes as
     a transformer layer does); zamba2's and xlstm's with the specs of their
     fused and head-split leaves given outright by their model
-    (``zamba2.mesh_axes``, ``xlstm.mesh_axes``).  No ``model`` axis: as they
-    are."""
+    (``zamba2.mesh_axes``, ``xlstm.mesh_axes``), their ``embed`` dims left
+    to the rules (``sharding.given``: FSDP over ``data`` in training).  No
+    ``model`` axis: as they are."""
     from repro_torch.distributed import sharding as SH
 
     mesh = SH.model_mesh(mesh)
@@ -247,10 +249,13 @@ def lm_axes(cfg: ModelConfig, axes, mesh):
     return X.mesh_axes(cfg, axes, mesh)
 
 
-def lm_specs(cfg: ModelConfig, tree, axes, mesh) -> list:
+def lm_specs(cfg: ModelConfig, tree, axes, mesh, *, serve: bool = False) -> list:
     """One spec per leaf of ``tree`` (an LM's params, or a tree such as the
     training state whose leaves' axes are ``axes``): ``sharding.tree_specs``
-    of ``lm_axes`` under ``sharding.lm_param_rules``."""
+    of ``lm_axes`` under ``sharding.lm_param_rules``, the training layout
+    (FSDP over ``data``) or with ``serve`` the serving one (``embed``
+    whole)."""
     from repro_torch.distributed import sharding as SH
 
-    return SH.tree_specs(tree, lm_axes(cfg, axes, mesh), mesh, SH.lm_param_rules(cfg, mesh))
+    return SH.tree_specs(tree, lm_axes(cfg, axes, mesh), mesh,
+                         SH.lm_param_rules(cfg, mesh, serve=serve))

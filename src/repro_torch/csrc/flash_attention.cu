@@ -85,6 +85,14 @@
 // * D buckets 64, 128 and 256 (the accumulator is 128 fp32 a thread at D
 //   256), padded with zeros.
 // * Output acc / max(l, 1e-30), rounded once to bf16.
+//
+// p_bf16 (both bodies; repro's flash_block_dtype="bf16", _attn_block's
+// p_dtype): each probability is rounded to bf16 (round to nearest even, as
+// torch's .to(torch.bfloat16) and __floats2bfloat162_rn round) right after
+// its exp, and that rounded value goes into both the row sum l and the p.v
+// product.  The fp32 body rounds p before it is stored to p_s and added to
+// psum; the bf16 body sums the rounded values into l and issues only the
+// P_hi product a k16 step (P_lo, what rounding left, is zero).
 
 // Common numerics, as the Pallas body: scores, running max m, running sum l
 // and the output accumulator are fp32; the causal mask is top-left aligned
@@ -186,7 +194,14 @@ __device__ __forceinline__ void stage(float* dst, int stride, int n, int valid, 
   }
 }
 
-template <typename T, int kDMax, bool kVec>
+// p rounded to bf16 (nearest even) where kPBf16, else as it is
+template <bool kPBf16>
+__device__ __forceinline__ float p_tile(float p) {
+  if constexpr (kPBf16) return __bfloat162float(__float2bfloat16_rn(p));
+  return p;
+}
+
+template <typename T, int kDMax, bool kVec, bool kPBf16>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              T* __restrict__ out, int H, int KH, int Sq, int Skv, int D, float scale,
@@ -286,7 +301,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCS; ++j) {
-        const float p = expf(s[i][j] - m_new);
+        const float p = p_tile<kPBf16>(expf(s[i][j] - m_new));
         p_s[(ty + 8 * i) * Tl::kPS + tx + 16 * j] = p;
         psum += p;
       }
@@ -340,7 +355,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return err;
 }
 
-template <typename T, int kDMax, bool kVec>
+template <typename T, int kDMax, bool kVec, bool kPBf16>
 int launch_bucket(const T* q, const T* k, const T* v, T* out, int B, int H, int KH, int Sq,
                   int Skv, int D, float scale, int causal, cudaStream_t stream) {
   using Tl = Tile<kDMax>;
@@ -348,25 +363,25 @@ int launch_bucket(const T* q, const T* k, const T* v, T* out, int B, int H, int 
   const long long rows = static_cast<long long>(H / KH) * Sq;
   const long long blocks = (rows + Tl::kBQ - 1) / Tl::kBQ;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = set_smem(flash_kernel<T, kDMax, kVec>, Tl::kSmem);
+  const cudaError_t err = set_smem(flash_kernel<T, kDMax, kVec, kPBf16>, Tl::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(B * KH));
-  flash_kernel<T, kDMax, kVec><<<grid, kThreads, Tl::kSmem, stream>>>(
+  flash_kernel<T, kDMax, kVec, kPBf16><<<grid, kThreads, Tl::kSmem, stream>>>(
       q, k, v, out, H, KH, Sq, Skv, D, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec>
+template <bool kVec, bool kPBf16>
 int launch_f32(const float* q, const float* k, const float* v, float* out, int B, int H, int KH,
                int Sq, int Skv, int D, float scale, int causal, cudaStream_t stream) {
   if (D <= 64)
-    return launch_bucket<float, 64, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal,
-                                          stream);
+    return launch_bucket<float, 64, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                                  causal, stream);
   if (D <= 128)
-    return launch_bucket<float, 128, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal,
-                                           stream);
-  return launch_bucket<float, 256, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal,
-                                         stream);
+    return launch_bucket<float, 128, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                                  causal, stream);
+  return launch_bucket<float, 256, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                                  causal, stream);
 }
 
 // -- bf16 body: tensor cores, wgmma ---------------------------------------------
@@ -551,7 +566,7 @@ __device__ __forceinline__ void stage_swz(char* tile, int n, int valid, int widt
   }
 }
 
-template <int kD, bool kVec>
+template <int kD, bool kVec, bool kPBf16>
 __global__ void __launch_bounds__(kTcThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ out, int H, int KH, int Sq,
@@ -707,10 +722,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int j = 0; j < kNS; ++j) {
-      s[4 * j + 0] = expf(fmaf(s[4 * j + 0], sc, -mn0));
-      s[4 * j + 1] = expf(fmaf(s[4 * j + 1], sc, -mn0));
-      s[4 * j + 2] = expf(fmaf(s[4 * j + 2], sc, -mn1));
-      s[4 * j + 3] = expf(fmaf(s[4 * j + 3], sc, -mn1));
+      s[4 * j + 0] = p_tile<kPBf16>(expf(fmaf(s[4 * j + 0], sc, -mn0)));
+      s[4 * j + 1] = p_tile<kPBf16>(expf(fmaf(s[4 * j + 1], sc, -mn0)));
+      s[4 * j + 2] = p_tile<kPBf16>(expf(fmaf(s[4 * j + 2], sc, -mn1)));
+      s[4 * j + 3] = p_tile<kPBf16>(expf(fmaf(s[4 * j + 3], sc, -mn1)));
       ps0 += s[4 * j + 0] + s[4 * j + 1];
       ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
@@ -751,7 +766,7 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const uint64_t db =
             desc(v_addr + kk * 2048 + c * (kPN / kAtom) * kTcBK * 128, kTcBK * 128);
         wgmma_rs<kPN>(t, ph, db);
-        wgmma_rs<kPN>(t, pl, db);
+        if constexpr (!kPBf16) wgmma_rs<kPN>(t, pl, db);   // P_lo is zero under kPBf16
       }
       wgmma_commit_wait();
 #pragma unroll
@@ -817,7 +832,7 @@ bool make_map(CUtensorMap* map, const void* base, uint64_t heads, uint64_t keys,
          CUDA_SUCCESS;
 }
 
-template <int kD, bool kVec>
+template <int kD, bool kVec, bool kPBf16>
 int launch_tc_bucket(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int H,
                      int KH, int Sq, int Skv, int D, float scale, int causal,
                      cudaStream_t stream) {
@@ -831,22 +846,25 @@ int launch_tc_bucket(const bf16* q, const bf16* k, const bf16* v, bf16* out, int
   const long long rows = static_cast<long long>(H / KH) * Sq;
   const long long blocks = (rows + kTcBQ - 1) / kTcBQ;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = set_smem(flash_tc_kernel<kD, kVec>, Tl::kSmem);
+  const cudaError_t err = set_smem(flash_tc_kernel<kD, kVec, kPBf16>, Tl::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(B * KH));
-  flash_tc_kernel<kD, kVec><<<grid, kTcThreads, Tl::kSmem, stream>>>(
+  flash_tc_kernel<kD, kVec, kPBf16><<<grid, kTcThreads, Tl::kSmem, stream>>>(
       q, k, v, out, H, KH, Sq, Skv, D, scale, causal, k_map, v_map);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kVec>
+template <bool kVec, bool kPBf16>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int H, int KH,
                 int Sq, int Skv, int D, float scale, int causal, cudaStream_t stream) {
   if (D <= 64)
-    return launch_tc_bucket<64, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal, stream);
+    return launch_tc_bucket<64, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                             causal, stream);
   if (D <= 128)
-    return launch_tc_bucket<128, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal, stream);
-  return launch_tc_bucket<256, kVec>(q, k, v, out, B, H, KH, Sq, Skv, D, scale, causal, stream);
+    return launch_tc_bucket<128, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                             causal, stream);
+  return launch_tc_bucket<256, kVec, kPBf16>(q, k, v, out, B, H, KH, Sq, Skv, D, scale,
+                                             causal, stream);
 }
 
 // 0: launch; 1: nothing to do; < 0: shapes the kernels do not take
@@ -861,7 +879,7 @@ int check(int B, int H, int KH, int Sq, int Skv, int D) {
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* out, int B,
                              int H, int KH, int Sq, int Skv, int D, float scale, int causal,
-                             void* stream) {
+                             int p_bf16, void* stream) {
   const int c = check(B, H, KH, Sq, Skv, D);
   if (c != 0) return c < 0 ? static_cast<int>(cudaErrorInvalidValue)
                            : static_cast<int>(cudaGetLastError());
@@ -870,14 +888,19 @@ extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v, void* 
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p_bf16) {
+    if (D % 4 == 0)
+      return launch_f32<true, true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+    return launch_f32<false, true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+  }
   if (D % 4 == 0)
-    return launch_f32<true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
-  return launch_f32<false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+    return launch_f32<true, false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+  return launch_f32<false, false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
 }
 
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void* out, int B,
                               int H, int KH, int Sq, int Skv, int D, float scale, int causal,
-                              void* stream) {
+                              int p_bf16, void* stream) {
   const int c = check(B, H, KH, Sq, Skv, D);
   if (c != 0) return c < 0 ? static_cast<int>(cudaErrorInvalidValue)
                            : static_cast<int>(cudaGetLastError());
@@ -886,7 +909,12 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   const bf16* vt = static_cast<const bf16*>(v);
   bf16* ot = static_cast<bf16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p_bf16) {
+    if (D % 8 == 0)
+      return launch_bf16<true, true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+    return launch_bf16<false, true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+  }
   if (D % 8 == 0)
-    return launch_bf16<true>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
-  return launch_bf16<false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+    return launch_bf16<true, false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
+  return launch_bf16<false, false>(qt, kt, vt, ot, B, H, KH, Sq, Skv, D, scale, causal, st);
 }

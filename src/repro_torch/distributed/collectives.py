@@ -24,7 +24,14 @@ in ``repro`` (``check_vma=False``):
 slice of the normed dim: a sum in the forward and in the backward.
 
 ``all_gather`` rebuilds a tensor split along one dim over an axis (a
-checkpoint's full logical leaf); ``gather_slices`` one split unevenly (the
+checkpoint's full logical leaf); ``reduce_scatter`` sums the ranks' tensors
+over an axis and leaves each rank its block along one dim.  ``fsdp_gather``
+is FSDP's parameter gather (``repro``'s params stored split along ``embed``
+over ``data``, XLA gathering them before use): an ``all_gather`` of the
+rank's block in the forward (site ``fsdp_gather``), a sum-``reduce_scatter``
+of the whole cotangent back to the block in the backward (site
+``fsdp_scatter``), so each rank's gradient of its block is the sum over the
+axis already; ``gather_slices`` one split unevenly (the
 vocab-parallel head's logits, whole on every rank for the serving loop's
 ``argmax``).  ``any_rank`` agrees a flag across every rank (the trainer's
 stop flag).
@@ -45,10 +52,11 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-CALLS = {"all_reduce": 0, "all_gather": 0}
-BYTES = {"all_reduce": 0, "all_gather": 0}
+CALLS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+BYTES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 # (site, axis) -> [calls, bytes]; sites: psum, pmax, combine, entry,
-# grad_mean, norm, norm_stat, all_gather, logits, any_rank
+# grad_mean, norm, norm_stat, all_gather, logits, any_rank, fsdp_gather,
+# fsdp_scatter
 SITES: dict = {}
 
 
@@ -187,6 +195,52 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
     if x.device.type != "meta":
         dist.all_gather(parts, x, group=mesh.group(axis))
     return torch.cat(parts, dim=dim).to(home)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0, *,
+                   site: str = "reduce_scatter") -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis``, of which this rank
+    keeps its block along ``dim`` (``x.shape[dim]`` split in equal
+    contiguous blocks, in the order of the ranks' coordinates), on ``x``'s
+    device (gloo sums a card's tensor through host memory).  Counted under
+    ``site`` with the bytes each rank puts in (the whole ``x``)."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {axis} ({n})")
+    home = x.device
+    flat = x.movedim(dim, 0)
+    if mesh.backend == "gloo":
+        flat = flat.cpu()
+    flat = flat.contiguous()
+    _count("reduce_scatter", site, axis, flat.numel() * flat.element_size())
+    out = torch.empty((flat.shape[0] // n, *flat.shape[1:]), dtype=flat.dtype,
+                      device=flat.device)
+    if flat.device.type != "meta":
+        dist.reduce_scatter_tensor(out, flat, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return out.movedim(0, dim).to(home)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim, site="fsdp_gather")
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (reduce_scatter(ct, ctx.mesh, ctx.axis, ctx.dim, site="fsdp_scatter"),
+                None, None, None)
+
+
+def fsdp_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The whole of a parameter whose rank's block along ``dim`` is ``x``
+    (split over ``axis``): ``all_gather`` in the forward, site
+    ``fsdp_gather``; in the backward the sum over ``axis`` of the ranks'
+    whole cotangents, this rank's block of it (``reduce_scatter``, site
+    ``fsdp_scatter``): each rank's gradient of its block is then summed
+    over the ranks already, as the all-reduce of a replicated leaf's would
+    be.  In ``x``'s dtype (the param's, as stored)."""
+    return _FsdpGather.apply(x, mesh, axis, dim)
 
 
 def gather_slices(x: torch.Tensor, mesh, axis: str, widths, *, site: str) -> torch.Tensor:

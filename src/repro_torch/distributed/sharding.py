@@ -17,13 +17,23 @@ every leaf from the full logical tree (``repro``'s ``shardings_for_tree``
 plus ``device_put``), ``gather`` rebuilds one full leaf from the ranks'
 blocks (a checkpoint's logical array), ``full_shape`` gives its shape.
 
+An LM trains with FSDP over ``data`` (``lm_param_rules``, ``repro``'s
+``PARAM_RULES``): every leaf's ``embed`` dim is stored split over ``data``
+where ``data`` divides it, and the model gathers a leaf whole at its use
+(``use_fsdp`` while the loss runs, ``fsdp_take`` for the leaves outside the
+layers, ``fsdp_layers`` inside each layer's recompute), its gradient coming
+back reduce-scattered (``collectives.fsdp_gather``).  Serving keeps
+``embed`` whole, as ``repro``'s ``serve_params`` does.
+
 A fused tensor, whose dim concatenates parts that split differently (the
 Mamba2 ``in_proj``: z, x, B, C and dt), takes a ``Parts`` entry in its spec:
 the rank's columns are the concatenation of its block of each split part and
 the whole of each part every head shares.  The sub-quadratic models lay
 their fused tensors out so themselves (``models.mamba2.layout``,
 ``models.xlstm.block_layout``), and ``configs.registry.lm_axes`` puts their
-specs in place of those leaves' axes.
+specs in place of those leaves' axes, each dim a layout leaves whole and
+whose logical axis is ``embed`` left to the rules (a ``Logical`` entry,
+``given``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,14 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Logical:
+    """A spec entry given outright that is left to the rules: the dim
+    resolves as a dim of logical axis ``name`` would (``tree_specs``)."""
+
+    name: str
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,12 +157,17 @@ WHOLE = "whole"
 TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None,
                                                         "mlp": None}
 
-# The LM's at-rest layout in training: tensor parallelism over ``model`` for
-# ``heads``, ``kv_heads``, ``ffn``, ``vocab`` and ``qrow`` (the Q shard a
-# rank's token partial reads), ``rrow`` replicated, ``embed`` kept whole
-# (``repro``'s FSDP over ``data`` is a layout departure).  ``lm_param_rules``
-# narrows it to whole heads for one config and mesh.
-LM_TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None}
+# The LM's at-rest layout in training, ``repro``'s ``PARAM_RULES``: tensor
+# parallelism over ``model`` for ``heads``, ``kv_heads``, ``ffn``, ``vocab``
+# and ``qrow`` (the Q shard a rank's token partial reads), ``rrow``
+# replicated, and FSDP over ``data`` on ``embed``.  Serving keeps ``embed``
+# whole (``repro``'s ``serve_params``).  ``lm_param_rules`` narrows both to
+# whole heads for one config and mesh.
+LM_TRAIN_PARAM_RULES: dict[str, tuple[str, ...] | None] = dict(PARAM_RULES)
+LM_SERVE_PARAM_RULES: dict[str, tuple[str, ...] | None] = {**PARAM_RULES, "embed": None}
+
+# the axis over which an LM's training layout stores ``embed`` split
+FSDP_AXIS = "data"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,8 +296,9 @@ def block_split(size: int, mesh, axis: str = "model") -> BlockSplit | None:
     return BlockSplit(lo=mesh.axis_index(axis) * n, n=n)
 
 
-def lm_param_rules(cfg, mesh) -> dict:
-    """``LM_TRAIN_PARAM_RULES`` for ``cfg`` on ``mesh``: ``heads`` and
+def lm_param_rules(cfg, mesh, *, serve: bool = False) -> dict:
+    """``LM_TRAIN_PARAM_RULES`` (``serve``: ``LM_SERVE_PARAM_RULES``, the
+    same with ``embed`` whole) for ``cfg`` on ``mesh``: ``heads`` and
     ``kv_heads`` replicated where ``head_split`` keeps them whole (the
     flattened ``heads * head_dim`` dim may divide an axis the heads do not);
     an MoE's stacks split over ``model`` by ``experts`` only (never by
@@ -282,7 +306,7 @@ def lm_param_rules(cfg, mesh) -> dict:
     ``expert_split``), and its router whole on every rank (``WHOLE``: each
     rank routes its tokens over all experts; ``repro`` stores it split and
     XLA gathers it before use)."""
-    rules = dict(LM_TRAIN_PARAM_RULES, expert_ffn=None)
+    rules = dict(LM_SERVE_PARAM_RULES if serve else LM_TRAIN_PARAM_RULES, expert_ffn=None)
     rules[WHOLE] = (("embed", "experts"),)
     split = head_split(cfg, mesh)
     if split is None:
@@ -512,7 +536,7 @@ def tree_specs(tree, axes_tree, mesh, rules: Mapping) -> list[P]:
                      and i < len(a) else None)
         elif t is not None:
             if isinstance(a, P):            # a spec given outright (``registry.lm_axes``)
-                out.append(a)
+                out.append(_resolve_given(a, t.shape, mesh, rules))
             elif _is_axes(a) and len(a) == t.dim():
                 out.append(resolve_spec(mesh, t.shape, a, rules))
             else:
@@ -520,6 +544,120 @@ def tree_specs(tree, axes_tree, mesh, rules: Mapping) -> list[P]:
 
     walk(tree, axes_tree)
     return out
+
+
+def given(spec: P, logical: Sequence, names: Sequence[str] = ("embed",)) -> P:
+    """``spec`` given outright for a leaf of ``logical`` axes (one entry a
+    dim, missing entries whole), with each dim it leaves whole whose logical
+    axis is in ``names`` left to the rules (``Logical``): a layout that
+    places a fused leaf's columns by head leaves its ``embed`` dim to the
+    training rules' FSDP."""
+    ents = list(spec) + [None] * (len(logical) - len(spec))
+    return P(*(Logical(ax) if e is None and ax in names else e
+               for e, ax in zip(ents, logical)))
+
+
+def _resolve_given(spec: P, shape, mesh, rules: Mapping) -> P:
+    """``spec`` with each ``Logical`` entry resolved by ``rules`` as
+    ``resolve_spec`` resolves a dim (first fit, divisibility), past the mesh
+    axes its other entries name; None where nothing fits."""
+    if not any(isinstance(e, Logical) for e in spec):
+        return spec
+    used = {ax for e in spec if not isinstance(e, Logical)
+            for ax in ((e.axis,) if isinstance(e, Parts) else _axes(e))}
+    out = []
+    for dim, e in zip(shape, spec):
+        if not isinstance(e, Logical):
+            out.append(e)
+            continue
+        got = resolve_spec(mesh, (dim,), (e.name,),
+                           {e.name: tuple(a for a in (rules.get(e.name) or ()) if a not in used)})
+        used.update(_axes(got[0]))
+        out.append(got[0])
+    return P(*out)
+
+
+def fsdp_dim(spec: Sequence, mesh) -> int | None:
+    """The dim of a leaf's ``spec`` that is split over ``FSDP_AXIS`` alone,
+    or None where none is or the axis has one rank (the leaf is whole there).
+    A dim split over ``FSDP_AXIS`` and another axis together raises."""
+    if FSDP_AXIS not in mesh.shape or mesh.shape[FSDP_AXIS] == 1:
+        return None
+    for d, e in enumerate(spec):
+        if isinstance(e, Parts) or FSDP_AXIS not in _axes(e):
+            continue
+        if _axes(e) != (FSDP_AXIS,):
+            raise ValueError(f"dim {d} of {spec} splits over {FSDP_AXIS} with another axis")
+        return d
+    return None
+
+
+def _fsdp_leaf(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    from repro_torch.distributed import collectives
+
+    d = fsdp_dim(spec, mesh)
+    return x if d is None else collectives.fsdp_gather(x, mesh, FSDP_AXIS, d)
+
+
+def fsdp_gather_tree(sub, specs, mesh, *, drop: int = 0):
+    """``sub`` (a subtree of this rank's params; ``specs`` the same
+    nesting of their specs) with every leaf that ``specs`` split over
+    ``FSDP_AXIS`` gathered whole along that dim (``collectives.fsdp_gather``),
+    each spec's first ``drop`` entries dropped first (a layer's leaves, taken
+    from a stack whose specs lead with the ``layers`` entry); the other
+    leaves as they are."""
+    return tree_mod.tree_map(lambda x, s: _fsdp_leaf(x, tuple(s)[drop:], mesh), sub, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Fsdp:
+    mesh: object
+    specs: object           # the params' nesting, a spec a leaf
+
+
+@contextlib.contextmanager
+def use_fsdp(mesh, params, specs: Sequence | None):
+    """While open, ``fsdp_take`` and ``fsdp_layers`` gather the leaves of
+    ``params`` (this rank's blocks; one spec a leaf in ``specs``, flatten
+    order) that the specs split over ``FSDP_AXIS``.  Without ``specs``, or
+    on a mesh whose ``FSDP_AXIS`` has one rank, nothing is gathered."""
+    prev = getattr(_state, "fsdp", None)
+    live = (specs is not None and FSDP_AXIS in mesh.shape and mesh.shape[FSDP_AXIS] > 1)
+    _state.fsdp = _Fsdp(mesh, tree_mod.unflatten(params, list(specs))) if live else None
+    try:
+        yield
+    finally:
+        _state.fsdp = prev
+
+
+def fsdp_take(params: dict, key: str):
+    """``params[key]`` (None where absent) whole at its use: under
+    ``use_fsdp`` its leaves that the layout splits over ``FSDP_AXIS``
+    gathered (``fsdp_gather_tree``); as it is otherwise.  ``params`` is the
+    tree the loss was given (the root of ``use_fsdp``'s specs)."""
+    f = getattr(_state, "fsdp", None)
+    if key not in params or f is None:
+        return params.get(key)
+    return fsdp_gather_tree(params[key], f.specs[key], f.mesh)
+
+
+def fsdp_layers(*path):
+    """The gather of one layer's params from the stack at ``path`` of the
+    root params (``"layers"``; whisper's ``"enc"`` / ``"dec"``, xlstm's
+    ``"blocks", i``) under ``use_fsdp``, as a function of the layer's
+    params: its leaves whole, the stack's specs without their ``layers``
+    entry (``drop=1``; a path that ends at one block, none dropped).  It
+    keeps the mesh and specs, so that a layer's recompute in the backward,
+    after ``use_fsdp`` has closed, gathers again.  None without
+    ``use_fsdp``."""
+    f = getattr(_state, "fsdp", None)
+    if f is None:
+        return None
+    specs = f.specs
+    for k in path:
+        specs = specs[k]
+    drop = 0 if isinstance(path[-1], int) else 1
+    return lambda p: fsdp_gather_tree(p, specs, f.mesh, drop=drop)
 
 
 def shard_tree(tree, specs: Sequence, mesh):

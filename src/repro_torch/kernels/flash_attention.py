@@ -9,6 +9,12 @@ K9 in ``csrc/flash_attention.cu`` (port of ``repro.kernels.flash_attention``).
   P·V summed in the tensor cores from zero, then added to the output
   accumulator in fp32: their accumulate truncates, and over a long row
   that bias would pass one rounding).
+* ``p_bf16`` is ``repro``'s bf16 probability tile (``flash_block_dtype=
+  "bf16"``, ``_attn_block``'s ``p_dtype``): each probability is rounded to
+  bf16 (nearest even) after its exp, and that value goes into both the row
+  sum and the P·V product (the bf16 body then issues only the P_hi
+  product).  Its plain version is ``models.layers.flash_attention(p_dtype=
+  torch.bfloat16)``.
 * ``flash_mha`` is its differentiable form, as ``repro``'s ``custom_vjp``:
   the forward is K9, the backward recomputes through the blockwise
   ``models.layers.flash_attention`` and differentiates that (no backward
@@ -21,8 +27,10 @@ is bound by operations (4·D flops per visible (query, key) pair).
 
 Dispatch is by the tensors' device alone: CUDA tensors launch the kernel, or
 raise if the kernel does not take them; CPU tensors take the plain version
-``ref.flash_fwd_ref``; meta tensors (the dry run) pass the kernel's checks
-and get its output as an empty meta tensor, the call and its flops and
+``ref.flash_fwd_ref`` (with ``p_bf16``, the blockwise
+``layers.flash_attention(p_dtype=torch.bfloat16)``); meta tensors (the
+dry run) pass the kernel's checks and get its output as an empty meta
+tensor, the call and its flops and
 bytes counted in ``bounds.META`` (never the plain version, whose (B, H, Sq,
 Skv) scores would overstate a 32k prefill's bytes many times over).  There
 is no fallback from the card to the plain version.  The kernel takes
@@ -69,7 +77,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     for sfx in SUFFIX.values():
         fn = getattr(lib, f"flash_fwd_{sfx}")
-        fn.argtypes = [_P] * 4 + [_INT] * 6 + [ctypes.c_float, _INT, _P]
+        fn.argtypes = [_P] * 4 + [_INT] * 6 + [ctypes.c_float, _INT, _INT, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -105,12 +113,16 @@ def check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, p_bf16: bool = False) -> torch.Tensor:
     """K9: attention of q (B, H, Sq, D) over k, v (B, KH, Skv, D), GQA with
-    kv head h // (H/KH).  Returns (B, H, Sq, D) in q's dtype."""
+    kv head h // (H/KH); ``p_bf16``: the probabilities rounded to bf16.
+    Returns (B, H, Sq, D) in q's dtype."""
     check_shapes(q, k, v)
     dev = device_mod.of(q, k, v)
     if dev.type == "cpu":
+        if p_bf16:
+            return layers.flash_attention(q, k, v, causal=causal,
+                                          p_dtype=torch.bfloat16).to(q.dtype)
         return flash_fwd_ref(q, k, v, causal=causal)
     check_cuda(q, k, v)
     b, h, sq, d = q.shape
@@ -123,7 +135,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         err = getattr(_lib(), f"flash_fwd_{SUFFIX[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, kh, sq, skv, d, d ** -0.5, int(causal),
+            b, h, kh, sq, skv, d, d ** -0.5, int(causal), int(p_bf16),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.launched(LAUNCHES, "flash_fwd", err)
@@ -132,24 +144,26 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class _FlashMHA(torch.autograd.Function):
     """K9 forward; the backward recomputes through the blockwise plain
-    attention and differentiates it (``repro``'s ``flash_mha`` vjp)."""
+    attention (with ``p_bf16``, its bf16 probability tile) and
+    differentiates it (``repro``'s ``flash_mha`` vjp)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, p_bf16):
+        ctx.causal, ctx.p_bf16 = causal, p_bf16
         ctx.save_for_backward(q, k, v)
-        return flash_fwd(q, k, v, causal=causal)
+        return flash_fwd(q, k, v, causal=causal, p_bf16=p_bf16)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = layers.flash_attention(q, k, v, causal=ctx.causal)
+            out = layers.flash_attention(q, k, v, causal=ctx.causal,
+                                         p_dtype=torch.bfloat16 if ctx.p_bf16 else None)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, p_bf16: bool = False) -> torch.Tensor:
     """Differentiable attention: K9 forward, blockwise-recompute backward."""
-    return _FlashMHA.apply(q, k, v, causal)
+    return _FlashMHA.apply(q, k, v, causal, p_bf16)

@@ -314,9 +314,10 @@ def tt_lookup(g1: torch.Tensor, g2: torch.Tensor, g3: torch.Tensor,
 
 
 def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True) -> torch.Tensor:
+                          causal: bool = True, p_bf16: bool = False) -> torch.Tensor:
     """Attention through the kernel K9 with a blockwise-recompute backward.
 
     q: (B, H, Sq, D); k/v: (B, KH, Skv, D); GQA via KH | H; the causal mask
-    is top-left aligned (query i sees key j iff i >= j)."""
-    return flash_attention.flash_mha(q, k, v, causal)
+    is top-left aligned (query i sees key j iff i >= j); ``p_bf16`` rounds
+    the probabilities to bf16 (``repro``'s ``flash_block_dtype="bf16"``)."""
+    return flash_attention.flash_mha(q, k, v, causal, p_bf16)

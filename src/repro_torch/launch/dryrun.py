@@ -33,7 +33,10 @@ runs on by default; ``pod1`` / ``pod2`` are ``repro``'s (16, 16) and
 and the last one (where the uneven vocabulary slices end) are traced and
 the larger peak is the cell's.  Every kind runs its train, prefill and
 decode cells there.  A rank holds its blocks of the params
-(``registry.lm_specs``; a serve cell's cast for serving), its ``data``
+(``registry.lm_specs``: a train cell's FSDP over ``data``, its leaves
+gathered at their use and their gradients reduce-scattered, counted as
+``fsdp_gather`` / ``fsdp_scatter``; a serve cell's ``embed`` whole and
+cast for serving), its ``data``
 block of the batch and its block of the cache (``sharding.cache_block``:
 the port's layout, whose positions stay whole where ``repro``'s split
 ``kvseq`` over ``model``; zamba2's SSM states and xlstm's mLSTM states by
@@ -604,19 +607,37 @@ def run_cells(cells, out_dir: str, *, force: bool = False, tag: str | None = Non
     return results
 
 
+def wire_bytes(rec: dict) -> dict:
+    """A meshed record's collective bytes a rank a step by kind and axis
+    (``"all_reduce/model"``, ``"fsdp_gather/data"``, ``"fsdp_scatter/data"``:
+    the bytes each rank puts in, ``collectives.BYTES``' measure), from its
+    ``collectives`` by site; every site but the two FSDP ones and the
+    gathers (``all_gather``, ``logits``) is an all-reduce."""
+    out: dict = {}
+    for key, (_calls, nbytes) in rec.get("collectives", {}).items():
+        site, axis = key.rsplit("/", 1)
+        kind = (site if site in ("fsdp_gather", "fsdp_scatter")
+                else "all_gather" if site in ("all_gather", "logits") else "all_reduce")
+        out[f"{kind}/{axis}"] = out.get(f"{kind}/{axis}", 0) + nbytes
+    return out
+
+
 def summary(rec: dict) -> str:
     """One line of a record: status, and for a run cell its peak a rank
-    against 80 GB, the counted flops beside 6·N·D and the seconds."""
+    against 80 GB, the counted flops beside 6·N·D, on a mesh the bytes
+    a rank a step by collective and axis (``wire_bytes``), and the
+    seconds."""
     if rec.get("status") != "run":
         return f"{rec.get('status')} ({rec.get('wall_s', 0):.1f} s)"
     m, f = rec["memory"], rec["flops"]
+    wire = "".join(f"; {k} {v / 1e9:.3g} GB" for k, v in sorted(wire_bytes(rec).items()))
     return (f"run: peak {m['peak_bytes'] / 2**30:.2f} GiB a rank "
             f"({m['argument_bytes'] / 2**30:.2f} arguments + "
             f"{m['transient_peak_bytes'] / 2**30:.2f} transient) of "
             f"{m['hbm_bytes'] / 1e9:.0f} GB: {'fits' if m['fits'] else 'does not fit'}; "
             f"flops {f['counted']:.4g} counted a rank, 6ND {rec['model_flops']:.4g}"
             + (f"; one card fits batch {rec['fit']['batch']} at {rec['fit']['layers']} layers"
-               if "fit" in rec else "") + f" ({rec.get('wall_s', 0):.1f} s)")
+               if "fit" in rec else "") + wire + f" ({rec.get('wall_s', 0):.1f} s)")
 
 
 def main(argv=None) -> int:

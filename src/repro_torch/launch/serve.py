@@ -104,7 +104,7 @@ def serve(args, dev, mesh=None) -> None:
     make_batch = registry.make_batch_fn(binding, cfg)
     batch = make_batch(args.batch, args.prompt_len, seed=args.seed, step=0, device=dev)
     if mesh is not None:
-        params = SH.shard_tree(params, registry.lm_specs(cfg, params, axes, mesh), mesh)
+        params = SH.shard_tree(params, registry.lm_specs(cfg, params, axes, mesh, serve=True), mesh)
         batch = synthetic.data_block(batch, mesh)
     max_len = args.prompt_len + args.max_new
 

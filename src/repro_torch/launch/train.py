@@ -35,8 +35,10 @@ recompute, as ``repro``'s) recomputed in the backward as the config's
   head and xlstm's blocks by head or FFN unit, ``registry.lm_axes``;
   whisper's encoder and decoder layers, its cross-attention among them)
   runs tensor-parallel (its MoE layers expert-parallel), its tokens through
-  the two-level GnR and its loss vocab-parallel; whisper's frames and
-  pixtral's patches split with the batch.  The ranks agree on the stop flag
+  the two-level GnR and its loss vocab-parallel, its params stored FSDP
+  over ``data`` (each ``embed`` dim split, gathered at its use, its
+  gradient reduce-scattered); whisper's frames and pixtral's patches split
+  with the batch.  The ranks agree on the stop flag
   every step (a MAX all-reduce), so all of them checkpoint at the same
   step.  Checkpoints hold the full logical arrays, so a run resumes on
   another mesh shape, on one card, or in ``repro`` (the elastic restart).
@@ -114,7 +116,7 @@ def build_lm(args, dev, mesh=None):
     LM arch: the registry's bindings, batches of ``--seq`` tokens.  With
     ``mesh``, the params laid out by ``sharding.lm_param_rules`` (tensor
     parallel over ``model``, whole heads only; the sub-quadratic models'
-    fused tensors by ``registry.lm_axes``)."""
+    fused tensors by ``registry.lm_axes``; FSDP over ``data``)."""
     binding = registry.get(args.arch)
     cfg = binding.smoke if args.smoke else binding.config
     if args.embedding:

@@ -345,16 +345,13 @@ def attention(p: dict, x: torch.Tensor, cfg, *, causal: bool = True, use_rope: b
             out = collectives.combine(out, mesh, "model")
         return out, (k_cache, v_cache)
 
-    if cfg.flash_block_dtype == "bf16":
-        raise NotImplementedError(
-            "flash_block_dtype='bf16' (repro's bf16 probability tile) is a knob the "
-            "attention kernel does not have (ROADMAP.md §3)")
     is_causal = causal and kv_src is None
     if is_causal and k.shape[1] != s:
         raise ValueError(f"causal attention needs as many keys as queries, got {s} "
                          f"queries and {k.shape[1]} keys (the kernel's mask is top-left)")
     y = ops.flash_attention_fused(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                                  v.transpose(1, 2).contiguous(), causal=is_causal)
+                                  v.transpose(1, 2).contiguous(), causal=is_causal,
+                                  p_bf16=cfg.flash_block_dtype == "bf16")
     y = y.transpose(1, 2).reshape(b, s, h * hd)
     out = dense(p["wo"], y, cd)
     if split is not None:

@@ -52,6 +52,16 @@ cache (``sharding.cache_block``: its batch block and the kv heads its q
 heads read, every position), and ``whole_logits`` gathers the ranks'
 vocabulary slices so that every rank holds the whole logits, as ``repro``
 returns them replicated.
+
+Trained on a mesh whose ``data`` axis has more than one rank, the params
+are stored FSDP (``sharding.lm_param_rules``: each leaf's ``embed`` dim
+split over ``data``): each layer's leaves are gathered whole inside its
+recompute body (``remat_layers(gather=)``, ``sharding.fsdp_layers``), so no
+whole weight outlives its layer and the backward's recompute gathers again,
+as XLA does inside ``repro``'s checkpointed scan; the vocabulary's tables,
+the head and the final norm are gathered at their use
+(``sharding.fsdp_take``), in the param dtype.  Their gradients come back
+reduce-scattered over ``data`` (``collectives.fsdp_gather``).
 """
 
 from __future__ import annotations
@@ -184,13 +194,14 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     lookup, as ``repro``'s ``token_embed_inline`` falls back to it."""
     mesh = SH.model_mesh(mesh)
     emb = cfg.emb_config
+    table = SH.fsdp_take(params, "embed")          # whole over ``data`` (FSDP)
     if mesh is not None:
-        return SE.token_embed_inline(params["embed"], tokens, emb, mesh=mesh)
+        return SE.token_embed_inline(table, tokens, emb, mesh=mesh)
     if emb.kind == "qr" and emb.reconstruction == "add":
         q_idx, r_idx = hashing.qr_decompose(tokens, emb.collision)
-        return ops.qr_lookup(params["embed"]["q"].to(emb.compute_dtype),
-                             params["embed"]["r"].to(emb.compute_dtype), q_idx, r_idx)
-    return qr_embedding.lookup(params["embed"], tokens, emb)
+        return ops.qr_lookup(table["q"].to(emb.compute_dtype),
+                             table["r"].to(emb.compute_dtype), q_idx, r_idx)
+    return qr_embedding.lookup(table, tokens, emb)
 
 
 def vocab_range(cfg: ModelConfig, mesh, shard: int | None = None) -> tuple[int, int]:
@@ -213,14 +224,15 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> 
     rank's slice ``vocab_range`` of them (vocab-parallel, ``x`` and what
     every slice reads entering through ``collectives.enter``)."""
     mesh = SH.model_mesh(mesh)
-    if mesh is None:
-        if cfg.tie_embedding:
-            return qr_embedding.logits_head(params["embed"], x, cfg.emb_config)
-        return L.dense(params["head"], x, cfg.cdtype)
     if cfg.tie_embedding:
-        return qr_embedding.logits_head_shard(params["embed"], x, cfg.emb_config, mesh=mesh)
+        table = SH.fsdp_take(params, "embed")      # whole over ``data`` (FSDP)
+        if mesh is None:
+            return qr_embedding.logits_head(table, x, cfg.emb_config)
+        return qr_embedding.logits_head_shard(table, x, cfg.emb_config, mesh=mesh)
+    head = SH.fsdp_take(params, "head")
+    if mesh is None:
+        return L.dense(head, x, cfg.cdtype)
     lo, hi = vocab_range(cfg, mesh)
-    head = params["head"]
     if head["w"].shape[-1] != hi - lo:            # whole on every rank: slice it
         x, w = collectives.enter([x, head["w"]], mesh, "model")
         return L.dense({"w": w[:, lo:hi]}, x, cfg.cdtype)
@@ -301,12 +313,21 @@ def forward_train(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     return lm_logits(params, x, cfg, mesh=mesh)
 
 
-def remat_layers(layers: list, x: torch.Tensor, cfg: ModelConfig, body, *extra) -> torch.Tensor:
+def remat_layers(layers: list, x: torch.Tensor, cfg: ModelConfig, body, *extra,
+                 gather=None) -> torch.Tensor:
     """``x`` through ``body(p, x, *extra)`` for each layer's params ``p`` in
     turn, each call recomputed in the backward with ``cfg.remat`` while
-    gradients are enabled (the module's docstring)."""
+    gradients are enabled (the module's docstring).  ``gather`` (FSDP,
+    ``sharding.fsdp_layers``) makes a layer's params whole inside the call,
+    so the recompute gathers them again."""
     remat = cfg.remat and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if remat else {}
+    if gather is not None:
+        inner = body
+
+        def body(p, *a):
+            return inner(gather(p), *a)
+
     for p in layers:
         x = (ckpt.checkpoint(body, p, x, *extra, use_reentrant=False, **kw) if remat
              else body(p, x, *extra))
@@ -322,8 +343,8 @@ def run_layers(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions=Non
     def body(p, y):
         return layer_fwd(p, y, cfg, positions=positions, mesh=mesh)[0]
 
-    x = remat_layers(layer_list(params), x, cfg, body)
-    return L.apply_norm(params["final_norm"], x)
+    x = remat_layers(layer_list(params), x, cfg, body, gather=SH.fsdp_layers("layers"))
+    return L.apply_norm(SH.fsdp_take(params, "final_norm"), x)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

@@ -159,8 +159,9 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     x = frames.to(cd) + sinusoid_positions(frames.shape[1], cfg.d_model, cd,
                                            device=frames.device)[None]
     x = T.remat_layers(T.layer_list(params, "enc"), x, cfg,
-                       lambda p, y: _enc_layer_fwd(p, y, cfg, mesh))
-    return L.apply_norm(params["enc_norm"], x)
+                       lambda p, y: _enc_layer_fwd(p, y, cfg, mesh),
+                       gather=SH.fsdp_layers("enc"))
+    return L.apply_norm(SH.fsdp_take(params, "enc_norm"), x)
 
 
 def _cross_src(enc_out: torch.Tensor, cfg: ModelConfig, mesh) -> torch.Tensor:
@@ -238,8 +239,9 @@ def forward_train(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
     enc_out = _cross_src(encode(params, frames, cfg, mesh=mesh), cfg, mesh)
     x = _embed_dec(params, tokens, cfg, mesh=mesh)
     x = T.remat_layers(T.layer_list(params, "dec"), x, cfg,
-                       lambda p, y, e: _dec_layer_fwd(p, y, e, cfg, mesh=mesh)[0], enc_out)
-    x = L.apply_norm(params["dec_norm"], x)
+                       lambda p, y, e: _dec_layer_fwd(p, y, e, cfg, mesh=mesh)[0], enc_out,
+                       gather=SH.fsdp_layers("dec"))
+    x = L.apply_norm(SH.fsdp_take(params, "dec_norm"), x)
     return T.lm_logits(params, x, cfg, mesh=mesh)
 
 

@@ -583,11 +583,13 @@ def block_layout(cfg: ModelConfig, mesh, slstm: bool, axis: str = "model") -> di
 def mesh_axes(cfg: ModelConfig, axes: dict, mesh) -> dict:
     """``init_xlstm``'s axes with each block's split leaves given their
     specs on ``mesh`` outright (``block_layout``: a contiguous block of the
-    fused ``up`` or ``ffn_up`` is not the rank's columns)."""
+    fused ``up`` or ``ffn_up`` is not the rank's columns), each ``embed``
+    dim left to the rules (``sharding.given``: FSDP over ``data`` in
+    training)."""
     blocks = []
     for i, a in enumerate(axes["blocks"]):
         lay = block_layout(cfg, mesh, is_slstm_layer(cfg, i))
-        blocks.append({k: lay.get(k, a[k]) for k in a})
+        blocks.append({k: SH.given(lay[k], a[k]) if k in lay else a[k] for k in a})
     return dict(axes, blocks=blocks)
 
 
@@ -675,9 +677,11 @@ def forward_xlstm(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, state
     for i, bp in enumerate(params["blocks"]):
         st = None if states is None else states[i]
         fwd = slstm_block_fwd if is_slstm_layer(cfg, i) else mlstm_block_fwd
-        x, ns = fwd(bp, x, cfg, state=st, decode=decode, mesh=mesh)
+        gather = SH.fsdp_layers("blocks", i)         # whole over ``data`` (FSDP)
+        x, ns = fwd(bp if gather is None else gather(bp), x, cfg, state=st, decode=decode,
+                    mesh=mesh)
         new_states.append(ns)
-    x = apply_norm(params["final_norm"], x)
+    x = apply_norm(SH.fsdp_take(params, "final_norm"), x)
     if last:
         x = x[:, -1:, :]
     head = T.lm_logits if states is None else T.whole_logits

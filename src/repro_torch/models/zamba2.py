@@ -78,9 +78,11 @@ def mesh_axes(cfg: ModelConfig, axes: dict, mesh) -> dict:
     """``init_zamba2``'s axes with the mamba layers' leaves given their
     specs on ``mesh`` outright (``mamba2.layout`` behind the layer dim: a
     contiguous block of the fused ``in_proj`` or ``conv_w`` is not the
-    rank's columns)."""
+    rank's columns), each ``embed`` dim left to the rules
+    (``sharding.given``: FSDP over ``data`` in training)."""
     lay = M.layout(cfg, mesh)
-    return dict(axes, mamba={k: SH.P(None, *lay[k]) for k in axes["mamba"]})
+    return dict(axes, mamba={k: SH.given(SH.P(None, *lay[k]), a)
+                             for k, a in axes["mamba"].items()})
 
 
 # the leaves the compute dtype reads: the projections (``w``, ``b``) and the
@@ -96,6 +98,9 @@ def serving_params(params: dict, cfg: ModelConfig) -> dict:
     for bit, half the weight bytes a decode step reads.  The norms, ``A_log``
     and ``dt_bias`` keep their dtype."""
     return T.cast_for_serving(params, cfg, _SERVING_CAST)
+
+
+_SHARED = ("shared_ln1", "shared_attn", "shared_ln2", "shared_mlp")
 
 
 def _shared_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache=None, pos=None,
@@ -181,17 +186,23 @@ def forward_zamba2(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, cach
     segs = _segment_bounds(cfg)
 
     if cache is None:
+        gather = SH.fsdp_layers("mamba")
+
         def body(lp, h):
-            return M.mamba2_fwd(lp, h, cfg, mesh=mesh)[0]
+            return M.mamba2_fwd(lp if gather is None else gather(lp), h, cfg, mesh=mesh)[0]
 
         remat = cfg.remat and torch.is_grad_enabled()
         kw = T._remat_kwargs(cfg) if remat else {}
+        # the shared block whole over ``data`` (FSDP), gathered once for
+        # every site: it is not recomputed, so each site's own gather would
+        # keep its own whole copy for the backward
+        shared = {k: SH.fsdp_take(params, k) for k in _SHARED}
         for start, stop, attn in segs:
             for lp in layers[start:stop]:
                 x = ckpt.checkpoint(body, lp, x, use_reentrant=False, **kw) if remat \
                     else body(lp, x)
             if attn:
-                x, _ = _shared_block(params, x, cfg, mesh=mesh)
+                x, _ = _shared_block(shared, x, cfg, mesh=mesh)
     else:
         pos = None if pos is None else int(pos)
         s = tokens.shape[1]
@@ -211,7 +222,7 @@ def forward_zamba2(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *, cach
                 x, (k, v) = _shared_block(params, x, cfg, mesh=mesh)
                 cache["k"][g, :, :s] = k
                 cache["v"][g, :, :s] = v
-    x = L.apply_norm(params["final_norm"], x)
+    x = L.apply_norm(SH.fsdp_take(params, "final_norm"), x)
     if last:
         x = x[:, -1:, :]
     head = T.lm_logits if cache is None else T.whole_logits

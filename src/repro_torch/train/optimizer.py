@@ -11,8 +11,9 @@ arguments as they were.
 On a mesh (one process a rank) each rank updates its own blocks of the
 params, and the state mirrors them leaf for leaf (``opt_axes``); the global
 norm, on which clipping acts, counts every block once: a leaf sharded over
-mesh axes has its squared sum summed over those axes (one all-reduce per
-set of axes), a replicated leaf counts as it is.
+mesh axes has its squared sum summed over those axes (one all-reduce an
+axis, carrying every set of axes that names it), a replicated leaf counts
+as it is.
 """
 
 from __future__ import annotations
@@ -95,10 +96,19 @@ def global_norm(grads, *, mesh=None, specs=None) -> torch.Tensor:
             part = torch.sum(torch.square(piece.to(torch.float32)))
             groups[key] = part if key not in groups else groups[key] + part
     total = groups.pop((), None)
-    for axes, part in groups.items():
-        for ax in axes:
-            part = collectives.psum(part.reshape(1), mesh, ax, site="norm")[0]
-        total = part if total is None else total + part
+    if groups:
+        # one psum an axis: the squared sums of every set of axes that
+        # names it, stacked (an FSDP layout has leaves split over data,
+        # over model and over both)
+        keys = list(groups)
+        vec = torch.stack([groups[k] for k in keys])
+        for ax in mesh.shape:
+            idx = [i for i, k in enumerate(keys) if ax in k]
+            if idx:
+                at = torch.tensor(idx, device=vec.device)
+                vec = vec.index_copy(0, at, collectives.psum(vec[at], mesh, ax, site="norm"))
+        for part in vec:
+            total = part if total is None else total + part
     if total is None:
         total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     return torch.sqrt(total)

@@ -31,6 +31,14 @@ microbatch); the gradients and the loss are then averaged over the ranks
 that hold other batch blocks (one all-reduce of all of them together),
 never summed over the row axis (the model's own collectives carry that);
 and the update runs on the rank's blocks with the mesh's global norm.
+Under an LM's FSDP layout (``sharding.lm_param_rules``: ``embed`` stored
+split over ``data``) the loss runs under ``sharding.use_fsdp``: the model
+gathers those leaves at their use, and their gradients arrive
+reduce-scattered, summed over ``data`` already (``collectives.fsdp_gather``);
+``data_mean`` divides them by the data ranks and all-reduces only the
+leaves left whole over ``data`` (the MoE router, a dim ``data`` does not
+divide) and the loss, and the fp32 microbatch accumulator is the rank's
+block.
 """
 
 from __future__ import annotations
@@ -223,15 +231,22 @@ def _split(batch: dict, m: int) -> list[dict]:
             for i in range(m)]
 
 
-def data_mean(grads, loss: torch.Tensor, mesh):
+def data_mean(grads, loss: torch.Tensor, mesh, specs):
     """(grads, loss) averaged over the ranks holding other batch blocks:
     every fp32 gradient and the loss in one flat buffer, one all-reduce a
-    batch axis.  Unchanged where the batch is not split."""
+    batch axis.  A leaf whose spec (``specs``, one a leaf) splits it over
+    ``data`` (FSDP, ``sharding.fsdp_dim``) came reduce-scattered, summed
+    over ``data`` already: it is divided by the data ranks and left out of
+    the all-reduce.  Unchanged where the batch is not split."""
     axes = SH.batch_axes(mesh)
     if not axes:
         return grads, loss
     leaves = tree.leaves(grads)
-    flat = torch.cat([g.to(torch.float32).reshape(-1) for g in leaves]
+    if specs is None or len(specs) != len(leaves):
+        raise ValueError("data_mean needs one spec a gradient leaf: it reads from them which "
+                         "gradients came reduce-scattered over data")
+    summed = [SH.fsdp_dim(s, mesh) is not None for s in specs]
+    flat = torch.cat([g.to(torch.float32).reshape(-1) for g, s in zip(leaves, summed) if not s]
                      + [loss.to(torch.float32).reshape(1)])
     n = 1
     for ax in axes:
@@ -239,10 +254,57 @@ def data_mean(grads, loss: torch.Tensor, mesh):
         n *= mesh.shape[ax]
     flat.div_(n)
     out, at = [], 0
-    for g in leaves:
+    for g, s in zip(leaves, summed):
+        if s:
+            out.append(g.to(torch.float32) / n)
+            continue
         out.append(flat[at:at + g.numel()].view(g.shape))
         at += g.numel()
     return tree.unflatten(grads, out), flat[at]
+
+
+def meshed_loss(loss_fn: Callable, mesh, specs) -> Callable:
+    """``loss_fn`` as one rank of ``mesh`` runs it: under ``DEFAULT_RULES``
+    and ``sharding.use_fsdp`` of its params' ``specs`` (the leaves they
+    split over ``data`` gathered at their use)."""
+
+    def fn(p, b):
+        with SH.use_rules(mesh, SH.DEFAULT_RULES), SH.use_fsdp(mesh, p, specs):
+            return loss_fn(p, b)
+
+    return fn
+
+
+def accumulated_grads(loss_fn: Callable, params, batch, microbatches: int = 1):
+    """(loss, metrics, grads) of ``batch``: ``value_and_grad`` of the whole
+    batch, or over ``microbatches`` slices with the fp32 gradients and the
+    loss averaged in place."""
+    if microbatches <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    grads = tree.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    loss = None
+    for mb in _split(batch, microbatches):
+        loss_i, _, g_i = value_and_grad(loss_fn, params, mb)
+        for a, g in zip(tree.leaves(grads), tree.leaves(g_i)):
+            a.add_(g.to(torch.float32) / microbatches)
+        del g_i
+        part = loss_i / microbatches
+        loss = part if loss is None else loss + part
+    return loss, {"loss": loss}, grads
+
+
+def meshed_grads(loss_fn: Callable, params, batch, mesh, specs, *, microbatches: int = 1):
+    """(loss, metrics, grads) of one rank of ``mesh``: ``loss_fn`` on its
+    blocks ``params`` (one spec a leaf in ``specs``) and its ``batch``
+    block under ``meshed_loss``, accumulated over ``microbatches``, then
+    averaged over the data ranks (``data_mean``): the global batch's loss
+    and this rank's blocks of the averaged gradients.  Every meshed
+    gradient of the port comes from here."""
+    loss, metrics, grads = accumulated_grads(meshed_loss(loss_fn, mesh, specs), params, batch,
+                                             microbatches)
+    grads, loss = data_mean(grads, loss, mesh, specs)
+    return loss, {**metrics, "loss": loss}, grads
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
@@ -251,34 +313,16 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig, *,
 
     With a ``mesh``: ``params`` and ``opt_state`` are this rank's blocks
     under ``specs`` (``sharding.tree_specs`` of the params), ``batch`` its
-    block of the global batch; the loss runs under ``DEFAULT_RULES``, and
-    ``metrics["loss"]`` is the global batch's.
+    block of the global batch, and the gradients ``meshed_grads``'
+    (``metrics["loss"]`` the global batch's).
     """
-    if mesh is not None:
-        inner = loss_fn
-
-        def loss_fn(p, b):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return inner(p, b)
 
     def step(params, opt_state, batch):
-        if microbatches <= 1:
-            loss, metrics, grads = value_and_grad(loss_fn, params, batch)
+        if mesh is None:
+            loss, metrics, grads = accumulated_grads(loss_fn, params, batch, microbatches)
         else:
-            grads = tree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            loss = None
-            for mb in _split(batch, microbatches):
-                loss_i, _, g_i = value_and_grad(loss_fn, params, mb)
-                for a, g in zip(tree.leaves(grads), tree.leaves(g_i)):
-                    a.add_(g.to(torch.float32) / microbatches)
-                del g_i
-                part = loss_i / microbatches
-                loss = part if loss is None else loss + part
-            metrics = {"loss": loss}
-        if mesh is not None:
-            grads, loss = data_mean(grads, loss, mesh)
-            metrics = {**metrics, "loss": loss}
+            loss, metrics, grads = meshed_grads(loss_fn, params, batch, mesh, specs,
+                                                microbatches=microbatches)
         params, opt_state, opt_metrics = opt_mod.update(params, grads, opt_state, opt_cfg,
                                                         mesh=mesh, specs=specs)
         return params, opt_state, {**metrics, **opt_metrics}

@@ -477,6 +477,50 @@ def test_gpu_flash_matches_plain(cuda, dtype, d, group, kv_heads):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_bf16_probability_tile_matches_plain(cuda, dtype):
+    """K9 with ``p_bf16`` (``repro``'s ``flash_block_dtype="bf16"``) in the
+    fp32 and bf16 bodies against its plain version, the blockwise
+    ``layers.flash_attention(p_dtype=torch.bfloat16)`` on the inputs widened
+    to fp32 over kv blocks of the body's own tile (32 / 64 keys), so that
+    both round each probability against the same running max, by
+    chip_smoke.py's ``P_TILE_RULES``: the fp32 body within ``1e-5
+    max|plain|`` (the sums' order); the bf16 body within a rounding of
+    each probability and of the output, ``2^-8 (|plain| + plain(|v|)) +
+    1e-5 max|plain|`` (a probability by a rounding boundary may round the
+    other way after its q.k sum ran in another order, so one rounding of
+    the output alone does not hold it), and nearer the plain version than
+    the same without the rounding, on average.  The default body on the
+    same inputs fails the rule: it sees the rounding."""
+    from repro_torch.models import layers
+
+    tile = {torch.float32: 32, torch.bfloat16: 64}[dtype]
+
+    def passes(out, want, unrounded, weight):
+        d = (out.float() - want).abs()
+        atol = 1e-5 * want.abs().max()
+        if dtype == torch.float32:
+            return bool(d.max() <= atol)
+        near = (out.float() - unrounded).abs().mean() > d.mean()
+        return bool((d <= 2.0 ** -8 * (want.abs() + weight) + atol).all() and near)
+
+    fa.reset_launches()
+    cases = ((128, 128, True), (128, 384, False), (1024, 1024, True))
+    for sq, skv, causal in cases:
+        q, k, v = _qkv(cuda, 2, 6, 2, sq, skv, 128, dtype, seed=sq + skv)
+        got = fa.flash_fwd(q, k, v, causal=causal, p_bf16=True)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        wide = [t.float() for t in (q, k, v)]
+        plain = lambda vv, p_dtype=torch.bfloat16: layers.flash_attention(
+            wide[0], wide[1], vv, causal=causal, kv_block=tile, p_dtype=p_dtype)
+        refs = (plain(wide[2]), plain(wide[2], None), plain(wide[2].abs()))
+        assert passes(got, *refs), (sq, skv, causal)
+        assert not passes(fa.flash_fwd(q, k, v, causal=causal), *refs), (sq, skv, causal)
+    assert fa.LAUNCHES["flash_fwd"] == 2 * len(cases)
+
+
+@pytest.mark.gpu
 def test_gpu_flash_odd_head_dim_and_wide_head(cuda):
     """D % 4 != 0 takes the scalar loads; D 256 the widest bucket."""
     for d, dtype in ((13, torch.float32), (13, torch.bfloat16), (256, torch.float32)):

@@ -207,10 +207,18 @@ def test_attention_decode_branch_matches_repro(case, compute):
 
 
 def test_attention_raises_on_a_bf16_probability_tile():
-    jcfg, tcfg = _cfgs(flash_block_dtype="bf16")
-    _, tp = _attn_params(jcfg)
-    with pytest.raises(NotImplementedError, match="flash_block_dtype"):
-        L.attention(tp, torch.zeros((1, 4, tcfg.d_model), dtype=tcfg.cdtype), tcfg)
+    """``flash_block_dtype="bf16"`` no longer raises: the train branch
+    rounds each probability to bf16 (K9's ``p_bf16``; its plain version on
+    the CPU) and matches ``repro``'s ``_attn_block(p_dtype=bf16)`` in fp32
+    compute to 1e-5, and its output moves off the fp32 tile's."""
+    jcfg, tcfg = _cfgs(flash_block_dtype="bf16", compute_dtype="float32")
+    jp, tp = _attn_params(jcfg)
+    x = _x((2, 16, jcfg.d_model), 4)
+    want, _ = jL.attention(jp, jnp.asarray(x), jcfg)
+    got, _ = L.attention(tp, torch.from_numpy(x), tcfg)
+    _close(_t(got), _np(want), "float32")
+    f32, _ = L.attention(tp, torch.from_numpy(x), tcfg.replace(flash_block_dtype="f32"))
+    assert not torch.equal(got, f32)
 
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])

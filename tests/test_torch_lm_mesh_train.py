@@ -119,3 +119,6 @@ def test_qwen2_head_split_at_full_width(model, want):
     rules = SH.lm_param_rules(cfg, _fake_mesh(model, model - 1))
     assert rules["heads"] == (("model",) if want else None)
     assert rules["kv_heads"] == (("model",) if want and want.kv_local else None)
+    # training stores ``embed`` split over ``data`` (FSDP); serving keeps it whole
+    assert rules["embed"] == ("data",)
+    assert SH.lm_param_rules(cfg, _fake_mesh(model, model - 1), serve=True)["embed"] is None

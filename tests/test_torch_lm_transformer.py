@@ -120,13 +120,16 @@ def test_serving_params_give_the_same_logits_bitwise(vocab):
 
 
 def test_unported_execution_knobs_raise():
-    """``flash_block_dtype="bf16"`` raises; ``embedding_exec="twolevel"``
-    off a mesh is the plain lookup, as ``repro``'s ``token_embed_inline``
-    falls back to it: the logits are the ``gspmd`` path's, bit for bit."""
+    """``flash_block_dtype="bf16"`` no longer raises (K9's bf16
+    probability tile; ``tests/test_torch_fsdp.py`` holds its logits to
+    ``repro``'s); ``embedding_exec="twolevel"`` off a mesh is the plain
+    lookup, as ``repro``'s ``token_embed_inline`` falls back to it: the
+    logits are the ``gspmd`` path's, bit for bit."""
     _, tcfg, _, tp = lm_pair("qwen2-1.5b", "qr")
     toks = torch.from_numpy(tokens(tcfg, 2, 8))
-    with pytest.raises(NotImplementedError, match="flash_block_dtype"):
-        T.forward_train(tp, toks, tcfg.replace(flash_block_dtype="bf16"))
+    with torch.inference_mode():
+        tile = T.forward_train(tp, toks, tcfg.replace(flash_block_dtype="bf16"))
+    assert tile.shape == (2, 8, tcfg.vocab) and bool(torch.isfinite(tile).all())
     with torch.inference_mode():
         assert torch.equal(T.forward_train(tp, toks, tcfg.replace(embedding_exec="twolevel")),
                            T.forward_train(tp, toks, tcfg))

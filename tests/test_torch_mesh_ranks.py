@@ -190,13 +190,7 @@ def meshed_step(mesh, arch: str, compute: str | None, batch: int,
     local, specs = place(params, cfg, mesh)
     b = synthetic.data_block(global_batch(cfg, batch, 0), mesh)
     loss_fn = ts.make_dlrm_loss(cfg)
-
-    def meshed_loss(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return loss_fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed_loss, local, b)
-    grads, loss = ts.data_mean(grads, loss, mesh)
+    loss, _m, grads = ts.meshed_grads(loss_fn, local, b, mesh, specs)
     step = ts.make_train_step(loss_fn, opt.OptConfig(**OPT), microbatches=microbatches,
                               mesh=mesh, specs=specs)
     collectives.reset_counts()
@@ -235,7 +229,8 @@ def pertable_grads(mesh, arch: str) -> dict:
         collectives.reset_counts()
         pooled = eng.forward_partial(live, idx, mesh=mesh)
         grads = torch.autograd.grad(pooled, leaves, ct)
-        grads, _ = ts.data_mean(tree.unflatten(local, list(grads)), torch.zeros(()), mesh)
+        grads, _ = ts.data_mean(tree.unflatten(local, list(grads)), torch.zeros(()), mesh,
+                                specs)
         sites = {f"{s}/{a}": v[0] for (s, a), v in collectives.SITES.items()}
         out[packing] = {"pooled": pooled.detach().numpy(),
                         "grads": _gathered(grads, specs, mesh), "sites": sites}
@@ -255,12 +250,7 @@ def repro_steps(mesh, path: str, arch: str, steps: int) -> dict:
         loss_fn = ts.make_dlrm_loss(cfg)
         batches = [synthetic.data_block(_batch_from(arrs, s), mesh) for s in range(steps)]
         if compute == "float32":
-            def meshed_loss(p, bb):
-                with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                    return loss_fn(p, bb)
-
-            loss, _m, grads = ts.value_and_grad(meshed_loss, local, batches[0])
-            grads, _ = ts.data_mean(grads, loss, mesh)
+            _loss, _m, grads = ts.meshed_grads(loss_fn, local, batches[0], mesh, specs)
             res["grads32"] = _gathered(grads, specs, mesh)
             continue
         step = ts.make_train_step(loss_fn, opt.OptConfig(**OPT), mesh=mesh, specs=specs)
@@ -371,13 +361,7 @@ def world1_step(mesh, arch: str, batch: int) -> dict:
     b = {k: v.to(dev) for k, v in global_batch(cfg, batch, 0).items()}
     loss_fn = ts.make_dlrm_loss(cfg)
     before = sum(pg.LAUNCHES.values()) + sum(tg.LAUNCHES.values())
-
-    def meshed_loss(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return loss_fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed_loss, local, b)
-    grads, _ = ts.data_mean(grads, loss, mesh)
+    _loss, _m, grads = ts.meshed_grads(loss_fn, local, b, mesh, specs)
     step = ts.make_train_step(loss_fn, opt.OptConfig(**OPT), mesh=mesh, specs=specs)
     _p, _s, m = step(local, opt.init(local), b)
     return {"grads": _gathered(grads, specs, mesh), "loss": float(m["loss"]),

@@ -9,7 +9,10 @@ new params and one MoE layer's output within 1e-5 of each leaf's scale.
 Then ``repro``'s meshed ``apply_moe`` on a (2, 4) host mesh under a binding
 capacity (each rank's capacity from its own tokens): the port's layer on
 (2, 4) gloo ranks drops the same assignments, its output and gradients
-within ``repro``'s bounds."""
+within ``repro``'s bounds.  And ``repro``'s jitted meshed step-1 loss and
+gradients of granite-moe-smoke on a (2, 2) host mesh (its params FSDP over
+``data``) against the port's (2, 2) ranks in the training layout, FSDP over
+``data`` too."""
 
 import numpy as np
 import pytest
@@ -60,7 +63,9 @@ def test_meshed_moe_step_matches_the_single_rank(ep):
 
 def test_experts_split_over_model_and_the_router_stays_whole(ep):
     """The stacks split by ``experts`` where ``model`` divides them, else
-    whole; never by ``expert_ffn``; the router whole; every rank issues the
+    whole; never by ``expert_ffn``; their ``embed`` dim over ``data`` (FSDP;
+    a ``data`` axis of one rank keeps it whole); the router whole; every
+    rank issues the
     same collectives: one entry a layer for the MoE (x and the router in
     one all-reduce) beside the attention's, the head's and the QR lookup's
     R, and at least one combine a block and the token lookup's."""
@@ -72,7 +77,8 @@ def test_experts_split_over_model_and_the_router_stays_whole(ep):
         specs = res[0][name]["specs"]
         assert specs["layers/moe/router"] == (None, None, None)
         for k in moe.STACKS:
-            assert specs[f"layers/moe/{k}"] == (None, split, None, None), (name, k)
+            want = (None, split, None, "data") if k == "w_down" else (None, split, "data", None)
+            assert specs[f"layers/moe/{k}"] == want, (name, k)
         sites = [r[name]["sites"] for r in res]
         assert all(s == sites[0] for s in sites), (name, sites)
         mesh = M.Mesh(shape={"data": shape[0], "model": model},
@@ -153,3 +159,28 @@ def test_meshed_layer_drops_as_repros_mesh(mesh_runner, tmp_path):
         for k, g in r["grads"].items():
             np.testing.assert_allclose(g, arrs[f"grad/{k}"], rtol=1e-4, atol=1e-5, err_msg=k)
     assert float(np.abs(arrs["ep"] - arrs["single"]).max()) > 1e-3   # the capacity binds
+
+
+def test_meshed_moe_step_matches_repros_fsdp_step(mesh_runner, tmp_path):
+    """granite-moe-3b-a800m-smoke (dense vocabulary, fp32, ample capacity) on
+    (2, 2): ``repro``'s jitted meshed loss on a host mesh (its params FSDP
+    over ``data`` by ``PARAM_RULES``, XLA gathering them) and the port's
+    gloo ranks in the training layout (each ``embed`` dim split over
+    ``data``, gathered at its use; the router whole) from the same params
+    and tokens: the loss to rtol 1e-5, the step-1 gradients, gathered, to
+    rtol 1e-4 / atol 1e-5 (the layer check's bounds above)."""
+    pytest.importorskip("jax")
+    inputs, path = tmp_path / "inputs.npz", tmp_path / "repro_step.npz"
+    MR.write_step_inputs(str(inputs))
+    mesh_runner(MR.repro_step_child_code(inputs, path, (2, 2)), n_devices=4, timeout=300)
+    ref = np.load(path)
+    res = _spawn(tmp_path, MR.repro_step_rank, (2, 2), str(inputs))
+    specs = res[0]["specs"]
+    assert specs["layers/moe/router"] == (None, None, None)
+    assert specs["layers/moe/w_up"] == (None, "model", "data", None)
+    for r in res:
+        np.testing.assert_allclose(r["loss"], float(ref["loss"]), rtol=1e-5)
+        assert len(r["grads"]) == len([k for k in ref.files if k.startswith("grad/")])
+        for i, g in enumerate(r["grads"]):
+            np.testing.assert_allclose(g, ref[f"grad/{i}"], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"gradient {i}")

@@ -4,7 +4,9 @@ cache by ``cache_axes``, prefill and decode jitted under ``use_rules``) and
 the step-1 gradients of its jitted meshed loss run whisper-large-v3-smoke
 (4 heads, and 6 on (1, 4), which runs its attention replicated beside a
 split MLP) and pixtral-12b-smoke in fp32 compute with a QR vocabulary, in a
-child a mesh on a (1, 2) and a (1, 4) host mesh; the port runs the same
+child a mesh on a (1, 2), a (1, 4) and a (2, 2) host mesh (on (2, 2) both
+packages train FSDP over ``data``: ``repro``'s XLA gathers its params, the
+port gathers each leaf at its use); the port runs the same
 numpy params, prompts and frames or patches on gloo ranks
 (``torch_prefix_mesh_ranks``), each mesh's ranks once for every case.
 
@@ -39,7 +41,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
-SHAPES = ((1, 2), (1, 4))
+SHAPES = ((1, 2), (1, 4), (2, 2))
 TOL = dict(rtol=1e-5, atol=1e-5)
 # whisper's cross k / v are projected from the encoder's states over 1,536
 # frames, which the two frameworks sum in other orders: the port's single
@@ -62,6 +64,14 @@ def _spawn(tmp_path, fn, shape, *args):
 
 def _at(shape, coords):
     return M.abstract_mesh(shape, ("data", "model"), coords)
+
+
+def _rows(a, shape, coords, dim: int = 0):
+    """The rank's ``data`` block of a whole reference's sequences (along
+    ``dim``)."""
+    mesh = _at(shape, tuple(coords.values()))
+    spec = SH.P(*([None] * dim), "data")
+    return SH.local_shard(torch.from_numpy(np.asarray(a)), mesh, spec).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -108,15 +118,16 @@ def test_meshed_prefix_serving_and_gradients_match_repro(meshed, name, shape):
     for r in ranks[shape]:
         got = r[name]
         for i, logits in enumerate(got["logits"]):
-            np.testing.assert_allclose(logits, ref[f"{tag}/logits{i}"], **TOL,
-                                       err_msg=f"{tag} step {i} {r['coords']}")
-        np.testing.assert_array_equal(got["tokens"], ref[f"{tag}/tokens"])
+            np.testing.assert_allclose(logits, _rows(ref[f"{tag}/logits{i}"], shape, r["coords"]),
+                                       **TOL, err_msg=f"{tag} step {i} {r['coords']}")
+        np.testing.assert_array_equal(got["tokens"],
+                                      _rows(ref[f"{tag}/tokens"], shape, r["coords"]))
         np.testing.assert_array_equal(got["generated"], got["tokens"])
         assert len(got["cache"]) == len([k for k in ref if k.startswith(f"{tag}/cache/")])
         cross = CROSS_LEAVES.get(R.CASES[name][0], ())
         lo, hi = got["cache_heads"]
         for i, block in enumerate(got["cache"]):
-            want = ref[f"{tag}/cache/{i}"][:, :, :, lo:hi]
+            want = _rows(ref[f"{tag}/cache/{i}"], shape, r["coords"], dim=1)[:, :, :, lo:hi]
             np.testing.assert_allclose(block, want, **(CROSS_TOL if i in cross else TOL),
                                        err_msg=f"{tag} cache leaf {i} {r['coords']}")
         assert got["gathered"], tag

@@ -4,7 +4,10 @@
 decode jitted under ``use_rules``) and the step-1 gradients of its jitted
 meshed loss run zamba2-7b-smoke (one SSM group, and two), and xlstm-125m-smoke
 at d_model 96 (its sLSTM FFN splits) in fp32 compute with a QR vocabulary,
-in a child a mesh on a (1, 2) and a (1, 4) host mesh; the port runs the
+in a child a mesh on a (1, 2), a (1, 4) and a (2, 2) host mesh (on (2, 2)
+``repro``'s params sit FSDP over ``data`` and XLA gathers them, and the
+port trains FSDP over ``data`` too: each leaf's ``embed`` dim stored split,
+gathered at its use, its gradient reduce-scattered); the port runs the
 same numpy params and prompts on gloo ranks (``torch_ssm_mesh_ranks``),
 each mesh's ranks once for every case.
 
@@ -47,7 +50,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mamba2 as MB  # noqa: E402
 from repro_torch.models import xlstm as XL  # noqa: E402
 
-SHAPES = ((1, 2), (1, 4))
+SHAPES = ((1, 2), (1, 4), (2, 2))
 TOL = dict(rtol=1e-5, atol=1e-5)
 # xlstm's served values drift from repro's on one card too: the port's
 # single card stands up to 2.5e-5 from repro's logits by the fourth decode
@@ -67,6 +70,11 @@ def _spawn(tmp_path, fn, shape, *args):
 
 def _at(shape, coords):
     return M.abstract_mesh(shape, ("data", "model"), coords)
+
+
+def _rows(a, mesh):
+    """The rank's ``data`` block of a whole reference's sequences (dim 0)."""
+    return SH.local_shard(torch.from_numpy(np.asarray(a)), mesh, SH.P("data")).numpy()
 
 
 @pytest.fixture(scope="module")
@@ -113,10 +121,10 @@ def test_meshed_ssm_serving_and_gradients_match_repro(meshed, shape, name):
     for r in ranks[shape]:
         got, mesh = r[name], _at(shape, tuple(r["coords"].values()))
         for i, logits in enumerate(got["logits"]):
-            np.testing.assert_allclose(logits, ref[f"{tag}/logits{i}"],
+            np.testing.assert_allclose(logits, _rows(ref[f"{tag}/logits{i}"], mesh),
                                        **SERVED_TOL.get(name, TOL),
                                        err_msg=f"{tag} step {i} {r['coords']}")
-        np.testing.assert_array_equal(got["tokens"], ref[f"{tag}/tokens"])
+        np.testing.assert_array_equal(got["tokens"], _rows(ref[f"{tag}/tokens"], mesh))
         np.testing.assert_array_equal(got["generated"], got["tokens"])
         assert len(got["cache"]) == len(got["cache_specs"])
         for i, (block, spec) in enumerate(zip(got["cache"], got["cache_specs"])):

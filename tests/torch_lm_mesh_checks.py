@@ -82,7 +82,8 @@ def test_every_rank_issues_the_same_collectives(meshed):
     collective would hang the mesh): per microbatch one pmax and one psum
     of the loss, an entry psum a tensor-parallel block, the head and the QR
     embedding's R; one data mean where ``data`` splits the batch, one norm
-    where ``model`` splits leaves."""
+    where ``model`` splits leaves; where ``data`` splits the batch, FSDP's
+    gathers and reduce-scatters over it."""
     shape, cases, res = meshed
     data, model = shape
     for i, (name, mb) in enumerate(cases):
@@ -98,6 +99,8 @@ def test_every_rank_issues_the_same_collectives(meshed):
         assert s["entry/model"] == mb * entries, s
         assert s.get("grad_mean/data", 0) == int(data > 1), s
         assert s.get("norm/model", 0) == int(model > 1), s
+        assert (s.get("fsdp_gather/data", 0) > 0) == (s.get("fsdp_scatter/data", 0) > 0)
+        assert (s.get("fsdp_scatter/data", 0) > 0) == (data > 1), s
         assert s["combine/model"] >= mb * (1 + cfg.num_layers * blocks), s
 
 
@@ -121,7 +124,9 @@ def test_fp32_lookup_is_bitwise_the_single_card(meshed):
 def test_kv_projections_split_only_at_head_granularity(meshed):
     """qwen2's 2 kv heads split over a model axis of 2 and stay whole on 4
     (``repro``'s first fit would cut each head in half there); q heads,
-    ``d_ff`` and the vocabulary split; R and the norms stay whole."""
+    ``d_ff`` and the vocabulary split; every ``embed`` dim names ``data``
+    (FSDP, ``repro``'s ``PARAM_RULES``; a ``data`` axis of one rank keeps
+    the leaf whole), the norms' included."""
     shape, cases, res = meshed
     cfg = R.config("dense")
     params, _ = T.init_lm(cfg, seed=0, device="cpu")
@@ -129,10 +134,10 @@ def test_kv_projections_split_only_at_head_granularity(meshed):
     specs = dict(zip(paths, res[0][NAMES.index("dense")]["specs"]))
     model = shape[1]
     kv = "model" if model in (1, 2) else None
-    assert specs["layers/attn/wk/w"] == (None, None, kv)
+    assert specs["layers/attn/wk/w"] == (None, "data", kv)
     assert specs["layers/attn/wv/b"] == (None, kv)
-    assert specs["layers/attn/wq/w"] == (None, None, "model")
-    assert specs["layers/attn/wo/w"] == (None, "model", None)
-    assert specs["layers/mlp/w_down/w"] == (None, "model", None)
-    assert specs["embed/table"] == ("model", None)
-    assert specs["layers/ln1/scale"] == (None, None)
+    assert specs["layers/attn/wq/w"] == (None, "data", "model")
+    assert specs["layers/attn/wo/w"] == (None, "model", "data")
+    assert specs["layers/mlp/w_down/w"] == (None, "model", "data")
+    assert specs["embed/table"] == ("model", "data")
+    assert specs["layers/ln1/scale"] == (None, "data")

@@ -96,13 +96,8 @@ def meshed_step(mesh, name: str, microbatches: int = 1, params_np=None, toks=Non
     b = synthetic.data_block({"tokens": toks}, mesh)
     fn = loss_fn(cfg)
 
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed, local, b)
-    grads, loss = ts.data_mean(grads, loss, mesh)
-    with torch.no_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES):
+    loss, _m, grads = ts.meshed_grads(fn, local, b, mesh, specs)
+    with torch.no_grad(), SH.use_rules(mesh, SH.DEFAULT_RULES), SH.use_fsdp(mesh, local, specs):
         embedded = T.embed_tokens(local, b["tokens"], cfg)
     step = ts.make_train_step(fn, opt.OptConfig(**OPT), microbatches=microbatches, mesh=mesh,
                               specs=specs)
@@ -251,12 +246,7 @@ def repro_steps(mesh, path: str, name: str) -> dict:
     fn = loss_fn(cfg)
     blocks = [synthetic.data_block({"tokens": t}, mesh) for t in toks]
 
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed, local, blocks[0])
-    grads, _ = ts.data_mean(grads, loss, mesh)
+    _loss, _m, grads = ts.meshed_grads(fn, local, blocks[0], mesh, specs)
     res = {"grads": gathered(grads, specs, mesh), "losses": [], "norms": []}
     step = ts.make_train_step(fn, opt.OptConfig(**OPT), mesh=mesh, specs=specs)
     state = opt.init(local)
@@ -276,15 +266,8 @@ def twolevel_vs_gspmd(mesh) -> dict:
         cfg = config("qr-twolevel", embedding_exec=exec_)
         params, axes = T.init_lm(cfg, seed=0, device="cpu")
         local, specs = place(params, axes, cfg, mesh)
-        fn = loss_fn(cfg)
-
-        def meshed(p, bb):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return fn(p, bb)
-
         b = synthetic.data_block({"tokens": tokens(cfg)}, mesh)
-        loss, _m, grads = ts.value_and_grad(meshed, local, b)
-        grads, loss = ts.data_mean(grads, loss, mesh)
+        loss, _m, grads = ts.meshed_grads(loss_fn(cfg), local, b, mesh, specs)
         out[exec_] = {"loss": float(loss), "grads": gathered(grads, specs, mesh)}
     return out
 
@@ -339,12 +322,7 @@ def world1_step(mesh, name: str) -> dict:
     fn = loss_fn(cfg)
     before = fa.LAUNCHES["flash_fwd"] + qg.LAUNCHES["qr_gather"]
 
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed, local, b)
-    grads, loss = ts.data_mean(grads, loss, mesh)
+    loss, _m, grads = ts.meshed_grads(fn, local, b, mesh, specs)
     step = ts.make_train_step(fn, opt.OptConfig(**OPT), mesh=mesh, specs=specs)
     new, _state, m = step(local, opt.init(local), b)
     return {"grads": gathered(grads, specs, mesh), "loss": float(loss),

@@ -41,7 +41,8 @@ def config(name: str, compute: str = "float32"):
 
 
 def _place(params, axes, cfg, mesh):
-    return SH.shard_tree(params, SH.tree_specs(params, axes, mesh, SH.lm_param_rules(cfg, mesh)),
+    return SH.shard_tree(params, SH.tree_specs(params, axes, mesh,
+                                               SH.lm_param_rules(cfg, mesh, serve=True)),
                          mesh)
 
 

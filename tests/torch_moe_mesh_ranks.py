@@ -88,19 +88,15 @@ def ep_rank(mesh, names) -> dict:
         b = synthetic.data_block({"tokens": R.tokens(cfg)}, mesh)
         fn = R.loss_fn(cfg)
 
-        def meshed(p, bb, fn=fn):
-            with SH.use_rules(mesh, SH.DEFAULT_RULES):
-                return fn(p, bb)
-
         collectives.reset_counts()
-        loss, _m, grads = ts.value_and_grad(meshed, local, b)
-        grads, loss = ts.data_mean(grads, loss, mesh)
+        loss, _m, grads = ts.meshed_grads(fn, local, b, mesh, specs)
         sites = {f"{s}/{a}": v[0] for (s, a), v in collectives.SITES.items()}
         step = ts.make_train_step(fn, opt.OptConfig(**R.OPT), mesh=mesh, specs=specs)
         new, _state, m = step(local, opt.init(local), b)
         paths = [p for p, _ in tree.leaves_with_paths(params)]
         lp, laxes = layer_params(cfg)
-        lspecs = SH.tree_specs(lp, laxes, mesh, SH.lm_param_rules(cfg, mesh))
+        # one layer on its own: the tensor-parallel layout, ``embed`` whole
+        lspecs = SH.tree_specs(lp, laxes, mesh, SH.lm_param_rules(cfg, mesh, serve=True))
         xb = synthetic.data_block({"x": layer_input(cfg)}, mesh)["x"]
         with torch.no_grad():
             y = moe.apply_moe(SH.shard_tree(lp, lspecs, mesh), xb, cfg, mesh=mesh)
@@ -121,7 +117,8 @@ def repro_layer_rank(mesh, path: str, cfg: ModelConfig) -> dict:
     arrs = np.load(path)
     _like, axes = layer_params(cfg)
     p = {k: torch.from_numpy(np.array(arrs[k])) for k in axes}
-    specs = SH.tree_specs(p, axes, mesh, SH.lm_param_rules(cfg, mesh))
+    # one layer on its own: the tensor-parallel layout, ``embed`` whole
+    specs = SH.tree_specs(p, axes, mesh, SH.lm_param_rules(cfg, mesh, serve=True))
     local = SH.shard_tree(p, specs, mesh)
     live = {k: v.clone().requires_grad_(True) for k, v in local.items()}
     xb = synthetic.data_block({"x": torch.from_numpy(np.array(arrs["x"]))}, mesh)["x"]
@@ -135,3 +132,85 @@ def repro_layer_rank(mesh, path: str, cfg: ModelConfig) -> dict:
     return {"out": _data_gather(out.detach(), mesh).numpy(), "grads": grads,
             "x_grad": _data_gather(xb.grad, mesh).numpy(),
             "specs": {k: tuple(s) for k, s in zip(sorted(live), specs)}}
+
+
+# ---------------------------------------------------------------------------
+# the meshed step against repro's on a (2, 2) host mesh: both FSDP over data
+# ---------------------------------------------------------------------------
+
+STEP_CASE = "granite"
+
+
+def write_step_inputs(path: str) -> None:
+    """``STEP_CASE``'s params (the port's draw, seed 0) and tokens to an
+    .npz, which ``repro``'s child and the ranks read."""
+    cfg = config(STEP_CASE)
+    params, _ = T.init_lm(cfg, seed=0, device="cpu")
+    out = {f"param/{i}": leaf.numpy() for i, leaf in enumerate(tree.leaves(params))}
+    out["tokens"] = R.tokens(cfg).numpy()
+    np.savez(path, **out)
+
+
+# repro's meshed loss and gradients (launch/train.py::build: params placed by
+# PARAM_RULES, FSDP over data; the loss under use_rules; jax.grad, jitted) on
+# a host mesh, from write_step_inputs's params and tokens
+REPRO_STEP_CHILD = r"""
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import registry
+from repro.distributed import sharding as SH
+from repro.launch.mesh import make_mesh
+from repro.models import transformer as T
+
+arrs = np.load(__INPUTS__)
+binding = registry.get(__ARCH__)
+cfg = binding.smoke.replace(vocab=__VOCAB__, compute_dtype="float32",
+                            capacity_factor=__AMPLE__, **__OVER__)
+like, axes = T.init_lm(jax.random.PRNGKey(0), cfg)
+leaves = [jnp.asarray(arrs[f"param/{i}"]) for i in range(len(jax.tree.leaves(like)))]
+params = jax.tree.unflatten(jax.tree.structure(like), leaves)
+mesh = make_mesh(__SHAPE__, ("data", "model"))
+pshard = SH.shardings_for_tree(mesh, params, axes, SH.PARAM_RULES)
+loss0 = registry.train_loss_fn(binding, cfg)
+
+
+def loss(p, b):
+    with SH.use_rules(mesh, SH.DEFAULT_RULES):
+        return loss0(p, b)[0]
+
+
+value, grads = jax.jit(jax.value_and_grad(loss))(jax.device_put(params, pshard),
+                                                 {"tokens": jnp.asarray(arrs["tokens"])})
+out = {"loss": np.asarray(value)}
+for i, leaf in enumerate(jax.tree.leaves(grads)):
+    out[f"grad/{i}"] = np.asarray(leaf)
+np.savez(__PATH__, **out)
+"""
+
+
+def repro_step_child_code(inputs: str, path: str, shape) -> str:
+    arch, over = CASES[STEP_CASE]
+    subs = {"__INPUTS__": repr(str(inputs)), "__PATH__": repr(str(path)),
+            "__ARCH__": repr(arch), "__OVER__": repr(over), "__VOCAB__": str(R.VOCAB),
+            "__AMPLE__": repr(AMPLE), "__SHAPE__": repr(tuple(shape))}
+    code = REPRO_STEP_CHILD
+    for k, v in subs.items():
+        code = code.replace(k, v)
+    return code
+
+
+def repro_step_rank(mesh, inputs: str) -> dict:
+    """``STEP_CASE``'s step-1 loss and gradients on this rank from
+    ``write_step_inputs``'s params and tokens, its blocks in the training
+    layout (FSDP over ``data``), gathered; the specs of the leaves."""
+    arrs = np.load(inputs)
+    cfg = config(STEP_CASE)
+    like, axes = T.init_lm(cfg, seed=0, device="meta")
+    n = len(tree.leaves(like))
+    params = tree.unflatten(like, [torch.from_numpy(np.array(arrs[f"param/{i}"]))
+                                   for i in range(n)])
+    local, specs = R.place(params, axes, cfg, mesh)
+    b = synthetic.data_block({"tokens": torch.from_numpy(np.array(arrs["tokens"]))}, mesh)
+    loss, _m, grads = ts.meshed_grads(R.loss_fn(cfg), local, b, mesh, specs)
+    paths = [p for p, _ in tree.leaves_with_paths(params)]
+    return {"loss": float(loss), "grads": R.gathered(grads, specs, mesh),
+            "specs": {p: tuple(s) for p, s in zip(paths, specs)}}

@@ -6,8 +6,9 @@ that spawns it.
 Each body runs on one rank of a gloo mesh on the CPU: it places the params
 by ``registry.lm_specs`` (whisper's encoder and decoder layers and
 pixtral's layers by head and ``d_ff`` column, the vocabulary by Q shard or
-head column), takes its ``data`` block of the prompts and of the frames or
-patches, and runs the port's meshed prefill and greedy decode, and the
+head column; served with ``embed`` whole, trained FSDP over ``data``),
+takes its ``data`` block of the prompts and of the frames or patches, and
+runs the port's meshed prefill and greedy decode, and the
 step-1 gradients of its training loss, gathered to the logical arrays.
 """
 
@@ -37,10 +38,11 @@ VOCAB = 498
 # 2 ranks and stay whole over 4 (each rank slicing the one its q head reads)
 CASES = {
     "whisper": ("whisper-large-v3", dict(embedding_kind="qr", qr_collision=4),
-                ((1, 2), (1, 4))),
+                ((1, 2), (1, 4), (2, 2))),
     "whisper-h6": ("whisper-large-v3", dict(embedding_kind="qr", qr_collision=4,
                                             num_heads=6, kv_heads=6), ((1, 4),)),
-    "pixtral": ("pixtral-12b", dict(embedding_kind="qr", qr_collision=4), ((1, 2), (1, 4))),
+    "pixtral": ("pixtral-12b", dict(embedding_kind="qr", qr_collision=4),
+                ((1, 2), (1, 4), (2, 2))),
 }
 PREFIX = {"whisper-large-v3": "frames", "pixtral-12b": "patches"}
 
@@ -58,8 +60,8 @@ def _np(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def place(params, axes, cfg, mesh):
-    specs = registry.lm_specs(cfg, params, axes, mesh)
+def place(params, axes, cfg, mesh, serve: bool = False):
+    specs = registry.lm_specs(cfg, params, axes, mesh, serve=serve)
     return SH.shard_tree(params, specs, mesh), specs
 
 
@@ -133,14 +135,8 @@ def _from_npz(arrs, name: str, cfg) -> tuple:
 def step1_grads(binding, cfg, local, specs, batch, mesh) -> tuple:
     """The step-1 loss and gradients of the training loss on this rank's
     blocks and ``data`` block, averaged over ``data`` and gathered whole."""
-    fn = registry.train_loss_fn(binding, cfg)
-
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
-    loss, _m, grads = ts.value_and_grad(meshed, local, synthetic.data_block(batch, mesh))
-    grads, loss = ts.data_mean(grads, loss, mesh)
+    loss, _m, grads = ts.meshed_grads(registry.train_loss_fn(binding, cfg), local,
+                                      synthetic.data_block(batch, mesh), mesh, specs)
     return float(loss), [_np(SH.gather(g, s, mesh)) for g, s in zip(tree.leaves(grads), specs)]
 
 
@@ -158,7 +154,7 @@ def repro_cases(mesh, path: str, with_sites: bool = False) -> dict:
         cfg = config(name)
         binding, params, axes, batch = _from_npz(arrs, name, cfg)
         fam = serve_family(binding.kind)
-        local, specs = place(fam.prepare(params, cfg), axes, cfg, mesh)
+        local, specs = place(fam.prepare(params, cfg), axes, cfg, mesh, serve=True)
         got = serve_greedy(fam, local, synthetic.data_block(batch, mesh), cfg, STEPS, mesh=mesh)
         got["cache_heads"] = cache_heads(cfg, mesh)
         local, specs = place(params, axes, cfg, mesh)
@@ -185,8 +181,8 @@ def world1(mesh) -> dict:
         served = fam.prepare(params, cfg)
         batch = make_batch(arch, cfg, BATCH, SEQ)
         one = serve_greedy(fam, served, batch, cfg, STEPS)
-        meshed = serve_greedy(fam, place(served, axes, cfg, mesh)[0], batch, cfg, STEPS,
-                              mesh=mesh)
+        meshed = serve_greedy(fam, place(served, axes, cfg, mesh, serve=True)[0], batch, cfg,
+                              STEPS, mesh=mesh)
         _, _, g_one = ts.value_and_grad(registry.train_loss_fn(binding, cfg), params, batch)
         local, specs = place(params, axes, cfg, mesh)
         _, g_mesh = step1_grads(binding, cfg, local, specs, batch, mesh)
@@ -221,7 +217,7 @@ def sites(mesh, arch: str, batch: int, seq: int) -> dict:
     fam = serve_family(binding.kind)
     params, axes = registry.init_fn(binding)(cfg, seed=0, device="cpu")
     served = fam.prepare(params, cfg)
-    local = SH.shard_tree(served, registry.lm_specs(cfg, served, axes, mesh), mesh)
+    local = SH.shard_tree(served, registry.lm_specs(cfg, served, axes, mesh, serve=True), mesh)
     data = synthetic.data_block(make_batch(arch, cfg, batch, seq), mesh)
 
     def read():

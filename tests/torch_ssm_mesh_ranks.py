@@ -5,7 +5,8 @@ that spawns it.
 
 Each body runs on one rank of a gloo mesh on the CPU: it places the params
 by ``registry.lm_specs`` (zamba2's mamba layers by SSM head, B and C whole;
-xlstm's mLSTM blocks by head, its sLSTM blocks' FFN by hidden unit), takes
+xlstm's mLSTM blocks by head, its sLSTM blocks' FFN by hidden unit; served
+with ``embed`` whole, trained FSDP over ``data``), takes
 its ``data`` block of the prompts and runs the port's meshed prefill and
 greedy decode, and the step-1 gradients of its training loss, gathered to
 the logical arrays.
@@ -50,8 +51,8 @@ def _np(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def place(params, axes, cfg, mesh):
-    specs = registry.lm_specs(cfg, params, axes, mesh)
+def place(params, axes, cfg, mesh, serve: bool = False):
+    specs = registry.lm_specs(cfg, params, axes, mesh, serve=serve)
     return SH.shard_tree(params, specs, mesh), specs
 
 
@@ -80,15 +81,17 @@ def cache_specs(cfg, mesh, cache) -> list:
     as the port lays them out: zamba2's SSM states by head, its conv states'
     columns as ``conv_w``'s, its k / v by the kv heads the rank reads
     (split only where ``sharding.head_split`` splits the kv projections);
-    xlstm's mLSTM states by head, its sLSTM states whole."""
+    xlstm's mLSTM states by head, its sLSTM states whole; the batch dim by
+    the rank's ``data`` block of the sequences."""
+    rows = "data" if SH.data_ranks(mesh) > 1 else None
     if isinstance(cache, dict):
         ssm = MB.layout(cfg, mesh)
         split = SH.head_split(cfg, mesh)
-        kv = SH.P(None, None, None, "model") if split is not None and split.kv_local else SH.P()
-        heads = SH.P(None, None, "model") if MB.ssm_split(cfg, mesh) else SH.P()
-        return [SH.P(None, None, None, *ssm["conv_w"][1:]), kv, heads, kv]
-    head = SH.P(None, "model") if XL.mlstm_split(cfg, mesh) else SH.P()
-    return [SH.P() if len(st) == 4 else head for st in cache for _ in st]
+        kv = SH.P(None, rows, None, "model" if split is not None and split.kv_local else None)
+        heads = SH.P(None, rows, "model" if MB.ssm_split(cfg, mesh) else None)
+        return [SH.P(None, rows, None, *ssm["conv_w"][1:]), kv, heads, kv]
+    head = SH.P(rows, "model" if XL.mlstm_split(cfg, mesh) else None)
+    return [SH.P(rows) if len(st) == 4 else head for st in cache for _ in st]
 
 
 def write_inputs(path: str) -> None:
@@ -117,15 +120,9 @@ def _from_npz(arrs, name: str, cfg) -> tuple:
 def step1_grads(binding, cfg, local, specs, toks, mesh) -> list:
     """The step-1 gradients of the training loss on this rank's blocks and
     ``data`` block, averaged over ``data`` and gathered whole."""
-    fn = registry.train_loss_fn(binding, cfg)
-
-    def meshed(p, bb):
-        with SH.use_rules(mesh, SH.DEFAULT_RULES):
-            return fn(p, bb)
-
     block = synthetic.data_block({"tokens": toks}, mesh)
-    loss, _m, grads = ts.value_and_grad(meshed, local, block)
-    grads, loss = ts.data_mean(grads, loss, mesh)
+    loss, _m, grads = ts.meshed_grads(registry.train_loss_fn(binding, cfg), local, block, mesh,
+                                      specs)
     return float(loss), [_np(SH.gather(g, s, mesh)) for g, s in zip(tree.leaves(grads), specs)]
 
 
@@ -144,7 +141,7 @@ def repro_cases(mesh, path: str, with_sites: bool = False) -> dict:
         binding, params, axes, toks = _from_npz(arrs, name, cfg)
         fam = serve_family(binding.kind)
         served = fam.prepare(params, cfg)
-        local, specs = place(served, axes, cfg, mesh)
+        local, specs = place(served, axes, cfg, mesh, serve=True)
         block = synthetic.data_block({"tokens": toks}, mesh)["tokens"]
         got = serve_greedy(fam, local, block, cfg, STEPS, mesh=mesh)
         with torch.inference_mode():
@@ -175,8 +172,8 @@ def world1(mesh) -> dict:
         served = fam.prepare(params, cfg)
         toks = synthetic.lm_batch(cfg, BATCH, SEQ, seed=3)["tokens"]
         one = serve_greedy(fam, served, toks, cfg, STEPS)
-        meshed = serve_greedy(fam, place(served, axes, cfg, mesh)[0], toks, cfg, STEPS,
-                              mesh=mesh)
+        meshed = serve_greedy(fam, place(served, axes, cfg, mesh, serve=True)[0], toks, cfg,
+                              STEPS, mesh=mesh)
         fn = registry.train_loss_fn(binding, cfg)
         _, _, g_one = ts.value_and_grad(fn, params, {"tokens": toks})
         local, specs = place(params, axes, cfg, mesh)
@@ -208,8 +205,8 @@ def whole_batch(mesh) -> dict:
         toks = synthetic.lm_batch(cfg, 1, SEQ, seed=5)["tokens"]
         block = synthetic.data_block({"tokens": toks}, mesh)["tokens"]
         one = serve_greedy(fam, served, toks, cfg, STEPS)
-        meshed = serve_greedy(fam, place(served, axes, cfg, mesh)[0], block, cfg, STEPS,
-                              mesh=mesh)
+        meshed = serve_greedy(fam, place(served, axes, cfg, mesh, serve=True)[0], block, cfg,
+                              STEPS, mesh=mesh)
         _, _, g_one = ts.value_and_grad(registry.train_loss_fn(binding, cfg), params,
                                         {"tokens": toks})
         local, specs = place(params, axes, cfg, mesh)
@@ -245,7 +242,7 @@ def sites(mesh, arch: str, batch: int, seq: int) -> dict:
     fam = serve_family(binding.kind)
     params, axes = registry.init_fn(binding)(cfg, seed=0, device="cpu")
     served = fam.prepare(params, cfg)
-    local = SH.shard_tree(served, registry.lm_specs(cfg, served, axes, mesh), mesh)
+    local = SH.shard_tree(served, registry.lm_specs(cfg, served, axes, mesh, serve=True), mesh)
     toks = synthetic.data_block(synthetic.lm_batch(cfg, batch, seq), mesh)["tokens"]
 
     def read():
